@@ -1,0 +1,112 @@
+"""The PyTorch port's attention against the JAX package.
+
+The JAX side runs as tests/test_attention.py runs it: ``_mha_einsum`` and
+the fused small-MHA Pallas kernel in interpret mode. The CUDA kernel K2
+is held against its plain version in tests/test_torch_port_cuda.py.
+"""
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from lipreading_video_generation_tpu.ops import attention as jatt
+from lipreading_video_generation_tpu_torch.ops import attention as tatt
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_torch_threads():
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)   # six test workers share the host
+    yield
+    torch.set_num_threads(n)
+
+
+# the shapes of tests/test_attention.py:206-211
+_SHAPES = [(3, 81, 256, 8, False), (2, 81, 256, 8, True),
+           (2, 33, 64, 4, False), (1, 16, 32, 1, True)]
+
+
+def _bse(seed, b, s, e):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((b, s, e)).astype(np.float32) for _ in range(3)]
+
+
+def _to_jax(arrs, dtype):
+    return [jnp.asarray(a).astype(dtype) for a in arrs]
+
+
+def _to_torch(arrs, dtype):
+    return [torch.from_numpy(a).to(dtype) for a in arrs]
+
+
+@pytest.mark.parametrize("b,s,e,h,causal", _SHAPES)
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("bfloat16", 3e-2)])
+def test_mha_matches_jax_einsum(b, s, e, h, causal, dtype, tol):
+    """``mha`` on CPU tensors (the plain path) against JAX's ``_mha_einsum``:
+    float32 to summation order; bf16 to one bf16 rounding of P and of O."""
+    arrs = _bse(0, b, s, e)
+    want = np.asarray(jatt._mha_einsum(*_to_jax(arrs, dtype), h, causal), np.float32)
+    got = tatt.mha(*_to_torch(arrs, getattr(torch, dtype)), h, causal).float().numpy()
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("b,s,e,h,causal", _SHAPES)
+def test_small_mha_plain_matches_jax_kernel(b, s, e, h, causal):
+    """The port's ``small_mha`` on the CPU against the JAX Pallas kernel in
+    interpret mode, at that kernel's own test tolerance (it scales q before
+    QKᵀ and sums heads folded into tokens)."""
+    arrs = _bse(1, b, s, e)
+    assert tatt.small_mha_viable(h, s, s, e) and jatt.small_mha_viable(h, s, s, e)
+    want = np.asarray(jatt._small_mha(*_to_jax(arrs, jnp.float32), h, causal, True))
+    got = tatt.small_mha(*_to_torch(arrs, torch.float32), h, causal).numpy()
+    np.testing.assert_allclose(got, want, rtol=5e-4, atol=5e-4)
+
+
+def test_small_mha_gradients_match_jax():
+    """The port's backward is autograd through ``_mha_einsum``, as JAX's
+    custom VJP is the einsum VJP."""
+    arrs = _bse(2, 2, 33, 64)
+    cot = np.random.default_rng(3).standard_normal((2, 33, 64)).astype(np.float32)
+
+    def loss(q, k, v):
+        return jnp.sum(jatt._small_mha(q, k, v, 4, False, True) * cot)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*_to_jax(arrs, jnp.float32))
+    ts = [t.requires_grad_() for t in _to_torch(arrs, torch.float32)]
+    (tatt.small_mha(*ts, 4) * torch.from_numpy(cot)).sum().backward()
+    for t, w in zip(ts, want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), rtol=1e-4, atol=1e-4)
+
+
+def test_attention_reference_matches_jax():
+    rng = np.random.default_rng(4)
+    arrs = [rng.standard_normal((2, 3, 20, 16)).astype(np.float32) for _ in range(3)]
+    for causal in (False, True):
+        want = np.asarray(jatt.attention_reference(*map(jnp.asarray, arrs), causal))
+        got = tatt.attention_reference(*map(torch.from_numpy, arrs), causal).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("h,s_q,s_k,e", [(8, 81, 81, 256), (8, 81, 120, 256),
+                                         (8, 200, 200, 256), (3, 81, 81, 256),
+                                         (1, 16, 16, 32), (4, 33, 33, 64), (8, 97, 97, 256)])
+def test_small_mha_viable_agrees_with_jax(h, s_q, s_k, e):
+    # the port adds the kernel's shared-memory bound, which none of these reach
+    assert tatt.small_mha_viable(h, s_q, s_k, e) == jatt.small_mha_viable(h, s_q, s_k, e)
+
+
+def test_mha_dispatch_on_cpu():
+    """CPU tensors take the plain path and launch no kernel; past 128² the
+    flash kernel K3 is needed and not ported, on any device."""
+    arrs = _to_torch(_bse(5, 2, 81, 256), torch.float32)
+    before = tatt.small_mha.launch_count
+    np.testing.assert_array_equal(tatt.mha(*arrs, 8).numpy(),
+                                  tatt._mha_einsum(*arrs, 8, False).numpy())
+    assert tatt.small_mha.launch_count == before
+    big = _to_torch(_bse(6, 1, 200, 64), torch.float32)
+    with pytest.raises(NotImplementedError, match="K3"):
+        tatt.mha(*big, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        tatt._small_mha_launch(*arrs, 8, False)

@@ -1,0 +1,94 @@
+"""The port's CUDA kernels against their plain torch versions, on the card.
+
+Every test here needs an NVIDIA GPU and skips without one. The file imports
+neither jax nor the JAX package, so it runs on a machine that has only
+torch; there, skip the repository's conftest (which sets up JAX):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from lipreading_video_generation_tpu_torch.ops import attention as att
+from lipreading_video_generation_tpu_torch.ops import clahe_cuda as cl
+from lipreading_video_generation_tpu_torch.ops import image as im
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is false)")
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in full float32
+    return torch.device("cuda")
+
+
+def _uniform(shape, lo, hi, seed, device, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.uniform(lo, hi, shape).astype(np.float32)).to(device, dtype)
+
+
+@pytest.mark.parametrize("shape,grid", [((1920, 48, 48), (8, 8)), ((3, 50, 46), (8, 8)),
+                                        ((2, 64, 64), (4, 4))])
+def test_clahe_kernel_matches_plain(cuda, shape, grid):
+    x = _uniform(shape, 0, 255, 0, cuda)
+    before = cl.clahe_cuda.launch_count
+    got = cl.clahe_cuda(x, 0.2, grid)
+    torch.cuda.synchronize()
+    assert cl.clahe_cuda.launch_count == before + 1
+    # exact LUTs on both sides; the float32 blend differs only in rounding
+    assert (got - cl.clahe_reference(x, 0.2, grid)).abs().max().item() <= 1e-2
+
+
+def test_clahe_dispatch_on_card(cuda):
+    x = _uniform((2, 48, 48), 0, 255, 1, cuda)
+    u8 = im.clahe(x.round().to(torch.uint8))
+    assert u8.dtype == torch.uint8 and u8.is_cuda
+    with pytest.raises(ValueError, match="float32"):
+        cl.clahe_cuda(x.double())
+    with pytest.raises(ValueError, match="does not take"):
+        im.clahe(x, grid=(16, 16))          # 256 tile histograms exceed shared memory
+
+
+@pytest.mark.parametrize("b,s,e,h,causal,dtype,tol", [
+    (384, 80, 256, 8, False, torch.bfloat16, 2e-2),
+    (2, 33, 64, 4, True, torch.bfloat16, 2e-2),
+    (3, 81, 256, 8, True, torch.float32, 1e-5),
+    (1, 16, 32, 1, True, torch.float32, 1e-5),
+])
+def test_small_mha_kernel_matches_plain(cuda, b, s, e, h, causal, dtype, tol):
+    q, k, v = (_uniform((b, s, e), -2, 2, i, cuda, dtype) for i in range(3))
+    before = att.small_mha.launch_count
+    got = att.mha(q, k, v, h, causal)
+    torch.cuda.synchronize()
+    assert att.small_mha.launch_count == before + 1
+    want = att._mha_einsum(q, k, v, h, causal)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_small_mha_kernel_takes_qkv_slices(cuda):
+    """The main path passes column slices of one fused qkv tensor."""
+    q, k, v = _uniform((4, 80, 768), -2, 2, 3, cuda, torch.bfloat16).chunk(3, dim=-1)
+    got = att.small_mha(q, k, v, 8)
+    want = att._mha_einsum(q.contiguous(), k.contiguous(), v.contiguous(), 8, False)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+def test_small_mha_kernel_gradients(cuda):
+    q, k, v = (_uniform((2, 33, 64), -2, 2, 4 + i, cuda).requires_grad_() for i in range(3))
+    cot = _uniform((2, 33, 64), -1, 1, 7, cuda)
+    (att.small_mha(q, k, v, 4) * cot).sum().backward()
+    ref = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    (att._mha_einsum(*ref, 4, False) * cot).sum().backward()
+    for t, r in zip((q, k, v), ref):
+        torch.testing.assert_close(t.grad, r.grad, rtol=1e-4, atol=1e-4)
+
+
+def test_mha_raises_where_no_kernel_takes_the_shape(cuda):
+    q = _uniform((2, 81, 120), -1, 1, 8, cuda)
+    with pytest.raises(ValueError, match="no CUDA kernel"):
+        att.mha(q, q, q, 7)                  # e % heads != 0
+    with pytest.raises(ValueError, match="bf16 or float32"):
+        att.small_mha(q.half(), q.half(), q.half(), 4)
