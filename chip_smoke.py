@@ -1,28 +1,43 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives ``lipreading_video_generation_tpu_torch``'s main path — the serving
-path of the lipreader: mouth-ROI preprocessing, then the ViViT
-word-classifier forward — at the ``ViViTConfig`` defaults (12 layers,
-hidden 256, 8 heads, MLP 1024, bf16, 64 classes) on random weights made
-from a seed, and checks every hand-written kernel on that path.
+Drives ``lipreading_video_generation_tpu_torch``'s two ported paths on
+random weights made from a seed, and checks every hand-written kernel on
+them:
+
+- the lipreader's serving path — mouth-ROI preprocessing, then the ViViT
+  word-classifier forward — at the ``ViViTConfig`` defaults (12 layers,
+  hidden 256, 8 heads, MLP 1024, bf16, 64 classes);
+- diffusion sampling — uint8 condition frame + raw audio → native audio
+  encoder → conditioning map → DDIM / DPM++ denoise steps of the U-Net →
+  uint8 frames — at the ``DiffusionConfig`` defaults (128×128, base 64,
+  channel_mult (1,2,4), 2 res blocks, attention at ds 1/2/4, 1 head, bf16).
 
 Phases (each prints lines tagged with its name; any failure raises and the
 script exits non-zero without printing a result):
 
 1. device  — needs CUDA; prints the card, the device count and
    ``nvidia-smi --query-gpu=name,power.limit``.
-2. build   — builds the kernels from ``csrc/*.cu`` with nvcc; prints the
-   build time and ptxas' register and shared-memory report.
+2. build   — builds the kernels from ``csrc/*.cu`` with nvcc, one process
+   per source; prints the build time, ptxas' register and shared-memory
+   report and each kernel's dynamic shared memory.
 3. kernels — each kernel against its plain torch version on the card
    (K1 CLAHE: max |Δ| ≤ 1e-2 gray levels; K2 small MHA: 2e-2 abs/rel in
-   bf16, 1e-5 in float32, and its gradient at 1e-4 in float32).
+   bf16, 1e-5 in float32, and its gradient at 1e-4 in float32; K3 flash
+   forward: O within 1e-2 in bf16 (one output ulp at |O| ≤ 1), 1e-4 in
+   float32, lse within 1e-4), at the shapes the paths give them.
 4. serve   — 3 requests of 8 clips and 3 of 384 clips (5 frames each, 96×96
    RGB uint8 frames and face boxes as in bench.py), host frames in, host
    logits out; every request must launch K1 once and K2 once per layer, and
    give finite logits; the batch-8 requests must agree with the same model
    and inputs run on the CPU (the plain path).
-5. timing  — request time and frames/s, each kernel's CUDA-event time
+5. diffuse — one warm-up and 3 timed ``sample_video`` requests of 4 frames
+   × 10 DDIM steps, and one with DPM++(2M); each must launch K3 16 times a
+   step and K2 4 times, and return finite (4, 128, 128, 3) uint8 frames;
+   the full 500-step DDPM chain at batch 1; then the card against the CPU
+   plain path at the full channel plan but 64×64, batch 1, 2 DDIM steps,
+   same initial noise.
+6. timing  — request time and frames/s, each kernel's CUDA-event time
    beside its plain version's at the main-path shapes, peak device memory.
 
 The line before the last is ``nvidia-smi``'s name and power limit; before
@@ -52,6 +67,15 @@ TOL_GRAD = 1e-4
 # there: logits agree within 5e-2 abs + 5e-2 relative.
 TOL_LOGITS = 5e-2
 CLIP_FRAMES = 5
+TOL_K3_BF16 = 1e-2   # float32 inside on both sides; O may round to the next bf16
+TOL_K3_F32 = 1e-4
+TOL_LSE = 1e-4
+# bf16 card (cuDNN convs, K3, K2) vs bf16 CPU (other conv and GEMM kernels,
+# plain attention) through 2 DDIM steps of the 64×64 U-Net: bf16 rounds at
+# other points on each side; frames in [0, 1] agree within 2e-2 (3.8e-3
+# measured on an H100).
+TOL_FRAMES = 2e-2
+DIFF_FRAMES, DIFF_STEPS = 4, 10
 
 
 def log(phase: str, msg: str) -> None:
@@ -89,11 +113,14 @@ def phase_build() -> None:
         if "ptxas info" in line and ("registers" in line or "Compiling" in line
                                      or "smem" in line):
             log("build", line.strip())
-    from lipreading_video_generation_tpu_torch.ops.attention import _small_mha_smem_bytes
+    from lipreading_video_generation_tpu_torch.ops.attention import (
+        _small_mha_smem_bytes, flash_smem_bytes)
 
     log("build", f"dynamic shared memory per block at the main-path shapes: K1 "
         f"{8 * 8 * 256 * 4} B (8x8 tiles of 256 int32 bins), K2 "
-        f"{_small_mha_smem_bytes(80, 32)} B (S=80, d=32)")
+        f"{_small_mha_smem_bytes(80, 32)} B (S=80, d=32), "
+        f"{_small_mha_smem_bytes(11, 96)} B (S=11, d=96); K3 "
+        + ", ".join(f"{flash_smem_bytes(d)} B (head dim {d})" for d in (64, 128, 256)))
 
 
 def _uniform(shape, lo, hi, seed, dtype=torch.float32):
@@ -106,7 +133,7 @@ def phase_kernels() -> dict:
     from lipreading_video_generation_tpu_torch.ops import attention as att
     from lipreading_video_generation_tpu_torch.ops import clahe_cuda as cl
 
-    errs = {"clahe": 0.0, "small_mha": 0.0}
+    errs = {"clahe": 0.0, "small_mha": 0.0, "flash_attention": 0.0}
     for shape, grid in [((1920, 48, 48), (8, 8)), ((3, 50, 46), (8, 8)),
                         ((2, 64, 64), (4, 4))]:
         x = _uniform(shape, 0, 255, SEED)
@@ -120,6 +147,7 @@ def phase_kernels() -> dict:
 
     for (b, s, e, h, causal, dtype, tol) in [
             (384, 80, 256, 8, False, torch.bfloat16, TOL_K2_BF16),
+            (DIFF_FRAMES, 11, 768, 8, False, torch.bfloat16, TOL_K2_BF16),  # audio encoder
             (2, 33, 64, 4, True, torch.bfloat16, TOL_K2_BF16),
             (2, 33, 64, 4, True, torch.float32, TOL_K2_F32)]:
         q, k, v = (_uniform((b, s, e), -2, 2, SEED + i, dtype) for i in range(3))
@@ -142,6 +170,36 @@ def phase_kernels() -> dict:
         torch.testing.assert_close(t.grad, r.grad, rtol=TOL_GRAD, atol=TOL_GRAD)
     log("kernels", f"K2 small_mha gradient (2,33,64) H=4 f32 matches autograd "
         f"through _mha_einsum (tol {TOL_GRAD})")
+
+    # K3: the U-Net's three shapes (batch 2), scripts/profile_flash_dpad.py's
+    # two, and small causal / ragged / cross / fully-masked-row cases
+    for (q_shape, s_k, causal, dtype) in [
+            ((2, 1, 16384, 64), 16384, False, torch.bfloat16),
+            ((2, 1, 4096, 128), 4096, False, torch.bfloat16),
+            ((2, 1, 1024, 256), 1024, False, torch.bfloat16),
+            ((1, 1, 16384, 64), 16384, False, torch.bfloat16),
+            ((1, 1, 512, 64), 512, False, torch.float32),
+            ((2, 3, 192, 32), 192, True, torch.float32),
+            ((2, 3, 160, 40), 320, True, torch.float32),
+            ((2, 3, 200, 16), 200, False, torch.float32),
+            ((1, 2, 160, 128), 320, False, torch.float32),
+            ((1, 2, 200, 64), 150, True, torch.float32)]:
+        b, h, s_q, d = q_shape
+        q = _uniform(q_shape, -2, 2, SEED, dtype)
+        k, v = (_uniform((b, h, s_k, d), -2, 2, SEED + 1 + i, dtype) for i in range(2))
+        got_o, got_lse = att.flash_attention(q, k, v, causal, return_lse=True)
+        torch.cuda.synchronize()
+        want_o, want_lse = att.flash_reference(q, k, v, causal)
+        err = (got_o.float() - want_o.float()).abs().max().item()
+        err_lse = (got_lse - want_lse).abs().max().item()
+        tol = TOL_K3_BF16 if dtype == torch.bfloat16 else TOL_K3_F32
+        log("kernels", f"K3 flash_attention q{q_shape} s_k={s_k} causal={causal} {dtype}: "
+            f"O max|d| {err:.3g} (tol {tol} abs/rel), lse max|d| {err_lse:.3g} "
+            f"(tol {TOL_LSE} abs/rel)")
+        torch.testing.assert_close(got_o.float(), want_o.float(), rtol=tol, atol=tol)
+        torch.testing.assert_close(got_lse, want_lse, rtol=TOL_LSE, atol=TOL_LSE)
+        errs["flash_attention"] = max(errs["flash_attention"], err)
+        del q, k, v, got_o, got_lse, want_o, want_lse
     return errs
 
 
@@ -268,6 +326,194 @@ def phase_serve(dev: dict) -> dict:
     return launches
 
 
+def flax_unet_audio_params(cfg, seed: int) -> dict:
+    """Random weights in the tree and shapes of the Flax ``UNetAudio(cfg)``
+    (native audio encoder; the card's machine has no flax): conv and Dense
+    kernels ~ N(0, 1/fan_in), the layers Flax zero-initialises (each
+    ResBlock's second conv, each attention projection, the output conv) at
+    a fifth of that so that they still act, small biases, norm scales near 1."""
+    from lipreading_video_generation_tpu_torch.models.audio_encoder import num_tokens
+    from lipreading_video_generation_tpu_torch.models.unet import plan
+
+    rng = np.random.default_rng(seed)
+
+    def kernel(shape, fan_in, gain=1.0):
+        return (gain * rng.standard_normal(shape) / math.sqrt(fan_in)).astype(np.float32)
+
+    def bias(n):
+        return (0.02 * rng.standard_normal(n)).astype(np.float32)
+
+    def dense(n_in, n_out, gain=1.0):
+        return {"kernel": kernel((n_in, n_out), n_in, gain), "bias": bias(n_out)}
+
+    def conv(kh, kw, c_in, c_out, gain=1.0):
+        return {"kernel": kernel((kh, kw, c_in, c_out), kh * kw * c_in, gain), "bias": bias(c_out)}
+
+    def norm(n):
+        return {"scale": (1 + 0.05 * rng.standard_normal(n)).astype(np.float32),
+                "bias": (0.05 * rng.standard_normal(n)).astype(np.float32)}
+
+    e = cfg.audio_embed_dim
+    enc = {"Conv_0": {"kernel": kernel((5, 80, e // 2), 5 * 80), "bias": bias(e // 2)},
+           "Conv_1": {"kernel": kernel((3, e // 2, e), 3 * e // 2), "bias": bias(e)},
+           "LayerNorm_0": norm(e), "LayerNorm_1": norm(e),
+           "pos_embedding": (0.02 * rng.standard_normal(
+               (1, num_tokens(cfg.audio_samples), e))).astype(np.float32)}
+    for i in range(4):
+        enc[f"block_{i}"] = {"LayerNorm_0": norm(e), "qkv": dense(e, 3 * e), "proj": dense(e, e),
+                             "LayerNorm_1": norm(e),
+                             "MLP_0": {"Dense_0": dense(e, 4 * e), "Dense_1": dense(4 * e, e)}}
+    base, ted = cfg.base_channels, cfg.time_embed_dim
+    c_in = cfg.im_channels + cfg.audio_proj_dim + cfg.im_cond_channels
+    unet = {"Dense_0": dense(base, ted), "Dense_1": dense(ted, ted),
+            "Conv_0": conv(3, 3, c_in, base),
+            "GroupNorm_0": norm(base * cfg.channel_mult[0]),
+            "Conv_1": conv(3, 3, base * cfg.channel_mult[0], cfg.im_channels, 0.2)}
+    count = {"res": 0, "attn": 0, "down": 0, "up": 0}
+    names = {"res": "ResBlock", "attn": "AttentionBlock", "down": "Downsample", "up": "Upsample"}
+    for step in plan(base, cfg.channel_mult, cfg.num_res_blocks, cfg.attention_resolutions):
+        kind = step[0]
+        if kind not in names:
+            continue
+        name = f"{names[kind]}_{count[kind]}"
+        count[kind] += 1
+        if kind == "res":
+            ci, co = step[1], step[2]
+            p = {"GroupNorm_0": norm(ci), "Conv_0": conv(3, 3, ci, co), "Dense_0": dense(ted, 2 * co),
+                 "GroupNorm_1": norm(co), "Conv_1": conv(3, 3, co, co, 0.2)}
+            if ci != co:
+                p["Conv_2"] = conv(1, 1, ci, co)
+        elif kind == "attn":
+            c = step[1]
+            p = {"GroupNorm_0": norm(c), "qkv": dense(c, 3 * c), "proj": dense(c, c, 0.2)}
+        else:
+            p = {"Conv_0": conv(3, 3, step[1], step[1])}
+        unet[name] = p
+    return {"audio_encoder": enc, "audio_proj": dense(e, cfg.audio_proj_dim),
+            "im_cond_conv": conv(1, 1, cfg.im_channels, cfg.im_cond_channels), "unet": unet}
+
+
+def diffusion_inputs(cfg, n_frames: int, seed: int):
+    """A random 160×160 RGB uint8 condition frame (resized to im_size on the
+    way in) and ``n_frames`` random 4000-sample audio windows."""
+    rng = np.random.default_rng(seed)
+    frame = rng.integers(0, 256, (160, 160, 3), dtype=np.uint8)
+    audio = rng.standard_normal((n_frames, cfg.audio_samples)).astype(np.float32)
+    return frame, audio
+
+
+def _load_unet_audio(cfg, state, device):
+    from lipreading_video_generation_tpu_torch.models.unet_audio import UNetAudio
+
+    model = UNetAudio(cfg).eval()
+    model.load_state_dict(state)
+    return model.to(device)
+
+
+def phase_diffuse(dev: dict) -> dict:
+    import dataclasses
+
+    from lipreading_video_generation_tpu_torch.core.config import DiffusionConfig
+    from lipreading_video_generation_tpu_torch.models.convert import (
+        unet_audio_state_dict_from_flax)
+    from lipreading_video_generation_tpu_torch.ops import attention as att
+    from lipreading_video_generation_tpu_torch.ops import clahe_cuda as cl
+    from lipreading_video_generation_tpu_torch.ops.image import denormalize_to_uint8
+    from lipreading_video_generation_tpu_torch.pipelines.sample_diffusion import (
+        sample, sample_video)
+
+    cfg = DiffusionConfig()
+    state = unet_audio_state_dict_from_flax(flax_unet_audio_params(cfg, SEED), cfg)
+    model = _load_unet_audio(cfg, state, "cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    n_attn = sum(type(m).__name__ == "AttentionBlock" for m in model.modules())
+    if n_attn != 16:
+        raise AssertionError(f"{n_attn} AttentionBlocks at the defaults, want 16")
+    log("diffuse", f"DiffusionConfig defaults: {cfg.im_size}x{cfg.im_size}, base "
+        f"{cfg.base_channels}, channel_mult {cfg.channel_mult}, {cfg.num_res_blocks} res "
+        f"blocks, attention at ds {cfg.attention_resolutions} ({n_attn} AttentionBlocks), "
+        f"{cfg.num_heads} head, {cfg.dtype}, native audio encoder; {n_params} params from "
+        "seeded numpy via unet_audio_state_dict_from_flax")
+    frame, audio = diffusion_inputs(cfg, DIFF_FRAMES, SEED)
+    gen = torch.Generator("cuda")
+
+    def request(sampler):
+        return sample_video(model, frame, audio, cfg, num_inference_steps=DIFF_STEPS,
+                            sampler=sampler, generator=gen.manual_seed(SEED))
+
+    # warm-up (cuDNN, allocator): the same request through ``sample`` with
+    # float frames out, which must be finite (uint8 frames cannot show a NaN)
+    cond = torch.as_tensor(frame)[None].expand((DIFF_FRAMES,) + frame.shape)
+    warm, _ = sample(model, cond, audio, cfg, num_inference_steps=DIFF_STEPS,
+                     snapshot_every=cfg.num_timesteps + 1, generator=gen.manual_seed(SEED))
+    if not bool(torch.isfinite(warm).all()):
+        raise AssertionError("diffusion request gave non-finite frames")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cl.clahe_cuda.launch_count = 0
+    att.small_mha.launch_count = 0
+    att.flash_attention.launch_count = 0
+    times = []
+    for sampler in ("ddim", "ddim", "ddim", "dpmpp"):
+        k1, k2, k3 = (cl.clahe_cuda.launch_count, att.small_mha.launch_count,
+                      att.flash_attention.launch_count)
+        t0 = time.perf_counter()
+        out = request(sampler).cpu()
+        times.append(time.perf_counter() - t0)
+        d = (cl.clahe_cuda.launch_count - k1, att.small_mha.launch_count - k2,
+             att.flash_attention.launch_count - k3)
+        if d != (0, 4, n_attn * DIFF_STEPS):
+            raise AssertionError(f"{sampler} request launched K1/K2/K3 {d}, want "
+                                 f"(0, 4, {n_attn * DIFF_STEPS})")
+        if out.dtype != torch.uint8 or tuple(out.shape) != (DIFF_FRAMES, 128, 128, 3):
+            raise AssertionError(f"bad frames {out.dtype} {tuple(out.shape)}")
+        if sampler == "ddim":     # same seed as the warm-up: the same frames
+            same = (out.int() - denormalize_to_uint8(warm).cpu().int()).abs().max().item()
+            if same > 1:
+                raise AssertionError(f"ddim request differs from its float warm-up by {same}")
+    launches = {"small_mha": att.small_mha.launch_count,
+                "flash_attention": att.flash_attention.launch_count}
+    peak = torch.cuda.max_memory_allocated()
+    log("diffuse", f"4 requests (ddim x3, dpmpp) of {DIFF_FRAMES} frames x {DIFF_STEPS} "
+        f"steps: launches K1=0 K2={launches['small_mha']} K3={launches['flash_attention']} "
+        f"(4 and {n_attn}x{DIFF_STEPS} per request); uint8 frames "
+        f"{tuple(out.shape)}, pixel mean {out.float().mean().item():.2f}")
+
+    # the full DDPM ancestral chain (500 steps) at batch 1
+    k2, k3 = att.small_mha.launch_count, att.flash_attention.launch_count
+    t0 = time.perf_counter()
+    chain = sample_video(model, frame, audio[:1], cfg, generator=gen.manual_seed(SEED)).cpu()
+    chain_s = time.perf_counter() - t0
+    d = (att.small_mha.launch_count - k2, att.flash_attention.launch_count - k3)
+    if d != (4, n_attn * cfg.num_timesteps) or tuple(chain.shape) != (1, 128, 128, 3):
+        raise AssertionError(f"DDPM chain launched K2/K3 {d}, gave {tuple(chain.shape)}")
+    log("diffuse", f"full DDPM chain, batch 1, {cfg.num_timesteps} steps: {chain_s:.3f} s "
+        f"({cfg.num_timesteps / chain_s:.2f} frame-steps/s), K2={d[0]} K3={d[1]} launches, "
+        f"uint8 frame pixel mean {chain.float().mean().item():.2f}")
+
+    # the card against the CPU plain path: 64x64, batch 1, 2 DDIM steps
+    cfg64 = dataclasses.replace(cfg, im_size=64)
+    noise = np.random.default_rng(SEED + 1).standard_normal((1, 64, 64, 3)).astype(np.float32)
+    outs = {}
+    for device in ("cuda", "cpu"):
+        m = _load_unet_audio(cfg64, state, device)
+        x0, _ = sample(m, frame[None], audio[:1], cfg64, num_inference_steps=2, noise=noise)
+        outs[device] = x0.cpu()
+        del m
+    diff = (outs["cuda"] - outs["cpu"]).abs()
+    log("diffuse", f"64x64, batch 1, 2 DDIM steps, card vs CPU plain path: frames max|d| "
+        f"{diff.max().item():.4g}, mean|d| {diff.mean().item():.4g} (tol {TOL_FRAMES} abs); "
+        f"finite {bool(torch.isfinite(outs['cuda']).all())}")
+    torch.testing.assert_close(outs["cuda"], outs["cpu"], rtol=0, atol=TOL_FRAMES)
+
+    per_req = statistics.median(times[:3])
+    log("diffuse", f"request times ({dev['smi']}): ddim {[round(t * 1e3, 3) for t in times[:3]]} "
+        f"ms, dpmpp {times[3] * 1e3:.3f} ms; ddim median {per_req * 1e3:.3f} ms = "
+        f"{DIFF_FRAMES * DIFF_STEPS / per_req:.2f} denoise frame-steps/s; "
+        f"peak device memory {peak / 2**20:.1f} MiB")
+    return launches
+
+
 def _event_ms(fn, n: int) -> float:
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -301,19 +547,40 @@ def phase_timing(dev: dict) -> dict:
         k2_ms, k2_plain, raw2 = _plain_vs_kernel(
             lambda: att._mha_einsum(q, k, v, 8, False),
             lambda: att.small_mha(q, k, v, 8), 20)
+        # K3 at the U-Net's three shapes, batch DIFF_FRAMES, as the U-Net
+        # calls it: (B, 1, S, D) views of column slices of one qkv tensor
+        k3 = {}
+        for s, d in ((16384, 64), (4096, 128), (1024, 256)):
+            qkv = _uniform((DIFF_FRAMES, s, 3 * d), -2, 2, SEED, torch.bfloat16)
+            q, k, v = (t.reshape(DIFF_FRAMES, s, 1, d).transpose(1, 2)
+                       for t in qkv.chunk(3, dim=-1))
+            k3[(s, d)] = _plain_vs_kernel(lambda: att.flash_reference(q, k, v),
+                                          lambda: att.flash_attention(q, k, v), 3)
+            del qkv, q, k, v
+    for (s, d), (ms, plain, raw) in k3.items():
+        flops = 4.0 * DIFF_FRAMES * s * s * d
+        log("timing", f"K3 flash_attention ({DIFF_FRAMES},1,{s},{d}) bf16: kernel {ms:.4f} ms "
+            f"({flops / ms / 1e9:.2f} TFLOP/s), plain {plain:.4f} ms (plain,kernel,kernel,plain "
+            f"= {[round(t, 4) for t in raw]}) on {dev['smi']}")
     log("timing", f"K1 clahe (1920,48,48) f32: kernel {k1_ms:.4f} ms, plain {k1_plain:.4f} ms "
         f"(plain,kernel,kernel,plain = {[round(t, 4) for t in raw1]}) on {dev['smi']}")
     log("timing", f"K2 small_mha (384,80,256) H=8 bf16: kernel {k2_ms:.4f} ms, plain "
         f"{k2_plain:.4f} ms (plain,kernel,kernel,plain = {[round(t, 4) for t in raw2]}) "
         f"on {dev['smi']}")
-    return {"clahe": (k1_ms, k1_plain), "small_mha": (k2_ms, k2_plain)}
+    # the JSON line carries K3 at the U-Net's FLOP-heaviest shape
+    return {"clahe": (k1_ms, k1_plain), "small_mha": (k2_ms, k2_plain),
+            "flash_attention": k3[(16384, 64)][:2]}
 
 
 def main() -> None:
     dev = phase_device()
     phase_build()
     errs = phase_kernels()
-    launches = phase_serve(dev)
+    served = phase_serve(dev)
+    diffused = phase_diffuse(dev)
+    launches = {"clahe": served["clahe"],
+                "small_mha": served["small_mha"] + diffused["small_mha"],
+                "flash_attention": diffused["flash_attention"]}
     times = phase_timing(dev)
     pkg = "lipreading_video_generation_tpu_torch"
     kernels = [
@@ -325,6 +592,11 @@ def main() -> None:
          "replaces": "lipreading_video_generation_tpu/ops/attention.py:570",
          "launches": launches["small_mha"], "max_abs_err": errs["small_mha"],
          "ms": times["small_mha"][0], "plain_ms": times["small_mha"][1]},
+        {"name": "flash_attention", "route": "cuda", "source": f"{pkg}/csrc/flash_fwd.cu",
+         "replaces": "lipreading_video_generation_tpu/ops/attention.py:66",
+         "also_replaces": "scripts/profile_flash_dpad.py:37",
+         "launches": launches["flash_attention"], "max_abs_err": errs["flash_attention"],
+         "ms": times["flash_attention"][0], "plain_ms": times["flash_attention"][1]},
     ]
     for kern in kernels:
         if kern["launches"] < 1:

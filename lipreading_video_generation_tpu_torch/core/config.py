@@ -1,8 +1,8 @@
-"""The two config dataclasses the ported slice needs.
+"""The config dataclasses the ported slices need.
 
 Copies of ``lipreading_video_generation_tpu/core/config.py``'s
-``ViViTConfig`` and ``PreprocessConfig`` with the same field names and
-defaults: the JAX package's ``core/__init__`` imports jax and orbax, so the
+``AudioConfig``, ``ViViTConfig``, ``PreprocessConfig`` and
+``DiffusionConfig`` with the same field names and defaults: the JAX package's ``core/__init__`` imports jax and orbax, so the
 port cannot import the originals. Fields this port cannot honour yet raise
 when set.
 """
@@ -10,6 +10,33 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Tuple
+
+
+@dataclass(frozen=True)
+class AudioConfig:
+    """Log-mel frontend parameters (reference: gan-model/preprocessing/params.py:24-64)."""
+
+    sample_rate: int = 16000
+    n_fft: int = 800
+    hop_size: int = 200
+    win_size: int = 800
+    num_mels: int = 80
+    fmin: float = 55.0
+    fmax: float = 7600.0
+    preemphasis: float = 0.97
+    preemphasize: bool = True
+    min_level_db: float = -100.0
+    ref_level_db: float = 20.0
+    max_abs_value: float = 4.0
+    symmetric_mels: bool = True
+    signal_normalization: bool = True
+    rescale: bool = True
+    rescaling_max: float = 0.9
+
+    @property
+    def mel_step_per_frame(self) -> float:
+        """Mel frames per video frame at 25 fps: 80 mel steps / sec ÷ 25 fps."""
+        return (self.sample_rate / self.hop_size) / 25.0
 
 
 @dataclass(frozen=True)
@@ -63,3 +90,65 @@ class PreprocessConfig:
     clahe_grid: Tuple[int, int] = (8, 8)
     face_det_score_threshold: float = 0.5
     nms_threshold: float = 0.3
+
+
+@dataclass(frozen=True)
+class DiffusionConfig:
+    """Image+audio-conditioned DDPM (reference: video-generation/diffusion/
+    train.py:48-97, test.py:33-49); defaults as in the JAX package: 128×128
+    frames, the as-trained U-Net channel plan, the sampling schedule of
+    test.py (T=500, linear 5e-5 → 0.015), the native audio encoder, bf16."""
+
+    im_size: int = 128
+    im_channels: int = 3
+    num_timesteps: int = 500
+    beta_start: float = 5e-5
+    beta_end: float = 0.015
+    scheduler: str = "linear"   # linear | linear_v2 | cosine
+    base_channels: int = 64
+    channel_mult: Tuple[int, ...] = (1, 2, 4)
+    num_res_blocks: int = 2
+    attention_resolutions: Tuple[int, ...] = (1, 2, 4)  # downsample factors with attention
+    num_heads: int = 1
+    dropout: float = 0.1
+    time_embed_dim: int = 256
+    audio_embed_dim: int = 768
+    audio_proj_dim: int = 128
+    im_cond_channels: int = 64
+    audio_samples: int = 4000
+    buffer_frames: int = 5
+    # "native" = AudioFeatureEncoder (log-mel + conv + transformer);
+    # "wav2vec2" needs pretrained weights (ROADMAP: pretrained-model family).
+    audio_encoder: str = "native"
+    w2v_num_layers: int = 12
+    w2v_ffn_dim: int = 3072
+    w2v_num_heads: int = 12
+    w2v_conv_dim: Tuple[int, ...] = (512, 512, 512, 512, 512, 512, 512)
+    w2v_conv_kernel: Tuple[int, ...] = (10, 3, 3, 3, 3, 2, 2)
+    w2v_conv_stride: Tuple[int, ...] = (5, 2, 2, 2, 2, 2, 2)
+    w2v_pos_conv_kernel: int = 128
+    w2v_pos_conv_groups: int = 16
+    batch_size: int = 8
+    learning_rate: float = 1e-4
+    num_epochs: int = 10
+    dtype: str = "bfloat16"
+    # ResBlock rematerialisation is a training option (ROADMAP: diffusion
+    # training); sequence-parallel attention needs several GPUs.
+    remat: bool = False
+    sequence_parallel: bool = False
+    sequence_axis: str = "model"
+
+    def __post_init__(self):
+        if self.audio_encoder == "wav2vec2":
+            raise NotImplementedError(
+                "DiffusionConfig: audio_encoder='wav2vec2' needs the pretrained "
+                "wav2vec2 port (ROADMAP: pretrained-model family)")
+        if self.audio_encoder != "native":
+            raise ValueError(f"unknown audio_encoder {self.audio_encoder!r} (native | wav2vec2)")
+        if self.sequence_parallel:
+            raise NotImplementedError(
+                "DiffusionConfig: sequence_parallel is not ported yet "
+                "(ROADMAP: multi-GPU parallelism)")
+        if self.remat:
+            raise NotImplementedError(
+                "DiffusionConfig: remat is a training option (ROADMAP: diffusion training)")

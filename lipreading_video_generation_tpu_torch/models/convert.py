@@ -1,4 +1,8 @@
-"""Weights bridge: Flax ViViT params → the port's ``ViViT`` ``state_dict``.
+"""Weights bridge: Flax params → the port's ``state_dict``s.
+
+``vivit_state_dict_from_flax`` for the ViViT; ``unet_audio_state_dict_from_flax``
+(with ``unet_state_dict_from_flax`` and ``audio_encoder_state_dict_from_flax``)
+for the diffusion model.
 
 The Flax tree (``lipreading_video_generation_tpu/models/vivit.py``)::
 
@@ -7,16 +11,21 @@ The Flax tree (``lipreading_video_generation_tpu/models/vivit.py``)::
     LayerNorm_0                             head
 
 Rules: a Dense ``kernel (in, out)`` becomes a Linear ``weight (out, in)``;
-a LayerNorm ``scale`` becomes ``weight``; the fused qkv stays fused, so the
-q/k/v split order of ``jnp.split(qkv, 3)`` carries over. Takes numpy
+a 2-D conv ``kernel`` HWIO becomes OIHW and a 1-D conv ``kernel`` (W, I, O)
+becomes (O, I, W); a LayerNorm or GroupNorm ``scale`` becomes ``weight``;
+the fused qkv stays fused, so the q/k/v split order of ``jnp.split(qkv, 3)``
+carries over. Every function raises ``KeyError`` on a missing or unexpected
+entry. Takes numpy
 arrays (or anything ``np.asarray`` reads), so it needs neither jax nor flax.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Iterable, Mapping
 
 import numpy as np
 import torch
+
+from .unet import plan
 
 
 def _tensor(a) -> torch.Tensor:
@@ -26,6 +35,23 @@ def _tensor(a) -> torch.Tensor:
 def _dense(sd: Dict[str, torch.Tensor], name: str, p: Mapping) -> None:
     sd[f"{name}.weight"] = _tensor(p["kernel"]).T.contiguous()
     sd[f"{name}.bias"] = _tensor(p["bias"])
+
+
+def _conv(sd: Dict[str, torch.Tensor], name: str, p: Mapping) -> None:
+    """2-D (HWIO → OIHW) or 1-D ((W, I, O) → (O, I, W)) conv."""
+    kernel = _tensor(p["kernel"])
+    order = (3, 2, 0, 1) if kernel.ndim == 4 else (2, 1, 0)
+    sd[f"{name}.weight"] = kernel.permute(order).contiguous()
+    sd[f"{name}.bias"] = _tensor(p["bias"])
+
+
+def _exact(params: Mapping, keys: Iterable[str], where: str) -> Mapping:
+    """``params`` if its keys are exactly ``keys``; ``KeyError`` otherwise."""
+    want, have = set(keys), set(params)
+    if want != have:
+        raise KeyError(f"{where}: missing Flax params {sorted(want - have)}, "
+                       f"unexpected {sorted(have - want)}")
+    return params
 
 
 def _norm(sd: Dict[str, torch.Tensor], name: str, p: Mapping) -> None:
@@ -68,4 +94,97 @@ def vivit_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
     extra = set(params) - used
     if extra:
         raise KeyError(f"vivit_state_dict_from_flax: unexpected Flax params {sorted(extra)}")
+    return sd
+
+
+def audio_encoder_state_dict_from_flax(params: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """Flax ``AudioFeatureEncoder`` params → ``models.audio_encoder.AudioFeatureEncoder``
+    entries, each key prefixed with ``prefix``."""
+    n_blocks = sum(1 for k in params if k.startswith("block_"))
+    _exact(params, ["Conv_0", "Conv_1", "LayerNorm_0", "LayerNorm_1", "pos_embedding"]
+           + [f"block_{i}" for i in range(n_blocks)], "audio_encoder")
+    sd: Dict[str, torch.Tensor] = {}
+    _conv(sd, f"{prefix}conv1", params["Conv_0"])
+    _conv(sd, f"{prefix}conv2", params["Conv_1"])
+    _norm(sd, f"{prefix}norm_in", params["LayerNorm_0"])
+    sd[f"{prefix}pos_embedding"] = _tensor(params["pos_embedding"])
+    for i in range(n_blocks):
+        sd.update(block_state_dict_from_flax(params[f"block_{i}"], f"{prefix}blocks.{i}."))
+    _norm(sd, f"{prefix}norm_out", params["LayerNorm_1"])
+    return sd
+
+
+def res_block_state_dict_from_flax(params: Mapping, skip: bool,
+                                   prefix: str = "") -> Dict[str, torch.Tensor]:
+    """Flax ``ResBlock`` params → ``models.unet.ResBlock`` entries; ``skip``
+    when the block changes the channel count (its 1×1 ``Conv_2``)."""
+    _exact(params, ["GroupNorm_0", "Conv_0", "Dense_0", "GroupNorm_1", "Conv_1"]
+           + (["Conv_2"] if skip else []), "ResBlock")
+    sd: Dict[str, torch.Tensor] = {}
+    _norm(sd, f"{prefix}norm1", params["GroupNorm_0"])
+    _conv(sd, f"{prefix}conv1", params["Conv_0"])
+    _dense(sd, f"{prefix}emb", params["Dense_0"])
+    _norm(sd, f"{prefix}norm2", params["GroupNorm_1"])
+    _conv(sd, f"{prefix}conv2", params["Conv_1"])
+    if skip:
+        _conv(sd, f"{prefix}skip", params["Conv_2"])
+    return sd
+
+
+def attention_block_state_dict_from_flax(params: Mapping,
+                                         prefix: str = "") -> Dict[str, torch.Tensor]:
+    """Flax ``AttentionBlock`` params → ``models.unet.AttentionBlock`` entries."""
+    _exact(params, ["GroupNorm_0", "qkv", "proj"], "AttentionBlock")
+    sd: Dict[str, torch.Tensor] = {}
+    _norm(sd, f"{prefix}norm", params["GroupNorm_0"])
+    _dense(sd, f"{prefix}qkv", params["qkv"])
+    _dense(sd, f"{prefix}proj", params["proj"])
+    return sd
+
+
+def unet_state_dict_from_flax(params: Mapping, base_channels: int, channel_mult,
+                              num_res_blocks: int, attention_resolutions,
+                              prefix: str = "") -> Dict[str, torch.Tensor]:
+    """Flax ``UNetModel`` params → ``models.unet.UNetModel`` entries. Walks
+    ``UNetModel.__call__``'s order (``models.unet.plan``): Flax names each
+    submodule by its class and creation index (``ResBlock_3``,
+    ``AttentionBlock_0`` …), the port keeps them in one ``layers`` list."""
+    steps = plan(base_channels, channel_mult, num_res_blocks, attention_resolutions)
+    kinds = {"res": "ResBlock", "attn": "AttentionBlock", "down": "Downsample",
+             "up": "Upsample"}
+    names, count = [], {k: 0 for k in kinds}
+    for step in steps:
+        if step[0] in kinds:
+            names.append((f"{kinds[step[0]]}_{count[step[0]]}", step))
+            count[step[0]] += 1
+    _exact(params, ["Dense_0", "Dense_1", "Conv_0", "GroupNorm_0", "Conv_1"]
+           + [n for n, _ in names], "unet")
+    sd: Dict[str, torch.Tensor] = {}
+    _dense(sd, f"{prefix}time1", params["Dense_0"])
+    _dense(sd, f"{prefix}time2", params["Dense_1"])
+    _conv(sd, f"{prefix}stem", params["Conv_0"])
+    for i, (name, step) in enumerate(names):
+        at = f"{prefix}layers.{i}."
+        if step[0] == "res":
+            sd.update(res_block_state_dict_from_flax(params[name], step[1] != step[2], at))
+        elif step[0] == "attn":
+            sd.update(attention_block_state_dict_from_flax(params[name], at))
+        else:
+            _conv(sd, f"{at}conv", _exact(params[name], ["Conv_0"], f"unet/{name}")["Conv_0"])
+    _norm(sd, f"{prefix}out_norm", params["GroupNorm_0"])
+    _conv(sd, f"{prefix}out_conv", params["Conv_1"])
+    return sd
+
+
+def unet_audio_state_dict_from_flax(params: Mapping, cfg) -> Dict[str, torch.Tensor]:
+    """Flax ``UNetAudio(cfg)`` params (native audio encoder) → float32
+    ``state_dict`` for ``models.unet_audio.UNetAudio(cfg)``
+    (``load_state_dict`` casts to the module dtypes)."""
+    _exact(params, ["audio_encoder", "audio_proj", "im_cond_conv", "unet"], "UNetAudio")
+    sd = audio_encoder_state_dict_from_flax(params["audio_encoder"], "audio_encoder.")
+    _dense(sd, "audio_proj", params["audio_proj"])
+    _conv(sd, "im_cond_conv", params["im_cond_conv"])
+    sd.update(unet_state_dict_from_flax(
+        params["unet"], cfg.base_channels, cfg.channel_mult, cfg.num_res_blocks,
+        cfg.attention_resolutions, "unet."))
     return sd

@@ -1,9 +1,10 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-Every ``csrc/*.cu`` file compiles, on first use, into one shared library
-with a plain C interface (no PyTorch headers, so the build takes seconds),
-written to ``_build/`` inside the package (gitignored) and rebuilt when a
-source is newer than it. The same idiom as the JAX package's
+Every ``csrc/*.cu`` file compiles, on first use, to an object file — one
+nvcc per source, all started together — and the objects link into one
+shared library with a plain C interface (no PyTorch headers, so the build
+takes seconds), written to ``_build/`` inside the package (gitignored) and
+rebuilt when a source is newer than it. The same idiom as the JAX package's
 ``data/native_loader.py``: build with a subprocess, load with ``ctypes``.
 
 Each C entry point launches on the stream it is given and returns
@@ -29,7 +30,7 @@ LIB_NAME = "liblvg_kernels.so"
 # Hopper only: ``sm_90a`` keeps wgmma/setmaxnreg available to later kernels.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 # Shared memory one block may use on Hopper (dynamic, above 48 KB only after
 # cudaFuncSetAttribute, which each entry point does).
@@ -78,18 +79,30 @@ def build(force: bool = False) -> Path:
         return lib
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = BUILD_DIR / f".{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    tag = f"{os.getpid()}.tmp"
+    objs = [BUILD_DIR / f".{src.stem}.{tag}.o" for src in srcs]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(srcs, objs)]
+    logs = [proc.communicate()[0] for proc in procs]
+    tmp = BUILD_DIR / f".{LIB_NAME}.{tag}"
+    failed = [(src, proc.returncode, log)
+              for src, proc, log in zip(srcs, procs, logs) if proc.returncode != 0]
+    if not failed:
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            failed.append(("link", link.returncode, link.stdout + link.stderr))
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}")
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"{src} (exit {rc}):\n{log}" for src, rc, log in failed))
     os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
-    build_info.update(log=proc.stdout + proc.stderr, seconds=seconds)
+    build_info.update(log="".join(logs), seconds=seconds)
     return lib
 
 

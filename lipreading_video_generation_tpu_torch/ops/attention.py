@@ -1,15 +1,22 @@
-"""Multi-head attention of the port: the hand-written small-MHA CUDA kernel
-K2 (``csrc/small_mha.cu``) and its plain torch versions.
+"""Multi-head attention of the port: the hand-written CUDA kernels K2
+(small MHA, ``csrc/small_mha.cu``) and K3 (flash-attention forward,
+``csrc/flash_fwd.cu``) and their plain torch versions.
 
 Port of ``lipreading_video_generation_tpu/ops/attention.py``'s
-``attention_reference``, ``_mha_einsum``, ``small_mha_viable`` and ``mha``
-and of the fused small-MHA Pallas kernel. Dispatch in ``mha``:
+``attention_reference``, ``flash_attention``, ``_mha_einsum``,
+``small_mha_viable`` and ``mha``, and of the fused small-MHA and flash
+forward Pallas kernels. ``mha_route`` decides, by shape, dtype and device,
+where ``mha`` goes; the split between flash and small shapes is the JAX
+package's:
 
-- ``s_q·s_k > 128²`` needs the flash kernel (ROADMAP K3), which is not
-  ported yet: ``NotImplementedError`` on any device;
-- a CUDA tensor that ``small_mha_viable`` accepts → K2 (``small_mha``);
-  any other CUDA shape raises;
-- a CPU tensor → ``_mha_einsum``.
+- ``s_q·s_k > 128²`` → ``flash_attention``: K3 for a CUDA tensor,
+  ``flash_reference`` for a CPU one;
+- a CUDA tensor that ``small_mha_viable`` accepts (bf16 or float32) → K2;
+- anything else (other small shapes, CPU tensors) → ``_mha_einsum``, the
+  JAX package's default small-shape path.
+
+A CUDA tensor never falls back from a kernel to a plain version: a failed
+build or launch raises.
 """
 from __future__ import annotations
 
@@ -21,7 +28,8 @@ import torch
 
 from . import _build
 
-__all__ = ["attention_reference", "mha", "small_mha", "small_mha_viable"]
+__all__ = ["attention_reference", "flash_attention", "flash_reference", "mha", "mha_route",
+           "small_mha", "small_mha_viable"]
 
 _NEG_INF = float(torch.finfo(torch.float32).min) / 2
 _SMALL_MHA_MAX_HS = 768     # the JAX package's bound on H·pad(S)
@@ -156,18 +164,165 @@ def small_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
 small_mha.launch_count = 0
 
 
+_FLASH_BQ = _FLASH_BK = 64          # csrc/flash_fwd.cu's kBQ, kBK
+_FLASH_PAD = 4                      # its kPad
+_FLASH_MAX_D = 256
+_FLASH_ENTRY_POINTS = {torch.bfloat16: "lvg_flash_fwd_bf16", torch.float32: "lvg_flash_fwd_f32"}
+# past this many scores a plain-version call walks its queries in chunks
+_FLASH_REF_CHUNK = 1 << 26
+
+
+def flash_head_dim_pad(d: int) -> int:
+    """The head dim K3 is compiled for: 64, 128 or 256."""
+    if d > _FLASH_MAX_D:
+        raise ValueError(f"flash_attention: head dim {d} > {_FLASH_MAX_D} is not supported")
+    return 64 if d <= 64 else (128 if d <= 128 else 256)
+
+
+def flash_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of one K3 block: Qᵀ, Kᵀ, V and P tiles as float."""
+    dp = flash_head_dim_pad(d)
+    floats = (dp * (_FLASH_BQ + _FLASH_PAD) + dp * (_FLASH_BK + _FLASH_PAD)
+              + _FLASH_BK * (dp + _FLASH_PAD) + _FLASH_BQ * (_FLASH_BK + _FLASH_PAD))
+    return floats * 4
+
+
+def flash_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False,
+                    sm_scale: Optional[float] = None):
+    """Plain version of K3 on (B, H, S, D): K3's numerics exactly — q scaled
+    in float32, float32 scores, masked scores set to finfo.min/2, float32
+    probabilities (not rounded to V's dtype) and P·V, output in q's dtype;
+    returns (O, lse) with lse (B, H, S_q) float32. Rows with no visible key
+    (causal with s_q > s_k) average V over the s_k keys, as
+    ``attention_reference`` does. Long inputs are walked in query chunks,
+    which changes no number."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    s_q, s_k = q.shape[2], k.shape[2]
+    kf, vf = k.float(), v.float()
+    step = max(1, _FLASH_REF_CHUNK // max(1, q.shape[0] * q.shape[1] * s_k))
+    outs, lses = [], []
+    for r0 in range(0, s_q, step):
+        qf = q[:, :, r0:r0 + step].float() * sm_scale
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kf)
+        if causal:
+            rows = torch.arange(r0, r0 + qf.shape[2], device=q.device)[:, None]
+            keys = torch.arange(s_k, device=q.device)[None, :]
+            s = s.masked_fill(keys > rows + (s_k - s_q), _NEG_INF)
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m)
+        denom = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+        outs.append((torch.einsum("bhqk,bhkd->bhqd", p, vf) / denom).to(q.dtype))
+        lses.append((m + torch.log(denom))[..., 0])
+    return torch.cat(outs, dim=2), torch.cat(lses, dim=2)
+
+
+def _flash_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                  sm_scale: float):
+    """Launch K3 on CUDA (B, H, S, D) q/k/v of one dtype (bf16 or float32,
+    unit stride along D, D ≤ 256). Returns (O as a (B, H, S_q, D) view of a
+    contiguous (B, S_q, H, D) tensor, lse (B, H, S_q) float32). Raises on
+    anything else."""
+    if not (q.is_cuda and k.is_cuda and v.is_cuda):
+        raise ValueError("flash_attention kernel takes CUDA tensors")
+    if q.device.index != torch.cuda.current_device():
+        raise ValueError(f"flash_attention: {q.device} is not the current CUDA device")
+    if not (q.device == k.device == v.device):
+        raise ValueError("flash_attention: q, k, v on different devices")
+    if q.dtype not in _FLASH_ENTRY_POINTS or not (q.dtype == k.dtype == v.dtype):
+        raise ValueError(f"flash_attention takes bf16 or float32 q/k/v of one dtype, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if q.ndim != 4 or k.shape != v.shape or k.ndim != 4 or q.shape[:2] != k.shape[:2] \
+            or q.shape[3] != k.shape[3]:
+        raise ValueError(f"flash_attention takes (B, H, S, D) q and equal k/v, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, h, s_q, d = q.shape
+    s_k = k.shape[2]
+    flash_head_dim_pad(d)
+    if b * h > 65535:
+        raise ValueError(f"flash_attention: batch·heads {b * h} > 65535")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("flash_attention needs unit stride along D")
+    out = torch.empty(b, s_q, h, d, dtype=q.dtype, device=q.device).transpose(1, 2)
+    lse = torch.empty(b, h, s_q, dtype=torch.float32, device=q.device)
+    if b == 0 or h == 0 or s_q == 0:
+        return out, lse
+    if s_k == 0:
+        raise ValueError("flash_attention: no keys")
+    strides = (ctypes.c_longlong * 12)(*(st for t in (q, k, v, out) for st in t.stride()[:3]))
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    fn = _build.kernel(_FLASH_ENTRY_POINTS[q.dtype],
+                       [vp, vp, vp, vp, vp, i32, i32, i32, i32, i32,
+                        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, i32, vp])
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            b, h, s_q, s_k, d, strides, sm_scale, int(causal),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "flash_attention")
+    flash_attention.launch_count += 1
+    return out, lse
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False,
+                    sm_scale: Optional[float] = None, return_lse: bool = False):
+    """Flash attention over (B, H, S, D), as the JAX package's
+    ``flash_attention``: up to 128² scores it is ``attention_reference``;
+    above, K3 for CUDA tensors (``launch_count`` counts its launches) and
+    ``flash_reference`` for CPU ones. ``return_lse`` also returns the
+    per-row logsumexp (B, H, S_q) float32 (above 128² only).
+
+    Forward only: the flash backward (K4/K5) is not ported, so a CUDA call
+    that autograd would record raises."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    s_q, s_k = q.shape[2], k.shape[2]
+    if s_q * s_k <= 128 * 128:
+        if return_lse:
+            raise ValueError("flash_attention: up to 128² scores it is attention_reference, "
+                             "which has no lse (as in the JAX package)")
+        return attention_reference(q, k, v, causal, sm_scale)
+    if not q.is_cuda:
+        o, lse = flash_reference(q, k, v, causal, sm_scale)
+    else:
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+            raise NotImplementedError(
+                "flash_attention on CUDA is forward only: the flash backward kernels "
+                "(ROADMAP K4/K5) are not ported yet")
+        o, lse = _flash_launch(q, k, v, causal, sm_scale)
+    return (o, lse) if return_lse else o
+
+
+flash_attention.launch_count = 0
+
+
+def mha_route(num_heads: int, s_q: int, s_k: int, e: int, dtype: torch.dtype,
+              device: torch.device) -> str:
+    """Where ``mha`` sends (B, S, E) inputs: "flash", "small_mha" or
+    "einsum" (see the module docstring). Raises if ``e % num_heads``."""
+    if e % num_heads:
+        raise ValueError(f"mha: e={e} is not a multiple of num_heads={num_heads}")
+    if s_q * s_k > 128 * 128:
+        return "flash"
+    if (torch.device(device).type == "cuda" and dtype in _ENTRY_POINTS
+            and small_mha_viable(num_heads, s_q, s_k, e)):
+        return "small_mha"
+    return "einsum"
+
+
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
         causal: bool = False) -> torch.Tensor:
-    """Multi-head attention over (B, S, E) inputs; see the module docstring
-    for the dispatch."""
-    s_q, s_k, e = q.shape[1], k.shape[1], q.shape[2]
-    if s_q * s_k > 128 * 128:
-        raise NotImplementedError(
-            f"mha: s_q·s_k = {s_q * s_k} > 128² needs the flash-attention kernel "
-            "(ROADMAP K3), which is not ported yet")
-    if not q.is_cuda:
+    """Multi-head attention over (B, S, E) inputs, dispatched by
+    ``mha_route``."""
+    b, s_q, e = q.shape
+    s_k = k.shape[1]
+    route = mha_route(num_heads, s_q, s_k, e, q.dtype, q.device)
+    if route == "small_mha":
+        return small_mha(q, k, v, num_heads, causal)
+    if route == "einsum":
         return _mha_einsum(q, k, v, num_heads, causal)
-    if not small_mha_viable(num_heads, s_q, s_k, e):
-        raise ValueError(f"mha: no CUDA kernel takes s_q={s_q} s_k={s_k} e={e} "
-                         f"heads={num_heads}")
-    return small_mha(q, k, v, num_heads, causal)
+    hd = e // num_heads
+
+    def split(x, s):
+        return x.reshape(b, s, num_heads, hd).transpose(1, 2)
+
+    out = flash_attention(split(q, s_q), split(k, s_k), split(v, s_k), causal=causal)
+    return out.transpose(1, 2).reshape(b, s_q, e)

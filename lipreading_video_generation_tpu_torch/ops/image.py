@@ -1,8 +1,10 @@
-"""Batched image ops of the mouth-ROI path, in plain torch.
+"""Batched image ops of the mouth-ROI and diffusion paths, in plain torch.
 
 Port of the ops ``lipreading_video_generation_tpu/pipelines/preprocess.py``
 calls from ``ops/image.py``: ``expand_box_to_min_size``, ``rgb_to_gray``,
-``crop_and_resize``, ``resize`` and the ``clahe`` dispatch. Layouts are the
+``crop_and_resize``, ``resize`` and the ``clahe`` dispatch; and of the
+diffusion path's ``normalize_uint8``, ``denormalize_to_uint8`` and the
+U-Net's nearest 2× upsample (``models/unet.py:142``). Layouts are the
 JAX package's: (..., H, W, C) images and y1y2x1x2 boxes.
 
 Resampling reproduces ``jax.image.scale_and_translate`` (which both
@@ -29,6 +31,9 @@ __all__ = [
     "crop_and_resize",
     "expand_box_to_min_size",
     "clahe",
+    "normalize_uint8",
+    "denormalize_to_uint8",
+    "upsample_nearest2x",
 ]
 
 _F32_EPS = float(torch.finfo(torch.float32).eps)
@@ -100,6 +105,25 @@ def resize(img: torch.Tensor, size: Tuple[int, int], method: str = "bilinear") -
     if not img.dtype.is_floating_point:
         out = torch.clamp(torch.round(out), 0, 255)
     return out.to(img.dtype)
+
+
+def normalize_uint8(img: torch.Tensor, symmetric: bool = False) -> torch.Tensor:
+    """uint8 [0,255] → float32 [0,1], or [-1,1] with ``symmetric``."""
+    x = img.to(torch.float32) / 255.0
+    return x * 2.0 - 1.0 if symmetric else x
+
+
+def denormalize_to_uint8(x: torch.Tensor, symmetric: bool = False) -> torch.Tensor:
+    """[0,1] (or [-1,1] with ``symmetric``) float → uint8, rounding half to even."""
+    if symmetric:
+        x = (x + 1.0) / 2.0
+    return torch.clamp(torch.round(x * 255.0), 0, 255).to(torch.uint8)
+
+
+def upsample_nearest2x(x: torch.Tensor) -> torch.Tensor:
+    """(B, C, H, W) → (B, C, 2H, 2W) nearest, as ``jax.image.resize(...,
+    "nearest")`` at exactly 2× (half-pixel centres pick source floor(i/2))."""
+    return x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
 
 
 def rgb_to_gray(img: torch.Tensor) -> torch.Tensor:

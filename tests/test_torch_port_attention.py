@@ -98,15 +98,40 @@ def test_small_mha_viable_agrees_with_jax(h, s_q, s_k, e):
 
 
 def test_mha_dispatch_on_cpu():
-    """CPU tensors take the plain path and launch no kernel; past 128² the
-    flash kernel K3 is needed and not ported, on any device."""
+    """CPU tensors take the plain paths and launch no kernel: ``_mha_einsum``
+    up to 128² scores, ``flash_reference`` past it."""
     arrs = _to_torch(_bse(5, 2, 81, 256), torch.float32)
-    before = tatt.small_mha.launch_count
+    before = tatt.small_mha.launch_count, tatt.flash_attention.launch_count
     np.testing.assert_array_equal(tatt.mha(*arrs, 8).numpy(),
                                   tatt._mha_einsum(*arrs, 8, False).numpy())
-    assert tatt.small_mha.launch_count == before
     big = _to_torch(_bse(6, 1, 200, 64), torch.float32)
-    with pytest.raises(NotImplementedError, match="K3"):
-        tatt.mha(*big, 4)
+    heads = [t.reshape(1, 200, 4, 16).transpose(1, 2) for t in big]
+    want = tatt.flash_reference(*heads)[0].transpose(1, 2).reshape(1, 200, 64)
+    np.testing.assert_array_equal(tatt.mha(*big, 4).numpy(), want.numpy())
+    assert (tatt.small_mha.launch_count, tatt.flash_attention.launch_count) == before
     with pytest.raises(ValueError, match="CUDA"):
         tatt._small_mha_launch(*arrs, 8, False)
+    with pytest.raises(ValueError, match="CUDA"):
+        tatt._flash_launch(*heads, False, 0.25)
+
+
+@pytest.mark.parametrize("h,s_q,s_k,e,dtype,device,route", [
+    (8, 80, 80, 256, torch.bfloat16, "cuda", "small_mha"),   # ViViT: K2
+    (8, 11, 11, 768, torch.bfloat16, "cuda", "small_mha"),   # audio encoder: K2
+    (8, 80, 80, 256, torch.float32, "cpu", "einsum"),
+    (8, 81, 120, 256, torch.bfloat16, "cuda", "einsum"),     # s_q != s_k: K2 does not take it
+    (8, 128, 128, 256, torch.bfloat16, "cuda", "einsum"),    # 8·128 > 768
+    (4, 33, 33, 64, torch.float16, "cuda", "einsum"),        # K2 takes bf16 and float32
+    (2, 64, 64, 64, torch.float32, "cuda", "small_mha"),
+    (1, 16384, 16384, 64, torch.bfloat16, "cuda", "flash"),  # U-Net, ds 1: K3
+    (1, 1024, 1024, 256, torch.bfloat16, "cpu", "flash"),
+])
+def test_mha_route_matches_jax_dispatch(h, s_q, s_k, e, dtype, device, route):
+    """The route by shape, dtype and device. On CUDA the shapes K2 does not
+    take go to ``_mha_einsum``, the JAX package's default small-shape path
+    (they used to raise)."""
+    assert tatt.mha_route(h, s_q, s_k, e, dtype, torch.device(device)) == route
+    if route != "flash":    # JAX: einsum at these shapes, or the opt-in fused kernel
+        assert s_q * s_k <= 128 * 128
+    if route == "small_mha":
+        assert jatt.small_mha_viable(h, s_q, s_k, e)

@@ -1,0 +1,88 @@
+"""The port's audio frontend, ``normalize_audio`` and native audio encoder
+against the JAX package, on the same numpy waves and perturbed Flax params."""
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from lipreading_video_generation_tpu.core.config import AudioConfig as JAudioCfg
+from lipreading_video_generation_tpu.models.audio_encoder import AudioFeatureEncoder as JEnc
+from lipreading_video_generation_tpu.ops import audio as jaudio
+from lipreading_video_generation_tpu.pipelines.train_diffusion import normalize_audio as jnorm
+from lipreading_video_generation_tpu_torch.core.config import AudioConfig as TAudioCfg
+from lipreading_video_generation_tpu_torch.models import convert
+from lipreading_video_generation_tpu_torch.models.audio_encoder import AudioFeatureEncoder as TEnc
+from lipreading_video_generation_tpu_torch.models.audio_encoder import num_tokens
+from lipreading_video_generation_tpu_torch.ops import audio as taudio
+from lipreading_video_generation_tpu_torch.pipelines.train_diffusion import normalize_audio as tnorm
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_torch_threads():
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)   # six test workers share the host
+    yield
+    torch.set_num_threads(n)
+
+
+def _waves():
+    rng = np.random.default_rng(0)
+    noise = 0.3 * rng.standard_normal((2, 4000))
+    t = np.arange(4000) / 16000.0
+    tones = np.stack([0.5 * np.sin(2 * np.pi * 440.0 * t),
+                      0.2 * np.sin(2 * np.pi * 3000.0 * t) + 0.1 * np.sin(2 * np.pi * 97.0 * t)])
+    return np.concatenate([noise, tones]).astype(np.float32)
+
+
+def test_mel_filterbank_is_the_jax_one():
+    np.testing.assert_array_equal(taudio.mel_filterbank(TAudioCfg()),
+                                  jaudio.mel_filterbank(JAudioCfg()))
+
+
+def test_stft_magnitude_matches_jax():
+    wave = _waves()
+    want = np.asarray(jaudio.stft_magnitude(jnp.asarray(wave)))
+    got = taudio.stft_magnitude(torch.from_numpy(wave)).numpy()
+    assert got.shape == want.shape == (4, 401, 21)
+    # float32 FFTs of 800 points by two libraries: relative 1e-5 of the peak
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5 * want.max())
+
+
+def test_melspectrogram_matches_jax():
+    """Random and sinusoidal waves; the dB floor and the clip to ±4 are
+    where rounding shows, so the bound is absolute, in normalised units
+    (8 units = 100 dB)."""
+    wave = _waves()
+    want = np.asarray(jaudio.melspectrogram(jnp.asarray(wave), JAudioCfg()))
+    got = taudio.melspectrogram(torch.from_numpy(wave), TAudioCfg()).numpy()
+    assert got.shape == want.shape == (4, 80, 21)
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-4)
+
+
+def test_normalize_audio_matches_jax():
+    wave = _waves() * np.array([[1.0], [10.0], [0.01], [1.0]], np.float32)
+    want = np.asarray(jnorm(jnp.asarray(wave)))
+    got = tnorm(torch.from_numpy(wave)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("samples", [800, 4000])
+def test_audio_encoder_matches_flax(samples):
+    """4 blocks, 8 heads, embed 64; at 4000 samples 11 tokens (the K2 shape
+    of the diffusion path at a narrower width)."""
+    wave = np.ascontiguousarray(_waves()[:, :samples])
+    enc = JEnc(embed_dim=64)
+    params = enc.init(jax.random.key(0), jnp.asarray(wave))["params"]
+    rng = np.random.default_rng(1)
+    params = jax.tree_util.tree_map(
+        lambda a: np.asarray(a, np.float32)
+        + 0.05 * rng.standard_normal(np.shape(a)).astype(np.float32), params)
+    want = np.asarray(enc.apply({"params": params}, jnp.asarray(wave)))
+    port = TEnc(samples, embed_dim=64).eval()
+    port.load_state_dict(convert.audio_encoder_state_dict_from_flax(params))
+    with torch.inference_mode():
+        got = port(torch.from_numpy(wave)).numpy()
+    assert got.shape == want.shape == (4, num_tokens(samples), 64)
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)

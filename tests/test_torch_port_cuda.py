@@ -88,7 +88,69 @@ def test_small_mha_kernel_gradients(cuda):
 
 def test_mha_raises_where_no_kernel_takes_the_shape(cuda):
     q = _uniform((2, 81, 120), -1, 1, 8, cuda)
-    with pytest.raises(ValueError, match="no CUDA kernel"):
+    with pytest.raises(ValueError, match="not a multiple"):
         att.mha(q, q, q, 7)                  # e % heads != 0
     with pytest.raises(ValueError, match="bf16 or float32"):
         att.small_mha(q.half(), q.half(), q.half(), 4)
+    big = _uniform((1, 1, 300, 320), -1, 1, 9, cuda)
+    with pytest.raises(ValueError, match="256"):
+        att.flash_attention(big, big, big)   # head dim above K3's 256
+    with pytest.raises(ValueError, match="bf16 or float32"):
+        att.flash_attention(big[..., :64].half(), big[..., :64].half(), big[..., :64].half())
+
+
+@pytest.mark.parametrize("b,s_q,s_k,e,h", [(2, 81, 120, 256, 8), (3, 128, 128, 256, 8),
+                                           (1, 100, 100, 128, 8)])
+def test_mha_small_shapes_k2_does_not_take_use_einsum(cuda, b, s_q, s_k, e, h):
+    """s_q != s_k, or H·pad(S) > 768: ``_mha_einsum`` on the card, as the
+    JAX package computes them (these raised before)."""
+    q = _uniform((b, s_q, e), -2, 2, 10, cuda, torch.bfloat16)
+    k, v = (_uniform((b, s_k, e), -2, 2, 11 + i, cuda, torch.bfloat16) for i in range(2))
+    assert att.mha_route(h, s_q, s_k, e, q.dtype, q.device) == "einsum"
+    before = att.small_mha.launch_count, att.flash_attention.launch_count
+    got = att.mha(q, k, v, h)
+    assert (att.small_mha.launch_count, att.flash_attention.launch_count) == before
+    want = att._mha_einsum(q.cpu(), k.cpu(), v.cpu(), h, False)
+    torch.testing.assert_close(got.float().cpu(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+# K3 at the U-Net's shapes (batch 2), at scripts/profile_flash_dpad.py's, and
+# small causal, ragged and cross cases
+_FLASH = [
+    ((2, 1, 16384, 64), 16384, False, torch.bfloat16),
+    ((2, 1, 4096, 128), 4096, False, torch.bfloat16),
+    ((2, 1, 1024, 256), 1024, False, torch.bfloat16),
+    ((1, 1, 16384, 64), 16384, False, torch.bfloat16),
+    ((1, 1, 512, 64), 512, False, torch.float32),
+    ((2, 3, 192, 32), 192, True, torch.float32),
+    ((2, 3, 160, 40), 320, True, torch.float32),
+    ((2, 3, 200, 16), 200, False, torch.float32),
+    ((1, 2, 160, 128), 320, False, torch.float32),
+    ((1, 2, 200, 64), 150, True, torch.float32),     # 50 rows see no key
+]
+
+
+@pytest.mark.parametrize("q_shape,s_k,causal,dtype", _FLASH)
+def test_flash_kernel_matches_plain(cuda, q_shape, s_k, causal, dtype):
+    """O within one output ulp in bf16 (2^-7 at |O| ≤ 1: 1e-2), 1e-4 in
+    float32; lse within 1e-4."""
+    b, h, s_q, d = q_shape
+    q = _uniform(q_shape, -2, 2, 20, cuda, dtype)
+    k, v = (_uniform((b, h, s_k, d), -2, 2, 21 + i, cuda, dtype) for i in range(2))
+    before = att.flash_attention.launch_count
+    got_o, got_lse = att.flash_attention(q, k, v, causal, return_lse=True)
+    torch.cuda.synchronize()
+    assert att.flash_attention.launch_count == before + 1
+    want_o, want_lse = att.flash_reference(q, k, v, causal)
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(got_o.float(), want_o.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(got_lse, want_lse, rtol=1e-4, atol=1e-4)
+
+
+def test_flash_kernel_takes_qkv_slices(cuda):
+    """The U-Net passes (B, H, S, D) views of column slices of one qkv."""
+    qkv = _uniform((2, 4096, 3 * 128), -2, 2, 30, cuda, torch.bfloat16)
+    q, k, v = (t.reshape(2, 4096, 1, 128).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
+    got = att.mha(*qkv.chunk(3, dim=-1), 1)
+    want = att.flash_reference(q, k, v)[0].transpose(1, 2).reshape(2, 4096, 128)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)

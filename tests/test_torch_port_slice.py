@@ -113,7 +113,7 @@ for name in names:
     importlib.import_module(name)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not loaded, loaded
-print(len(names))
+print(" ".join(names))
 """
 
 
@@ -124,4 +124,10 @@ def test_port_imports_neither_jax_nor_flax():
     proc = subprocess.run([sys.executable, "-c", _ISOLATION], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 10
+    names = set(proc.stdout.split())
+    assert len(names) >= 20, sorted(names)
+    pkg = "lipreading_video_generation_tpu_torch."
+    assert {pkg + m for m in ("ops.audio", "models.unet", "models.unet_audio",
+                              "models.audio_encoder", "models.schedulers",
+                              "pipelines.sample_diffusion",
+                              "pipelines.train_diffusion")} <= names
