@@ -1,8 +1,9 @@
 """The config dataclasses the ported slices need.
 
 Copies of ``lipreading_video_generation_tpu/core/config.py``'s
-``AudioConfig``, ``ViViTConfig``, ``PreprocessConfig`` and
-``DiffusionConfig`` with the same field names and defaults: the JAX package's ``core/__init__`` imports jax and orbax, so the
+``AudioConfig``, ``ViViTConfig``, ``PreprocessConfig``, ``DiffusionConfig``,
+``ClassifierConfig`` and ``SuperResConfig`` with the same field names and
+defaults: the JAX package's ``core/__init__`` imports jax and orbax, so the
 port cannot import the originals. Fields this port cannot honour yet raise
 when set.
 """
@@ -132,8 +133,8 @@ class DiffusionConfig:
     learning_rate: float = 1e-4
     num_epochs: int = 10
     dtype: str = "bfloat16"
-    # ResBlock rematerialisation is a training option (ROADMAP: diffusion
-    # training); sequence-parallel attention needs several GPUs.
+    # ResBlock rematerialisation (torch.utils.checkpoint); sequence-parallel
+    # attention needs several GPUs.
     remat: bool = False
     sequence_parallel: bool = False
     sequence_axis: str = "model"
@@ -149,6 +150,51 @@ class DiffusionConfig:
             raise NotImplementedError(
                 "DiffusionConfig: sequence_parallel is not ported yet "
                 "(ROADMAP: multi-GPU parallelism)")
-        if self.remat:
-            raise NotImplementedError(
-                "DiffusionConfig: remat is a training option (ROADMAP: diffusion training)")
+
+
+@dataclass(frozen=True)
+class ClassifierConfig:
+    """Noisy-image classifier for classifier-guided sampling (an
+    ``EncoderUNetModel``), trained on q-sampled x_t at uniform t; the
+    noise schedule comes from the ``DiffusionConfig``."""
+
+    num_classes: int = 4
+    base_channels: int = 32
+    channel_mult: Tuple[int, ...] = (1, 2, 4)
+    num_res_blocks: int = 1
+    attention_resolutions: Tuple[int, ...] = (4,)
+    num_heads: int = 2
+    time_embed_dim: int = 128
+    dropout: float = 0.0
+    # training
+    batch_size: int = 32
+    learning_rate: float = 3e-4
+    dtype: str = "bfloat16"
+
+
+@dataclass(frozen=True)
+class SuperResConfig:
+    """Diffusion super-resolution stage (a ``SuperResModel``): a
+    U-Net denoises a high-res frame conditioned on its bilinearly upsampled
+    low-res version; serving is the two-stage cascade (base model at
+    ``low_size``, this stage lifts to ``im_size``)."""
+
+    im_size: int = 128           # high-res output
+    low_size: int = 64           # base-stage / conditioning resolution
+    im_channels: int = 3
+    num_timesteps: int = 500
+    beta_start: float = 5e-5
+    beta_end: float = 0.015
+    scheduler: str = "linear"
+    base_channels: int = 48
+    channel_mult: Tuple[int, ...] = (1, 2, 4)
+    num_res_blocks: int = 2
+    attention_resolutions: Tuple[int, ...] = (4,)
+    num_heads: int = 1
+    time_embed_dim: int = 192
+    dropout: float = 0.0
+    # training
+    batch_size: int = 8
+    learning_rate: float = 1e-4
+    dtype: str = "bfloat16"
+    sr_inference_steps: int = 50  # few-step DDIM default for the SR stage

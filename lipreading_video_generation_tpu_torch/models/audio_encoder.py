@@ -1,4 +1,4 @@
-"""Native audio feature encoder of the diffusion model (inference).
+"""Native audio feature encoder of the diffusion model.
 
 Port of ``lipreading_video_generation_tpu/models/audio_encoder.py``'s
 ``AudioFeatureEncoder``: raw waveform (B, samples) → log-mel (B, 80, T) →
@@ -19,7 +19,7 @@ import torch.nn.functional as F
 
 from ..core.config import AudioConfig
 from ..ops import audio as audio_ops
-from .layers import LayerNorm, TransformerBlock
+from .layers import Conv1d, LayerNorm, TransformerBlock
 
 
 def num_tokens(num_samples: int, audio_cfg: AudioConfig = AudioConfig()) -> int:
@@ -38,12 +38,12 @@ class AudioFeatureEncoder(nn.Module):
         super().__init__()
         self.audio_cfg = audio_cfg
         self.dtype = dtype
-        self.conv1 = nn.Conv1d(audio_cfg.num_mels, embed_dim // 2, 5, stride=2, padding=2,
-                               dtype=dtype)
-        self.conv2 = nn.Conv1d(embed_dim // 2, embed_dim, 3, stride=1, padding=1, dtype=dtype)
+        self.conv1 = Conv1d(audio_cfg.num_mels, embed_dim // 2, 5, stride=2, padding=2,
+                            dtype=dtype)
+        self.conv2 = Conv1d(embed_dim // 2, embed_dim, 3, stride=1, padding=1, dtype=dtype)
         self.norm_in = LayerNorm(embed_dim)
-        self.pos_embedding = nn.Parameter(
-            torch.zeros(1, num_tokens(num_samples, audio_cfg), embed_dim))
+        self.pos_embedding = nn.Parameter(   # Flax: normal(0.02), float32
+            0.02 * torch.randn(1, num_tokens(num_samples, audio_cfg), embed_dim))
         self.blocks = nn.ModuleList(
             TransformerBlock(embed_dim, num_heads, 4 * embed_dim, dtype)
             for _ in range(num_layers))

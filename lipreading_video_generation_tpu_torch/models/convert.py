@@ -2,7 +2,12 @@
 
 ``vivit_state_dict_from_flax`` for the ViViT; ``unet_audio_state_dict_from_flax``
 (with ``unet_state_dict_from_flax`` and ``audio_encoder_state_dict_from_flax``)
-for the diffusion model.
+for the diffusion model; ``superres_state_dict_from_flax`` and
+``encoder_unet_state_dict_from_flax`` for the super-resolution U-Net and the
+guidance classifier. The params stay float32 in the port (its layers cast
+to the compute dtype inside ``forward``), so a round trip is exact. A Flax
+gradient tree has the params' structure and goes through the same
+functions.
 
 The Flax tree (``lipreading_video_generation_tpu/models/vivit.py``)::
 
@@ -25,7 +30,7 @@ from typing import Dict, Iterable, Mapping
 import numpy as np
 import torch
 
-from .unet import plan
+from .unet import encoder_plan, plan
 
 
 def _tensor(a) -> torch.Tensor:
@@ -74,8 +79,8 @@ def block_state_dict_from_flax(params: Mapping, prefix: str = "") -> Dict[str, t
 
 def vivit_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
     """Flax ViViT ``params`` (nested dict of arrays) → float32 ``state_dict``
-    for ``models.vivit.ViViT`` (``load_state_dict`` casts to the module
-    dtypes). Raises ``KeyError`` on a missing or unexpected entry."""
+    for ``models.vivit.ViViT``. Raises ``KeyError`` on a missing or
+    unexpected entry."""
     sd: Dict[str, torch.Tensor] = {}
     used = set()
 
@@ -142,27 +147,23 @@ def attention_block_state_dict_from_flax(params: Mapping,
     return sd
 
 
-def unet_state_dict_from_flax(params: Mapping, base_channels: int, channel_mult,
-                              num_res_blocks: int, attention_resolutions,
-                              prefix: str = "") -> Dict[str, torch.Tensor]:
-    """Flax ``UNetModel`` params → ``models.unet.UNetModel`` entries. Walks
-    ``UNetModel.__call__``'s order (``models.unet.plan``): Flax names each
-    submodule by its class and creation index (``ResBlock_3``,
-    ``AttentionBlock_0`` …), the port keeps them in one ``layers`` list."""
-    steps = plan(base_channels, channel_mult, num_res_blocks, attention_resolutions)
-    kinds = {"res": "ResBlock", "attn": "AttentionBlock", "down": "Downsample",
-             "up": "Upsample"}
+def _flax_names(steps, remat: bool = False):
+    """(Flax submodule name, step) for each module-creating step, in
+    creation order: Flax names each by its class and index (``ResBlock_3``,
+    ``AttentionBlock_0`` …; ``CheckpointResBlock_3`` under ``nn.remat``),
+    the port keeps them in one ``layers`` list."""
+    kinds = {"res": "CheckpointResBlock" if remat else "ResBlock", "attn": "AttentionBlock",
+             "down": "Downsample", "up": "Upsample"}
     names, count = [], {k: 0 for k in kinds}
     for step in steps:
         if step[0] in kinds:
             names.append((f"{kinds[step[0]]}_{count[step[0]]}", step))
             count[step[0]] += 1
-    _exact(params, ["Dense_0", "Dense_1", "Conv_0", "GroupNorm_0", "Conv_1"]
-           + [n for n, _ in names], "unet")
+    return names
+
+
+def _layers_state_dict(params: Mapping, names, prefix: str) -> Dict[str, torch.Tensor]:
     sd: Dict[str, torch.Tensor] = {}
-    _dense(sd, f"{prefix}time1", params["Dense_0"])
-    _dense(sd, f"{prefix}time2", params["Dense_1"])
-    _conv(sd, f"{prefix}stem", params["Conv_0"])
     for i, (name, step) in enumerate(names):
         at = f"{prefix}layers.{i}."
         if step[0] == "res":
@@ -171,15 +172,59 @@ def unet_state_dict_from_flax(params: Mapping, base_channels: int, channel_mult,
             sd.update(attention_block_state_dict_from_flax(params[name], at))
         else:
             _conv(sd, f"{at}conv", _exact(params[name], ["Conv_0"], f"unet/{name}")["Conv_0"])
+    return sd
+
+
+def unet_state_dict_from_flax(params: Mapping, base_channels: int, channel_mult,
+                              num_res_blocks: int, attention_resolutions,
+                              prefix: str = "") -> Dict[str, torch.Tensor]:
+    """Flax ``UNetModel`` params → ``models.unet.UNetModel`` entries. Walks
+    ``UNetModel.__call__``'s order (``models.unet.plan``); takes the params
+    of a ``remat=True`` model (rematerialised ResBlocks) as well."""
+    names = _flax_names(plan(base_channels, channel_mult, num_res_blocks,
+                             attention_resolutions),
+                        remat="CheckpointResBlock_0" in params)
+    _exact(params, ["Dense_0", "Dense_1", "Conv_0", "GroupNorm_0", "Conv_1"]
+           + [n for n, _ in names], "unet")
+    sd: Dict[str, torch.Tensor] = {}
+    _dense(sd, f"{prefix}time1", params["Dense_0"])
+    _dense(sd, f"{prefix}time2", params["Dense_1"])
+    _conv(sd, f"{prefix}stem", params["Conv_0"])
+    sd.update(_layers_state_dict(params, names, prefix))
     _norm(sd, f"{prefix}out_norm", params["GroupNorm_0"])
     _conv(sd, f"{prefix}out_conv", params["Conv_1"])
     return sd
 
 
+def encoder_unet_state_dict_from_flax(params: Mapping, ccfg) -> Dict[str, torch.Tensor]:
+    """Flax ``EncoderUNetModel`` params of a ``ClassifierConfig`` → float32
+    ``state_dict`` for ``models.unet.EncoderUNetModel`` (the final Dense is
+    ``Dense_2``)."""
+    names = _flax_names(encoder_plan(ccfg.base_channels, ccfg.channel_mult,
+                                     ccfg.num_res_blocks, ccfg.attention_resolutions))
+    _exact(params, ["Dense_0", "Dense_1", "Conv_0", "GroupNorm_0", "Dense_2"]
+           + [n for n, _ in names], "EncoderUNetModel")
+    sd: Dict[str, torch.Tensor] = {}
+    _dense(sd, "time1", params["Dense_0"])
+    _dense(sd, "time2", params["Dense_1"])
+    _conv(sd, "stem", params["Conv_0"])
+    sd.update(_layers_state_dict(params, names, ""))
+    _norm(sd, "out_norm", params["GroupNorm_0"])
+    _dense(sd, "head", params["Dense_2"])
+    return sd
+
+
+def superres_state_dict_from_flax(params: Mapping, cfg) -> Dict[str, torch.Tensor]:
+    """Flax ``SuperResModel`` params of a ``SuperResConfig`` (one ``unet``
+    subtree) → float32 ``state_dict`` for ``models.unet.SuperResModel``."""
+    _exact(params, ["unet"], "SuperResModel")
+    return unet_state_dict_from_flax(params["unet"], cfg.base_channels, cfg.channel_mult,
+                                     cfg.num_res_blocks, cfg.attention_resolutions, "unet.")
+
+
 def unet_audio_state_dict_from_flax(params: Mapping, cfg) -> Dict[str, torch.Tensor]:
     """Flax ``UNetAudio(cfg)`` params (native audio encoder) → float32
-    ``state_dict`` for ``models.unet_audio.UNetAudio(cfg)``
-    (``load_state_dict`` casts to the module dtypes)."""
+    ``state_dict`` for ``models.unet_audio.UNetAudio(cfg)``."""
     _exact(params, ["audio_encoder", "audio_proj", "im_cond_conv", "unet"], "UNetAudio")
     sd = audio_encoder_state_dict_from_flax(params["audio_encoder"], "audio_encoder.")
     _dense(sd, "audio_proj", params["audio_proj"])

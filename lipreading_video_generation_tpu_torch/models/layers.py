@@ -1,14 +1,18 @@
-"""Transformer building blocks of the port (inference), with Flax numerics.
+"""Building blocks of the port, with Flax numerics.
 
 Port of ``lipreading_video_generation_tpu/models/layers.py``'s ``MLP`` and
-``TransformerBlock``. What keeps them equal to the Flax modules:
+``TransformerBlock``, plus the parameter-holding layers every model of the
+port is built from. What keeps them equal to the Flax modules:
 
+- ``Linear``, ``Conv1d``, ``Conv2d`` keep their parameters in float32 and
+  cast input, weight and bias to their compute dtype (bf16 by default)
+  inside ``forward``, as Flax's ``Dense``/``Conv(dtype=...)`` with float32
+  ``param_dtype`` do: an optimizer step updates the float32 master copy.
+  Their own init is Flax's: lecun-normal kernels, zero biases.
 - ``LayerNorm``: eps 1e-6, statistics in float32 with the fast variance
   E[x²]−E[x]² (clipped at 0), float32 scale and bias, output cast to the
   compute dtype (flax/linen/normalization.py).
 - ``nn.gelu`` is the tanh approximation.
-- Dense layers compute in the module dtype (bf16 by default): input and
-  weights are both in that dtype.
 
 Ring attention (``ring_axis``) needs a device mesh and is not ported; the
 TP activation constraints of the JAX modules are no-ops off-mesh and are
@@ -16,11 +20,60 @@ dropped.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
 import torch.nn.functional as F
 
 from ..ops.attention import mha
+
+
+def _flax_init(layer: nn.Module) -> None:
+    """Flax's default init: lecun-normal kernel (a normal truncated at two
+    standard deviations, rescaled to variance 1/fan_in), zero bias."""
+    fan_in = layer.weight[0].numel()
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    nn.init.trunc_normal_(layer.weight, std=std, a=-2 * std, b=2 * std)
+    nn.init.zeros_(layer.bias)
+
+
+class Linear(nn.Linear):
+    """Dense layer: float32 params, computed in ``dtype``."""
+
+    def __init__(self, in_features: int, out_features: int, dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features)
+        self.compute_dtype = dtype
+
+    def reset_parameters(self) -> None:
+        _flax_init(self)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class _CastConv:
+    """Mixin for ``nn.ConvNd``: float32 params, computed in ``dtype``."""
+
+    def __init__(self, *args, dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = dtype
+
+    def reset_parameters(self) -> None:
+        _flax_init(self)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return self._conv_forward(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class Conv1d(_CastConv, nn.Conv1d):
+    """1-D conv over (B, C, W)."""
+
+
+class Conv2d(_CastConv, nn.Conv2d):
+    """2-D conv over (B, C, H, W)."""
 
 
 class LayerNorm(nn.Module):
@@ -45,8 +98,8 @@ class MLP(nn.Module):
 
     def __init__(self, features: int, hidden: int, out: int, dtype: torch.dtype):
         super().__init__()
-        self.fc1 = nn.Linear(features, hidden, dtype=dtype)
-        self.fc2 = nn.Linear(hidden, out, dtype=dtype)
+        self.fc1 = Linear(features, hidden, dtype)
+        self.fc2 = Linear(hidden, out, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
@@ -65,8 +118,8 @@ class TransformerBlock(nn.Module):
                 "(ROADMAP: multi-GPU parallelism)")
         self.num_heads = num_heads
         self.norm1 = LayerNorm(features)
-        self.qkv = nn.Linear(features, 3 * features, dtype=dtype)
-        self.proj = nn.Linear(features, features, dtype=dtype)
+        self.qkv = Linear(features, 3 * features, dtype)
+        self.proj = Linear(features, features, dtype)
         self.norm2 = LayerNorm(features)
         self.mlp = MLP(features, mlp_dim, features, dtype)
 

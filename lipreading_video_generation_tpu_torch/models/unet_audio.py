@@ -1,4 +1,4 @@
-"""Audio+image-conditioned diffusion U-Net (inference), in NCHW.
+"""Audio+image-conditioned diffusion U-Net, in NCHW.
 
 Port of ``lipreading_video_generation_tpu/models/unet_audio.py``'s
 ``UNetAudio`` with the native audio encoder: the noisy frame's channels,
@@ -6,9 +6,13 @@ the projected audio features broadcast over H×W (mean over time →
 Linear+ReLU, float32) and the condition frame through a float32 1×1 conv
 are concatenated on the channel axis and denoised by ``UNetModel``.
 Conditioning is split as in JAX: ``encode_condition`` runs once per
-request, ``denoise`` once per sampling step.
+request, ``denoise`` once per sampling step. In ``train()`` mode the U-Net
+applies ``cfg.dropout``, with masks drawn from the ``generator`` passed to
+``denoise``/``forward`` (the audio encoder has no dropout, as in JAX).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -17,6 +21,7 @@ import torch.nn.functional as F
 from ..core.config import DiffusionConfig
 from ..ops.image import resize
 from .audio_encoder import AudioFeatureEncoder
+from .layers import Conv2d, Linear
 from .unet import UNetModel
 
 
@@ -27,15 +32,15 @@ class UNetAudio(nn.Module):
         dtype = getattr(torch, cfg.dtype)
         self.audio_encoder = AudioFeatureEncoder(cfg.audio_samples, cfg.audio_embed_dim,
                                                  dtype=dtype)
-        self.audio_proj = nn.Linear(cfg.audio_embed_dim, cfg.audio_proj_dim, dtype=torch.float32)
-        self.im_cond_conv = nn.Conv2d(cfg.im_channels, cfg.im_cond_channels, 1,
-                                      dtype=torch.float32)
+        self.audio_proj = Linear(cfg.audio_embed_dim, cfg.audio_proj_dim)
+        self.im_cond_conv = Conv2d(cfg.im_channels, cfg.im_cond_channels, 1)
         self.unet = UNetModel(
             in_channels=cfg.im_channels + cfg.audio_proj_dim + cfg.im_cond_channels,
             out_channels=cfg.im_channels, base_channels=cfg.base_channels,
             channel_mult=cfg.channel_mult, num_res_blocks=cfg.num_res_blocks,
             attention_resolutions=cfg.attention_resolutions, num_heads=cfg.num_heads,
-            time_embed_dim=cfg.time_embed_dim, dtype=dtype)
+            time_embed_dim=cfg.time_embed_dim, dtype=dtype, dropout=cfg.dropout,
+            remat=cfg.remat)
 
     def encode_condition(self, audio_wave: torch.Tensor, cond_image: torch.Tensor) -> torch.Tensor:
         """(B, samples) waveform + (B, C, h, w) condition frame →
@@ -49,10 +54,11 @@ class UNetAudio(nn.Module):
             img = resize(img.permute(0, 2, 3, 1), (size, size)).permute(0, 3, 1, 2)
         return torch.cat([a_map, self.im_cond_conv(img)], dim=1)
 
-    def denoise(self, xt: torch.Tensor, cond_map: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    def denoise(self, xt: torch.Tensor, cond_map: torch.Tensor, t: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """One ε-prediction: (B, C, H, W) noisy frame + conditioning map + (B,) t."""
-        return self.unet(torch.cat([xt, cond_map.to(xt.dtype)], dim=1), t)
+        return self.unet(torch.cat([xt, cond_map.to(xt.dtype)], dim=1), t, generator)
 
     def forward(self, xt: torch.Tensor, cond_image: torch.Tensor, audio_wave: torch.Tensor,
-                t: torch.Tensor) -> torch.Tensor:
-        return self.denoise(xt, self.encode_condition(audio_wave, cond_image), t)
+                t: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.denoise(xt, self.encode_condition(audio_wave, cond_image), t, generator)

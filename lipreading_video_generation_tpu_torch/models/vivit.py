@@ -18,7 +18,7 @@ import torch
 from torch import nn
 
 from ..core.config import ViViTConfig
-from .layers import LayerNorm, TransformerBlock
+from .layers import LayerNorm, Linear, TransformerBlock
 
 
 class TubeletEmbed(nn.Module):
@@ -30,7 +30,7 @@ class TubeletEmbed(nn.Module):
         super().__init__()
         self.tubelet = tuple(tubelet)
         tt, th, tw = self.tubelet
-        self.proj = nn.Linear(tt * th * tw * num_channels, hidden_size, dtype=dtype)
+        self.proj = Linear(tt * th * tw * num_channels, hidden_size, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         tt, th, tw = self.tubelet
@@ -52,16 +52,16 @@ class ViViT(nn.Module):
         n_tokens = (cfg.num_frames // tt) * (cfg.image_size // th) * (cfg.image_size // tw)
         e = cfg.hidden_size
         self.tubelet = TubeletEmbed(cfg.num_channels, e, cfg.tubelet_size, self.dtype)
-        self.pos_embedding = nn.Parameter(torch.zeros(1, n_tokens, e, dtype=self.dtype))
+        self.pos_embedding = nn.Parameter(torch.zeros(1, n_tokens, e))   # float32
         self.blocks = nn.ModuleList(
             TransformerBlock(e, cfg.num_heads, cfg.mlp_dim, self.dtype)
             for _ in range(cfg.num_layers))
         self.norm = LayerNorm(e)
-        self.head = nn.Linear(e, cfg.num_classes, dtype=torch.float32)
+        self.head = Linear(e, cfg.num_classes)
 
     def forward(self, clips: torch.Tensor) -> torch.Tensor:
         """clips (B, T, H, W, C) → logits (B, num_classes) float32."""
-        x = self.tubelet(clips.to(self.dtype)) + self.pos_embedding
+        x = self.tubelet(clips.to(self.dtype)) + self.pos_embedding.to(self.dtype)
         for block in self.blocks:
             x = block(x)
         x = self.norm(x).mean(dim=1)

@@ -1,11 +1,12 @@
 """Multi-head attention of the port: the hand-written CUDA kernels K2
-(small MHA, ``csrc/small_mha.cu``) and K3 (flash-attention forward,
-``csrc/flash_fwd.cu``) and their plain torch versions.
+(small MHA, ``csrc/small_mha.cu``), K3 (flash-attention forward,
+``csrc/flash_fwd.cu``) and K4/K5 (its backward, ``csrc/flash_bwd.cu``) and
+their plain torch versions.
 
 Port of ``lipreading_video_generation_tpu/ops/attention.py``'s
-``attention_reference``, ``flash_attention``, ``_mha_einsum``,
-``small_mha_viable`` and ``mha``, and of the fused small-MHA and flash
-forward Pallas kernels. ``mha_route`` decides, by shape, dtype and device,
+``attention_reference``, ``flash_attention`` (with its custom VJP),
+``_mha_einsum``, ``small_mha_viable`` and ``mha``, and of the fused
+small-MHA, flash forward and flash backward Pallas kernels. ``mha_route`` decides, by shape, dtype and device,
 where ``mha`` goes; the split between flash and small shapes is the JAX
 package's:
 
@@ -28,8 +29,9 @@ import torch
 
 from . import _build
 
-__all__ = ["attention_reference", "flash_attention", "flash_reference", "mha", "mha_route",
-           "small_mha", "small_mha_viable"]
+__all__ = ["attention_reference", "flash_attention", "flash_backward_reference",
+           "flash_bwd_dkv", "flash_bwd_dq", "flash_reference", "mha", "mha_route", "small_mha",
+           "small_mha_viable"]
 
 _NEG_INF = float(torch.finfo(torch.float32).min) / 2
 _SMALL_MHA_MAX_HS = 768     # the JAX package's bound on H·pad(S)
@@ -262,16 +264,193 @@ def _flash_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: boo
     return out, lse
 
 
+def flash_backward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                             causal: bool = False, sm_scale: Optional[float] = None,
+                             dq: bool = True, dkv: bool = True):
+    """Plain version of K4 (dK, dV) and K5 (dQ) on (B, H, S, D): the JAX
+    backward kernels' numerics — float32 scores scaled after Q·Kᵀ,
+    P = exp(s − lse) from the forward's ``lse``, dP = dO·Vᵀ,
+    dS = P∘(dP − Δ)·scale with ``delta`` = Σ_d dO·O, dV = Pᵀ·dO, dK = dSᵀ·Q,
+    dQ = dS·K, all in float32 (P too), outputs in q/k/v's dtypes. Masked
+    pairs get dS = 0. A row that sees no key (causal, s_q > s_k) follows
+    autograd through ``attention_reference``: P = 1/s_k over the real keys
+    (``lse`` has absorbed log s_k there, so exp(s − lse) would give 1), and
+    no dS. Long inputs are walked in query chunks, dK/dV summed over them.
+    ``dq``/``dkv`` pick the passes; the other outputs are None."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    s_q, s_k = q.shape[2], k.shape[2]
+    kf, vf = k.float(), v.float()
+    gdk = torch.zeros(kf.shape, device=k.device) if dkv else None
+    gdv = torch.zeros(vf.shape, device=v.device) if dkv else None
+    gdq = []
+    step = max(1, _FLASH_REF_CHUNK // max(1, q.shape[0] * q.shape[1] * s_k))
+    for r0 in range(0, s_q, step):
+        qf = q[:, :, r0:r0 + step].float()
+        dof = do[:, :, r0:r0 + step].float()
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * sm_scale
+        p = torch.exp(s - lse[:, :, r0:r0 + step, None])
+        if causal:
+            rows = torch.arange(r0, r0 + qf.shape[2], device=q.device)[:, None]
+            keys = torch.arange(s_k, device=q.device)[None, :]
+            visible = keys <= rows + (s_k - s_q)
+            p = torch.where(visible, p, 0.0)
+            p = torch.where(rows + (s_k - s_q) < 0, 1.0 / s_k, p)     # rows that see no key
+        dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+        ds = p * (dp - delta[:, :, r0:r0 + step, None]) * sm_scale
+        if causal:
+            ds = torch.where(visible, ds, 0.0)
+        if dkv:
+            gdv += torch.einsum("bhqk,bhqd->bhkd", p, dof)
+            gdk += torch.einsum("bhqk,bhqd->bhkd", ds, qf)
+        if dq:
+            gdq.append(torch.einsum("bhqk,bhkd->bhqd", ds, kf))
+    return (torch.cat(gdq, dim=2).to(q.dtype) if dq else None,
+            gdk.to(k.dtype) if dkv else None, gdv.to(v.dtype) if dkv else None)
+
+
+_BWD_ENTRY_POINTS = {
+    "dkv": {torch.bfloat16: "lvg_flash_bwd_dkv_bf16", torch.float32: "lvg_flash_bwd_dkv_f32"},
+    "dq": {torch.bfloat16: "lvg_flash_bwd_dq_bf16", torch.float32: "lvg_flash_bwd_dq_f32"},
+}
+
+
+def flash_bwd_block_q(d: int) -> int:
+    """Query rows per tile of K4/K5 (``csrc/flash_bwd.cu``'s BQ): 32 at head
+    dim 256, where 64-row tiles would not fit a block's shared memory."""
+    return 32 if flash_head_dim_pad(d) == 256 else 64
+
+
+def flash_bwd_smem_bytes(d: int, kernel: str) -> int:
+    """Dynamic shared memory of one K4 ("dkv") or K5 ("dq") block: Q, dO,
+    K, V tiles row-major as float (rows padded by 4), plus the P and dS
+    tiles (K4) or the dS tile (K5), plus lse and Δ of the query tile (K4)."""
+    dp, bq = flash_head_dim_pad(d), flash_bwd_block_q(d)
+    ld, ldp = dp + _FLASH_PAD, _FLASH_BK + _FLASH_PAD
+    floats = 2 * bq * ld + 2 * _FLASH_BK * ld
+    floats += 2 * bq * ldp + 2 * bq if kernel == "dkv" else bq * ldp
+    return floats * 4
+
+
+def _flash_bwd_launch(kernel: str, q, k, v, do, lse, delta, causal: bool, sm_scale: float):
+    """Launch K4 (``kernel`` "dkv": returns dK, dV) or K5 ("dq": returns dQ)
+    on CUDA (B, H, S, D) q/k/v/dO of one dtype with unit stride along D;
+    ``lse`` and ``delta`` (B, H, S_q) float32. Each gradient comes out as a
+    (B, H, S, D) view of a contiguous (B, S, H, D) tensor. Raises on
+    anything else."""
+    if not all(t.is_cuda for t in (q, k, v, do, lse, delta)):
+        raise ValueError("flash backward kernels take CUDA tensors")
+    if q.device.index != torch.cuda.current_device():
+        raise ValueError(f"flash backward: {q.device} is not the current CUDA device")
+    if not all(t.device == q.device for t in (k, v, do, lse, delta)):
+        raise ValueError("flash backward: tensors on different devices")
+    if q.dtype not in _BWD_ENTRY_POINTS[kernel] or not (q.dtype == k.dtype == v.dtype == do.dtype):
+        raise ValueError(f"flash backward takes bf16 or float32 q/k/v/dO of one dtype, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}, {do.dtype}")
+    b, h, s_q, d = q.shape
+    s_k = k.shape[2]
+    if (k.shape != (b, h, s_k, d) or v.shape != k.shape or do.shape != q.shape
+            or lse.shape != (b, h, s_q) or delta.shape != lse.shape):
+        raise ValueError(f"flash backward: shapes q{tuple(q.shape)} k{tuple(k.shape)} "
+                         f"v{tuple(v.shape)} dO{tuple(do.shape)} lse{tuple(lse.shape)} "
+                         f"delta{tuple(delta.shape)} do not fit")
+    flash_head_dim_pad(d)
+    if b * h > 65535:
+        raise ValueError(f"flash backward: batch·heads {b * h} > 65535")
+    if any(t.stride(-1) != 1 for t in (q, k, v, do)):
+        raise ValueError("flash backward needs unit stride along D")
+    if lse.dtype != torch.float32 or delta.dtype != torch.float32:
+        raise ValueError("flash backward takes float32 lse and delta")
+    if s_k == 0:
+        raise ValueError("flash backward: no keys")
+    lse, delta = lse.contiguous(), delta.contiguous()
+
+    def grad_like(x):
+        return torch.empty(x.shape[0], x.shape[2], x.shape[1], x.shape[3], dtype=x.dtype,
+                           device=x.device).transpose(1, 2)
+
+    outs = (grad_like(k), grad_like(v)) if kernel == "dkv" else (grad_like(q),)
+    if b == 0 or h == 0 or s_q == 0:
+        for o in outs:
+            o.zero_()
+        return outs
+    tensors = (q, k, v, do) + outs
+    strides = (ctypes.c_longlong * (3 * len(tensors)))(
+        *(st for t in tensors for st in t.stride()[:3]))
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    fn = _build.kernel(_BWD_ENTRY_POINTS[kernel][q.dtype],
+                       [vp] * (6 + len(outs)) + [i32] * 5
+                       + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, i32, vp])
+    rc = fn(*(t.data_ptr() for t in (q, k, v, do, lse, delta) + outs),
+            b, h, s_q, s_k, d, strides, sm_scale, int(causal),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, f"flash backward ({kernel})")
+    (flash_bwd_dkv if kernel == "dkv" else flash_bwd_dq).launch_count += 1
+    return outs
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False,
+                  sm_scale: Optional[float] = None):
+    """K4: (dK, dV) of flash attention; ``launch_count`` counts its launches."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    return _flash_bwd_launch("dkv", q, k, v, do, lse, delta, causal, sm_scale)
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = False,
+                 sm_scale: Optional[float] = None):
+    """K5: dQ of flash attention; ``launch_count`` counts its launches."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    return _flash_bwd_launch("dq", q, k, v, do, lse, delta, causal, sm_scale)[0]
+
+
+flash_bwd_dkv.launch_count = 0
+flash_bwd_dq.launch_count = 0
+
+
+class _Flash(torch.autograd.Function):
+    """Flash attention with its FlashAttention-2 backward, as the JAX
+    package's ``_flash`` custom VJP: the forward (K3, or ``flash_reference``
+    on the CPU) saves q, k, v, O and lse; the backward forms Δ = Σ_d dO·O
+    with torch ops (as JAX does with XLA), then runs K4 and K5 on CUDA
+    tensors, ``flash_backward_reference`` on CPU ones."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale):
+        if q.is_cuda:
+            o, lse = _flash_launch(q, k, v, causal, sm_scale)
+        else:
+            o, lse = flash_reference(q, k, v, causal, sm_scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        if do.stride(-1) != 1:
+            do = do.contiguous()
+        delta = (do.float() * o.float()).sum(-1)
+        args = (q, k, v, do.to(q.dtype), lse, delta, ctx.causal, ctx.sm_scale)
+        if q.is_cuda:
+            dk, dv = flash_bwd_dkv(*args)
+            dq = flash_bwd_dq(*args)
+        else:
+            dq, dk, dv = flash_backward_reference(*args)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False,
                     sm_scale: Optional[float] = None, return_lse: bool = False):
     """Flash attention over (B, H, S, D), as the JAX package's
     ``flash_attention``: up to 128² scores it is ``attention_reference``;
     above, K3 for CUDA tensors (``launch_count`` counts its launches) and
-    ``flash_reference`` for CPU ones. ``return_lse`` also returns the
-    per-row logsumexp (B, H, S_q) float32 (above 128² only).
-
-    Forward only: the flash backward (K4/K5) is not ported, so a CUDA call
-    that autograd would record raises."""
+    ``flash_reference`` for CPU ones, differentiable through ``_Flash``
+    (K4/K5 on CUDA). ``return_lse`` also returns the per-row logsumexp
+    (B, H, S_q) float32 (above 128² only; not differentiable)."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     s_q, s_k = q.shape[2], k.shape[2]
@@ -280,14 +459,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: b
             raise ValueError("flash_attention: up to 128² scores it is attention_reference, "
                              "which has no lse (as in the JAX package)")
         return attention_reference(q, k, v, causal, sm_scale)
-    if not q.is_cuda:
-        o, lse = flash_reference(q, k, v, causal, sm_scale)
-    else:
-        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-            raise NotImplementedError(
-                "flash_attention on CUDA is forward only: the flash backward kernels "
-                "(ROADMAP K4/K5) are not ported yet")
-        o, lse = _flash_launch(q, k, v, causal, sm_scale)
+    o, lse = _Flash.apply(q, k, v, causal, sm_scale)
     return (o, lse) if return_lse else o
 
 

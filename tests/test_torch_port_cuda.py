@@ -154,3 +154,87 @@ def test_flash_kernel_takes_qkv_slices(cuda):
     got = att.mha(*qkv.chunk(3, dim=-1), 1)
     want = att.flash_reference(q, k, v)[0].transpose(1, 2).reshape(2, 4096, 128)
     torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)
+
+
+# K4/K5 at the U-Net's three shapes (batch 2), the super-resolution U-Net's
+# (d=192, padded to 256), the classifier's (2 heads, d=64), and float32
+# cases: non-causal, causal, causal s_q < s_k, ragged, cross, the head dims
+# 16/64/128/256, and fully masked rows (causal, s_q > s_k).
+_FLASH_BWD = [
+    ((2, 1, 16384, 64), 16384, False, torch.bfloat16),
+    ((2, 1, 4096, 128), 4096, False, torch.bfloat16),
+    ((2, 1, 1024, 256), 1024, False, torch.bfloat16),
+    ((2, 1, 1024, 192), 1024, False, torch.bfloat16),
+    ((2, 2, 1024, 64), 1024, False, torch.bfloat16),
+    ((2, 2, 256, 32), 256, False, torch.float32),
+    ((2, 2, 192, 32), 192, True, torch.float32),
+    ((2, 2, 160, 32), 320, True, torch.float32),
+    ((2, 2, 200, 32), 200, False, torch.float32),
+    ((2, 2, 160, 32), 320, False, torch.float32),
+    ((1, 2, 256, 16), 256, False, torch.float32),
+    ((1, 2, 256, 128), 256, True, torch.float32),
+    ((1, 2, 256, 256), 256, True, torch.float32),
+    ((1, 2, 200, 64), 150, True, torch.float32),     # 50 rows see no key
+]
+
+
+def _rel_err(got, want):
+    """max |got − want| over max |want|: float32 sums in another order
+    (≤ 1e-4), or one rounding of each gradient to bf16 (2^-8 of the value,
+    so ≤ 1e-2 of the largest)."""
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+@pytest.mark.parametrize("q_shape,s_k,causal,dtype", _FLASH_BWD)
+def test_flash_backward_kernels_match_plain(cuda, q_shape, s_k, causal, dtype):
+    b, h, s_q, d = q_shape
+    q = _uniform(q_shape, -2, 2, 40, cuda, dtype)
+    k, v = (_uniform((b, h, s_k, d), -2, 2, 41 + i, cuda, dtype) for i in range(2))
+    do = _uniform(q_shape, -1, 1, 43, cuda, dtype)
+    o, lse = att.flash_attention(q, k, v, causal, return_lse=True)
+    delta = (do.float() * o.float()).sum(-1)
+    before = att.flash_bwd_dkv.launch_count, att.flash_bwd_dq.launch_count
+    dk, dv = att.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+    dq = att.flash_bwd_dq(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    assert (att.flash_bwd_dkv.launch_count, att.flash_bwd_dq.launch_count) == (
+        before[0] + 1, before[1] + 1)
+    want = att.flash_backward_reference(q, k, v, do, lse, delta, causal)
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    for got, ref, name in zip((dq, dk, dv), want, ("dq", "dk", "dv")):
+        assert got.shape == ref.shape and got.dtype == ref.dtype
+        assert _rel_err(got, ref) <= tol, (name, _rel_err(got, ref))
+
+
+def test_flash_autograd_runs_k4_k5_on_qkv_slices(cuda):
+    """The U-Net's call: ``mha`` on column slices of one qkv under autograd
+    launches K3, K4 and K5 once each and matches the plain backward."""
+    qkv = _uniform((2, 4096, 3 * 128), -2, 2, 50, cuda, torch.bfloat16).requires_grad_()
+    cot = _uniform((2, 4096, 128), -1, 1, 51, cuda, torch.bfloat16)
+    before = (att.flash_attention.launch_count, att.flash_bwd_dkv.launch_count,
+              att.flash_bwd_dq.launch_count)
+    (att.mha(*qkv.chunk(3, dim=-1), 1).float() * cot.float()).sum().backward()
+    torch.cuda.synchronize()
+    after = (att.flash_attention.launch_count, att.flash_bwd_dkv.launch_count,
+             att.flash_bwd_dq.launch_count)
+    assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 1)
+    q, k, v = (t.detach().reshape(2, 4096, 1, 128).transpose(1, 2)
+               for t in qkv.chunk(3, dim=-1))
+    o, lse = att.flash_reference(q, k, v)
+    do = cot.reshape(2, 4096, 1, 128).transpose(1, 2)
+    want = att.flash_backward_reference(q, k, v, do, lse, (do.float() * o.float()).sum(-1))
+    want = torch.cat([g.transpose(1, 2).reshape(2, 4096, 128) for g in want], dim=-1)
+    assert _rel_err(qkv.grad, want) <= 1e-2
+
+
+def test_flash_backward_fully_masked_rows_follow_attention_reference(cuda):
+    """Causal, q 200, kv 150: the first 50 rows see no key. The whole
+    gradient agrees with autograd through ``attention_reference``."""
+    q = _uniform((1, 2, 200, 32), -2, 2, 60, cuda).requires_grad_()
+    k, v = (_uniform((1, 2, 150, 32), -2, 2, 61 + i, cuda).requires_grad_() for i in range(2))
+    cot = _uniform((1, 2, 200, 32), -1, 1, 63, cuda)
+    (att.flash_attention(q, k, v, causal=True) * cot).sum().backward()
+    ref = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    (att.attention_reference(*ref, causal=True) * cot).sum().backward()
+    for t, r in zip((q, k, v), ref):
+        torch.testing.assert_close(t.grad, r.grad, rtol=1e-4, atol=1e-4)

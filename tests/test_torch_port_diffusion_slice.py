@@ -19,6 +19,7 @@ from lipreading_video_generation_tpu.core.config import DiffusionConfig as JCfg
 from lipreading_video_generation_tpu.ops import image as jim
 from lipreading_video_generation_tpu.pipelines import sample_diffusion as jsd
 from lipreading_video_generation_tpu.pipelines import train_diffusion as jtd
+from lipreading_video_generation_tpu_torch.core.config import ClassifierConfig, SuperResConfig
 from lipreading_video_generation_tpu_torch.core.config import DiffusionConfig as TCfg
 from lipreading_video_generation_tpu_torch.models.convert import unet_audio_state_dict_from_flax
 from lipreading_video_generation_tpu_torch.models.unet_audio import UNetAudio
@@ -135,12 +136,13 @@ def test_ddpm_chain_matches_jax(setup):
 def test_sample_options_not_ported_raise(setup):
     _, _, model, cond, audio = setup
     cfg = TCfg(**TINY)
-    with pytest.raises(NotImplementedError, match="classifier"):
-        tsd.sample(model, cond, audio, cfg, num_inference_steps=2, class_label=1)
+    with pytest.raises(ValueError, match="classifier_params"):
+        tsd.sample(model, cond, audio, cfg, num_inference_steps=2, class_label=1,
+                   classifier_cfg=ClassifierConfig())
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         tsd.sample(model, cond, audio, cfg, num_inference_steps=2, mesh_spec=object())
-    with pytest.raises(NotImplementedError, match="cascade"):
-        tsd.sample_cascade(model, cond, audio, cfg)
+    with pytest.raises(ValueError, match="cascade mismatch"):
+        tsd.sample_cascade(model, cond, audio, cfg, None, SuperResConfig(low_size=8))
     with pytest.raises(ValueError, match="sampler"):
         tsd.sample(model, cond, audio, cfg, num_inference_steps=2, sampler="euler")
     with pytest.raises(NotImplementedError, match="wav2vec2"):
