@@ -18,7 +18,15 @@ weights made from a seed, and checks every hand-written kernel on them:
 - the super-resolution stage (``SuperResConfig`` defaults: training, then
   the two-stage cascade) and classifier guidance (``ClassifierConfig``
   defaults: training, then a guided request), the other two users of the
-  flash backward.
+  flash backward;
+- lip-sync serving — host uint8 frames, face boxes and mel windows →
+  ``pipelines.inference.generate_frames`` (crop, mask, the talking-face
+  generator, paste back) → host uint8 frames — at the ``GanConfig`` /
+  ``PreprocessConfig`` defaults (width 1.0, 96×96 faces, batches of 128), in
+  float, dynamic int8 and static int8; in the int8 modes each of the
+  generator's 51 convolutions is one launch of the int8 matmul kernel K6;
+- the int8 lipreader (``predict_step_int8``: K6 once per Linear) and the K6
+  microbench (``bench.microbench_int8``: both of K6's type pairs at 4096³).
 
 Phases (each prints lines tagged with its name; any failure raises and the
 script exits non-zero without printing a result):
@@ -34,12 +42,16 @@ script exits non-zero without printing a result):
    forward: O within 1e-2 in bf16 (one output ulp at |O| ≤ 1), 1e-4 in
    float32, lse within 1e-4; K4/K5 flash backward: each gradient within
    1e-2 of its largest value in bf16 (one rounding of the gradient), 1e-4
-   in float32), at the shapes the paths give them.
+   in float32; K6 matmul: int8 exactly equal, bf16 within 1e-3 of the
+   largest |C| (the output is the unrounded float32 sum; only the order of
+   summation differs)), at the shapes the paths give them.
 4. serve   — 3 requests of 8 clips and 3 of 384 clips (5 frames each, 96×96
    RGB uint8 frames and face boxes as in bench.py), host frames in, host
    logits out; every request must launch K1 once and K2 once per layer, and
    give finite logits; the batch-8 requests must agree with the same model
-   and inputs run on the CPU (the plain path).
+   and inputs run on the CPU (the plain path). Then one batch-384 request
+   through ``predict_step_int8``: K6 once per Linear (50), K1 and K2 as
+   before, held against ``predict_step`` on the same ROIs.
 5. diffuse — one warm-up and 3 timed ``sample_video`` requests of 4 frames
    × 10 DDIM steps, and one with DPM++(2M); each must launch K3 16 times a
    step and K2 4 times, and return finite (4, 128, 128, 3) uint8 frames;
@@ -61,9 +73,23 @@ script exits non-zero without printing a result):
    ``ClassifierConfig`` defaults on ``synthetic_batch`` (batch 32,
    128×128), then a guided ``sample_video`` of 4 frames × 10 DDIM steps
    (label 2, scale 5): K4/K5 twice a step.
-9. timing  — request and train-step times, frames/s, each kernel's
-   CUDA-event time beside its plain version's at the main-path shapes,
-   peak device memory.
+9. lipsync — ``generate_frames`` on the serving bench's inputs (256 frames
+   of 360×640, boxes [40,300,180,430] ± 4, standard-normal mels): one
+   warm-up and 3 timed requests each in float, dynamic int8 and static
+   int8; uint8 frames of the input's shape, untouched outside the boxes;
+   K6 exactly once per convolution per batch in the int8 modes (51 × 2) and
+   never in float; the generator's int8 output against its float output
+   (PSNR); a batch-8 float request against the CPU; a profile of one
+   dynamic int8 request (device busy share, device time by int8 stage).
+10. microbench — ``bench.microbench_int8.run``: K6 in bf16 and int8 and the
+   library's two calls at 4096³, after its own checks.
+11. timing — request and train-step times, frames/s, each kernel's
+   CUDA-event time beside its plain version's at the main-path shapes, the
+   one PyTorch call that computes the same function where there is one
+   (``scaled_dot_product_attention`` and its backward, ``torch._int_mm``,
+   ``torch.matmul``; yardsticks, used on no path), each kernel's bound
+   (the larger of its bytes over 3.35 TB/s and its operations over the
+   tensor-core peak of its type), peak device memory.
 
 The line before the last is ``nvidia-smi``'s name and power limit; before
 it, one JSON object with the kernels; the last line is the result:
@@ -111,6 +137,23 @@ TRAIN_BATCH = 8
 # summation order only, through ~90 layers and their backward.
 TOL_TRAIN_LOSS = 1e-4      # relative
 TOL_TRAIN_GRAD = 1e-3      # relative L2 of the whole gradient
+# K6 bf16 against a float32 matmul of the same bf16 values: exact products,
+# float32 sums in another order; of the largest |C|. int8 must be equal.
+TOL_K6_BF16 = 1e-3
+# int8 ViViT against the bf16 one on the same ROIs (tests/test_quant.py's
+# bounds for the JAX package's tiny float32 model).
+INT8_TOP1_AGREE = 0.9
+INT8_LOGPROB = 0.25
+# int8 generator output in [0, 1] against the float output, same weights
+# (tests/test_quant.py's bounds: dynamic 30 dB, static 28 dB).
+PSNR_DYNAMIC, PSNR_STATIC = 30.0, 28.0
+LIPSYNC_FRAMES, LIPSYNC_HW = 256, (360, 640)
+# float32 generator, card (cuDNN without TF32) vs CPU: summation order only,
+# so a frame value moves by at most one gray level, and rarely.
+LIPSYNC_EQUAL_SHARE = 0.999
+# H100 SXM peaks the bounds are stated against (NVIDIA's data sheet, dense)
+PEAK_BYTES_S = 3.35e12
+PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12}
 
 
 def log(phase: str, msg: str) -> None:
@@ -159,7 +202,8 @@ def phase_build() -> None:
         + "; K4 " + ", ".join(f"{flash_bwd_smem_bytes(d, 'dkv')} B (head dim {d})"
                              for d in (64, 128, 256))
         + "; K5 " + ", ".join(f"{flash_bwd_smem_bytes(d, 'dq')} B (head dim {d})"
-                             for d in (64, 128, 256)))
+                             for d in (64, 128, 256))
+        + "; K6 15360 B static (128 and 64 rows of 80 bytes)")
 
 
 def _uniform(shape, lo, hi, seed, dtype=torch.float32):
@@ -309,6 +353,59 @@ def phase_kernels() -> dict:
         f"autograd through attention_reference max|d| {err:.3g} (tol {TOL_BWD_F32})")
     for t, r in zip((q, k, v), ref):
         torch.testing.assert_close(t.grad, r.grad, rtol=TOL_BWD_F32, atol=TOL_BWD_F32)
+    errs.update(check_matmul())
+    return errs
+
+
+def _int8(shape, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(-127, 128, shape, dtype=np.int8)).to("cuda")
+
+
+# K6's shapes (M, K, N). As int8 serving calls it (K padded to 16 by im2col,
+# B a strided view of the (N, K) weight): the generator's 7x7 stem, mel stem,
+# last 3x3, 1x1 bottleneck, last 1x1 and largest conv, M cut to 65,536 rows
+# where it was 1,179,648 or 163,840; the ViViT's qkv, MLP-in and MLP-out.
+K6_SERVING_SHAPES = [(65536, 304, 16), (65536, 16, 32), (65536, 720, 32), (128, 4608, 512),
+                     (65536, 32, 3), (65536, 1440, 64),
+                     (30720, 256, 768), (30720, 256, 1024), (30720, 1024, 256)]
+# Row-major B, depths that are no multiple of 16 (the element-wise loads):
+# the stems before padding, ragged shapes, and the microbench's 4096^3.
+K6_ROW_MAJOR_SHAPES = [(65536, 294, 16), (65536, 9, 32), (257, 131, 67), (5, 9, 3),
+                       (4096, 4096, 4096)]
+
+
+def check_matmul() -> dict:
+    from lipreading_video_generation_tpu_torch.ops import matmul_cuda as mm
+
+    errs = {"int8_matmul": 0.0, "bf16_matmul": 0.0}
+    cases = ([(shape, True) for shape in K6_SERVING_SHAPES]
+             + [(shape, False) for shape in K6_ROW_MAJOR_SHAPES] + [((4096, 4096, 4096), True)])
+    for (m, k, n), transposed in cases:
+        a8 = _int8((m, k), SEED + 60)
+        b8 = _int8((n, k), SEED + 61).t() if transposed else _int8((k, n), SEED + 61)
+        got = mm.int8_matmul(a8, b8)
+        torch.cuda.synchronize()
+        want = mm.matmul_reference(a8, b8)
+        err8 = (got - want).abs().max().item()
+        a16 = _uniform((m, k), -1, 1, SEED + 62, torch.bfloat16)
+        b16 = (_uniform((n, k), -1, 1, SEED + 63, torch.bfloat16).t() if transposed
+               else _uniform((k, n), -1, 1, SEED + 63, torch.bfloat16))
+        got16 = mm.bf16_matmul(a16, b16)
+        torch.cuda.synchronize()
+        want16 = mm.matmul_reference(a16, b16)
+        err16 = (got16 - want16).abs().max().item()
+        bound16 = TOL_K6_BF16 * want16.abs().max().item()
+        layout = "(N,K) transposed view" if transposed else "row-major"
+        log("kernels", f"K6 matmul ({m} x {k} x {n}) B {layout}: int8 max|d| {err8} (must be 0), "
+            f"bf16 max|d| {err16:.3g} (tol {bound16:.3g} = {TOL_K6_BF16} of max|C|)")
+        if got.dtype != torch.int32 or got16.dtype != torch.float32:
+            raise AssertionError(f"K6 output types {got.dtype}, {got16.dtype}")
+        if err8 != 0 or not err16 <= bound16:
+            raise AssertionError(f"K6 ({m},{k},{n}): int8 max|d| {err8}, bf16 {err16} > {bound16}")
+        errs["int8_matmul"] = max(errs["int8_matmul"], float(err8))
+        errs["bf16_matmul"] = max(errs["bf16_matmul"], err16)
+        del a8, b8, got, want, a16, b16, got16, want16
     return errs
 
 
@@ -368,6 +465,54 @@ def serve(model, frames: np.ndarray, boxes: np.ndarray, device):
     return logits.cpu(), roi.cpu()
 
 
+def serve_int8_request(model, frames: np.ndarray, boxes: np.ndarray) -> dict:
+    """One request through ``predict_step_int8`` (host frames in, host
+    log-probs out) and the same through ``predict_step``; returns the int8
+    request's launches."""
+    from lipreading_video_generation_tpu_torch.core.config import PreprocessConfig
+    from lipreading_video_generation_tpu_torch.ops import attention as att
+    from lipreading_video_generation_tpu_torch.ops import clahe_cuda as cl
+    from lipreading_video_generation_tpu_torch.ops import matmul_cuda as mm
+    from lipreading_video_generation_tpu_torch.pipelines import train_vivit as tv
+    from lipreading_video_generation_tpu_torch.pipelines.preprocess import mouth_roi_pipeline
+
+    cfg, pre = model.cfg, PreprocessConfig()
+
+    def request(step):
+        roi = mouth_roi_pipeline(torch.from_numpy(frames).to("cuda"),
+                                 torch.from_numpy(boxes).to("cuda"), pre.lip_crop_size,
+                                 pre.model_input_size, pre.clahe_clip_limit, pre.clahe_grid)
+        clips = roi.reshape(-1, cfg.num_frames, cfg.image_size, cfg.image_size, 1)
+        return step(model, clips).cpu()
+
+    n_linear = sum(isinstance(m, torch.nn.Linear) for m in model.modules())
+    request(tv.predict_step_int8)                                  # warm-up
+    before = (cl.clahe_cuda.launch_count, att.small_mha.launch_count,
+              mm.int8_matmul.launch_count)
+    t0 = time.perf_counter()
+    q = request(tv.predict_step_int8)
+    q_s = time.perf_counter() - t0
+    d = (cl.clahe_cuda.launch_count - before[0], att.small_mha.launch_count - before[1],
+         mm.int8_matmul.launch_count - before[2])
+    if d != (1, cfg.num_layers, n_linear):
+        raise AssertionError(f"int8 request launched K1/K2/K6 {d}, want "
+                             f"(1, {cfg.num_layers}, {n_linear})")
+    t0 = time.perf_counter()
+    f = request(tv.predict_step)
+    f_s = time.perf_counter() - t0
+    if mm.int8_matmul.launch_count - before[2] != n_linear:
+        raise AssertionError("predict_step launched K6")
+    agree = (q.argmax(-1) == f.argmax(-1)).float().mean().item()
+    worst = (q - f).abs().max().item()
+    log("serve", f"predict_step_int8, batch {len(q)}: K1 1, K2 {cfg.num_layers}, K6 {n_linear} "
+        f"launches; against predict_step on the same ROIs: top-1 agreement {agree:.4f} "
+        f"(want >= {INT8_TOP1_AGREE}), max |d log-prob| {worst:.4f} (want < {INT8_LOGPROB}); "
+        f"request {q_s * 1e3:.3f} ms int8, {f_s * 1e3:.3f} ms bf16")
+    if not (torch.isfinite(q).all() and agree >= INT8_TOP1_AGREE and worst < INT8_LOGPROB):
+        raise AssertionError(f"int8 ViViT: agreement {agree}, max |d log-prob| {worst}")
+    return {"clahe": d[0], "small_mha": d[1], "int8_matmul": d[2]}
+
+
 def phase_serve(dev: dict) -> dict:
     from lipreading_video_generation_tpu_torch.core.config import ViViTConfig
     from lipreading_video_generation_tpu_torch.models.convert import vivit_state_dict_from_flax
@@ -425,6 +570,9 @@ def phase_serve(dev: dict) -> dict:
     if within1 < 0.99:
         raise AssertionError(f"ROI card vs CPU: only {within1} within 1 level")
     torch.testing.assert_close(gpu_logits, cpu_logits, rtol=TOL_LOGITS, atol=TOL_LOGITS)
+
+    for name, count in serve_int8_request(model, *inputs[384]).items():
+        launches[name] = launches.get(name, 0) + count
 
     per_req = statistics.median(times[384])
     log("serve", f"request times ({dev['smi']}): batch 8 "
@@ -876,6 +1024,214 @@ def phase_guidance(dev: dict) -> dict:
     return {"launches": _counts()}
 
 
+def flax_generator_params(width: float, seed: int) -> dict:
+    """Random weights in the tree and shapes of the Flax
+    ``TalkingFaceGenerator(width=width)`` (the card's machine has no flax):
+    conv kernels (kh, kw, in, out) ~ N(0, 1/fan_in), small biases, GroupNorm
+    scales near 1. The shapes come from the port's own module, the tree from
+    the bridge's map of Flax module paths."""
+    from lipreading_video_generation_tpu_torch.models.convert import generator_flax_module_names
+    from lipreading_video_generation_tpu_torch.models.generator import TalkingFaceGenerator
+
+    rng = np.random.default_rng(seed)
+    with torch.device("meta"):
+        shapes = {name: tuple(m.weight.shape) for name, m in
+                  TalkingFaceGenerator(width=width).named_modules() if hasattr(m, "weight")}
+    params: dict = {}
+    for flax_path, name in generator_flax_module_names().items():
+        c_out, c_in, kh, kw = shapes[name]
+        *parents, leaf = flax_path.split("/")
+        node = params
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[leaf] = {"kernel": (rng.standard_normal((kh, kw, c_in, c_out))
+                                 / math.sqrt(kh * kw * c_in)).astype(np.float32),
+                      "bias": (0.02 * rng.standard_normal(c_out)).astype(np.float32)}
+        if leaf == "Conv_0" and parents[-1].startswith("ConvBlock"):
+            node["GroupNorm_0"] = {
+                "scale": (1 + 0.05 * rng.standard_normal(c_out)).astype(np.float32),
+                "bias": (0.05 * rng.standard_normal(c_out)).astype(np.float32)}
+    return params
+
+
+def lipsync_inputs(n: int, seed: int):
+    """scripts/bench_lipsync_serving.py's inputs: random 360×640 RGB uint8
+    frames, face boxes [40, 300, 180, 430] ± 4, standard-normal mel windows."""
+    rng = np.random.default_rng(seed)
+    frames = rng.integers(0, 256, (n,) + LIPSYNC_HW + (3,), dtype=np.uint8)
+    boxes = (np.tile([40.0, 300.0, 180.0, 430.0], (n, 1)).astype(np.float32)
+             + rng.uniform(-4, 4, (n, 4)).astype(np.float32))
+    mels = rng.standard_normal((n, 80, 16)).astype(np.float32)
+    return frames, boxes, mels
+
+
+def _psnr(a: torch.Tensor, b: torch.Tensor) -> float:
+    return 10.0 * math.log10(1.0 / max(((a - b) ** 2).mean().item(), 1e-12))
+
+
+def _profile_request(mode: str, request) -> None:
+    """One lip-sync request under ``torch.profiler``: wall time, device time
+    of all kernels and copies (busy share), device time by int8 stage (the
+    ``int8/...`` ranges of ``ops/quant.py`` carry the time of the kernels
+    launched inside them) and the heaviest kernels by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        request()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    stages = {e.key: e.device_time_total / 1e3 for e in events if e.key.startswith("int8/")}
+    kernels = sorted(((e.key, e.device_time_total / 1e3, e.count) for e in events
+                      if e.device_type == DeviceType.CUDA and e.key not in stages),
+                     key=lambda r: -r[1])
+    busy_ms = sum(ms for _, ms, _ in kernels)
+    if busy_ms <= 0 or len(stages) != (4 if mode != "float" else 0):
+        raise AssertionError(f"{mode} profile: device time {busy_ms} ms, stages {stages}")
+    log("lipsync", f"profile of one {mode} request: wall {wall_ms:.3f} ms under the profiler, "
+        f"device kernels and copies {busy_ms:.3f} ms in {sum(c for _, _, c in kernels)} launches "
+        f"(busy share {busy_ms / wall_ms:.3f})"
+        + ("; by int8 stage " + ", ".join(f"{k[5:]} {v:.3f} ms ({v / busy_ms:.1%})"
+                                          for k, v in sorted(stages.items()))
+           + f"; all else {busy_ms - sum(stages.values()):.3f} ms" if stages else ""))
+    for name, ms, count in kernels[:8]:
+        log("lipsync", f"  {ms:9.3f} ms {count:5d}x {name[:110]}")
+
+
+def phase_lipsync(dev: dict) -> dict:
+    import dataclasses
+
+    from lipreading_video_generation_tpu_torch.core.config import GanConfig, PreprocessConfig
+    from lipreading_video_generation_tpu_torch.models.convert import (
+        generator_state_dict_from_flax)
+    from lipreading_video_generation_tpu_torch.models.generator import TalkingFaceGenerator
+    from lipreading_video_generation_tpu_torch.ops import matmul_cuda as mm
+    from lipreading_video_generation_tpu_torch.ops import quant
+    from lipreading_video_generation_tpu_torch.pipelines import inference as inf
+
+    gcfg, pre = GanConfig(), PreprocessConfig()
+    sd_cpu = generator_state_dict_from_flax(flax_generator_params(gcfg.model_width, SEED))
+    sd = {k: v.to("cuda") for k, v in sd_cpu.items()}
+    n_convs = sum(k.endswith("conv.weight") or k.endswith("out_conv.weight") for k in sd)
+    if n_convs != 51:
+        raise AssertionError(f"{n_convs} convolutions in the generator, want 51")
+    frames, boxes, mels = lipsync_inputs(LIPSYNC_FRAMES, SEED)
+    n_batches = -(-LIPSYNC_FRAMES // pre.gen_batch_size)
+    log("lipsync", f"GanConfig/PreprocessConfig defaults: width {gcfg.model_width}, faces "
+        f"{gcfg.img_size}x{gcfg.img_size}, batches of {pre.gen_batch_size}, float32; "
+        f"{sum(v.numel() for v in sd.values())} params in {n_convs} convs from seeded numpy via "
+        f"generator_state_dict_from_flax; {LIPSYNC_FRAMES} frames of {LIPSYNC_HW} "
+        f"({n_batches} batches)")
+    modes = {"float": gcfg,
+             "int8_dynamic": dataclasses.replace(gcfg, serve_int8=True),
+             "int8_static": dataclasses.replace(gcfg, serve_int8=True, serve_int8_static=True)}
+    y1, y2 = int(boxes[:, 0].min()), int(math.ceil(boxes[:, 1].max()))
+    x1, x2 = int(boxes[:, 2].min()), int(math.ceil(boxes[:, 3].max()))
+    outside = np.ones(LIPSYNC_HW, bool)
+    outside[y1:y2 + 1, x1:x2 + 1] = False
+    result = {"launches": 0, "ms": {}, "peak_mib": {}}
+    outs = {}
+    for mode, cfg in modes.items():
+        inf.generate_frames(sd, frames, boxes, mels, cfg, pre)            # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mm.int8_matmul.launch_count = 0
+        times = []
+        for _ in range(3):
+            before = mm.int8_matmul.launch_count
+            t0 = time.perf_counter()
+            out = inf.generate_frames(sd, frames, boxes, mels, cfg, pre)
+            times.append(time.perf_counter() - t0)
+            d = mm.int8_matmul.launch_count - before
+            want = n_convs * n_batches if cfg.serve_int8 else 0
+            if d != want:
+                raise AssertionError(f"{mode} request launched K6 {d}x, want {want}")
+            if out.dtype != np.uint8 or out.shape != frames.shape:
+                raise AssertionError(f"{mode}: bad frames {out.dtype} {out.shape}")
+            if not np.array_equal(out[:, outside], frames[:, outside]):
+                raise AssertionError(f"{mode}: pixels outside every box changed")
+            if np.array_equal(out, frames):
+                raise AssertionError(f"{mode}: no face was pasted in")
+        result["launches"] += mm.int8_matmul.launch_count
+        peak = torch.cuda.max_memory_allocated()
+        med = statistics.median(times)
+        result["ms"][mode], result["peak_mib"][mode] = med * 1e3, peak / 2**20
+        outs[mode] = out
+        fps = LIPSYNC_FRAMES / med
+        log("lipsync", f"{mode}: requests {[round(t * 1e3, 3) for t in times]} ms, median "
+            f"{med * 1e3:.3f} ms = {fps:.1f} frames/s = {fps / gcfg.fps:.2f} x real time at "
+            f"{gcfg.fps:g} fps; K6 launches a request {want} ({n_convs} x {n_batches}); frames "
+            f"{out.shape} uint8, untouched outside the boxes; peak device memory "
+            f"{peak / 2**20:.1f} MiB ({dev['smi']})")
+    for mode in ("int8_dynamic", "int8_static"):
+        d = np.abs(outs[mode].astype(np.float32) - outs["float"].astype(np.float32))
+        log("lipsync", f"{mode} frames against float frames: mean |d| over the face boxes "
+            f"{d[:, y1:y2 + 1, x1:x2 + 1].mean():.3f} gray levels, max {d.max():.0f}")
+
+    # the generator's [0, 1] output on the first batch: int8 against float
+    with torch.device("cuda"):
+        gen = TalkingFaceGenerator(width=gcfg.model_width).eval()
+    gen.load_state_dict(sd)
+    idx = slice(0, pre.gen_batch_size)
+    with torch.inference_mode():
+        x = inf.gen_input_prep(torch.from_numpy(frames[idx]).to("cuda").float(),
+                               torch.from_numpy(boxes[idx]).to("cuda"), gcfg.img_size)
+        mel = torch.from_numpy(mels[idx]).to("cuda")[..., None]
+        f = gen(mel, x)
+        dyn = quant.quantized_apply(gen, mel, x)
+        before = mm.int8_matmul.launch_count
+        scales = quant.calibrate_activation_scales(gen, [(mel, x)])
+        scales = {k: v * 1.05 for k, v in scales.items()}        # generate_frames' headroom
+        if mm.int8_matmul.launch_count != before or len(scales) != n_convs:
+            raise AssertionError("the calibration pass launched K6 or missed a conv")
+        static = quant.quantized_apply(gen, mel, x, act_scales=scales)
+    if not (torch.isfinite(f).all() and torch.isfinite(dyn).all() and torch.isfinite(static).all()):
+        raise AssertionError("the generator gave non-finite output")
+    psnr_d, psnr_s = _psnr(dyn, f), _psnr(static, f)
+    log("lipsync", f"generator output in [0,1], batch {pre.gen_batch_size}, int8 against float on "
+        f"the same weights: dynamic PSNR {psnr_d:.2f} dB (want > {PSNR_DYNAMIC}), mean |d| "
+        f"{(dyn - f).abs().mean().item():.5f}; static ({len(scales)} scales x 1.05) PSNR "
+        f"{psnr_s:.2f} dB (want > {PSNR_STATIC}), mean |d| {(static - f).abs().mean().item():.5f}")
+    if not (psnr_d > PSNR_DYNAMIC and psnr_s > PSNR_STATIC):
+        raise AssertionError(f"int8 generator PSNR: dynamic {psnr_d}, static {psnr_s}")
+    del gen, x, mel, f, dyn, static
+
+    # a float request at batch 8, the card against the CPU
+    small = slice(0, 8)
+    got = inf.generate_frames(sd, frames[small], boxes[small], mels[small], gcfg, pre)
+    want = inf.generate_frames(sd_cpu, frames[small], boxes[small], mels[small], gcfg, pre,
+                               device="cpu")
+    d = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    equal = float((d == 0).mean())
+    log("lipsync", f"float request of 8 frames, card vs CPU: max |d| {d.max()} gray level, "
+        f"{equal:.6f} equal (want max 1 and >= {LIPSYNC_EQUAL_SHARE}); tf32 off")
+    if d.max() > 1 or equal < LIPSYNC_EQUAL_SHARE:
+        raise AssertionError(f"float lip-sync card vs CPU: max {d.max()}, equal {equal}")
+
+    # where the time of a float and of a dynamic int8 request goes
+    for mode in ("float", "int8_dynamic"):
+        _profile_request(mode, lambda: inf.generate_frames(sd, frames, boxes, mels, modes[mode],
+                                                           pre))
+    return result
+
+
+def phase_microbench() -> dict:
+    """K6's own entry point: both type pairs at 4096³ beside the library."""
+    from lipreading_video_generation_tpu_torch.bench import microbench_int8
+    from lipreading_video_generation_tpu_torch.ops import matmul_cuda as mm
+
+    mm.int8_matmul.launch_count = mm.bf16_matmul.launch_count = 0
+    res = microbench_int8.run(size=4096, iters=10, seed=SEED)
+    launches = {"int8_matmul": mm.int8_matmul.launch_count,
+                "bf16_matmul": mm.bf16_matmul.launch_count}
+    log("microbench", f"4096^3: K6 bf16 {res['k6_bf16_ms']:.4f} ms, K6 int8 "
+        f"{res['k6_int8_ms']:.4f} ms, torch.matmul bf16 {res['torch_matmul_bf16_ms']:.4f} ms, "
+        f"torch._int_mm {res['torch_int_mm_ms']:.4f} ms; launches {launches}")
+    return {"launches": launches, "result": res}
+
+
 def _event_ms(fn, n: int) -> float:
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -895,9 +1251,29 @@ def _plain_vs_kernel(plain, kernel, n: int):
     return (k1 + k2) / 2, (p1 + p2) / 2, (p1, k1, k2, p2)
 
 
-def phase_timing(dev: dict) -> dict:
+def _bound(n_bytes: float, n_ops: float, kind: str) -> dict:
+    """The least time the card could take: the larger of the bytes (each
+    input read once, each output written once) over the memory rate and the
+    operations over the tensor-core peak of their type."""
+    by_bytes, by_ops = n_bytes / PEAK_BYTES_S * 1e3, n_ops / PEAK_OPS_S[kind] * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def _attention_bound(b: int, h: int, s: int, d: int, ops_per_sd: float, n_tensors: int) -> dict:
+    """bf16 attention at (b, h, s, d): ``n_tensors`` (b, h, s, d) tensors and
+    the float32 lse move; ``ops_per_sd``·b·h·s²·d operations."""
+    return _bound(n_tensors * b * h * s * d * 2 + b * h * s * 4, ops_per_sd * b * h * s * s * d,
+                  "bf16")
+
+
+def phase_timing(dev: dict, microbench: dict) -> dict:
+    import torch.nn.functional as F
+
+    from lipreading_video_generation_tpu_torch.bench.microbench_int8 import make_operands
     from lipreading_video_generation_tpu_torch.ops import attention as att
     from lipreading_video_generation_tpu_torch.ops import clahe_cuda as cl
+    from lipreading_video_generation_tpu_torch.ops import matmul_cuda as mm
 
     x = _uniform((384 * CLIP_FRAMES, 48, 48), 0, 255, SEED)
     with torch.inference_mode():
@@ -909,6 +1285,9 @@ def phase_timing(dev: dict) -> dict:
         k2_ms, k2_plain, raw2 = _plain_vs_kernel(
             lambda: att._mha_einsum(q, k, v, 8, False),
             lambda: att.small_mha(q, k, v, 8), 20)
+        q4, k4, v4 = (t.reshape(384, 80, 8, 32).transpose(1, 2) for t in (q, k, v))
+        F.scaled_dot_product_attention(q4, k4, v4)
+        k2_lib = _event_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4), 20)
         # K3 at the U-Net's three shapes, batch DIFF_FRAMES, as the U-Net
         # calls it: (B, 1, S, D) views of column slices of one qkv tensor
         k3 = {}
@@ -918,6 +1297,9 @@ def phase_timing(dev: dict) -> dict:
                        for t in qkv.chunk(3, dim=-1))
             k3[(s, d)] = _plain_vs_kernel(lambda: att.flash_reference(q, k, v),
                                           lambda: att.flash_attention(q, k, v), 3)
+            if (s, d) == (16384, 64):
+                F.scaled_dot_product_attention(q, k, v)
+                k3_lib = _event_ms(lambda: F.scaled_dot_product_attention(q, k, v), 3)
             del qkv, q, k, v
     for (s, d), (ms, plain, raw) in k3.items():
         flops = 4.0 * DIFF_FRAMES * s * s * d
@@ -946,6 +1328,13 @@ def phase_timing(dev: dict) -> dict:
             bwd[("dq", s, d)] = _plain_vs_kernel(
                 lambda: att.flash_backward_reference(q, k, v, do, lse, delta, dkv=False),
                 lambda: att.flash_bwd_dq(q, k, v, do, lse, delta), 3)
+        if (s, d) == (16384, 64):
+            # the library's whole backward (dQ, dK and dV in one call)
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = F.scaled_dot_product_attention(*leaves)
+            torch.autograd.grad(out, leaves, do, retain_graph=True)
+            bwd_lib = _event_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), 3)
+            del leaves, out
         del qkv, q, k, v, do, o, lse, delta
     for (kern, s, d), (ms, plain, raw) in bwd.items():
         flops = (8.0 if kern == "dkv" else 6.0) * DIFF_FRAMES * s * s * d
@@ -953,11 +1342,60 @@ def phase_timing(dev: dict) -> dict:
         log("timing", f"{name} ({DIFF_FRAMES},1,{s},{d}) bf16: kernel {ms:.4f} ms "
             f"({flops / ms / 1e9:.2f} TFLOP/s), plain {plain:.4f} ms (plain,kernel,kernel,plain "
             f"= {[round(t, 4) for t in raw]}) on {dev['smi']}")
+    log("timing", f"library calls at the same shapes ({dev['smi']}): "
+        f"F.scaled_dot_product_attention (384,8,80,32) {k2_lib:.4f} ms, ({DIFF_FRAMES},1,16384,64) "
+        f"{k3_lib:.4f} ms, its backward (dQ, dK, dV together) {bwd_lib:.4f} ms")
+
+    # K6 int8 at the generator's largest product, as int8 serving calls it;
+    # bf16 at the microbench's 4096^3 (kernel and library times from its run)
+    m, kk, n = 128 * 96 * 96, 1440, 64
+    a8, w8 = _int8((m, kk), SEED + 70), _int8((n, kk), SEED + 71)
+    k6_ms, k6_plain, raw6 = _plain_vs_kernel(lambda: mm.matmul_reference(a8, w8.t()),
+                                             lambda: mm.int8_matmul(a8, w8.t()), 3)
+    w8_rows = w8.t().contiguous()
+    torch._int_mm(a8, w8_rows)
+    k6_lib = _event_ms(lambda: torch._int_mm(a8, w8_rows), 3)
+    del a8, w8, w8_rows
+    log("timing", f"K6 int8_matmul ({m} x {kk} x {n}), B the (N,K) weight transposed: kernel "
+        f"{k6_ms:.4f} ms ({2.0 * m * kk * n / k6_ms / 1e9:.2f} TOP/s, {m * kk / k6_ms / 1e6:.1f} "
+        f"GB/s of A), plain (float64 matmul) {k6_plain:.4f} ms (plain,kernel,kernel,plain = "
+        f"{[round(t, 4) for t in raw6]}), torch._int_mm {k6_lib:.4f} ms on {dev['smi']}")
+    mb = microbench["result"]
+    ops = make_operands(4096, SEED, "cuda")
+    mm.matmul_reference(ops["a16"], ops["b16"])
+    bf16_plain = _event_ms(lambda: mm.matmul_reference(ops["a16"], ops["b16"]), 5)
+    del ops
+    log("timing", f"K6 bf16_matmul 4096^3: kernel {mb['k6_bf16_ms']:.4f} ms, plain (float32 matmul "
+        f"of the upcast operands, tf32 off) {bf16_plain:.4f} ms, torch.matmul bf16 "
+        f"{mb['torch_matmul_bf16_ms']:.4f} ms; int8 4096^3: kernel {mb['k6_int8_ms']:.4f} ms, "
+        f"torch._int_mm {mb['torch_int_mm_ms']:.4f} ms on {dev['smi']}")
+
     # the JSON line carries K3, K4 and K5 at the U-Net's FLOP-heaviest shape
-    return {"clahe": (k1_ms, k1_plain), "small_mha": (k2_ms, k2_plain),
-            "flash_attention": k3[(16384, 64)][:2],
-            "flash_bwd_dkv": bwd[("dkv", 16384, 64)][:2],
-            "flash_bwd_dq": bwd[("dq", 16384, 64)][:2]}
+    n_img = 384 * CLIP_FRAMES * 48 * 48
+    return {
+        "clahe": dict(ms=k1_ms, plain_ms=k1_plain, library_ms=None,
+                      **_bound(2 * n_img * 4, 0, "bf16")),
+        "small_mha": dict(ms=k2_ms, plain_ms=k2_plain, library_ms=k2_lib,
+                          **_attention_bound(384, 8, 80, 32, 4, 4)),
+        "flash_attention": dict(ms=k3[(16384, 64)][0], plain_ms=k3[(16384, 64)][1],
+                                library_ms=k3_lib,
+                                **_attention_bound(DIFF_FRAMES, 1, 16384, 64, 4, 4)),
+        # K4 reads q, k, v, dO and writes dK, dV; K5 reads the four and writes
+        # dQ; both read lse and delta. The library call covers both kernels.
+        "flash_bwd_dkv": dict(ms=bwd[("dkv", 16384, 64)][0], plain_ms=bwd[("dkv", 16384, 64)][1],
+                              library_ms=bwd_lib, library_covers="flash_bwd_dkv+flash_bwd_dq",
+                              **_attention_bound(DIFF_FRAMES, 1, 16384, 64, 8, 6)),
+        "flash_bwd_dq": dict(ms=bwd[("dq", 16384, 64)][0], plain_ms=bwd[("dq", 16384, 64)][1],
+                             library_ms=bwd_lib, library_covers="flash_bwd_dkv+flash_bwd_dq",
+                             **_attention_bound(DIFF_FRAMES, 1, 16384, 64, 6, 5)),
+        "int8_matmul": dict(ms=k6_ms, plain_ms=k6_plain, library_ms=k6_lib,
+                            **_bound(m * kk + kk * n + m * n * 4, 2.0 * m * kk * n, "int8")),
+        "bf16_matmul": dict(ms=mb["k6_bf16_ms"], plain_ms=bf16_plain,
+                            library_ms=mb["torch_matmul_bf16_ms"],
+                            **_bound(2 * 4096 * 4096 * 2 + 4096 * 4096 * 4, 2.0 * 4096 ** 3,
+                                     "bf16")),
+    }
+
 
 
 def main() -> None:
@@ -969,39 +1407,38 @@ def main() -> None:
     trained = phase_train(dev)["launches"]
     superres = phase_superres(dev)["launches"]
     guided = phase_guidance(dev)["launches"]
+    lipsync = phase_lipsync(dev)
+    microbench = phase_microbench()
     paths = (diffused, trained, superres, guided)
     launches = {"clahe": served["clahe"],
-                "small_mha": served["small_mha"] + sum(p["small_mha"] for p in paths)}
+                "small_mha": served["small_mha"] + sum(p["small_mha"] for p in paths),
+                "int8_matmul": (served["int8_matmul"] + lipsync["launches"]
+                                + microbench["launches"]["int8_matmul"]),
+                "bf16_matmul": microbench["launches"]["bf16_matmul"]}
     for name in ("flash_attention", "flash_bwd_dkv", "flash_bwd_dq"):
         launches[name] = sum(p.get(name, 0) for p in paths)
-    times = phase_timing(dev)
+    times = phase_timing(dev, microbench)
     pkg = "lipreading_video_generation_tpu_torch"
-    kernels = [
-        {"name": "clahe", "route": "cuda", "source": f"{pkg}/csrc/clahe.cu",
-         "replaces": "lipreading_video_generation_tpu/ops/clahe_pallas.py:102",
-         "launches": launches["clahe"], "max_abs_err": errs["clahe"],
-         "ms": times["clahe"][0], "plain_ms": times["clahe"][1]},
-        {"name": "small_mha", "route": "cuda", "source": f"{pkg}/csrc/small_mha.cu",
-         "replaces": "lipreading_video_generation_tpu/ops/attention.py:570",
-         "launches": launches["small_mha"], "max_abs_err": errs["small_mha"],
-         "ms": times["small_mha"][0], "plain_ms": times["small_mha"][1]},
-        {"name": "flash_attention", "route": "cuda", "source": f"{pkg}/csrc/flash_fwd.cu",
-         "replaces": "lipreading_video_generation_tpu/ops/attention.py:66",
-         "also_replaces": "scripts/profile_flash_dpad.py:37",
-         "launches": launches["flash_attention"], "max_abs_err": errs["flash_attention"],
-         "ms": times["flash_attention"][0], "plain_ms": times["flash_attention"][1]},
-        {"name": "flash_bwd_dkv", "route": "cuda", "source": f"{pkg}/csrc/flash_bwd.cu",
-         "replaces": "lipreading_video_generation_tpu/ops/attention.py:216",
-         "launches": launches["flash_bwd_dkv"], "max_abs_err": errs["flash_bwd_dkv"],
-         "ms": times["flash_bwd_dkv"][0], "plain_ms": times["flash_bwd_dkv"][1]},
-        {"name": "flash_bwd_dq", "route": "cuda", "source": f"{pkg}/csrc/flash_bwd.cu",
-         "replaces": "lipreading_video_generation_tpu/ops/attention.py:272",
-         "launches": launches["flash_bwd_dq"], "max_abs_err": errs["flash_bwd_dq"],
-         "ms": times["flash_bwd_dq"][0], "plain_ms": times["flash_bwd_dq"][1]},
-    ]
-    for kern in kernels:
+    jax_pkg = "lipreading_video_generation_tpu"
+    sources = {  # name: (CUDA source, the TPU kernel it replaces)
+        "clahe": ("clahe.cu", f"{jax_pkg}/ops/clahe_pallas.py:102"),
+        "small_mha": ("small_mha.cu", f"{jax_pkg}/ops/attention.py:570"),
+        "flash_attention": ("flash_fwd.cu", f"{jax_pkg}/ops/attention.py:66"),
+        "flash_bwd_dkv": ("flash_bwd.cu", f"{jax_pkg}/ops/attention.py:216"),
+        "flash_bwd_dq": ("flash_bwd.cu", f"{jax_pkg}/ops/attention.py:272"),
+        "int8_matmul": ("int8_mm.cu", "scripts/microbench_int8_pallas.py:44"),
+        "bf16_matmul": ("int8_mm.cu", "scripts/microbench_int8_pallas.py:44"),
+    }
+    kernels = []
+    for name, (source, replaces) in sources.items():
+        kern = {"name": name, "route": "cuda", "source": f"{pkg}/csrc/{source}",
+                "replaces": replaces, "launches": launches[name], "max_abs_err": errs[name],
+                **times[name]}
+        if name == "flash_attention":
+            kern["also_replaces"] = "scripts/profile_flash_dpad.py:37"
         if kern["launches"] < 1:
-            raise AssertionError(f"kernel {kern['name']} never ran on the main path")
+            raise AssertionError(f"kernel {name} never ran on the main path")
+        kernels.append(kern)
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_name_power())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],

@@ -1,9 +1,9 @@
 """The config dataclasses the ported slices need.
 
 Copies of ``lipreading_video_generation_tpu/core/config.py``'s
-``AudioConfig``, ``ViViTConfig``, ``PreprocessConfig``, ``DiffusionConfig``,
-``ClassifierConfig`` and ``SuperResConfig`` with the same field names and
-defaults: the JAX package's ``core/__init__`` imports jax and orbax, so the
+``AudioConfig``, ``ViViTConfig``, ``PreprocessConfig``, ``GanConfig``,
+``DiffusionConfig``, ``ClassifierConfig`` and ``SuperResConfig`` with the
+same field names and defaults: the JAX package's ``core/__init__`` imports jax and orbax, so the
 port cannot import the originals. Fields this port cannot honour yet raise
 when set.
 """
@@ -91,6 +91,40 @@ class PreprocessConfig:
     clahe_grid: Tuple[int, int] = (8, 8)
     face_det_score_threshold: float = 0.5
     nms_threshold: float = 0.3
+
+
+@dataclass(frozen=True)
+class GanConfig:
+    """Wav2Lip-style lip-sync GAN (reference: gan-model/preprocessing/params.py:67-85,
+    gan-model/train_lipreading.py:31-44)."""
+
+    img_size: int = 96
+    fps: float = 25.0
+    syncnet_T: int = 5          # frames per window (dataset.py:32)
+    syncnet_mel_step_size: int = 16  # mel steps per window (dataset.py:33)
+    batch_size: int = 16
+    learning_rate: float = 1e-4
+    disc_learning_rate: float = 1e-4
+    adam_b1: float = 0.5        # train_lipreading.py:330-333
+    adam_b2: float = 0.999
+    syncnet_wt: float = 0.0     # gated to 0.03 once eval sync loss < .75
+    syncnet_wt_after_gate: float = 0.03
+    syncnet_gate_threshold: float = 0.75
+    disc_wt: float = 0.07
+    lip_weight: float = 0.0     # AV-HuBERT-style lipreading expert loss weight
+    checkpoint_interval: int = 3000
+    eval_interval: int = 9000
+    num_epochs: int = 10**6     # train until stopped, like the reference
+    dtype: str = "bfloat16"
+    model_width: float = 1.0    # channel multiplier (1.0 = reference plan)
+    # Serving-only int8 (ops/quant.py): every 2-D conv and Linear of the
+    # generator runs quantise -> im2col -> the int8 matmul kernel K6 ->
+    # dequantise, with dynamic per-tensor activation scales. Training is
+    # untouched. What it costs and buys on an H100 is in PERF.md.
+    serve_int8: bool = False
+    # Activation scales fixed by one calibration pass at the start of a
+    # request (no per-layer max reduction afterwards); needs serve_int8.
+    serve_int8_static: bool = False
 
 
 @dataclass(frozen=True)

@@ -4,7 +4,10 @@
 (with ``unet_state_dict_from_flax`` and ``audio_encoder_state_dict_from_flax``)
 for the diffusion model; ``superres_state_dict_from_flax`` and
 ``encoder_unet_state_dict_from_flax`` for the super-resolution U-Net and the
-guidance classifier. The params stay float32 in the port (its layers cast
+guidance classifier; ``generator_state_dict_from_flax`` for the talking-face
+generator (with ``generator_flax_module_names``, which maps the Flax module
+paths that key JAX's static int8 scales to the port's module names). The
+params stay float32 in the port (its layers cast
 to the compute dtype inside ``forward``), so a round trip is exact. A Flax
 gradient tree has the params' structure and goes through the same
 functions.
@@ -30,6 +33,7 @@ from typing import Dict, Iterable, Mapping
 import numpy as np
 import torch
 
+from .generator import AUDIO_PLAN, DECODER_PLAN, FACE_PLAN
 from .unet import encoder_plan, plan
 
 
@@ -232,4 +236,62 @@ def unet_audio_state_dict_from_flax(params: Mapping, cfg) -> Dict[str, torch.Ten
     sd.update(unet_state_dict_from_flax(
         params["unet"], cfg.base_channels, cfg.channel_mult, cfg.num_res_blocks,
         cfg.attention_resolutions, "unet."))
+    return sd
+
+
+_GENERATOR_PARTS = (("AudioEncoder_0", "audio", AUDIO_PLAN), ("FaceEncoder_0", "face", FACE_PLAN),
+                    ("FaceDecoder_0", "decoder", DECODER_PLAN))
+_GENERATOR_KINDS = {"conv": "ConvBlock", "res": "ResConvBlock", "up": "UpsampleConv"}
+
+
+def _generator_blocks(plan):
+    """(Flax block path, port block name) for each block-creating step of a
+    generator plan, in call order: Flax names each block by its class and
+    index (``ConvBlock_1``, ``ResConvBlock_4`` …), the port keeps them in one
+    ``layers`` list; a ResConvBlock or UpsampleConv wraps one ``ConvBlock_0``
+    (the port's ``block``)."""
+    count = {k: 0 for k in _GENERATOR_KINDS}
+    blocks = []
+    for step in plan:
+        kind = step[0]
+        if kind not in _GENERATOR_KINDS:
+            continue
+        flax = f"{_GENERATOR_KINDS[kind]}_{count[kind]}"
+        count[kind] += 1
+        at = f"layers.{len(blocks)}"
+        blocks.append((flax, at) if kind == "conv" else (f"{flax}/ConvBlock_0", f"{at}.block"))
+    return blocks
+
+
+def generator_flax_module_names() -> Dict[str, str]:
+    """Flax module path of each of the generator's 51 convs
+    (``AudioEncoder_0/ConvBlock_0/Conv_0`` …, the keys of JAX's
+    ``calibrate_activation_scales``) → the port's ``named_modules()`` name
+    (``audio.layers.0.conv`` …)."""
+    names = {}
+    for flax_part, part, plan in _GENERATOR_PARTS:
+        for flax, at in _generator_blocks(plan):
+            names[f"{flax_part}/{flax}/Conv_0"] = f"{part}.{at}.conv"
+    names["FaceDecoder_0/Conv_0"] = "decoder.out_conv"
+    return names
+
+
+def generator_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax ``TalkingFaceGenerator`` params (group norm, any width) →
+    float32 ``state_dict`` for ``models.generator.TalkingFaceGenerator``."""
+    _exact(params, [p[0] for p in _GENERATOR_PARTS], "TalkingFaceGenerator")
+    sd: Dict[str, torch.Tensor] = {}
+    for flax_part, part, plan in _GENERATOR_PARTS:
+        tree = params[flax_part]
+        blocks = _generator_blocks(plan)
+        _exact(tree, {b[0].split("/")[0] for b in blocks}
+               | ({"Conv_0"} if part == "decoder" else set()), flax_part)
+        for flax, at in blocks:
+            block = tree
+            for key in flax.split("/"):
+                block = block[key]
+            _exact(block, ["Conv_0", "GroupNorm_0"], f"{flax_part}/{flax}")
+            _conv(sd, f"{part}.{at}.conv", block["Conv_0"])
+            _norm(sd, f"{part}.{at}.norm", block["GroupNorm_0"])
+    _conv(sd, "decoder.out_conv", params["FaceDecoder_0"]["Conv_0"])
     return sd

@@ -1,8 +1,11 @@
 """Building blocks of the port, with Flax numerics.
 
-Port of ``lipreading_video_generation_tpu/models/layers.py``'s ``MLP`` and
-``TransformerBlock``, plus the parameter-holding layers every model of the
-port is built from. What keeps them equal to the Flax modules:
+Port of ``lipreading_video_generation_tpu/models/layers.py``'s ``MLP``,
+``TransformerBlock`` and the lip-sync GAN's conv blocks (``scale_channels``,
+``fold_time``, ``unfold_time``, ``ConvBlock``, ``ResConvBlock``,
+``UpsampleConv``; NCHW here, NHWC there), plus the parameter-holding layers
+every model of the port is built from. What keeps them equal to the Flax
+modules:
 
 - ``Linear``, ``Conv1d``, ``Conv2d`` keep their parameters in float32 and
   cast input, weight and bias to their compute dtype (bf16 by default)
@@ -12,7 +15,14 @@ port is built from. What keeps them equal to the Flax modules:
 - ``LayerNorm``: eps 1e-6, statistics in float32 with the fast variance
   E[x²]−E[x]² (clipped at 0), float32 scale and bias, output cast to the
   compute dtype (flax/linen/normalization.py).
+- ``GroupNorm``: groups ``min(32, c)`` lowered until they divide c, eps
+  1e-6, statistics in float32 with the same fast variance.
 - ``nn.gelu`` is the tanh approximation.
+- ``UpsampleConv`` resizes with ``jax.image.resize(..., "nearest")``'s
+  index rule, floor((i + 0.5)·in/out).
+
+Inside ``ops.quant.int8_serving`` a ``Linear`` and a rerouted ``Conv2d``
+compute their product in int8 (see ``ops/quant.py``).
 
 Ring attention (``ring_axis``) needs a device mesh and is not ported; the
 TP activation constraints of the JAX modules are no-ops off-mesh and are
@@ -21,12 +31,16 @@ dropped.
 from __future__ import annotations
 
 import math
+from typing import Tuple, Union
 
 import torch
 from torch import nn
 import torch.nn.functional as F
 
+from ..ops import quant
 from ..ops.attention import mha
+
+Pair = Union[int, Tuple[int, int]]
 
 
 def _flax_init(layer: nn.Module) -> None:
@@ -49,6 +63,11 @@ class Linear(nn.Linear):
         _flax_init(self)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        serving = quant.active()
+        if serving is not None:
+            out = serving.linear(self, x)
+            if out is not None:
+                return out
         dt = self.compute_dtype
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
@@ -64,6 +83,11 @@ class _CastConv:
         _flax_init(self)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        serving = quant.active()
+        if serving is not None:
+            out = serving.conv(self, x)
+            if out is not None:
+                return out
         dt = self.compute_dtype
         return self._conv_forward(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
@@ -91,6 +115,37 @@ class LayerNorm(nn.Module):
         var = torch.clamp((x32 * x32).mean(-1, keepdim=True) - mean * mean, min=0.0)
         y = (x32 - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
         return y.to(x.dtype)
+
+
+def num_groups(c: int) -> int:
+    g = min(32, c)
+    while c % g:
+        g -= 1
+    return g
+
+
+class GroupNorm(nn.Module):
+    """Flax ``nn.GroupNorm(dtype=float32)`` over (B, C, ...) inputs."""
+
+    def __init__(self, channels: int, eps: float = 1e-6):
+        super().__init__()
+        self.groups = num_groups(channels)
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c = x.shape[:2]
+        x32 = x.to(torch.float32)
+        xg = x32.reshape(b, self.groups, -1)
+        mean = xg.mean(-1)
+        var = torch.clamp((xg * xg).mean(-1) - mean * mean, min=0.0)
+        per_group = c // self.groups
+        shape = (b, c) + (1,) * (x.ndim - 2)
+        mean = mean.repeat_interleave(per_group, dim=1).reshape(shape)
+        mul = (torch.rsqrt(var + self.eps).repeat_interleave(per_group, dim=1).reshape(shape)
+               * self.weight.reshape((1, c) + (1,) * (x.ndim - 2)))
+        return (x32 - mean) * mul + self.bias.reshape((1, c) + (1,) * (x.ndim - 2))
 
 
 class MLP(nn.Module):
@@ -127,3 +182,101 @@ class TransformerBlock(nn.Module):
         q, k, v = self.qkv(self.norm1(x)).chunk(3, dim=-1)
         x = x + self.proj(mha(q, k, v, self.num_heads))
         return x + self.mlp(self.norm2(x))
+
+
+def _pair(v: Pair) -> Tuple[int, int]:
+    return (v, v) if isinstance(v, int) else (int(v[0]), int(v[1]))
+
+
+def scale_channels(ch: int, width: float) -> int:
+    """A channel count scaled by a width multiplier: at least 8 and a
+    multiple of 8 (Python's ``round``, half to even, as in the JAX package)."""
+    return max(8, int(round(ch * width / 8)) * 8)
+
+
+def fold_time(x: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """(B, T, ...) → (B·T, ...); returns (folded, B)."""
+    b, t = x.shape[0], x.shape[1]
+    return x.reshape((b * t,) + x.shape[2:]), b
+
+
+def unfold_time(x: torch.Tensor, b: int) -> torch.Tensor:
+    """(B·T, ...) → (B, T, ...)."""
+    return x.reshape((b, -1) + x.shape[1:])
+
+
+def _norm(name: str, channels: int):
+    if name == "group":
+        return GroupNorm(channels)
+    if name == "none":
+        return None
+    raise ValueError(f"unknown norm {name!r}")
+
+
+_ACTS = {"relu": F.relu, "leaky": lambda x: F.leaky_relu(x, 0.01), "silu": F.silu,
+         "none": lambda x: x}
+
+
+class ConvBlock(nn.Module):
+    """Conv → norm → activation over (B, C, H, W), with explicit symmetric
+    padding (Flax: ``Conv_0`` and ``GroupNorm_0``)."""
+
+    def __init__(self, in_channels: int, features: int, kernel: Pair = 3, stride: Pair = 1,
+                 padding: Pair = 1, norm: str = "group", act: str = "relu",
+                 residual: bool = False, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if act not in _ACTS:
+            raise ValueError(f"unknown act {act!r}")
+        self.conv = Conv2d(in_channels, features, _pair(kernel), _pair(stride), _pair(padding),
+                           dtype=dtype)
+        self.norm = _norm(norm, features)
+        self.act = act
+        self.residual = residual
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.conv(x)
+        if self.norm is not None:
+            out = self.norm(out).to(self.compute_dtype)
+        if self.residual:
+            out = out + x
+        return _ACTS[self.act](out)
+
+
+class ResConvBlock(nn.Module):
+    """x + (conv → norm → relu)(x) (Flax: ``ConvBlock_0``)."""
+
+    def __init__(self, features: int, norm: str = "group", dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.block = ConvBlock(features, features, 3, 1, 1, norm=norm, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.block(x) + x
+
+
+def resize_nearest(x: torch.Tensor, target_hw: Tuple[int, int]) -> torch.Tensor:
+    """(B, C, H, W) → (B, C, th, tw) with ``jax.image.resize(...,
+    "nearest")``'s source index floor((i + 0.5)·in/out), computed in
+    float32 as there. (``F.interpolate(mode="nearest")`` takes
+    floor(i·in/out), the same only at integer factors.)"""
+    for dim, n in ((2, target_hw[0]), (3, target_hw[1])):
+        m = x.shape[dim]
+        if n != m:
+            idx = torch.floor((torch.arange(n, dtype=torch.float32, device=x.device) + 0.5)
+                              * m / n).long()
+            x = x.index_select(dim, idx)
+    return x
+
+
+class UpsampleConv(nn.Module):
+    """Nearest resize to ``target_hw``, then a ``ConvBlock``: the decoder's
+    stand-in for a transposed conv (Flax: ``ConvBlock_0``)."""
+
+    def __init__(self, in_channels: int, features: int, target_hw: Tuple[int, int],
+                 norm: str = "group", dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.target_hw = tuple(target_hw)
+        self.block = ConvBlock(in_channels, features, 3, 1, 1, norm=norm, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.block(resize_nearest(x, self.target_hw))

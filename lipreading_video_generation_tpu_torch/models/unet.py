@@ -47,7 +47,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import mha
 from ..ops.image import resize, upsample_nearest2x
-from .layers import Conv2d, Linear
+from .layers import Conv2d, GroupNorm, Linear
 
 
 def timestep_embedding(t: torch.Tensor, dim: int, max_period: int = 10000) -> torch.Tensor:
@@ -62,43 +62,12 @@ def timestep_embedding(t: torch.Tensor, dim: int, max_period: int = 10000) -> to
     return emb
 
 
-def num_groups(c: int) -> int:
-    g = min(32, c)
-    while c % g:
-        g -= 1
-    return g
-
-
 def dropout_mask(shape, rate: float, generator: Optional[torch.Generator],
                  device) -> torch.Tensor:
     """Keep-mask of ``shape`` (True with probability 1 − rate), drawn from
     ``generator`` (the default one when None) on ``device``."""
     return torch.empty(shape, dtype=torch.bool, device=device).bernoulli_(
         1.0 - rate, generator=generator)
-
-
-class GroupNorm(nn.Module):
-    """Flax ``nn.GroupNorm(dtype=float32)`` over (B, C, ...) inputs."""
-
-    def __init__(self, channels: int, eps: float = 1e-6):
-        super().__init__()
-        self.groups = num_groups(channels)
-        self.eps = eps
-        self.weight = nn.Parameter(torch.ones(channels))
-        self.bias = nn.Parameter(torch.zeros(channels))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, c = x.shape[:2]
-        x32 = x.to(torch.float32)
-        xg = x32.reshape(b, self.groups, -1)
-        mean = xg.mean(-1)
-        var = torch.clamp((xg * xg).mean(-1) - mean * mean, min=0.0)
-        per_group = c // self.groups
-        shape = (b, c) + (1,) * (x.ndim - 2)
-        mean = mean.repeat_interleave(per_group, dim=1).reshape(shape)
-        mul = (torch.rsqrt(var + self.eps).repeat_interleave(per_group, dim=1).reshape(shape)
-               * self.weight.reshape((1, c) + (1,) * (x.ndim - 2)))
-        return (x32 - mean) * mul + self.bias.reshape((1, c) + (1,) * (x.ndim - 2))
 
 
 class ResBlock(nn.Module):

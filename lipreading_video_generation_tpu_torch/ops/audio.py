@@ -8,7 +8,8 @@ window → Slaney mel filterbank → amp-to-dB → ref-level shift → symmetric
 normalisation to ±max_abs_value). The filterbank is the JAX package's numpy
 construction, copied; framing is ``unfold`` and the FFT is ``torch.fft.rfft``
 (cuFFT on the card, where the JAX package uses XLA's FFT). Batched over any
-leading dims of ``(..., samples)``.
+leading dims of ``(..., samples)``. Also ``crop_mel_window`` and
+``mel_windows``, which cut the 16-step mel windows aligned to video frames.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ import torch.nn.functional as F
 from ..core.config import AudioConfig
 
 __all__ = ["mel_filterbank", "preemphasis", "stft_magnitude", "amp_to_db",
-           "normalize_spec", "melspectrogram"]
+           "normalize_spec", "melspectrogram", "crop_mel_window", "mel_windows"]
 
 
 def _hz_to_mel_slaney(f: np.ndarray) -> np.ndarray:
@@ -130,3 +131,27 @@ def melspectrogram(wav: torch.Tensor, cfg: AudioConfig = AudioConfig()) -> torch
     if cfg.signal_normalization:
         S = normalize_spec(S, cfg)
     return S
+
+
+def mel_windows(mel: torch.Tensor, start_frames: torch.Tensor, fps: float = 25.0,
+                mel_step_size: int = 16, sample_rate: int = 16000,
+                hop: int = 200) -> torch.Tensor:
+    """Aligned mel windows: (..., num_mels, T_mel) and (N,) start frames →
+    (N, ..., num_mels, mel_step_size). Window i starts at mel step
+    floor(mel_steps_per_sec · start_frame / fps), clipped so that it fits;
+    the product and the quotient are float32, as in the JAX package."""
+    starts = torch.as_tensor(start_frames, dtype=torch.float32, device=mel.device)
+    # a true division: a CUDA tensor divided by a Python number is multiplied
+    # by the reciprocal, which can land just below an integer
+    pos = (sample_rate / hop) * starts / torch.full_like(starts, fps)
+    first = torch.clamp(torch.floor(pos).long(), 0, mel.shape[-1] - mel_step_size)
+    idx = first[:, None] + torch.arange(mel_step_size, device=mel.device)
+    return torch.movedim(mel[..., idx], -2, 0)
+
+
+def crop_mel_window(mel: torch.Tensor, start_frame, fps: float = 25.0, mel_step_size: int = 16,
+                    sample_rate: int = 16000, hop: int = 200) -> torch.Tensor:
+    """The ``mel_step_size``-step window of (..., num_mels, T_mel) aligned to
+    video frame ``start_frame``."""
+    start = torch.as_tensor(start_frame, dtype=torch.float32, device=mel.device).reshape(1)
+    return mel_windows(mel, start, fps, mel_step_size, sample_rate, hop)[0]

@@ -1,11 +1,14 @@
-"""Batched image ops of the mouth-ROI and diffusion paths, in plain torch.
+"""Batched image ops of the mouth-ROI, diffusion and lip-sync paths, in
+plain torch.
 
 Port of the ops ``lipreading_video_generation_tpu/pipelines/preprocess.py``
 calls from ``ops/image.py``: ``expand_box_to_min_size``, ``rgb_to_gray``,
 ``crop_and_resize``, ``resize`` and the ``clahe`` dispatch; and of the
 diffusion path's ``normalize_uint8``, ``denormalize_to_uint8`` and the
-U-Net's nearest 2× upsample (``models/unet.py:142``). Layouts are the
-JAX package's: (..., H, W, C) images and y1y2x1x2 boxes.
+U-Net's nearest 2× upsample (``models/unet.py:142``); and of the lip-sync
+path's ``mask_lower_half``, ``concat_reference``, ``_bilinear_sample`` and
+``smooth_boxes``. Layouts are the JAX package's: (..., H, W, C) images and
+y1y2x1x2 boxes.
 
 Resampling reproduces ``jax.image.scale_and_translate`` (which both
 ``crop_and_resize`` and ``jax.image.resize`` use): separable per-axis
@@ -34,6 +37,9 @@ __all__ = [
     "normalize_uint8",
     "denormalize_to_uint8",
     "upsample_nearest2x",
+    "mask_lower_half",
+    "concat_reference",
+    "smooth_boxes",
 ]
 
 _F32_EPS = float(torch.finfo(torch.float32).eps)
@@ -184,3 +190,43 @@ def clahe(img: torch.Tensor, clip_limit: float = 0.2, grid: Tuple[int, int] = (8
     if not img.dtype.is_floating_point:
         return torch.clamp(torch.round(out), 0, 255).to(img.dtype)
     return out
+
+
+def mask_lower_half(img: torch.Tensor) -> torch.Tensor:
+    """Zero the lower half (rows >= H // 2) of (..., H, W, C) frames: the
+    masked target window fed to the generator."""
+    h = img.shape[-3]
+    keep = (torch.arange(h, device=img.device) < h // 2)[:, None, None]
+    return torch.where(keep, img, torch.zeros_like(img))
+
+
+def concat_reference(masked: torch.Tensor, reference: torch.Tensor) -> torch.Tensor:
+    """Channel-concat the masked target window with the reference window →
+    the generator's 6-channel input."""
+    return torch.cat([masked, reference], dim=-1)
+
+
+def _bilinear_sample(img: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+    """Sample (..., H, W, C) at the outer product of ``ys`` (..., M) and
+    ``xs`` (..., N) with zero padding → (..., M, N, C) float32. The bilinear
+    weight of input row i at coordinate y is the triangle max(0, 1 − |y − i|),
+    zero outside the image, so the sampling is two small float32 matmuls
+    (exact, and no gather)."""
+    h, w = img.shape[-3], img.shape[-2]
+    x = img.to(torch.float32)
+    wy = torch.clamp(1.0 - torch.abs(
+        ys[..., :, None] - torch.arange(h, dtype=torch.float32, device=img.device)), min=0.0)
+    wx = torch.clamp(1.0 - torch.abs(
+        xs[..., :, None] - torch.arange(w, dtype=torch.float32, device=img.device)), min=0.0)
+    rows = torch.einsum("...mh,...hwc->...mwc", wy, x)
+    return torch.einsum("...nw,...mwc->...mnc", wx, rows)
+
+
+def smooth_boxes(boxes: torch.Tensor, T: int = 5) -> torch.Tensor:
+    """Temporal moving average of (N, 4) face boxes: box[i] =
+    mean(boxes[i : i + T]), the window shifted back near the end."""
+    n = boxes.shape[0]
+    idx = torch.arange(n, device=boxes.device)
+    start = torch.where(idx + T > n, torch.full_like(idx, max(0, n - T)), idx)
+    gather = torch.clamp(start[:, None] + torch.arange(T, device=boxes.device), 0, n - 1)
+    return boxes[gather].mean(dim=1)

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.config import ClassifierConfig, DiffusionConfig
+from ..core.device import resolve_device
 from ..models.schedulers import make_scheduler
 from ..models.unet import EncoderUNetModel
 from ..ops import image as image_ops
@@ -49,11 +50,12 @@ class ClassifierTrainState:
 
 
 def create_state(ccfg: ClassifierConfig, dcfg: DiffusionConfig, seed: int = 0,
-                 device="cpu") -> ClassifierTrainState:
+                 device=None) -> ClassifierTrainState:
+    device = resolve_device(device)
     model = seeded(lambda: make_classifier(ccfg, dcfg.im_channels), seed).to(device).train()
     opt = torch.optim.Adam(model.parameters(), lr=ccfg.learning_rate, betas=ADAM_BETAS,
                            eps=ADAM_EPS)
-    gen = torch.Generator(device=torch.device(device)).manual_seed(seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
     return ClassifierTrainState(model, opt, 0, gen, make_scheduler(
         dcfg.scheduler, dcfg.num_timesteps, dcfg.beta_start, dcfg.beta_end))
 
@@ -101,7 +103,7 @@ def train_step(state: ClassifierTrainState, batch: Dict[str, Any], ccfg: Classif
 
 def train(ccfg: ClassifierConfig, dcfg: DiffusionConfig,
           batch_fn: Callable[[], Dict[str, Any]], num_steps: int, seed: int = 0,
-          log_every: int = 50, device="cpu") -> ClassifierTrainState:
+          log_every: int = 50, device=None) -> ClassifierTrainState:
     state = create_state(ccfg, dcfg, seed, device)
     for i in range(num_steps):
         metrics = train_step(state, batch_fn(), ccfg, dcfg)

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.config import DiffusionConfig
+from ..core.device import resolve_device
 from ..core.prng import uniform_timesteps
 from ..models.schedulers import make_scheduler
 from ..models.unet_audio import UNetAudio
@@ -73,11 +74,12 @@ def new_state(model: nn.Module, cfg, seed: int, device, ema_rate: float) -> Diff
     """A step-0 state around ``model`` on ``device``: EMA copy, Adam at
     ``cfg.learning_rate``, a generator seeded with ``seed``, ``cfg``'s
     noise schedule."""
+    device = resolve_device(device)
     model = model.to(device).train()
     ema = copy.deepcopy(model).eval().requires_grad_(False)
     opt = torch.optim.Adam(model.parameters(), lr=cfg.learning_rate, betas=ADAM_BETAS,
                            eps=ADAM_EPS)
-    gen = torch.Generator(device=torch.device(device)).manual_seed(seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
     return DiffusionTrainState(model, ema, opt, 0, gen, make_scheduler(
         cfg.scheduler, cfg.num_timesteps, cfg.beta_start, cfg.beta_end), ema_rate)
 
@@ -90,10 +92,11 @@ def seeded(build: Callable[[], nn.Module], seed: int) -> nn.Module:
         return build()
 
 
-def create_state(cfg: DiffusionConfig, seed: int = 0, device="cpu", ema_rate: float = 0.9999,
+def create_state(cfg: DiffusionConfig, seed: int = 0, device=None, ema_rate: float = 0.9999,
                  wav2vec2_checkpoint: Optional[str] = None) -> DiffusionTrainState:
     """A fresh train state: ``UNetAudio(cfg)`` initialised from ``seed``
-    (Flax's init rules; the same seed gives the same params), EMA = a copy."""
+    (Flax's init rules; the same seed gives the same params), EMA = a copy.
+    ``device=None`` is the card (``core.device.default_device``)."""
     if wav2vec2_checkpoint:
         raise NotImplementedError(
             "create_state: wav2vec2_checkpoint needs the pretrained wav2vec2 port "
@@ -244,7 +247,7 @@ def train(cfg: DiffusionConfig, batch_fn: Callable[[], Dict[str, Any]], num_step
           seed: int = 0, checkpoint_dir: Optional[str] = None, metrics_writer=None,
           checkpoint_every: int = 500, mesh_spec=None, eval_batch_fn=None,
           eval_every: int = 500, wav2vec2_checkpoint: Optional[str] = None,
-          device="cpu") -> DiffusionTrainState:
+          device=None) -> DiffusionTrainState:
     """Step loop: one ``train_step`` per batch from ``batch_fn`` until
     ``num_steps`` (or a ``None`` batch); resumes from the latest checkpoint
     of ``checkpoint_dir`` and saves one every ``checkpoint_every`` steps;

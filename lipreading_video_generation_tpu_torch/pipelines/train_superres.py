@@ -31,7 +31,7 @@ def make_sr_model(cfg: SuperResConfig) -> SuperResModel:
         dtype=getattr(torch, cfg.dtype), dropout=cfg.dropout))
 
 
-def create_state(cfg: SuperResConfig, seed: int = 0, device="cpu",
+def create_state(cfg: SuperResConfig, seed: int = 0, device=None,
                  ema_rate: float = 0.9999) -> DiffusionTrainState:
     return new_state(seeded(lambda: make_sr_model(cfg), seed), cfg, seed, device, ema_rate)
 
@@ -60,7 +60,7 @@ def train_step(state: DiffusionTrainState, batch: Dict[str, Any], cfg: SuperResC
 
 def train(cfg: SuperResConfig, batch_fn: Callable[[], Dict[str, Any]], num_steps: int = 1000,
           seed: int = 0, checkpoint_dir: Optional[str] = None, metrics_writer=None,
-          checkpoint_every: int = 500, mesh_spec=None, device="cpu") -> DiffusionTrainState:
+          checkpoint_every: int = 500, mesh_spec=None, device=None) -> DiffusionTrainState:
     """Step loop as ``train_diffusion.train``; also saves the last step."""
     if mesh_spec is not None:
         raise NotImplementedError(

@@ -13,6 +13,8 @@ import torch
 from lipreading_video_generation_tpu_torch.ops import attention as att
 from lipreading_video_generation_tpu_torch.ops import clahe_cuda as cl
 from lipreading_video_generation_tpu_torch.ops import image as im
+from lipreading_video_generation_tpu_torch.ops import matmul_cuda as mm
+from lipreading_video_generation_tpu_torch.ops import quant
 
 pytestmark = pytest.mark.cuda
 
@@ -238,3 +240,104 @@ def test_flash_backward_fully_masked_rows_follow_attention_reference(cuda):
     (att.attention_reference(*ref, causal=True) * cot).sum().backward()
     for t, r in zip((q, k, v), ref):
         torch.testing.assert_close(t.grad, r.grad, rtol=1e-4, atol=1e-4)
+
+
+def _int8(shape, seed, device):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8)).to(device)
+
+
+# K6: ragged shapes, one 4096-deep product, the generator's narrowest and
+# widest outputs (M cut), and the operand layouts the int8 path produces
+_MM = [(257, 131, 67), (5, 9, 3), (1, 1, 1), (300, 4608, 512), (4096, 294, 16),
+       (4096, 32, 3), (640, 1024, 256), (129, 64, 65)]
+
+
+@pytest.mark.parametrize("m,k,n", _MM)
+@pytest.mark.parametrize("layout", ["row_major", "b_transposed", "sliced"])
+def test_int8_matmul_kernel_is_exact(cuda, m, k, n, layout):
+    a = _int8((m, k), 70, cuda)
+    if layout == "row_major":
+        b = _int8((k, n), 71, cuda)
+    elif layout == "b_transposed":          # a quantised (N, K) weight taken as B
+        b = _int8((n, k), 71, cuda).t()
+    else:                                   # every other row / column of larger tensors
+        a = _int8((2 * m, 2 * k), 70, cuda)[::2, ::2]
+        b = _int8((2 * k, 2 * n), 71, cuda)[::2, ::2]
+    before = mm.int8_matmul.launch_count
+    got = mm.int8_matmul(a, b)
+    torch.cuda.synchronize()
+    assert mm.int8_matmul.launch_count == before + 1
+    want = mm.matmul_reference(a, b)
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    assert torch.equal(got, want)
+    assert torch.equal(want.cpu(), mm.matmul_reference(a.cpu(), b.cpu()))
+
+
+@pytest.mark.parametrize("m,k,n", _MM)
+@pytest.mark.parametrize("layout", ["row_major", "b_transposed"])
+def test_bf16_matmul_kernel_matches_plain(cuda, m, k, n, layout):
+    """The float32 accumulator against a float32 matmul of the same bf16
+    values: only the order of summation differs, 1e-3 of the largest |C|."""
+    a = _uniform((m, k), -1, 1, 72, cuda, torch.bfloat16)
+    b = (_uniform((k, n), -1, 1, 73, cuda, torch.bfloat16) if layout == "row_major"
+         else _uniform((n, k), -1, 1, 73, cuda, torch.bfloat16).t())
+    before = mm.bf16_matmul.launch_count
+    got = mm.bf16_matmul(a, b)
+    torch.cuda.synchronize()
+    assert mm.bf16_matmul.launch_count == before + 1
+    want = mm.matmul_reference(a, b)
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    assert (got - want).abs().max().item() <= 1e-3 * want.abs().max().item()
+
+
+def test_matmul_wrappers_raise_on_what_k6_does_not_take(cuda):
+    a = _int8((8, 8), 74, cuda)
+    with pytest.raises(ValueError, match="int8"):
+        mm.int8_matmul(a.float(), a.float())
+    with pytest.raises(ValueError, match=r"\(M, K\)"):
+        mm.int8_matmul(a, a[:4])
+    with pytest.raises(ValueError, match="operands on"):
+        mm.int8_matmul(a, a.cpu())
+    assert mm.int8_matmul(a[:0], a).shape == (0, 8)
+
+
+@pytest.mark.parametrize("stride,pad,bias,static", [((2, 2), 1, True, False),
+                                                    ((3, 1), 0, False, False),
+                                                    ((1, 1), 3, True, True)])
+def test_int8_conv_on_card_equals_cpu(cuda, stride, pad, bias, static):
+    """The same float inputs give the same integers on both devices, so the
+    outputs agree to float32 rounding of the dequantisation."""
+    rng = np.random.default_rng(75)
+    x = torch.from_numpy(rng.standard_normal((3, 20, 17, 6)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((7, 7, 6, 10)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal(10).astype(np.float32)) if bias else None
+    scale = 0.03 if static else None
+    args = (stride, ((pad, pad), (pad, pad)))
+    before = mm.int8_matmul.launch_count
+    got = quant.int8_conv(x.to(cuda), w.to(cuda), None if b is None else b.to(cuda), *args,
+                          act_scale=scale)
+    assert mm.int8_matmul.launch_count == before + 1
+    want = quant.int8_conv(x, w, b, *args, act_scale=scale)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    got_d = quant.int8_dense(x.to(cuda), w[0, 0].to(cuda), None, act_scale=scale)
+    torch.testing.assert_close(got_d.cpu(), quant.int8_dense(x, w[0, 0], None, act_scale=scale),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_int8_path_has_no_fallback(cuda, monkeypatch):
+    """With the kernel library made unloadable a CUDA int8 product raises."""
+    from lipreading_video_generation_tpu_torch.ops import _build
+
+    def unloadable(name, argtypes):
+        raise RuntimeError("kernel library unloadable")
+
+    monkeypatch.setattr(_build, "kernel", unloadable)
+    a = _int8((8, 16), 76, cuda)
+    with pytest.raises(RuntimeError, match="unloadable"):
+        mm.int8_matmul(a, a.t())
+    x = torch.ones(1, 4, 4, 16, device=cuda)
+    with pytest.raises(RuntimeError, match="unloadable"):
+        quant.int8_conv(x, torch.ones(1, 1, 16, 8, device=cuda), None, (1, 1), "VALID")
+    with pytest.raises(RuntimeError, match="unloadable"):
+        quant.int8_dense(x, torch.ones(16, 8, device=cuda), None)

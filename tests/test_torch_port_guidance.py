@@ -107,7 +107,7 @@ def test_classifier_step_gradients_match_jax(clf):
             logits, jnp.asarray(batch["label"])).mean(), logits
 
     (loss_j, logits_j), grads_j = jax.value_and_grad(loss_fn, has_aux=True)(params)
-    state = ttc.create_state(tccfg, TDCfg(**DCFG))
+    state = ttc.create_state(tccfg, TDCfg(**DCFG), device="cpu")
     state.model.load_state_dict(convert.encoder_unet_state_dict_from_flax(params, tccfg))
     sd0 = {n: p.detach().clone() for n, p in state.model.named_parameters()}
     m = ttc.train_step(state, batch, tccfg, TDCfg(**DCFG), t, noise)
@@ -156,7 +156,7 @@ def trained():
     ccfg, dcfg = TCCfg(**CCFG), TDCfg(**DCFG)
     rng = np.random.default_rng(0)
     return ttc.train(ccfg, dcfg, lambda: ttc.synthetic_batch(rng, ccfg, dcfg), num_steps=120,
-                     log_every=0)
+                     log_every=0, device="cpu")
 
 
 def test_classifier_learns_noisy_quadrants(trained):

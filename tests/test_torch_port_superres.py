@@ -123,7 +123,7 @@ def test_superres_step_gradients_match_jax(sr):
         return jlosses.noise_mse(pred, jnp.asarray(noise))
 
     loss_j, grads_j = jax.value_and_grad(loss_fn)(params)
-    state = tsr.create_state(tcfg)
+    state = tsr.create_state(tcfg, device="cpu")
     state.model.load_state_dict(convert.superres_state_dict_from_flax(params, tcfg))
     tt, tnoise = ttd.draw_t_noise(state, _nchw(prep["high"]), cfg.num_timesteps, t, noise)
     tnoisy = state.scheduler.add_noise(_nchw(prep["high"]), tnoise, tt)
@@ -161,12 +161,12 @@ def test_superres_train_reduces_loss_and_round_trips(tmp_path):
     rng = np.random.default_rng(0)
     batch = {"target_frame": rng.integers(0, 256, (2, 16, 16, 3), dtype=np.uint8)}
     t, noise = np.array([3, 6]), rng.standard_normal((2, 16, 16, 3)).astype(np.float32)
-    state = tsr.create_state(cfg)
+    state = tsr.create_state(cfg, device="cpu")
     losses = [tsr.train_step(state, batch, cfg, t, noise)["loss"].item() for _ in range(24)]
     assert np.isfinite(losses).all() and state.step == 24
     assert losses[-1] < 0.9 * losses[0], losses
     trained = tsr.train(cfg, lambda: batch, num_steps=3, checkpoint_dir=str(tmp_path),
-                        checkpoint_every=2)
+                        checkpoint_every=2, device="cpu")
     assert ttd.latest_checkpoint(str(tmp_path)).endswith("step_000000003.pt")
     ema = tsr.load_sr_params(str(tmp_path))
     assert all(torch.equal(ema[n], v) for n, v in trained.ema.state_dict().items())

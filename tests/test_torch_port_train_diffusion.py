@@ -108,7 +108,7 @@ def jax_run():
 
 def _port_state(params, cfg=None):
     cfg = cfg or TCfg(**TINY)
-    state = ttd.create_state(cfg)
+    state = ttd.create_state(cfg, device="cpu")
     sd = convert.unet_audio_state_dict_from_flax(params, cfg)
     state.model.load_state_dict(sd)
     state.ema.load_state_dict(sd)
@@ -152,7 +152,7 @@ def test_adam_and_ema_match_optax():
     with optax ``adam``'s hyperparameters and the in-place EMA against
     optax and ``update_ema``; float32 rounding only (1e-6)."""
     cfg = TCfg(**TINY)
-    state = ttd.create_state(cfg, seed=5, ema_rate=0.99)
+    state = ttd.create_state(cfg, seed=5, ema_rate=0.99, device="cpu")
     names = [n for n, _ in state.model.named_parameters()]
     params = {n: p.detach().numpy().copy() for n, p in state.model.named_parameters()}
     tx = optax.adam(cfg.learning_rate)
@@ -237,7 +237,7 @@ def test_dropout_train_and_eval():
 
 
 def _loss_and_grads(cfg, seed=0):
-    state = ttd.create_state(cfg, seed=seed)
+    state = ttd.create_state(cfg, seed=seed, device="cpu")
     prep = ttd.prepare_batch(_batch(3), cfg, "cpu")
     t, noise = ttd.draw_t_noise(state, prep["target"], cfg.num_timesteps)
     noisy = state.scheduler.add_noise(prep["target"], noise, t)
@@ -277,15 +277,15 @@ def test_checkpoint_round_trip_resumes_bit_exactly(tmp_path):
         def write(self, step, metrics):
             self.rows.append((step, metrics))
 
-    straight = ttd.train(cfg, feed(), num_steps=3, seed=4)
+    straight = ttd.train(cfg, feed(), num_steps=3, seed=4, device="cpu")
     writer = Writer()
     ttd.train(cfg, feed(), num_steps=2, seed=4, checkpoint_dir=str(tmp_path),
-              checkpoint_every=2, metrics_writer=writer)
+              checkpoint_every=2, metrics_writer=writer, device="cpu")
     assert [s for s, _ in writer.rows] == [0, 1] and "loss" in writer.rows[0][1]
     assert ttd.latest_checkpoint(str(tmp_path)).endswith("step_000000002.pt")
     rest = iter(batches[2:])
     resumed = ttd.train(cfg, lambda: next(rest, None), num_steps=3, seed=4,
-                        checkpoint_dir=str(tmp_path), checkpoint_every=2)
+                        checkpoint_dir=str(tmp_path), checkpoint_every=2, device="cpu")
     assert resumed.step == straight.step == 3
     for a, b in ((resumed.model, straight.model), (resumed.ema, straight.ema)):
         for (n, x), y in zip(a.state_dict().items(), b.state_dict().values()):
@@ -297,8 +297,7 @@ def test_checkpoint_round_trip_resumes_bit_exactly(tmp_path):
 
 def test_same_seed_same_params_and_eval_step():
     cfg = TCfg(**TINY)
-    a, b, c = ttd.create_state(cfg, seed=7), ttd.create_state(cfg, seed=7), ttd.create_state(
-        cfg, seed=8)
+    a, b, c = (ttd.create_state(cfg, seed=s, device="cpu") for s in (7, 7, 8))
     sa, sb, sc = (s.model.state_dict() for s in (a, b, c))
     assert all(torch.equal(sa[n], sb[n]) for n in sa)
     assert not all(torch.equal(sa[n], sc[n]) for n in sa)
@@ -308,9 +307,9 @@ def test_same_seed_same_params_and_eval_step():
     m = ttd.eval_step(a, _batch(4), cfg)
     assert np.isfinite(m["eval/loss"].item()) and a.model.training
     with pytest.raises(NotImplementedError, match="multi-GPU"):
-        ttd.train(cfg, lambda: None, mesh_spec=object())
+        ttd.train(cfg, lambda: None, mesh_spec=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="wav2vec2"):
-        ttd.create_state(cfg, wav2vec2_checkpoint="w2v")
+        ttd.create_state(cfg, wav2vec2_checkpoint="w2v", device="cpu")
 
 
 def _round_as_before(model, sd):
