@@ -13,8 +13,9 @@ weights made from a seed, and checks every hand-written kernel on them:
   channel_mult (1,2,4), 2 res blocks, attention at ds 1/2/4, 1 head, bf16);
 - diffusion training — uint8 target/condition frames + raw audio →
   ``prepare_batch`` → q-sample → U-Net forward in train mode (dropout 0.1)
-  → ε-MSE → backward through the flash backward kernels → Adam → EMA — at
-  the same defaults, batch 8;
+  → ε-MSE → backward through the flash backward kernels (in bf16 the
+  tensor-core ones, ``csrc/flash_bwd_sm90.cu``) → Adam → EMA — at the same
+  defaults, batch 8;
 - the super-resolution stage (``SuperResConfig`` defaults: training, then
   the two-stage cascade) and classifier guidance (``ClassifierConfig``
   defaults: training, then a guided request), the other two users of the
@@ -41,8 +42,11 @@ script exits non-zero without printing a result):
    bf16, 1e-5 in float32, and its gradient at 1e-4 in float32; K3 flash
    forward: O within 1e-2 in bf16 (one output ulp at |O| ≤ 1), 1e-4 in
    float32, lse within 1e-4; K4/K5 flash backward: each gradient within
-   1e-2 of its largest value in bf16 (one rounding of the gradient), 1e-4
-   in float32; K6 matmul: int8 exactly equal, bf16 within 1e-3 of the
+   1e-2 of its largest value in bf16 (P and dS rounded to bf16 before the
+   float32 sums, then one rounding of the gradient) against the plain
+   version with float32 P, 1e-4 in float32; aligned bf16 inputs must take
+   the tensor-core kernels and float32 or unaligned ones the CUDA-core
+   kernels, and two launches must give equal bits; K6 matmul: int8 exactly equal, bf16 within 1e-3 of the
    largest |C| (the output is the unrounded float32 sum; only the order of
    summation differs)), at the shapes the paths give them.
 4. serve   — 3 requests of 8 clips and 3 of 384 clips (5 frames each, 96×96
@@ -60,7 +64,9 @@ script exits non-zero without printing a result):
    same initial noise.
 6. train   — ``train_step`` at the ``DiffusionConfig`` defaults, batch 8:
    one warm-up and 5 timed steps, each launching K3, K4 and K5 16 times and
-   K2 4 times, with finite loss, params and EMA and an EMA that moves; 10
+   K2 4 times (K4/K5 by the tensor-core route), with finite loss, params
+   and EMA and an EMA that moves; a ``torch.profiler`` breakdown of one
+   step (device busy share, K2-K5 shares); 10
    steps on one batch with fixed t and noise must end below the first
    loss; one float32 step at the full channel plan but 64×64, batch 2,
    dropout 0, card against the CPU plain path (loss within 1e-4 relative,
@@ -86,7 +92,8 @@ script exits non-zero without printing a result):
 11. timing — request and train-step times, frames/s, each kernel's
    CUDA-event time beside its plain version's at the main-path shapes, the
    one PyTorch call that computes the same function where there is one
-   (``scaled_dot_product_attention`` and its backward, ``torch._int_mm``,
+   (``scaled_dot_product_attention`` and its backward, the latter at all
+   three U-Net shapes beside K4 + K5, ``torch._int_mm``,
    ``torch.matmul``; yardsticks, used on no path), each kernel's bound
    (the larger of its bytes over 3.35 TB/s and its operations over the
    tensor-core peak of its type), peak device memory.
@@ -188,8 +195,8 @@ def phase_build() -> None:
     log("build", f"{lib} from {[p.name for p in _build.sources()]} in "
         f"{_build.build_info['seconds']:.1f} s")
     for line in str(_build.build_info["log"]).splitlines():
-        if "ptxas info" in line and ("registers" in line or "Compiling" in line
-                                     or "smem" in line):
+        if ("ptxas info" in line and ("registers" in line or "Compiling" in line
+                                      or "smem" in line)) or "spill" in line or "arning" in line:
             log("build", line.strip())
     from lipreading_video_generation_tpu_torch.ops.attention import (
         _small_mha_smem_bytes, flash_bwd_smem_bytes, flash_smem_bytes)
@@ -199,10 +206,11 @@ def phase_build() -> None:
         f"{_small_mha_smem_bytes(80, 32)} B (S=80, d=32), "
         f"{_small_mha_smem_bytes(11, 96)} B (S=11, d=96); K3 "
         + ", ".join(f"{flash_smem_bytes(d)} B (head dim {d})" for d in (64, 128, 256))
-        + "; K4 " + ", ".join(f"{flash_bwd_smem_bytes(d, 'dkv')} B (head dim {d})"
-                             for d in (64, 128, 256))
-        + "; K5 " + ", ".join(f"{flash_bwd_smem_bytes(d, 'dq')} B (head dim {d})"
-                             for d in (64, 128, 256))
+        + "".join(f"; {name} {what} " + ", ".join(
+            f"{flash_bwd_smem_bytes(d, kern, route)} B (head dim {d})" for d in (64, 128, 256))
+            for route, what in (("sm90", "tensor-core route (bf16 tiles)"),
+                                ("cuda_core", "CUDA-core route (float tiles)"))
+            for name, kern in (("K4", "dkv"), ("K5", "dq")))
         + "; K6 15360 B static (128 and 64 rows of 80 bytes)")
 
 
@@ -286,46 +294,72 @@ def phase_kernels() -> dict:
 
     # K4/K5: the U-Net's three shapes (batch 2), the super-resolution U-Net's
     # (d=192, padded to 256), the classifier's (2 heads, d=64), and small
-    # float32 causal / ragged / cross / fully-masked-row cases
+    # causal / ragged / cross / fully-masked-row cases in float32 (the
+    # CUDA-core kernels) and in bf16 (the tensor-core kernels), and a bf16
+    # view that starts 8 bytes into its rows, which 16-byte copies cannot
+    # read: it must take the CUDA-core kernels
+    small = [((2, 3, 192, 32), 192, True), ((2, 3, 160, 40), 320, True),
+             ((2, 3, 200, 16), 200, False), ((1, 2, 160, 128), 320, False),
+             ((1, 2, 256, 256), 256, True), ((1, 2, 200, 64), 150, True)]
+    cases = ([((2, 1, 16384, 64), 16384, False, torch.bfloat16, "sm90"),
+              ((2, 1, 4096, 128), 4096, False, torch.bfloat16, "sm90"),
+              ((2, 1, 1024, 256), 1024, False, torch.bfloat16, "sm90"),
+              ((2, 1, 1024, 192), 1024, False, torch.bfloat16, "sm90"),
+              ((2, 2, 1024, 64), 1024, False, torch.bfloat16, "sm90"),
+              ((1, 1, 512, 64), 512, False, torch.float32, "cuda_core")]
+             + [c + (torch.float32, "cuda_core") for c in small]
+             + [c + (torch.bfloat16, "sm90") for c in small]
+             + [((2, 2, 300, 64), 300, True, torch.bfloat16, "cuda_core")])
     errs["flash_bwd_dkv"] = errs["flash_bwd_dq"] = 0.0
-    for (q_shape, s_k, causal, dtype) in [
-            ((2, 1, 16384, 64), 16384, False, torch.bfloat16),
-            ((2, 1, 4096, 128), 4096, False, torch.bfloat16),
-            ((2, 1, 1024, 256), 1024, False, torch.bfloat16),
-            ((2, 1, 1024, 192), 1024, False, torch.bfloat16),
-            ((2, 2, 1024, 64), 1024, False, torch.bfloat16),
-            ((1, 1, 512, 64), 512, False, torch.float32),
-            ((2, 3, 192, 32), 192, True, torch.float32),
-            ((2, 3, 160, 40), 320, True, torch.float32),
-            ((2, 3, 200, 16), 200, False, torch.float32),
-            ((1, 2, 160, 128), 320, False, torch.float32),
-            ((1, 2, 256, 256), 256, True, torch.float32),
-            ((1, 2, 200, 64), 150, True, torch.float32)]:
+    for (q_shape, s_k, causal, dtype, route) in cases:
         b, h, s_q, d = q_shape
-        q = _uniform(q_shape, -2, 2, SEED + 20, dtype)
-        k, v = (_uniform((b, h, s_k, d), -2, 2, SEED + 21 + i, dtype) for i in range(2))
-        do = _uniform(q_shape, -1, 1, SEED + 23, dtype)
+        # the unaligned case: columns 4..d+3 of rows of d + 8
+        wide = d + 8 if (dtype, route) == (torch.bfloat16, "cuda_core") else d
+        q = _uniform((b, h, s_q, wide), -2, 2, SEED + 20, dtype)
+        k, v = (_uniform((b, h, s_k, wide), -2, 2, SEED + 21 + i, dtype) for i in range(2))
+        do = _uniform((b, h, s_q, wide), -1, 1, SEED + 23, dtype)
+        if wide != d:
+            q, k, v, do = (t[..., 4:4 + d] for t in (q, k, v, do))
         o, lse = att.flash_attention(q, k, v, causal, return_lse=True)
         delta = (do.float() * o.float()).sum(-1)
+        before = dict(att.flash_bwd_dkv.route_counts), dict(att.flash_bwd_dq.route_counts)
         dk, dv = att.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
         dq = att.flash_bwd_dq(q, k, v, do, lse, delta, causal)
+        dk2, dv2 = att.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+        dq2 = att.flash_bwd_dq(q, k, v, do, lse, delta, causal)
         torch.cuda.synchronize()
+        for fn, was in zip((att.flash_bwd_dkv, att.flash_bwd_dq), before):
+            took = {r: n - was[r] for r, n in fn.route_counts.items() if n != was[r]}
+            if took != {route: 2}:
+                raise AssertionError(f"K4/K5 q{q_shape} {dtype}: routes {took}, want {route}")
+        if not (torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)):
+            raise AssertionError(f"K4/K5 q{q_shape} {dtype}: two launches gave different bits")
         want = att.flash_backward_reference(q, k, v, do, lse, delta, causal)
+        # the plain version rounding P and dS where the tensor-core kernels do
+        want_p = (att.flash_backward_reference(q, k, v, do, lse, delta, causal,
+                                               p_dtype=torch.bfloat16)
+                  if route == "sm90" else want)
         tol = TOL_BWD_BF16 if dtype == torch.bfloat16 else TOL_BWD_F32
-        rel = []
-        for got, ref, name in zip((dq, dk, dv), want, ("dq", "dk", "dv")):
+        rel, rel_p = [], []
+        for got, ref, ref_p, name in zip((dq, dk, dv), want, want_p, ("dq", "dk", "dv")):
             if got.shape != ref.shape or got.dtype != ref.dtype:
                 raise AssertionError(f"K4/K5 {name}: {got.shape} {got.dtype}, want "
                                      f"{ref.shape} {ref.dtype}")
             diff = (got.float() - ref.float()).abs().max().item()
             rel.append(diff / ref.float().abs().max().item())
+            rel_p.append((got.float() - ref_p.float()).abs().max().item()
+                         / ref.float().abs().max().item())
             errs["flash_bwd_dq" if name == "dq" else "flash_bwd_dkv"] = max(
                 errs["flash_bwd_dq" if name == "dq" else "flash_bwd_dkv"], diff)
-        log("kernels", f"K4/K5 flash backward q{q_shape} s_k={s_k} causal={causal} {dtype}: "
-            f"max|d|/max|ref| dq {rel[0]:.3g} dk {rel[1]:.3g} dv {rel[2]:.3g} (tol {tol})")
+        log("kernels", f"K4/K5 flash backward q{q_shape} s_k={s_k} causal={causal} {dtype}"
+            f"{' (view 8 bytes into its rows)' if wide != d else ''}, route {route}: "
+            f"max|d|/max|ref| dq {rel[0]:.3g} dk {rel[1]:.3g} dv {rel[2]:.3g} (tol {tol})"
+            + (f"; against the plain version with bf16 P and dS dq {rel_p[0]:.3g} dk "
+               f"{rel_p[1]:.3g} dv {rel_p[2]:.3g}" if route == "sm90" else "")
+            + "; two launches equal bits")
         if not max(rel) <= tol:
             raise AssertionError(f"K4/K5 q{q_shape} s_k={s_k}: {rel} > {tol}")
-        del q, k, v, do, o, lse, delta, dq, dk, dv, want
+        del q, k, v, do, o, lse, delta, dq, dk, dv, dq2, dk2, dv2, want, want_p
 
     # under autograd, on column slices of one qkv as the U-Net calls it, and
     # rows that see no key (causal, s_q > s_k) against attention_reference
@@ -353,6 +387,23 @@ def phase_kernels() -> dict:
         f"autograd through attention_reference max|d| {err:.3g} (tol {TOL_BWD_F32})")
     for t, r in zip((q, k, v), ref):
         torch.testing.assert_close(t.grad, r.grad, rtol=TOL_BWD_F32, atol=TOL_BWD_F32)
+    # the same in bf16 (the tensor-core kernels) against autograd through
+    # attention_reference on the float32 values of the same bf16 inputs
+    lo = [t.detach().to(torch.bfloat16).requires_grad_() for t in (q, k, v)]
+    was = att.flash_bwd_dkv.route_counts["sm90"], att.flash_bwd_dq.route_counts["sm90"]
+    (att.flash_attention(*lo, causal=True).float() * cot).sum().backward()
+    if (att.flash_bwd_dkv.route_counts["sm90"], att.flash_bwd_dq.route_counts["sm90"]) != (
+            was[0] + 1, was[1] + 1):
+        raise AssertionError("the bf16 backward did not take the tensor-core kernels")
+    ref = [t.detach().float().requires_grad_() for t in lo]
+    (att.attention_reference(*ref, causal=True) * cot).sum().backward()
+    rel = max(((t.grad.float() - r.grad).abs().max() / r.grad.abs().max()).item()
+              for t, r in zip(lo, ref))
+    log("kernels", f"K4/K5 causal q 200 kv 150 (50 rows see no key) bf16, route sm90: gradients "
+        f"vs autograd through attention_reference in float32 max|d|/max|ref| {rel:.3g} "
+        f"(tol {TOL_BWD_BF16})")
+    if not rel <= TOL_BWD_BF16:
+        raise AssertionError(f"bf16 blind rows: {rel} > {TOL_BWD_BF16}")
     errs.update(check_matmul())
     return errs
 
@@ -787,6 +838,8 @@ def _zero_counts() -> None:
     for fn in (cl.clahe_cuda, att.small_mha, att.flash_attention, att.flash_bwd_dkv,
                att.flash_bwd_dq):
         fn.launch_count = 0
+    for fn in (att.flash_bwd_dkv, att.flash_bwd_dq):
+        fn.route_counts = dict.fromkeys(fn.route_counts, 0)
 
 
 def _delta(before: dict) -> dict:
@@ -800,6 +853,52 @@ def train_batch(cfg, n: int, seed: int, size: int = 160) -> dict:
     return {"target_frame": rng.integers(0, 256, (n, size, size, 3), dtype=np.uint8),
             "cond_frame": rng.integers(0, 256, (n, size, size, 3), dtype=np.uint8),
             "audio": rng.standard_normal((n, cfg.audio_samples)).astype(np.float32)}
+
+
+# kernel-name fragments of the hand-written kernels, for the profiles
+KERNEL_NAMES = {"K2": "small_mha_kernel", "K3": "flash_fwd_kernel",
+                "K4": "flash_bwd_dkv", "K5": "flash_bwd_dq"}
+
+
+def _profiled(fn):
+    """Run ``fn`` (and wait for the card) under ``torch.profiler``: wall ms,
+    the events, and the device's kernels and copies as (name, ms, count),
+    heaviest first."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    kernels = sorted(((e.key, e.device_time_total / 1e3, e.count) for e in events
+                      if e.device_type == DeviceType.CUDA), key=lambda r: -r[1])
+    return wall_ms, events, kernels
+
+
+def _profile_step(phase: str, step) -> float:
+    """One step under ``torch.profiler``: wall time, device time of all
+    kernels and copies (busy share), the share of each hand-written
+    kernel, and the heaviest kernels by name. Returns the device time, ms."""
+    wall_ms, _, kernels = _profiled(step)
+    busy_ms = sum(ms for _, ms, _ in kernels)
+    if busy_ms <= 0:
+        raise AssertionError(f"{phase} profile: no device time")
+    own = {k: (sum(ms for name, ms, _ in kernels if frag in name),
+               sum(n for name, _, n in kernels if frag in name))
+           for k, frag in KERNEL_NAMES.items()}
+    rest = busy_ms - sum(ms for ms, _ in own.values())
+    log(phase, f"profile of one step: wall {wall_ms:.3f} ms under the profiler, device kernels "
+        f"and copies {busy_ms:.3f} ms in {sum(c for _, _, c in kernels)} launches (busy share "
+        f"{busy_ms / wall_ms:.3f}); "
+        + ", ".join(f"{k} {ms:.3f} ms ({ms / busy_ms:.1%}, {n}x)" for k, (ms, n) in own.items())
+        + f", all else {rest:.3f} ms ({rest / busy_ms:.1%})")
+    for name, ms, count in kernels[:8]:
+        log(phase, f"  {ms:9.3f} ms {count:5d}x {name[:110]}")
+    return busy_ms
 
 
 def _finite(module) -> bool:
@@ -833,6 +932,7 @@ def phase_train(dev: dict) -> dict:
     import dataclasses
 
     from lipreading_video_generation_tpu_torch.core.config import DiffusionConfig
+    from lipreading_video_generation_tpu_torch.ops import attention as att
     from lipreading_video_generation_tpu_torch.pipelines import train_diffusion as ttd
 
     cfg = DiffusionConfig()
@@ -861,6 +961,9 @@ def phase_train(dev: dict) -> dict:
         if d != want:
             raise AssertionError(f"train step launched {d}, want {want}")
     launches = _counts()
+    for fn in (att.flash_bwd_dkv, att.flash_bwd_dq):
+        if fn.route_counts != {"sm90": 5 * 16, "cuda_core": 0}:
+            raise AssertionError(f"bf16 training took the routes {fn.route_counts}")
     peak = torch.cuda.max_memory_allocated()
     ema_moved = sum(int(not torch.equal(e, e0)) for e, e0 in zip(state.ema.parameters(), ema0))
     if not (np.isfinite(losses).all() and _finite(state.model) and _finite(state.ema)):
@@ -868,8 +971,12 @@ def phase_train(dev: dict) -> dict:
     if ema_moved == 0:
         raise AssertionError("the EMA did not move in 5 steps")
     log("train", f"5 steps: losses {[round(x, 5) for x in losses]}; launches per step K2 4 "
-        f"K3 16 K4 16 K5 16 (total {launches}); params and EMA finite; EMA moved in "
+        f"K3 16 K4 16 K5 16 (total {launches}; K4 and K5 all by the tensor-core route); "
+        f"params and EMA finite; EMA moved in "
         f"{ema_moved}/{len(ema0)} tensors")
+
+    busy_ms = _profile_step("train", lambda: ttd.train_step(
+        state, train_batch(cfg, TRAIN_BATCH, SEED + 8), cfg)["loss"].item())
 
     # 10 steps on one batch at fixed t and noise: the loss must fall
     rng = np.random.default_rng(SEED + 9)
@@ -901,8 +1008,9 @@ def phase_train(dev: dict) -> dict:
 
     step_s = statistics.median(times)
     log("train", f"step times ({dev['smi']}): {[round(x * 1e3, 3) for x in times]} ms; median "
-        f"{step_s * 1e3:.3f} ms = {TRAIN_BATCH / step_s:.2f} trained frames/s; peak device "
-        f"memory {peak / 2**20:.1f} MiB")
+        f"{step_s * 1e3:.3f} ms = {TRAIN_BATCH / step_s:.2f} trained frames/s (the profiled "
+        f"step's {busy_ms:.3f} ms of kernels are {busy_ms / (step_s * 1e3):.3f} of it); peak "
+        f"device memory {peak / 2**20:.1f} MiB")
     return {"launches": launches, "step_ms": step_s * 1e3, "peak_mib": peak / 2**20}
 
 
@@ -1074,19 +1182,9 @@ def _profile_request(mode: str, request) -> None:
     of all kernels and copies (busy share), device time by int8 stage (the
     ``int8/...`` ranges of ``ops/quant.py`` carry the time of the kernels
     launched inside them) and the heaviest kernels by name."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        request()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
+    wall_ms, events, kernels = _profiled(request)
     stages = {e.key: e.device_time_total / 1e3 for e in events if e.key.startswith("int8/")}
-    kernels = sorted(((e.key, e.device_time_total / 1e3, e.count) for e in events
-                      if e.device_type == DeviceType.CUDA and e.key not in stages),
-                     key=lambda r: -r[1])
+    kernels = [r for r in kernels if r[0] not in stages]
     busy_ms = sum(ms for _, ms, _ in kernels)
     if busy_ms <= 0 or len(stages) != (4 if mode != "float" else 0):
         raise AssertionError(f"{mode} profile: device time {busy_ms} ms, stages {stages}")
@@ -1242,12 +1340,14 @@ def _event_ms(fn, n: int) -> float:
     return start.elapsed_time(stop) / n
 
 
-def _plain_vs_kernel(plain, kernel, n: int):
-    """Warm up both, then time them in turns (plain, kernel, kernel, plain)."""
+def _plain_vs_kernel(plain, kernel, n: int, n_kernel: int = 0):
+    """Warm up both, then time them in turns (plain, kernel, kernel, plain):
+    ``n`` calls a turn, ``n_kernel`` for the kernel's where it is given."""
     plain(), kernel()
     torch.cuda.synchronize()
-    p1, k1, k2, p2 = (_event_ms(plain, n), _event_ms(kernel, n),
-                      _event_ms(kernel, n), _event_ms(plain, n))
+    nk = n_kernel or n
+    p1, k1, k2, p2 = (_event_ms(plain, n), _event_ms(kernel, nk),
+                      _event_ms(kernel, nk), _event_ms(plain, n))
     return (k1 + k2) / 2, (p1 + p2) / 2, (p1, k1, k2, p2)
 
 
@@ -1313,7 +1413,7 @@ def phase_timing(dev: dict, microbench: dict) -> dict:
         f"on {dev['smi']}")
     # K4 and K5 at the same shapes, each against the part of the plain
     # backward that gives its outputs
-    bwd = {}
+    bwd, bwd_lib = {}, {}
     for s, d in ((16384, 64), (4096, 128), (1024, 256)):
         qkv = _uniform((DIFF_FRAMES, s, 3 * d), -2, 2, SEED, torch.bfloat16)
         q, k, v = (t.reshape(DIFF_FRAMES, s, 1, d).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
@@ -1324,27 +1424,36 @@ def phase_timing(dev: dict, microbench: dict) -> dict:
             delta = (do.float() * o.float()).sum(-1)
             bwd[("dkv", s, d)] = _plain_vs_kernel(
                 lambda: att.flash_backward_reference(q, k, v, do, lse, delta, dq=False),
-                lambda: att.flash_bwd_dkv(q, k, v, do, lse, delta), 3)
+                lambda: att.flash_bwd_dkv(q, k, v, do, lse, delta), 3, 20)
             bwd[("dq", s, d)] = _plain_vs_kernel(
                 lambda: att.flash_backward_reference(q, k, v, do, lse, delta, dkv=False),
-                lambda: att.flash_bwd_dq(q, k, v, do, lse, delta), 3)
-        if (s, d) == (16384, 64):
-            # the library's whole backward (dQ, dK and dV in one call)
-            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-            out = F.scaled_dot_product_attention(*leaves)
-            torch.autograd.grad(out, leaves, do, retain_graph=True)
-            bwd_lib = _event_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), 3)
-            del leaves, out
+                lambda: att.flash_bwd_dq(q, k, v, do, lse, delta), 3, 20)
+        # the library's whole backward (dQ, dK and dV in one call)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*leaves)
+        torch.autograd.grad(out, leaves, do, retain_graph=True)
+        bwd_lib[(s, d)] = _event_ms(
+            lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), 20)
+        del leaves, out
         del qkv, q, k, v, do, o, lse, delta
     for (kern, s, d), (ms, plain, raw) in bwd.items():
-        flops = (8.0 if kern == "dkv" else 6.0) * DIFF_FRAMES * s * s * d
+        ops_per_sd, n_tensors = (8, 6) if kern == "dkv" else (6, 5)
+        flops = float(ops_per_sd) * DIFF_FRAMES * s * s * d
+        bound = _attention_bound(DIFF_FRAMES, 1, s, d, ops_per_sd, n_tensors)["bound_ms"]
         name = "K4 flash_bwd_dkv" if kern == "dkv" else "K5 flash_bwd_dq"
-        log("timing", f"{name} ({DIFF_FRAMES},1,{s},{d}) bf16: kernel {ms:.4f} ms "
-            f"({flops / ms / 1e9:.2f} TFLOP/s), plain {plain:.4f} ms (plain,kernel,kernel,plain "
-            f"= {[round(t, 4) for t in raw]}) on {dev['smi']}")
+        log("timing", f"{name} ({DIFF_FRAMES},1,{s},{d}) bf16, route sm90: kernel {ms:.4f} ms "
+            f"({flops / ms / 1e9:.2f} TFLOP/s; bound {bound:.4f} ms, {bound / ms:.1%} of it), "
+            f"plain {plain:.4f} ms (plain,kernel,kernel,plain = {[round(t, 4) for t in raw]}) "
+            f"on {dev['smi']}")
+    for (s, d), lib in bwd_lib.items():
+        both = bwd[("dkv", s, d)][0] + bwd[("dq", s, d)][0]
+        log("timing", f"K4 + K5 ({DIFF_FRAMES},1,{s},{d}) bf16: {both:.4f} ms against the "
+            f"library's backward (SDPA, dQ, dK, dV in one call) {lib:.4f} ms: {both / lib:.2f} x "
+            f"on {dev['smi']}")
     log("timing", f"library calls at the same shapes ({dev['smi']}): "
         f"F.scaled_dot_product_attention (384,8,80,32) {k2_lib:.4f} ms, ({DIFF_FRAMES},1,16384,64) "
-        f"{k3_lib:.4f} ms, its backward (dQ, dK, dV together) {bwd_lib:.4f} ms")
+        f"{k3_lib:.4f} ms")
+    bwd_lib = bwd_lib[(16384, 64)]
 
     # K6 int8 at the generator's largest product, as int8 serving calls it;
     # bf16 at the microbench's 4096^3 (kernel and library times from its run)
@@ -1424,8 +1533,8 @@ def main() -> None:
         "clahe": ("clahe.cu", f"{jax_pkg}/ops/clahe_pallas.py:102"),
         "small_mha": ("small_mha.cu", f"{jax_pkg}/ops/attention.py:570"),
         "flash_attention": ("flash_fwd.cu", f"{jax_pkg}/ops/attention.py:66"),
-        "flash_bwd_dkv": ("flash_bwd.cu", f"{jax_pkg}/ops/attention.py:216"),
-        "flash_bwd_dq": ("flash_bwd.cu", f"{jax_pkg}/ops/attention.py:272"),
+        "flash_bwd_dkv": ("flash_bwd_sm90.cu", f"{jax_pkg}/ops/attention.py:216"),
+        "flash_bwd_dq": ("flash_bwd_sm90.cu", f"{jax_pkg}/ops/attention.py:272"),
         "int8_matmul": ("int8_mm.cu", "scripts/microbench_int8_pallas.py:44"),
         "bf16_matmul": ("int8_mm.cu", "scripts/microbench_int8_pallas.py:44"),
     }
@@ -1436,6 +1545,11 @@ def main() -> None:
                 **times[name]}
         if name == "flash_attention":
             kern["also_replaces"] = "scripts/profile_flash_dpad.py:37"
+        if name.startswith("flash_bwd"):
+            kern["route_detail"] = (
+                "sm90: wgmma on bf16 tiles, cp.async ring (aligned bf16 inputs; timed here and "
+                f"on the training path); cuda_core: {pkg}/csrc/flash_bwd.cu (float32 or "
+                "unaligned inputs)")
         if kern["launches"] < 1:
             raise AssertionError(f"kernel {name} never ran on the main path")
         kernels.append(kern)

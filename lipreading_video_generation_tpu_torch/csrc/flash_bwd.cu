@@ -1,5 +1,8 @@
 // K4 and K5: the flash-attention backward (FlashAttention-2), dK/dV pass
-// and dQ pass.
+// and dQ pass, on CUDA cores. These kernels serve float32 inputs (tensor
+// cores would mean TF32) and bf16 inputs whose base addresses or strides
+// are not multiples of 16 bytes; aligned bf16 inputs run the tensor-core
+// kernels of flash_bwd_sm90.cu (ops/attention.py::flash_bwd_route decides).
 //
 // Replace lipreading_video_generation_tpu/ops/attention.py::_bwd_dkv_kernel
 // (K4) and ::_bwd_dq_kernel (K5), driven by _flash_backward_pallas. They
@@ -49,8 +52,8 @@
 // BQ x 64 x DP per query tile and K5 3 (Q K^T and dO V^T are recomputed by
 // both), 14 S^2 d FLOP per (batch, head) in all against the forward's
 // 4 S^2 d; their inner loops run 16 FMAs per two 16-byte shared loads
-// (products with K^T/V^T) or 32 per 2 + 2*NC (the accumulations). Tensor
-// cores and a one-pass backward with an atomic dQ are later changes.
+// (products with K^T/V^T) or 32 per 2 + 2*NC (the accumulations). A
+// one-pass backward with an atomic dQ is a later change.
 #include <cmath>
 
 #include <cuda_bf16.h>

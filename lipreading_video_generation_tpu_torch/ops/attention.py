@@ -1,7 +1,8 @@
 """Multi-head attention of the port: the hand-written CUDA kernels K2
 (small MHA, ``csrc/small_mha.cu``), K3 (flash-attention forward,
-``csrc/flash_fwd.cu``) and K4/K5 (its backward, ``csrc/flash_bwd.cu``) and
-their plain torch versions.
+``csrc/flash_fwd.cu``) and K4/K5 (its backward: ``csrc/flash_bwd_sm90.cu`` on
+the tensor cores for aligned bf16 inputs, ``csrc/flash_bwd.cu`` on CUDA cores
+for the rest, see ``flash_bwd_route``) and their plain torch versions.
 
 Port of ``lipreading_video_generation_tpu/ops/attention.py``'s
 ``attention_reference``, ``flash_attention`` (with its custom VJP),
@@ -30,8 +31,8 @@ import torch
 from . import _build
 
 __all__ = ["attention_reference", "flash_attention", "flash_backward_reference",
-           "flash_bwd_dkv", "flash_bwd_dq", "flash_reference", "mha", "mha_route", "small_mha",
-           "small_mha_viable"]
+           "flash_bwd_dkv", "flash_bwd_dq", "flash_bwd_route", "flash_reference", "mha",
+           "mha_route", "small_mha", "small_mha_viable"]
 
 _NEG_INF = float(torch.finfo(torch.float32).min) / 2
 _SMALL_MHA_MAX_HS = 768     # the JAX package's bound on H·pad(S)
@@ -267,7 +268,8 @@ def _flash_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: boo
 def flash_backward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
                              causal: bool = False, sm_scale: Optional[float] = None,
-                             dq: bool = True, dkv: bool = True):
+                             dq: bool = True, dkv: bool = True,
+                             p_dtype: Optional[torch.dtype] = None):
     """Plain version of K4 (dK, dV) and K5 (dQ) on (B, H, S, D): the JAX
     backward kernels' numerics — float32 scores scaled after Q·Kᵀ,
     P = exp(s − lse) from the forward's ``lse``, dP = dO·Vᵀ,
@@ -277,7 +279,10 @@ def flash_backward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     autograd through ``attention_reference``: P = 1/s_k over the real keys
     (``lse`` has absorbed log s_k there, so exp(s − lse) would give 1), and
     no dS. Long inputs are walked in query chunks, dK/dV summed over them.
-    ``dq``/``dkv`` pick the passes; the other outputs are None."""
+    ``dq``/``dkv`` pick the passes; the other outputs are None. ``p_dtype``
+    rounds P and dS to that type before the three products that consume
+    them, which is where the tensor-core kernels round (to bf16); the
+    default keeps them float32."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     s_q, s_k = q.shape[2], k.shape[2]
@@ -301,6 +306,8 @@ def flash_backward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         ds = p * (dp - delta[:, :, r0:r0 + step, None]) * sm_scale
         if causal:
             ds = torch.where(visible, ds, 0.0)
+        if p_dtype is not None:
+            p, ds = p.to(p_dtype).float(), ds.to(p_dtype).float()
         if dkv:
             gdv += torch.einsum("bhqk,bhqd->bhkd", p, dof)
             gdk += torch.einsum("bhqk,bhqd->bhkd", ds, qf)
@@ -310,42 +317,78 @@ def flash_backward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             gdk.to(k.dtype) if dkv else None, gdv.to(v.dtype) if dkv else None)
 
 
-_BWD_ENTRY_POINTS = {
-    "dkv": {torch.bfloat16: "lvg_flash_bwd_dkv_bf16", torch.float32: "lvg_flash_bwd_dkv_f32"},
-    "dq": {torch.bfloat16: "lvg_flash_bwd_dq_bf16", torch.float32: "lvg_flash_bwd_dq_f32"},
-}
+_BWD_DTYPE_SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}   # the CUDA-core entry points
+_BWD_ROUTES = ("sm90", "cuda_core")
 
 
-def flash_bwd_block_q(d: int) -> int:
-    """Query rows per tile of K4/K5 (``csrc/flash_bwd.cu``'s BQ): 32 at head
-    dim 256, where 64-row tiles would not fit a block's shared memory."""
-    return 32 if flash_head_dim_pad(d) == 256 else 64
+def flash_bwd_route(dtype: torch.dtype, d: int, strides, offsets) -> str:
+    """Which kernels K4/K5 launch: "sm90" (``csrc/flash_bwd_sm90.cu``, wgmma
+    on bf16 tiles filled by 16-byte asynchronous copies) for bf16 tensors
+    with ``d`` a multiple of 8 whose every (batch, head, row) stride (in
+    elements, ``strides``: one tuple per tensor) is a multiple of 8 and
+    whose base address (in bytes, or any byte offset congruent to it modulo
+    16, ``offsets``: one per tensor) is a multiple of 16; "cuda_core"
+    (``csrc/flash_bwd.cu``) for float32 (tensor cores would mean TF32) and
+    for anything unaligned."""
+    if dtype != torch.bfloat16 or d % 8:
+        return "cuda_core"
+    if any(st % 8 for t in strides for st in t) or any(o % 16 for o in offsets):
+        return "cuda_core"
+    return "sm90"
 
 
-def flash_bwd_smem_bytes(d: int, kernel: str) -> int:
-    """Dynamic shared memory of one K4 ("dkv") or K5 ("dq") block: Q, dO,
-    K, V tiles row-major as float (rows padded by 4), plus the P and dS
-    tiles (K4) or the dS tile (K5), plus lse and Δ of the query tile (K4)."""
-    dp, bq = flash_head_dim_pad(d), flash_bwd_block_q(d)
-    ld, ldp = dp + _FLASH_PAD, _FLASH_BK + _FLASH_PAD
-    floats = 2 * bq * ld + 2 * _FLASH_BK * ld
-    floats += 2 * bq * ldp + 2 * bq if kernel == "dkv" else bq * ldp
-    return floats * 4
+def flash_bwd_block_q(d: int, route: str = "cuda_core", kernel: str = "dkv") -> int:
+    """Query rows per tile (K4) or per block (K5). CUDA-core route
+    (``csrc/flash_bwd.cu``'s BQ): 32 at head dim 256, where 64-row tiles
+    would not fit a block's shared memory, else 64. "sm90"
+    (``csrc/flash_bwd_sm90.cu``'s DkvCfg / DqCfg): K4 walks 128-query tiles
+    at head dim 64 and 64-query tiles above; a K5 block owns 128 queries
+    (two warpgroups), 64 at head dim 256."""
+    dp = flash_head_dim_pad(d)
+    if route == "cuda_core":
+        return 32 if dp == 256 else 64
+    if kernel == "dkv":
+        return 128 if dp == 64 else 64
+    return 64 if dp == 256 else 128
+
+
+def flash_bwd_smem_bytes(d: int, kernel: str, route: str = "cuda_core") -> int:
+    """Dynamic shared memory of one K4 ("dkv") or K5 ("dq") block.
+    CUDA-core route: Q, dO, K, V tiles row-major as float (rows padded by
+    4), plus the P and dS tiles (K4) or the dS tile (K5), plus lse and Δ of
+    the query tile (K4). "sm90": bf16 tiles; the outer tile pair (K4: K, V
+    of 128 keys, 64 at head dim 256; K5: Q, dO of the block's queries) and
+    two stages of the inner pair (K4: Q, dO and 1 KB of lse and Δ; K5: K, V
+    of 128 keys at head dim 64, else 64), plus 1 KB to align the tiles to
+    the swizzle's 1024 bytes."""
+    dp = flash_head_dim_pad(d)
+    if route == "cuda_core":
+        bq = flash_bwd_block_q(d)
+        ld, ldp = dp + _FLASH_PAD, _FLASH_BK + _FLASH_PAD
+        floats = 2 * bq * ld + 2 * _FLASH_BK * ld
+        floats += 2 * bq * ldp + 2 * bq if kernel == "dkv" else bq * ldp
+        return floats * 4
+    bq = flash_bwd_block_q(d, route, kernel)
+    if kernel == "dkv":
+        keys = 64 if dp == 256 else 128
+        return 2 * keys * dp * 2 + 2 * (2 * bq * dp * 2 + 1024) + 1024
+    bk = 128 if dp == 64 else 64
+    return 2 * bq * dp * 2 + 2 * (2 * bk * dp * 2) + 1024
 
 
 def _flash_bwd_launch(kernel: str, q, k, v, do, lse, delta, causal: bool, sm_scale: float):
     """Launch K4 (``kernel`` "dkv": returns dK, dV) or K5 ("dq": returns dQ)
     on CUDA (B, H, S, D) q/k/v/dO of one dtype with unit stride along D;
     ``lse`` and ``delta`` (B, H, S_q) float32. Each gradient comes out as a
-    (B, H, S, D) view of a contiguous (B, S, H, D) tensor. Raises on
-    anything else."""
+    (B, H, S, D) view of a contiguous (B, S, H, D) tensor. The kernels are
+    those ``flash_bwd_route`` names. Raises on anything else."""
     if not all(t.is_cuda for t in (q, k, v, do, lse, delta)):
         raise ValueError("flash backward kernels take CUDA tensors")
     if q.device.index != torch.cuda.current_device():
         raise ValueError(f"flash backward: {q.device} is not the current CUDA device")
     if not all(t.device == q.device for t in (k, v, do, lse, delta)):
         raise ValueError("flash backward: tensors on different devices")
-    if q.dtype not in _BWD_ENTRY_POINTS[kernel] or not (q.dtype == k.dtype == v.dtype == do.dtype):
+    if q.dtype not in _BWD_DTYPE_SUFFIX or not (q.dtype == k.dtype == v.dtype == do.dtype):
         raise ValueError(f"flash backward takes bf16 or float32 q/k/v/dO of one dtype, got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}, {do.dtype}")
     b, h, s_q, d = q.shape
@@ -376,23 +419,29 @@ def _flash_bwd_launch(kernel: str, q, k, v, do, lse, delta, causal: bool, sm_sca
             o.zero_()
         return outs
     tensors = (q, k, v, do) + outs
+    route = flash_bwd_route(q.dtype, d, [t.stride()[:3] for t in tensors],
+                            [t.data_ptr() for t in tensors])
     strides = (ctypes.c_longlong * (3 * len(tensors)))(
         *(st for t in tensors for st in t.stride()[:3]))
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    fn = _build.kernel(_BWD_ENTRY_POINTS[kernel][q.dtype],
+    suffix = "sm90" if route == "sm90" else _BWD_DTYPE_SUFFIX[q.dtype]
+    fn = _build.kernel(f"lvg_flash_bwd_{kernel}_{suffix}",
                        [vp] * (6 + len(outs)) + [i32] * 5
                        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, i32, vp])
     rc = fn(*(t.data_ptr() for t in (q, k, v, do, lse, delta) + outs),
             b, h, s_q, s_k, d, strides, sm_scale, int(causal),
             torch.cuda.current_stream().cuda_stream)
-    _build.check(rc, f"flash backward ({kernel})")
-    (flash_bwd_dkv if kernel == "dkv" else flash_bwd_dq).launch_count += 1
+    _build.check(rc, f"flash backward ({kernel}, {route})")
+    wrapper = flash_bwd_dkv if kernel == "dkv" else flash_bwd_dq
+    wrapper.launch_count += 1
+    wrapper.route_counts[route] += 1
     return outs
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False,
                   sm_scale: Optional[float] = None):
-    """K4: (dK, dV) of flash attention; ``launch_count`` counts its launches."""
+    """K4: (dK, dV) of flash attention; ``launch_count`` counts its launches,
+    ``route_counts`` those of each route of ``flash_bwd_route``."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     return _flash_bwd_launch("dkv", q, k, v, do, lse, delta, causal, sm_scale)
@@ -400,7 +449,8 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False,
 
 def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = False,
                  sm_scale: Optional[float] = None):
-    """K5: dQ of flash attention; ``launch_count`` counts its launches."""
+    """K5: dQ of flash attention; ``launch_count`` counts its launches,
+    ``route_counts`` those of each route of ``flash_bwd_route``."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     return _flash_bwd_launch("dq", q, k, v, do, lse, delta, causal, sm_scale)[0]
@@ -408,6 +458,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = False,
 
 flash_bwd_dkv.launch_count = 0
 flash_bwd_dq.launch_count = 0
+flash_bwd_dkv.route_counts = dict.fromkeys(_BWD_ROUTES, 0)
+flash_bwd_dq.route_counts = dict.fromkeys(_BWD_ROUTES, 0)
 
 
 class _Flash(torch.autograd.Function):

@@ -129,6 +129,13 @@ _FLASH = [
     ((2, 3, 200, 16), 200, False, torch.float32),
     ((1, 2, 160, 128), 320, False, torch.float32),
     ((1, 2, 200, 64), 150, True, torch.float32),     # 50 rows see no key
+    # bf16 twins of the small cases: the tensor-core kernels' masks and edges
+    ((2, 3, 192, 32), 192, True, torch.bfloat16),
+    ((2, 3, 160, 40), 320, True, torch.bfloat16),
+    ((2, 3, 200, 16), 200, False, torch.bfloat16),
+    ((1, 2, 160, 128), 320, False, torch.bfloat16),
+    ((1, 2, 256, 256), 256, True, torch.bfloat16),
+    ((1, 2, 200, 64), 150, True, torch.bfloat16),    # 50 rows see no key
 ]
 
 
@@ -177,6 +184,13 @@ _FLASH_BWD = [
     ((1, 2, 256, 128), 256, True, torch.float32),
     ((1, 2, 256, 256), 256, True, torch.float32),
     ((1, 2, 200, 64), 150, True, torch.float32),     # 50 rows see no key
+    # bf16 twins of the small cases: the tensor-core kernels' masks and edges
+    ((2, 3, 192, 32), 192, True, torch.bfloat16),
+    ((2, 3, 160, 40), 320, True, torch.bfloat16),
+    ((2, 3, 200, 16), 200, False, torch.bfloat16),
+    ((1, 2, 160, 128), 320, False, torch.bfloat16),
+    ((1, 2, 256, 256), 256, True, torch.bfloat16),
+    ((1, 2, 200, 64), 150, True, torch.bfloat16),    # 50 rows see no key
 ]
 
 
@@ -196,16 +210,63 @@ def test_flash_backward_kernels_match_plain(cuda, q_shape, s_k, causal, dtype):
     o, lse = att.flash_attention(q, k, v, causal, return_lse=True)
     delta = (do.float() * o.float()).sum(-1)
     before = att.flash_bwd_dkv.launch_count, att.flash_bwd_dq.launch_count
+    route = "sm90" if dtype == torch.bfloat16 else "cuda_core"   # all contiguous here
+    routed = att.flash_bwd_dkv.route_counts[route], att.flash_bwd_dq.route_counts[route]
     dk, dv = att.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
     dq = att.flash_bwd_dq(q, k, v, do, lse, delta, causal)
     torch.cuda.synchronize()
     assert (att.flash_bwd_dkv.launch_count, att.flash_bwd_dq.launch_count) == (
         before[0] + 1, before[1] + 1)
+    assert (att.flash_bwd_dkv.route_counts[route], att.flash_bwd_dq.route_counts[route]) == (
+        routed[0] + 1, routed[1] + 1)
     want = att.flash_backward_reference(q, k, v, do, lse, delta, causal)
     tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
     for got, ref, name in zip((dq, dk, dv), want, ("dq", "dk", "dv")):
         assert got.shape == ref.shape and got.dtype == ref.dtype
         assert _rel_err(got, ref) <= tol, (name, _rel_err(got, ref))
+    # no atomics: a second launch gives the same bits
+    dk2, dv2 = att.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+    dq2 = att.flash_bwd_dq(q, k, v, do, lse, delta, causal)
+    assert torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)
+
+
+def test_flash_backward_unaligned_bf16_view_takes_cuda_cores(cuda):
+    """A bf16 view that starts 8 bytes into its rows cannot be read by
+    16-byte copies: it runs the CUDA-core kernels, to the same bound."""
+    wide = [_uniform((2, 2, 300, 72), lo, -lo, 44 + i, cuda, torch.bfloat16)
+            for i, lo in enumerate((-2, -2, -2, -1))]
+    q, k, v, do = (t[..., 4:68] for t in wide)
+    o, lse = att.flash_attention(q, k, v, True, return_lse=True)
+    delta = (do.float() * o.float()).sum(-1)
+    before = dict(att.flash_bwd_dkv.route_counts), dict(att.flash_bwd_dq.route_counts)
+    dk, dv = att.flash_bwd_dkv(q, k, v, do, lse, delta, True)
+    dq = att.flash_bwd_dq(q, k, v, do, lse, delta, True)
+    torch.cuda.synchronize()
+    for fn, was in zip((att.flash_bwd_dkv, att.flash_bwd_dq), before):
+        assert fn.route_counts == {"sm90": was["sm90"], "cuda_core": was["cuda_core"] + 1}
+    for got, ref in zip((dq, dk, dv), att.flash_backward_reference(q, k, v, do, lse, delta, True)):
+        assert _rel_err(got, ref) <= 1e-2
+    # the same values in aligned tensors take the tensor-core kernels
+    dk_a, dv_a = att.flash_bwd_dkv(*(t.contiguous() for t in (q, k, v, do)), lse, delta, True)
+    assert att.flash_bwd_dkv.route_counts["sm90"] == before[0]["sm90"] + 1
+    assert _rel_err(dk_a, dk) <= 1e-2 and _rel_err(dv_a, dv) <= 1e-2
+
+
+def test_flash_backward_bf16_fully_masked_rows_follow_attention_reference(cuda):
+    """The tensor-core kernels' rows that see no key: the bf16 gradients
+    agree with autograd through ``attention_reference`` on the float32
+    values of the same inputs."""
+    q = _uniform((1, 2, 200, 32), -2, 2, 64, cuda, torch.bfloat16).requires_grad_()
+    k, v = (_uniform((1, 2, 150, 32), -2, 2, 65 + i, cuda, torch.bfloat16).requires_grad_()
+            for i in range(2))
+    cot = _uniform((1, 2, 200, 32), -1, 1, 67, cuda)
+    before = att.flash_bwd_dkv.route_counts["sm90"]
+    (att.flash_attention(q, k, v, causal=True).float() * cot).sum().backward()
+    assert att.flash_bwd_dkv.route_counts["sm90"] == before + 1
+    ref = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    (att.attention_reference(*ref, causal=True) * cot).sum().backward()
+    for t, r in zip((q, k, v), ref):
+        assert _rel_err(t.grad, r.grad) <= 1e-2
 
 
 def test_flash_autograd_runs_k4_k5_on_qkv_slices(cuda):

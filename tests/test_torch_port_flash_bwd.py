@@ -127,10 +127,140 @@ def test_flash_backward_takes_qkv_slices_and_expanded_cotangents():
     np.testing.assert_allclose(x.grad.numpy(), ref.grad.numpy(), rtol=1e-4, atol=1e-5)
 
 
-def test_flash_backward_smem_fits_a_block():
+@pytest.mark.parametrize("route", ["cuda_core", "sm90"])
+def test_flash_backward_smem_fits_a_block(route):
     from lipreading_video_generation_tpu_torch.ops import _build
 
     for d in (16, 64, 128, 192, 256):
         for kernel in ("dkv", "dq"):
-            assert tatt.flash_bwd_smem_bytes(d, kernel) <= _build.SMEM_PER_BLOCK
-    assert tatt.flash_bwd_block_q(192) == 32 and tatt.flash_bwd_block_q(128) == 64
+            assert tatt.flash_bwd_smem_bytes(d, kernel, route) <= _build.SMEM_PER_BLOCK
+    if route == "cuda_core":
+        assert tatt.flash_bwd_block_q(192) == 32 and tatt.flash_bwd_block_q(128) == 64
+        # float tiles: Q, dO (32 rows), K, V (64 rows) of 260 floats, P, dS, lse, Δ
+        assert tatt.flash_bwd_smem_bytes(256, "dkv") == 217344
+    else:
+        assert [tatt.flash_bwd_block_q(d, route, "dkv") for d in (64, 128, 192)] == [128, 64, 64]
+        assert [tatt.flash_bwd_block_q(d, route, "dq") for d in (64, 128, 192)] == [128, 128, 64]
+        # bf16 tiles: half the bytes of the float ones at equal rows, so head
+        # dim 256 keeps 64-row tiles in two stages
+        assert tatt.flash_bwd_smem_bytes(256, "dkv", route) == 2 * 32768 + 2 * 66560 + 1024
+        assert tatt.flash_bwd_smem_bytes(64, "dq", route) == 2 * 16384 + 4 * 16384 + 1024
+        for d in (128, 256):
+            for kernel in ("dkv", "dq"):
+                assert (tatt.flash_bwd_smem_bytes(d, kernel, route)
+                        < tatt.flash_bwd_smem_bytes(d, kernel, "cuda_core"))
+
+
+def _bf16_backward_inputs(seed, s_q, s_k, causal, d=32):
+    """bf16 q, k, v, dO and the plain forward's O, lse and Δ on them."""
+    arrs, w = _inputs(seed, 1, 2, s_q, s_k, d)
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in arrs)
+    do = torch.from_numpy(w).to(torch.bfloat16)
+    o, lse = tatt.flash_reference(q, k, v, causal)
+    return arrs, w, (q, k, v, do, lse, (do.float() * o.float()).sum(-1), causal)
+
+
+# (s_q, s_k, causal): non-causal, causal s_q < s_k, ragged, rows that see no key
+_P_DTYPE_CASES = [(256, 256, False), (160, 320, True), (200, 200, False), (200, 150, True)]
+
+
+@pytest.mark.parametrize("s_q,s_k,causal", _P_DTYPE_CASES)
+def test_flash_backward_reference_bf16_p_stays_close(s_q, s_k, causal):
+    """``p_dtype=torch.bfloat16`` rounds P and dS where the tensor-core
+    kernels round them. Each rounding is 2^-9 relative and the gradients
+    are sums of many such terms plus one bf16 rounding at the store: within
+    1e-2 of the largest |gradient| of the float32-P version, and within
+    1e-2 of the largest |gradient| of the JAX package's Pallas backward
+    (interpret mode) on the same bf16 inputs. In the case with rows that
+    see no key JAX is compared on a cotangent that is zero on those rows
+    (where the two are known to differ)."""
+    blind = causal and s_q > s_k
+    arrs, w, args = _bf16_backward_inputs(5, s_q, s_k, causal)
+    got = tatt.flash_backward_reference(*args, p_dtype=torch.bfloat16)
+    want = tatt.flash_backward_reference(*args)
+    for g, r in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == r.shape
+        assert not torch.equal(g, r)                      # the rounding is really there
+        assert (g.float() - r.float()).abs().max() <= 1e-2 * r.float().abs().max()
+    if blind:
+        w = w.copy()
+        w[:, :, :s_q - s_k] = 0.0
+        q, k, v, _, lse, _, _ = args
+        do = torch.from_numpy(w).to(torch.bfloat16)
+        o, _ = tatt.flash_reference(q, k, v, causal)
+        got = tatt.flash_backward_reference(q, k, v, do, lse, (do.float() * o.float()).sum(-1),
+                                            causal, p_dtype=torch.bfloat16)
+    jax_grads = _jax_grads(arrs, np.asarray(torch.from_numpy(w).to(torch.bfloat16).float()),
+                           causal, jnp.bfloat16)
+    for g, r in zip(got, jax_grads):
+        assert np.abs(g.float().numpy() - r).max() <= 1e-2 * np.abs(r).max()
+
+
+@pytest.mark.parametrize("s_q,s_k,causal", _P_DTYPE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_reference_default_p_is_float32(s_q, s_k, causal, dtype):
+    """``p_dtype=None`` is the float32-P backward: the same bits as a call
+    without the argument and as rounding P and dS to float32, which they
+    already are."""
+    _, _, args = _bf16_backward_inputs(6, s_q, s_k, causal)
+    args = tuple(a.to(dtype) if torch.is_tensor(a) and a.dtype == torch.bfloat16 else a
+                 for a in args)
+    base = tatt.flash_backward_reference(*args)
+    for other in (tatt.flash_backward_reference(*args, p_dtype=None),
+                  tatt.flash_backward_reference(*args, p_dtype=torch.float32)):
+        for g, r in zip(other, base):
+            assert g.dtype == dtype and torch.equal(g, r)
+
+
+def _bhsd_from_fused(d, heads=1, s=24, b=2, dtype=torch.bfloat16):
+    """q, k, v as the U-Net makes them: (B, H, S, D) views of column slices
+    of one fused (B, S, 3·H·D) projection."""
+    qkv = torch.zeros(b, s, 3 * heads * d, dtype=dtype)
+    return [t.reshape(b, s, heads, d).transpose(1, 2) for t in qkv.chunk(3, dim=-1)]
+
+
+def _route_of(tensors):
+    size = tensors[0].element_size()
+    return tatt.flash_bwd_route(tensors[0].dtype, tensors[0].shape[-1],
+                                [t.stride()[:3] for t in tensors],
+                                [t.storage_offset() * size for t in tensors])
+
+
+@pytest.mark.parametrize("d", [16, 40, 64, 128, 192, 256])
+@pytest.mark.parametrize("heads", [1, 2])
+def test_flash_bwd_route_takes_fused_qkv_slices_to_sm90(d, heads):
+    """Every head dim the U-Net, SR U-Net and classifier use: slices of a
+    fused bf16 qkv start at multiples of 2·d bytes with row stride 3·H·d,
+    and the (B, S, H, D) gradients are contiguous: all 16-byte aligned."""
+    q, k, v = _bhsd_from_fused(d, heads)
+    grads = [torch.empty(2, 24, heads, d, dtype=torch.bfloat16).transpose(1, 2) for _ in range(2)]
+    assert _route_of([q, k, v, q] + grads) == "sm90"
+    assert _route_of([t.contiguous() for t in (q, k, v, q)]) == "sm90"
+
+
+@pytest.mark.parametrize("case", ["float32", "float32_fused", "odd_head_dim", "offset_view",
+                                  "odd_row_stride", "odd_address", "float16"])
+def test_flash_bwd_route_keeps_cuda_cores_for_the_rest(case):
+    """float32 (tensor cores would mean TF32) and every bf16 layout a 16-byte
+    copy cannot read stay on the CUDA-core kernels."""
+    if case == "float32":
+        tensors = [torch.zeros(1, 2, 24, 64)] * 4
+    elif case == "float32_fused":
+        tensors = _bhsd_from_fused(64, dtype=torch.float32)
+    elif case == "odd_head_dim":                       # d = 20: rows of 40 bytes
+        tensors = [torch.zeros(1, 2, 24, 20, dtype=torch.bfloat16)] * 4
+    elif case == "offset_view":                        # columns 4..67 of 72: base off by 8 bytes
+        tensors = [torch.zeros(1, 2, 24, 72, dtype=torch.bfloat16)[..., 4:68]] * 4
+    elif case == "odd_row_stride":                     # 64 of 68 columns: rows of 136 bytes
+        tensors = [torch.zeros(1, 2, 24, 68, dtype=torch.bfloat16)[..., :64]] * 4
+    elif case == "odd_address":
+        assert tatt.flash_bwd_route(torch.bfloat16, 64, [(3072, 1536, 64)] * 4,
+                                    [0, 0, 8, 0]) == "cuda_core"
+        assert tatt.flash_bwd_route(torch.bfloat16, 64, [(3072, 1536, 64)] * 4,
+                                    [0, 32, 4096, 16]) == "sm90"
+        return
+    else:
+        assert tatt.flash_bwd_route(torch.float16, 64, [(3072, 1536, 64)], [0]) == "cuda_core"
+        return
+    assert tensors[0].stride(-1) == 1
+    assert _route_of(tensors) == "cuda_core"
