@@ -11,6 +11,8 @@ weights made from a seed, and checks every hand-written kernel on them:
   encoder → conditioning map → DDIM / DPM++ denoise steps of the U-Net →
   uint8 frames — at the ``DiffusionConfig`` defaults (128×128, base 64,
   channel_mult (1,2,4), 2 res blocks, attention at ds 1/2/4, 1 head, bf16);
+  its attention is the flash forward K3, in bf16 the tensor-core kernel
+  (``csrc/flash_fwd_sm90.cu``);
 - diffusion training — uint8 target/condition frames + raw audio →
   ``prepare_batch`` → q-sample → U-Net forward in train mode (dropout 0.1)
   → ε-MSE → backward through the flash backward kernels (in bf16 the
@@ -40,13 +42,17 @@ script exits non-zero without printing a result):
 3. kernels — each kernel against its plain torch version on the card
    (K1 CLAHE: max |Δ| ≤ 1e-2 gray levels; K2 small MHA: 2e-2 abs/rel in
    bf16, 1e-5 in float32, and its gradient at 1e-4 in float32; K3 flash
-   forward: O within 1e-2 in bf16 (one output ulp at |O| ≤ 1), 1e-4 in
-   float32, lse within 1e-4; K4/K5 flash backward: each gradient within
+   forward: O within 1e-2 in bf16 (one output ulp at |O| ≤ 1; the
+   tensor-core kernel also rounds P to bf16 before P·V, 2^-9 a term, and
+   its error against the plain version that rounds P there is printed
+   beside), 1e-4 in float32, lse within 1e-4; K4/K5 flash backward: each gradient within
    1e-2 of its largest value in bf16 (P and dS rounded to bf16 before the
    float32 sums, then one rounding of the gradient) against the plain
-   version with float32 P, 1e-4 in float32; aligned bf16 inputs must take
-   the tensor-core kernels and float32 or unaligned ones the CUDA-core
-   kernels, and two launches must give equal bits; K6 matmul: int8 exactly equal, bf16 within 1e-3 of the
+   version with float32 P, 1e-4 in float32; for K3, K4 and K5 aligned bf16
+   inputs must take the tensor-core kernels and float32, unaligned ones or
+   head dims above 256 the CUDA-core kernels, two launches must give equal
+   bits, and head dims 320 and 512 and more than 65,535 (batch, head)
+   pairs run forward and backward; K6 matmul: int8 exactly equal, bf16 within 1e-3 of the
    largest |C| (the output is the unrounded float32 sum; only the order of
    summation differs)), at the shapes the paths give them.
 4. serve   — 3 requests of 8 clips and 3 of 384 clips (5 frames each, 96×96
@@ -58,13 +64,14 @@ script exits non-zero without printing a result):
    before, held against ``predict_step`` on the same ROIs.
 5. diffuse — one warm-up and 3 timed ``sample_video`` requests of 4 frames
    × 10 DDIM steps, and one with DPM++(2M); each must launch K3 16 times a
-   step and K2 4 times, and return finite (4, 128, 128, 3) uint8 frames;
-   the full 500-step DDPM chain at batch 1; then the card against the CPU
+   step (all by the tensor-core route) and K2 4 times, and return finite (4, 128, 128, 3) uint8 frames;
+   a ``torch.profiler`` breakdown of one request (device busy share,
+   K2/K3 shares); the full 500-step DDPM chain at batch 1; then the card against the CPU
    plain path at the full channel plan but 64×64, batch 1, 2 DDIM steps,
    same initial noise.
 6. train   — ``train_step`` at the ``DiffusionConfig`` defaults, batch 8:
    one warm-up and 5 timed steps, each launching K3, K4 and K5 16 times and
-   K2 4 times (K4/K5 by the tensor-core route), with finite loss, params
+   K2 4 times (K3, K4 and K5 by the tensor-core route), with finite loss, params
    and EMA and an EMA that moves; a ``torch.profiler`` breakdown of one
    step (device busy share, K2-K5 shares); 10
    steps on one batch with fixed t and noise must end below the first
@@ -92,8 +99,8 @@ script exits non-zero without printing a result):
 11. timing — request and train-step times, frames/s, each kernel's
    CUDA-event time beside its plain version's at the main-path shapes, the
    one PyTorch call that computes the same function where there is one
-   (``scaled_dot_product_attention`` and its backward, the latter at all
-   three U-Net shapes beside K4 + K5, ``torch._int_mm``,
+   (``scaled_dot_product_attention`` and its backward, at all three U-Net
+   shapes beside K3 and beside K4 + K5, ``torch._int_mm``,
    ``torch.matmul``; yardsticks, used on no path), each kernel's bound
    (the larger of its bytes over 3.35 TB/s and its operations over the
    tensor-core peak of its type), peak device memory.
@@ -204,12 +211,17 @@ def phase_build() -> None:
     log("build", f"dynamic shared memory per block at the main-path shapes: K1 "
         f"{8 * 8 * 256 * 4} B (8x8 tiles of 256 int32 bins), K2 "
         f"{_small_mha_smem_bytes(80, 32)} B (S=80, d=32), "
-        f"{_small_mha_smem_bytes(11, 96)} B (S=11, d=96); K3 "
-        + ", ".join(f"{flash_smem_bytes(d)} B (head dim {d})" for d in (64, 128, 256))
+        f"{_small_mha_smem_bytes(11, 96)} B (S=11, d=96)"
+        + "".join(f"; K3 {what} " + ", ".join(
+            f"{flash_smem_bytes(d, route)} B (head dim {d})" for d in dims)
+            for route, what, dims in (("sm90", "tensor-core route (bf16 tiles)", (64, 128, 256)),
+                                      ("cuda_core", "CUDA-core route (float tiles)",
+                                       (64, 128, 256, 512))))
         + "".join(f"; {name} {what} " + ", ".join(
-            f"{flash_bwd_smem_bytes(d, kern, route)} B (head dim {d})" for d in (64, 128, 256))
-            for route, what in (("sm90", "tensor-core route (bf16 tiles)"),
-                                ("cuda_core", "CUDA-core route (float tiles)"))
+            f"{flash_bwd_smem_bytes(d, kern, route)} B (head dim {d})" for d in dims)
+            for route, what, dims in (("sm90", "tensor-core route (bf16 tiles)", (64, 128, 256)),
+                                      ("cuda_core", "CUDA-core route (float tiles)",
+                                       (64, 128, 256, 512)))
             for name, kern in (("K4", "dkv"), ("K5", "dq")))
         + "; K6 15360 B static (128 and 64 rows of 80 bytes)")
 
@@ -262,45 +274,84 @@ def phase_kernels() -> dict:
     log("kernels", f"K2 small_mha gradient (2,33,64) H=4 f32 matches autograd "
         f"through _mha_einsum (tol {TOL_GRAD})")
 
-    # K3: the U-Net's three shapes (batch 2), scripts/profile_flash_dpad.py's
-    # two, and small causal / ragged / cross / fully-masked-row cases
-    for (q_shape, s_k, causal, dtype) in [
-            ((2, 1, 16384, 64), 16384, False, torch.bfloat16),
-            ((2, 1, 4096, 128), 4096, False, torch.bfloat16),
-            ((2, 1, 1024, 256), 1024, False, torch.bfloat16),
-            ((1, 1, 16384, 64), 16384, False, torch.bfloat16),
-            ((1, 1, 512, 64), 512, False, torch.float32),
-            ((2, 3, 192, 32), 192, True, torch.float32),
-            ((2, 3, 160, 40), 320, True, torch.float32),
-            ((2, 3, 200, 16), 200, False, torch.float32),
-            ((1, 2, 160, 128), 320, False, torch.float32),
-            ((1, 2, 200, 64), 150, True, torch.float32)]:
+    # small causal / ragged / cross / fully-masked-row shapes (q, s_k, causal)
+    small = [((2, 3, 192, 32), 192, True), ((2, 3, 160, 40), 320, True),
+             ((2, 3, 200, 16), 200, False), ((1, 2, 160, 128), 320, False),
+             ((1, 2, 256, 256), 256, True), ((1, 2, 200, 64), 150, True)]
+    bf16, f32 = torch.bfloat16, torch.float32
+    # head dims above 256 (the CUDA-core kernels in both types, at the tokens
+    # a U-Net block of 512 channels has at ds 4) and more than 65,535
+    # (batch, head) pairs (one case a route)
+    wide_heads = [((1, 1, 1024, d), 1024, False, dt, "cuda_core")
+                  for d in (320, 512) for dt in (f32, bf16)]
+    many_heads = [((4097, 17, 132, 16), 132, True, bf16, "sm90"),
+                  ((2048, 33, 132, 16), 132, False, f32, "cuda_core")]
+
+    def flash_inputs(q_shape, s_k, dtype, unaligned, seed):
+        """q, k, v and a cotangent; ``unaligned``: columns 4..d+3 of rows of
+        d + 8, a view that starts 8 bytes into its rows."""
         b, h, s_q, d = q_shape
-        q = _uniform(q_shape, -2, 2, SEED, dtype)
-        k, v = (_uniform((b, h, s_k, d), -2, 2, SEED + 1 + i, dtype) for i in range(2))
+        wide = d + 8 if unaligned else d
+        q = _uniform((b, h, s_q, wide), -2, 2, seed, dtype)
+        k, v = (_uniform((b, h, s_k, wide), -2, 2, seed + 1 + i, dtype) for i in range(2))
+        do = _uniform((b, h, s_q, wide), -1, 1, seed + 3, dtype)
+        return [t[..., 4:4 + d] if unaligned else t for t in (q, k, v, do)]
+
+    # K3: the U-Net's three shapes (batch 2), scripts/profile_flash_dpad.py's
+    # two, the small cases in float32 (the CUDA-core kernel) and in bf16 (the
+    # tensor-core kernel), a bf16 view that starts 8 bytes into its rows,
+    # which 16-byte copies cannot read (it must take the CUDA-core kernel),
+    # head dims 320 and 512, and more than 65,535 (batch, head) pairs
+    k3_cases = ([((2, 1, 16384, 64), 16384, False, bf16, "sm90"),
+                 ((2, 1, 4096, 128), 4096, False, bf16, "sm90"),
+                 ((2, 1, 1024, 256), 1024, False, bf16, "sm90"),
+                 ((1, 1, 16384, 64), 16384, False, bf16, "sm90"),
+                 ((1, 1, 512, 64), 512, False, f32, "cuda_core")]
+                + [c + (f32, "cuda_core") for c in small] + [c + (bf16, "sm90") for c in small]
+                + [((2, 2, 300, 64), 300, True, bf16, "cuda_core")] + wide_heads + many_heads)
+    for (q_shape, s_k, causal, dtype, route) in k3_cases:
+        unaligned = q_shape == (2, 2, 300, 64)
+        q, k, v, _ = flash_inputs(q_shape, s_k, dtype, unaligned, SEED)
+        before = dict(att.flash_attention.route_counts)
         got_o, got_lse = att.flash_attention(q, k, v, causal, return_lse=True)
+        again_o, again_lse = att.flash_attention(q, k, v, causal, return_lse=True)
         torch.cuda.synchronize()
+        took = {r: n - before[r] for r, n in att.flash_attention.route_counts.items()
+                if n != before[r]}
+        if took != {route: 2}:
+            raise AssertionError(f"K3 q{q_shape} {dtype}: routes {took}, want {route}")
+        if not (torch.equal(got_o, again_o) and torch.equal(got_lse, again_lse)):
+            raise AssertionError(f"K3 q{q_shape} {dtype}: two launches gave different bits")
         want_o, want_lse = att.flash_reference(q, k, v, causal)
         err = (got_o.float() - want_o.float()).abs().max().item()
         err_lse = (got_lse - want_lse).abs().max().item()
+        # float32 P on both sides, or (tensor-core route) P rounded to bf16
+        # before P.V: 2^-9 relative a term, averaging out over a row, under
+        # the one rounding of O to bf16 that both carry
         tol = TOL_K3_BF16 if dtype == torch.bfloat16 else TOL_K3_F32
-        log("kernels", f"K3 flash_attention q{q_shape} s_k={s_k} causal={causal} {dtype}: "
-            f"O max|d| {err:.3g} (tol {tol} abs/rel), lse max|d| {err_lse:.3g} "
-            f"(tol {TOL_LSE} abs/rel)")
+        note = ""
+        if route == "sm90":
+            want_p, _ = att.flash_reference(q, k, v, causal, p_dtype=torch.bfloat16)
+            note = (f"; against the plain version with bf16 P "
+                    f"{(got_o.float() - want_p.float()).abs().max().item():.3g}")
+            del want_p
+        log("kernels", f"K3 flash_attention q{q_shape} s_k={s_k} causal={causal} {dtype}"
+            f"{' (view 8 bytes into its rows)' if unaligned else ''}, route {route}: "
+            f"O max|d| {err:.3g} (tol {tol} abs/rel){note}, lse max|d| {err_lse:.3g} "
+            f"(tol {TOL_LSE} abs/rel); two launches equal bits")
         torch.testing.assert_close(got_o.float(), want_o.float(), rtol=tol, atol=tol)
         torch.testing.assert_close(got_lse, want_lse, rtol=TOL_LSE, atol=TOL_LSE)
         errs["flash_attention"] = max(errs["flash_attention"], err)
-        del q, k, v, got_o, got_lse, want_o, want_lse
+        del q, k, v, got_o, got_lse, again_o, again_lse, want_o, want_lse
 
     # K4/K5: the U-Net's three shapes (batch 2), the super-resolution U-Net's
     # (d=192, padded to 256), the classifier's (2 heads, d=64), and small
     # causal / ragged / cross / fully-masked-row cases in float32 (the
     # CUDA-core kernels) and in bf16 (the tensor-core kernels), and a bf16
     # view that starts 8 bytes into its rows, which 16-byte copies cannot
-    # read: it must take the CUDA-core kernels
-    small = [((2, 3, 192, 32), 192, True), ((2, 3, 160, 40), 320, True),
-             ((2, 3, 200, 16), 200, False), ((1, 2, 160, 128), 320, False),
-             ((1, 2, 256, 256), 256, True), ((1, 2, 200, 64), 150, True)]
+    # read: it must take the CUDA-core kernels; head dims 320 and 512; more
+    # than 65,535 (batch, head) pairs. Every lse comes from K3 by the route
+    # of the same inputs, so the pair forward + backward is held
     cases = ([((2, 1, 16384, 64), 16384, False, torch.bfloat16, "sm90"),
               ((2, 1, 4096, 128), 4096, False, torch.bfloat16, "sm90"),
               ((2, 1, 1024, 256), 1024, False, torch.bfloat16, "sm90"),
@@ -309,17 +360,12 @@ def phase_kernels() -> dict:
               ((1, 1, 512, 64), 512, False, torch.float32, "cuda_core")]
              + [c + (torch.float32, "cuda_core") for c in small]
              + [c + (torch.bfloat16, "sm90") for c in small]
-             + [((2, 2, 300, 64), 300, True, torch.bfloat16, "cuda_core")])
+             + [((2, 2, 300, 64), 300, True, torch.bfloat16, "cuda_core")]
+             + wide_heads + many_heads)
     errs["flash_bwd_dkv"] = errs["flash_bwd_dq"] = 0.0
     for (q_shape, s_k, causal, dtype, route) in cases:
-        b, h, s_q, d = q_shape
-        # the unaligned case: columns 4..d+3 of rows of d + 8
-        wide = d + 8 if (dtype, route) == (torch.bfloat16, "cuda_core") else d
-        q = _uniform((b, h, s_q, wide), -2, 2, SEED + 20, dtype)
-        k, v = (_uniform((b, h, s_k, wide), -2, 2, SEED + 21 + i, dtype) for i in range(2))
-        do = _uniform((b, h, s_q, wide), -1, 1, SEED + 23, dtype)
-        if wide != d:
-            q, k, v, do = (t[..., 4:4 + d] for t in (q, k, v, do))
+        unaligned = q_shape == (2, 2, 300, 64)
+        q, k, v, do = flash_inputs(q_shape, s_k, dtype, unaligned, SEED + 20)
         o, lse = att.flash_attention(q, k, v, causal, return_lse=True)
         delta = (do.float() * o.float()).sum(-1)
         before = dict(att.flash_bwd_dkv.route_counts), dict(att.flash_bwd_dq.route_counts)
@@ -352,7 +398,7 @@ def phase_kernels() -> dict:
             errs["flash_bwd_dq" if name == "dq" else "flash_bwd_dkv"] = max(
                 errs["flash_bwd_dq" if name == "dq" else "flash_bwd_dkv"], diff)
         log("kernels", f"K4/K5 flash backward q{q_shape} s_k={s_k} causal={causal} {dtype}"
-            f"{' (view 8 bytes into its rows)' if wide != d else ''}, route {route}: "
+            f"{' (view 8 bytes into its rows)' if unaligned else ''}, route {route}: "
             f"max|d|/max|ref| dq {rel[0]:.3g} dk {rel[1]:.3g} dv {rel[2]:.3g} (tol {tol})"
             + (f"; against the plain version with bf16 P and dS dq {rel_p[0]:.3g} dk "
                f"{rel_p[1]:.3g} dv {rel_p[2]:.3g}" if route == "sm90" else "")
@@ -758,9 +804,7 @@ def phase_diffuse(dev: dict) -> dict:
         raise AssertionError("diffusion request gave non-finite frames")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    cl.clahe_cuda.launch_count = 0
-    att.small_mha.launch_count = 0
-    att.flash_attention.launch_count = 0
+    _zero_counts()
     times = []
     for sampler in ("ddim", "ddim", "ddim", "dpmpp"):
         k1, k2, k3 = (cl.clahe_cuda.launch_count, att.small_mha.launch_count,
@@ -782,10 +826,15 @@ def phase_diffuse(dev: dict) -> dict:
     launches = {"small_mha": att.small_mha.launch_count,
                 "flash_attention": att.flash_attention.launch_count}
     peak = torch.cuda.max_memory_allocated()
+    _all_by_tensor_cores("diffuse", att.flash_attention)
     log("diffuse", f"4 requests (ddim x3, dpmpp) of {DIFF_FRAMES} frames x {DIFF_STEPS} "
         f"steps: launches K1=0 K2={launches['small_mha']} K3={launches['flash_attention']} "
-        f"(4 and {n_attn}x{DIFF_STEPS} per request); uint8 frames "
+        f"(4 and {n_attn}x{DIFF_STEPS} per request; K3 routes "
+        f"{att.flash_attention.route_counts}); uint8 frames "
         f"{tuple(out.shape)}, pixel mean {out.float().mean().item():.2f}")
+
+    # where the time of a DDIM request goes
+    busy_ms = _profile_step("diffuse", lambda: request("ddim").cpu(), "request")
 
     # the full DDPM ancestral chain (500 steps) at batch 1
     k2, k3 = att.small_mha.launch_count, att.flash_attention.launch_count
@@ -795,8 +844,10 @@ def phase_diffuse(dev: dict) -> dict:
     d = (att.small_mha.launch_count - k2, att.flash_attention.launch_count - k3)
     if d != (4, n_attn * cfg.num_timesteps) or tuple(chain.shape) != (1, 128, 128, 3):
         raise AssertionError(f"DDPM chain launched K2/K3 {d}, gave {tuple(chain.shape)}")
+    _all_by_tensor_cores("diffuse", att.flash_attention)
     log("diffuse", f"full DDPM chain, batch 1, {cfg.num_timesteps} steps: {chain_s:.3f} s "
-        f"({cfg.num_timesteps / chain_s:.2f} frame-steps/s), K2={d[0]} K3={d[1]} launches, "
+        f"({cfg.num_timesteps / chain_s:.2f} frame-steps/s), K2={d[0]} K3={d[1]} launches "
+        f"(K3 routes {att.flash_attention.route_counts}), "
         f"uint8 frame pixel mean {chain.float().mean().item():.2f}")
 
     # the card against the CPU plain path: 64x64, batch 1, 2 DDIM steps
@@ -817,7 +868,8 @@ def phase_diffuse(dev: dict) -> dict:
     per_req = statistics.median(times[:3])
     log("diffuse", f"request times ({dev['smi']}): ddim {[round(t * 1e3, 3) for t in times[:3]]} "
         f"ms, dpmpp {times[3] * 1e3:.3f} ms; ddim median {per_req * 1e3:.3f} ms = "
-        f"{DIFF_FRAMES * DIFF_STEPS / per_req:.2f} denoise frame-steps/s; "
+        f"{DIFF_FRAMES * DIFF_STEPS / per_req:.2f} denoise frame-steps/s (the profiled "
+        f"request's {busy_ms:.3f} ms of kernels are {busy_ms / (per_req * 1e3):.3f} of it); "
         f"peak device memory {peak / 2**20:.1f} MiB")
     return launches
 
@@ -838,8 +890,17 @@ def _zero_counts() -> None:
     for fn in (cl.clahe_cuda, att.small_mha, att.flash_attention, att.flash_bwd_dkv,
                att.flash_bwd_dq):
         fn.launch_count = 0
-    for fn in (att.flash_bwd_dkv, att.flash_bwd_dq):
+    for fn in (att.flash_attention, att.flash_bwd_dkv, att.flash_bwd_dq):
         fn.route_counts = dict.fromkeys(fn.route_counts, 0)
+
+
+def _all_by_tensor_cores(phase: str, *fns) -> None:
+    """Every launch of ``fns`` since ``_zero_counts`` took the tensor-core
+    route (``route_counts`` beside ``launch_count``)."""
+    for fn in fns:
+        if fn.route_counts != {"sm90": fn.launch_count, "cuda_core": 0} or fn.launch_count < 1:
+            raise AssertionError(f"{phase}: {fn.__name__} took the routes {fn.route_counts} in "
+                                 f"{fn.launch_count} launches, want all by the tensor cores")
 
 
 def _delta(before: dict) -> dict:
@@ -856,7 +917,7 @@ def train_batch(cfg, n: int, seed: int, size: int = 160) -> dict:
 
 
 # kernel-name fragments of the hand-written kernels, for the profiles
-KERNEL_NAMES = {"K2": "small_mha_kernel", "K3": "flash_fwd_kernel",
+KERNEL_NAMES = {"K2": "small_mha_kernel", "K3": "flash_fwd_",
                 "K4": "flash_bwd_dkv", "K5": "flash_bwd_dq"}
 
 
@@ -879,10 +940,11 @@ def _profiled(fn):
     return wall_ms, events, kernels
 
 
-def _profile_step(phase: str, step) -> float:
-    """One step under ``torch.profiler``: wall time, device time of all
-    kernels and copies (busy share), the share of each hand-written
-    kernel, and the heaviest kernels by name. Returns the device time, ms."""
+def _profile_step(phase: str, step, what: str = "step") -> float:
+    """One step (or request) under ``torch.profiler``: wall time, device
+    time of all kernels and copies (busy share), the share of each
+    hand-written kernel, and the heaviest kernels by name. Returns the
+    device time, ms."""
     wall_ms, _, kernels = _profiled(step)
     busy_ms = sum(ms for _, ms, _ in kernels)
     if busy_ms <= 0:
@@ -891,7 +953,7 @@ def _profile_step(phase: str, step) -> float:
                sum(n for name, _, n in kernels if frag in name))
            for k, frag in KERNEL_NAMES.items()}
     rest = busy_ms - sum(ms for ms, _ in own.values())
-    log(phase, f"profile of one step: wall {wall_ms:.3f} ms under the profiler, device kernels "
+    log(phase, f"profile of one {what}: wall {wall_ms:.3f} ms under the profiler, device kernels "
         f"and copies {busy_ms:.3f} ms in {sum(c for _, _, c in kernels)} launches (busy share "
         f"{busy_ms / wall_ms:.3f}); "
         + ", ".join(f"{k} {ms:.3f} ms ({ms / busy_ms:.1%}, {n}x)" for k, (ms, n) in own.items())
@@ -961,9 +1023,7 @@ def phase_train(dev: dict) -> dict:
         if d != want:
             raise AssertionError(f"train step launched {d}, want {want}")
     launches = _counts()
-    for fn in (att.flash_bwd_dkv, att.flash_bwd_dq):
-        if fn.route_counts != {"sm90": 5 * 16, "cuda_core": 0}:
-            raise AssertionError(f"bf16 training took the routes {fn.route_counts}")
+    _all_by_tensor_cores("train", att.flash_attention, att.flash_bwd_dkv, att.flash_bwd_dq)
     peak = torch.cuda.max_memory_allocated()
     ema_moved = sum(int(not torch.equal(e, e0)) for e, e0 in zip(state.ema.parameters(), ema0))
     if not (np.isfinite(losses).all() and _finite(state.model) and _finite(state.ema)):
@@ -971,7 +1031,7 @@ def phase_train(dev: dict) -> dict:
     if ema_moved == 0:
         raise AssertionError("the EMA did not move in 5 steps")
     log("train", f"5 steps: losses {[round(x, 5) for x in losses]}; launches per step K2 4 "
-        f"K3 16 K4 16 K5 16 (total {launches}; K4 and K5 all by the tensor-core route); "
+        f"K3 16 K4 16 K5 16 (total {launches}; K3, K4 and K5 all by the tensor-core route); "
         f"params and EMA finite; EMA moved in "
         f"{ema_moved}/{len(ema0)} tensors")
 
@@ -1018,6 +1078,7 @@ def phase_superres(dev: dict) -> dict:
     import dataclasses
 
     from lipreading_video_generation_tpu_torch.core.config import DiffusionConfig, SuperResConfig
+    from lipreading_video_generation_tpu_torch.ops import attention as att
     from lipreading_video_generation_tpu_torch.pipelines import train_superres as tsr
     from lipreading_video_generation_tpu_torch.pipelines.sample_diffusion import sample_cascade
 
@@ -1045,9 +1106,10 @@ def phase_superres(dev: dict) -> dict:
             raise AssertionError(f"SR train step launched {d}, want {want}")
     if not (np.isfinite(losses).all() and _finite(state.model)):
         raise AssertionError(f"SR training: non-finite loss or params ({losses})")
+    _all_by_tensor_cores("superres", att.flash_attention, att.flash_bwd_dkv, att.flash_bwd_dq)
     log("superres", f"3 train steps at batch {TRAIN_BATCH}: losses "
         f"{[round(x, 5) for x in losses]}, times {[round(x * 1e3, 3) for x in times]} ms "
-        f"({dev['smi']}); K3/K4/K5 {n_attn} each a step")
+        f"({dev['smi']}); K3/K4/K5 {n_attn} each a step, all by the tensor-core route")
 
     base_cfg = dataclasses.replace(DiffusionConfig(), im_size=scfg.low_size)
     base = _load_unet_audio(base_cfg, _diffusion_state_dict(base_cfg), "cuda")
@@ -1068,16 +1130,19 @@ def phase_superres(dev: dict) -> dict:
         raise AssertionError(f"cascade gave {tuple(high.shape)} / {tuple(low.shape)}")
     if d["flash_attention"] != want_k3:
         raise AssertionError(f"cascade launched {d}, want K3 {want_k3}")
+    _all_by_tensor_cores("superres", att.flash_attention)
     log("superres", f"sample_cascade: base 64x64 {DIFF_FRAMES} frames x {DIFF_STEPS} DDIM "
         f"steps, SR {scfg.sr_inference_steps} DDIM steps -> {tuple(high.shape)} in "
         f"[{high.min().item():.3f}, {high.max().item():.3f}], finite; K3 launches "
-        f"{d['flash_attention']}; {cascade_s * 1e3:.3f} ms ({dev['smi']})")
+        f"{d['flash_attention']}, routes since the first train step "
+        f"{att.flash_attention.route_counts}; {cascade_s * 1e3:.3f} ms ({dev['smi']})")
     return {"launches": _counts()}
 
 
 def phase_guidance(dev: dict) -> dict:
     from lipreading_video_generation_tpu_torch.core.config import (
         ClassifierConfig, DiffusionConfig)
+    from lipreading_video_generation_tpu_torch.ops import attention as att
     from lipreading_video_generation_tpu_torch.pipelines import train_classifier as ttc
     from lipreading_video_generation_tpu_torch.pipelines.sample_diffusion import sample_video
 
@@ -1126,8 +1191,10 @@ def phase_guidance(dev: dict) -> dict:
     moved = (guided.int() - plain.int()).abs().float().mean().item()
     if moved == 0:
         raise AssertionError("guidance changed nothing")
+    _all_by_tensor_cores("guidance", att.flash_attention, att.flash_bwd_dkv, att.flash_bwd_dq)
     log("guidance", f"guided sample_video (label 2, scale 5), {DIFF_FRAMES} frames x "
-        f"{DIFF_STEPS} DDIM steps: launches {d} ({n_attn} K4/K5 a step); mean |guided - "
+        f"{DIFF_STEPS} DDIM steps: launches {d} ({n_attn} K4/K5 a step; K3, K4 and K5 all by "
+        f"the tensor-core route since the first classifier step); mean |guided - "
         f"unguided| {moved:.3f} levels; {guided_s * 1e3:.3f} ms ({dev['smi']})")
     return {"launches": _counts()}
 
@@ -1367,6 +1434,31 @@ def _attention_bound(b: int, h: int, s: int, d: int, ops_per_sd: float, n_tensor
                   "bf16")
 
 
+def _flash_fwd_sm90_launcher(q, k, v):
+    """A function that launches the tensor-core K3 on (B, H, S, D) bf16 q, k,
+    v through its C entry point, into outputs allocated here, once: what
+    ``ops/attention._flash_launch`` does, without its host work per call and
+    without its count."""
+    import ctypes
+
+    from lipreading_video_generation_tpu_torch.ops import _build
+
+    b, h, s_q, d = q.shape
+    out = torch.empty(b, s_q, h, d, dtype=q.dtype, device=q.device).transpose(1, 2)
+    lse = torch.empty(b, h, s_q, dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 12)(*(st for t in (q, k, v, out) for st in t.stride()[:3]))
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    fn = _build.kernel("lvg_flash_fwd_sm90", [vp] * 5 + [i32] * 5
+                       + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, i32, vp])
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), b, h, s_q,
+            k.shape[2], d, strides, 1.0 / math.sqrt(d), 0)
+
+    def launch():
+        _build.check(fn(*args, torch.cuda.current_stream().cuda_stream), "flash_attention (sm90)")
+
+    return launch
+
+
 def phase_timing(dev: dict, microbench: dict) -> dict:
     import torch.nn.functional as F
 
@@ -1390,22 +1482,34 @@ def phase_timing(dev: dict, microbench: dict) -> dict:
         k2_lib = _event_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4), 20)
         # K3 at the U-Net's three shapes, batch DIFF_FRAMES, as the U-Net
         # calls it: (B, 1, S, D) views of column slices of one qkv tensor
-        k3 = {}
+        k3, k3_lib, k3_alone = {}, {}, {}
         for s, d in ((16384, 64), (4096, 128), (1024, 256)):
             qkv = _uniform((DIFF_FRAMES, s, 3 * d), -2, 2, SEED, torch.bfloat16)
             q, k, v = (t.reshape(DIFF_FRAMES, s, 1, d).transpose(1, 2)
                        for t in qkv.chunk(3, dim=-1))
+            before = att.flash_attention.route_counts["sm90"]
             k3[(s, d)] = _plain_vs_kernel(lambda: att.flash_reference(q, k, v),
-                                          lambda: att.flash_attention(q, k, v), 3)
-            if (s, d) == (16384, 64):
-                F.scaled_dot_product_attention(q, k, v)
-                k3_lib = _event_ms(lambda: F.scaled_dot_product_attention(q, k, v), 3)
+                                          lambda: att.flash_attention(q, k, v), 3, 20)
+            if att.flash_attention.route_counts["sm90"] != before + 41:
+                raise AssertionError("the timed K3 launches did not take the tensor-core kernel")
+            F.scaled_dot_product_attention(q, k, v)
+            k3_lib[(s, d)] = _event_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20)
+            # the kernel alone: at the small shapes a call's host time (two
+            # allocations, the route, ctypes), not its kernel, is what the
+            # events above see, so the C entry point is also called in a loop
+            # on outputs allocated once
+            k3_alone[(s, d)] = _event_ms(_flash_fwd_sm90_launcher(q, k, v), 50)
             del qkv, q, k, v
     for (s, d), (ms, plain, raw) in k3.items():
         flops = 4.0 * DIFF_FRAMES * s * s * d
-        log("timing", f"K3 flash_attention ({DIFF_FRAMES},1,{s},{d}) bf16: kernel {ms:.4f} ms "
-            f"({flops / ms / 1e9:.2f} TFLOP/s), plain {plain:.4f} ms (plain,kernel,kernel,plain "
-            f"= {[round(t, 4) for t in raw]}) on {dev['smi']}")
+        bound = _attention_bound(DIFF_FRAMES, 1, s, d, 4, 4)["bound_ms"]
+        log("timing", f"K3 flash_attention ({DIFF_FRAMES},1,{s},{d}) bf16, route sm90: kernel "
+            f"{ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s; bound {bound:.4f} ms, {bound / ms:.1%} "
+            f"of it), plain {plain:.4f} ms (plain,kernel,kernel,plain = "
+            f"{[round(t, 4) for t in raw]}), the library's forward (SDPA) {k3_lib[(s, d)]:.4f} ms: "
+            f"{ms / k3_lib[(s, d)]:.2f} x; the C entry point in a loop, outputs allocated once: "
+            f"{k3_alone[(s, d)]:.4f} ms ({flops / k3_alone[(s, d)] / 1e9:.2f} TFLOP/s) on "
+            f"{dev['smi']}")
     log("timing", f"K1 clahe (1920,48,48) f32: kernel {k1_ms:.4f} ms, plain {k1_plain:.4f} ms "
         f"(plain,kernel,kernel,plain = {[round(t, 4) for t in raw1]}) on {dev['smi']}")
     log("timing", f"K2 small_mha (384,80,256) H=8 bf16: kernel {k2_ms:.4f} ms, plain "
@@ -1451,8 +1555,8 @@ def phase_timing(dev: dict, microbench: dict) -> dict:
             f"library's backward (SDPA, dQ, dK, dV in one call) {lib:.4f} ms: {both / lib:.2f} x "
             f"on {dev['smi']}")
     log("timing", f"library calls at the same shapes ({dev['smi']}): "
-        f"F.scaled_dot_product_attention (384,8,80,32) {k2_lib:.4f} ms, ({DIFF_FRAMES},1,16384,64) "
-        f"{k3_lib:.4f} ms")
+        f"F.scaled_dot_product_attention (384,8,80,32) {k2_lib:.4f} ms, "
+        + ", ".join(f"({DIFF_FRAMES},1,{s},{d}) {ms:.4f} ms" for (s, d), ms in k3_lib.items()))
     bwd_lib = bwd_lib[(16384, 64)]
 
     # K6 int8 at the generator's largest product, as int8 serving calls it;
@@ -1487,7 +1591,7 @@ def phase_timing(dev: dict, microbench: dict) -> dict:
         "small_mha": dict(ms=k2_ms, plain_ms=k2_plain, library_ms=k2_lib,
                           **_attention_bound(384, 8, 80, 32, 4, 4)),
         "flash_attention": dict(ms=k3[(16384, 64)][0], plain_ms=k3[(16384, 64)][1],
-                                library_ms=k3_lib,
+                                library_ms=k3_lib[(16384, 64)],
                                 **_attention_bound(DIFF_FRAMES, 1, 16384, 64, 4, 4)),
         # K4 reads q, k, v, dO and writes dK, dV; K5 reads the four and writes
         # dQ; both read lse and delta. The library call covers both kernels.
@@ -1532,7 +1636,7 @@ def main() -> None:
     sources = {  # name: (CUDA source, the TPU kernel it replaces)
         "clahe": ("clahe.cu", f"{jax_pkg}/ops/clahe_pallas.py:102"),
         "small_mha": ("small_mha.cu", f"{jax_pkg}/ops/attention.py:570"),
-        "flash_attention": ("flash_fwd.cu", f"{jax_pkg}/ops/attention.py:66"),
+        "flash_attention": ("flash_fwd_sm90.cu", f"{jax_pkg}/ops/attention.py:66"),
         "flash_bwd_dkv": ("flash_bwd_sm90.cu", f"{jax_pkg}/ops/attention.py:216"),
         "flash_bwd_dq": ("flash_bwd_sm90.cu", f"{jax_pkg}/ops/attention.py:272"),
         "int8_matmul": ("int8_mm.cu", "scripts/microbench_int8_pallas.py:44"),
@@ -1545,11 +1649,15 @@ def main() -> None:
                 **times[name]}
         if name == "flash_attention":
             kern["also_replaces"] = "scripts/profile_flash_dpad.py:37"
+            kern["route_detail"] = (
+                "sm90: wgmma on bf16 tiles, cp.async rings (aligned bf16 inputs up to head dim "
+                "256; timed here and on the sampling and training paths); cuda_core: "
+                f"{pkg}/csrc/flash_fwd.cu (float32, unaligned inputs, head dims up to 512)")
         if name.startswith("flash_bwd"):
             kern["route_detail"] = (
-                "sm90: wgmma on bf16 tiles, cp.async ring (aligned bf16 inputs; timed here and "
-                f"on the training path); cuda_core: {pkg}/csrc/flash_bwd.cu (float32 or "
-                "unaligned inputs)")
+                "sm90: wgmma on bf16 tiles, cp.async ring (aligned bf16 inputs up to head dim "
+                f"256; timed here and on the training path); cuda_core: {pkg}/csrc/flash_bwd.cu "
+                "(float32, unaligned inputs, head dims up to 512)")
         if kern["launches"] < 1:
             raise AssertionError(f"kernel {name} never ran on the main path")
         kernels.append(kern)

@@ -2,7 +2,7 @@
 // and dQ pass, on CUDA cores. These kernels serve float32 inputs (tensor
 // cores would mean TF32) and bf16 inputs whose base addresses or strides
 // are not multiples of 16 bytes; aligned bf16 inputs run the tensor-core
-// kernels of flash_bwd_sm90.cu (ops/attention.py::flash_bwd_route decides).
+// kernels of flash_bwd_sm90.cu (ops/attention.py::flash_route decides).
 //
 // Replace lipreading_video_generation_tpu/ops/attention.py::_bwd_dkv_kernel
 // (K4) and ::_bwd_dq_kernel (K5), driven by _flash_backward_pallas. They
@@ -41,9 +41,11 @@
 //       tile's last visible key are skipped.
 // Every tile is row-major float in shared memory with rows padded by 4
 // floats (16-byte aligned float4 loads, conflict-free across 8 lanes).
-// The head dim is padded to DP in {64, 128, 256} inside the kernel; at
+// The head dim is padded to DP in {64, 128, 256, 512} inside the kernel; at
 // DP = 256 the query tile is 32 rows (BQ) so that K, V, Q and dO tiles fit
-// the 227 KB a block may use (K4: 217,344 B, K5: 208,384 B). q, k, v and
+// the 227 KB a block may use (K4: 217,344 B, K5: 208,384 B), and at DP = 512
+// it is 16 rows against key tiles of 32 (BK; K4: 202,880 B, K5: 200,448 B):
+// a thread then owns BK / 16 keys where the text above says four. q, k, v and
 // dO are read, and dQ/dK/dV written, through (batch, head, row) strides
 // with unit column stride, so the column slices of the U-Net's fused qkv
 // projection need no copy, and the gradients come out as (B, S, H, D).
@@ -61,7 +63,6 @@
 
 namespace {
 
-constexpr int kBK = 64;          // keys per tile
 constexpr int kThreads = 256;    // 16 x 16 threads
 constexpr int kPad = 4;          // row padding in floats
 
@@ -85,17 +86,29 @@ __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
+// N (4 or 2) consecutive floats from an address aligned to 4 N bytes.
+__device__ __forceinline__ void ldn(float (&dst)[4], const float* p) {
+  const float4 x = ld4(p);
+  dst[0] = x.x; dst[1] = x.y; dst[2] = x.z; dst[3] = x.w;
+}
+__device__ __forceinline__ void ldn(float (&dst)[2], const float* p) {
+  const float2 x = *reinterpret_cast<const float2*>(p);
+  dst[0] = x.x; dst[1] = x.y;
+}
+
 // Tile shapes and shared-memory layout (in floats) for head dim DP.
 template <int DP> struct Tiles {
-  static constexpr int BQ = DP == 256 ? 32 : 64;   // query rows per tile
+  static constexpr int BQ = DP == 512 ? 16 : (DP == 256 ? 32 : 64);   // query rows per tile
+  static constexpr int BK = DP == 512 ? 32 : 64;   // keys per tile
   static constexpr int RQ = BQ / 16;               // query rows per thread in s, dP
+  static constexpr int KQ = BK / 16;               // keys per thread
   static constexpr int NC = DP / 64;               // float4 column groups per thread
   static constexpr int LD = DP + kPad;             // row stride of Q, dO, K, V
-  static constexpr int LDP = kBK + kPad;           // row stride of P, dS
+  static constexpr int LDP = BK + kPad;            // row stride of P, dS
   static constexpr size_t dkv_bytes =
-      static_cast<size_t>(2 * BQ * LD + 2 * kBK * LD + 2 * BQ * LDP + 2 * BQ) * sizeof(float);
+      static_cast<size_t>(2 * BQ * LD + 2 * BK * LD + 2 * BQ * LDP + 2 * BQ) * sizeof(float);
   static constexpr size_t dq_bytes =
-      static_cast<size_t>(2 * BQ * LD + 2 * kBK * LD + BQ * LDP) * sizeof(float);
+      static_cast<size_t>(2 * BQ * LD + 2 * BK * LD + BQ * LDP) * sizeof(float);
 };
 
 struct Params {
@@ -126,13 +139,13 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, long long ss
 template <int DP>
 __device__ __forceinline__ void two_products(const float* a, const float* b, const float* c,
                                              const float* e, int ra, int tx,
-                                             float (&s)[Tiles<DP>::RQ][4],
-                                             float (&t)[Tiles<DP>::RQ][4]) {
-  constexpr int RQ = Tiles<DP>::RQ, LD = Tiles<DP>::LD;
+                                             float (&s)[Tiles<DP>::RQ][Tiles<DP>::KQ],
+                                             float (&t)[Tiles<DP>::RQ][Tiles<DP>::KQ]) {
+  constexpr int RQ = Tiles<DP>::RQ, KQ = Tiles<DP>::KQ, LD = Tiles<DP>::LD;
 #pragma unroll
   for (int i = 0; i < RQ; ++i)
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) s[i][jj] = t[i][jj] = 0.f;
+    for (int jj = 0; jj < KQ; ++jj) s[i][jj] = t[i][jj] = 0.f;
 #pragma unroll 2
   for (int col = 0; col < DP; col += 4) {
     float4 av[RQ], cv[RQ];
@@ -142,7 +155,7 @@ __device__ __forceinline__ void two_products(const float* a, const float* b, con
       cv[i] = ld4(c + (ra + i) * LD + col);
     }
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
+    for (int jj = 0; jj < KQ; ++jj) {
       const float4 bv = ld4(b + (tx + 16 * jj) * LD + col);
       const float4 ev = ld4(e + (tx + 16 * jj) * LD + col);
 #pragma unroll
@@ -157,18 +170,21 @@ __device__ __forceinline__ void two_products(const float* a, const float* b, con
 template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(Params p) {
   using L = Tiles<DP>;
-  constexpr int BQ = L::BQ, RQ = L::RQ, NC = L::NC, LD = L::LD, LDP = L::LDP;
+  constexpr int BQ = L::BQ, BK = L::BK, RQ = L::RQ, KQ = L::KQ, NC = L::NC, LD = L::LD,
+                LDP = L::LDP;
   extern __shared__ __align__(16) float smem[];
   float* ks = smem;
-  float* vs = ks + kBK * LD;
-  float* qs = vs + kBK * LD;
+  float* vs = ks + BK * LD;
+  float* qs = vs + BK * LD;
   float* dos = qs + BQ * LD;
   float* ps = dos + BQ * LD;
   float* dss = ps + BQ * LDP;
   float* lse_s = dss + BQ * LDP;
   float* delta_s = lse_s + BQ;
 
-  const int bh = blockIdx.y;
+  // blockIdx.x folds (batch * head, key tile), the tile running fastest
+  const int n_blk = (p.s_k + BK - 1) / BK;
+  const int bh = blockIdx.x / n_blk, blk = blockIdx.x - (blockIdx.x / n_blk) * n_blk;
   const int b = bh / p.heads, h = bh - (bh / p.heads) * p.heads;
   const T* qb = static_cast<const T*>(p.q) + b * p.st[0] + h * p.st[1];
   const T* kb = static_cast<const T*>(p.k) + b * p.st[3] + h * p.st[4];
@@ -184,16 +200,16 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(Params p) {
   const int tx = lane & 15;
   const int ty = (tid >> 5) * 2 + (lane >> 4);
   const int ra = RQ * ty;                 // this thread's rows of a query tile
-  const int j0 = blockIdx.x * kBK;
+  const int j0 = blk * BK;
   const int off = p.s_k - p.s_q;
   const float inv_sk = 1.f / static_cast<float>(p.s_k);
 
-  load_tile<T, DP>(ks, kb, p.st[5], j0, kBK, p.s_k, p.d);
-  load_tile<T, DP>(vs, vb, p.st[8], j0, kBK, p.s_k, p.d);
+  load_tile<T, DP>(ks, kb, p.st[5], j0, BK, p.s_k, p.d);
+  load_tile<T, DP>(vs, vb, p.st[8], j0, BK, p.s_k, p.d);
 
-  float dk[4][4 * NC], dv[4][4 * NC];
+  float dk[KQ][4 * NC], dv[KQ][4 * NC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < KQ; ++i)
 #pragma unroll
     for (int c = 0; c < 4 * NC; ++c) dk[i][c] = dv[i][c] = 0.f;
 
@@ -213,14 +229,14 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(Params p) {
     }
     __syncthreads();
 
-    float s[RQ][4], dp[RQ][4];
+    float s[RQ][KQ], dp[RQ][KQ];
     two_products<DP>(qs, ks, dos, vs, ra, tx, s, dp);
 #pragma unroll
     for (int i = 0; i < RQ; ++i) {
       const int row = r0 + ra + i;
       const bool blind = p.causal && row + off < 0;   // sees no key
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
+      for (int jj = 0; jj < KQ; ++jj) {
         const int key = j0 + tx + 16 * jj;
         const bool real = key < p.s_k && row < p.s_q;
         const bool vis = real && !(p.causal && key > row + off);
@@ -239,16 +255,15 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(Params p) {
 
 #pragma unroll 2
     for (int r = 0; r < BQ; ++r) {
-      const float4 pa = ld4(ps + r * LDP + 4 * ty);
-      const float4 da = ld4(dss + r * LDP + 4 * ty);
-      const float pk[4] = {pa.x, pa.y, pa.z, pa.w};
-      const float dsk[4] = {da.x, da.y, da.z, da.w};
+      float pk[KQ], dsk[KQ];
+      ldn(pk, ps + r * LDP + KQ * ty);
+      ldn(dsk, dss + r * LDP + KQ * ty);
 #pragma unroll
       for (int n = 0; n < NC; ++n) {
         const float4 gv = ld4(dos + r * LD + 64 * n + 4 * tx);
         const float4 qv = ld4(qs + r * LD + 64 * n + 4 * tx);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < KQ; ++i) {
           dv[i][4 * n + 0] = fmaf(pk[i], gv.x, dv[i][4 * n + 0]);
           dv[i][4 * n + 1] = fmaf(pk[i], gv.y, dv[i][4 * n + 1]);
           dv[i][4 * n + 2] = fmaf(pk[i], gv.z, dv[i][4 * n + 2]);
@@ -263,8 +278,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(Params p) {
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = j0 + 4 * ty + i;
+  for (int i = 0; i < KQ; ++i) {
+    const int key = j0 + KQ * ty + i;
     if (key >= p.s_k) continue;
 #pragma unroll
     for (int n = 0; n < NC; ++n)
@@ -282,15 +297,18 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(Params p) {
 template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(Params p) {
   using L = Tiles<DP>;
-  constexpr int BQ = L::BQ, RQ = L::RQ, NC = L::NC, LD = L::LD, LDP = L::LDP;
+  constexpr int BQ = L::BQ, BK = L::BK, RQ = L::RQ, KQ = L::KQ, NC = L::NC, LD = L::LD,
+                LDP = L::LDP;
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;
   float* dos = qs + BQ * LD;
   float* ks = dos + BQ * LD;
-  float* vs = ks + kBK * LD;
-  float* dss = vs + kBK * LD;
+  float* vs = ks + BK * LD;
+  float* dss = vs + BK * LD;
 
-  const int bh = blockIdx.y;
+  // blockIdx.x folds (batch * head, query tile), the tile running fastest
+  const int n_blk = (p.s_q + BQ - 1) / BQ;
+  const int bh = blockIdx.x / n_blk, blk = blockIdx.x - (blockIdx.x / n_blk) * n_blk;
   const int b = bh / p.heads, h = bh - (bh / p.heads) * p.heads;
   const T* qb = static_cast<const T*>(p.q) + b * p.st[0] + h * p.st[1];
   const T* kb = static_cast<const T*>(p.k) + b * p.st[3] + h * p.st[4];
@@ -305,7 +323,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(Params p) {
   const int tx = lane & 15;
   const int ty = (tid >> 5) * 2 + (lane >> 4);
   const int ra = RQ * ty;
-  const int r0 = blockIdx.x * BQ;
+  const int r0 = blk * BQ;
   const int off = p.s_k - p.s_q;
 
   load_tile<T, DP>(qs, qb, p.st[2], r0, BQ, p.s_q, p.d);
@@ -326,25 +344,25 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(Params p) {
 
   // Causal: key tiles past the tile's last visible key add nothing (rows
   // that see no key get dQ = 0).
-  int n_tiles = (p.s_k + kBK - 1) / kBK;
+  int n_tiles = (p.s_k + BK - 1) / BK;
   if (p.causal) {
     const int last = min(p.s_k - 1, r0 + BQ - 1 + off);
-    n_tiles = last < 0 ? 0 : last / kBK + 1;
+    n_tiles = last < 0 ? 0 : last / BK + 1;
   }
   for (int t = 0; t < n_tiles; ++t) {
-    const int j0 = t * kBK;
+    const int j0 = t * BK;
     __syncthreads();   // Q/dO stored / the previous tile's readers done
-    load_tile<T, DP>(ks, kb, p.st[5], j0, kBK, p.s_k, p.d);
-    load_tile<T, DP>(vs, vb, p.st[8], j0, kBK, p.s_k, p.d);
+    load_tile<T, DP>(ks, kb, p.st[5], j0, BK, p.s_k, p.d);
+    load_tile<T, DP>(vs, vb, p.st[8], j0, BK, p.s_k, p.d);
     __syncthreads();
 
-    float s[RQ][4], dp[RQ][4];
+    float s[RQ][KQ], dp[RQ][KQ];
     two_products<DP>(qs, ks, dos, vs, ra, tx, s, dp);
 #pragma unroll
     for (int i = 0; i < RQ; ++i) {
       const int row = r0 + ra + i;
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
+      for (int jj = 0; jj < KQ; ++jj) {
         const int key = j0 + tx + 16 * jj;
         const bool vis = key < p.s_k && row < p.s_q && !(p.causal && key > row + off);
         float dsv = 0.f;
@@ -358,7 +376,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(Params p) {
     __syncthreads();
 
 #pragma unroll 2
-    for (int j = 0; j < kBK; j += 4) {
+    for (int j = 0; j < BK; j += 4) {
       float dsj[RQ][4];
 #pragma unroll
       for (int i = 0; i < RQ; ++i) {
@@ -405,9 +423,10 @@ int launch_dp(bool dkv, const Params& p, int batch, cudaStream_t stream) {
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int rows = dkv ? p.s_k : p.s_q;
-  const int tile = dkv ? kBK : L::BQ;
-  const dim3 grid((rows + tile - 1) / tile, batch * p.heads);
-  kernel<<<grid, kThreads, smem, stream>>>(p);
+  const int tile = dkv ? L::BK : L::BQ;
+  const long long blocks = static_cast<long long>((rows + tile - 1) / tile) * batch * p.heads;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -416,7 +435,7 @@ int launch(bool dkv, const void* q, const void* k, const void* v, const void* do
            const void* lse, const void* delta, void* g0, void* g1, int batch, int heads,
            int s_q, int s_k, int d, const long long* strides, float scale, int causal,
            void* stream) {
-  if (batch * heads > 65535 || s_q <= 0 || s_k <= 0 || d <= 0 || d > 256)
+  if (batch <= 0 || heads <= 0 || s_q <= 0 || s_k <= 0 || d <= 0 || d > 512)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{};
   p.q = q; p.k = k; p.v = v; p.dout = dout;
@@ -430,7 +449,8 @@ int launch(bool dkv, const void* q, const void* k, const void* v, const void* do
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   if (d <= 64) return launch_dp<T, 64>(dkv, p, batch, cs);
   if (d <= 128) return launch_dp<T, 128>(dkv, p, batch, cs);
-  return launch_dp<T, 256>(dkv, p, batch, cs);
+  if (d <= 256) return launch_dp<T, 256>(dkv, p, batch, cs);
+  return launch_dp<T, 512>(dkv, p, batch, cs);
 }
 
 }  // namespace
@@ -439,7 +459,7 @@ int launch(bool dkv, const void* q, const void* k, const void* v, const void* do
 // b*bs + h*hs + r*ss + c; lse, delta: contiguous float32 (batch*heads, s_q).
 // K4 writes dk, dv (shape of k) and takes strides {q, k, v, dout, dk, dv} x
 // {bs, hs, ss}; K5 writes dq (shape of q) and takes {q, k, v, dout, dq} x
-// {bs, hs, ss}. d <= 256. Each returns cudaGetLastError() after the launch.
+// {bs, hs, ss}. d <= 512. Each returns cudaGetLastError() after the launch.
 extern "C" int lvg_flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
                                       const void* dout, const void* lse, const void* delta,
                                       void* dk, void* dv, int batch, int heads, int s_q,

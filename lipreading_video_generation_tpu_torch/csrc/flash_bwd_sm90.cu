@@ -47,185 +47,21 @@
 //     columns of dK/dV over its two warpgroups (each forms the scores
 //     itself); K5 runs one warpgroup of 64 queries with dQ as two 128-column
 //     halves.
-#include <cstdint>
-
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "sm90_common.cuh"
 
 namespace {
 
-constexpr float kLog2e = 1.4426950408889634f;
+using namespace lvg_sm90;
 
 struct Params {
   const __nv_bfloat16 *q, *k, *v, *dout;
   const float *lse, *delta;
   __nv_bfloat16 *g0, *g1;        // K4: dK, dV; K5: dQ
-  int heads, s_q, s_k, d;
+  int n_bh, heads, s_q, s_k, d;   // n_bh = batch * heads
   long long st[18];              // (batch, head, row) strides of q, k, v, dO, g0, g1
   float scale;
   int causal;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 (or 4) bytes global -> shared, asynchronously; the bytes past src_bytes
-// are written as zeros.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-// Shared-memory writes of this thread become visible to the async proxy,
-// through which wgmma reads its operands.
-__device__ __forceinline__ void fence_async_proxy() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// Returns once at most N of the committed groups are still in flight.
-template <int N> __device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Keeps the compiler from moving uses of an accumulator across the
-// asynchronous products' start or wait.
-template <int N> __device__ __forceinline__ void fence_acc(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// Shared-memory matrix descriptor, 128-byte swizzle. K-major operand: rows
-// of 128 bytes, sbo = 1024 between 8-row groups (lbo unused). MN-major B
-// operand: the same tile with its rows as K; sbo = 1024 between 8-row
-// groups, lbo = the distance between 64-column blocks.
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
-         (1ull << 62);
-}
-
-#define LVG_R32                                                                         \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "              \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-#define LVG_R64                                                                         \
-  LVG_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, "    \
-          "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "      \
-          "%60, %61, %62, %63"
-#define LVG_ACC8(d, o)                                                                  \
-  "+f"(d[o]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]), "+f"(d[o + 4]),           \
-      "+f"(d[o + 5]), "+f"(d[o + 6]), "+f"(d[o + 7])
-#define LVG_ACC32(d, o) LVG_ACC8(d, o), LVG_ACC8(d, o + 8), LVG_ACC8(d, o + 16), LVG_ACC8(d, o + 24)
-
-// D (64 x N, float32) = A B + (acc ? D : 0), A (64 x 16) and B (N x 16) both
-// K-major bf16 tiles in shared memory.
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" LVG_R32
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : LVG_ACC32(d, 0)
-      : "l"(a), "l"(b), "r"(acc));
-}
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" LVG_R64
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : LVG_ACC32(d, 0), LVG_ACC32(d, 32)
-      : "l"(a), "l"(b), "r"(acc));
-}
-// D (64 x N) += A B, A (64 x 16) from registers in the accumulator's
-// fragment layout, B (16 x N) an MN-major bf16 tile in shared memory.
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" LVG_R32
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : LVG_ACC32(d, 0)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" LVG_R64
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : LVG_ACC32(d, 0), LVG_ACC32(d, 32)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// Rows [r0, r0 + ROWS) of a (row, column) bf16 matrix at g (row stride ss
-// elements, d columns, d % 8 == 0) into a swizzled tile of DP / 64 column
-// blocks at dst; zeros past n_rows and past d. Thread tid of NT copies the
-// same 16-byte chunk of every (NT / chunks per row)-th row.
-template <int ROWS, int DP, int NT>
-__device__ __forceinline__ void load_rows(uint32_t dst, const __nv_bfloat16* g, long long ss,
-                                          int r0, int n_rows, int d, int tid) {
-  constexpr int CPR = DP / 8;      // 16-byte chunks per row
-  constexpr int STEP = NT / CPR;   // rows between two copies of a thread
-  static_assert(NT % CPR == 0 && ROWS % STEP == 0, "tile does not divide over the threads");
-  const int cf = tid % CPR, rb = tid / CPR;
-  const bool col_in = cf * 8 < d;
-  const __nv_bfloat16* src = g + (r0 + rb) * ss + cf * 8;
-  const uint32_t dst_col = dst + (cf >> 3) * (ROWS * 128);
-#pragma unroll
-  for (int i = 0; i < ROWS / STEP; ++i) {
-    const int r = rb + i * STEP;
-    const bool in = col_in && r0 + r < n_rows;
-    cp_async16(dst_col + r * 128 + (((cf & 7) ^ (r & 7)) << 4), in ? src + i * STEP * ss : g,
-               in ? 16 : 0);
-  }
-}
-
-// D = A B^T over the DP columns of two K-major tiles: A 64 rows at a (tile
-// of ROWS_A rows), B N rows at b.
-template <int DP, int ROWS_A, int N>
-__device__ __forceinline__ void product_ss(float (&d)[N / 2], uint32_t a, uint32_t b) {
-#pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
-    const uint32_t step = (kk & 3) * 32;
-    wgmma_ss(d, make_desc(a + (kk >> 2) * (ROWS_A * 128) + step, 16, 1024),
-             make_desc(b + (kk >> 2) * (N * 128) + step, 16, 1024), kk > 0);
-  }
-}
-
-// D (64 x N) += A B over rows [16 KK0, 16 (KK0 + NKK)) of a swizzled tile of
-// ROWS rows starting at b (its ROWS x N part): A (64 x 16 NKK) packed bf16
-// fragments.
-template <int ROWS, int N, int KK0, int NKK>
-__device__ __forceinline__ void product_rs(float (&d)[N / 2], const uint32_t (&a)[4 * NKK],
-                                           uint32_t b) {
-#pragma unroll
-  for (int kk = 0; kk < NKK; ++kk)
-    wgmma_rs(d, a + 4 * kk, make_desc(b + (KK0 + kk) * 2048, ROWS * 128, 1024));
-}
 
 
 // K4, s <- P^T over a 64-key x BQ-query tile of transposed scores: element
@@ -341,7 +177,8 @@ __global__ void __launch_bounds__(256, 1) flash_bwd_dkv_sm90_kernel(Params p) {
   uint8_t* base_ptr = smem_raw + (base - raw);
   const uint32_t ks = base, vs = ks + C::kv_bytes, stage0 = vs + C::kv_bytes;
 
-  const int bh = blockIdx.y;
+  const int bh = head_of_block();
+  if (bh >= p.n_bh) return;
   const int b = bh / p.heads, h = bh - b * p.heads;
   const __nv_bfloat16* qb = p.q + b * p.st[0] + h * p.st[1];
   const __nv_bfloat16* kb = p.k + b * p.st[3] + h * p.st[4];
@@ -501,7 +338,8 @@ __global__ void __launch_bounds__(DqCfg<DP>::threads, 1) flash_bwd_dq_sm90_kerne
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t qs = base, dos = qs + C::q_bytes, stage0 = dos + C::q_bytes;
 
-  const int bh = blockIdx.y;
+  const int bh = head_of_block();
+  if (bh >= p.n_bh) return;
   const int b = bh / p.heads, h = bh - b * p.heads;
   const __nv_bfloat16* qb = p.q + b * p.st[0] + h * p.st[1];
   const __nv_bfloat16* kb = p.k + b * p.st[3] + h * p.st[4];
@@ -618,7 +456,7 @@ __global__ void __launch_bounds__(DqCfg<DP>::threads, 1) flash_bwd_dq_sm90_kerne
   }
 }
 
-template <int DP> int launch_dp(bool dkv, const Params& p, int batch, cudaStream_t stream) {
+template <int DP> int launch_dp(bool dkv, const Params& p, cudaStream_t stream) {
   const int smem = dkv ? DkvCfg<DP>::smem_bytes : DqCfg<DP>::smem_bytes;
   auto kernel = dkv ? flash_bwd_dkv_sm90_kernel<DP> : flash_bwd_dq_sm90_kernel<DP>;
   cudaError_t err =
@@ -626,18 +464,17 @@ template <int DP> int launch_dp(bool dkv, const Params& p, int batch, cudaStream
   if (err != cudaSuccess) return static_cast<int>(err);
   const int rows = dkv ? p.s_k : p.s_q;
   const int tile = dkv ? DkvCfg<DP>::KEYS : DqCfg<DP>::BQ;
-  const dim3 grid((rows + tile - 1) / tile, batch * p.heads);
-  kernel<<<grid, dkv ? 256 : DqCfg<DP>::threads, smem, stream>>>(p);
+  kernel<<<tile_head_grid((rows + tile - 1) / tile, p.n_bh), dkv ? 256 : DqCfg<DP>::threads, smem,
+           stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
-
-bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; }
 
 int launch(bool dkv, const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* delta, void* g0, void* g1, int batch, int heads,
            int s_q, int s_k, int d, const long long* strides, float scale, int causal,
            void* stream) {
-  if (batch * heads > 65535 || s_q <= 0 || s_k <= 0 || d <= 0 || d > 256 || d % 8)
+  if (batch <= 0 || heads <= 0 || s_q <= 0 || s_k <= 0 || d <= 0 || d > 256 || d % 8 ||
+      static_cast<long long>(batch) * heads > kMaxHeads)
     return static_cast<int>(cudaErrorInvalidValue);
   if (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout) && aligned16(g0) &&
         (g1 == nullptr || aligned16(g1))))
@@ -651,7 +488,7 @@ int launch(bool dkv, const void* q, const void* k, const void* v, const void* do
   p.delta = static_cast<const float*>(delta);
   p.g0 = static_cast<__nv_bfloat16*>(g0);
   p.g1 = static_cast<__nv_bfloat16*>(g1);
-  p.heads = heads; p.s_q = s_q; p.s_k = s_k; p.d = d;
+  p.n_bh = batch * heads; p.heads = heads; p.s_q = s_q; p.s_k = s_k; p.d = d;
   for (int i = 0; i < (dkv ? 18 : 15); ++i) {
     if (strides[i] % 8) return static_cast<int>(cudaErrorMisalignedAddress);
     p.st[i] = strides[i];
@@ -659,9 +496,9 @@ int launch(bool dkv, const void* q, const void* k, const void* v, const void* do
   p.scale = scale;
   p.causal = causal;
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  if (d <= 64) return launch_dp<64>(dkv, p, batch, cs);
-  if (d <= 128) return launch_dp<128>(dkv, p, batch, cs);
-  return launch_dp<256>(dkv, p, batch, cs);
+  if (d <= 64) return launch_dp<64>(dkv, p, cs);
+  if (d <= 128) return launch_dp<128>(dkv, p, cs);
+  return launch_dp<256>(dkv, p, cs);
 }
 
 }  // namespace

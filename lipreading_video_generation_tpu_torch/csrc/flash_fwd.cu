@@ -26,7 +26,12 @@
 //     with xor shuffles (they are one half of a warp);
 //   - P goes through shared memory, and the same thread accumulates the 4
 //     rows of O at columns 64n + 4tx .. 64n + 4tx + 3 in registers (float32).
-// The head dim is padded to DP in {64, 128, 256} inside the kernel; q, k, v
+// The head dim is padded to DP in {64, 128, 256, 512} inside the kernel. At
+// DP = 512 the float tiles of 64 rows and 64 keys would not fit the 227 KB a
+// block may use, so the tiles are 32 x 32 there (218,112 B) and a thread
+// owns 2 x 2 scores (BQ / 16 rows, BK / 16 keys) where the text above says
+// 4 x 4. Aligned bf16 inputs up to head dim 256 run the tensor-core kernel of
+// flash_fwd_sm90.cu instead (ops/attention.py::flash_route decides). q, k, v
 // are read through (batch, head, row) strides with unit column stride, so
 // the column slices of the U-Net's fused qkv projection need no copy, and O
 // is written through strides too, so (B, S, H, D) comes out without a
@@ -36,9 +41,9 @@
 // kernel does 4*S^2*d = 6.9e10 FLOP per (batch, head) and reads K/V from L2
 // once per query tile; the inner loops issue 16 FMAs per two 16-byte shared
 // loads, so FMA throughput (67 TFLOP/s peak) and not bandwidth is the
-// ceiling. Tensor cores (mma.sync / wgmma, with P kept at float precision
-// by splitting it into two bf16 halves) are the way past it, in a later
-// change.
+// ceiling. This kernel serves float32 inputs (tensor cores would mean
+// TF32), bf16 inputs that 16-byte copies cannot read, and head dims above
+// 256; the tensor-core kernel of flash_fwd_sm90.cu serves the rest.
 #include <cmath>
 
 #include <cuda_bf16.h>
@@ -46,8 +51,6 @@
 
 namespace {
 
-constexpr int kBQ = 64;          // query rows per block
-constexpr int kBK = 64;          // keys per shared-memory tile
 constexpr int kThreads = 256;    // 16 x 16 threads
 constexpr int kPad = 4;          // row padding in floats (keeps float4 alignment)
 constexpr float kNegInf = -1.7014117331926443e38f;   // finfo(float32).min / 2
@@ -75,16 +78,36 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-// Shared-memory layout of one block, in floats.
+// N (4 or 2) consecutive floats from an address aligned to 4 N bytes.
+__device__ __forceinline__ void ldn(float (&dst)[4], const float* p) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  dst[0] = x.x; dst[1] = x.y; dst[2] = x.z; dst[3] = x.w;
+}
+__device__ __forceinline__ void ldn(float (&dst)[2], const float* p) {
+  const float2 x = *reinterpret_cast<const float2*>(p);
+  dst[0] = x.x; dst[1] = x.y;
+}
+__device__ __forceinline__ void stn(float* p, const float (&src)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(src[0], src[1], src[2], src[3]);
+}
+__device__ __forceinline__ void stn(float* p, const float (&src)[2]) {
+  *reinterpret_cast<float2*>(p) = make_float2(src[0], src[1]);
+}
+
+// Tile shape and shared-memory layout of one block, in floats.
 template <int DP> struct Layout {
-  static constexpr int ld_q = kBQ + kPad;   // Qt[c][row]
-  static constexpr int ld_k = kBK + kPad;   // Kt[c][key]
+  static constexpr int BQ = DP == 512 ? 32 : 64;   // query rows per block
+  static constexpr int BK = DP == 512 ? 32 : 64;   // keys per shared-memory tile
+  static constexpr int RQ = BQ / 16;               // rows per thread
+  static constexpr int RK = BK / 16;               // keys per thread
+  static constexpr int ld_q = BQ + kPad;    // Qt[c][row]
+  static constexpr int ld_k = BK + kPad;    // Kt[c][key]
   static constexpr int ld_v = DP + kPad;    // Vs[key][c]
-  static constexpr int ld_p = kBK + kPad;   // Ps[row][key]
+  static constexpr int ld_p = BK + kPad;    // Ps[row][key]
   static constexpr int q = DP * ld_q;
   static constexpr int k = DP * ld_k;
-  static constexpr int v = kBK * ld_v;
-  static constexpr int p = kBQ * ld_p;
+  static constexpr int v = BK * ld_v;
+  static constexpr int p = BQ * ld_p;
   static constexpr size_t bytes = static_cast<size_t>(q + k + v + p) * sizeof(float);
 };
 
@@ -97,6 +120,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
                  long long v_ss, long long o_bs, long long o_hs, long long o_ss,
                  float scale, int causal) {
   using L = Layout<DP>;
+  constexpr int kBQ = L::BQ, kBK = L::BK, RQ = L::RQ, RK = L::RK;
   constexpr int NC = DP / 64;   // float4 column groups of O per thread
   extern __shared__ __align__(16) float smem[];
   float* qt = smem;
@@ -104,9 +128,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   float* vs = kt + L::k;
   float* ps = vs + L::v;
 
-  const int bh = blockIdx.y;
+  // blockIdx.x folds (batch * head, query tile), the tile running fastest
+  const int n_blk = (s_q + kBQ - 1) / kBQ;
+  const int bh = blockIdx.x / n_blk;
   const int b = bh / heads, h = bh - (bh / heads) * heads;
-  const int r0 = blockIdx.x * kBQ;
+  const int r0 = (blockIdx.x - (blockIdx.x / n_blk) * n_blk) * kBQ;
   const T* qb = q + b * q_bs + h * q_hs;
   const T* kb = k + b * k_bs + h * k_hs;
   const T* vb = v + b * v_bs + h * v_hs;
@@ -124,10 +150,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     qt[c * L::ld_q + r] = x;
   }
 
-  float acc[4][4 * NC];
-  float m[4], l[4];
+  float acc[RQ][4 * NC];
+  float m[RQ], l[RQ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RQ; ++i) {
     m[i] = -INFINITY;
     l[i] = 0.f;
 #pragma unroll
@@ -155,30 +181,29 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     }
     __syncthreads();
 
-    float s[4][4];
+    float s[RQ][RK];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RQ; ++i)
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) s[i][jj] = 0.f;
+      for (int jj = 0; jj < RK; ++jj) s[i][jj] = 0.f;
 #pragma unroll 8
     for (int c = 0; c < DP; ++c) {
-      const float4 qa = *reinterpret_cast<const float4*>(qt + c * L::ld_q + 4 * ty);
-      const float4 ka = *reinterpret_cast<const float4*>(kt + c * L::ld_k + 4 * tx);
-      const float qv[4] = {qa.x, qa.y, qa.z, qa.w};
-      const float kv[4] = {ka.x, ka.y, ka.z, ka.w};
+      float qv[RQ], kv[RK];
+      ldn(qv, qt + c * L::ld_q + RQ * ty);
+      ldn(kv, kt + c * L::ld_k + RK * tx);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RQ; ++i)
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) s[i][jj] = fmaf(qv[i], kv[jj], s[i][jj]);
+        for (int jj = 0; jj < RK; ++jj) s[i][jj] = fmaf(qv[i], kv[jj], s[i][jj]);
     }
 
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = r0 + 4 * ty + i;
+    for (int i = 0; i < RQ; ++i) {
+      const int row = r0 + RQ * ty + i;
       float mx = -INFINITY;
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int key = j0 + 4 * tx + jj;
+      for (int jj = 0; jj < RK; ++jj) {
+        const int key = j0 + RK * tx + jj;
         if (key >= s_k) s[i][jj] = -INFINITY;                  // not a key: weight 0
         else if (causal && key > row + off) s[i][jj] = kNegInf;  // masked, as in JAX
         mx = fmaxf(mx, s[i][jj]);
@@ -187,7 +212,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       const float alpha = expf(m[i] - m_new);
       float sum = 0.f;
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
+      for (int jj = 0; jj < RK; ++jj) {
         s[i][jj] = expf(s[i][jj] - m_new);
         sum += s[i][jj];
       }
@@ -195,19 +220,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       m[i] = m_new;
 #pragma unroll
       for (int c = 0; c < 4 * NC; ++c) acc[i][c] *= alpha;
-      *reinterpret_cast<float4*>(ps + (4 * ty + i) * L::ld_p + 4 * tx) =
-          make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
+      stn(ps + (RQ * ty + i) * L::ld_p + RK * tx, s[i]);
     }
     __syncthreads();
 
 #pragma unroll 2
     for (int j = 0; j < kBK; j += 4) {
-      float p[4][4];
+      float p[RQ][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 pa = *reinterpret_cast<const float4*>(ps + (4 * ty + i) * L::ld_p + j);
-        p[i][0] = pa.x; p[i][1] = pa.y; p[i][2] = pa.z; p[i][3] = pa.w;
-      }
+      for (int i = 0; i < RQ; ++i) ldn(p[i], ps + (RQ * ty + i) * L::ld_p + j);
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
 #pragma unroll
@@ -215,7 +236,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
           const float4 va =
               *reinterpret_cast<const float4*>(vs + (j + jj) * L::ld_v + 64 * n + 4 * tx);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
+          for (int i = 0; i < RQ; ++i) {
             acc[i][4 * n + 0] = fmaf(p[i][jj], va.x, acc[i][4 * n + 0]);
             acc[i][4 * n + 1] = fmaf(p[i][jj], va.y, acc[i][4 * n + 1]);
             acc[i][4 * n + 2] = fmaf(p[i][jj], va.z, acc[i][4 * n + 2]);
@@ -227,8 +248,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = r0 + 4 * ty + i;
+  for (int i = 0; i < RQ; ++i) {
+    const int row = r0 + RQ * ty + i;
     if (row >= s_q) continue;
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
@@ -251,8 +272,10 @@ int launch_dp(const void* q, const void* k, const void* v, void* o, void* lse, i
       flash_fwd_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((s_q + kBQ - 1) / kBQ, batch * heads);
-  flash_fwd_kernel<T, DP><<<grid, kThreads, smem, stream>>>(
+  const long long blocks =
+      static_cast<long long>((s_q + Layout<DP>::BQ - 1) / Layout<DP>::BQ) * batch * heads;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  flash_fwd_kernel<T, DP><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), static_cast<float*>(lse), heads, s_q, s_k, d, st[0], st[1],
       st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale, causal);
@@ -263,12 +286,13 @@ template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse, int batch,
            int heads, int s_q, int s_k, int d, const long long* st, float scale, int causal,
            void* stream) {
-  if (batch * heads > 65535 || s_q <= 0 || s_k <= 0 || d <= 0)
+  if (batch <= 0 || heads <= 0 || s_q <= 0 || s_k <= 0 || d <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   if (d <= 64) return launch_dp<T, 64>(q, k, v, o, lse, batch, heads, s_q, s_k, d, st, scale, causal, cs);
   if (d <= 128) return launch_dp<T, 128>(q, k, v, o, lse, batch, heads, s_q, s_k, d, st, scale, causal, cs);
   if (d <= 256) return launch_dp<T, 256>(q, k, v, o, lse, batch, heads, s_q, s_k, d, st, scale, causal, cs);
+  if (d <= 512) return launch_dp<T, 512>(q, k, v, o, lse, batch, heads, s_q, s_k, d, st, scale, causal, cs);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -277,7 +301,7 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, int 
 // q, k, v: (batch, heads, s, d) element (b, h, r, c) at b*bs + h*hs + r*ss + c
 // (strides in elements, st = {q_bs, q_hs, q_ss, k_bs, k_hs, k_ss, v_bs, v_hs,
 // v_ss, o_bs, o_hs, o_ss}); o: same dtype, written through its strides;
-// lse: contiguous float32 (batch*heads, s_q). d <= 256. Returns
+// lse: contiguous float32 (batch*heads, s_q). d <= 512. Returns
 // cudaGetLastError() after the launch.
 extern "C" int lvg_flash_fwd_bf16(const void* q, const void* k, const void* v, void* o,
                                   void* lse, int batch, int heads, int s_q, int s_k, int d,

@@ -4,7 +4,8 @@ Every ``csrc/*.cu`` file compiles, on first use, to an object file — one
 nvcc per source, all started together — and the objects link into one
 shared library with a plain C interface (no PyTorch headers, so the build
 takes seconds), written to ``_build/`` inside the package (gitignored) and
-rebuilt when a source is newer than it. The same idiom as the JAX package's
+rebuilt when a source, or a header (``csrc/*.cuh``) the sources share, is
+newer than it. The same idiom as the JAX package's
 ``data/native_loader.py``: build with a subprocess, load with ``ctypes``.
 
 Each C entry point launches on the stream it is given and returns
@@ -69,13 +70,20 @@ def sources() -> Sequence[Path]:
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
+def headers() -> Sequence[Path]:
+    """The headers the sources include: not compiled on their own, but a
+    change to one makes the library stale."""
+    return sorted(CSRC_DIR.glob("*.cuh"))
+
+
 def build(force: bool = False) -> Path:
-    """Compile ``csrc/*.cu`` into ``_build/liblvg_kernels.so`` unless an
-    up-to-date library exists. Returns its path."""
+    """Compile ``csrc/*.cu`` into ``_build/liblvg_kernels.so`` unless a
+    library exists that is no older than every source and header. Returns
+    its path."""
     srcs = sources()
     lib = BUILD_DIR / LIB_NAME
     if (not force and lib.exists()
-            and all(lib.stat().st_mtime >= s.stat().st_mtime for s in srcs)):
+            and all(lib.stat().st_mtime >= s.stat().st_mtime for s in [*srcs, *headers()])):
         return lib
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(exist_ok=True)

@@ -1,8 +1,10 @@
 """Multi-head attention of the port: the hand-written CUDA kernels K2
-(small MHA, ``csrc/small_mha.cu``), K3 (flash-attention forward,
-``csrc/flash_fwd.cu``) and K4/K5 (its backward: ``csrc/flash_bwd_sm90.cu`` on
-the tensor cores for aligned bf16 inputs, ``csrc/flash_bwd.cu`` on CUDA cores
-for the rest, see ``flash_bwd_route``) and their plain torch versions.
+(small MHA, ``csrc/small_mha.cu``), K3 (flash-attention forward:
+``csrc/flash_fwd_sm90.cu`` on the tensor cores for aligned bf16 inputs,
+``csrc/flash_fwd.cu`` on CUDA cores for the rest) and K4/K5 (its backward:
+``csrc/flash_bwd_sm90.cu`` and ``csrc/flash_bwd.cu`` likewise; one rule,
+``flash_route``, picks the route of all three) and their plain torch
+versions.
 
 Port of ``lipreading_video_generation_tpu/ops/attention.py``'s
 ``attention_reference``, ``flash_attention`` (with its custom VJP),
@@ -31,8 +33,8 @@ import torch
 from . import _build
 
 __all__ = ["attention_reference", "flash_attention", "flash_backward_reference",
-           "flash_bwd_dkv", "flash_bwd_dq", "flash_bwd_route", "flash_reference", "mha",
-           "mha_route", "small_mha", "small_mha_viable"]
+           "flash_bwd_dkv", "flash_bwd_dq", "flash_bwd_route", "flash_reference", "flash_route",
+           "mha", "mha_route", "small_mha", "small_mha_viable"]
 
 _NEG_INF = float(torch.finfo(torch.float32).min) / 2
 _SMALL_MHA_MAX_HS = 768     # the JAX package's bound on H·pad(S)
@@ -167,38 +169,76 @@ def small_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
 small_mha.launch_count = 0
 
 
-_FLASH_BQ = _FLASH_BK = 64          # csrc/flash_fwd.cu's kBQ, kBK
+_FLASH_BQ = _FLASH_BK = 64          # csrc/flash_fwd.cu's tile (Layout::BQ, BK) up to head dim 256
 _FLASH_PAD = 4                      # its kPad
-_FLASH_MAX_D = 256
+_FLASH_MAX_D = 512                  # the CUDA-core kernels' largest head dim
+_FLASH_MAX_D_SM90 = 256             # the tensor-core kernels'
+_FLASH_ROUTES = ("sm90", "cuda_core")
 _FLASH_ENTRY_POINTS = {torch.bfloat16: "lvg_flash_fwd_bf16", torch.float32: "lvg_flash_fwd_f32"}
 # past this many scores a plain-version call walks its queries in chunks
 _FLASH_REF_CHUNK = 1 << 26
 
 
 def flash_head_dim_pad(d: int) -> int:
-    """The head dim K3 is compiled for: 64, 128 or 256."""
+    """The head dim K3, K4 and K5 are compiled for: 64, 128, 256 or (the
+    CUDA-core kernels only) 512."""
     if d > _FLASH_MAX_D:
         raise ValueError(f"flash_attention: head dim {d} > {_FLASH_MAX_D} is not supported")
-    return 64 if d <= 64 else (128 if d <= 128 else 256)
+    return next(dp for dp in (64, 128, 256, 512) if d <= dp)
 
 
-def flash_smem_bytes(d: int) -> int:
-    """Dynamic shared memory of one K3 block: Qᵀ, Kᵀ, V and P tiles as float."""
+def flash_route(dtype: torch.dtype, d: int, strides, offsets) -> str:
+    """Which kernels K3, K4 and K5 launch: "sm90" (``csrc/flash_fwd_sm90.cu``,
+    ``csrc/flash_bwd_sm90.cu``: wgmma on bf16 tiles filled by 16-byte
+    asynchronous copies) for bf16 tensors with ``d`` a multiple of 8 up to
+    256 whose every (batch, head, row) stride (in elements, ``strides``: one
+    tuple per tensor) is a multiple of 8 and whose base address (in bytes,
+    or any byte offset congruent to it modulo 16, ``offsets``: one per
+    tensor) is a multiple of 16; "cuda_core" (``csrc/flash_fwd.cu``,
+    ``csrc/flash_bwd.cu``) for float32 (tensor cores would mean TF32), for
+    head dims above 256 and for anything unaligned."""
+    if dtype != torch.bfloat16 or d % 8 or d > _FLASH_MAX_D_SM90:
+        return "cuda_core"
+    if any(st % 8 for t in strides for st in t) or any(o % 16 for o in offsets):
+        return "cuda_core"
+    return "sm90"
+
+
+flash_bwd_route = flash_route       # the name the rule had when only K4/K5 followed it
+
+
+def flash_smem_bytes(d: int, route: str = "cuda_core") -> int:
+    """Dynamic shared memory of one K3 block. CUDA-core route
+    (``csrc/flash_fwd.cu``'s Layout): Qᵀ, Kᵀ, V and P tiles as float, 64
+    rows and 64 keys, 32 and 32 at head dim 512. "sm90"
+    (``csrc/flash_fwd_sm90.cu``'s FwdCfg): bf16 tiles; Q of the block's
+    queries (128, 64 at head dim 256), two stages each of K and V (64 keys,
+    128 at head dim 128), plus 1 KB to align the tiles to the swizzle's 1024
+    bytes."""
     dp = flash_head_dim_pad(d)
-    floats = (dp * (_FLASH_BQ + _FLASH_PAD) + dp * (_FLASH_BK + _FLASH_PAD)
-              + _FLASH_BK * (dp + _FLASH_PAD) + _FLASH_BQ * (_FLASH_BK + _FLASH_PAD))
-    return floats * 4
+    if route == "cuda_core":
+        bq = bk = 32 if dp == 512 else _FLASH_BQ
+        floats = (dp * (bq + _FLASH_PAD) + dp * (bk + _FLASH_PAD)
+                  + bk * (dp + _FLASH_PAD) + bq * (bk + _FLASH_PAD))
+        return floats * 4
+    if dp > _FLASH_MAX_D_SM90:
+        raise ValueError(f"flash_attention: the tensor-core kernel takes no head dim {d}")
+    bq, bk = 64 if dp == 256 else 128, 128 if dp == 128 else 64
+    return bq * dp * 2 + 4 * bk * dp * 2 + 1024
 
 
 def flash_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False,
-                    sm_scale: Optional[float] = None):
-    """Plain version of K3 on (B, H, S, D): K3's numerics exactly — q scaled
-    in float32, float32 scores, masked scores set to finfo.min/2, float32
-    probabilities (not rounded to V's dtype) and P·V, output in q's dtype;
-    returns (O, lse) with lse (B, H, S_q) float32. Rows with no visible key
-    (causal with s_q > s_k) average V over the s_k keys, as
-    ``attention_reference`` does. Long inputs are walked in query chunks,
-    which changes no number."""
+                    sm_scale: Optional[float] = None, p_dtype: Optional[torch.dtype] = None):
+    """Plain version of K3 on (B, H, S, D): the CUDA-core K3's numerics
+    exactly — q scaled in float32, float32 scores, masked scores set to
+    finfo.min/2, float32 probabilities (not rounded to V's dtype) and P·V,
+    output in q's dtype; returns (O, lse) with lse (B, H, S_q) float32. Rows
+    with no visible key (causal with s_q > s_k) average V over the s_k keys,
+    as ``attention_reference`` does. Long inputs are walked in query chunks,
+    which changes no number. ``p_dtype`` rounds P to that type before P·V
+    and nowhere else, which is where the tensor-core kernel rounds (to
+    bf16): the row sum, and so lse, still come from the float32 P; the
+    default keeps P float32."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     s_q, s_k = q.shape[2], k.shape[2]
@@ -215,7 +255,8 @@ def flash_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: b
         m = s.amax(dim=-1, keepdim=True)
         p = torch.exp(s - m)
         denom = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
-        outs.append((torch.einsum("bhqk,bhkd->bhqd", p, vf) / denom).to(q.dtype))
+        pv = p if p_dtype is None else p.to(p_dtype).float()
+        outs.append((torch.einsum("bhqk,bhkd->bhqd", pv, vf) / denom).to(q.dtype))
         lses.append((m + torch.log(denom))[..., 0])
     return torch.cat(outs, dim=2), torch.cat(lses, dim=2)
 
@@ -223,9 +264,9 @@ def flash_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: b
 def _flash_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
                   sm_scale: float):
     """Launch K3 on CUDA (B, H, S, D) q/k/v of one dtype (bf16 or float32,
-    unit stride along D, D ≤ 256). Returns (O as a (B, H, S_q, D) view of a
-    contiguous (B, S_q, H, D) tensor, lse (B, H, S_q) float32). Raises on
-    anything else."""
+    unit stride along D, D ≤ 512). Returns (O as a (B, H, S_q, D) view of a
+    contiguous (B, S_q, H, D) tensor, lse (B, H, S_q) float32). The kernel
+    is the one ``flash_route`` names. Raises on anything else."""
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError("flash_attention kernel takes CUDA tensors")
     if q.device.index != torch.cuda.current_device():
@@ -242,8 +283,6 @@ def _flash_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: boo
     b, h, s_q, d = q.shape
     s_k = k.shape[2]
     flash_head_dim_pad(d)
-    if b * h > 65535:
-        raise ValueError(f"flash_attention: batch·heads {b * h} > 65535")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention needs unit stride along D")
     out = torch.empty(b, s_q, h, d, dtype=q.dtype, device=q.device).transpose(1, 2)
@@ -252,16 +291,20 @@ def _flash_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: boo
         return out, lse
     if s_k == 0:
         raise ValueError("flash_attention: no keys")
-    strides = (ctypes.c_longlong * 12)(*(st for t in (q, k, v, out) for st in t.stride()[:3]))
+    tensors = (q, k, v, out)
+    route = flash_route(q.dtype, d, [t.stride()[:3] for t in tensors],
+                        [t.data_ptr() for t in tensors])
+    strides = (ctypes.c_longlong * 12)(*(st for t in tensors for st in t.stride()[:3]))
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    fn = _build.kernel(_FLASH_ENTRY_POINTS[q.dtype],
+    fn = _build.kernel("lvg_flash_fwd_sm90" if route == "sm90" else _FLASH_ENTRY_POINTS[q.dtype],
                        [vp, vp, vp, vp, vp, i32, i32, i32, i32, i32,
                         ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, i32, vp])
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
             b, h, s_q, s_k, d, strides, sm_scale, int(causal),
             torch.cuda.current_stream().cuda_stream)
-    _build.check(rc, "flash_attention")
+    _build.check(rc, f"flash_attention ({route})")
     flash_attention.launch_count += 1
+    flash_attention.route_counts[route] += 1
     return out, lse
 
 
@@ -318,35 +361,20 @@ def flash_backward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 _BWD_DTYPE_SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}   # the CUDA-core entry points
-_BWD_ROUTES = ("sm90", "cuda_core")
-
-
-def flash_bwd_route(dtype: torch.dtype, d: int, strides, offsets) -> str:
-    """Which kernels K4/K5 launch: "sm90" (``csrc/flash_bwd_sm90.cu``, wgmma
-    on bf16 tiles filled by 16-byte asynchronous copies) for bf16 tensors
-    with ``d`` a multiple of 8 whose every (batch, head, row) stride (in
-    elements, ``strides``: one tuple per tensor) is a multiple of 8 and
-    whose base address (in bytes, or any byte offset congruent to it modulo
-    16, ``offsets``: one per tensor) is a multiple of 16; "cuda_core"
-    (``csrc/flash_bwd.cu``) for float32 (tensor cores would mean TF32) and
-    for anything unaligned."""
-    if dtype != torch.bfloat16 or d % 8:
-        return "cuda_core"
-    if any(st % 8 for t in strides for st in t) or any(o % 16 for o in offsets):
-        return "cuda_core"
-    return "sm90"
 
 
 def flash_bwd_block_q(d: int, route: str = "cuda_core", kernel: str = "dkv") -> int:
     """Query rows per tile (K4) or per block (K5). CUDA-core route
-    (``csrc/flash_bwd.cu``'s BQ): 32 at head dim 256, where 64-row tiles
-    would not fit a block's shared memory, else 64. "sm90"
+    (``csrc/flash_bwd.cu``'s BQ): 32 at head dim 256 and 16 at 512, where
+    larger tiles would not fit a block's shared memory, else 64. "sm90"
     (``csrc/flash_bwd_sm90.cu``'s DkvCfg / DqCfg): K4 walks 128-query tiles
     at head dim 64 and 64-query tiles above; a K5 block owns 128 queries
     (two warpgroups), 64 at head dim 256."""
     dp = flash_head_dim_pad(d)
     if route == "cuda_core":
-        return 32 if dp == 256 else 64
+        return {512: 16, 256: 32}.get(dp, 64)
+    if dp > _FLASH_MAX_D_SM90:
+        raise ValueError(f"flash backward: the tensor-core kernels take no head dim {d}")
     if kernel == "dkv":
         return 128 if dp == 64 else 64
     return 64 if dp == 256 else 128
@@ -355,17 +383,17 @@ def flash_bwd_block_q(d: int, route: str = "cuda_core", kernel: str = "dkv") -> 
 def flash_bwd_smem_bytes(d: int, kernel: str, route: str = "cuda_core") -> int:
     """Dynamic shared memory of one K4 ("dkv") or K5 ("dq") block.
     CUDA-core route: Q, dO, K, V tiles row-major as float (rows padded by
-    4), plus the P and dS tiles (K4) or the dS tile (K5), plus lse and Δ of
-    the query tile (K4). "sm90": bf16 tiles; the outer tile pair (K4: K, V
+    4; 64 keys, 32 at head dim 512), plus the P and dS tiles (K4) or the dS
+    tile (K5), plus lse and Δ of the query tile (K4). "sm90": bf16 tiles; the outer tile pair (K4: K, V
     of 128 keys, 64 at head dim 256; K5: Q, dO of the block's queries) and
     two stages of the inner pair (K4: Q, dO and 1 KB of lse and Δ; K5: K, V
     of 128 keys at head dim 64, else 64), plus 1 KB to align the tiles to
     the swizzle's 1024 bytes."""
     dp = flash_head_dim_pad(d)
     if route == "cuda_core":
-        bq = flash_bwd_block_q(d)
-        ld, ldp = dp + _FLASH_PAD, _FLASH_BK + _FLASH_PAD
-        floats = 2 * bq * ld + 2 * _FLASH_BK * ld
+        bq, bk = flash_bwd_block_q(d), 32 if dp == 512 else _FLASH_BK
+        ld, ldp = dp + _FLASH_PAD, bk + _FLASH_PAD
+        floats = 2 * bq * ld + 2 * bk * ld
         floats += 2 * bq * ldp + 2 * bq if kernel == "dkv" else bq * ldp
         return floats * 4
     bq = flash_bwd_block_q(d, route, kernel)
@@ -381,7 +409,7 @@ def _flash_bwd_launch(kernel: str, q, k, v, do, lse, delta, causal: bool, sm_sca
     on CUDA (B, H, S, D) q/k/v/dO of one dtype with unit stride along D;
     ``lse`` and ``delta`` (B, H, S_q) float32. Each gradient comes out as a
     (B, H, S, D) view of a contiguous (B, S, H, D) tensor. The kernels are
-    those ``flash_bwd_route`` names. Raises on anything else."""
+    those ``flash_route`` names. Raises on anything else."""
     if not all(t.is_cuda for t in (q, k, v, do, lse, delta)):
         raise ValueError("flash backward kernels take CUDA tensors")
     if q.device.index != torch.cuda.current_device():
@@ -399,8 +427,6 @@ def _flash_bwd_launch(kernel: str, q, k, v, do, lse, delta, causal: bool, sm_sca
                          f"v{tuple(v.shape)} dO{tuple(do.shape)} lse{tuple(lse.shape)} "
                          f"delta{tuple(delta.shape)} do not fit")
     flash_head_dim_pad(d)
-    if b * h > 65535:
-        raise ValueError(f"flash backward: batch·heads {b * h} > 65535")
     if any(t.stride(-1) != 1 for t in (q, k, v, do)):
         raise ValueError("flash backward needs unit stride along D")
     if lse.dtype != torch.float32 or delta.dtype != torch.float32:
@@ -419,8 +445,8 @@ def _flash_bwd_launch(kernel: str, q, k, v, do, lse, delta, causal: bool, sm_sca
             o.zero_()
         return outs
     tensors = (q, k, v, do) + outs
-    route = flash_bwd_route(q.dtype, d, [t.stride()[:3] for t in tensors],
-                            [t.data_ptr() for t in tensors])
+    route = flash_route(q.dtype, d, [t.stride()[:3] for t in tensors],
+                        [t.data_ptr() for t in tensors])
     strides = (ctypes.c_longlong * (3 * len(tensors)))(
         *(st for t in tensors for st in t.stride()[:3]))
     vp, i32 = ctypes.c_void_p, ctypes.c_int
@@ -441,7 +467,7 @@ def _flash_bwd_launch(kernel: str, q, k, v, do, lse, delta, causal: bool, sm_sca
 def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False,
                   sm_scale: Optional[float] = None):
     """K4: (dK, dV) of flash attention; ``launch_count`` counts its launches,
-    ``route_counts`` those of each route of ``flash_bwd_route``."""
+    ``route_counts`` those of each route of ``flash_route``."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     return _flash_bwd_launch("dkv", q, k, v, do, lse, delta, causal, sm_scale)
@@ -450,7 +476,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False,
 def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = False,
                  sm_scale: Optional[float] = None):
     """K5: dQ of flash attention; ``launch_count`` counts its launches,
-    ``route_counts`` those of each route of ``flash_bwd_route``."""
+    ``route_counts`` those of each route of ``flash_route``."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     return _flash_bwd_launch("dq", q, k, v, do, lse, delta, causal, sm_scale)[0]
@@ -458,8 +484,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = False,
 
 flash_bwd_dkv.launch_count = 0
 flash_bwd_dq.launch_count = 0
-flash_bwd_dkv.route_counts = dict.fromkeys(_BWD_ROUTES, 0)
-flash_bwd_dq.route_counts = dict.fromkeys(_BWD_ROUTES, 0)
+flash_bwd_dkv.route_counts = dict.fromkeys(_FLASH_ROUTES, 0)
+flash_bwd_dq.route_counts = dict.fromkeys(_FLASH_ROUTES, 0)
 
 
 class _Flash(torch.autograd.Function):
@@ -499,7 +525,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: b
                     sm_scale: Optional[float] = None, return_lse: bool = False):
     """Flash attention over (B, H, S, D), as the JAX package's
     ``flash_attention``: up to 128² scores it is ``attention_reference``;
-    above, K3 for CUDA tensors (``launch_count`` counts its launches) and
+    above, K3 for CUDA tensors (``launch_count`` counts its launches,
+    ``route_counts`` those of each route of ``flash_route``) and
     ``flash_reference`` for CPU ones, differentiable through ``_Flash``
     (K4/K5 on CUDA). ``return_lse`` also returns the per-row logsumexp
     (B, H, S_q) float32 (above 128² only; not differentiable)."""
@@ -516,6 +543,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: b
 
 
 flash_attention.launch_count = 0
+flash_attention.route_counts = dict.fromkeys(_FLASH_ROUTES, 0)
 
 
 def mha_route(num_heads: int, s_q: int, s_k: int, e: int, dtype: torch.dtype,

@@ -94,9 +94,9 @@ def test_mha_raises_where_no_kernel_takes_the_shape(cuda):
         att.mha(q, q, q, 7)                  # e % heads != 0
     with pytest.raises(ValueError, match="bf16 or float32"):
         att.small_mha(q.half(), q.half(), q.half(), 4)
-    big = _uniform((1, 1, 300, 320), -1, 1, 9, cuda)
-    with pytest.raises(ValueError, match="256"):
-        att.flash_attention(big, big, big)   # head dim above K3's 256
+    big = _uniform((1, 1, 300, 520), -1, 1, 9, cuda)
+    with pytest.raises(ValueError, match="512"):
+        att.flash_attention(big, big, big)   # head dim above K3's 512
     with pytest.raises(ValueError, match="bf16 or float32"):
         att.flash_attention(big[..., :64].half(), big[..., :64].half(), big[..., :64].half())
 
@@ -142,18 +142,98 @@ _FLASH = [
 @pytest.mark.parametrize("q_shape,s_k,causal,dtype", _FLASH)
 def test_flash_kernel_matches_plain(cuda, q_shape, s_k, causal, dtype):
     """O within one output ulp in bf16 (2^-7 at |O| ≤ 1: 1e-2), 1e-4 in
-    float32; lse within 1e-4."""
+    float32; lse within 1e-4. Contiguous bf16 takes the tensor-core kernel,
+    which rounds P to bf16 before P·V (2^-9 a term, averaging out over a
+    row): it is held to the same bound against the float32-P plain version
+    and against the one that rounds P there. No atomics: a second launch
+    gives the same bits."""
     b, h, s_q, d = q_shape
     q = _uniform(q_shape, -2, 2, 20, cuda, dtype)
     k, v = (_uniform((b, h, s_k, d), -2, 2, 21 + i, cuda, dtype) for i in range(2))
     before = att.flash_attention.launch_count
+    route = "sm90" if dtype == torch.bfloat16 else "cuda_core"   # all contiguous here
+    routed = att.flash_attention.route_counts[route]
     got_o, got_lse = att.flash_attention(q, k, v, causal, return_lse=True)
     torch.cuda.synchronize()
     assert att.flash_attention.launch_count == before + 1
+    assert att.flash_attention.route_counts[route] == routed + 1
     want_o, want_lse = att.flash_reference(q, k, v, causal)
     tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
     torch.testing.assert_close(got_o.float(), want_o.float(), rtol=tol, atol=tol)
     torch.testing.assert_close(got_lse, want_lse, rtol=1e-4, atol=1e-4)
+    if route == "sm90":
+        want_p, lse_p = att.flash_reference(q, k, v, causal, p_dtype=torch.bfloat16)
+        assert torch.equal(lse_p, want_lse)
+        torch.testing.assert_close(got_o.float(), want_p.float(), rtol=tol, atol=tol)
+    again_o, again_lse = att.flash_attention(q, k, v, causal, return_lse=True)
+    assert torch.equal(got_o, again_o) and torch.equal(got_lse, again_lse)
+
+
+def test_flash_kernel_unaligned_bf16_view_takes_cuda_cores(cuda):
+    """A bf16 view that starts 8 bytes into its rows cannot be read by
+    16-byte copies: K3 runs its CUDA-core kernel, to the same bound; the
+    same values in aligned tensors take the tensor-core kernel."""
+    wide = [_uniform((2, 2, 300, 72), -2, 2, 24 + i, cuda, torch.bfloat16) for i in range(3)]
+    q, k, v = (t[..., 4:68] for t in wide)
+    before = dict(att.flash_attention.route_counts)
+    o, lse = att.flash_attention(q, k, v, True, return_lse=True)
+    torch.cuda.synchronize()
+    assert att.flash_attention.route_counts == {"sm90": before["sm90"],
+                                                "cuda_core": before["cuda_core"] + 1}
+    want_o, want_lse = att.flash_reference(q, k, v, True)
+    torch.testing.assert_close(o.float(), want_o.float(), rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
+    o_a, lse_a = att.flash_attention(*(t.contiguous() for t in (q, k, v)), True, return_lse=True)
+    assert att.flash_attention.route_counts["sm90"] == before["sm90"] + 1
+    torch.testing.assert_close(o_a.float(), o.float(), rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(lse_a, lse, rtol=1e-4, atol=1e-4)
+
+
+def _forward_and_backward_match_plain(q_shape, s_k, causal, dtype, route, device):
+    """K3, then K4 and K5 on its lse, each by ``route`` and against its plain
+    version: O 1e-2 / 1e-4 (bf16 / float32), lse 1e-4, gradients 1e-2 / 1e-4
+    of the largest value."""
+    b, h, s_q, d = q_shape
+    q = _uniform(q_shape, -2, 2, 80, device, dtype)
+    k, v = (_uniform((b, h, s_k, d), -2, 2, 81 + i, device, dtype) for i in range(2))
+    do = _uniform(q_shape, -1, 1, 83, device, dtype)
+    fns = (att.flash_attention, att.flash_bwd_dkv, att.flash_bwd_dq)
+    before = [dict(fn.route_counts) for fn in fns]
+    o, lse = att.flash_attention(q, k, v, causal, return_lse=True)
+    delta = (do.float() * o.float()).sum(-1)
+    dk, dv = att.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+    dq = att.flash_bwd_dq(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    for fn, was in zip(fns, before):
+        assert {r: n - was[r] for r, n in fn.route_counts.items() if n != was[r]} == {route: 1}
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    want_o, want_lse = att.flash_reference(q, k, v, causal)
+    torch.testing.assert_close(o.float(), want_o.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
+    want = att.flash_backward_reference(q, k, v, do, lse, delta, causal)
+    for got, ref, name in zip((dq, dk, dv), want, ("dq", "dk", "dv")):
+        assert got.shape == ref.shape and got.dtype == ref.dtype
+        assert _rel_err(got, ref) <= tol, (name, _rel_err(got, ref))
+
+
+@pytest.mark.parametrize("d", [320, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_take_head_dims_above_256(cuda, d, dtype):
+    """Head dims up to 512 run the CUDA-core kernels in both types (1024
+    tokens: a U-Net block of 512 channels at ds 4)."""
+    _forward_and_backward_match_plain((1, 1, 1024, d), 1024, False, dtype, "cuda_core", cuda)
+
+
+@pytest.mark.parametrize("q_shape,causal,dtype,route", [
+    ((4097, 17, 132, 16), True, torch.bfloat16, "sm90"),         # 69,649 (batch, head) pairs
+    ((2048, 33, 132, 16), False, torch.float32, "cuda_core"),    # 67,584
+])
+def test_flash_kernels_take_more_than_65535_heads(cuda, q_shape, causal, dtype, route):
+    """batch·heads is not bound by the 65,535 of ``blockIdx.y``: the CUDA-core
+    kernels fold (batch, head, tile) onto ``blockIdx.x``, the tensor-core
+    kernels split (batch, head) over y and z (69,649 is odd, so the last z
+    slice holds a block that has no pair and must return)."""
+    _forward_and_backward_match_plain(q_shape, q_shape[2], causal, dtype, route, cuda)
 
 
 def test_flash_kernel_takes_qkv_slices(cuda):

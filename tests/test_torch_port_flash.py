@@ -130,10 +130,155 @@ def test_mha_routes_to_flash_above_128_squared():
     assert tatt.mha_route(4, 129, 127, 64, torch.float32, cpu) == "einsum"
 
 
-def test_flash_smem_fits_a_block():
+@pytest.mark.parametrize("route", ["cuda_core", "sm90"])
+def test_flash_smem_fits_a_block(route):
     from lipreading_video_generation_tpu_torch.ops import _build
 
-    for d in (16, 64, 128, 256):
-        assert tatt.flash_smem_bytes(d) <= _build.SMEM_PER_BLOCK
-    with pytest.raises(ValueError, match="256"):
-        tatt.flash_head_dim_pad(320)
+    for d in (16, 64, 128, 192, 256):
+        assert tatt.flash_smem_bytes(d, route) <= _build.SMEM_PER_BLOCK
+    if route == "cuda_core":
+        assert tatt.flash_smem_bytes(64) == tatt.flash_smem_bytes(64, route) == 69632
+        # head dims above 256: 32 x 32 tiles of float, so that they fit a block
+        assert tatt.flash_head_dim_pad(320) == tatt.flash_head_dim_pad(512) == 512
+        assert tatt.flash_smem_bytes(320, route) == 218112 <= _build.SMEM_PER_BLOCK
+        for kernel, want in (("dkv", 202880), ("dq", 200448)):
+            assert tatt.flash_bwd_smem_bytes(512, kernel, route) == want <= _build.SMEM_PER_BLOCK
+        assert tatt.flash_bwd_block_q(320) == 16
+    else:
+        # bf16 tiles: Q of 128 queries (64 at head dim 256), two stages each of
+        # K and V of 64 keys (128 at head dim 128); two blocks of head dim 64 fit an SM
+        assert tatt.flash_smem_bytes(64, route) == 16384 + 4 * 8192 + 1024
+        assert 2 * tatt.flash_smem_bytes(64, route) <= _build.SMEM_PER_BLOCK
+        assert tatt.flash_smem_bytes(128, route) == 32768 + 4 * 32768 + 1024
+        assert tatt.flash_smem_bytes(256, route) == 32768 + 4 * 32768 + 1024
+        with pytest.raises(ValueError, match="tensor-core"):
+            tatt.flash_smem_bytes(320, route)
+        with pytest.raises(ValueError, match="tensor-core"):
+            tatt.flash_bwd_block_q(320, route)
+    with pytest.raises(ValueError, match="512"):
+        tatt.flash_head_dim_pad(513)
+
+
+def _bf16(arrs):
+    return [torch.from_numpy(a).to(torch.bfloat16) for a in arrs]
+
+
+@pytest.mark.parametrize("s_q,s_k,causal", _CASES)
+def test_flash_reference_bf16_p_matches_jax(s_q, s_k, causal):
+    """``p_dtype=torch.bfloat16`` rounds P where the tensor-core kernel
+    rounds it. One rounding is 2^-9 relative a term and averages out over a
+    row, and O is rounded to bf16 once (2^-8 of the value): within 1e-2 of
+    the JAX package's kernel (interpret mode) on the same bf16 inputs, as
+    the float32-P version is. lse is untouched by the rounding."""
+    arrs = _qkv(6, 2, 2, s_q, s_k, 32)
+    want_o, want_lse = _jax_flash(arrs, causal, jnp.bfloat16)
+    got_o, got_lse = tatt.flash_reference(*_bf16(arrs), causal, p_dtype=torch.bfloat16)
+    assert got_o.dtype == torch.bfloat16 and got_lse.dtype == torch.float32
+    np.testing.assert_allclose(got_o.float().numpy(), want_o, rtol=1e-2, atol=1e-2)
+    np.testing.assert_allclose(got_lse.numpy(), want_lse, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("s_q,s_k,causal", _CASES + [(200, 150, True)])
+def test_flash_reference_bf16_p_stays_close_to_float32_p(s_q, s_k, causal):
+    """Against the float32-P default on the same inputs: O within 1e-2 (and
+    really different, so the rounding is there), lse equal bit for bit (the
+    row sum is taken from the float32 P)."""
+    q, k, v = _bf16(_qkv(7, 1, 2, s_q, s_k, 32))
+    want_o, want_lse = tatt.flash_reference(q, k, v, causal)
+    got_o, got_lse = tatt.flash_reference(q, k, v, causal, p_dtype=torch.bfloat16)
+    assert torch.equal(got_lse, want_lse)
+    assert not torch.equal(got_o, want_o)
+    torch.testing.assert_close(got_o.float(), want_o.float(), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s_q,s_k,causal", [(256, 256, False), (160, 320, True), (200, 150, True)])
+def test_flash_reference_default_p_is_float32(s_q, s_k, causal, dtype):
+    """``p_dtype=None`` is the float32-P forward it was before the argument
+    came: the same bits as rounding P to float32, which it already is, and
+    as the formula written out here."""
+    q, k, v = (torch.from_numpy(a).to(dtype) for a in _qkv(8, 1, 2, s_q, s_k, 32))
+    base_o, base_lse = tatt.flash_reference(q, k, v, causal)
+    for o, lse in (tatt.flash_reference(q, k, v, causal, p_dtype=None),
+                   tatt.flash_reference(q, k, v, causal, p_dtype=torch.float32)):
+        assert o.dtype == dtype and torch.equal(o, base_o) and torch.equal(lse, base_lse)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float() * (1.0 / math.sqrt(32)), k.float())
+    if causal:
+        hidden = torch.arange(s_k)[None, :] > torch.arange(s_q)[:, None] + (s_k - s_q)
+        s = s.masked_fill(hidden, float(torch.finfo(torch.float32).min) / 2)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    denom = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    assert torch.equal(base_o, (torch.einsum("bhqk,bhkd->bhqd", p, v.float()) / denom).to(dtype))
+    assert torch.equal(base_lse, (m + torch.log(denom))[..., 0])
+
+
+def _forward_route(q, k, v):
+    """The route ``_flash_launch`` would take: q, k, v and the (B, S, H, D)
+    output it allocates."""
+    b, h, s_q, d = q.shape
+    out = torch.empty(b, s_q, h, d, dtype=q.dtype).transpose(1, 2)
+    tensors = (q, k, v, out)
+    size = q.element_size()
+    return tatt.flash_route(q.dtype, d, [t.stride()[:3] for t in tensors],
+                            [t.storage_offset() * size for t in tensors])
+
+
+def _fused_qkv(d, heads=1, s=24, b=2, dtype=torch.bfloat16):
+    qkv = torch.zeros(b, s, 3 * heads * d, dtype=dtype)
+    return [t.reshape(b, s, heads, d).transpose(1, 2) for t in qkv.chunk(3, dim=-1)]
+
+
+@pytest.mark.parametrize("case,want", [
+    ("fused_bf16_d64", "sm90"), ("fused_bf16_d128", "sm90"), ("fused_bf16_d256", "sm90"),
+    ("fused_bf16_d192_2heads", "sm90"), ("contiguous_bf16", "sm90"),
+    ("float32", "cuda_core"), ("offset_view", "cuda_core"), ("odd_row_stride", "cuda_core"),
+    ("head_dim_20", "cuda_core"), ("head_dim_320", "cuda_core"), ("float16", "cuda_core")])
+def test_flash_route_of_the_forward(case, want):
+    """One rule for K3, K4 and K5 (``flash_bwd_route`` is its older name):
+    the U-Net's column slices of one bf16 qkv are aligned and take the
+    tensor-core kernel; float32, a view that starts 8 bytes into its rows,
+    rows of 136 bytes, head dims that are no multiple of 8 or above 256
+    keep the CUDA-core kernel."""
+    assert tatt.flash_bwd_route is tatt.flash_route
+    if case.startswith("fused"):
+        d = int(case.split("_d")[1].split("_")[0])
+        tensors = _fused_qkv(d, heads=2 if case.endswith("2heads") else 1)
+    elif case == "contiguous_bf16":
+        tensors = [torch.zeros(1, 2, 24, 64, dtype=torch.bfloat16)] * 3
+    elif case == "float32":
+        tensors = _fused_qkv(64, dtype=torch.float32)
+    elif case == "offset_view":
+        tensors = [torch.zeros(1, 2, 24, 72, dtype=torch.bfloat16)[..., 4:68]] * 3
+    elif case == "odd_row_stride":
+        tensors = [torch.zeros(1, 2, 24, 68, dtype=torch.bfloat16)[..., :64]] * 3
+    elif case == "head_dim_20":
+        tensors = [torch.zeros(1, 2, 24, 20, dtype=torch.bfloat16)] * 3
+    elif case == "head_dim_320":
+        tensors = _fused_qkv(320)
+    else:
+        tensors = [torch.zeros(1, 2, 24, 64, dtype=torch.float16)] * 3
+    assert all(t.stride(-1) == 1 for t in tensors)
+    assert _forward_route(*tensors) == want
+    assert set(tatt.flash_attention.route_counts) == {"sm90", "cuda_core"}
+
+
+def test_flash_head_dim_320_matches_jax():
+    """Head dims above 256 (the CUDA-core kernels take them up to 512; the
+    JAX package pads 320 to 384): the CPU path at d = 320, forward, lse and
+    gradients, against the JAX package's kernels in interpret mode."""
+    arrs = _qkv(9, 1, 1, 256, 256, 320)
+    w = np.random.default_rng(10).standard_normal((1, 1, 256, 320)).astype(np.float32)
+    want_o, want_lse = _jax_flash(arrs, False, jnp.float32)
+    qkv = [torch.from_numpy(a).requires_grad_() for a in arrs]
+    got_o, got_lse = tatt.flash_attention(*qkv, return_lse=True)
+    np.testing.assert_allclose(got_o.detach().numpy(), want_o, rtol=5e-4, atol=5e-4)
+    np.testing.assert_allclose(got_lse.numpy(), want_lse, rtol=1e-5, atol=1e-4)
+    (torch.from_numpy(w) * got_o).sum().backward()
+
+    def loss(q, k, v):
+        return jnp.sum(jnp.asarray(w) * jatt.flash_attention(q, k, v, interpret=True))
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, arrs))
+    for t, r in zip(qkv, want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(r), rtol=5e-4, atol=5e-4)
