@@ -6,7 +6,9 @@ weights made from a seed, and checks every hand-written kernel on them:
 
 - the lipreader's serving path — mouth-ROI preprocessing, then the ViViT
   word-classifier forward — at the ``ViViTConfig`` defaults (12 layers,
-  hidden 256, 8 heads, MLP 1024, bf16, 64 classes);
+  hidden 256, 8 heads, MLP 1024, bf16, 64 classes); its attention is the
+  small-MHA kernel K2, in bf16 the tensor-core one
+  (``csrc/small_mha_sm90.cu``);
 - diffusion sampling — uint8 condition frame + raw audio → native audio
   encoder → conditioning map → DDIM / DPM++ denoise steps of the U-Net →
   uint8 frames — at the ``DiffusionConfig`` defaults (128×128, base 64,
@@ -27,7 +29,8 @@ weights made from a seed, and checks every hand-written kernel on them:
   generator, paste back) → host uint8 frames — at the ``GanConfig`` /
   ``PreprocessConfig`` defaults (width 1.0, 96×96 faces, batches of 128), in
   float, dynamic int8 and static int8; in the int8 modes each of the
-  generator's 51 convolutions is one launch of the int8 matmul kernel K6;
+  generator's 51 convolutions is one launch of the int8 matmul kernel K6,
+  by its tensor-core route (``csrc/int8_mm_sm90.cu``);
 - the int8 lipreader (``predict_step_int8``: K6 once per Linear) and the K6
   microbench (``bench.microbench_int8``: both of K6's type pairs at 4096³).
 
@@ -41,7 +44,10 @@ script exits non-zero without printing a result):
    report and each kernel's dynamic shared memory.
 3. kernels — each kernel against its plain torch version on the card
    (K1 CLAHE: max |Δ| ≤ 1e-2 gray levels; K2 small MHA: 2e-2 abs/rel in
-   bf16, 1e-5 in float32, and its gradient at 1e-4 in float32; K3 flash
+   bf16 (the tensor-core kernel, also at S = 1, 16, 17 and 128, on qkv
+   slices, and the CUDA-core kernel for an unaligned view and S past 128),
+   1e-5 in float32, each with its route and equal bits of two launches, and
+   its gradient at 1e-4 in float32; K3 flash
    forward: O within 1e-2 in bf16 (one output ulp at |O| ≤ 1; the
    tensor-core kernel also rounds P to bf16 before P·V, 2^-9 a term, and
    its error against the plain version that rounds P there is printed
@@ -54,14 +60,19 @@ script exits non-zero without printing a result):
    bits, and head dims 320 and 512 and more than 65,535 (batch, head)
    pairs run forward and backward; K6 matmul: int8 exactly equal, bf16 within 1e-3 of the
    largest |C| (the output is the unrounded float32 sum; only the order of
-   summation differs)), at the shapes the paths give them.
+   summation differs), every serving shape and the tile edges by the
+   tensor-core route, odd depths, a row-major int8 B and an unaligned view
+   by the mma.sync route, more than 65,535 x 64 columns, equal bits of two
+   launches), at the shapes the paths give them.
 4. serve   — 3 requests of 8 clips and 3 of 384 clips (5 frames each, 96×96
    RGB uint8 frames and face boxes as in bench.py), host frames in, host
-   logits out; every request must launch K1 once and K2 once per layer, and
-   give finite logits; the batch-8 requests must agree with the same model
+   logits out; every request must launch K1 once and K2 once per layer
+   (by the tensor-core route), and give finite logits; a ``torch.profiler``
+   breakdown of a batch-384 request; the batch-8 requests must agree with the same model
    and inputs run on the CPU (the plain path). Then one batch-384 request
-   through ``predict_step_int8``: K6 once per Linear (50), K1 and K2 as
-   before, held against ``predict_step`` on the same ROIs.
+   through ``predict_step_int8``: K6 once per Linear (50, by the
+   tensor-core route), K1 and K2 as before, held against ``predict_step`` on
+   the same ROIs, and its profile.
 5. diffuse — one warm-up and 3 timed ``sample_video`` requests of 4 frames
    × 10 DDIM steps, and one with DPM++(2M); each must launch K3 16 times a
    step (all by the tensor-core route) and K2 4 times, and return finite (4, 128, 128, 3) uint8 frames;
@@ -90,12 +101,13 @@ script exits non-zero without printing a result):
    of 360×640, boxes [40,300,180,430] ± 4, standard-normal mels): one
    warm-up and 3 timed requests each in float, dynamic int8 and static
    int8; uint8 frames of the input's shape, untouched outside the boxes;
-   K6 exactly once per convolution per batch in the int8 modes (51 × 2) and
-   never in float; the generator's int8 output against its float output
+   K6 exactly once per convolution per batch in the int8 modes (51 × 2, all
+   by the tensor-core route) and never in float; the generator's int8 output against its float output
    (PSNR); a batch-8 float request against the CPU; a profile of one
    dynamic int8 request (device busy share, device time by int8 stage).
-10. microbench — ``bench.microbench_int8.run``: K6 in bf16 and int8 and the
-   library's two calls at 4096³, after its own checks.
+10. microbench — ``bench.microbench_int8.run``: K6 in bf16 and in int8
+   (B row-major and B a (N, K) weight transposed) and the library's calls
+   on the same operands at 4096³, after its own checks.
 11. timing — request and train-step times, frames/s, each kernel's
    CUDA-event time beside its plain version's at the main-path shapes, the
    one PyTorch call that computes the same function where there is one
@@ -103,7 +115,8 @@ script exits non-zero without printing a result):
    shapes beside K3 and beside K4 + K5, ``torch._int_mm``,
    ``torch.matmul``; yardsticks, used on no path), each kernel's bound
    (the larger of its bytes over 3.35 TB/s and its operations over the
-   tensor-core peak of its type), peak device memory.
+   tensor-core peak of its type) and its share of it, K2, K3 and K6 also
+   through their C entry points in a loop (without the wrappers' host work).
 
 The line before the last is ``nvidia-smi``'s name and power limit; before
 it, one JSON object with the kernels; the last line is the result:
@@ -201,10 +214,15 @@ def phase_build() -> None:
     _build.load()
     log("build", f"{lib} from {[p.name for p in _build.sources()]} in "
         f"{_build.build_info['seconds']:.1f} s")
+    notes = 0
     for line in str(_build.build_info["log"]).splitlines():
-        if ("ptxas info" in line and ("registers" in line or "Compiling" in line
-                                      or "smem" in line)) or "spill" in line or "arning" in line:
+        if "(C75" in line:      # ptxas' notes on the wgmma kernels: counted, not listed
+            notes += 1
+        elif ("ptxas info" in line and ("registers" in line or "Compiling" in line
+                                        or "smem" in line)) or "spill" in line or "arning" in line:
             log("build", line.strip())
+    log("build", f"{notes} ptxas notes (C75xx: a warpgroup.arrive or warpgroup.wait injected around "
+        "the asynchronous products)")
     from lipreading_video_generation_tpu_torch.ops.attention import (
         _small_mha_smem_bytes, flash_bwd_smem_bytes, flash_smem_bytes)
 
@@ -223,7 +241,12 @@ def phase_build() -> None:
                                       ("cuda_core", "CUDA-core route (float tiles)",
                                        (64, 128, 256, 512)))
             for name, kern in (("K4", "dkv"), ("K5", "dq")))
-        + "; K6 15360 B static (128 and 64 rows of 80 bytes)")
+        + "; K6 tensor-core route 4 stages of (128 + N tile) rows of 128 bytes, their 8 "
+        "mbarriers + 1 KB: "
+        + ", ".join(f"{4 * (128 + bn) * 128 + 1024 + 64} B (N tile {bn})" for bn in (8, 64, 256))
+        + ", mma.sync route 15360 B static (128 and 64 rows of 80 bytes); K2 tensor-core route "
+        "two buffers of Q, K, V rows of 2 d_pad + 16 bytes: "
+        f"{2 * 3 * 80 * (2 * 32 + 16)} B (S=80, d=32), {2 * 3 * 16 * (2 * 128 + 16)} B (S=11, d=96)")
 
 
 def _uniform(shape, lo, hi, seed, dtype=torch.float32):
@@ -248,18 +271,49 @@ def phase_kernels() -> dict:
             raise AssertionError(f"K1 clahe {shape}: max|d| {err} > {TOL_K1}")
         errs["clahe"] = max(errs["clahe"], err)
 
-    for (b, s, e, h, causal, dtype, tol) in [
-            (384, 80, 256, 8, False, torch.bfloat16, TOL_K2_BF16),
-            (DIFF_FRAMES, 11, 768, 8, False, torch.bfloat16, TOL_K2_BF16),  # audio encoder
-            (2, 33, 64, 4, True, torch.bfloat16, TOL_K2_BF16),
-            (2, 33, 64, 4, True, torch.float32, TOL_K2_F32)]:
-        q, k, v = (_uniform((b, s, e), -2, 2, SEED + i, dtype) for i in range(3))
+    # K2: the ViViT's, the audio encoder's and a causal shape in bf16 (the
+    # tensor-core kernel) and float32 (the CUDA-core kernel); the tensor-core
+    # kernel's edges: S = 1, 16, 17 and 128 (its largest), causal and not, head
+    # dims 8, 64 and 128, more heads than blocks at once; column slices of one
+    # qkv tensor, as the models pass them; a bf16 view that starts 8 bytes
+    # into its rows, which 16-byte copies cannot read (CUDA-core kernel)
+    bf16, f32 = torch.bfloat16, torch.float32
+    k2_cases = [(384, 80, 256, 8, False, bf16, "sm90", ""),
+                (DIFF_FRAMES, 11, 768, 8, False, bf16, "sm90", ""),         # audio encoder
+                (2, 33, 64, 4, True, bf16, "sm90", ""),
+                (2, 33, 64, 4, True, f32, "cuda_core", ""),
+                (384, 80, 256, 8, False, bf16, "sm90", "qkv"),
+                (3, 33, 64, 4, True, bf16, "cuda_core", "unaligned")]
+    k2_cases += [(3, s, 64, 4, causal, bf16, "sm90", "")
+                 for s in (1, 16, 17) for causal in (False, True)]
+    k2_cases += [(2, 128, 256, 4, causal, bf16, "sm90", "") for causal in (False, True)]
+    k2_cases += [(2, 128, 256, 2, True, bf16, "sm90", ""), (5, 40, 16, 2, False, bf16, "sm90", ""),
+                 (3000, 16, 64, 4, True, bf16, "sm90", ""),
+                 (2, 160, 64, 1, False, bf16, "cuda_core", "")]              # S past 128
+    for (b, s, e, h, causal, dtype, route, layout) in k2_cases:
+        tol = TOL_K2_BF16 if dtype == bf16 else TOL_K2_F32
+        if layout == "qkv":
+            q, k, v = _uniform((b, s, 3 * e), -2, 2, SEED, dtype).chunk(3, dim=-1)
+        elif layout == "unaligned":
+            q, k, v = (_uniform((b, s, e + 8), -2, 2, SEED + i, dtype)[..., 4:4 + e]
+                       for i in range(3))
+        else:
+            q, k, v = (_uniform((b, s, e), -2, 2, SEED + i, dtype) for i in range(3))
+        before = dict(att.small_mha.route_counts)
         got = att.small_mha(q, k, v, h, causal)
+        again = att.small_mha(q, k, v, h, causal)
         torch.cuda.synchronize()
+        took = {r: n - before[r] for r, n in att.small_mha.route_counts.items() if n != before[r]}
+        if took != {route: 2}:
+            raise AssertionError(f"K2 ({b},{s},{e}) H={h} {dtype} {layout}: routes {took}, want "
+                                 f"{route}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"K2 ({b},{s},{e}) H={h} {dtype}: two launches gave different bits")
         want = att._mha_einsum(q, k, v, h, causal)
         err = (got.float() - want.float()).abs().max().item()
-        log("kernels", f"K2 small_mha ({b},{s},{e}) H={h} causal={causal} {dtype}: "
-            f"max|d| {err:.3g} (tol {tol} abs/rel)")
+        log("kernels", f"K2 small_mha ({b},{s},{e}) H={h} causal={causal} {dtype}"
+            f"{' (' + layout + ')' if layout else ''}, route {route}: "
+            f"max|d| {err:.3g} (tol {tol} abs/rel); two launches equal bits")
         torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
         errs["small_mha"] = max(errs["small_mha"], err)
 
@@ -278,7 +332,6 @@ def phase_kernels() -> dict:
     small = [((2, 3, 192, 32), 192, True), ((2, 3, 160, 40), 320, True),
              ((2, 3, 200, 16), 200, False), ((1, 2, 160, 128), 320, False),
              ((1, 2, 256, 256), 256, True), ((1, 2, 200, 64), 150, True)]
-    bf16, f32 = torch.bfloat16, torch.float32
     # head dims above 256 (the CUDA-core kernels in both types, at the tokens
     # a U-Net block of 512 channels has at ds 4) and more than 65,535
     # (batch, head) pairs (one case a route)
@@ -466,43 +519,68 @@ def _int8(shape, seed):
 K6_SERVING_SHAPES = [(65536, 304, 16), (65536, 16, 32), (65536, 720, 32), (128, 4608, 512),
                      (65536, 32, 3), (65536, 1440, 64),
                      (30720, 256, 768), (30720, 256, 1024), (30720, 1024, 256)]
-# Row-major B, depths that are no multiple of 16 (the element-wise loads):
-# the stems before padding, ragged shapes, and the microbench's 4096^3.
-K6_ROW_MAJOR_SHAPES = [(65536, 294, 16), (65536, 9, 32), (257, 131, 67), (5, 9, 3),
-                       (4096, 4096, 4096)]
+# Row-major B, depths that are no multiple of 16 (the element-wise loads of
+# the mma.sync kernel): the stems before padding and ragged shapes.
+K6_ROW_MAJOR_SHAPES = [(65536, 294, 16), (65536, 9, 32), (257, 131, 67), (5, 9, 3)]
+# The tensor-core kernel's edges, B the (N, K) weight transposed: M, N and K
+# one above and one below a tile, a single element of C, and more columns
+# than the mma.sync kernel's grid takes (65,535 x 64).
+K6_EDGE_SHAPES = [(129, 144, 72), (255, 4608, 8), (1, 16, 1), (2, 16, 65535 * 64 + 8)]
 
 
 def check_matmul() -> dict:
     from lipreading_video_generation_tpu_torch.ops import matmul_cuda as mm
 
     errs = {"int8_matmul": 0.0, "bf16_matmul": 0.0}
-    cases = ([(shape, True) for shape in K6_SERVING_SHAPES]
-             + [(shape, False) for shape in K6_ROW_MAJOR_SHAPES] + [((4096, 4096, 4096), True)])
-    for (m, k, n), transposed in cases:
-        a8 = _int8((m, k), SEED + 60)
-        b8 = _int8((n, k), SEED + 61).t() if transposed else _int8((k, n), SEED + 61)
-        got = mm.int8_matmul(a8, b8)
+    # (shape, layout of B, route of int8, route of bf16)
+    cases = ([(shape, "transposed", "sm90", "sm90") for shape in K6_SERVING_SHAPES]
+             + [(shape, "row_major", "mma_sync", "mma_sync") for shape in K6_ROW_MAJOR_SHAPES]
+             # the microbench's operands: a row-major bf16 B is the tensor-core
+             # kernel's MN-major operand, a row-major int8 B has none there
+             + [((4096, 4096, 4096), "row_major", "mma_sync", "sm90"),
+                ((4096, 4096, 4096), "transposed", "sm90", "sm90")]
+             + [(shape, "transposed", "sm90", "sm90") for shape in K6_EDGE_SHAPES]
+             # views that start one element into wider rows: no 16-byte copies
+             + [((300, 64, 48), "unaligned", "mma_sync", "mma_sync")])
+    for (m, k, n), layout, route8, route16 in cases:
+        pad = 16 if layout == "unaligned" else 0
+
+        def operands(make_a, make_b):
+            a = make_a((m, k + pad))[:, 1:1 + k] if pad else make_a((m, k))
+            if layout == "row_major":
+                return a, make_b((k, n))
+            b = make_b((n, k + pad))
+            return a, (b[:, 1:1 + k] if pad else b).t()
+
+        a8, b8 = operands(lambda sh: _int8(sh, SEED + 60), lambda sh: _int8(sh, SEED + 61))
+        a16, b16 = operands(lambda sh: _uniform(sh, -1, 1, SEED + 62, torch.bfloat16),
+                            lambda sh: _uniform(sh, -1, 1, SEED + 63, torch.bfloat16))
+        before = dict(mm.int8_matmul.route_counts), dict(mm.bf16_matmul.route_counts)
+        got, again = mm.int8_matmul(a8, b8), mm.int8_matmul(a8, b8)
+        got16, again16 = mm.bf16_matmul(a16, b16), mm.bf16_matmul(a16, b16)
         torch.cuda.synchronize()
+        for fn, was, route in zip((mm.int8_matmul, mm.bf16_matmul), before, (route8, route16)):
+            took = {r: c - was[r] for r, c in fn.route_counts.items() if c != was[r]}
+            if took != {route: 2}:
+                raise AssertionError(f"K6 {fn.__name__} ({m},{k},{n}) B {layout}: routes {took}, "
+                                     f"want {route}")
+        if not (torch.equal(got, again) and torch.equal(got16, again16)):
+            raise AssertionError(f"K6 ({m},{k},{n}) B {layout}: two launches gave different bits")
         want = mm.matmul_reference(a8, b8)
         err8 = (got - want).abs().max().item()
-        a16 = _uniform((m, k), -1, 1, SEED + 62, torch.bfloat16)
-        b16 = (_uniform((n, k), -1, 1, SEED + 63, torch.bfloat16).t() if transposed
-               else _uniform((k, n), -1, 1, SEED + 63, torch.bfloat16))
-        got16 = mm.bf16_matmul(a16, b16)
-        torch.cuda.synchronize()
         want16 = mm.matmul_reference(a16, b16)
         err16 = (got16 - want16).abs().max().item()
         bound16 = TOL_K6_BF16 * want16.abs().max().item()
-        layout = "(N,K) transposed view" if transposed else "row-major"
-        log("kernels", f"K6 matmul ({m} x {k} x {n}) B {layout}: int8 max|d| {err8} (must be 0), "
-            f"bf16 max|d| {err16:.3g} (tol {bound16:.3g} = {TOL_K6_BF16} of max|C|)")
+        log("kernels", f"K6 matmul ({m} x {k} x {n}) B {layout}, routes int8 {route8} / bf16 "
+            f"{route16}: int8 max|d| {err8} (must be 0), bf16 max|d| {err16:.3g} (tol "
+            f"{bound16:.3g} = {TOL_K6_BF16} of max|C|); two launches equal bits")
         if got.dtype != torch.int32 or got16.dtype != torch.float32:
             raise AssertionError(f"K6 output types {got.dtype}, {got16.dtype}")
         if err8 != 0 or not err16 <= bound16:
             raise AssertionError(f"K6 ({m},{k},{n}): int8 max|d| {err8}, bf16 {err16} > {bound16}")
         errs["int8_matmul"] = max(errs["int8_matmul"], float(err8))
         errs["bf16_matmul"] = max(errs["bf16_matmul"], err16)
-        del a8, b8, got, want, a16, b16, got16, want16
+        del a8, b8, got, again, want, a16, b16, got16, again16, want16
     return errs
 
 
@@ -586,6 +664,7 @@ def serve_int8_request(model, frames: np.ndarray, boxes: np.ndarray) -> dict:
     request(tv.predict_step_int8)                                  # warm-up
     before = (cl.clahe_cuda.launch_count, att.small_mha.launch_count,
               mm.int8_matmul.launch_count)
+    routed = att.small_mha.route_counts["sm90"], mm.int8_matmul.route_counts["sm90"]
     t0 = time.perf_counter()
     q = request(tv.predict_step_int8)
     q_s = time.perf_counter() - t0
@@ -594,6 +673,11 @@ def serve_int8_request(model, frames: np.ndarray, boxes: np.ndarray) -> dict:
     if d != (1, cfg.num_layers, n_linear):
         raise AssertionError(f"int8 request launched K1/K2/K6 {d}, want "
                              f"(1, {cfg.num_layers}, {n_linear})")
+    by_tc = (att.small_mha.route_counts["sm90"] - routed[0],
+             mm.int8_matmul.route_counts["sm90"] - routed[1])
+    if by_tc != (cfg.num_layers, n_linear):
+        raise AssertionError(f"int8 request: K2/K6 launches by the tensor-core route {by_tc}, "
+                             f"want ({cfg.num_layers}, {n_linear})")
     t0 = time.perf_counter()
     f = request(tv.predict_step)
     f_s = time.perf_counter() - t0
@@ -602,11 +686,12 @@ def serve_int8_request(model, frames: np.ndarray, boxes: np.ndarray) -> dict:
     agree = (q.argmax(-1) == f.argmax(-1)).float().mean().item()
     worst = (q - f).abs().max().item()
     log("serve", f"predict_step_int8, batch {len(q)}: K1 1, K2 {cfg.num_layers}, K6 {n_linear} "
-        f"launches; against predict_step on the same ROIs: top-1 agreement {agree:.4f} "
+        f"launches, K2 and K6 all by the tensor-core route; against predict_step on the same ROIs: top-1 agreement {agree:.4f} "
         f"(want >= {INT8_TOP1_AGREE}), max |d log-prob| {worst:.4f} (want < {INT8_LOGPROB}); "
         f"request {q_s * 1e3:.3f} ms int8, {f_s * 1e3:.3f} ms bf16")
     if not (torch.isfinite(q).all() and agree >= INT8_TOP1_AGREE and worst < INT8_LOGPROB):
         raise AssertionError(f"int8 ViViT: agreement {agree}, max |d log-prob| {worst}")
+    _profile_step("serve", lambda: request(tv.predict_step_int8), "int8 request")
     return {"clahe": d[0], "small_mha": d[1], "int8_matmul": d[2]}
 
 
@@ -637,8 +722,7 @@ def phase_serve(dev: dict) -> dict:
             serve(model, *inputs[n_clips], "cuda")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        cl.clahe_cuda.launch_count = 0
-        att.small_mha.launch_count = 0
+        _zero_counts()
         for n_clips in (8, 8, 8, 384, 384, 384):
             k1, k2 = cl.clahe_cuda.launch_count, att.small_mha.launch_count
             t0 = time.perf_counter()
@@ -653,8 +737,12 @@ def phase_serve(dev: dict) -> dict:
         launches = {"clahe": cl.clahe_cuda.launch_count,
                     "small_mha": att.small_mha.launch_count}
         peak = torch.cuda.max_memory_allocated()
+        _all_by_tensor_cores("serve", att.small_mha)
         log("serve", f"6 requests: launches K1={launches['clahe']} K2={launches['small_mha']} "
-            f"(1 and {cfg.num_layers} per request); logits finite")
+            f"(1 and {cfg.num_layers} per request; K2 routes {att.small_mha.route_counts}); "
+            "logits finite")
+        # where the time of a batch-384 request goes
+        busy_ms = _profile_step("serve", lambda: serve(model, *inputs[384], "cuda"), "request")
 
         gpu_logits, gpu_roi = serve(model, *inputs[8], "cuda")
         cpu_logits, cpu_roi = serve(cpu_model, *inputs[8], "cpu")
@@ -675,8 +763,9 @@ def phase_serve(dev: dict) -> dict:
     log("serve", f"request times ({dev['smi']}): batch 8 "
         f"{[round(t * 1e3, 3) for t in times[8]]} ms; batch 384 "
         f"{[round(t * 1e3, 3) for t in times[384]]} ms; batch 384 median "
-        f"{per_req * 1e3:.3f} ms = {384 * CLIP_FRAMES / per_req:.1f} frames/s; "
-        f"peak device memory {peak / 2**20:.1f} MiB")
+        f"{per_req * 1e3:.3f} ms = {384 * CLIP_FRAMES / per_req:.1f} frames/s (the profiled "
+        f"request's {busy_ms:.3f} ms of kernels and copies are {busy_ms / (per_req * 1e3):.3f} "
+        f"of it); peak device memory {peak / 2**20:.1f} MiB")
     return launches
 
 
@@ -826,11 +915,11 @@ def phase_diffuse(dev: dict) -> dict:
     launches = {"small_mha": att.small_mha.launch_count,
                 "flash_attention": att.flash_attention.launch_count}
     peak = torch.cuda.max_memory_allocated()
-    _all_by_tensor_cores("diffuse", att.flash_attention)
+    _all_by_tensor_cores("diffuse", att.flash_attention, att.small_mha)
     log("diffuse", f"4 requests (ddim x3, dpmpp) of {DIFF_FRAMES} frames x {DIFF_STEPS} "
         f"steps: launches K1=0 K2={launches['small_mha']} K3={launches['flash_attention']} "
         f"(4 and {n_attn}x{DIFF_STEPS} per request; K3 routes "
-        f"{att.flash_attention.route_counts}); uint8 frames "
+        f"{att.flash_attention.route_counts}, K2 routes {att.small_mha.route_counts}); uint8 frames "
         f"{tuple(out.shape)}, pixel mean {out.float().mean().item():.2f}")
 
     # where the time of a DDIM request goes
@@ -886,19 +975,21 @@ def _counts() -> dict:
 def _zero_counts() -> None:
     from lipreading_video_generation_tpu_torch.ops import attention as att
     from lipreading_video_generation_tpu_torch.ops import clahe_cuda as cl
+    from lipreading_video_generation_tpu_torch.ops import matmul_cuda as mm
 
     for fn in (cl.clahe_cuda, att.small_mha, att.flash_attention, att.flash_bwd_dkv,
-               att.flash_bwd_dq):
+               att.flash_bwd_dq, mm.int8_matmul, mm.bf16_matmul):
         fn.launch_count = 0
-    for fn in (att.flash_attention, att.flash_bwd_dkv, att.flash_bwd_dq):
-        fn.route_counts = dict.fromkeys(fn.route_counts, 0)
+        if hasattr(fn, "route_counts"):
+            fn.route_counts = dict.fromkeys(fn.route_counts, 0)
 
 
 def _all_by_tensor_cores(phase: str, *fns) -> None:
     """Every launch of ``fns`` since ``_zero_counts`` took the tensor-core
     route (``route_counts`` beside ``launch_count``)."""
     for fn in fns:
-        if fn.route_counts != {"sm90": fn.launch_count, "cuda_core": 0} or fn.launch_count < 1:
+        others = sum(n for r, n in fn.route_counts.items() if r != "sm90")
+        if fn.route_counts["sm90"] != fn.launch_count or others or fn.launch_count < 1:
             raise AssertionError(f"{phase}: {fn.__name__} took the routes {fn.route_counts} in "
                                  f"{fn.launch_count} launches, want all by the tensor cores")
 
@@ -917,8 +1008,8 @@ def train_batch(cfg, n: int, seed: int, size: int = 160) -> dict:
 
 
 # kernel-name fragments of the hand-written kernels, for the profiles
-KERNEL_NAMES = {"K2": "small_mha_kernel", "K3": "flash_fwd_",
-                "K4": "flash_bwd_dkv", "K5": "flash_bwd_dq"}
+KERNEL_NAMES = {"K1": "clahe_kernel", "K2": "small_mha_", "K3": "flash_fwd_",
+                "K4": "flash_bwd_dkv", "K5": "flash_bwd_dq", "K6": "::mm_"}
 
 
 def _profiled(fn):
@@ -946,6 +1037,9 @@ def _profile_step(phase: str, step, what: str = "step") -> float:
     hand-written kernel, and the heaviest kernels by name. Returns the
     device time, ms."""
     wall_ms, _, kernels = _profiled(step)
+    # the int8 stages' ranges carry their kernels' device time: not a second time
+    stages = [r for r in kernels if r[0].startswith("int8/")]
+    kernels = [r for r in kernels if not r[0].startswith("int8/")]
     busy_ms = sum(ms for _, ms, _ in kernels)
     if busy_ms <= 0:
         raise AssertionError(f"{phase} profile: no device time")
@@ -956,8 +1050,11 @@ def _profile_step(phase: str, step, what: str = "step") -> float:
     log(phase, f"profile of one {what}: wall {wall_ms:.3f} ms under the profiler, device kernels "
         f"and copies {busy_ms:.3f} ms in {sum(c for _, _, c in kernels)} launches (busy share "
         f"{busy_ms / wall_ms:.3f}); "
-        + ", ".join(f"{k} {ms:.3f} ms ({ms / busy_ms:.1%}, {n}x)" for k, (ms, n) in own.items())
-        + f", all else {rest:.3f} ms ({rest / busy_ms:.1%})")
+        + ", ".join(f"{k} {ms:.3f} ms ({ms / busy_ms:.1%}, {n}x)" for k, (ms, n) in own.items()
+                    if n)
+        + f", all else {rest:.3f} ms ({rest / busy_ms:.1%})"
+        + ("; by int8 stage " + ", ".join(f"{name[5:]} {ms:.3f} ms ({ms / busy_ms:.1%})"
+                                          for name, ms, _ in sorted(stages)) if stages else ""))
     for name, ms, count in kernels[:8]:
         log(phase, f"  {ms:9.3f} ms {count:5d}x {name[:110]}")
     return busy_ms
@@ -1023,7 +1120,8 @@ def phase_train(dev: dict) -> dict:
         if d != want:
             raise AssertionError(f"train step launched {d}, want {want}")
     launches = _counts()
-    _all_by_tensor_cores("train", att.flash_attention, att.flash_bwd_dkv, att.flash_bwd_dq)
+    _all_by_tensor_cores("train", att.flash_attention, att.flash_bwd_dkv, att.flash_bwd_dq,
+                         att.small_mha)
     peak = torch.cuda.max_memory_allocated()
     ema_moved = sum(int(not torch.equal(e, e0)) for e, e0 in zip(state.ema.parameters(), ema0))
     if not (np.isfinite(losses).all() and _finite(state.model) and _finite(state.ema)):
@@ -1031,7 +1129,7 @@ def phase_train(dev: dict) -> dict:
     if ema_moved == 0:
         raise AssertionError("the EMA did not move in 5 steps")
     log("train", f"5 steps: losses {[round(x, 5) for x in losses]}; launches per step K2 4 "
-        f"K3 16 K4 16 K5 16 (total {launches}; K3, K4 and K5 all by the tensor-core route); "
+        f"K3 16 K4 16 K5 16 (total {launches}; K2, K3, K4 and K5 all by the tensor-core route); "
         f"params and EMA finite; EMA moved in "
         f"{ema_moved}/{len(ema0)} tensors")
 
@@ -1191,7 +1289,8 @@ def phase_guidance(dev: dict) -> dict:
     moved = (guided.int() - plain.int()).abs().float().mean().item()
     if moved == 0:
         raise AssertionError("guidance changed nothing")
-    _all_by_tensor_cores("guidance", att.flash_attention, att.flash_bwd_dkv, att.flash_bwd_dq)
+    _all_by_tensor_cores("guidance", att.flash_attention, att.flash_bwd_dkv, att.flash_bwd_dq,
+                         att.small_mha)
     log("guidance", f"guided sample_video (label 2, scale 5), {DIFF_FRAMES} frames x "
         f"{DIFF_STEPS} DDIM steps: launches {d} ({n_attn} K4/K5 a step; K3, K4 and K5 all by "
         f"the tensor-core route since the first classifier step); mean |guided - "
@@ -1255,9 +1354,11 @@ def _profile_request(mode: str, request) -> None:
     busy_ms = sum(ms for _, ms, _ in kernels)
     if busy_ms <= 0 or len(stages) != (4 if mode != "float" else 0):
         raise AssertionError(f"{mode} profile: device time {busy_ms} ms, stages {stages}")
+    k6_ms = sum(ms for name, ms, _ in kernels if KERNEL_NAMES["K6"] in name)
+    k6_n = sum(n for name, _, n in kernels if KERNEL_NAMES["K6"] in name)
     log("lipsync", f"profile of one {mode} request: wall {wall_ms:.3f} ms under the profiler, "
         f"device kernels and copies {busy_ms:.3f} ms in {sum(c for _, _, c in kernels)} launches "
-        f"(busy share {busy_ms / wall_ms:.3f})"
+        f"(busy share {busy_ms / wall_ms:.3f}); K6's kernels by name {k6_ms:.3f} ms ({k6_n}x)"
         + ("; by int8 stage " + ", ".join(f"{k[5:]} {v:.3f} ms ({v / busy_ms:.1%})"
                                           for k, v in sorted(stages.items()))
            + f"; all else {busy_ms - sum(stages.values()):.3f} ms" if stages else ""))
@@ -1302,7 +1403,7 @@ def phase_lipsync(dev: dict) -> dict:
         inf.generate_frames(sd, frames, boxes, mels, cfg, pre)            # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        mm.int8_matmul.launch_count = 0
+        _zero_counts()
         times = []
         for _ in range(3):
             before = mm.int8_matmul.launch_count
@@ -1320,6 +1421,8 @@ def phase_lipsync(dev: dict) -> dict:
             if np.array_equal(out, frames):
                 raise AssertionError(f"{mode}: no face was pasted in")
         result["launches"] += mm.int8_matmul.launch_count
+        if cfg.serve_int8:
+            _all_by_tensor_cores("lipsync", mm.int8_matmul)
         peak = torch.cuda.max_memory_allocated()
         med = statistics.median(times)
         result["ms"][mode], result["peak_mib"][mode] = med * 1e3, peak / 2**20
@@ -1327,7 +1430,8 @@ def phase_lipsync(dev: dict) -> dict:
         fps = LIPSYNC_FRAMES / med
         log("lipsync", f"{mode}: requests {[round(t * 1e3, 3) for t in times]} ms, median "
             f"{med * 1e3:.3f} ms = {fps:.1f} frames/s = {fps / gcfg.fps:.2f} x real time at "
-            f"{gcfg.fps:g} fps; K6 launches a request {want} ({n_convs} x {n_batches}); frames "
+            f"{gcfg.fps:g} fps; K6 launches a request {want} ({n_convs} x {n_batches}), routes "
+            f"{mm.int8_matmul.route_counts}; frames "
             f"{out.shape} uint8, untouched outside the boxes; peak device memory "
             f"{peak / 2**20:.1f} MiB ({dev['smi']})")
     for mode in ("int8_dynamic", "int8_static"):
@@ -1387,13 +1491,22 @@ def phase_microbench() -> dict:
     from lipreading_video_generation_tpu_torch.bench import microbench_int8
     from lipreading_video_generation_tpu_torch.ops import matmul_cuda as mm
 
-    mm.int8_matmul.launch_count = mm.bf16_matmul.launch_count = 0
+    _zero_counts()
     res = microbench_int8.run(size=4096, iters=10, seed=SEED)
     launches = {"int8_matmul": mm.int8_matmul.launch_count,
                 "bf16_matmul": mm.bf16_matmul.launch_count}
-    log("microbench", f"4096^3: K6 bf16 {res['k6_bf16_ms']:.4f} ms, K6 int8 "
-        f"{res['k6_int8_ms']:.4f} ms, torch.matmul bf16 {res['torch_matmul_bf16_ms']:.4f} ms, "
-        f"torch._int_mm {res['torch_int_mm_ms']:.4f} ms; launches {launches}")
+    want = {"k6_bf16": "sm90", "k6_int8": "mma_sync", "k6_int8_kmajor": "sm90"}
+    if res["routes"] != want or mm.bf16_matmul.route_counts["mma_sync"] or (
+            mm.int8_matmul.route_counts["sm90"] != mm.int8_matmul.route_counts["mma_sync"]):
+        raise AssertionError(f"microbench routes {res['routes']}, {mm.int8_matmul.route_counts}, "
+                             f"{mm.bf16_matmul.route_counts}; want {want}")
+    log("microbench", f"4096^3: K6 bf16 {res['k6_bf16_ms']:.4f} ms (B row-major, route sm90), "
+        f"torch.matmul bf16 {res['torch_matmul_bf16_ms']:.4f} ms; K6 int8, B the (N,K) weight "
+        f"transposed (route sm90) {res['k6_int8_kmajor_ms']:.4f} ms, torch._int_mm on the same "
+        f"{res['torch_int_mm_kmajor_ms']:.4f} ms; K6 int8, B row-major (route mma_sync) "
+        f"{res['k6_int8_ms']:.4f} ms, torch._int_mm {res['torch_int_mm_ms']:.4f} ms; launches "
+        f"{launches}, routes int8 {mm.int8_matmul.route_counts} bf16 "
+        f"{mm.bf16_matmul.route_counts}")
     return {"launches": launches, "result": res}
 
 
@@ -1459,6 +1572,52 @@ def _flash_fwd_sm90_launcher(q, k, v):
     return launch
 
 
+def _small_mha_sm90_launcher(q, k, v, num_heads: int):
+    """The same for the tensor-core K2 on (B, S, E) bf16 q, k, v: what
+    ``ops/attention._small_mha_launch`` does, without its host work per call
+    and without its count."""
+    import ctypes
+
+    from lipreading_video_generation_tpu_torch.ops import _build
+
+    b, s, e = q.shape
+    d = e // num_heads
+    out = torch.empty(b, s, e, dtype=q.dtype, device=q.device)
+    vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    fn = _build.kernel("lvg_small_mha_sm90", [vp] * 4 + [i32] + [i64] * 6 + [i32] * 3
+                       + [ctypes.c_float, i32, vp])
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, q.stride(0), q.stride(1),
+            k.stride(0), k.stride(1), v.stride(0), v.stride(1), s, num_heads, d,
+            1.0 / math.sqrt(d), 0)
+
+    def launch():
+        _build.check(fn(*args, torch.cuda.current_stream().cuda_stream), "small_mha (sm90)")
+
+    return launch
+
+
+def _mm_sm90_launcher(a, b):
+    """The same for the tensor-core K6 on (M, K) and (K, N) int8 or bf16
+    operands that ``matmul_route`` sends to it."""
+    import ctypes
+
+    from lipreading_video_generation_tpu_torch.ops import _build
+
+    int8 = a.dtype == torch.int8
+    out = torch.empty((a.shape[0], b.shape[1]), dtype=torch.int32 if int8 else torch.float32,
+                      device=a.device)
+    vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    fn = _build.kernel("lvg_mm_sm90_int8" if int8 else "lvg_mm_sm90_bf16",
+                       [vp] * 3 + [i32] * 3 + [i64] * 3 + [vp])
+    args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[0], b.shape[1], a.shape[1],
+            a.stride(0), b.stride(0), b.stride(1))
+
+    def launch():
+        _build.check(fn(*args, torch.cuda.current_stream().cuda_stream), "matmul (sm90)")
+
+    return launch
+
+
 def phase_timing(dev: dict, microbench: dict) -> dict:
     import torch.nn.functional as F
 
@@ -1468,6 +1627,7 @@ def phase_timing(dev: dict, microbench: dict) -> dict:
     from lipreading_video_generation_tpu_torch.ops import matmul_cuda as mm
 
     x = _uniform((384 * CLIP_FRAMES, 48, 48), 0, 255, SEED)
+    _zero_counts()
     with torch.inference_mode():
         k1_ms, k1_plain, raw1 = _plain_vs_kernel(
             lambda: cl.clahe_reference(x, 0.2, (8, 8)),
@@ -1477,9 +1637,13 @@ def phase_timing(dev: dict, microbench: dict) -> dict:
         k2_ms, k2_plain, raw2 = _plain_vs_kernel(
             lambda: att._mha_einsum(q, k, v, 8, False),
             lambda: att.small_mha(q, k, v, 8), 20)
+        if att.small_mha.route_counts["cuda_core"]:
+            raise AssertionError("the timed K2 launches did not all take the tensor-core kernel")
         q4, k4, v4 = (t.reshape(384, 80, 8, 32).transpose(1, 2) for t in (q, k, v))
         F.scaled_dot_product_attention(q4, k4, v4)
         k2_lib = _event_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4), 20)
+        # the kernel alone, as for K3 below: the C entry point in a loop
+        k2_alone = _event_ms(_small_mha_sm90_launcher(q, k, v, 8), 100)
         # K3 at the U-Net's three shapes, batch DIFF_FRAMES, as the U-Net
         # calls it: (B, 1, S, D) views of column slices of one qkv tensor
         k3, k3_lib, k3_alone = {}, {}, {}
@@ -1512,8 +1676,12 @@ def phase_timing(dev: dict, microbench: dict) -> dict:
             f"{dev['smi']}")
     log("timing", f"K1 clahe (1920,48,48) f32: kernel {k1_ms:.4f} ms, plain {k1_plain:.4f} ms "
         f"(plain,kernel,kernel,plain = {[round(t, 4) for t in raw1]}) on {dev['smi']}")
-    log("timing", f"K2 small_mha (384,80,256) H=8 bf16: kernel {k2_ms:.4f} ms, plain "
-        f"{k2_plain:.4f} ms (plain,kernel,kernel,plain = {[round(t, 4) for t in raw2]}) "
+    k2_bound = _attention_bound(384, 8, 80, 32, 4, 4)["bound_ms"]
+    log("timing", f"K2 small_mha (384,80,256) H=8 bf16, route sm90: kernel {k2_ms:.4f} ms (bound "
+        f"{k2_bound:.4f} ms by bytes, {k2_bound / k2_ms:.1%} of it), plain "
+        f"{k2_plain:.4f} ms (plain,kernel,kernel,plain = {[round(t, 4) for t in raw2]}), the "
+        f"library's forward (SDPA) {k2_lib:.4f} ms: {k2_ms / k2_lib:.2f} x; the C entry point in a "
+        f"loop, output allocated once: {k2_alone:.4f} ms ({k2_bound / k2_alone:.1%} of the bound) "
         f"on {dev['smi']}")
     # K4 and K5 at the same shapes, each against the part of the plain
     # backward that gives its outputs
@@ -1559,29 +1727,56 @@ def phase_timing(dev: dict, microbench: dict) -> dict:
         + ", ".join(f"({DIFF_FRAMES},1,{s},{d}) {ms:.4f} ms" for (s, d), ms in k3_lib.items()))
     bwd_lib = bwd_lib[(16384, 64)]
 
-    # K6 int8 at the generator's largest product, as int8 serving calls it;
-    # bf16 at the microbench's 4096^3 (kernel and library times from its run)
-    m, kk, n = 128 * 96 * 96, 1440, 64
-    a8, w8 = _int8((m, kk), SEED + 70), _int8((n, kk), SEED + 71)
-    k6_ms, k6_plain, raw6 = _plain_vs_kernel(lambda: mm.matmul_reference(a8, w8.t()),
-                                             lambda: mm.int8_matmul(a8, w8.t()), 3)
-    w8_rows = w8.t().contiguous()
-    torch._int_mm(a8, w8_rows)
-    k6_lib = _event_ms(lambda: torch._int_mm(a8, w8_rows), 3)
-    del a8, w8, w8_rows
-    log("timing", f"K6 int8_matmul ({m} x {kk} x {n}), B the (N,K) weight transposed: kernel "
-        f"{k6_ms:.4f} ms ({2.0 * m * kk * n / k6_ms / 1e9:.2f} TOP/s, {m * kk / k6_ms / 1e6:.1f} "
-        f"GB/s of A), plain (float64 matmul) {k6_plain:.4f} ms (plain,kernel,kernel,plain = "
-        f"{[round(t, 4) for t in raw6]}), torch._int_mm {k6_lib:.4f} ms on {dev['smi']}")
+    # K6 int8 as int8 serving calls it (B the (N, K) weight transposed), at the
+    # generator's largest product, the ViViT's qkv product, the generator's
+    # mel stem and its 1x1 bottleneck (8 tiles for all SMs and a long K), each
+    # beside torch._int_mm and through the C entry point alone; bf16 and int8 at the microbench's 4096^3 (kernel and
+    # library times from its run)
+    k6 = {}
+    for m, kk, n in ((128 * 96 * 96, 1440, 64), (30720, 256, 768), (65536, 16, 32),
+                     (128, 4608, 512)):
+        a8, w8 = _int8((m, kk), SEED + 70), _int8((n, kk), SEED + 71)
+        before = mm.int8_matmul.route_counts["sm90"]
+        ms, plain, raw = _plain_vs_kernel(lambda: mm.matmul_reference(a8, w8.t()),
+                                          lambda: mm.int8_matmul(a8, w8.t()), 3, 20)
+        if mm.int8_matmul.route_counts["sm90"] != before + 41:
+            raise AssertionError("the timed K6 launches did not take the tensor-core kernel")
+        w8_rows = w8.t().contiguous()
+        torch._int_mm(a8, w8_rows)
+        lib = _event_ms(lambda: torch._int_mm(a8, w8_rows), 20)
+        alone = _event_ms(_mm_sm90_launcher(a8, w8.t()), 50)
+        bound = _bound(m * kk + kk * n + m * n * 4, 2.0 * m * kk * n, "int8")
+        k6[(m, kk, n)] = dict(ms=ms, plain_ms=plain, library_ms=lib, **bound)
+        log("timing", f"K6 int8_matmul ({m} x {kk} x {n}), B the (N,K) weight transposed, route "
+            f"sm90: kernel {ms:.4f} ms ({2.0 * m * kk * n / ms / 1e9:.2f} TOP/s, "
+            f"{(m * kk + m * n * 4) / ms / 1e6:.1f} GB/s of A and C; bound {bound['bound_ms']:.4f} "
+            f"ms by {bound['bound_by']}, {bound['bound_ms'] / ms:.1%} of it), plain (float64 "
+            f"matmul) {plain:.4f} ms (plain,kernel,kernel,plain = {[round(t, 4) for t in raw]}), "
+            f"torch._int_mm {lib:.4f} ms: {ms / lib:.2f} x; the C entry point in a loop, output "
+            f"allocated once: {alone:.4f} ms ({bound['bound_ms'] / alone:.1%} of the bound) on "
+            f"{dev['smi']}")
+        del a8, w8, w8_rows
     mb = microbench["result"]
     ops = make_operands(4096, SEED, "cuda")
     mm.matmul_reference(ops["a16"], ops["b16"])
     bf16_plain = _event_ms(lambda: mm.matmul_reference(ops["a16"], ops["b16"]), 5)
+    alone16 = _event_ms(_mm_sm90_launcher(ops["a16"], ops["b16"]), 20)
+    alone8 = _event_ms(_mm_sm90_launcher(ops["a8"], ops["b8_kmajor"]), 20)
     del ops
-    log("timing", f"K6 bf16_matmul 4096^3: kernel {mb['k6_bf16_ms']:.4f} ms, plain (float32 matmul "
-        f"of the upcast operands, tf32 off) {bf16_plain:.4f} ms, torch.matmul bf16 "
-        f"{mb['torch_matmul_bf16_ms']:.4f} ms; int8 4096^3: kernel {mb['k6_int8_ms']:.4f} ms, "
-        f"torch._int_mm {mb['torch_int_mm_ms']:.4f} ms on {dev['smi']}")
+    bound16 = _bound(2 * 4096 * 4096 * 2 + 4096 * 4096 * 4, 2.0 * 4096 ** 3, "bf16")
+    bound8 = _bound(2 * 4096 * 4096 + 4096 * 4096 * 4, 2.0 * 4096 ** 3, "int8")
+    log("timing", f"K6 at 4096^3 (routes {mb['routes']}): bf16, B row-major: kernel "
+        f"{mb['k6_bf16_ms']:.4f} ms (bound {bound16['bound_ms']:.4f} ms by operations, "
+        f"{bound16['bound_ms'] / mb['k6_bf16_ms']:.1%} of it; C entry point alone {alone16:.4f} "
+        f"ms), plain (float32 matmul of the upcast operands, tf32 off) {bf16_plain:.4f} ms, "
+        f"torch.matmul bf16 {mb['torch_matmul_bf16_ms']:.4f} ms: "
+        f"{mb['k6_bf16_ms'] / mb['torch_matmul_bf16_ms']:.2f} x; int8, B the (N,K) weight "
+        f"transposed: kernel {mb['k6_int8_kmajor_ms']:.4f} ms (bound {bound8['bound_ms']:.4f} ms "
+        f"by operations, {bound8['bound_ms'] / mb['k6_int8_kmajor_ms']:.1%} of it; C entry point "
+        f"alone {alone8:.4f} ms), torch._int_mm {mb['torch_int_mm_kmajor_ms']:.4f} ms; int8, B "
+        f"row-major (mma.sync kernel): kernel {mb['k6_int8_ms']:.4f} ms, torch._int_mm "
+        f"{mb['torch_int_mm_ms']:.4f} ms on {dev['smi']}")
+    m, kk, n = 128 * 96 * 96, 1440, 64
 
     # the JSON line carries K3, K4 and K5 at the U-Net's FLOP-heaviest shape
     n_img = 384 * CLIP_FRAMES * 48 * 48
@@ -1601,12 +1796,9 @@ def phase_timing(dev: dict, microbench: dict) -> dict:
         "flash_bwd_dq": dict(ms=bwd[("dq", 16384, 64)][0], plain_ms=bwd[("dq", 16384, 64)][1],
                              library_ms=bwd_lib, library_covers="flash_bwd_dkv+flash_bwd_dq",
                              **_attention_bound(DIFF_FRAMES, 1, 16384, 64, 6, 5)),
-        "int8_matmul": dict(ms=k6_ms, plain_ms=k6_plain, library_ms=k6_lib,
-                            **_bound(m * kk + kk * n + m * n * 4, 2.0 * m * kk * n, "int8")),
+        "int8_matmul": k6[(m, kk, n)],
         "bf16_matmul": dict(ms=mb["k6_bf16_ms"], plain_ms=bf16_plain,
-                            library_ms=mb["torch_matmul_bf16_ms"],
-                            **_bound(2 * 4096 * 4096 * 2 + 4096 * 4096 * 4, 2.0 * 4096 ** 3,
-                                     "bf16")),
+                            library_ms=mb["torch_matmul_bf16_ms"], **bound16),
     }
 
 
@@ -1635,12 +1827,12 @@ def main() -> None:
     jax_pkg = "lipreading_video_generation_tpu"
     sources = {  # name: (CUDA source, the TPU kernel it replaces)
         "clahe": ("clahe.cu", f"{jax_pkg}/ops/clahe_pallas.py:102"),
-        "small_mha": ("small_mha.cu", f"{jax_pkg}/ops/attention.py:570"),
+        "small_mha": ("small_mha_sm90.cu", f"{jax_pkg}/ops/attention.py:570"),
         "flash_attention": ("flash_fwd_sm90.cu", f"{jax_pkg}/ops/attention.py:66"),
         "flash_bwd_dkv": ("flash_bwd_sm90.cu", f"{jax_pkg}/ops/attention.py:216"),
         "flash_bwd_dq": ("flash_bwd_sm90.cu", f"{jax_pkg}/ops/attention.py:272"),
-        "int8_matmul": ("int8_mm.cu", "scripts/microbench_int8_pallas.py:44"),
-        "bf16_matmul": ("int8_mm.cu", "scripts/microbench_int8_pallas.py:44"),
+        "int8_matmul": ("int8_mm_sm90.cu", "scripts/microbench_int8_pallas.py:44"),
+        "bf16_matmul": ("int8_mm_sm90.cu", "scripts/microbench_int8_pallas.py:44"),
     }
     kernels = []
     for name, (source, replaces) in sources.items():
@@ -1658,6 +1850,19 @@ def main() -> None:
                 "sm90: wgmma on bf16 tiles, cp.async ring (aligned bf16 inputs up to head dim "
                 f"256; timed here and on the training path); cuda_core: {pkg}/csrc/flash_bwd.cu "
                 "(float32, unaligned inputs, head dims up to 512)")
+        if name == "small_mha":
+            kern["route_detail"] = (
+                "sm90: mma.sync on bf16 tiles, double-buffered cp.async (aligned bf16 inputs, up "
+                "to 128 tokens, head dim up to 128; timed here and on the ViViT, sampling and "
+                f"training paths); cuda_core: {pkg}/csrc/small_mha.cu (float32, longer "
+                "sequences, unaligned inputs)")
+        if name.endswith("_matmul"):
+            kern["route_detail"] = (
+                "sm90: wgmma on swizzled tiles, a TMA ring kept full by a producer warpgroup, "
+                "persistent blocks (rows of A and "
+                "B on 16-byte boundaries, K contiguous, or N contiguous for a bf16 B; timed here "
+                f"and on the int8 serving paths); mma_sync: {pkg}/csrc/int8_mm.cu (a row-major "
+                "int8 B, odd row strides, element strides, unaligned views)")
         if kern["launches"] < 1:
             raise AssertionError(f"kernel {name} never ran on the main path")
         kernels.append(kern)

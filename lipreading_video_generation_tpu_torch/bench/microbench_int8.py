@@ -2,8 +2,13 @@
 
 Port of ``scripts/microbench_int8_pallas.py``: the same four rows at 4096³ —
 K6 in bf16 and in int8 (``ops/matmul_cuda``), and the library's
-``torch.matmul`` (bf16) and ``torch._int_mm`` (int8) as yardsticks — after
-the same spot checks: the int8 product equal and the bf16 product within
+``torch.matmul`` (bf16) and ``torch._int_mm`` (int8) as yardsticks — with
+the script's row-major operands, plus the int8 product as int8 serving calls
+it: B a (N, K) weight taken as its transpose, K contiguous, the only layout
+the integer tensor-core instruction of ``csrc/int8_mm_sm90.cu`` reads (the
+row-major int8 B runs ``csrc/int8_mm.cu``; ``result["routes"]`` says which
+kernel each row took), again beside ``torch._int_mm`` on the same operands.
+All after the same spot checks: the int8 product equal and the bf16 product within
 rtol 0.1 / atol 1.0 on a 4×4 corner, and here also the whole of both
 products against ``matmul_reference`` (int8 equal; bf16 within 1e-3 of the
 largest |C|: the output is the unrounded float32 sum, so only the order of
@@ -20,7 +25,7 @@ Run on a machine with an NVIDIA GPU:
 
     python -m lipreading_video_generation_tpu_torch.bench.microbench_int8 [--size 4096]
 
-Prints one line per row and a last line of JSON with every number.
+Prints one line per row (six) and a last line of JSON with every number.
 """
 from __future__ import annotations
 
@@ -32,7 +37,7 @@ import numpy as np
 import torch
 
 from ..core.device import default_device
-from ..ops.matmul_cuda import bf16_matmul, int8_matmul, matmul_reference
+from ..ops.matmul_cuda import bf16_matmul, int8_matmul, matmul_reference, matmul_route
 
 BF16_REL_TOL = 1e-3   # of the largest |C|
 
@@ -56,14 +61,19 @@ def make_operands(size: int, seed: int, device) -> Dict[str, torch.Tensor]:
     b16 = torch.from_numpy((rng.standard_normal((size, size)) * 0.1).astype(np.float32))
     a8 = torch.from_numpy(rng.integers(-4, 5, (size, size)).astype(np.int8))
     b8 = torch.from_numpy(rng.integers(-4, 5, (size, size)).astype(np.int8))
+    b8 = b8.to(device)
     return {"a16": a16.to(device, torch.bfloat16), "b16": b16.to(device, torch.bfloat16),
-            "a8": a8.to(device), "b8": b8.to(device)}
+            "a8": a8.to(device), "b8": b8,
+            # the same matrix stored as a (N, K) weight: K contiguous
+            "b8_kmajor": b8.t().contiguous().t()}
 
 
 def check(ops: Dict[str, torch.Tensor]) -> Dict[str, float]:
     """The spot checks and the whole-product checks; raises on a miss."""
     got16, want16 = bf16_matmul(ops["a16"], ops["b16"]), matmul_reference(ops["a16"], ops["b16"])
     got8, want8 = int8_matmul(ops["a8"], ops["b8"]), matmul_reference(ops["a8"], ops["b8"])
+    if not torch.equal(int8_matmul(ops["a8"], ops["b8_kmajor"]), want8):
+        raise AssertionError("int8 product with a K-major B differs from the plain one")
     torch.cuda.synchronize()
     torch.testing.assert_close(got16[:4, :4], want16[:4, :4], rtol=0.1, atol=1.0)
     if not torch.equal(got8[:4, :4], want8[:4, :4]):
@@ -93,9 +103,16 @@ def run(size: int = 4096, iters: int = 20, seed: int = 0) -> Dict[str, object]:
     rows = {
         "k6_bf16": lambda: bf16_matmul(ops["a16"], ops["b16"]),
         "k6_int8": lambda: int8_matmul(ops["a8"], ops["b8"]),
+        "k6_int8_kmajor": lambda: int8_matmul(ops["a8"], ops["b8_kmajor"]),
         "torch_matmul_bf16": lambda: torch.matmul(ops["a16"], ops["b16"]),
         "torch_int_mm": lambda: torch._int_mm(ops["a8"], ops["b8"]),
+        "torch_int_mm_kmajor": lambda: torch._int_mm(ops["a8"], ops["b8_kmajor"]),
     }
+    result["routes"] = {
+        name: matmul_route(a.dtype, size, size, size, a.stride(), b.stride(), a.data_ptr(),
+                           b.data_ptr())
+        for name, (a, b) in {"k6_bf16": (ops["a16"], ops["b16"]), "k6_int8": (ops["a8"], ops["b8"]),
+                             "k6_int8_kmajor": (ops["a8"], ops["b8_kmajor"])}.items()}
     flop = 2.0 * size ** 3
     for name, fn in rows.items():
         fn()                                          # warm-up

@@ -1,5 +1,6 @@
 // What the tensor-core kernels of flash_fwd_sm90.cu (K3) and
-// flash_bwd_sm90.cu (K4, K5) share: 16-byte asynchronous copies into
+// flash_bwd_sm90.cu (K4, K5) share (int8_mm_sm90.cu, K6, and
+// small_mha_sm90.cu, K2, use the copies, descriptors and fences of it): 16-byte asynchronous copies into
 // 128-byte-swizzled shared-memory tiles, the shared-memory matrix descriptor,
 // wgmma.mma_async m64n64k16 / m64n128k16 (bf16 -> float32) with A from shared
 // memory or from registers, its fences, and the tile-level products built
@@ -64,6 +65,10 @@ template <int N> __device__ __forceinline__ void wgmma_wait() {
 template <int N> __device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N> __device__ __forceinline__ void fence_acc(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // Shared-memory matrix descriptor, 128-byte swizzle. K-major operand: rows
@@ -249,6 +254,19 @@ __device__ __forceinline__ void product_rs(float (&d)[N / 2], const uint32_t (&a
 template <int N> __device__ __forceinline__ void fence_regs(uint32_t (&a)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
+// SMs of the current device (132 if it cannot be asked).
+inline int sm_count() {
+  static int count = 0;
+  if (count == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+        count <= 0)
+      count = 132;
+  }
+  return count;
 }
 
 inline bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; }

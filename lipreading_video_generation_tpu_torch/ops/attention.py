@@ -1,5 +1,7 @@
 """Multi-head attention of the port: the hand-written CUDA kernels K2
-(small MHA, ``csrc/small_mha.cu``), K3 (flash-attention forward:
+(small MHA: ``csrc/small_mha_sm90.cu`` on the tensor cores for aligned bf16
+inputs of up to 128 tokens, ``csrc/small_mha.cu`` on CUDA cores for the rest;
+``small_mha_route`` picks), K3 (flash-attention forward:
 ``csrc/flash_fwd_sm90.cu`` on the tensor cores for aligned bf16 inputs,
 ``csrc/flash_fwd.cu`` on CUDA cores for the rest) and K4/K5 (its backward:
 ``csrc/flash_bwd_sm90.cu`` and ``csrc/flash_bwd.cu`` likewise; one rule,
@@ -34,11 +36,14 @@ from . import _build
 
 __all__ = ["attention_reference", "flash_attention", "flash_backward_reference",
            "flash_bwd_dkv", "flash_bwd_dq", "flash_bwd_route", "flash_reference", "flash_route",
-           "mha", "mha_route", "small_mha", "small_mha_viable"]
+           "mha", "mha_route", "small_mha", "small_mha_route", "small_mha_viable"]
 
 _NEG_INF = float(torch.finfo(torch.float32).min) / 2
 _SMALL_MHA_MAX_HS = 768     # the JAX package's bound on H·pad(S)
 _KERNEL_WARPS = 8           # csrc/small_mha.cu's kWarps
+_SMALL_MHA_ROUTES = ("sm90", "cuda_core")
+_SMALL_MHA_MAX_S_SM90 = 128     # csrc/small_mha_sm90.cu: the score strip of a warp, 16 x 128
+_SMALL_MHA_MAX_D_SM90 = 128     # and its O strip, 16 x 128, both in registers
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -89,12 +94,35 @@ def _small_mha_smem_bytes(s: int, d: int) -> int:
     return (s * (2 * d + 1) + _KERNEL_WARPS * (d + s)) * 4
 
 
-def small_mha_viable(num_heads: int, s_q: int, s_k: int, e: int) -> bool:
+def small_mha_route(dtype: torch.dtype, s: int, d: int, strides, offsets) -> str:
+    """Which kernel K2 launches: "sm90" (``csrc/small_mha_sm90.cu``:
+    ``mma.sync`` on bf16 tiles filled by 16-byte asynchronous copies, a warp a
+    head) for bf16 tensors of 1 to 128 tokens with ``d`` a multiple of 8 up to
+    128 (the score and output strips of a warp are registers) whose every
+    (batch, row) stride (in elements, ``strides``: one tuple per tensor) is a
+    multiple of 8 and whose base address (in bytes, or any offset congruent
+    to it modulo 16, ``offsets``: one per tensor) is a multiple of 16;
+    "cuda_core" (``csrc/small_mha.cu``) for float32 (tensor cores would mean
+    TF32), longer sequences, other head dims and anything unaligned."""
+    if (dtype != torch.bfloat16 or d % 8 or d > _SMALL_MHA_MAX_D_SM90
+            or not 1 <= s <= _SMALL_MHA_MAX_S_SM90):
+        return "cuda_core"
+    if any(st % 8 for t in strides for st in t) or any(o % 16 for o in offsets):
+        return "cuda_core"
+    return "sm90"
+
+
+def small_mha_viable(num_heads: int, s_q: int, s_k: int, e: int,
+                     route: str = "cuda_core") -> bool:
     """The JAX package's rule (self-attention, H·pad(S) ≤ 768), plus the
-    kernel's own bound: one head's K and V fit a block's shared memory."""
-    return (s_q == s_k and e % num_heads == 0
-            and num_heads * _small_mha_pad(num_heads, s_q) <= _SMALL_MHA_MAX_HS
-            and _small_mha_smem_bytes(s_q, e // num_heads) <= _build.SMEM_PER_BLOCK)
+    bound of the kernel ``route`` names: on "cuda_core" one head's K and V as
+    float fit a block's shared memory; "sm90" takes every shape
+    ``small_mha_route`` sends it."""
+    if not (s_q == s_k and e % num_heads == 0
+            and num_heads * _small_mha_pad(num_heads, s_q) <= _SMALL_MHA_MAX_HS):
+        return False
+    return (route == "sm90"
+            or _small_mha_smem_bytes(s_q, e // num_heads) <= _build.SMEM_PER_BLOCK)
 
 
 _ENTRY_POINTS = {torch.bfloat16: "lvg_small_mha_bf16", torch.float32: "lvg_small_mha_f32"}
@@ -117,24 +145,29 @@ def _small_mha_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"small_mha takes equal (B, S, E) shapes, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     b, s, e = q.shape
-    if not small_mha_viable(num_heads, s, s, e):
-        raise ValueError(f"small_mha kernel does not take S={s} E={e} heads={num_heads}")
+    if e % num_heads:
+        raise ValueError(f"small_mha: E={e} is not a multiple of heads={num_heads}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("small_mha needs unit stride along E")
+    d = e // num_heads
+    route = small_mha_route(q.dtype, s, d, [t.stride()[:2] for t in (q, k, v)],
+                            [t.data_ptr() for t in (q, k, v)])
+    if not small_mha_viable(num_heads, s, s, e, route):
+        raise ValueError(f"small_mha kernel does not take S={s} E={e} heads={num_heads}")
     out = torch.empty(b, s, e, dtype=q.dtype, device=q.device)
     if b == 0 or s == 0:
         return out
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    fn = _build.kernel(_ENTRY_POINTS[q.dtype],
+    fn = _build.kernel("lvg_small_mha_sm90" if route == "sm90" else _ENTRY_POINTS[q.dtype],
                        [vp, vp, vp, vp, i32, i64, i64, i64, i64, i64, i64,
                         i32, i32, i32, ctypes.c_float, i32, vp])
-    d = e // num_heads
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
             q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
             s, num_heads, d, 1.0 / math.sqrt(d), int(causal),
             torch.cuda.current_stream().cuda_stream)
-    _build.check(rc, "small_mha")
+    _build.check(rc, f"small_mha ({route})")
     small_mha.launch_count += 1
+    small_mha.route_counts[route] += 1
     return out
 
 
@@ -160,13 +193,15 @@ class _SmallMHA(torch.autograd.Function):
 def small_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
               causal: bool = False) -> torch.Tensor:
     """Small-sequence self-attention over (B, S, E): K2 for CUDA tensors
-    (``launch_count`` counts its launches), ``_mha_einsum`` for CPU ones."""
+    (``launch_count`` counts its launches, ``route_counts`` those of each
+    route of ``small_mha_route``), ``_mha_einsum`` for CPU ones."""
     if not q.is_cuda:
         return _mha_einsum(q, k, v, num_heads, causal)
     return _SmallMHA.apply(q, k, v, num_heads, causal)
 
 
 small_mha.launch_count = 0
+small_mha.route_counts = dict.fromkeys(_SMALL_MHA_ROUTES, 0)
 
 
 _FLASH_BQ = _FLASH_BK = 64          # csrc/flash_fwd.cu's tile (Layout::BQ, BK) up to head dim 256

@@ -1,5 +1,7 @@
 """Integer and bf16 matrix products: the hand-written CUDA kernel K6
-(``csrc/int8_mm.cu``) and its plain torch version.
+(``csrc/int8_mm_sm90.cu`` on the tensor cores' ``wgmma`` for aligned
+operands, ``csrc/int8_mm.cu`` on ``mma.sync`` for the rest; ``matmul_route``
+picks) and its plain torch version.
 
 Port of ``scripts/microbench_int8_pallas.py``'s ``mm_kernel`` / ``make_mm``:
 C(M, N) = A(M, K) · B(K, N) with int8 operands and an int32 result, or bf16
@@ -10,7 +12,8 @@ their strides, because it carries every integer product of int8 serving
 convolution on a CUDA device.
 
 ``int8_matmul`` and ``bf16_matmul`` launch the kernel for CUDA tensors (or
-raise) and use ``matmul_reference`` for CPU tensors. ``matmul_reference`` is
+raise; ``launch_count`` counts the launches, ``route_counts`` those of each
+route) and use ``matmul_reference`` for CPU tensors. ``matmul_reference`` is
 the plain version the tests and ``chip_smoke.py`` hold the kernel against.
 """
 from __future__ import annotations
@@ -21,10 +24,12 @@ import torch
 
 from . import _build
 
-__all__ = ["matmul_reference", "int8_matmul", "bf16_matmul"]
+__all__ = ["matmul_reference", "matmul_route", "int8_matmul", "bf16_matmul"]
 
 _ACC = {torch.int8: torch.int32, torch.bfloat16: torch.float32}
 _ENTRY = {torch.int8: "lvg_mm_int8", torch.bfloat16: "lvg_mm_bf16"}
+_ENTRY_SM90 = {torch.int8: "lvg_mm_sm90_int8", torch.bfloat16: "lvg_mm_sm90_bf16"}
+_ROUTES = ("sm90", "mma_sync")
 _BN = 64             # csrc/int8_mm.cu: columns of C per block (grid.y <= 65535)
 _INT_MAX = 2**31 - 1
 
@@ -54,6 +59,34 @@ def matmul_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     raise ValueError(f"matmul_reference takes int8 or bfloat16, got {a.dtype}")
 
 
+def matmul_route(dtype: torch.dtype, m: int, n: int, k: int, a_strides, b_strides,
+                 a_ptr: int, b_ptr: int) -> str:
+    """Which kernel K6 launches for (m, k) · (k, n) operands with the given
+    element strides and base addresses (bytes, or any offsets congruent to
+    them modulo 16): "sm90" (``csrc/int8_mm_sm90.cu``: wgmma on swizzled
+    tiles filled by TMA) where A has K contiguous, B
+    has K contiguous (an (N, K) weight taken as its transpose) or, bf16 only,
+    N contiguous (integer wgmma takes no transposed operand), and every row
+    of both starts on a 16-byte boundary and rows do not overlap; "mma_sync"
+    (``csrc/int8_mm.cu``) for anything else: a row-major int8 B, row strides
+    that are no multiple of 16 bytes (odd K), element strides, unaligned,
+    broadcast or overlapping views."""
+    size = 1 if dtype == torch.int8 else 2
+
+    def rows_ok(ptr, row_stride, rows, length):
+        # 16-byte row starts; rows that do not overlap (a tensor map's rule)
+        return (ptr % 16 == 0 and (row_stride * size) % 16 == 0
+                and (row_stride >= length or rows == 1))
+
+    if a_strides[1] != 1 or not rows_ok(a_ptr, a_strides[0], m, k):
+        return "mma_sync"
+    if b_strides[0] == 1 and rows_ok(b_ptr, b_strides[1], n, k):
+        return "sm90"
+    if size == 2 and b_strides[1] == 1 and rows_ok(b_ptr, b_strides[0], k, n):
+        return "sm90"
+    return "mma_sync"
+
+
 def _launch(a: torch.Tensor, b: torch.Tensor, wrapper) -> torch.Tensor:
     """K6 on CUDA tensors for the public ``wrapper`` (which carries the
     launch count): launches on the current stream without synchronising;
@@ -68,22 +101,31 @@ def _launch(a: torch.Tensor, b: torch.Tensor, wrapper) -> torch.Tensor:
         return out
     if k == 0:
         return out.zero_()
-    if max(m, n, k) > _INT_MAX or -(-n // _BN) > 65535:
+    if max(m, n, k) > _INT_MAX:
         raise ValueError(f"{who} does not take M={m} N={n} K={k}")
-    fn = _build.kernel(_ENTRY[a.dtype], [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-        ctypes.c_longlong, ctypes.c_void_p])
-    rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, a.stride(0), a.stride(1),
-            b.stride(0), b.stride(1), torch.cuda.current_stream().cuda_stream)
-    _build.check(rc, who)
+    route = matmul_route(a.dtype, m, n, k, a.stride(), b.stride(), a.data_ptr(), b.data_ptr())
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    stream = torch.cuda.current_stream().cuda_stream
+    if route == "sm90":
+        fn = _build.kernel(_ENTRY_SM90[a.dtype], [vp, vp, vp, i32, i32, i32, i64, i64, i64, vp])
+        rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, a.stride(0), b.stride(0),
+                b.stride(1), stream)
+    else:
+        if -(-n // _BN) > 65535:
+            raise ValueError(f"{who} (mma.sync route) does not take N={n}")
+        fn = _build.kernel(_ENTRY[a.dtype], [vp, vp, vp, i32, i32, i32, i64, i64, i64, i64, vp])
+        rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, a.stride(0), a.stride(1),
+                b.stride(0), b.stride(1), stream)
+    _build.check(rc, f"{who} ({route})")
     wrapper.launch_count += 1
+    wrapper.route_counts[route] += 1
     return out
 
 
 def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(M, K) int8 · (K, N) int8 → (M, N) int32, any strides. A CUDA pair goes
-    through K6 or raises; a CPU pair through ``matmul_reference``."""
+    through K6 (by the route ``matmul_route`` names) or raises; a CPU pair
+    through ``matmul_reference``."""
     _check(a, b, torch.int8, "int8_matmul")
     return _launch(a, b, int8_matmul) if a.is_cuda else matmul_reference(a, b)
 
@@ -97,3 +139,5 @@ def bf16_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 int8_matmul.launch_count = 0
 bf16_matmul.launch_count = 0
+int8_matmul.route_counts = dict.fromkeys(_ROUTES, 0)
+bf16_matmul.route_counts = dict.fromkeys(_ROUTES, 0)

@@ -97,6 +97,80 @@ def test_small_mha_viable_agrees_with_jax(h, s_q, s_k, e):
     assert tatt.small_mha_viable(h, s_q, s_k, e) == jatt.small_mha_viable(h, s_q, s_k, e)
 
 
+@pytest.mark.parametrize("h,s,e,bound", [
+    (8, 80, 256, True), (8, 11, 768, True), (4, 33, 64, True), (4, 128, 256, True),
+    (1, 768, 32, True),         # one head of 768 tokens: K, V as float fit the CUDA-core block
+    (1, 768, 64, False),        # JAX takes it; K and V as float exceed a block's shared memory
+    (8, 97, 256, False)])
+def test_small_mha_viable_takes_the_bound_of_the_route(h, s, e, bound):
+    """The tensor-core route has no bound beyond ``small_mha_route``'s; the
+    CUDA-core one keeps its shared-memory bound."""
+    jax_rule = jatt.small_mha_viable(h, s, s, e)
+    assert tatt.small_mha_viable(h, s, s, e, route="sm90") == jax_rule
+    assert tatt.small_mha_viable(h, s, s, e, route="cuda_core") == (jax_rule and bound)
+    assert tatt.small_mha_viable(h, s, s, e) == tatt.small_mha_viable(h, s, s, e, "cuda_core")
+
+
+_E = 256     # a (B, S, 256) tensor: strides (S·256, 256); a qkv slice: (S·768, 768)
+
+
+@pytest.mark.parametrize("dtype,s,d,strides,offsets,route", [
+    # every K2 shape the paths use, contiguous and as column slices of one qkv
+    (torch.bfloat16, 80, 32, [(80 * 256, 256)] * 3, [0, 0, 0], "sm90"),            # ViViT
+    (torch.bfloat16, 80, 32, [(80 * 768, 768)] * 3, [0, 512, 1024], "sm90"),       # its qkv
+    (torch.bfloat16, 11, 96, [(11 * 2304, 2304)] * 3, [0, 1536, 3072], "sm90"),    # audio encoder
+    (torch.bfloat16, 33, 16, [(33 * 64, 64)] * 3, [256, 512, 768], "sm90"),        # the causal case
+    (torch.float32, 80, 32, [(80 * 256, 256)] * 3, [0, 0, 0], "cuda_core"),        # no TF32
+    (torch.float32, 33, 16, [(33 * 64, 64)] * 3, [0, 0, 0], "cuda_core"),
+    (torch.float16, 33, 16, [(33 * 64, 64)] * 3, [0, 0, 0], "cuda_core"),          # and it raises there
+    # the bounds of S and d
+    (torch.bfloat16, 1, 32, [(256, 256)] * 3, [0, 0, 0], "sm90"),
+    (torch.bfloat16, 16, 8, [(16 * 64, 64)] * 3, [0, 0, 0], "sm90"),
+    (torch.bfloat16, 17, 128, [(17 * 256, 256)] * 3, [0, 0, 0], "sm90"),
+    (torch.bfloat16, 128, 128, [(128 * 256, 256)] * 3, [0, 0, 0], "sm90"),
+    (torch.bfloat16, 129, 64, [(129 * 64, 64)] * 3, [0, 0, 0], "cuda_core"),
+    (torch.bfloat16, 768, 64, [(768 * 64, 64)] * 3, [0, 0, 0], "cuda_core"),
+    (torch.bfloat16, 0, 32, [(0, 256)] * 3, [0, 0, 0], "cuda_core"),
+    (torch.bfloat16, 64, 136, [(64 * 272, 272)] * 3, [0, 0, 0], "cuda_core"),
+    (torch.bfloat16, 64, 12, [(64 * 48, 48)] * 3, [0, 0, 0], "cuda_core"),         # d % 8
+    (torch.bfloat16, 64, 20, [(64 * 80, 80)] * 3, [0, 0, 0], "cuda_core"),
+    # unaligned views: a base 8 bytes into its rows, rows 8 bytes apart modulo 16
+    (torch.bfloat16, 33, 16, [(33 * 72, 72)] * 3, [8, 8, 8], "cuda_core"),
+    (torch.bfloat16, 33, 16, [(33 * 64, 64)] * 3, [0, 0, 2], "cuda_core"),
+    (torch.bfloat16, 33, 16, [(33 * 68, 68)] * 3, [0, 0, 0], "cuda_core"),
+    (torch.bfloat16, 33, 16, [(33 * 64, 64), (33 * 64, 64), (33 * 64 + 4, 64)], [0, 0, 0],
+     "cuda_core"),
+])
+def test_small_mha_route(dtype, s, d, strides, offsets, route):
+    assert tatt.small_mha_route(dtype, s, d, strides, offsets) == route
+
+
+def test_small_mha_route_of_real_tensors():
+    """The rule reads what the wrapper hands it: strides in elements and data
+    pointers (their value modulo 16 is what counts)."""
+    qkv = torch.zeros(4, 80, 768, dtype=torch.bfloat16)
+    parts = qkv.chunk(3, dim=-1)
+
+    def route(ts, s=80, d=32):
+        return tatt.small_mha_route(ts[0].dtype, s, d, [t.stride()[:2] for t in ts],
+                                    [t.data_ptr() - qkv.data_ptr() for t in ts])
+
+    assert route(parts) == "sm90"
+    assert route([t.contiguous() for t in parts][:1] * 3) == "sm90"
+    wide = torch.zeros(4, 80, 264, dtype=torch.bfloat16)
+    assert tatt.small_mha_route(torch.bfloat16, 80, 32, [wide[..., 4:260].stride()[:2]] * 3,
+                                [8, 8, 8]) == "cuda_core"
+    assert route([t.float() for t in parts]) == "cuda_core"
+
+
+def test_small_mha_counts_no_route_on_cpu():
+    arrs = _to_torch(_bse(7, 2, 33, 64), torch.bfloat16)
+    before = dict(tatt.small_mha.route_counts), tatt.small_mha.launch_count
+    tatt.small_mha(*arrs, 4, True)
+    assert (tatt.small_mha.route_counts, tatt.small_mha.launch_count) == before
+    assert set(tatt.small_mha.route_counts) == {"sm90", "cuda_core"}
+
+
 def test_mha_dispatch_on_cpu():
     """CPU tensors take the plain paths and launch no kernel: ``_mha_einsum``
     up to 128² scores, ``flash_reference`` past it."""

@@ -63,17 +63,58 @@ def test_clahe_dispatch_on_card(cuda):
 def test_small_mha_kernel_matches_plain(cuda, b, s, e, h, causal, dtype, tol):
     q, k, v = (_uniform((b, s, e), -2, 2, i, cuda, dtype) for i in range(3))
     before = att.small_mha.launch_count
+    route = "sm90" if dtype == torch.bfloat16 else "cuda_core"   # all contiguous here
+    routed = att.small_mha.route_counts[route]
     got = att.mha(q, k, v, h, causal)
     torch.cuda.synchronize()
     assert att.small_mha.launch_count == before + 1
+    assert att.small_mha.route_counts[route] == routed + 1
     want = att._mha_einsum(q, k, v, h, causal)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+# the tensor-core K2's edges: S = 1, 16, 17 and 128 (its largest), head dims 8,
+# 64 and 128, more heads than blocks at once
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("b,s,e,h", [(3, 1, 64, 4), (3, 16, 64, 4), (3, 17, 64, 4),
+                                     (2, 128, 256, 4), (2, 128, 256, 2), (5, 40, 16, 2),
+                                     (4, 11, 768, 8), (3000, 16, 64, 4)])
+def test_small_mha_tensor_core_kernel_edges(cuda, b, s, e, h, causal):
+    """bf16 on the tensor-core route: within 2e-2 of ``_mha_einsum`` (one
+    bf16 rounding of P and of O), finite, and the same bits from a second
+    launch."""
+    q, k, v = (_uniform((b, s, e), -2, 2, 90 + i, cuda, torch.bfloat16) for i in range(3))
+    routed = att.small_mha.route_counts["sm90"]
+    got = att.small_mha(q, k, v, h, causal)
+    again = att.small_mha(q, k, v, h, causal)
+    torch.cuda.synchronize()
+    assert att.small_mha.route_counts["sm90"] == routed + 2
+    assert torch.isfinite(got.float()).all() and torch.equal(got, again)
+    want = att._mha_einsum(q, k, v, h, causal)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+def test_small_mha_routes_what_the_tensor_core_kernel_does_not_take(cuda):
+    """A bf16 view that starts 8 bytes into its rows, a sequence past 128
+    tokens and float32 run the CUDA-core kernel, to the same bounds."""
+    wide = [_uniform((3, 33, 72), -2, 2, 93 + i, cuda, torch.bfloat16) for i in range(3)]
+    long = [_uniform((2, 160, 64), -2, 2, 96 + i, cuda, torch.bfloat16) for i in range(3)]
+    for (q, k, v), h in (([t[..., 4:68] for t in wide], 4), (long, 1)):
+        before = dict(att.small_mha.route_counts)
+        got = att.small_mha(q, k, v, h, True)
+        torch.cuda.synchronize()
+        assert att.small_mha.route_counts == {"sm90": before["sm90"],
+                                              "cuda_core": before["cuda_core"] + 1}
+        want = att._mha_einsum(q, k, v, h, True)
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
 
 
 def test_small_mha_kernel_takes_qkv_slices(cuda):
     """The main path passes column slices of one fused qkv tensor."""
     q, k, v = _uniform((4, 80, 768), -2, 2, 3, cuda, torch.bfloat16).chunk(3, dim=-1)
+    routed = att.small_mha.route_counts["sm90"]
     got = att.small_mha(q, k, v, 8)
+    assert att.small_mha.route_counts["sm90"] == routed + 1      # the tensor-core kernel
     want = att._mha_einsum(q.contiguous(), k.contiguous(), v.contiguous(), 8, False)
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
 
@@ -389,9 +430,16 @@ def _int8(shape, seed, device):
 
 
 # K6: ragged shapes, one 4096-deep product, the generator's narrowest and
-# widest outputs (M cut), and the operand layouts the int8 path produces
+# widest outputs (M cut), the tensor-core kernel's tile edges, and the operand
+# layouts the int8 path produces
 _MM = [(257, 131, 67), (5, 9, 3), (1, 1, 1), (300, 4608, 512), (4096, 294, 16),
-       (4096, 32, 3), (640, 1024, 256), (129, 64, 65)]
+       (4096, 32, 3), (640, 1024, 256), (129, 64, 65), (129, 144, 72), (255, 4608, 8),
+       (1, 16, 1), (4096, 16, 32), (4096, 1440, 64), (700, 256, 768)]
+
+
+def _mm_route(a, b):
+    return mm.matmul_route(a.dtype, a.shape[0], b.shape[1], a.shape[1], a.stride(), b.stride(),
+                           a.data_ptr(), b.data_ptr())
 
 
 @pytest.mark.parametrize("m,k,n", _MM)
@@ -406,12 +454,18 @@ def test_int8_matmul_kernel_is_exact(cuda, m, k, n, layout):
         a = _int8((2 * m, 2 * k), 70, cuda)[::2, ::2]
         b = _int8((2 * k, 2 * n), 71, cuda)[::2, ::2]
     before = mm.int8_matmul.launch_count
+    route = _mm_route(a, b)
+    # the tensor-core kernel exactly where A and the transposed weight have rows of 16 bytes
+    assert route == ("sm90" if layout == "b_transposed" and k % 16 == 0 else "mma_sync")
+    routed = mm.int8_matmul.route_counts[route]
     got = mm.int8_matmul(a, b)
     torch.cuda.synchronize()
     assert mm.int8_matmul.launch_count == before + 1
+    assert mm.int8_matmul.route_counts[route] == routed + 1
     want = mm.matmul_reference(a, b)
     assert got.dtype == torch.int32 and got.shape == (m, n)
     assert torch.equal(got, want)
+    assert torch.equal(got, mm.int8_matmul(a, b))          # one fixed order of summation
     assert torch.equal(want.cpu(), mm.matmul_reference(a.cpu(), b.cpu()))
 
 
@@ -424,12 +478,57 @@ def test_bf16_matmul_kernel_matches_plain(cuda, m, k, n, layout):
     b = (_uniform((k, n), -1, 1, 73, cuda, torch.bfloat16) if layout == "row_major"
          else _uniform((n, k), -1, 1, 73, cuda, torch.bfloat16).t())
     before = mm.bf16_matmul.launch_count
+    route = _mm_route(a, b)
+    # rows of 16 bytes: K a multiple of 8, and N too where B is row-major
+    aligned = k % 8 == 0 and (layout == "b_transposed" or n % 8 == 0)
+    assert route == ("sm90" if aligned else "mma_sync")
+    routed = mm.bf16_matmul.route_counts[route]
     got = mm.bf16_matmul(a, b)
     torch.cuda.synchronize()
     assert mm.bf16_matmul.launch_count == before + 1
+    assert mm.bf16_matmul.route_counts[route] == routed + 1
     want = mm.matmul_reference(a, b)
     assert got.dtype == torch.float32 and got.shape == (m, n)
     assert (got - want).abs().max().item() <= 1e-3 * want.abs().max().item()
+    assert torch.equal(got, mm.bf16_matmul(a, b))          # no atomics: the same bits again
+
+
+def test_matmul_unaligned_views_take_mma_sync(cuda):
+    """Slices that start one element into wider rows cannot be read by
+    16-byte copies: both types run the mma.sync kernel, to the same bounds;
+    the same values in aligned tensors run the tensor-core kernel."""
+    a8 = _int8((300, 80), 77, cuda)[:, 1:65]
+    b8 = _int8((48, 80), 78, cuda)[:, 1:65].t()
+    a16 = _uniform((300, 80), -1, 1, 79, cuda, torch.bfloat16)[:, 1:65]
+    b16 = _uniform((48, 80), -1, 1, 80, cuda, torch.bfloat16)[:, 1:65].t()
+    for fn, a, b in ((mm.int8_matmul, a8, b8), (mm.bf16_matmul, a16, b16)):
+        before = dict(fn.route_counts)
+        got = fn(a, b)
+        aligned = fn(a.contiguous(), b.t().contiguous().t())
+        torch.cuda.synchronize()
+        assert fn.route_counts == {"sm90": before["sm90"] + 1, "mma_sync": before["mma_sync"] + 1}
+        want = mm.matmul_reference(a, b)
+        if a.dtype == torch.int8:
+            assert torch.equal(got, want) and torch.equal(aligned, want)
+        else:
+            bound = 1e-3 * want.abs().max().item()
+            assert (got - want).abs().max().item() <= bound
+            assert (aligned - want).abs().max().item() <= bound
+
+
+def test_matmul_tensor_core_kernel_takes_more_columns_than_a_grid_axis(cuda):
+    """N above 65,535 tiles of 64 columns: the tensor-core kernel folds its
+    tiles onto one persistent grid; the mma.sync kernel's grid does not
+    reach that far and its route raises."""
+    n = 65535 * 64 + 8
+    a, w = _int8((2, 16), 81, cuda), _int8((n, 16), 82, cuda)
+    routed = mm.int8_matmul.route_counts["sm90"]
+    got = mm.int8_matmul(a, w.t())
+    torch.cuda.synchronize()
+    assert mm.int8_matmul.route_counts["sm90"] == routed + 1
+    assert torch.equal(got, mm.matmul_reference(a, w.t()))
+    with pytest.raises(ValueError, match="mma.sync route"):
+        mm.int8_matmul(a, w.t().contiguous())          # row-major int8 B: the other kernel
 
 
 def test_matmul_wrappers_raise_on_what_k6_does_not_take(cuda):
@@ -441,6 +540,22 @@ def test_matmul_wrappers_raise_on_what_k6_does_not_take(cuda):
     with pytest.raises(ValueError, match="operands on"):
         mm.int8_matmul(a, a.cpu())
     assert mm.int8_matmul(a[:0], a).shape == (0, 8)
+    # each route takes what the rule sends it, and nothing falls from one to the other:
+    # the tensor-core entry point refuses a row-major int8 B and an unaligned view
+    import ctypes
+
+    from lipreading_video_generation_tpu_torch.ops import _build
+
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn = _build.kernel("lvg_mm_sm90_int8", [vp] * 3 + [i32] * 3 + [i64] * 3 + [vp])
+    wide = _int8((16, 32), 75, cuda)
+    out = torch.empty(16, 16, dtype=torch.int32, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    assert fn(wide.data_ptr(), wide.data_ptr(), out.data_ptr(), 16, 16, 16, 32, 32, 1, stream) != 0
+    view = wide[:, 1:17]
+    assert fn(view.data_ptr(), wide.data_ptr(), out.data_ptr(), 16, 16, 16, 32, 1, 32, stream) != 0
+    assert fn(wide.data_ptr(), wide.data_ptr(), out.data_ptr(), 16, 16, 16, 32, 1, 32, stream) == 0
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("stride,pad,bias,static", [((2, 2), 1, True, False),

@@ -201,6 +201,97 @@ def test_matmul_wrappers_check_their_operands():
                        strided.int() @ strided.int().t())
 
 
+# chip_smoke.py's K6_SERVING_SHAPES (M, K, N): int8 serving's products, A the
+# im2col matrix or the quantised activations, B the (N, K) weight transposed
+_SERVING = [(65536, 304, 16), (65536, 16, 32), (65536, 720, 32), (128, 4608, 512),
+            (65536, 32, 3), (65536, 1440, 64), (1179648, 1440, 64),
+            (30720, 256, 768), (30720, 256, 1024), (30720, 1024, 256)]
+_I8, _BF = torch.int8, torch.bfloat16
+
+
+@pytest.mark.parametrize("m,k,n", _SERVING)
+@pytest.mark.parametrize("dtype", [_I8, _BF])
+def test_matmul_route_serving_shapes_take_the_tensor_cores(m, k, n, dtype):
+    assert tmm.matmul_route(dtype, m, n, k, (k, 1), (1, k), 0, 0) == "sm90"
+    # any multiple of 16 bytes as a base address
+    assert tmm.matmul_route(dtype, m, n, k, (k, 1), (1, k), 4096, 512 + 16) == "sm90"
+
+
+@pytest.mark.parametrize("dtype,m,k,n,a_strides,b_strides,a_ptr,b_ptr,route", [
+    # the microbench's operands in both layouts of B
+    (_BF, 4096, 4096, 4096, (4096, 1), (4096, 1), 0, 0, "sm90"),        # row-major: MN-major B
+    (_BF, 4096, 4096, 4096, (4096, 1), (1, 4096), 0, 0, "sm90"),
+    (_I8, 4096, 4096, 4096, (4096, 1), (4096, 1), 0, 0, "mma_sync"),    # no transposed int8 operand
+    (_I8, 4096, 4096, 4096, (4096, 1), (1, 4096), 0, 0, "sm90"),
+    # the tensor-core kernel's edges
+    (_I8, 129, 144, 72, (144, 1), (1, 144), 0, 0, "sm90"),
+    (_I8, 255, 4608, 8, (4608, 1), (1, 4608), 0, 0, "sm90"),
+    (_I8, 1, 16, 1, (16, 1), (1, 16), 0, 0, "sm90"),
+    (_BF, 1, 16, 1, (16, 1), (1, 16), 0, 0, "sm90"),
+    (_I8, 2, 16, 65535 * 64 + 8, (16, 1), (1, 16), 0, 0, "sm90"),
+    (_BF, 257, 136, 68, (136, 1), (68, 1), 0, 0, "mma_sync"),           # 136-byte rows of B
+    (_BF, 257, 136, 68, (136, 1), (72, 1), 0, 0, "sm90"),               # the same in rows of 144
+    # odd K: rows of A (and of a transposed B) are not 16 bytes apart
+    (_I8, 65536, 294, 16, (294, 1), (16, 1), 0, 0, "mma_sync"),
+    (_I8, 65536, 294, 16, (294, 1), (1, 294), 0, 0, "mma_sync"),
+    (_I8, 65536, 9, 32, (9, 1), (32, 1), 0, 0, "mma_sync"),
+    (_I8, 257, 131, 67, (131, 1), (67, 1), 0, 0, "mma_sync"),
+    (_I8, 5, 9, 3, (9, 1), (1, 9), 0, 0, "mma_sync"),
+    (_BF, 65536, 294, 16, (294, 1), (1, 294), 0, 0, "mma_sync"),        # 588-byte rows
+    (_BF, 65536, 296, 16, (296, 1), (1, 296), 0, 0, "sm90"),
+    (_BF, 5, 9, 3, (9, 1), (3, 1), 0, 0, "mma_sync"),
+    # an odd K in rows padded to 16 bytes is taken: only row starts count
+    (_I8, 64, 9, 32, (16, 1), (1, 16), 0, 0, "sm90"),
+    # element strides
+    (_I8, 64, 32, 32, (64, 2), (1, 32), 0, 0, "mma_sync"),
+    (_I8, 64, 32, 32, (32, 1), (64, 2), 0, 0, "mma_sync"),
+    (_BF, 64, 32, 32, (1, 64), (1, 32), 0, 0, "mma_sync"),              # A transposed
+    # unaligned views: a slice that starts one element in
+    (_I8, 300, 64, 48, (80, 1), (1, 80), 1, 0, "mma_sync"),
+    (_I8, 300, 64, 48, (80, 1), (1, 80), 0, 1, "mma_sync"),
+    (_BF, 300, 64, 48, (80, 1), (1, 80), 2, 0, "mma_sync"),
+    (_BF, 300, 64, 48, (80, 1), (48, 1), 0, 2, "mma_sync"),
+    (_BF, 300, 64, 48, (80, 1), (1, 80), 32, 48, "sm90"),
+    # broadcast and overlapping rows (a tensor map takes neither); one row may have any stride
+    (_I8, 64, 32, 32, (0, 1), (1, 32), 0, 0, "mma_sync"),
+    (_I8, 64, 32, 32, (16, 1), (1, 32), 0, 0, "mma_sync"),
+    (_I8, 64, 32, 32, (32, 1), (1, 16), 0, 0, "mma_sync"),
+    (_BF, 64, 32, 32, (32, 1), (16, 1), 0, 0, "mma_sync"),
+    (_I8, 1, 32, 32, (0, 1), (1, 32), 0, 0, "sm90"),
+])
+def test_matmul_route(dtype, m, k, n, a_strides, b_strides, a_ptr, b_ptr, route):
+    assert tmm.matmul_route(dtype, m, n, k, a_strides, b_strides, a_ptr, b_ptr) == route
+
+
+def test_matmul_route_of_the_operands_int8_serving_builds():
+    """``_im2col`` pads the depth to 16 and ``_conv_weight`` stores (N, K):
+    what ``int8_conv`` and a served ``Linear`` hand to K6 takes the
+    tensor-core route (base addresses taken as aligned, as the card's
+    allocator gives them)."""
+    x = torch.from_numpy(_rand((2, 8, 8, 5), 20))
+    w_nk, _ = tq._conv_weight(torch.from_numpy(_rand((3, 3, 5, 7), 21)))
+    q, _ = tq._quantized_values(x, None)
+    cols, _ = tq._im2col(q, 3, 3, (1, 1), ((1, 1), (1, 1)))
+    b = w_nk.t()
+    assert cols.shape[1] == 48 and b.stride() == (1, 48)
+    assert tmm.matmul_route(torch.int8, cols.shape[0], b.shape[1], cols.shape[1], cols.stride(),
+                            b.stride(), 0, 0) == "sm90"
+    w_q, _ = tq.quantize_channelwise(torch.from_numpy(_rand((32, 64), 22)), axis=0)   # Linear
+    assert tmm.matmul_route(torch.int8, 10, 32, 64, (64, 1), w_q.t().stride(), 0, 0) == "sm90"
+    # int8_dense quantises a (in, out) kernel: B is row-major there
+    w_io, _ = tq.quantize_channelwise(torch.from_numpy(_rand((64, 32), 23)), axis=-1)
+    assert tmm.matmul_route(torch.int8, 10, 32, 64, (64, 1), w_io.stride(), 0, 0) == "mma_sync"
+
+
+def test_matmul_wrappers_count_no_route_on_cpu():
+    a = torch.ones(4, 16, dtype=torch.int8)
+    before = dict(tmm.int8_matmul.route_counts), tmm.int8_matmul.launch_count
+    tmm.int8_matmul(a, a.t())
+    assert (tmm.int8_matmul.route_counts, tmm.int8_matmul.launch_count) == before
+    assert set(tmm.int8_matmul.route_counts) == set(tmm.bf16_matmul.route_counts) == {
+        "sm90", "mma_sync"}
+
+
 class _JTiny(fnn.Module):
     """Conv → relu → mean → Dense, with a 1-D conv on the side."""
 
