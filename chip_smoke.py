@@ -43,7 +43,13 @@ script exits non-zero without printing a result):
    per source; prints the build time, ptxas' register and shared-memory
    report and each kernel's dynamic shared memory.
 3. kernels — each kernel against its plain torch version on the card
-   (K1 CLAHE: max |Δ| ≤ 1e-2 gray levels; K2 small MHA: 2e-2 abs/rel in
+   (K1 CLAHE, on both routes, at the main path's and 23 more shapes, grids
+   up to 17 x 17, 3 to 20,000 bins, clip 0.2, 2.0 and 2.5: its LUTs equal
+   the plain version's and the output within 1e-2 gray levels where L is an
+   integer and nbins a power of two, else LUTs within one level and output
+   within 1 + 1e-2; the route and equal bits of two launches at each; then
+   ``ops/image.clahe`` at grid (16, 16), 128 and 512 bins and 360 x 640
+   frames; K2 small MHA: 2e-2 abs/rel in
    bf16 (the tensor-core kernel, also at S = 1, 16, 17 and 128, on qkv
    slices, and the CUDA-core kernel for an unaligned view and S past 128),
    1e-5 in float32, each with its route and equal bits of two launches, and
@@ -58,7 +64,8 @@ script exits non-zero without printing a result):
    inputs must take the tensor-core kernels and float32, unaligned ones or
    head dims above 256 the CUDA-core kernels, two launches must give equal
    bits, and head dims 320 and 512 and more than 65,535 (batch, head)
-   pairs run forward and backward; K6 matmul: int8 exactly equal, bf16 within 1e-3 of the
+   pairs run forward and backward, and head dims 640 and 1024 (above 512 the
+   CUDA-core kernels walk d in slices of 256) in float32 and bf16; K6 matmul: int8 exactly equal, bf16 within 1e-3 of the
    largest |C| (the output is the unrounded float32 sum; only the order of
    summation differs), every serving shape and the tile edges by the
    tensor-core route, odd depths, a row-major int8 B and an unaligned view
@@ -66,9 +73,10 @@ script exits non-zero without printing a result):
    launches), at the shapes the paths give them.
 4. serve   — 3 requests of 8 clips and 3 of 384 clips (5 frames each, 96×96
    RGB uint8 frames and face boxes as in bench.py), host frames in, host
-   logits out; every request must launch K1 once and K2 once per layer
-   (by the tensor-core route), and give finite logits; a ``torch.profiler``
-   breakdown of a batch-384 request; the batch-8 requests must agree with the same model
+   logits out; every request must launch K1 once (by the packed route) and
+   K2 once per layer (by the tensor-core route), and give finite logits; a
+   ``torch.profiler`` breakdown of a batch-384 request, with K1's device
+   time; the batch-8 requests must agree with the same model
    and inputs run on the CPU (the plain path). Then one batch-384 request
    through ``predict_step_int8``: K6 once per Linear (50, by the
    tensor-core route), K1 and K2 as before, held against ``predict_step`` on
@@ -115,8 +123,9 @@ script exits non-zero without printing a result):
    shapes beside K3 and beside K4 + K5, ``torch._int_mm``,
    ``torch.matmul``; yardsticks, used on no path), each kernel's bound
    (the larger of its bytes over 3.35 TB/s and its operations over the
-   tensor-core peak of its type) and its share of it, K2, K3 and K6 also
-   through their C entry points in a loop (without the wrappers' host work).
+   tensor-core peak of its type) and its share of it, K1, K2, K3 and K6 also
+   through their C entry points in a loop (without the wrappers' host work),
+   and K1 on 64 frames of 360 x 640 (its tiled route).
 
 The line before the last is ``nvidia-smi``'s name and power limit; before
 it, one JSON object with the kernels; the last line is the result:
@@ -226,20 +235,23 @@ def phase_build() -> None:
     from lipreading_video_generation_tpu_torch.ops.attention import (
         _small_mha_smem_bytes, flash_bwd_smem_bytes, flash_smem_bytes)
 
-    log("build", f"dynamic shared memory per block at the main-path shapes: K1 "
-        f"{8 * 8 * 256 * 4} B (8x8 tiles of 256 int32 bins), K2 "
+    from lipreading_video_generation_tpu_torch.ops.clahe_cuda import clahe_packed_layout
+
+    log("build", f"dynamic shared memory per block at the main-path shapes: K1 packed route "
+        f"{clahe_packed_layout(48, 48, (8, 8), 256)['smem']} B (8x8 tiles of 256 8-bit counters, "
+        "2,304 bins, row and column tables), K2 "
         f"{_small_mha_smem_bytes(80, 32)} B (S=80, d=32), "
         f"{_small_mha_smem_bytes(11, 96)} B (S=11, d=96)"
         + "".join(f"; K3 {what} " + ", ".join(
             f"{flash_smem_bytes(d, route)} B (head dim {d})" for d in dims)
             for route, what, dims in (("sm90", "tensor-core route (bf16 tiles)", (64, 128, 256)),
                                       ("cuda_core", "CUDA-core route (float tiles)",
-                                       (64, 128, 256, 512))))
+                                       (64, 128, 256, 512, 1024))))
         + "".join(f"; {name} {what} " + ", ".join(
             f"{flash_bwd_smem_bytes(d, kern, route)} B (head dim {d})" for d in dims)
             for route, what, dims in (("sm90", "tensor-core route (bf16 tiles)", (64, 128, 256)),
                                       ("cuda_core", "CUDA-core route (float tiles)",
-                                       (64, 128, 256, 512)))
+                                       (64, 128, 256, 512, 1024)))
             for name, kern in (("K4", "dkv"), ("K5", "dq")))
         + "; K6 tensor-core route 4 stages of (128 + N tile) rows of 128 bytes, their 8 "
         "mbarriers + 1 KB: "
@@ -255,21 +267,116 @@ def _uniform(shape, lo, hi, seed, dtype=torch.float32):
         "cuda", dtype)
 
 
+# K1 cases (shape, grid, nbins, clip, route, most LUT entries that may
+# differ): the main path's and the first card check's two; the packed
+# route's edges (16 x 16 tiles, 128 and 8 bins, clip 2.0 where L is still 1,
+# 121 pixels a tile where area * nbins^2 is just below 2^23); the CPU tests'
+# (512 bins, tiles of 4,096 and 920 pixels, clip 0.2, 2.0 and 2.5), frames of
+# 360 x 640, and the tiled route's edges: padding that spans more than the
+# last tile, 20,000 bins (three passes of 8,192), 17 x 17 tiles, 100 and 3
+# bins, a single pixel, integer L above 1 (exact sums: equal LUTs), clip 10.
+# Where L is not an integer or nbins not a power of two a level next to a
+# rounding tie may move by one: the last entry bounds how many do, at twice
+# the most that seeds 0-3 gave on the card, plus 2 (PERF.md, §6)
+K1_CASES = [((1920, 48, 48), (8, 8), 256, 0.2, "packed", 0), ((3, 50, 46), (8, 8), 256, 0.2, "tiled", 0),
+            ((2, 64, 64), (4, 4), 256, 0.2, "tiled", 0), ((2, 64, 64), (4, 4), 256, 2.5, "tiled", 2),
+            ((5, 48, 48), (8, 8), 256, 2.0, "packed", 0), ((2, 48, 48), (16, 16), 256, 0.2, "packed", 0),
+            ((2, 48, 48), (16, 16), 256, 2.0, "packed", 0), ((2, 48, 48), (8, 8), 128, 0.2, "packed", 0),
+            ((2, 48, 48), (8, 8), 8, 0.2, "packed", 0), ((2, 88, 88), (8, 8), 256, 0.2, "packed", 0),
+            ((2, 48, 48), (8, 8), 512, 2.5, "tiled", 0), ((2, 128, 128), (2, 2), 256, 2.5, "tiled", 0),
+            ((2, 128, 128), (2, 2), 256, 0.2, "tiled", 2), ((1, 180, 320), (8, 8), 256, 2.0, "tiled", 2),
+            ((1, 180, 320), (8, 8), 256, 0.2, "tiled", 0), ((2, 360, 640), (8, 8), 256, 0.2, "tiled", 2),
+            ((2, 360, 640), (8, 8), 256, 2.5, "tiled", 2), ((3, 5, 5), (4, 4), 256, 0.2, "tiled", 0),
+            ((2, 48, 48), (8, 8), 20000, 0.2, "tiled", 135110), ((2, 48, 48), (17, 17), 256, 2.0, "tiled", 0),
+            ((2, 48, 48), (8, 8), 100, 0.2, "tiled", 116), ((2, 48, 48), (8, 8), 3, 2.0, "tiled", 2),
+            ((2, 1, 1), (1, 1), 256, 0.2, "tiled", 0), ((2, 49, 47), (3, 5), 256, 2.0, "tiled", 2),
+            ((2, 48, 48), (8, 8), 8, 2.0, "tiled", 0), ((2, 64, 64), (4, 4), 16, 2.0, "tiled", 0),
+            ((2, 48, 48), (8, 8), 256, 10.0, "tiled", 2)]
+
+
+def k1_exact(shape, grid, nbins: int, clip: float) -> bool:
+    """True where L is an integer and nbins a power of two: every partial sum
+    of the CDF is exact, whatever the order of the sums."""
+    th, tw = -(-shape[-2] // grid[0]), -(-shape[-1] // grid[1])
+    limit = float(np.float32(max(1.0, clip * th * tw / nbins)))
+    return limit.is_integer() and nbins & (nbins - 1) == 0
+
+
+def check_clahe() -> float:
+    """K1 at every case of ``K1_CASES`` against the plain version: the route,
+    equal bits over two launches, and the LUTs (``clahe_cuda(luts=...)``
+    against ``clahe_luts_reference``). Where the sums are exact
+    (``k1_exact``) the LUTs must be equal and the output within TOL_K1.
+    Elsewhere every LUT entry within 1 level, no more entries off than the
+    case allows, and the output within 1 + TOL_K1. Then images that do not
+    start on 16 bytes (the tiled route), and ``ops/image.clahe`` at shapes
+    the one-block-an-image kernel refused. Returns the largest |d| of the
+    exact cases."""
+    from lipreading_video_generation_tpu_torch.ops import clahe_cuda as cl
+    from lipreading_video_generation_tpu_torch.ops import image as im
+
+    worst = 0.0
+    for shape, grid, nbins, clip, route, max_diff in K1_CASES:
+        x = _uniform(shape, 0, 255, SEED)
+        if cl.clahe_route(shape[1], shape[2], grid, nbins, clip) != route:
+            raise AssertionError(f"K1 {shape} {grid} {nbins} clip {clip}: route "
+                                 f"{cl.clahe_route(shape[1], shape[2], grid, nbins, clip)}, "
+                                 f"want {route}")
+        luts = torch.empty(shape[0], grid[0] * grid[1], nbins, device="cuda")
+        before = dict(cl.clahe_cuda.route_counts)
+        got = cl.clahe_cuda(x, clip, grid, nbins, luts=luts)
+        again = cl.clahe_cuda(x, clip, grid, nbins)
+        torch.cuda.synchronize()
+        took = {r: n - before[r] for r, n in cl.clahe_cuda.route_counts.items() if n != before[r]}
+        if took != {route: 2}:
+            raise AssertionError(f"K1 {shape} {grid} {nbins}: routes {took}, want {route}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"K1 {shape} {grid} {nbins}: two launches gave different bits")
+        exact = k1_exact(shape, grid, nbins, clip)
+        if exact != (max_diff == 0):
+            raise AssertionError(f"K1 {shape} {grid} {nbins} clip {clip}: the case's bound "
+                                 f"{max_diff} does not fit its sums (exact: {exact})")
+        err = (got - cl.clahe_reference(x, clip, grid, nbins)).abs().max().item()
+        lut_d = (luts - cl.clahe_luts_reference(x, clip, grid, nbins)).abs()
+        n_diff, lut_err = int((lut_d > 0).sum().item()), lut_d.max().item()
+        tol = TOL_K1 if exact else 1 + TOL_K1
+        log("kernels", f"K1 clahe {shape} grid {grid} nbins {nbins} clip {clip}"
+            f"{' (exact sums)' if exact else ''}, route {route}: max|d| {err:.3g} (tol {tol}); "
+            f"LUT entries that differ {n_diff} of {lut_d.numel()} (at most {max_diff}), by at "
+            f"most {lut_err:g} (want {'0' if exact else '<= 1'}); two launches equal bits")
+        if not (err <= tol and lut_err <= (0 if exact else 1) and n_diff <= max_diff):
+            raise AssertionError(f"K1 {shape} {grid} {nbins} clip {clip}: max|d| {err}, LUT "
+                                 f"{lut_err}, {n_diff} entries differ (at most {max_diff})")
+        if exact:
+            worst = max(worst, err)
+    # an image that does not start on 16 bytes: the packed route reads float4s
+    base = _uniform((2 * 48 * 48 + 1,), 0, 255, SEED)
+    x = base[1:].view(2, 48, 48)
+    before = dict(cl.clahe_cuda.route_counts)
+    got = cl.clahe_cuda(x, 0.2, (8, 8))
+    err = (got - cl.clahe_reference(x, 0.2, (8, 8))).abs().max().item()
+    if cl.clahe_cuda.route_counts["tiled"] != before["tiled"] + 1 or not err <= TOL_K1:
+        raise AssertionError(f"K1 on images at an odd address: routes "
+                             f"{cl.clahe_cuda.route_counts}, max|d| {err}")
+    # ops/image.clahe on the card at shapes the one-block-an-image kernel refused
+    for shape, kw in (((2, 48, 48), {"grid": (16, 16)}), ((2, 48, 48), {"nbins": 128}),
+                      ((2, 48, 48), {"nbins": 512}), ((2, 360, 640), {})):
+        x = _uniform(shape, 0, 255, SEED + 1).round().to(torch.uint8)
+        got = im.clahe(x, **kw)
+        want = cl.clahe_reference(x, **kw)
+        if got.dtype != torch.uint8 or (got.int() - want.int()).abs().max().item() > 1:
+            raise AssertionError(f"im.clahe {shape} {kw}: dtype {got.dtype}, off the plain version")
+    log("kernels", "K1 on images 4 bytes off 16: route tiled, max|d| "
+        f"{err:.3g}; im.clahe on the card at grid (16, 16), nbins 128 and 512, and (2, 360, 640): "
+        "uint8 out, within one level of the plain version (rounding of the float32 blend)")
+    return worst
+
+
 def phase_kernels() -> dict:
     from lipreading_video_generation_tpu_torch.ops import attention as att
     from lipreading_video_generation_tpu_torch.ops import clahe_cuda as cl
 
-    errs = {"clahe": 0.0, "small_mha": 0.0, "flash_attention": 0.0}
-    for shape, grid in [((1920, 48, 48), (8, 8)), ((3, 50, 46), (8, 8)),
-                        ((2, 64, 64), (4, 4))]:
-        x = _uniform(shape, 0, 255, SEED)
-        got = cl.clahe_cuda(x, 0.2, grid)
-        torch.cuda.synchronize()
-        err = (got - cl.clahe_reference(x, 0.2, grid)).abs().max().item()
-        log("kernels", f"K1 clahe {shape} grid {grid}: max|d| {err:.3g} (tol {TOL_K1})")
-        if not err <= TOL_K1:
-            raise AssertionError(f"K1 clahe {shape}: max|d| {err} > {TOL_K1}")
-        errs["clahe"] = max(errs["clahe"], err)
+    errs = {"clahe": check_clahe(), "small_mha": 0.0, "flash_attention": 0.0}
 
     # K2: the ViViT's, the audio encoder's and a causal shape in bf16 (the
     # tensor-core kernel) and float32 (the CUDA-core kernel); the tensor-core
@@ -333,10 +440,13 @@ def phase_kernels() -> dict:
              ((2, 3, 200, 16), 200, False), ((1, 2, 160, 128), 320, False),
              ((1, 2, 256, 256), 256, True), ((1, 2, 200, 64), 150, True)]
     # head dims above 256 (the CUDA-core kernels in both types, at the tokens
-    # a U-Net block of 512 channels has at ds 4) and more than 65,535
-    # (batch, head) pairs (one case a route)
+    # a U-Net block of 512 channels has at ds 4; above 512 the sliced
+    # kernels, d = 640 as JAX pads it to 768 and d = 1024, causal and
+    # ragged too) and more than 65,535 (batch, head) pairs (one case a route)
     wide_heads = [((1, 1, 1024, d), 1024, False, dt, "cuda_core")
-                  for d in (320, 512) for dt in (f32, bf16)]
+                  for d in (320, 512, 640, 1024) for dt in (f32, bf16)]
+    wide_heads += [((1, 2, 300, d), 260, True, dt, "cuda_core")
+                   for d in (640, 1024) for dt in (f32, bf16)]
     many_heads = [((4097, 17, 132, 16), 132, True, bf16, "sm90"),
                   ((2048, 33, 132, 16), 132, False, f32, "cuda_core")]
 
@@ -695,6 +805,9 @@ def serve_int8_request(model, frames: np.ndarray, boxes: np.ndarray) -> dict:
     return {"clahe": d[0], "small_mha": d[1], "int8_matmul": d[2]}
 
 
+K1_PROFILED_MS = []   # K1's device time in the profiled batch-384 ViViT request
+
+
 def phase_serve(dev: dict) -> dict:
     from lipreading_video_generation_tpu_torch.core.config import ViViTConfig
     from lipreading_video_generation_tpu_torch.models.convert import vivit_state_dict_from_flax
@@ -736,13 +849,24 @@ def phase_serve(dev: dict) -> dict:
                 raise AssertionError(f"bad logits {tuple(logits.shape)} for {n_clips} clips")
         launches = {"clahe": cl.clahe_cuda.launch_count,
                     "small_mha": att.small_mha.launch_count}
+        if cl.clahe_cuda.route_counts != {"packed": launches["clahe"], "tiled": 0}:
+            raise AssertionError(f"serve: K1 took the routes {cl.clahe_cuda.route_counts}, "
+                                 "want all packed")
         peak = torch.cuda.max_memory_allocated()
         _all_by_tensor_cores("serve", att.small_mha)
         log("serve", f"6 requests: launches K1={launches['clahe']} K2={launches['small_mha']} "
-            f"(1 and {cfg.num_layers} per request; K2 routes {att.small_mha.route_counts}); "
+            f"(1 and {cfg.num_layers} per request; K1 routes {cl.clahe_cuda.route_counts}, K2 "
+            f"routes {att.small_mha.route_counts}); "
             "logits finite")
         # where the time of a batch-384 request goes
         busy_ms = _profile_step("serve", lambda: serve(model, *inputs[384], "cuda"), "request")
+        k1_ms, k1_n = _profile_step.own["K1"]
+        if k1_n != 1:
+            raise AssertionError(f"the profiled request ran {k1_n} K1 kernels, want 1")
+        log("serve", f"K1 in the profiled batch-384 request: {k1_ms:.4f} ms of device time, one "
+            "launch by the packed route (the one-block-an-image kernel it replaced: 0.094 ms) on "
+            f"{dev['smi']}")
+        K1_PROFILED_MS.append(k1_ms)
 
         gpu_logits, gpu_roi = serve(model, *inputs[8], "cuda")
         cpu_logits, cpu_roi = serve(cpu_model, *inputs[8], "cpu")
@@ -1008,7 +1132,7 @@ def train_batch(cfg, n: int, seed: int, size: int = 160) -> dict:
 
 
 # kernel-name fragments of the hand-written kernels, for the profiles
-KERNEL_NAMES = {"K1": "clahe_kernel", "K2": "small_mha_", "K3": "flash_fwd_",
+KERNEL_NAMES = {"K1": "clahe_", "K2": "small_mha_", "K3": "flash_fwd_",
                 "K4": "flash_bwd_dkv", "K5": "flash_bwd_dq", "K6": "::mm_"}
 
 
@@ -1035,7 +1159,8 @@ def _profile_step(phase: str, step, what: str = "step") -> float:
     """One step (or request) under ``torch.profiler``: wall time, device
     time of all kernels and copies (busy share), the share of each
     hand-written kernel, and the heaviest kernels by name. Returns the
-    device time, ms."""
+    device time, ms; ``_profile_step.own`` keeps each hand-written kernel's
+    (ms, launches) of the last profile."""
     wall_ms, _, kernels = _profiled(step)
     # the int8 stages' ranges carry their kernels' device time: not a second time
     stages = [r for r in kernels if r[0].startswith("int8/")]
@@ -1047,6 +1172,7 @@ def _profile_step(phase: str, step, what: str = "step") -> float:
                sum(n for name, _, n in kernels if frag in name))
            for k, frag in KERNEL_NAMES.items()}
     rest = busy_ms - sum(ms for ms, _ in own.values())
+    _profile_step.own = own
     log(phase, f"profile of one {what}: wall {wall_ms:.3f} ms under the profiler, device kernels "
         f"and copies {busy_ms:.3f} ms in {sum(c for _, _, c in kernels)} launches (busy share "
         f"{busy_ms / wall_ms:.3f}); "
@@ -1593,6 +1719,28 @@ def _small_mha_sm90_launcher(q, k, v, num_heads: int):
     def launch():
         _build.check(fn(*args, torch.cuda.current_stream().cuda_stream), "small_mha (sm90)")
 
+    launch.out = out   # the kernel writes it: it lives as long as the launcher
+    return launch
+
+
+def _clahe_launcher(x, clip_limit: float = 0.2, grid=(8, 8), nbins: int = 256):
+    """The same for K1's packed route on (N, H, W) float32 images: what
+    ``ops/clahe_cuda.clahe_cuda`` launches, without its host work per call
+    and without its count."""
+    from lipreading_video_generation_tpu_torch.ops import _build
+    from lipreading_video_generation_tpu_torch.ops import clahe_cuda as cl
+
+    n, h, w = x.shape
+    lay = cl.clahe_packed_layout(h, w, grid, nbins, clip_limit)
+    out = torch.empty_like(x)
+    fn = _build.kernel("lvg_clahe_packed_f32", cl._PACKED_ARGTYPES)
+    args = (x.data_ptr(), out.data_ptr(), None, n, h, w, grid[0], grid[1], nbins, 1.0,
+            lay["group"], lay["lane_words"], lay["tile_words"], lay["smem"])
+
+    def launch():
+        _build.check(fn(*args, torch.cuda.current_stream().cuda_stream), "clahe_cuda (packed)")
+
+    launch.out = out   # the kernel writes it: it lives as long as the launcher
     return launch
 
 
@@ -1615,6 +1763,7 @@ def _mm_sm90_launcher(a, b):
     def launch():
         _build.check(fn(*args, torch.cuda.current_stream().cuda_stream), "matmul (sm90)")
 
+    launch.out = out
     return launch
 
 
@@ -1622,6 +1771,7 @@ def phase_timing(dev: dict, microbench: dict) -> dict:
     import torch.nn.functional as F
 
     from lipreading_video_generation_tpu_torch.bench.microbench_int8 import make_operands
+    from lipreading_video_generation_tpu_torch.bench.timing import graph_ms
     from lipreading_video_generation_tpu_torch.ops import attention as att
     from lipreading_video_generation_tpu_torch.ops import clahe_cuda as cl
     from lipreading_video_generation_tpu_torch.ops import matmul_cuda as mm
@@ -1632,6 +1782,18 @@ def phase_timing(dev: dict, microbench: dict) -> dict:
         k1_ms, k1_plain, raw1 = _plain_vs_kernel(
             lambda: cl.clahe_reference(x, 0.2, (8, 8)),
             lambda: cl.clahe_cuda(x, 0.2, (8, 8)), 20)
+        # the kernel alone: the C entry point in a loop, output allocated once,
+        # and the same calls replayed from a CUDA graph (device time only)
+        k1_alone = _event_ms(_clahe_launcher(x), 200)
+        k1_graph = graph_ms(_clahe_launcher(x), 50)
+        # whole frames, as contrast_boost will give them: the tiled route
+        frames = _uniform((64, 360, 640), 0, 255, SEED)
+        k1f_ms, k1f_plain, raw1f = _plain_vs_kernel(
+            lambda: cl.clahe_reference(frames, 0.2, (8, 8)),
+            lambda: cl.clahe_cuda(frames, 0.2, (8, 8)), 3, 20)
+        if cl.clahe_cuda.route_counts != {"packed": 41, "tiled": 41}:
+            raise AssertionError(f"the timed K1 launches took the routes {cl.clahe_cuda.route_counts}")
+        del frames
         # K2 as the main path calls it: q/k/v column slices of one qkv tensor
         q, k, v = _uniform((384, 80, 768), -2, 2, SEED, torch.bfloat16).chunk(3, dim=-1)
         k2_ms, k2_plain, raw2 = _plain_vs_kernel(
@@ -1674,8 +1836,19 @@ def phase_timing(dev: dict, microbench: dict) -> dict:
             f"{ms / k3_lib[(s, d)]:.2f} x; the C entry point in a loop, outputs allocated once: "
             f"{k3_alone[(s, d)]:.4f} ms ({flops / k3_alone[(s, d)] / 1e9:.2f} TFLOP/s) on "
             f"{dev['smi']}")
-    log("timing", f"K1 clahe (1920,48,48) f32: kernel {k1_ms:.4f} ms, plain {k1_plain:.4f} ms "
-        f"(plain,kernel,kernel,plain = {[round(t, 4) for t in raw1]}) on {dev['smi']}")
+    n_img = 384 * CLIP_FRAMES * 48 * 48
+    k1_bound = _bound(2 * n_img * 4, 0, "bf16")["bound_ms"]
+    k1f_bound = _bound(2 * 64 * 360 * 640 * 4, 0, "bf16")["bound_ms"]
+    log("timing", f"K1 clahe (1920,48,48) f32 grid (8,8) clip 0.2, route packed: through clahe_cuda "
+        f"{k1_ms:.4f} ms ({k1_bound / k1_ms:.1%} of the bound {k1_bound:.4f} ms by bytes), the C "
+        f"entry point in a loop, output allocated once {k1_alone:.4f} ms "
+        f"({k1_bound / k1_alone:.1%} of the bound), the same calls from a CUDA graph "
+        f"{k1_graph:.4f} ms ({k1_bound / k1_graph:.1%} of the bound; the one-block-an-image "
+        "kernel it replaced: 0.0985 ms through its wrapper), "
+        f"plain {k1_plain:.4f} ms (plain,kernel,kernel,plain = {[round(t, 4) for t in raw1]}); "
+        f"(64,360,640) grid (8,8), route tiled: {k1f_ms:.4f} ms ({k1f_bound / k1f_ms:.1%} of the "
+        f"bound {k1f_bound:.4f} ms), plain {k1f_plain:.4f} ms (plain,kernel,kernel,plain = "
+        f"{[round(t, 4) for t in raw1f]}) on {dev['smi']}")
     k2_bound = _attention_bound(384, 8, 80, 32, 4, 4)["bound_ms"]
     log("timing", f"K2 small_mha (384,80,256) H=8 bf16, route sm90: kernel {k2_ms:.4f} ms (bound "
         f"{k2_bound:.4f} ms by bytes, {k2_bound / k2_ms:.1%} of it), plain "
@@ -1779,9 +1952,12 @@ def phase_timing(dev: dict, microbench: dict) -> dict:
     m, kk, n = 128 * 96 * 96, 1440, 64
 
     # the JSON line carries K3, K4 and K5 at the U-Net's FLOP-heaviest shape
-    n_img = 384 * CLIP_FRAMES * 48 * 48
     return {
-        "clahe": dict(ms=k1_ms, plain_ms=k1_plain, library_ms=None,
+        "clahe": dict(ms=k1_ms, plain_ms=k1_plain, library_ms=None, c_entry_ms=k1_alone,
+                      c_entry_graph_ms=k1_graph,
+                      profiled_ms_in_request=K1_PROFILED_MS[-1],
+                      frames_64x360x640=dict(route="tiled", ms=k1f_ms, plain_ms=k1f_plain,
+                                             bound_ms=k1f_bound),
                       **_bound(2 * n_img * 4, 0, "bf16")),
         "small_mha": dict(ms=k2_ms, plain_ms=k2_plain, library_ms=k2_lib,
                           **_attention_bound(384, 8, 80, 32, 4, 4)),
@@ -1826,7 +2002,7 @@ def main() -> None:
     pkg = "lipreading_video_generation_tpu_torch"
     jax_pkg = "lipreading_video_generation_tpu"
     sources = {  # name: (CUDA source, the TPU kernel it replaces)
-        "clahe": ("clahe.cu", f"{jax_pkg}/ops/clahe_pallas.py:102"),
+        "clahe": ("clahe_packed.cu", f"{jax_pkg}/ops/clahe_pallas.py:102"),
         "small_mha": ("small_mha_sm90.cu", f"{jax_pkg}/ops/attention.py:570"),
         "flash_attention": ("flash_fwd_sm90.cu", f"{jax_pkg}/ops/attention.py:66"),
         "flash_bwd_dkv": ("flash_bwd_sm90.cu", f"{jax_pkg}/ops/attention.py:216"),
@@ -1844,12 +2020,21 @@ def main() -> None:
             kern["route_detail"] = (
                 "sm90: wgmma on bf16 tiles, cp.async rings (aligned bf16 inputs up to head dim "
                 "256; timed here and on the sampling and training paths); cuda_core: "
-                f"{pkg}/csrc/flash_fwd.cu (float32, unaligned inputs, head dims up to 512)")
+                f"{pkg}/csrc/flash_fwd.cu (float32, unaligned inputs, head dims above 256, in slices of "
+                "256 columns)")
         if name.startswith("flash_bwd"):
             kern["route_detail"] = (
                 "sm90: wgmma on bf16 tiles, cp.async ring (aligned bf16 inputs up to head dim "
                 f"256; timed here and on the training path); cuda_core: {pkg}/csrc/flash_bwd.cu "
-                "(float32, unaligned inputs, head dims up to 512)")
+                "(float32, unaligned inputs, head dims above 256, in slices of 256 columns)")
+        if name == "clahe":
+            kern["route_detail"] = (
+                "packed: one block an image, 8-bit counters packed in shared memory, an integer "
+                "LUT scan written over them (L = 1, nbins a power of two up to 256, tiles of at "
+                "most 255 pixels: the main path's (1920,48,48), timed here and on the ViViT "
+                "path); tiled: "
+                f"{pkg}/csrc/clahe.cu (a block a tile writes its LUT to a device workspace, a "
+                "block a row blends; any other shape, e.g. frames of 360x640)")
         if name == "small_mha":
             kern["route_detail"] = (
                 "sm90: mma.sync on bf16 tiles, double-buffered cp.async (aligned bf16 inputs, up "

@@ -41,12 +41,16 @@
 //       tile's last visible key are skipped.
 // Every tile is row-major float in shared memory with rows padded by 4
 // floats (16-byte aligned float4 loads, conflict-free across 8 lanes).
-// The head dim is padded to DP in {64, 128, 256, 512} inside the kernel; at
+// The head dim is padded to DP in {64, 128, 256} inside the kernel; at
 // DP = 256 the query tile is 32 rows (BQ) so that K, V, Q and dO tiles fit
-// the 227 KB a block may use (K4: 217,344 B, K5: 208,384 B), and at DP = 512
-// it is 16 rows against key tiles of 32 (BK; K4: 202,880 B, K5: 200,448 B):
-// a thread then owns BK / 16 keys where the text above says four. q, k, v and
-// dO are read, and dQ/dK/dV written, through (batch, head, row) strides
+// the 227 KB a block may use (K4: 217,344 B, K5: 208,384 B). Head dims
+// above 256 walk d in slices of 256 columns with DP = 256's tiles (the
+// "sliced" kernels): s = Q.K^T and dP = dO.V^T sum over slices of Q, dO, K
+// and V staged one after the other, and blockIdx.y picks the 256 columns of
+// dK and dV (K4) or dQ (K5) that the block accumulates and writes, so shared
+// memory does not grow with d (s and dP are recomputed once for each slice
+// of the output, and the slices of the block's own tile are staged again
+// for each tile of the other axis). q, k, v and dO are read, and dQ/dK/dV written, through (batch, head, row) strides
 // with unit column stride, so the column slices of the U-Net's fused qkv
 // projection need no copy, and the gradients come out as (B, S, H, D).
 //
@@ -98,8 +102,8 @@ __device__ __forceinline__ void ldn(float (&dst)[2], const float* p) {
 
 // Tile shapes and shared-memory layout (in floats) for head dim DP.
 template <int DP> struct Tiles {
-  static constexpr int BQ = DP == 512 ? 16 : (DP == 256 ? 32 : 64);   // query rows per tile
-  static constexpr int BK = DP == 512 ? 32 : 64;   // keys per tile
+  static constexpr int BQ = DP == 256 ? 32 : 64;   // query rows per tile
+  static constexpr int BK = 64;                    // keys per tile
   static constexpr int RQ = BQ / 16;               // query rows per thread in s, dP
   static constexpr int KQ = BK / 16;               // keys per thread
   static constexpr int NC = DP / 64;               // float4 column groups per thread
@@ -134,7 +138,16 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, long long ss
   }
 }
 
-// s[i][jj] = a[ra + i] . b[tx + 16 jj] and t[i][jj] = c[ra + i] . e[tx + 16 jj]
+template <int DP>
+__device__ __forceinline__ void zero(float (&s)[Tiles<DP>::RQ][Tiles<DP>::KQ],
+                                     float (&t)[Tiles<DP>::RQ][Tiles<DP>::KQ]) {
+#pragma unroll
+  for (int i = 0; i < Tiles<DP>::RQ; ++i)
+#pragma unroll
+    for (int jj = 0; jj < Tiles<DP>::KQ; ++jj) s[i][jj] = t[i][jj] = 0.f;
+}
+
+// s[i][jj] += a[ra + i] . b[tx + 16 jj] and t[i][jj] += c[ra + i] . e[tx + 16 jj]
 // over the DP columns of row-major tiles.
 template <int DP>
 __device__ __forceinline__ void two_products(const float* a, const float* b, const float* c,
@@ -142,10 +155,6 @@ __device__ __forceinline__ void two_products(const float* a, const float* b, con
                                              float (&s)[Tiles<DP>::RQ][Tiles<DP>::KQ],
                                              float (&t)[Tiles<DP>::RQ][Tiles<DP>::KQ]) {
   constexpr int RQ = Tiles<DP>::RQ, KQ = Tiles<DP>::KQ, LD = Tiles<DP>::LD;
-#pragma unroll
-  for (int i = 0; i < RQ; ++i)
-#pragma unroll
-    for (int jj = 0; jj < KQ; ++jj) s[i][jj] = t[i][jj] = 0.f;
 #pragma unroll 2
   for (int col = 0; col < DP; col += 4) {
     float4 av[RQ], cv[RQ];
@@ -167,7 +176,7 @@ __device__ __forceinline__ void two_products(const float* a, const float* b, con
   }
 }
 
-template <typename T, int DP>
+template <typename T, int DP, bool SLICED>
 __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(Params p) {
   using L = Tiles<DP>;
   constexpr int BQ = L::BQ, BK = L::BK, RQ = L::RQ, KQ = L::KQ, NC = L::NC, LD = L::LD,
@@ -203,9 +212,16 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(Params p) {
   const int j0 = blk * BK;
   const int off = p.s_k - p.s_q;
   const float inv_sk = 1.f / static_cast<float>(p.s_k);
+  // sliced: the slices of d that s and dP sum over, and the first column of
+  // the block's slice of dK and dV (and of the Q and dO they accumulate)
+  const int n_slices = SLICED ? (p.d + DP - 1) / DP : 1;
+  const int v0 = SLICED ? static_cast<int>(blockIdx.y) * DP : 0;
+  const int c_last = (n_slices - 1) * DP;
 
-  load_tile<T, DP>(ks, kb, p.st[5], j0, BK, p.s_k, p.d);
-  load_tile<T, DP>(vs, vb, p.st[8], j0, BK, p.s_k, p.d);
+  if (!SLICED) {
+    load_tile<T, DP>(ks, kb, p.st[5], j0, BK, p.s_k, p.d);
+    load_tile<T, DP>(vs, vb, p.st[8], j0, BK, p.s_k, p.d);
+  }
 
   float dk[KQ][4 * NC], dv[KQ][4 * NC];
 #pragma unroll
@@ -219,18 +235,25 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(Params p) {
     // Causal: skip a query tile that sees none of these keys, unless one of
     // its rows sees no key at all (its P is 1/s_k at every key).
     if (p.causal && j0 > r0 + BQ - 1 + off && r0 + off >= 0) continue;
-    __syncthreads();   // the previous tile's readers are done
-    load_tile<T, DP>(qs, qb, p.st[2], r0, BQ, p.s_q, p.d);
-    load_tile<T, DP>(dos, dob, p.st[11], r0, BQ, p.s_q, p.d);
-    if (tid < BQ) {
-      const bool in = r0 + tid < p.s_q;
-      lse_s[tid] = in ? lse[r0 + tid] : 0.f;
-      delta_s[tid] = in ? delta[r0 + tid] : 0.f;
-    }
-    __syncthreads();
-
     float s[RQ][KQ], dp[RQ][KQ];
-    two_products<DP>(qs, ks, dos, vs, ra, tx, s, dp);
+    zero<DP>(s, dp);
+    for (int sl = 0; sl < n_slices; ++sl) {
+      const int c0 = sl * DP;
+      __syncthreads();   // the previous tile's or slice's readers are done
+      if (SLICED) {
+        load_tile<T, DP>(ks, kb + c0, p.st[5], j0, BK, p.s_k, p.d - c0);
+        load_tile<T, DP>(vs, vb + c0, p.st[8], j0, BK, p.s_k, p.d - c0);
+      }
+      load_tile<T, DP>(qs, qb + c0, p.st[2], r0, BQ, p.s_q, p.d - c0);
+      load_tile<T, DP>(dos, dob + c0, p.st[11], r0, BQ, p.s_q, p.d - c0);
+      if (sl == 0 && tid < BQ) {
+        const bool in = r0 + tid < p.s_q;
+        lse_s[tid] = in ? lse[r0 + tid] : 0.f;
+        delta_s[tid] = in ? delta[r0 + tid] : 0.f;
+      }
+      __syncthreads();
+      two_products<DP>(qs, ks, dos, vs, ra, tx, s, dp);
+    }
 #pragma unroll
     for (int i = 0; i < RQ; ++i) {
       const int row = r0 + ra + i;
@@ -250,6 +273,11 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(Params p) {
         ps[(ra + i) * LDP + tx + 16 * jj] = pv;
         dss[(ra + i) * LDP + tx + 16 * jj] = dsv;
       }
+    }
+    if (SLICED && v0 != c_last) {   // the Q and dO columns of the block's slice
+      __syncthreads();
+      load_tile<T, DP>(qs, qb + v0, p.st[2], r0, BQ, p.s_q, p.d - v0);
+      load_tile<T, DP>(dos, dob + v0, p.st[11], r0, BQ, p.s_q, p.d - v0);
     }
     __syncthreads();
 
@@ -285,7 +313,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(Params p) {
     for (int n = 0; n < NC; ++n)
 #pragma unroll
       for (int cc = 0; cc < 4; ++cc) {
-        const int c = 64 * n + 4 * tx + cc;
+        const int c = v0 + 64 * n + 4 * tx + cc;
         if (c < p.d) {
           dkb[key * p.st[14] + c] = from_float<T>(dk[i][4 * n + cc]);
           dvb[key * p.st[17] + c] = from_float<T>(dv[i][4 * n + cc]);
@@ -294,7 +322,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(Params p) {
   }
 }
 
-template <typename T, int DP>
+template <typename T, int DP, bool SLICED>
 __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(Params p) {
   using L = Tiles<DP>;
   constexpr int BQ = L::BQ, BK = L::BK, RQ = L::RQ, KQ = L::KQ, NC = L::NC, LD = L::LD,
@@ -325,9 +353,15 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(Params p) {
   const int ra = RQ * ty;
   const int r0 = blk * BQ;
   const int off = p.s_k - p.s_q;
+  // sliced: as in K4, with dQ's slice and the K columns it accumulates
+  const int n_slices = SLICED ? (p.d + DP - 1) / DP : 1;
+  const int v0 = SLICED ? static_cast<int>(blockIdx.y) * DP : 0;
+  const int c_last = (n_slices - 1) * DP;
 
-  load_tile<T, DP>(qs, qb, p.st[2], r0, BQ, p.s_q, p.d);
-  load_tile<T, DP>(dos, dob, p.st[11], r0, BQ, p.s_q, p.d);
+  if (!SLICED) {
+    load_tile<T, DP>(qs, qb, p.st[2], r0, BQ, p.s_q, p.d);
+    load_tile<T, DP>(dos, dob, p.st[11], r0, BQ, p.s_q, p.d);
+  }
   float lse_r[RQ], delta_r[RQ];
 #pragma unroll
   for (int i = 0; i < RQ; ++i) {
@@ -351,13 +385,20 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(Params p) {
   }
   for (int t = 0; t < n_tiles; ++t) {
     const int j0 = t * BK;
-    __syncthreads();   // Q/dO stored / the previous tile's readers done
-    load_tile<T, DP>(ks, kb, p.st[5], j0, BK, p.s_k, p.d);
-    load_tile<T, DP>(vs, vb, p.st[8], j0, BK, p.s_k, p.d);
-    __syncthreads();
-
     float s[RQ][KQ], dp[RQ][KQ];
-    two_products<DP>(qs, ks, dos, vs, ra, tx, s, dp);
+    zero<DP>(s, dp);
+    for (int sl = 0; sl < n_slices; ++sl) {
+      const int c0 = sl * DP;
+      __syncthreads();   // Q/dO stored / the previous tile's or slice's readers done
+      if (SLICED) {
+        load_tile<T, DP>(qs, qb + c0, p.st[2], r0, BQ, p.s_q, p.d - c0);
+        load_tile<T, DP>(dos, dob + c0, p.st[11], r0, BQ, p.s_q, p.d - c0);
+      }
+      load_tile<T, DP>(ks, kb + c0, p.st[5], j0, BK, p.s_k, p.d - c0);
+      load_tile<T, DP>(vs, vb + c0, p.st[8], j0, BK, p.s_k, p.d - c0);
+      __syncthreads();
+      two_products<DP>(qs, ks, dos, vs, ra, tx, s, dp);
+    }
 #pragma unroll
     for (int i = 0; i < RQ; ++i) {
       const int row = r0 + ra + i;
@@ -372,6 +413,10 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(Params p) {
         }
         dss[(ra + i) * LDP + tx + 16 * jj] = dsv;
       }
+    }
+    if (SLICED && v0 != c_last) {   // the K columns of the block's slice
+      __syncthreads();
+      load_tile<T, DP>(ks, kb + v0, p.st[5], j0, BK, p.s_k, p.d - v0);
     }
     __syncthreads();
 
@@ -408,17 +453,17 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(Params p) {
     for (int n = 0; n < NC; ++n)
 #pragma unroll
       for (int cc = 0; cc < 4; ++cc) {
-        const int c = 64 * n + 4 * tx + cc;
+        const int c = v0 + 64 * n + 4 * tx + cc;
         if (c < p.d) dqb[row * p.st[14] + c] = from_float<T>(acc[i][4 * n + cc]);
       }
   }
 }
 
-template <typename T, int DP>
+template <typename T, int DP, bool SLICED = false>
 int launch_dp(bool dkv, const Params& p, int batch, cudaStream_t stream) {
   using L = Tiles<DP>;
   const size_t smem = dkv ? L::dkv_bytes : L::dq_bytes;
-  auto kernel = dkv ? flash_bwd_dkv_kernel<T, DP> : flash_bwd_dq_kernel<T, DP>;
+  auto kernel = dkv ? flash_bwd_dkv_kernel<T, DP, SLICED> : flash_bwd_dq_kernel<T, DP, SLICED>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -426,7 +471,8 @@ int launch_dp(bool dkv, const Params& p, int batch, cudaStream_t stream) {
   const int tile = dkv ? L::BK : L::BQ;
   const long long blocks = static_cast<long long>((rows + tile - 1) / tile) * batch * p.heads;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(p);
+  const dim3 grid(static_cast<unsigned>(blocks), SLICED ? (p.d + DP - 1) / DP : 1);
+  kernel<<<grid, kThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -435,7 +481,7 @@ int launch(bool dkv, const void* q, const void* k, const void* v, const void* do
            const void* lse, const void* delta, void* g0, void* g1, int batch, int heads,
            int s_q, int s_k, int d, const long long* strides, float scale, int causal,
            void* stream) {
-  if (batch <= 0 || heads <= 0 || s_q <= 0 || s_k <= 0 || d <= 0 || d > 512)
+  if (batch <= 0 || heads <= 0 || s_q <= 0 || s_k <= 0 || d <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{};
   p.q = q; p.k = k; p.v = v; p.dout = dout;
@@ -450,7 +496,7 @@ int launch(bool dkv, const void* q, const void* k, const void* v, const void* do
   if (d <= 64) return launch_dp<T, 64>(dkv, p, batch, cs);
   if (d <= 128) return launch_dp<T, 128>(dkv, p, batch, cs);
   if (d <= 256) return launch_dp<T, 256>(dkv, p, batch, cs);
-  return launch_dp<T, 512>(dkv, p, batch, cs);
+  return launch_dp<T, 256, true>(dkv, p, batch, cs);
 }
 
 }  // namespace
@@ -459,7 +505,7 @@ int launch(bool dkv, const void* q, const void* k, const void* v, const void* do
 // b*bs + h*hs + r*ss + c; lse, delta: contiguous float32 (batch*heads, s_q).
 // K4 writes dk, dv (shape of k) and takes strides {q, k, v, dout, dk, dv} x
 // {bs, hs, ss}; K5 writes dq (shape of q) and takes {q, k, v, dout, dq} x
-// {bs, hs, ss}. d <= 512. Each returns cudaGetLastError() after the launch.
+// {bs, hs, ss}. Any d >= 1. Each returns cudaGetLastError() after the launch.
 extern "C" int lvg_flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
                                       const void* dout, const void* lse, const void* delta,
                                       void* dk, void* dv, int batch, int heads, int s_q,

@@ -26,11 +26,14 @@
 //     with xor shuffles (they are one half of a warp);
 //   - P goes through shared memory, and the same thread accumulates the 4
 //     rows of O at columns 64n + 4tx .. 64n + 4tx + 3 in registers (float32).
-// The head dim is padded to DP in {64, 128, 256, 512} inside the kernel. At
-// DP = 512 the float tiles of 64 rows and 64 keys would not fit the 227 KB a
-// block may use, so the tiles are 32 x 32 there (218,112 B) and a thread
-// owns 2 x 2 scores (BQ / 16 rows, BK / 16 keys) where the text above says
-// 4 x 4. Aligned bf16 inputs up to head dim 256 run the tensor-core kernel of
+// The head dim is padded to DP in {64, 128, 256} inside the kernel. Head
+// dims above 256 walk d in slices of 256 columns with DP = 256's tiles (the
+// "sliced" kernel; float tiles of a wider DP would not fit the 227 KB a
+// block may use): S = Q.K^T sums over the Q and K slices, staged one after
+// the other for each key tile, and blockIdx.y picks the 256 columns of V and
+// O that the block accumulates and writes, so shared memory does not grow
+// with d (S is recomputed once for each slice of O).
+// Aligned bf16 inputs up to head dim 256 run the tensor-core kernel of
 // flash_fwd_sm90.cu instead (ops/attention.py::flash_route decides). q, k, v
 // are read through (batch, head, row) strides with unit column stride, so
 // the column slices of the U-Net's fused qkv projection need no copy, and O
@@ -78,26 +81,19 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-// N (4 or 2) consecutive floats from an address aligned to 4 N bytes.
+// Four consecutive floats from a 16-byte aligned address, and back.
 __device__ __forceinline__ void ldn(float (&dst)[4], const float* p) {
   const float4 x = *reinterpret_cast<const float4*>(p);
   dst[0] = x.x; dst[1] = x.y; dst[2] = x.z; dst[3] = x.w;
 }
-__device__ __forceinline__ void ldn(float (&dst)[2], const float* p) {
-  const float2 x = *reinterpret_cast<const float2*>(p);
-  dst[0] = x.x; dst[1] = x.y;
-}
 __device__ __forceinline__ void stn(float* p, const float (&src)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(src[0], src[1], src[2], src[3]);
-}
-__device__ __forceinline__ void stn(float* p, const float (&src)[2]) {
-  *reinterpret_cast<float2*>(p) = make_float2(src[0], src[1]);
 }
 
 // Tile shape and shared-memory layout of one block, in floats.
 template <int DP> struct Layout {
-  static constexpr int BQ = DP == 512 ? 32 : 64;   // query rows per block
-  static constexpr int BK = DP == 512 ? 32 : 64;   // keys per shared-memory tile
+  static constexpr int BQ = 64;             // query rows per block
+  static constexpr int BK = 64;             // keys per shared-memory tile
   static constexpr int RQ = BQ / 16;               // rows per thread
   static constexpr int RK = BK / 16;               // keys per thread
   static constexpr int ld_q = BQ + kPad;    // Qt[c][row]
@@ -111,7 +107,7 @@ template <int DP> struct Layout {
   static constexpr size_t bytes = static_cast<size_t>(q + k + v + p) * sizeof(float);
 };
 
-template <typename T, int DP>
+template <typename T, int DP, bool SLICED>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ o, float* __restrict__ lse, int heads, int s_q, int s_k,
@@ -142,13 +138,20 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int lane = tid & 31;
   const int tx = lane & 15;                       // key / column group
   const int ty = (tid >> 5) * 2 + (lane >> 4);    // row group
+  // sliced: the slices of d that S sums over, and the first column of the
+  // block's slice of V and O
+  const int n_slices = SLICED ? (d + DP - 1) / DP : 1;
+  const int v0 = SLICED ? static_cast<int>(blockIdx.y) * DP : 0;
 
-  for (int i = tid; i < kBQ * DP; i += kThreads) {
-    const int r = i / DP, c = i - (i / DP) * DP;
-    float x = 0.f;
-    if (r0 + r < s_q && c < d) x = to_float(qb[(r0 + r) * q_ss + c]) * scale;
-    qt[c * L::ld_q + r] = x;
-  }
+  auto stage_q = [&](int c0) {   // columns c0 .. c0 + DP - 1 of the Q tile, scaled
+    for (int i = tid; i < kBQ * DP; i += kThreads) {
+      const int r = i / DP, c = i - (i / DP) * DP;
+      float x = 0.f;
+      if (r0 + r < s_q && c0 + c < d) x = to_float(qb[(r0 + r) * q_ss + c0 + c]) * scale;
+      qt[c * L::ld_q + r] = x;
+    }
+  };
+  if (!SLICED) stage_q(0);
 
   float acc[RQ][4 * NC];
   float m[RQ], l[RQ];
@@ -168,33 +171,38 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
   for (int t = 0; t < n_tiles; ++t) {
     const int j0 = t * kBK;
-    __syncthreads();   // Q stored / the previous tile's readers done
-    for (int i = tid; i < kBK * DP; i += kThreads) {
-      const int j = i / DP, c = i - (i / DP) * DP;
-      float kx = 0.f, vx = 0.f;
-      if (j0 + j < s_k && c < d) {
-        kx = to_float(kb[(j0 + j) * k_ss + c]);
-        vx = to_float(vb[(j0 + j) * v_ss + c]);
-      }
-      kt[c * L::ld_k + j] = kx;
-      vs[j * L::ld_v + c] = vx;
-    }
-    __syncthreads();
-
     float s[RQ][RK];
 #pragma unroll
     for (int i = 0; i < RQ; ++i)
 #pragma unroll
       for (int jj = 0; jj < RK; ++jj) s[i][jj] = 0.f;
+    for (int sl = 0; sl < n_slices; ++sl) {
+      const int c0 = sl * DP;
+      const bool last = sl == n_slices - 1;   // V's slice is staged with K's last one
+      __syncthreads();   // Q stored / the previous tile's or slice's readers done
+      if (SLICED) stage_q(c0);
+      for (int i = tid; i < kBK * DP; i += kThreads) {
+        const int j = i / DP, c = i - (i / DP) * DP;
+        float kx = 0.f, vx = 0.f;
+        if (j0 + j < s_k) {
+          if (c0 + c < d) kx = to_float(kb[(j0 + j) * k_ss + c0 + c]);
+          if (last && v0 + c < d) vx = to_float(vb[(j0 + j) * v_ss + v0 + c]);
+        }
+        kt[c * L::ld_k + j] = kx;
+        if (last) vs[j * L::ld_v + c] = vx;
+      }
+      __syncthreads();
+
 #pragma unroll 8
-    for (int c = 0; c < DP; ++c) {
-      float qv[RQ], kv[RK];
-      ldn(qv, qt + c * L::ld_q + RQ * ty);
-      ldn(kv, kt + c * L::ld_k + RK * tx);
+      for (int c = 0; c < DP; ++c) {
+        float qv[RQ], kv[RK];
+        ldn(qv, qt + c * L::ld_q + RQ * ty);
+        ldn(kv, kt + c * L::ld_k + RK * tx);
 #pragma unroll
-      for (int i = 0; i < RQ; ++i)
+        for (int i = 0; i < RQ; ++i)
 #pragma unroll
-        for (int jj = 0; jj < RK; ++jj) s[i][jj] = fmaf(qv[i], kv[jj], s[i][jj]);
+          for (int jj = 0; jj < RK; ++jj) s[i][jj] = fmaf(qv[i], kv[jj], s[i][jj]);
+      }
     }
 
 #pragma unroll
@@ -256,26 +264,27 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     for (int n = 0; n < NC; ++n)
 #pragma unroll
       for (int cc = 0; cc < 4; ++cc) {
-        const int c = 64 * n + 4 * tx + cc;
+        const int c = v0 + 64 * n + 4 * tx + cc;
         if (c < d) ob[row * o_ss + c] = from_float<T>(acc[i][4 * n + cc] / denom);
       }
-    if (tx == 0) lse[static_cast<long long>(bh) * s_q + row] = m[i] + logf(denom);
+    if (tx == 0 && v0 == 0) lse[static_cast<long long>(bh) * s_q + row] = m[i] + logf(denom);
   }
 }
 
-template <typename T, int DP>
+template <typename T, int DP, bool SLICED = false>
 int launch_dp(const void* q, const void* k, const void* v, void* o, void* lse, int batch,
               int heads, int s_q, int s_k, int d, const long long* st, float scale,
               int causal, cudaStream_t stream) {
   const size_t smem = Layout<DP>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<T, DP, SLICED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long blocks =
       static_cast<long long>((s_q + Layout<DP>::BQ - 1) / Layout<DP>::BQ) * batch * heads;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  flash_fwd_kernel<T, DP><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+  const dim3 grid(static_cast<unsigned>(blocks), SLICED ? (d + DP - 1) / DP : 1);
+  flash_fwd_kernel<T, DP, SLICED><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), static_cast<float*>(lse), heads, s_q, s_k, d, st[0], st[1],
       st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale, causal);
@@ -292,8 +301,7 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, int 
   if (d <= 64) return launch_dp<T, 64>(q, k, v, o, lse, batch, heads, s_q, s_k, d, st, scale, causal, cs);
   if (d <= 128) return launch_dp<T, 128>(q, k, v, o, lse, batch, heads, s_q, s_k, d, st, scale, causal, cs);
   if (d <= 256) return launch_dp<T, 256>(q, k, v, o, lse, batch, heads, s_q, s_k, d, st, scale, causal, cs);
-  if (d <= 512) return launch_dp<T, 512>(q, k, v, o, lse, batch, heads, s_q, s_k, d, st, scale, causal, cs);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_dp<T, 256, true>(q, k, v, o, lse, batch, heads, s_q, s_k, d, st, scale, causal, cs);
 }
 
 }  // namespace
@@ -301,7 +309,7 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, int 
 // q, k, v: (batch, heads, s, d) element (b, h, r, c) at b*bs + h*hs + r*ss + c
 // (strides in elements, st = {q_bs, q_hs, q_ss, k_bs, k_hs, k_ss, v_bs, v_hs,
 // v_ss, o_bs, o_hs, o_ss}); o: same dtype, written through its strides;
-// lse: contiguous float32 (batch*heads, s_q). d <= 512. Returns
+// lse: contiguous float32 (batch*heads, s_q). Any d >= 1. Returns
 // cudaGetLastError() after the launch.
 extern "C" int lvg_flash_fwd_bf16(const void* q, const void* k, const void* v, void* o,
                                   void* lse, int batch, int heads, int s_q, int s_k, int d,

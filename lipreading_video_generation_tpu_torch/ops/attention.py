@@ -204,10 +204,10 @@ small_mha.launch_count = 0
 small_mha.route_counts = dict.fromkeys(_SMALL_MHA_ROUTES, 0)
 
 
-_FLASH_BQ = _FLASH_BK = 64          # csrc/flash_fwd.cu's tile (Layout::BQ, BK) up to head dim 256
+_FLASH_BQ = _FLASH_BK = 64          # csrc/flash_fwd.cu's tile (Layout::BQ, BK)
 _FLASH_PAD = 4                      # its kPad
-_FLASH_MAX_D = 512                  # the CUDA-core kernels' largest head dim
-_FLASH_MAX_D_SM90 = 256             # the tensor-core kernels'
+_FLASH_SLICE = 256                  # the CUDA-core kernels walk larger head dims in slices of 256
+_FLASH_MAX_D_SM90 = 256             # the tensor-core kernels' largest head dim
 _FLASH_ROUTES = ("sm90", "cuda_core")
 _FLASH_ENTRY_POINTS = {torch.bfloat16: "lvg_flash_fwd_bf16", torch.float32: "lvg_flash_fwd_f32"}
 # past this many scores a plain-version call walks its queries in chunks
@@ -215,11 +215,21 @@ _FLASH_REF_CHUNK = 1 << 26
 
 
 def flash_head_dim_pad(d: int) -> int:
-    """The head dim K3, K4 and K5 are compiled for: 64, 128, 256 or (the
-    CUDA-core kernels only) 512."""
-    if d > _FLASH_MAX_D:
-        raise ValueError(f"flash_attention: head dim {d} > {_FLASH_MAX_D} is not supported")
-    return next(dp for dp in (64, 128, 256, 512) if d <= dp)
+    """The head dim K3, K4 and K5 pad d to: 64, 128 or 256, and above 256
+    (the CUDA-core kernels only) the next multiple of 256, which they walk
+    in slices of 256 columns (the JAX package pads to a multiple of 128
+    there)."""
+    if d < 1:
+        raise ValueError(f"flash_attention: head dim {d}")
+    if d > _FLASH_SLICE:
+        return -(-d // _FLASH_SLICE) * _FLASH_SLICE
+    return next(dp for dp in (64, 128, 256) if d <= dp)
+
+
+def _flash_tile_dim(d: int) -> int:
+    """The head dim of the CUDA-core kernels' shared-memory tiles: the padded
+    head dim, or one slice of 256 columns above 256."""
+    return min(flash_head_dim_pad(d), _FLASH_SLICE)
 
 
 def flash_route(dtype: torch.dtype, d: int, strides, offsets) -> str:
@@ -245,14 +255,16 @@ flash_bwd_route = flash_route       # the name the rule had when only K4/K5 foll
 def flash_smem_bytes(d: int, route: str = "cuda_core") -> int:
     """Dynamic shared memory of one K3 block. CUDA-core route
     (``csrc/flash_fwd.cu``'s Layout): Qᵀ, Kᵀ, V and P tiles as float, 64
-    rows and 64 keys, 32 and 32 at head dim 512. "sm90"
+    rows and 64 keys; above head dim 256 the tiles of 256 hold one slice of
+    d at a time. "sm90"
     (``csrc/flash_fwd_sm90.cu``'s FwdCfg): bf16 tiles; Q of the block's
     queries (128, 64 at head dim 256), two stages each of K and V (64 keys,
     128 at head dim 128), plus 1 KB to align the tiles to the swizzle's 1024
     bytes."""
     dp = flash_head_dim_pad(d)
     if route == "cuda_core":
-        bq = bk = 32 if dp == 512 else _FLASH_BQ
+        dp = _flash_tile_dim(d)
+        bq, bk = _FLASH_BQ, _FLASH_BK
         floats = (dp * (bq + _FLASH_PAD) + dp * (bk + _FLASH_PAD)
                   + bk * (dp + _FLASH_PAD) + bq * (bk + _FLASH_PAD))
         return floats * 4
@@ -299,7 +311,7 @@ def flash_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: b
 def _flash_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
                   sm_scale: float):
     """Launch K3 on CUDA (B, H, S, D) q/k/v of one dtype (bf16 or float32,
-    unit stride along D, D ≤ 512). Returns (O as a (B, H, S_q, D) view of a
+    unit stride along D, any D). Returns (O as a (B, H, S_q, D) view of a
     contiguous (B, S_q, H, D) tensor, lse (B, H, S_q) float32). The kernel
     is the one ``flash_route`` names. Raises on anything else."""
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
@@ -400,14 +412,15 @@ _BWD_DTYPE_SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}   # the CUDA-
 
 def flash_bwd_block_q(d: int, route: str = "cuda_core", kernel: str = "dkv") -> int:
     """Query rows per tile (K4) or per block (K5). CUDA-core route
-    (``csrc/flash_bwd.cu``'s BQ): 32 at head dim 256 and 16 at 512, where
-    larger tiles would not fit a block's shared memory, else 64. "sm90"
+    (``csrc/flash_bwd.cu``'s BQ): 32 from head dim 256 on, where larger
+    tiles would not fit a block's shared memory (above 256 the tiles of 256
+    hold one slice of d), else 64. "sm90"
     (``csrc/flash_bwd_sm90.cu``'s DkvCfg / DqCfg): K4 walks 128-query tiles
     at head dim 64 and 64-query tiles above; a K5 block owns 128 queries
     (two warpgroups), 64 at head dim 256."""
     dp = flash_head_dim_pad(d)
     if route == "cuda_core":
-        return {512: 16, 256: 32}.get(dp, 64)
+        return 32 if _flash_tile_dim(d) == 256 else 64
     if dp > _FLASH_MAX_D_SM90:
         raise ValueError(f"flash backward: the tensor-core kernels take no head dim {d}")
     if kernel == "dkv":
@@ -418,7 +431,8 @@ def flash_bwd_block_q(d: int, route: str = "cuda_core", kernel: str = "dkv") -> 
 def flash_bwd_smem_bytes(d: int, kernel: str, route: str = "cuda_core") -> int:
     """Dynamic shared memory of one K4 ("dkv") or K5 ("dq") block.
     CUDA-core route: Q, dO, K, V tiles row-major as float (rows padded by
-    4; 64 keys, 32 at head dim 512), plus the P and dS tiles (K4) or the dS
+    4; 64 keys; above head dim 256 those of 256, one slice of d at a
+    time), plus the P and dS tiles (K4) or the dS
     tile (K5), plus lse and Δ of the query tile (K4). "sm90": bf16 tiles; the outer tile pair (K4: K, V
     of 128 keys, 64 at head dim 256; K5: Q, dO of the block's queries) and
     two stages of the inner pair (K4: Q, dO and 1 KB of lse and Δ; K5: K, V
@@ -426,7 +440,8 @@ def flash_bwd_smem_bytes(d: int, kernel: str, route: str = "cuda_core") -> int:
     the swizzle's 1024 bytes."""
     dp = flash_head_dim_pad(d)
     if route == "cuda_core":
-        bq, bk = flash_bwd_block_q(d), 32 if dp == 512 else _FLASH_BK
+        dp = _flash_tile_dim(d)
+        bq, bk = flash_bwd_block_q(d), _FLASH_BK
         ld, ldp = dp + _FLASH_PAD, bk + _FLASH_PAD
         floats = 2 * bq * ld + 2 * bk * ld
         floats += 2 * bq * ldp + 2 * bq if kernel == "dkv" else bq * ldp

@@ -180,8 +180,9 @@ def expand_box_to_min_size(box: torch.Tensor, min_h: int = 48, min_w: int = 48) 
 def clahe(img: torch.Tensor, clip_limit: float = 0.2, grid: Tuple[int, int] = (8, 8),
           nbins: int = 256) -> torch.Tensor:
     """CLAHE on (..., H, W) uint8/float [0, 255] images. A CUDA tensor goes
-    through the kernel K1 (``clahe_cuda``), or raises if the kernel does not
-    take the shape; a CPU tensor goes through ``clahe_reference``."""
+    through the kernel K1 (``clahe_cuda``, by the route ``clahe_route``
+    names: it takes every shape the JAX package's ``clahe`` takes); a CPU
+    tensor goes through ``clahe_reference``."""
     if not img.is_cuda:
         return clahe_reference(img, clip_limit, grid, nbins)
     h, w = img.shape[-2:]

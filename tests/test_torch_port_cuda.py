@@ -6,6 +6,8 @@ torch; there, skip the repository's conftest (which sets up JAX):
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -44,14 +46,90 @@ def test_clahe_kernel_matches_plain(cuda, shape, grid):
     assert (got - cl.clahe_reference(x, 0.2, grid)).abs().max().item() <= 1e-2
 
 
+# (shape, grid, nbins, clip, route, most LUT entries that may differ): K1's
+# two routes at the shapes it took only since its redesign (16 x 16 tiles,
+# 128, 8 and 512 bins, tiles of 121, 4,096 and 920 pixels, frames of
+# 360 x 640) and the tiled route's edges (padding past the last tile,
+# 20,000 bins in three passes, 17 x 17 tiles), clip 0.2, 2.0, 2.5 and 10.
+# Where L is an integer and nbins a power of two every partial sum is exact
+# and no entry may differ; elsewhere a level next to a rounding tie may move
+# by one, in at most twice as many entries as seeds 0-3 moved on the card,
+# plus 2 (PERF.md, §6)
+_CLAHE = [((2, 48, 48), (16, 16), 256, 0.2, "packed", 0),
+          ((2, 48, 48), (16, 16), 256, 2.0, "packed", 0),
+          ((2, 48, 48), (8, 8), 128, 0.2, "packed", 0), ((2, 48, 48), (8, 8), 8, 0.2, "packed", 0),
+          ((2, 88, 88), (8, 8), 256, 0.2, "packed", 0),
+          ((2, 48, 48), (8, 8), 512, 2.5, "tiled", 0),
+          ((2, 128, 128), (2, 2), 256, 2.5, "tiled", 0),
+          ((2, 128, 128), (2, 2), 256, 0.2, "tiled", 2),
+          ((1, 180, 320), (8, 8), 256, 2.0, "tiled", 2),
+          ((2, 64, 64), (4, 4), 256, 2.5, "tiled", 2),
+          ((2, 360, 640), (8, 8), 256, 0.2, "tiled", 2),
+          ((2, 360, 640), (8, 8), 256, 2.5, "tiled", 2), ((3, 5, 5), (4, 4), 256, 0.2, "tiled", 0),
+          ((2, 48, 48), (8, 8), 20000, 0.2, "tiled", 135110),
+          ((2, 48, 48), (17, 17), 256, 2.0, "tiled", 0),
+          ((2, 48, 48), (8, 8), 100, 0.2, "tiled", 116), ((2, 1, 1), (1, 1), 256, 0.2, "tiled", 0),
+          ((2, 48, 48), (8, 8), 8, 2.0, "tiled", 0), ((2, 64, 64), (4, 4), 16, 2.0, "tiled", 0),
+          ((2, 48, 48), (8, 8), 256, 10.0, "tiled", 2)]
+
+
+@pytest.mark.parametrize("shape,grid,nbins,clip,route,max_diff", _CLAHE)
+def test_clahe_kernel_routes_match_plain(cuda, shape, grid, nbins, clip, route, max_diff):
+    """Each route, equal bits over two launches, and the LUTs against
+    ``clahe_luts_reference``: equal where L is an integer and nbins a power
+    of two (every partial sum exact), and the output within 1e-2; else
+    within one level in no more than ``max_diff`` entries (a tie may round
+    the other way after sums in another order), and the output within
+    1 + 1e-2."""
+    x = _uniform(shape, 0, 255, 2, cuda)
+    luts = torch.empty(shape[0], grid[0] * grid[1], nbins, device=cuda)
+    before = dict(cl.clahe_cuda.route_counts)
+    got = cl.clahe_cuda(x, clip, grid, nbins, luts=luts)
+    again = cl.clahe_cuda(x, clip, grid, nbins)
+    torch.cuda.synchronize()
+    assert {r: n - before[r] for r, n in cl.clahe_cuda.route_counts.items()
+            if n != before[r]} == {route: 2}
+    assert torch.equal(got, again)
+    th, tw = -(-shape[1] // grid[0]), -(-shape[2] // grid[1])
+    limit = float(np.float32(max(1.0, clip * th * tw / nbins)))
+    exact = limit.is_integer() and nbins & (nbins - 1) == 0
+    assert exact == (max_diff == 0)
+    lut_d = (luts - cl.clahe_luts_reference(x, clip, grid, nbins)).abs()
+    err = (got - cl.clahe_reference(x, clip, grid, nbins)).abs().max().item()
+    assert lut_d.max().item() <= (0 if exact else 1) and err <= (1e-2 if exact else 1 + 1e-2)
+    assert (lut_d > 0).sum().item() <= max_diff
+
+
+def test_clahe_unaligned_images_take_the_tiled_route(cuda):
+    """Images that do not start on 16 bytes take the tiled route (the packed
+    one moves pixels as float4s) and match the plain version."""
+    x = _uniform((2 * 48 * 48 + 1,), 0, 255, 4, cuda)[1:].view(2, 48, 48)
+    assert cl.clahe_route(48, 48, (8, 8), 256, 0.2, x.data_ptr()) == "tiled"
+    before = cl.clahe_cuda.route_counts["tiled"]
+    got = cl.clahe_cuda(x, 0.2, (8, 8))
+    assert cl.clahe_cuda.route_counts["tiled"] == before + 1
+    assert (got - cl.clahe_reference(x, 0.2, (8, 8))).abs().max().item() <= 1e-2
+
+
 def test_clahe_dispatch_on_card(cuda):
+    """``ops/image.clahe`` computes every shape on the card, those that
+    raised before the redesign too (16 x 16 tiles, 128 and 512 bins,
+    frames of 360 x 640), within a level of the plain version in uint8."""
     x = _uniform((2, 48, 48), 0, 255, 1, cuda)
     u8 = im.clahe(x.round().to(torch.uint8))
     assert u8.dtype == torch.uint8 and u8.is_cuda
     with pytest.raises(ValueError, match="float32"):
         cl.clahe_cuda(x.double())
-    with pytest.raises(ValueError, match="does not take"):
-        im.clahe(x, grid=(16, 16))          # 256 tile histograms exceed shared memory
+    frames = _uniform((2, 360, 640), 0, 255, 3, cuda)
+    # L = 1 at 48 x 48 (exact LUTs); L = 2.8125 on the frames (a level may move by one)
+    for img, kw, tol in ((x, {"grid": (16, 16)}, 1e-2), (x, {"nbins": 128}, 1e-2),
+                         (x, {"nbins": 512}, 1e-2), (frames, {}, 1 + 1e-2)):
+        u8 = img.round().to(torch.uint8)
+        got, want = im.clahe(u8, **kw), cl.clahe_reference(u8, **kw)
+        assert got.dtype == torch.uint8
+        assert (got.int() - want.int()).abs().max().item() <= math.ceil(tol)
+        torch.testing.assert_close(im.clahe(img, **kw), cl.clahe_reference(img, **kw),
+                                   rtol=0, atol=tol)
 
 
 @pytest.mark.parametrize("b,s,e,h,causal,dtype,tol", [
@@ -136,8 +214,6 @@ def test_mha_raises_where_no_kernel_takes_the_shape(cuda):
     with pytest.raises(ValueError, match="bf16 or float32"):
         att.small_mha(q.half(), q.half(), q.half(), 4)
     big = _uniform((1, 1, 300, 520), -1, 1, 9, cuda)
-    with pytest.raises(ValueError, match="512"):
-        att.flash_attention(big, big, big)   # head dim above K3's 512
     with pytest.raises(ValueError, match="bf16 or float32"):
         att.flash_attention(big[..., :64].half(), big[..., :64].half(), big[..., :64].half())
 
@@ -257,12 +333,21 @@ def _forward_and_backward_match_plain(q_shape, s_k, causal, dtype, route, device
         assert _rel_err(got, ref) <= tol, (name, _rel_err(got, ref))
 
 
-@pytest.mark.parametrize("d", [320, 512])
+@pytest.mark.parametrize("d", [320, 512, 640, 1024])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernels_take_head_dims_above_256(cuda, d, dtype):
-    """Head dims up to 512 run the CUDA-core kernels in both types (1024
-    tokens: a U-Net block of 512 channels at ds 4)."""
+    """Head dims above 256 run the CUDA-core kernels in both types (1024
+    tokens: a U-Net block of 512 channels at ds 4); above 512 they walk d
+    in slices of 256 columns."""
     _forward_and_backward_match_plain((1, 1, 1024, d), 1024, False, dtype, "cuda_core", cuda)
+
+
+@pytest.mark.parametrize("d", [640, 1000, 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_sliced_kernels_causal_and_ragged(cuda, d, dtype):
+    """The sliced kernels with a causal mask over ragged lengths (300
+    queries, 260 keys, 2 heads) and a head dim that is no multiple of 256."""
+    _forward_and_backward_match_plain((1, 2, 300, d), 260, True, dtype, "cuda_core", cuda)
 
 
 @pytest.mark.parametrize("q_shape,causal,dtype,route", [

@@ -138,12 +138,13 @@ def test_flash_smem_fits_a_block(route):
         assert tatt.flash_smem_bytes(d, route) <= _build.SMEM_PER_BLOCK
     if route == "cuda_core":
         assert tatt.flash_smem_bytes(64) == tatt.flash_smem_bytes(64, route) == 69632
-        # head dims above 256: 32 x 32 tiles of float, so that they fit a block
+        # head dims above 256: the float tiles of 256 hold one slice of d at
+        # a time, so that they fit a block
         assert tatt.flash_head_dim_pad(320) == tatt.flash_head_dim_pad(512) == 512
-        assert tatt.flash_smem_bytes(320, route) == 218112 <= _build.SMEM_PER_BLOCK
-        for kernel, want in (("dkv", 202880), ("dq", 200448)):
+        assert tatt.flash_smem_bytes(320, route) == 223232 <= _build.SMEM_PER_BLOCK
+        for kernel, want in (("dkv", 217344), ("dq", 208384)):
             assert tatt.flash_bwd_smem_bytes(512, kernel, route) == want <= _build.SMEM_PER_BLOCK
-        assert tatt.flash_bwd_block_q(320) == 16
+        assert tatt.flash_bwd_block_q(320) == 32
     else:
         # bf16 tiles: Q of 128 queries (64 at head dim 256), two stages each of
         # K and V of 64 keys (128 at head dim 128); two blocks of head dim 64 fit an SM
@@ -155,8 +156,29 @@ def test_flash_smem_fits_a_block(route):
             tatt.flash_smem_bytes(320, route)
         with pytest.raises(ValueError, match="tensor-core"):
             tatt.flash_bwd_block_q(320, route)
-    with pytest.raises(ValueError, match="512"):
-        tatt.flash_head_dim_pad(513)
+    # the CUDA-core kernels walk d in slices of 256: no head dim raises
+    assert tatt.flash_head_dim_pad(513) == 768
+    with pytest.raises(ValueError, match="head dim"):
+        tatt.flash_head_dim_pad(0)
+
+
+@pytest.mark.parametrize("d,pad", [(320, 512), (512, 512), (640, 768), (1024, 1024),
+                                   (1000, 1024), (2048, 2048)])
+def test_flash_head_dims_above_256_take_the_sliced_cuda_core_kernels(d, pad):
+    """d > 256: the CUDA-core K3, K4 and K5 with the tiles of head dim 256
+    (one slice of d at a time), so their shared memory does not grow with d;
+    aligned bf16 still takes the CUDA-core route (the tensor-core kernels
+    stop at 256)."""
+    from lipreading_video_generation_tpu_torch.ops import _build
+
+    assert tatt.flash_head_dim_pad(d) == pad
+    assert tatt.flash_smem_bytes(d) == tatt.flash_smem_bytes(256) == 223232 <= _build.SMEM_PER_BLOCK
+    assert tatt.flash_bwd_block_q(d) == tatt.flash_bwd_block_q(256) == 32
+    for kernel, want in (("dkv", 217344), ("dq", 208384)):
+        assert tatt.flash_bwd_smem_bytes(d, kernel) == want <= _build.SMEM_PER_BLOCK
+    assert _forward_route(*_fused_qkv(d)) == "cuda_core"
+    with pytest.raises(ValueError, match="tensor-core"):
+        tatt.flash_smem_bytes(d, "sm90")
 
 
 def _bf16(arrs):
@@ -278,6 +300,31 @@ def test_flash_head_dim_320_matches_jax():
 
     def loss(q, k, v):
         return jnp.sum(jnp.asarray(w) * jatt.flash_attention(q, k, v, interpret=True))
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, arrs))
+    for t, r in zip(qkv, want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(r), rtol=5e-4, atol=5e-4)
+
+
+def test_flash_head_dim_640_matches_jax():
+    """Head dim 640 (the card walks it in slices of 256; the JAX package
+    pads it to 768): forward, lse and gradients of ``_Flash`` on the CPU
+    against the JAX package's flash kernels in interpret mode, at 128 x 128
+    scores (``flash_attention`` would take ``attention_reference`` there, so
+    both sides call their custom VJP directly)."""
+    arrs = _qkv(11, 1, 1, 128, 128, 640)
+    w = np.random.default_rng(12).standard_normal((1, 1, 128, 640)).astype(np.float32)
+    scale = 1.0 / math.sqrt(640)
+    want_o, want_lse = jatt._flash_forward(*map(jnp.asarray, arrs), False, scale, 128, 128, True)
+    qkv = [torch.from_numpy(a).requires_grad_() for a in arrs]
+    got_o, got_lse = tatt._Flash.apply(*qkv, False, scale)
+    np.testing.assert_allclose(got_o.detach().numpy(), np.asarray(want_o), rtol=5e-4, atol=5e-4)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse)[:, :, :128], rtol=1e-5,
+                               atol=1e-4)
+    (torch.from_numpy(w) * got_o).sum().backward()
+
+    def loss(q, k, v):
+        return jnp.sum(jnp.asarray(w) * jatt._flash(q, k, v, False, scale, 128, 128, True))
 
     want = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, arrs))
     for t, r in zip(qkv, want):
