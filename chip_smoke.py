@@ -9,6 +9,11 @@ weights made from a seed, and checks every hand-written kernel on them:
   hidden 256, 8 heads, MLP 1024, bf16, 64 classes); its attention is the
   small-MHA kernel K2, in bf16 the tensor-core one
   (``csrc/small_mha_sm90.cu``);
+- ViViT training through the port's command line (``cli.main(["train-vivit",
+  ...])``: synthetic word clips, AdamW with the staircase schedule, an eval
+  after each epoch, the best-accuracy params) at the same defaults with 8
+  classes, batch 16: K2 forward in every training step and eval batch, its
+  backward the einsum VJP under autograd;
 - diffusion sampling — uint8 condition frame + raw audio → native audio
   encoder → conditioning map → DDIM / DPM++ denoise steps of the U-Net →
   uint8 frames — at the ``DiffusionConfig`` defaults (128×128, base 64,
@@ -81,14 +86,32 @@ script exits non-zero without printing a result):
    through ``predict_step_int8``: K6 once per Linear (50, by the
    tensor-core route), K1 and K2 as before, held against ``predict_step`` on
    the same ROIs, and its profile.
-5. diffuse — one warm-up and 3 timed ``sample_video`` requests of 4 frames
+5. vivit-train — one ``train_step`` at the ``ViViTConfig`` defaults (8
+   classes, batch 16, weights bridged from seeded numpy) on the card and on
+   the CPU, in float32 (K2 12x by the CUDA-core route) and bf16 (12x by the
+   tensor-core route): loss, logits, every gradient and every updated
+   parameter compared (float32 1e-4, bf16 2e-2: loss relative, logits and
+   each gradient of its tensor's largest, the key third of each qkv bias,
+   whose gradient is exactly 0, aside, the whole gradient in relative L2;
+   updated params off by at most 2·lr, and by more than 1e-6 only where the
+   gradient is within that tolerance of 0, as an Adam step near a zero
+   gradient may flip); K2's q/k/v gradients on
+   block 0's (16, 80, 768) qkv views equal to autograd through
+   ``_mha_einsum`` bit for bit; then ``cli.main(["train-vivit", "--steps",
+   "128", "--set", "vivit.num_classes=8"])`` on the card: 4 epochs of 32
+   steps, K2 12x a step and an eval batch all by the tensor-core route, a
+   metric write at each step 1..128, the last epoch's mean loss below the
+   first's, best accuracy above 1/8; then 20 steps at batch 16 and 10 at
+   384 timed by CUDA events (batches on the card), peak memory, a profile
+   of a step at each (busy share, K2 share).
+6. diffuse — one warm-up and 3 timed ``sample_video`` requests of 4 frames
    × 10 DDIM steps, and one with DPM++(2M); each must launch K3 16 times a
    step (all by the tensor-core route) and K2 4 times, and return finite (4, 128, 128, 3) uint8 frames;
    a ``torch.profiler`` breakdown of one request (device busy share,
    K2/K3 shares); the full 500-step DDPM chain at batch 1; then the card against the CPU
    plain path at the full channel plan but 64×64, batch 1, 2 DDIM steps,
    same initial noise.
-6. train   — ``train_step`` at the ``DiffusionConfig`` defaults, batch 8:
+7. train   — ``train_step`` at the ``DiffusionConfig`` defaults, batch 8:
    one warm-up and 5 timed steps, each launching K3, K4 and K5 16 times and
    K2 4 times (K3, K4 and K5 by the tensor-core route), with finite loss, params
    and EMA and an EMA that moves; a ``torch.profiler`` breakdown of one
@@ -97,15 +120,15 @@ script exits non-zero without printing a result):
    loss; one float32 step at the full channel plan but 64×64, batch 2,
    dropout 0, card against the CPU plain path (loss within 1e-4 relative,
    the whole gradient within 1e-3 relative L2).
-7. superres — 3 ``train_superres.train_step``s at the ``SuperResConfig``
+8. superres — 3 ``train_superres.train_step``s at the ``SuperResConfig``
    defaults, batch 8 (6 AttentionBlocks of 1024 tokens, d=192), then one
    ``sample_cascade`` request: base at ``DiffusionConfig(im_size=64)``, 4
    frames × 10 DDIM steps, SR 50 DDIM steps → finite (4, 128, 128, 3).
-8. guidance — 5 ``train_classifier.train_step``s at the
+9. guidance — 5 ``train_classifier.train_step``s at the
    ``ClassifierConfig`` defaults on ``synthetic_batch`` (batch 32,
    128×128), then a guided ``sample_video`` of 4 frames × 10 DDIM steps
    (label 2, scale 5): K4/K5 twice a step.
-9. lipsync — ``generate_frames`` on the serving bench's inputs (256 frames
+10. lipsync — ``generate_frames`` on the serving bench's inputs (256 frames
    of 360×640, boxes [40,300,180,430] ± 4, standard-normal mels): one
    warm-up and 3 timed requests each in float, dynamic int8 and static
    int8; uint8 frames of the input's shape, untouched outside the boxes;
@@ -113,10 +136,10 @@ script exits non-zero without printing a result):
    by the tensor-core route) and never in float; the generator's int8 output against its float output
    (PSNR); a batch-8 float request against the CPU; a profile of one
    dynamic int8 request (device busy share, device time by int8 stage).
-10. microbench — ``bench.microbench_int8.run``: K6 in bf16 and in int8
+11. microbench — ``bench.microbench_int8.run``: K6 in bf16 and in int8
    (B row-major and B a (N, K) weight transposed) and the library's calls
    on the same operands at 4096³, after its own checks.
-11. timing — request and train-step times, frames/s, each kernel's
+12. timing — request and train-step times, frames/s, each kernel's
    CUDA-event time beside its plain version's at the main-path shapes, the
    one PyTorch call that computes the same function where there is one
    (``scaled_dot_product_attention`` and its backward, at all three U-Net
@@ -893,6 +916,251 @@ def phase_serve(dev: dict) -> dict:
     return launches
 
 
+# ViViT training (phase [vivit-train]): the card's train step against the
+# CPU's on the same batch of 16 and bridged weights. float32 (K2 by its
+# CUDA-core route, cuBLAS without TF32) against the CPU: summation order
+# only, through 12 blocks and their backward; bf16 (K2 by the tensor-core
+# route): bf16 rounds at other points on each side.
+TOL_VT = {"float32": 1e-4, "bfloat16": 2e-2}
+VT_BATCH = 16
+VT_SERVE_BATCH = 384
+VT_CLI_STEPS = 128          # 4 epochs of the CLI's 512 clips at batch 16
+
+
+def _vt_batch(n: int, seed: int) -> dict:
+    """A ``WordClipSampler`` batch of ``n`` synthetic word clips (8 classes)."""
+    from lipreading_video_generation_tpu_torch.data.datasets import (
+        WordClipSampler, synthetic_word_clips)
+
+    clips, labels = synthetic_word_clips(n=n, num_classes=8, seed=seed)
+    return next(WordClipSampler(clips, labels, seed=seed).batches(n))
+
+
+def _k_bias(name: str, t: torch.Tensor) -> torch.Tensor:
+    """False at the key third of each qkv bias, whose gradient is exactly 0
+    (a shift of a query row's scores leaves its softmax as it was): what
+    either side computes there is cancellation noise."""
+    keep = torch.ones(t.shape, dtype=torch.bool)
+    if name.endswith("qkv.bias"):
+        e = t.shape[0] // 3
+        keep[e:2 * e] = False
+    return keep
+
+
+def vivit_step_capture(cfg, state_dict, batch, device) -> dict:
+    """One ``train_step`` of a fresh state on ``device`` loaded with
+    ``state_dict``: loss, logits, every gradient, every updated parameter,
+    and block 0's qkv output with the gradient that reached its attention
+    output (K2's inputs and cotangent), all on the host."""
+    from lipreading_video_generation_tpu_torch.pipelines import train_vivit as tv
+
+    state = tv.create_state(cfg, seed=SEED, device=device)
+    state.model.load_state_dict(state_dict)
+    seen = {}
+    hooks = [state.model.register_forward_hook(lambda m, i, o: seen.update(logits=o.detach())),
+             state.model.blocks[0].qkv.register_forward_hook(
+                 lambda m, i, o: seen.update(qkv=o.detach().clone())),
+             state.model.blocks[0].proj.register_full_backward_hook(
+                 lambda m, gi, go: seen.update(g_attn=gi[0].detach().clone()))]
+    try:
+        metrics = tv.train_step(state, batch)
+    finally:
+        for h in hooks:
+            h.remove()
+    return {"loss": metrics["loss"].item(), "logits": seen["logits"].float().cpu(),
+            "grads": {n: p.grad.detach().float().cpu()
+                      for n, p in state.model.named_parameters()},
+            "params": {n: p.detach().cpu() for n, p in state.model.named_parameters()},
+            "qkv": seen["qkv"], "g_attn": seen["g_attn"], "lr": cfg.learning_rate}
+
+
+def compare_vivit_steps(got: dict, want: dict, tol: float) -> dict:
+    """Largest errors of a step against a reference step: loss (relative),
+    logits and each gradient (of the largest |value| of its tensor, the
+    key biases' exact zeros aside), the whole gradient (relative L2), and
+    the updated params: their largest |d|, the share of entries off by more
+    than 1e-6, and how many of those have a gradient above ``tol`` of its
+    tensor's largest. Adam's first step moves a weight by lr·g/(|g| + eps),
+    about lr·sign(g), so only a gradient within the gradients' error of 0
+    may step the other way (by at most 2·lr)."""
+    loss = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    logits = ((got["logits"] - want["logits"]).abs().max()
+              / want["logits"].abs().max()).item()
+    grad, worst, num, den, off, unexplained, n_all = 0.0, "", 0.0, 0.0, 0, 0, 0
+    for n, w in want["grads"].items():
+        keep = _k_bias(n, w)
+        d = (got["grads"][n] - w)[keep].abs().max().item() / w[keep].abs().max().item()
+        if d > grad:
+            grad, worst = d, n
+        num += float(((got["grads"][n] - w).double()[keep] ** 2).sum())
+        den += float((w.double()[keep] ** 2).sum())
+        moved = (got["params"][n] - want["params"][n]).abs() > 1e-6
+        off += int(moved.sum())
+        n_all += moved.numel()
+        unexplained += int((moved & (w.abs() > tol * w.abs().max())).sum())
+    diffs = torch.cat([(got["params"][n] - w).abs().flatten() for n, w in want["params"].items()])
+    return {"loss": loss, "logits": logits, "grad": grad, "grad_worst": worst,
+            "grad_l2": math.sqrt(num / den), "param": diffs.max().item(),
+            "param_share": off / n_all, "param_unexplained": unexplained}
+
+
+def phase_vivit_train(dev: dict) -> dict:
+    import ast
+    import contextlib
+    import dataclasses
+    import io
+
+    from lipreading_video_generation_tpu_torch import cli
+    from lipreading_video_generation_tpu_torch.core.config import ViViTConfig
+    from lipreading_video_generation_tpu_torch.core.metrics import RunningMean
+    from lipreading_video_generation_tpu_torch.models.convert import vivit_state_dict_from_flax
+    from lipreading_video_generation_tpu_torch.ops import attention as att
+    from lipreading_video_generation_tpu_torch.pipelines import train_vivit as tv
+
+    phase_t0 = time.perf_counter()
+    base = ViViTConfig(num_classes=8)
+    sd = vivit_state_dict_from_flax(flax_vivit_params(base, SEED))
+    batch = _vt_batch(VT_BATCH, SEED + 40)
+    log("vivit-train", f"ViViTConfig defaults (layers={base.num_layers} hidden={base.hidden_size} "
+        f"heads={base.num_heads} mlp={base.mlp_dim} dropout={base.dropout}), 8 classes, "
+        f"AdamW lr {base.learning_rate} wd {base.weight_decay} (0.9, 0.999, 1e-8), batch "
+        f"{VT_BATCH} of synthetic_word_clips; weights from seeded numpy via "
+        "vivit_state_dict_from_flax")
+
+    # 1. one step, card against CPU, in both types
+    for dtype, route in (("float32", "cuda_core"), ("bfloat16", "sm90")):
+        cfg = dataclasses.replace(base, dtype=dtype)
+        before = dict(att.small_mha.route_counts)
+        gpu = vivit_step_capture(cfg, sd, batch, "cuda")
+        took = {r: n - before[r] for r, n in att.small_mha.route_counts.items()}
+        want_routes = {r: (cfg.num_layers if r == route else 0) for r in took}
+        if took != want_routes:
+            raise AssertionError(f"vivit-train {dtype} step: K2 routes {took}, want {want_routes}")
+        cpu = vivit_step_capture(cfg, sd, batch, "cpu")
+        e = compare_vivit_steps(gpu, cpu, TOL_VT[dtype])
+        tol = TOL_VT[dtype]
+        log("vivit-train", f"{dtype} step, card (K2 {cfg.num_layers}x by {route}) vs CPU plain "
+            f"path: loss {gpu['loss']:.7g} vs {cpu['loss']:.7g} (rel {e['loss']:.3g}); logits "
+            f"{e['logits']:.3g} of max|ref|; gradients {e['grad']:.3g} of their tensor's "
+            f"max|ref| (worst {e['grad_worst']}), whole gradient rel L2 {e['grad_l2']:.3g}; "
+            f"updated params max|d| {e['param']:.3g} (2·lr = {2 * cfg.learning_rate:g}), "
+            f"{e['param_share']:.5f} of them off by > 1e-6, {e['param_unexplained']} of those "
+            f"with a gradient above {tol} of its tensor's largest (tol {tol} for loss, logits "
+            "and gradients; 0 such params)")
+        if not (e["loss"] <= tol and e["logits"] <= tol and e["grad"] <= tol
+                and e["grad_l2"] <= tol and e["param"] <= 2 * cfg.learning_rate * 1.01
+                and e["param_unexplained"] == 0):
+            raise AssertionError(f"vivit-train {dtype} step card vs CPU: {e}")
+        if dtype == "bfloat16":
+            # K2's q/k/v gradients at the training shapes: strided qkv views
+            # (16, 80, 768), against autograd through _mha_einsum
+            qkv = gpu["qkv"].requires_grad_()
+            out = att.small_mha(*qkv.chunk(3, dim=-1), cfg.num_heads)
+            (g_kernel,) = torch.autograd.grad(out, qkv, gpu["g_attn"])
+            qkv2 = gpu["qkv"].detach().clone().requires_grad_()
+            ref = att._mha_einsum(*qkv2.chunk(3, dim=-1), cfg.num_heads, False)
+            (g_plain,) = torch.autograd.grad(ref, qkv2, gpu["g_attn"])
+            log("vivit-train", f"K2 under autograd on block 0's qkv views {tuple(qkv.shape)} "
+                f"bf16 (strides {qkv.chunk(3, dim=-1)[0].stride()}): q/k/v gradients bit-equal "
+                f"to autograd through _mha_einsum: {torch.equal(g_kernel, g_plain)}; forward "
+                f"max|d| {(out.float() - ref.float()).abs().max().item():.3g}")
+            if not torch.equal(g_kernel, g_plain):
+                raise AssertionError("K2's q/k/v gradients differ from _mha_einsum autograd")
+        del gpu, cpu
+
+    # 2. the CLI, through the user's entry point
+    per_step = []
+
+    class StepRecorder:
+        def write(self, step, metrics):
+            per_step.append((step, metrics["loss"]))
+
+    real_train = tv.train
+
+    def recording_train(*args, metrics_writer=None, **kwargs):
+        metrics_writer.writers.append(StepRecorder())
+        return real_train(*args, metrics_writer=metrics_writer, **kwargs)
+
+    argv = ["train-vivit", "--steps", str(VT_CLI_STEPS), "--set", "vivit.num_classes=8"]
+    out, err = io.StringIO(), io.StringIO()
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    tv.train = recording_train
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli.main(argv)
+    finally:
+        tv.train = real_train
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = {"small_mha": att.small_mha.launch_count}
+    routes = dict(att.small_mha.route_counts)
+    best_line = [ln for ln in out.getvalue().splitlines() if ln.startswith("best: ")]
+    if rc != 0 or len(best_line) != 1:
+        raise AssertionError(f"cli.main({argv}) returned {rc}, printed {out.getvalue()!r}")
+    best = ast.literal_eval(best_line[0][len("best: "):])
+    steps_per_epoch = 512 // base.batch_size
+    epochs = max(1, VT_CLI_STEPS // steps_per_epoch)
+    n_steps, n_evals = epochs * steps_per_epoch, epochs * steps_per_epoch
+    want_k2 = base.num_layers * (n_steps + n_evals)
+    if [s for s, _ in per_step] != list(range(1, n_steps + 1)):
+        raise AssertionError(f"per-step metrics at steps {[s for s, _ in per_step][:5]}..., "
+                             f"want 1..{n_steps}")
+    if routes != {"sm90": want_k2, "cuda_core": 0} or launches["small_mha"] != want_k2:
+        raise AssertionError(f"train-vivit launched K2 {launches['small_mha']}x by {routes}, "
+                             f"want {want_k2} by sm90 (12 a step and an eval batch)")
+    epoch_loss = []
+    for e in range(epochs):
+        rm = RunningMean()
+        for _, loss in per_step[e * steps_per_epoch:(e + 1) * steps_per_epoch]:
+            rm.update({"loss": loss})
+        epoch_loss.append(rm.means()["loss"])
+    console = [ln for ln in err.getvalue().splitlines() if ln.startswith("[step ")]
+    log("vivit-train", f"cli.main({argv}): {n_steps} steps in {epochs} epochs, {n_evals} eval "
+        f"batches, {cli_s:.2f} s; K2 {launches['small_mha']}x (routes {routes}: 12 a step and an "
+        f"eval batch, all sm90); {len(per_step)} per-step metric writes, console every 10 "
+        f"(last: {console[-1] if console else None}); mean loss by epoch "
+        f"{[round(x, 5) for x in epoch_loss]}; {best_line[0]}")
+    if not (epoch_loss[-1] < epoch_loss[0] and best["accuracy"] > 1 / 8):
+        raise AssertionError(f"train-vivit did not learn: epoch losses {epoch_loss}, best {best}")
+
+    # 3. timing at batch 16 and 384: batches staged on the card, CUDA events
+    # around n steps, no host sync inside the window
+    timing = {}
+    state = tv.create_state(base, seed=SEED, device="cuda")
+    state.model.load_state_dict(sd)
+    for b, n in ((VT_BATCH, 20), (VT_SERVE_BATCH, 10)):
+        staged = [{k: torch.as_tensor(v).to("cuda") for k, v in _vt_batch(b, SEED + 50 + i).items()}
+                  for i in range(2)]
+        for i in range(3):
+            tv.train_step(state, staged[i % 2])                             # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for i in range(n):
+            tv.train_step(state, staged[i % 2])
+        stop.record()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / n
+        step_ms = start.elapsed_time(stop) / n
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        busy_ms = _profile_step("vivit-train", lambda: tv.train_step(state, staged[0])[
+            "loss"].item(), f"batch-{b} step")
+        k2_ms, k2_n = _profile_step.own["K2"]
+        timing[b] = {"step_ms": step_ms, "clips_s": b / step_ms * 1e3, "peak_mib": peak,
+                     "busy": busy_ms / step_ms, "k2_share": k2_ms / busy_ms}
+        log("vivit-train", f"batch {b} ({dev['smi']}): {n} steps, {step_ms:.3f} ms a step by CUDA "
+            f"events ({host_ms:.3f} ms by the host clock) = {b / step_ms * 1e3:.1f} trained "
+            f"clips/s; peak device memory {peak:.1f} MiB; the profiled step's "
+            f"{busy_ms:.3f} ms of kernels and copies are {busy_ms / step_ms:.3f} of a step; K2 "
+            f"{k2_ms:.4f} ms ({k2_ms / busy_ms:.1%}, {k2_n}x)")
+    log("vivit-train", f"phase took {time.perf_counter() - phase_t0:.1f} s")
+    return {"launches": launches, "timing": timing}
+
+
 def flax_unet_audio_params(cfg, seed: int) -> dict:
     """Random weights in the tree and shapes of the Flax ``UNetAudio(cfg)``
     (native audio encoder; the card's machine has no flax): conv and Dense
@@ -1139,7 +1407,10 @@ KERNEL_NAMES = {"K1": "clahe_", "K2": "small_mha_", "K3": "flash_fwd_",
 def _profiled(fn):
     """Run ``fn`` (and wait for the card) under ``torch.profiler``: wall ms,
     the events, and the device's kernels and copies as (name, ms, count),
-    heaviest first."""
+    heaviest first. A ``record_function`` range (the int8 stages,
+    ``Optimizer.step#...``) also has a device row, which carries the time of
+    the kernels launched inside it: a device row whose name is also a host
+    row's is such a range and is left out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1150,8 +1421,10 @@ def _profiled(fn):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
+    host = {e.key for e in events if e.device_type == DeviceType.CPU}
     kernels = sorted(((e.key, e.device_time_total / 1e3, e.count) for e in events
-                      if e.device_type == DeviceType.CUDA), key=lambda r: -r[1])
+                      if e.device_type == DeviceType.CUDA and e.key not in host),
+                     key=lambda r: -r[1])
     return wall_ms, events, kernels
 
 
@@ -1161,10 +1434,9 @@ def _profile_step(phase: str, step, what: str = "step") -> float:
     hand-written kernel, and the heaviest kernels by name. Returns the
     device time, ms; ``_profile_step.own`` keeps each hand-written kernel's
     (ms, launches) of the last profile."""
-    wall_ms, _, kernels = _profiled(step)
-    # the int8 stages' ranges carry their kernels' device time: not a second time
-    stages = [r for r in kernels if r[0].startswith("int8/")]
-    kernels = [r for r in kernels if not r[0].startswith("int8/")]
+    wall_ms, events, kernels = _profiled(step)
+    stages = sorted({e.key: e.device_time_total / 1e3 for e in events
+                     if e.key.startswith("int8/") and e.device_time_total > 0}.items())
     busy_ms = sum(ms for _, ms, _ in kernels)
     if busy_ms <= 0:
         raise AssertionError(f"{phase} profile: no device time")
@@ -1180,10 +1452,38 @@ def _profile_step(phase: str, step, what: str = "step") -> float:
                     if n)
         + f", all else {rest:.3f} ms ({rest / busy_ms:.1%})"
         + ("; by int8 stage " + ", ".join(f"{name[5:]} {ms:.3f} ms ({ms / busy_ms:.1%})"
-                                          for name, ms, _ in sorted(stages)) if stages else ""))
+                                          for name, ms in stages) if stages else "")
+        + "; by kind " + ", ".join(f"{kind} {ms:.3f} ms ({ms / busy_ms:.1%}, {n}x)"
+                                   for kind, (ms, n) in _by_kind(kernels).items()))
     for name, ms, count in kernels[:8]:
         log(phase, f"  {ms:9.3f} ms {count:5d}x {name[:110]}")
     return busy_ms
+
+
+# kernel-name fragments of the library's matrix products and convolutions
+_GEMM_NAMES = ("gemm", "xmma", "nvjet", "cutlass", "sm90_", "sm80_", "cublas", "conv", "mm_")
+
+
+def _by_kind(kernels) -> dict:
+    """Device time and launches by kind of kernel: the hand-written ones
+    (``KERNEL_NAMES``), the library's products and convolutions, copies,
+    reductions, and elementwise passes (the rest)."""
+    kinds = {}
+    for name, ms, n in kernels:
+        low = name.lower()
+        if any(frag in name for frag in KERNEL_NAMES.values()):
+            kind = "hand-written"
+        elif any(frag in low for frag in _GEMM_NAMES):
+            kind = "products"
+        elif "memcpy" in low or "memset" in low or "copy" in low:
+            kind = "copies and casts"
+        elif "reduce" in low or "norm" in low or "softmax" in low:
+            kind = "reductions"
+        else:
+            kind = "elementwise"
+        t, c = kinds.get(kind, (0.0, 0))
+        kinds[kind] = (t + ms, c + n)
+    return dict(sorted(kinds.items(), key=lambda kv: -kv[1][0]))
 
 
 def _finite(module) -> bool:
@@ -1475,8 +1775,8 @@ def _profile_request(mode: str, request) -> None:
     ``int8/...`` ranges of ``ops/quant.py`` carry the time of the kernels
     launched inside them) and the heaviest kernels by name."""
     wall_ms, events, kernels = _profiled(request)
-    stages = {e.key: e.device_time_total / 1e3 for e in events if e.key.startswith("int8/")}
-    kernels = [r for r in kernels if r[0] not in stages]
+    stages = {e.key: e.device_time_total / 1e3 for e in events
+              if e.key.startswith("int8/") and e.device_time_total > 0}
     busy_ms = sum(ms for _, ms, _ in kernels)
     if busy_ms <= 0 or len(stages) != (4 if mode != "float" else 0):
         raise AssertionError(f"{mode} profile: device time {busy_ms} ms, stages {stages}")
@@ -1980,17 +2280,19 @@ def phase_timing(dev: dict, microbench: dict) -> dict:
 
 
 def main() -> None:
+    t0 = time.perf_counter()
     dev = phase_device()
     phase_build()
     errs = phase_kernels()
     served = phase_serve(dev)
+    vivit_trained = phase_vivit_train(dev)["launches"]
     diffused = phase_diffuse(dev)
     trained = phase_train(dev)["launches"]
     superres = phase_superres(dev)["launches"]
     guided = phase_guidance(dev)["launches"]
     lipsync = phase_lipsync(dev)
     microbench = phase_microbench()
-    paths = (diffused, trained, superres, guided)
+    paths = (vivit_trained, diffused, trained, superres, guided)
     launches = {"clahe": served["clahe"],
                 "small_mha": served["small_mha"] + sum(p["small_mha"] for p in paths),
                 "int8_matmul": (served["int8_matmul"] + lipsync["launches"]
@@ -2038,8 +2340,8 @@ def main() -> None:
         if name == "small_mha":
             kern["route_detail"] = (
                 "sm90: mma.sync on bf16 tiles, double-buffered cp.async (aligned bf16 inputs, up "
-                "to 128 tokens, head dim up to 128; timed here and on the ViViT, sampling and "
-                f"training paths); cuda_core: {pkg}/csrc/small_mha.cu (float32, longer "
+                "to 128 tokens, head dim up to 128; timed here and on the ViViT serving and "
+                f"training, sampling and diffusion training paths); cuda_core: {pkg}/csrc/small_mha.cu (float32, longer "
                 "sequences, unaligned inputs)")
         if name.endswith("_matmul"):
             kern["route_detail"] = (
@@ -2051,6 +2353,7 @@ def main() -> None:
         if kern["launches"] < 1:
             raise AssertionError(f"kernel {name} never ran on the main path")
         kernels.append(kern)
+    log("main", f"all phases took {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_name_power())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],

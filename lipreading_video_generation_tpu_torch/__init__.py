@@ -6,7 +6,12 @@ module paths and function names so each counterpart is easy to find:
 - ``pipelines.preprocess`` — fused mouth-ROI preprocessing (crop → 48×48
   cubic → gray → CLAHE → 32×32), batched over all frames.
 - ``models.vivit`` / ``pipelines.train_vivit`` — ViViT word classifier:
-  forward, ``predict_step`` and ``predict_step_int8``.
+  forward, training (AdamW, staircase schedule, dropout, eval, best-accuracy
+  snapshot; ``data.datasets``, ``data.loader``, ``core.metrics``),
+  ``predict_step`` and ``predict_step_int8``.
+- ``cli`` — the command line (``train-vivit``, ``train-diffusion``,
+  ``train-superres``, ``train-noisy-classifier``) on ``core.config``'s
+  ``Config`` tree and ``--set`` overrides.
 - ``pipelines.sample_diffusion``, ``train_diffusion``, ``train_superres``,
   ``train_classifier`` — audio+image-conditioned diffusion: sampling,
   training, the super-resolution cascade, classifier guidance

@@ -1,16 +1,20 @@
-"""The config dataclasses the ported slices need.
+"""The typed configuration tree of the port.
 
-Copies of ``lipreading_video_generation_tpu/core/config.py``'s
-``AudioConfig``, ``ViViTConfig``, ``PreprocessConfig``, ``GanConfig``,
-``DiffusionConfig``, ``ClassifierConfig`` and ``SuperResConfig`` with the
-same field names and defaults: the JAX package's ``core/__init__`` imports jax and orbax, so the
-port cannot import the originals. Fields this port cannot honour yet raise
-when set.
+Copies of ``lipreading_video_generation_tpu/core/config.py``'s dataclasses
+(``AudioConfig``, ``MeshConfig``, ``GanConfig``, ``DiffusionConfig``,
+``ClassifierConfig``, ``SuperResConfig``, ``ViViTConfig``,
+``FeatureTransformerConfig``, ``SentenceEvalConfig``, ``PreprocessConfig``
+and the root ``Config``) with the same field names and defaults, and of its
+``replace`` and ``parse_overrides``, so ``--set section.key=value`` means
+the same on both sides: the JAX package's ``core/__init__`` imports jax and
+orbax, so the port cannot import the originals. Fields this port cannot
+honour yet raise when set.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Tuple
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Any, Sequence, Tuple
 
 
 @dataclass(frozen=True)
@@ -38,6 +42,28 @@ class AudioConfig:
     def mel_step_per_frame(self) -> float:
         """Mel frames per video frame at 25 fps: 80 mel steps / sec ÷ 25 fps."""
         return (self.sample_rate / self.hop_size) / 25.0
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Device mesh layout (data and model axes). The port runs on one GPU:
+    only the single-device layout is accepted (ROADMAP: multi-GPU
+    parallelism)."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    # -1 means "all remaining devices"
+    data_parallel: int = -1
+    model_parallel: int = 1
+    model_shard_threshold: int = 2**22
+    zero1: bool = False
+    zero1_min_size: int = 2**16
+
+    def __post_init__(self):
+        if self.data_parallel not in (-1, 1) or self.model_parallel != 1 or self.zero1:
+            raise NotImplementedError(
+                "MeshConfig: data_parallel, model_parallel and zero1 other than the "
+                "single-device layout are not ported yet (ROADMAP: multi-GPU parallelism)")
 
 
 @dataclass(frozen=True)
@@ -232,3 +258,95 @@ class SuperResConfig:
     learning_rate: float = 1e-4
     dtype: str = "bfloat16"
     sr_inference_steps: int = 50  # few-step DDIM default for the SR stage
+
+
+@dataclass(frozen=True)
+class FeatureTransformerConfig:
+    """Keras-transformer-over-DenseNet-features variant
+    (reference: lipreading/keras_vivit_model.py:17-125, feature_extraction.py:16-19)."""
+
+    max_seq_length: int = 5
+    num_features: int = 1024
+    dense_dim: int = 4
+    num_heads: int = 2
+    num_layers: int = 2
+    dropout: float = 0.3
+    head_dropout: float = 0.5
+    num_classes: int = 64
+    num_epochs: int = 20
+    val_split: float = 0.15
+    learning_rate: float = 1e-3
+
+
+@dataclass(frozen=True)
+class SentenceEvalConfig:
+    """Beam-search sentence eval (reference: lipreading/sentence_eval.py:5-56)."""
+
+    beam_width: int = 20
+    keep_top: int = 5
+    word_top_k: int = 5
+
+
+@dataclass(frozen=True)
+class Config:
+    """Root config: one object per training/inference job."""
+
+    audio: AudioConfig = field(default_factory=AudioConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    gan: GanConfig = field(default_factory=GanConfig)
+    diffusion: DiffusionConfig = field(default_factory=DiffusionConfig)
+    classifier: ClassifierConfig = field(default_factory=ClassifierConfig)
+    superres: SuperResConfig = field(default_factory=SuperResConfig)
+    vivit: ViViTConfig = field(default_factory=ViViTConfig)
+    feature_transformer: FeatureTransformerConfig = field(default_factory=FeatureTransformerConfig)
+    sentence_eval: SentenceEvalConfig = field(default_factory=SentenceEvalConfig)
+    preprocess: PreprocessConfig = field(default_factory=PreprocessConfig)
+    seed: int = 0
+    checkpoint_dir: str = "checkpoints"
+    data_root: str = "data/mvlrs_v1/main"
+    preprocessed_root: str = "data/preprocessed"
+
+
+def replace(cfg, **kwargs):
+    """Functional update of a frozen config dataclass."""
+    return dataclasses.replace(cfg, **kwargs)
+
+
+def _coerce(value: str, target: Any) -> Any:
+    if isinstance(target, bool):
+        return value.lower() in ("1", "true", "yes", "on")
+    if isinstance(target, int):
+        return int(value)
+    if isinstance(target, float):
+        return float(value)
+    if isinstance(target, tuple):
+        parts = [p for p in value.strip("()[] ").split(",") if p.strip()]
+        elem = target[0] if target else 0
+        return tuple(_coerce(p.strip(), elem) for p in parts)
+    return value
+
+
+def parse_overrides(cfg: Config, overrides: Sequence[str]) -> Config:
+    """Apply ``section.key=value`` CLI overrides to a frozen Config tree,
+    e.g. ``parse_overrides(cfg, ["gan.batch_size=32", "seed=1"])``;
+    ``ValueError`` on a malformed item or an unknown key."""
+    for item in overrides:
+        if "=" not in item:
+            raise ValueError(f"override must be key=value, got {item!r}")
+        path, value = item.split("=", 1)
+        keys = path.split(".")
+        # walk down, collecting objects so we can rebuild immutably
+        try:
+            objs = [cfg]
+            for k in keys[:-1]:
+                objs.append(getattr(objs[-1], k))
+            leaf_owner = objs[-1]
+            current = getattr(leaf_owner, keys[-1])
+        except AttributeError:
+            raise ValueError(f"unknown config key {path!r}") from None
+        new_leaf = _coerce(value, current)
+        rebuilt = dataclasses.replace(leaf_owner, **{keys[-1]: new_leaf})
+        for obj, k in zip(reversed(objs[:-1]), reversed(keys[:-1])):
+            rebuilt = dataclasses.replace(obj, **{k: rebuilt})
+        cfg = rebuilt
+    return cfg

@@ -1,9 +1,9 @@
 """Building blocks of the port, with Flax numerics.
 
-Port of ``lipreading_video_generation_tpu/models/layers.py``'s ``MLP``,
-``TransformerBlock`` and the lip-sync GAN's conv blocks (``scale_channels``,
-``fold_time``, ``unfold_time``, ``ConvBlock``, ``ResConvBlock``,
-``UpsampleConv``; NCHW here, NHWC there), plus the parameter-holding layers
+Port of ``lipreading_video_generation_tpu/models/layers.py``'s ``MLP`` and
+``TransformerBlock`` (with their dropout) and the lip-sync GAN's conv blocks
+(``scale_channels``, ``fold_time``, ``unfold_time``, ``ConvBlock``,
+``ResConvBlock``, ``UpsampleConv``; NCHW here, NHWC there), plus the parameter-holding layers
 every model of the port is built from. What keeps them equal to the Flax
 modules:
 
@@ -20,6 +20,11 @@ modules:
 - ``nn.gelu`` is the tanh approximation.
 - ``UpsampleConv`` resizes with ``jax.image.resize(..., "nearest")``'s
   index rule, floor((i + 0.5)·in/out).
+- Dropout is Flax's ``nn.Dropout``: kept values scaled by 1/(1 − rate) in
+  the input's dtype, the rest zero. It acts only in ``train()`` mode at a
+  rate above 0, with masks (``dropout_mask``) drawn from the generator the
+  caller passes; Flax draws from its own key tree, so the two frameworks'
+  masks differ.
 
 Inside ``ops.quant.int8_serving`` a ``Linear`` and a rerouted ``Conv2d``
 compute their product in int8 (see ``ops/quant.py``).
@@ -31,7 +36,7 @@ dropped.
 from __future__ import annotations
 
 import math
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -148,40 +153,72 @@ class GroupNorm(nn.Module):
         return (x32 - mean) * mul + self.bias.reshape((1, c) + (1,) * (x.ndim - 2))
 
 
-class MLP(nn.Module):
-    """Dense → tanh-GELU → Dense (``Dense_0``/``Dense_1`` in Flax)."""
+def dropout_mask(shape, rate: float, generator: Optional[torch.Generator],
+                 device) -> torch.Tensor:
+    """Keep-mask of ``shape`` (True with probability 1 − rate), drawn from
+    ``generator`` (the default one when None) on ``device``."""
+    return torch.empty(shape, dtype=torch.bool, device=device).bernoulli_(
+        1.0 - rate, generator=generator)
 
-    def __init__(self, features: int, hidden: int, out: int, dtype: torch.dtype):
+
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Flax's ``nn.Dropout(rate)(x, deterministic=not training)``, with the
+    mask drawn from ``generator``; ``x`` itself when not training or at rate
+    0. ``ValueError`` when a mask is due and no generator is given."""
+    if not training or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in train mode needs the generator to draw its masks from")
+    keep = dropout_mask(x.shape, rate, generator, x.device)
+    return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
+class MLP(nn.Module):
+    """Dense → tanh-GELU → dropout → Dense → dropout (``Dense_0``/``Dense_1``
+    in Flax)."""
+
+    def __init__(self, features: int, hidden: int, out: int, dtype: torch.dtype,
+                 dropout: float = 0.0):
         super().__init__()
         self.fc1 = Linear(features, hidden, dtype)
         self.fc2 = Linear(hidden, out, dtype)
+        self.dropout = dropout
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = dropout(F.gelu(self.fc1(x), approximate="tanh"), self.dropout, self.training,
+                    generator)
+        return dropout(self.fc2(x), self.dropout, self.training, generator)
 
 
 class TransformerBlock(nn.Module):
     """Pre-LN encoder block over (B, S, E): fused qkv projection, ``mha``
-    (the small-MHA kernel K2 on CUDA), output projection, MLP."""
+    (the small-MHA kernel K2 on CUDA), output projection, dropout, MLP.
+    ``generator`` draws the dropout masks in ``train()`` mode."""
 
     def __init__(self, features: int, num_heads: int, mlp_dim: int,
-                 dtype: torch.dtype = torch.float32, ring_axis: str = None):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0,
+                 ring_axis: str = None):
         super().__init__()
         if ring_axis is not None:
             raise NotImplementedError(
                 "TransformerBlock: ring attention is not ported yet "
                 "(ROADMAP: multi-GPU parallelism)")
         self.num_heads = num_heads
+        self.dropout = dropout
         self.norm1 = LayerNorm(features)
         self.qkv = Linear(features, 3 * features, dtype)
         self.proj = Linear(features, features, dtype)
         self.norm2 = LayerNorm(features)
-        self.mlp = MLP(features, mlp_dim, features, dtype)
+        self.mlp = MLP(features, mlp_dim, features, dtype, dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         q, k, v = self.qkv(self.norm1(x)).chunk(3, dim=-1)
-        x = x + self.proj(mha(q, k, v, self.num_heads))
-        return x + self.mlp(self.norm2(x))
+        attn = self.proj(mha(q, k, v, self.num_heads))
+        x = x + dropout(attn, self.dropout, self.training, generator)
+        return x + self.mlp(self.norm2(x), generator)
 
 
 def _pair(v: Pair) -> Tuple[int, int]:

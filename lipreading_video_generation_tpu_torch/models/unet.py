@@ -47,7 +47,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import mha
 from ..ops.image import resize, upsample_nearest2x
-from .layers import Conv2d, GroupNorm, Linear
+from .layers import Conv2d, GroupNorm, Linear, dropout_mask
 
 
 def timestep_embedding(t: torch.Tensor, dim: int, max_period: int = 10000) -> torch.Tensor:
@@ -60,14 +60,6 @@ def timestep_embedding(t: torch.Tensor, dim: int, max_period: int = 10000) -> to
     if dim % 2:
         emb = F.pad(emb, (0, 1))
     return emb
-
-
-def dropout_mask(shape, rate: float, generator: Optional[torch.Generator],
-                 device) -> torch.Tensor:
-    """Keep-mask of ``shape`` (True with probability 1 − rate), drawn from
-    ``generator`` (the default one when None) on ``device``."""
-    return torch.empty(shape, dtype=torch.bool, device=device).bernoulli_(
-        1.0 - rate, generator=generator)
 
 
 class ResBlock(nn.Module):

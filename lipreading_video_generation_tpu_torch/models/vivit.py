@@ -1,24 +1,27 @@
-"""ViViT word-level lipreading classifier (inference).
+"""ViViT word-level lipreading classifier.
 
 Port of ``lipreading_video_generation_tpu/models/vivit.py``'s
 ``TubeletEmbed`` and ``ViViT``: tubelet embedding (a block reshape and one
-matmul), learned position embedding, pre-LN encoder blocks, final
+matmul), learned position embedding, dropout, pre-LN encoder blocks, final
 LayerNorm, mean-pool over tokens, float32 head. Input: (B, T, H, W, C)
 normalised float clips (NTHWC, as in the JAX package).
 
-Inference only: dropout (0.0 in the default config) is not applied.
-Pipeline parallelism and the FeatureTransformer are not ported yet.
-Weights come from the Flax params through ``models.convert``.
+In ``train()`` mode dropout (``cfg.dropout``; 0.0 in the default config)
+acts after the position embedding and inside each block, with masks drawn
+from the generator passed to ``forward``; in ``eval()`` mode it does not
+act (Flax's ``deterministic=True``). Pipeline parallelism and the
+FeatureTransformer are not ported yet. Weights come from the Flax params
+through ``models.convert``.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
 from ..core.config import ViViTConfig
-from .layers import LayerNorm, Linear, TransformerBlock
+from .layers import LayerNorm, Linear, TransformerBlock, dropout
 
 
 class TubeletEmbed(nn.Module):
@@ -53,16 +56,21 @@ class ViViT(nn.Module):
         e = cfg.hidden_size
         self.tubelet = TubeletEmbed(cfg.num_channels, e, cfg.tubelet_size, self.dtype)
         self.pos_embedding = nn.Parameter(torch.zeros(1, n_tokens, e))   # float32
+        nn.init.normal_(self.pos_embedding, std=0.02)   # Flax: initializers.normal(0.02)
         self.blocks = nn.ModuleList(
-            TransformerBlock(e, cfg.num_heads, cfg.mlp_dim, self.dtype)
+            TransformerBlock(e, cfg.num_heads, cfg.mlp_dim, self.dtype, cfg.dropout)
             for _ in range(cfg.num_layers))
         self.norm = LayerNorm(e)
         self.head = Linear(e, cfg.num_classes)
 
-    def forward(self, clips: torch.Tensor) -> torch.Tensor:
-        """clips (B, T, H, W, C) → logits (B, num_classes) float32."""
+    def forward(self, clips: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """clips (B, T, H, W, C) → logits (B, num_classes) float32.
+        ``generator`` draws the dropout masks in ``train()`` mode (needed
+        there when ``cfg.dropout`` > 0)."""
         x = self.tubelet(clips.to(self.dtype)) + self.pos_embedding.to(self.dtype)
+        x = dropout(x, self.cfg.dropout, self.training, generator)
         for block in self.blocks:
-            x = block(x)
+            x = block(x, generator)
         x = self.norm(x).mean(dim=1)
         return self.head(x.float())

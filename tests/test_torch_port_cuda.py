@@ -682,3 +682,104 @@ def test_int8_path_has_no_fallback(cuda, monkeypatch):
         quant.int8_conv(x, torch.ones(1, 1, 16, 8, device=cuda), None, (1, 1), "VALID")
     with pytest.raises(RuntimeError, match="unloadable"):
         quant.int8_dense(x, torch.ones(16, 8, device=cuda), None)
+
+
+def _vivit_state_dict(cfg, seed):
+    """Seeded init (Flax's rules) with every LayerNorm and bias moved off its
+    (1, 0) start, so each parameter has a gradient of its own."""
+    from lipreading_video_generation_tpu_torch.models.vivit import ViViT
+    from lipreading_video_generation_tpu_torch.pipelines.train_diffusion import seeded
+
+    sd = seeded(lambda: ViViT(cfg), seed).state_dict()
+    g = torch.Generator().manual_seed(seed + 1)
+    return {n: t + 0.05 * torch.randn(t.shape, generator=g) if t.ndim == 1 else t
+            for n, t in sd.items()}
+
+
+def _vivit_step(cfg, sd, batch, device):
+    """Loss, logits, gradients and updated params of one ``train_step``."""
+    from lipreading_video_generation_tpu_torch.pipelines import train_vivit as tv
+
+    state = tv.create_state(cfg, device=device)
+    state.model.load_state_dict(sd)
+    seen = {}
+    hook = state.model.register_forward_hook(lambda m, i, o: seen.update(logits=o.detach()))
+    loss = tv.train_step(state, batch)["loss"].item()
+    hook.remove()
+    return (loss, seen["logits"].float().cpu(),
+            {n: p.grad.float().cpu() for n, p in state.model.named_parameters()},
+            {n: p.detach().cpu() for n, p in state.model.named_parameters()})
+
+
+@pytest.mark.parametrize("dtype,route,tol", [("float32", "cuda_core", 1e-4),
+                                             ("bfloat16", "sm90", 2e-2)])
+def test_vivit_train_step_on_card_matches_cpu(cuda, dtype, route, tol):
+    """One ``train_step`` at the ``ViViTConfig`` defaults, batch 16, card
+    against CPU: K2 12 times by ``route``; loss and logits within ``tol``
+    (relative, of max|ref|), each gradient within ``tol`` of its tensor's
+    largest (the key third of each qkv bias, whose gradient is exactly 0,
+    aside), the whole gradient within ``tol`` relative L2; the updated
+    params within 2·lr, and off by more than 1e-6 only where the gradient is
+    within ``tol`` of its tensor's largest of 0 (Adam's first step is about
+    lr·sign(g), so only such a gradient may step the other way)."""
+    from lipreading_video_generation_tpu_torch.core.config import ViViTConfig
+    from lipreading_video_generation_tpu_torch.data.datasets import (
+        WordClipSampler, synthetic_word_clips)
+
+    cfg = ViViTConfig(num_classes=8, dtype=dtype)
+    sd = _vivit_state_dict(cfg, 0)
+    clips, labels = synthetic_word_clips(n=16, seed=1)
+    batch = next(WordClipSampler(clips, labels).batches(16))
+    before = dict(att.small_mha.route_counts)
+    l_gpu, z_gpu, g_gpu, p_gpu = _vivit_step(cfg, sd, batch, cuda)
+    took = {r: n - before[r] for r, n in att.small_mha.route_counts.items()}
+    assert took == {r: (12 if r == route else 0) for r in took}
+    l_cpu, z_cpu, g_cpu, p_cpu = _vivit_step(cfg, sd, batch, "cpu")
+    assert abs(l_gpu - l_cpu) <= tol * abs(l_cpu)
+    assert (z_gpu - z_cpu).abs().max() <= tol * z_cpu.abs().max()
+    num = den = 0.0
+    for n, w in g_cpu.items():
+        keep = torch.ones(w.shape, dtype=torch.bool)
+        if n.endswith("qkv.bias"):
+            keep[w.shape[0] // 3:2 * w.shape[0] // 3] = False
+        d = (g_gpu[n] - w)[keep]
+        assert d.abs().max() <= tol * w[keep].abs().max(), n
+        num += float((d.double() ** 2).sum())
+        den += float((w[keep].double() ** 2).sum())
+    assert math.sqrt(num / den) <= tol
+    for n, w in p_cpu.items():
+        d = (p_gpu[n] - w).abs()
+        assert d.max() <= 2.02 * cfg.learning_rate, n
+        g = g_cpu[n].abs()
+        assert not ((d > 1e-6) & (g > tol * g.max())).any(), n
+
+
+def test_small_mha_gradient_at_vivit_training_shapes_equals_einsum_autograd(cuda):
+    """K2 under autograd on strided views of a (16, 80, 768) bf16 qkv, as
+    each ViViT block passes them: its backward recomputes through
+    ``_mha_einsum``, so the q/k/v gradients equal autograd through
+    ``_mha_einsum`` bit for bit."""
+    qkv = _uniform((16, 80, 768), -2, 2, 40, cuda, torch.bfloat16)
+    g = _uniform((16, 80, 256), -1, 1, 41, cuda, torch.bfloat16)
+    a, b = qkv.clone().requires_grad_(), qkv.clone().requires_grad_()
+    routed = att.small_mha.route_counts["sm90"]
+    out = att.small_mha(*a.chunk(3, dim=-1), 8)
+    assert att.small_mha.route_counts["sm90"] == routed + 1
+    (got,) = torch.autograd.grad(out, a, g)
+    (want,) = torch.autograd.grad(att._mha_einsum(*b.chunk(3, dim=-1), 8, False), b, g)
+    assert torch.equal(got, want)
+
+
+def test_cli_train_vivit_on_card(cuda, capsys):
+    """``train-vivit`` through ``cli.main`` on the card (its default): one
+    epoch of 32 steps and 32 eval batches, K2 12 times each by the
+    tensor-core route, then the ``best:`` line."""
+    from lipreading_video_generation_tpu_torch import cli
+
+    before = dict(att.small_mha.route_counts)
+    assert cli.main(["train-vivit", "--steps", "32", "--set", "vivit.num_classes=8"]) == 0
+    took = {r: n - before[r] for r, n in att.small_mha.route_counts.items()}
+    assert took == {"sm90": 12 * 64, "cuda_core": 0}
+    out = capsys.readouterr()
+    assert [ln for ln in out.out.splitlines() if ln.startswith("best: ")]
+    assert "[step 30]" in out.err

@@ -3,7 +3,7 @@
 Every entry point that takes a ``device`` defaults to the card
 (``core.device.default_device``) and raises without one; the other port
 tests pass ``device="cpu"``. The port's package and ``chip_smoke.py`` import
-torch, never jax, flax or the JAX package.
+torch, never jax, flax, optax, orbax, cv2 or the JAX package.
 """
 import ast
 import inspect
@@ -12,15 +12,17 @@ from pathlib import Path
 import pytest
 import torch
 
+from lipreading_video_generation_tpu_torch import cli as tcli
 from lipreading_video_generation_tpu_torch.core import config as tcfg
 from lipreading_video_generation_tpu_torch.core import device as tdev
 from lipreading_video_generation_tpu_torch.pipelines import inference as tinf
 from lipreading_video_generation_tpu_torch.pipelines import train_classifier as ttc
 from lipreading_video_generation_tpu_torch.pipelines import train_diffusion as ttd
 from lipreading_video_generation_tpu_torch.pipelines import train_superres as tsr
+from lipreading_video_generation_tpu_torch.pipelines import train_vivit as ttv
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "flax", "optax", "orbax", "lipreading_video_generation_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "orbax", "cv2", "lipreading_video_generation_tpu")
 
 
 @pytest.fixture
@@ -44,7 +46,7 @@ def test_default_device_is_the_card_where_there_is_one(monkeypatch):
 
 
 ENTRY_POINTS = [ttd.create_state, ttd.train, ttc.create_state, ttc.train, tsr.create_state,
-                tsr.train, tinf.generate_frames]
+                tsr.train, tinf.generate_frames, ttv.create_state, ttv.train, tcli.main]
 
 
 @pytest.mark.parametrize("fn", ENTRY_POINTS,
@@ -65,6 +67,9 @@ def test_entry_points_raise_without_cuda_instead_of_stepping_down(no_cuda):
         lambda: tsr.train(tcfg.SuperResConfig(), lambda: None, num_steps=0),
         lambda: tinf.generate_frames({}, torch.zeros(1, 8, 8, 3, dtype=torch.uint8).numpy(),
                                      torch.zeros(1, 4).numpy(), torch.zeros(1, 80, 16).numpy()),
+        lambda: ttv.create_state(tcfg.ViViTConfig(num_layers=1)),
+        lambda: ttv.train(tcfg.Config(), lambda: iter([]), num_epochs=0),
+        lambda: tcli.main(["train-vivit", "--steps", "1", "--set", "vivit.num_layers=1"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
