@@ -14,6 +14,13 @@ weights made from a seed, and checks every hand-written kernel on them:
   after each epoch, the best-accuracy params) at the same defaults with 8
   classes, batch 16: K2 forward in every training step and eval batch, its
   backward the einsum VJP under autograd;
+- the lipreading chain end to end (``pipelines.lipreading_e2e.run``): LRS2-
+  style records → S3FD face tracks (VGG16, batch 16, 160×160 frames) →
+  mouth boxes → ROI (K1 once a clip, packed route) → word clips → ViViT
+  training and prediction at the defaults (K2, bf16, tensor-core route) →
+  sentence eval with the trained causal word LM at the ``NeuralScorer``
+  defaults (K2, float32, causal, CUDA-core route); then a pass with a
+  trained lip-landmark net;
 - diffusion sampling — uint8 condition frame + raw audio → native audio
   encoder → conditioning map → DDIM / DPM++ denoise steps of the U-Net →
   uint8 frames — at the ``DiffusionConfig`` defaults (128×128, base 64,
@@ -104,14 +111,26 @@ script exits non-zero without printing a result):
    first's, best accuracy above 1/8; then 20 steps at batch 16 and 10 at
    384 timed by CUDA events (batches on the card), peak memory, a profile
    of a step at each (busy share, K2 share).
-6. diffuse — one warm-up and 3 timed ``sample_video`` requests of 4 frames
+6. lipread-e2e — ``lipreading_e2e.run`` (2 epochs) on 12 synthetic records of
+   40 frames of 160×160 RGB (a drawn face) with transcripts over 24 words,
+   fed from memory through ``read_frames``; each stage timed (detection,
+   ROI, ViViT steps, eval, prediction, scorer fit, beam search); K1 once a
+   clip by ``packed``, K2 by ``sm90`` 12× a ViViT step, eval batch and
+   prediction, and by ``cuda_core`` 2× a word-LM step (400) and beam level
+   (one a word), exactly; accuracies in [0, 1]; ``train_landmark.train``
+   (48 steps, batch 64, width 32) and ``build_word_clip_dataset`` over 3
+   records with its net (K1 once a clip); card against CPU: S3FD's 12 heads
+   on a batch of 16 frames (1e-3 of each head's largest), record 0's face
+   tracks (1e-2 px), its ROI from the same mouth boxes (max 2 levels, ≥ 99%
+   within 1), word-LM scores of a 100-sentence beam level (1e-4).
+7. diffuse — one warm-up and 3 timed ``sample_video`` requests of 4 frames
    × 10 DDIM steps, and one with DPM++(2M); each must launch K3 16 times a
    step (all by the tensor-core route) and K2 4 times, and return finite (4, 128, 128, 3) uint8 frames;
    a ``torch.profiler`` breakdown of one request (device busy share,
    K2/K3 shares); the full 500-step DDPM chain at batch 1; then the card against the CPU
    plain path at the full channel plan but 64×64, batch 1, 2 DDIM steps,
    same initial noise.
-7. train   — ``train_step`` at the ``DiffusionConfig`` defaults, batch 8:
+8. train   — ``train_step`` at the ``DiffusionConfig`` defaults, batch 8:
    one warm-up and 5 timed steps, each launching K3, K4 and K5 16 times and
    K2 4 times (K3, K4 and K5 by the tensor-core route), with finite loss, params
    and EMA and an EMA that moves; a ``torch.profiler`` breakdown of one
@@ -120,15 +139,15 @@ script exits non-zero without printing a result):
    loss; one float32 step at the full channel plan but 64×64, batch 2,
    dropout 0, card against the CPU plain path (loss within 1e-4 relative,
    the whole gradient within 1e-3 relative L2).
-8. superres — 3 ``train_superres.train_step``s at the ``SuperResConfig``
+9. superres — 3 ``train_superres.train_step``s at the ``SuperResConfig``
    defaults, batch 8 (6 AttentionBlocks of 1024 tokens, d=192), then one
    ``sample_cascade`` request: base at ``DiffusionConfig(im_size=64)``, 4
    frames × 10 DDIM steps, SR 50 DDIM steps → finite (4, 128, 128, 3).
-9. guidance — 5 ``train_classifier.train_step``s at the
+10. guidance — 5 ``train_classifier.train_step``s at the
    ``ClassifierConfig`` defaults on ``synthetic_batch`` (batch 32,
    128×128), then a guided ``sample_video`` of 4 frames × 10 DDIM steps
    (label 2, scale 5): K4/K5 twice a step.
-10. lipsync — ``generate_frames`` on the serving bench's inputs (256 frames
+11. lipsync — ``generate_frames`` on the serving bench's inputs (256 frames
    of 360×640, boxes [40,300,180,430] ± 4, standard-normal mels): one
    warm-up and 3 timed requests each in float, dynamic int8 and static
    int8; uint8 frames of the input's shape, untouched outside the boxes;
@@ -136,10 +155,10 @@ script exits non-zero without printing a result):
    by the tensor-core route) and never in float; the generator's int8 output against its float output
    (PSNR); a batch-8 float request against the CPU; a profile of one
    dynamic int8 request (device busy share, device time by int8 stage).
-11. microbench — ``bench.microbench_int8.run``: K6 in bf16 and in int8
+12. microbench — ``bench.microbench_int8.run``: K6 in bf16 and in int8
    (B row-major and B a (N, K) weight transposed) and the library's calls
    on the same operands at 4096³, after its own checks.
-12. timing — request and train-step times, frames/s, each kernel's
+13. timing — request and train-step times, frames/s, each kernel's
    CUDA-event time beside its plain version's at the main-path shapes, the
    one PyTorch call that computes the same function where there is one
    (``scaled_dot_product_attention`` and its backward, at all three U-Net
@@ -158,6 +177,7 @@ Run from the repository root: ``python3 chip_smoke.py``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -1159,6 +1179,279 @@ def phase_vivit_train(dev: dict) -> dict:
             f"{k2_ms:.4f} ms ({k2_ms / busy_ms:.1%}, {k2_n}x)")
     log("vivit-train", f"phase took {time.perf_counter() - phase_t0:.1f} s")
     return {"launches": launches, "timing": timing}
+
+
+# Lipreading end to end (phase [lipread-e2e]): synthetic LRS2-style records
+# fed from memory through lipreading_e2e.run(read_frames=...), at the full
+# widths of S3FD, the ViViT defaults and the NeuralScorer defaults.
+LR_RECORDS, LR_FRAMES, LR_HW = 12, 40, 160
+LR_WORDS = ("ABOUT", "AFTER", "AGAIN", "ALWAYS", "BECAUSE", "BEFORE", "COULD", "EVERY",
+            "FIRST", "GOING", "GREAT", "HOUSE", "LITTLE", "MIGHT", "NEVER", "OTHER",
+            "PEOPLE", "RIGHT", "SHOULD", "THINK", "THREE", "WATER", "WHERE", "WORLD")
+LR_LANDMARK_STEPS, LR_LANDMARK_RECORDS = 48, 3
+# S3FD heads, card (cuDNN without TF32) vs CPU: float32 sums in another
+# order through 19 convolutions and an L2Norm; of each head's largest |value|.
+TOL_S3FD = 1e-3
+# face tracks (box coordinates in pixels) from those heads: decoded through
+# exp(), averaged over 5 frames
+TOL_TRACK_PX = 1e-2
+# word-LM scores (length-normalised log-likelihoods), card (K2 by its
+# CUDA-core route, cuBLAS without TF32) vs CPU (_mha_einsum) on the same
+# weights: float32 sums in another order through 2 blocks and a log-softmax.
+TOL_LM_SCORE = 1e-4
+
+
+def lipread_records(root: str, seed: int) -> dict:
+    """``LR_RECORDS`` LRS2-style records under ``root``: an empty ``.mp4``
+    (the manifest wants one) and a transcript with word timings at 25 fps
+    each; returns video path → (LR_FRAMES, LR_HW, LR_HW, 3) RGB uint8 frames
+    of a drawn face (head, eyes, a mouth that opens and closes), which
+    ``run`` reads through ``read_frames``."""
+    import os
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:LR_HW, 0:LR_HW].astype(np.float32)
+    frames_of = {}
+    for i in range(LR_RECORDS):
+        d = os.path.join(root, f"spk{i:02d}")
+        os.makedirs(d)
+        words = list(rng.choice(LR_WORDS, int(rng.integers(3, 6))))
+        bounds = np.linspace(0, LR_FRAMES, len(words) + 1).round().astype(int)
+        with open(os.path.join(d, "00001.txt"), "w") as f:
+            f.write(f"Text:  {' '.join(words)}\n\nConf: 4\n\nWORD START END SCORE\n")
+            for w, a, b in zip(words, bounds[:-1], bounds[1:]):
+                f.write(f"{w} {a / 25.0:.2f} {b / 25.0:.2f} 1.0\n")
+        path = os.path.join(d, "00001.mp4")
+        open(path, "w").close()
+        cy, cx = 80 + rng.uniform(-6, 6), 80 + rng.uniform(-6, 6)
+        skin = rng.uniform(150, 210, 3)
+        frames = rng.integers(0, 90, (LR_FRAMES, LR_HW, LR_HW, 3)).astype(np.float32)
+        for t in range(LR_FRAMES):
+            oy, ox = cy + rng.uniform(-1.5, 1.5), cx + rng.uniform(-1.5, 1.5)
+            head = ((xx - ox) / 42) ** 2 + ((yy - oy) / 55) ** 2 <= 1
+            frames[t][head] = skin
+            for ex in (-16, 16):
+                frames[t][((xx - ox - ex) / 7) ** 2 + ((yy - oy + 14) / 4) ** 2 <= 1] = 30
+            mh = 2 + 6 * abs(math.sin(0.7 * t + i))
+            frames[t][((xx - ox) / 14) ** 2 + ((yy - oy - 28) / mh) ** 2 <= 1] = (90, 20, 30)
+        frames_of[path] = np.clip(frames + rng.normal(0, 4, frames.shape), 0, 255).astype(np.uint8)
+    return frames_of
+
+
+class _Stage:
+    """Wraps ``module.name`` for the duration of a ``with``: the wall time of
+    each call (between ``torch.cuda.synchronize()``s) and the K1/K2
+    launches by route made inside the calls."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.real = module, name, getattr(module, name)
+        self.times = []
+        self.k1 = self.k2_sm90 = self.k2_cuda_core = 0
+
+    @property
+    def calls(self) -> int:
+        return len(self.times)
+
+    @property
+    def seconds(self) -> float:
+        return sum(self.times)
+
+    def ms(self) -> str:
+        """First call and the median of the others, ms."""
+        rest = statistics.median(self.times[1:]) if len(self.times) > 1 else float("nan")
+        return f"first {self.times[0] * 1e3:.3f} ms, then median {rest * 1e3:.3f} ms"
+
+    def __enter__(self):
+        from lipreading_video_generation_tpu_torch.ops import attention as att
+        from lipreading_video_generation_tpu_torch.ops import clahe_cuda as cl
+
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            before = (cl.clahe_cuda.route_counts["packed"], att.small_mha.route_counts["sm90"],
+                      att.small_mha.route_counts["cuda_core"])
+            t0 = time.perf_counter()
+            out = self.real(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.times.append(time.perf_counter() - t0)
+            self.k1 += cl.clahe_cuda.route_counts["packed"] - before[0]
+            self.k2_sm90 += att.small_mha.route_counts["sm90"] - before[1]
+            self.k2_cuda_core += att.small_mha.route_counts["cuda_core"] - before[2]
+            return out
+
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+        return False
+
+
+def phase_lipread_e2e(dev: dict) -> dict:
+    import copy
+    import tempfile
+
+    from lipreading_video_generation_tpu_torch.core.config import Config
+    from lipreading_video_generation_tpu_torch.core.prng import seeded
+    from lipreading_video_generation_tpu_torch.data.manifest import build_manifest
+    from lipreading_video_generation_tpu_torch.models import s3fd as s3fd_mod
+    from lipreading_video_generation_tpu_torch.ops import attention as att
+    from lipreading_video_generation_tpu_torch.ops import clahe_cuda as cl
+    from lipreading_video_generation_tpu_torch.pipelines import inference as inf
+    from lipreading_video_generation_tpu_torch.pipelines import lipreading_e2e as e2e
+    from lipreading_video_generation_tpu_torch.pipelines import preprocess as pre
+    from lipreading_video_generation_tpu_torch.pipelines import sentence_eval as se
+    from lipreading_video_generation_tpu_torch.pipelines import train_landmark as tl
+    from lipreading_video_generation_tpu_torch.pipelines import train_vivit as tv
+
+    phase_t0 = time.perf_counter()
+    cfg = Config()
+    with tempfile.TemporaryDirectory() as root:
+        frames_of = lipread_records(root, SEED + 60)
+        read_frames = lambda path: (frames_of[path], 25.0)   # noqa: E731
+        records, _ = build_manifest(root, require_transcript=True)
+        n_words = sum(len(r.words) for r in records)
+        log("lipread-e2e", f"{len(records)} records of {LR_FRAMES} frames of {LR_HW}x{LR_HW} RGB, "
+            f"{n_words} words over a vocabulary of {len(LR_WORDS)}, fed from memory; S3FD "
+            f"(VGG16) at batch {cfg.preprocess.face_det_batch_size}, ViViTConfig defaults "
+            f"(layers={cfg.vivit.num_layers} hidden={cfg.vivit.hidden_size} "
+            f"heads={cfg.vivit.num_heads} {cfg.vivit.dtype}), NeuralScorer defaults (hidden 64, "
+            f"2 layers, 4 heads, max_len 32, 400 steps), beam {cfg.sentence_eval.beam_width} "
+            f"keep {cfg.sentence_eval.keep_top}")
+
+        # 1. the whole chain through lipreading_e2e.run, stages timed
+        stages = {"detect": _Stage(inf, "detect_face_tracks"),
+                  "roi": _Stage(pre, "mouth_roi_pipeline_from_boxes"),
+                  "vivit_step": _Stage(tv, "train_step"), "vivit_eval": _Stage(tv, "eval_step"),
+                  "predict": _Stage(tv, "predict_step"),
+                  "scorer_fit": _Stage(se, "fit_default_scorer"),
+                  "beam": _Stage(se, "beam_search")}
+        torch.cuda.synchronize()
+        _zero_counts()
+        t0 = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            for stage in stages.values():
+                stack.enter_context(stage)
+            state, stats = e2e.run(cfg, root, num_epochs=2, read_frames=read_frames,
+                                   device="cuda")
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = {"clahe": cl.clahe_cuda.launch_count, "small_mha": att.small_mha.launch_count}
+        k1_routes, k2_routes = dict(cl.clahe_cuda.route_counts), dict(att.small_mha.route_counts)
+        s = stages
+        n_layers = cfg.vivit.num_layers
+        want_vivit = n_layers * (s["vivit_step"].calls + s["vivit_eval"].calls
+                                 + s["predict"].calls)
+        vivit_sm90 = s["vivit_step"].k2_sm90 + s["vivit_eval"].k2_sm90 + s["predict"].k2_sm90
+        lm_cuda_core = s["scorer_fit"].k2_cuda_core + s["beam"].k2_cuda_core
+        n_levels = n_words            # one batched scorer call a word slot
+        want_lm = 2 * (400 + n_levels)
+        log("lipread-e2e", f"run: {run_s:.2f} s; word accuracy {stats['accuracy']:.4f}, sentence "
+            f"accuracy {stats['sentence_accuracy']:.4f}; K1 {launches['clahe']}x (routes "
+            f"{k1_routes}), K2 {launches['small_mha']}x (routes {k2_routes}): ViViT {vivit_sm90} "
+            f"by sm90 (want {want_vivit}), word LM {lm_cuda_core} by cuda_core (want {want_lm}: 2 "
+            f"layers x (400 steps + {n_levels} beam levels))")
+        det, roi, step, beam = s["detect"], s["roi"], s["vivit_step"], s["beam"]
+        det_med = statistics.median(det.times[1:])
+        log("lipread-e2e", f"stages ({dev['smi']}): detection {det.calls} clips of {LR_FRAMES} "
+            f"frames in {det.seconds:.3f} s ({det.ms()} a clip = {LR_FRAMES / det_med:.1f} "
+            f"frames/s); ROI {roi.calls} clips in {roi.seconds:.3f} s ({roi.ms()} a clip = "
+            f"{1 / statistics.median(roi.times[1:]):.1f} clips/s, K1 {roi.k1}x); ViViT "
+            f"{step.calls} train steps ({step.ms()} a step, K2 {step.k2_sm90}x sm90), "
+            f"{s['vivit_eval'].calls} eval batches, predict of {n_words} clips "
+            f"{s['predict'].seconds * 1e3:.3f} ms; scorer fit "
+            f"{s['scorer_fit'].seconds:.3f} s (K2 {s['scorer_fit'].k2_cuda_core}x cuda_core); "
+            f"beam search {beam.calls} sentences in {beam.seconds:.3f} s ({beam.ms()} a sentence, "
+            f"K2 {beam.k2_cuda_core}x cuda_core)")
+        if not (0.0 <= stats["accuracy"] <= 1.0 and 0.0 <= stats["sentence_accuracy"] <= 1.0):
+            raise AssertionError(f"lipread-e2e: accuracies out of [0, 1]: {stats}")
+        if k1_routes != {"packed": len(records), "tiled": 0} or roi.k1 != len(records):
+            raise AssertionError(f"lipread-e2e: K1 routes {k1_routes}, want one packed launch a "
+                                 f"clip ({len(records)})")
+        if (vivit_sm90 != want_vivit or lm_cuda_core != want_lm
+                or k2_routes != {"sm90": want_vivit, "cuda_core": want_lm}):
+            raise AssertionError(f"lipread-e2e: K2 routes {k2_routes}, ViViT {vivit_sm90} "
+                                 f"(want {want_vivit} by sm90), word LM {lm_cuda_core} "
+                                 f"(want {want_lm} by cuda_core)")
+        if s["beam"].calls != len(records):
+            raise AssertionError(f"beam search ran {s['beam'].calls} times for {len(records)} "
+                                 "sentences")
+
+        # 2. a second pass over a few records with a trained landmark net
+        t0 = time.perf_counter()
+        lm_state = tl.train(num_steps=LR_LANDMARK_STEPS, batch_size=64, seed=SEED, log_every=0,
+                            device="cuda")
+        torch.cuda.synchronize()
+        lm_train_s = time.perf_counter() - t0
+        k1_before = cl.clahe_cuda.route_counts["packed"]
+        t0 = time.perf_counter()
+        ds = e2e.build_word_clip_dataset(cfg, records[:LR_LANDMARK_RECORDS],
+                                         landmark_params=lm_state.model, read_frames=read_frames,
+                                         device="cuda")
+        torch.cuda.synchronize()
+        lm_pass_s = time.perf_counter() - t0
+        k1_landmark = cl.clahe_cuda.route_counts["packed"] - k1_before
+        launches["clahe"] = cl.clahe_cuda.launch_count
+        want_clips = sum(len(r.words) for r in records[:LR_LANDMARK_RECORDS])
+        log("lipread-e2e", f"landmark pass: train_landmark.train {LR_LANDMARK_STEPS} steps at "
+            f"batch 64, width 32 in {lm_train_s:.2f} s; build_word_clip_dataset over "
+            f"{LR_LANDMARK_RECORDS} records with its net in {lm_pass_s:.3f} s: {len(ds.clips)} "
+            f"word clips (want {want_clips}), K1 {k1_landmark}x by packed")
+        if (k1_landmark != LR_LANDMARK_RECORDS or len(ds.clips) != want_clips
+                or any(c.shape != (cfg.vivit.num_frames, 32, 32, 1) or c.dtype != np.uint8
+                       for c in ds.clips)):
+            raise AssertionError(f"landmark pass: K1 {k1_landmark}x, {len(ds.clips)} clips")
+
+        # 3. card against the port's own CPU run, same weights and inputs
+        det_gpu = seeded(s3fd_mod.S3FD, 0).to("cuda").eval()
+        det_cpu = seeded(s3fd_mod.S3FD, 0).eval()
+        frames0 = frames_of[records[0].video_path]
+        batch = torch.from_numpy(np.ascontiguousarray(
+            frames0[:cfg.preprocess.face_det_batch_size, :, :, ::-1]))
+        with torch.no_grad():
+            heads_gpu = det_gpu(s3fd_mod.preprocess_input(batch.to("cuda")))
+            heads_cpu = det_cpu(s3fd_mod.preprocess_input(batch))
+        worst = max((g.cpu() - c).abs().max().item() / c.abs().max().item()
+                    for g, c in zip(heads_gpu, heads_cpu))
+        _, _, valid = s3fd_mod.detect_faces(det_gpu, batch.to("cuda"),
+                                            cfg.preprocess.face_det_score_threshold,
+                                            cfg.preprocess.nms_threshold)
+        # record 0's face tracks, then its ROI from the card's mouth boxes on both
+        # sides (boxes that differ by float noise can move a gray value across a
+        # histogram bin and a tile's LUT by several levels, tests/test_torch_port_slice.py)
+        pcfg = cfg.preprocess
+        tracks_gpu = inf.detect_face_tracks(det_gpu, frames0, pcfg)
+        tracks_cpu = inf.detect_face_tracks(det_cpu, frames0, pcfg)
+        track_d = (tracks_gpu.cpu() - tracks_cpu).abs().max().item()
+        mouth = pre.mouth_box_from_face(tracks_gpu, pcfg.lip_crop_size[0])
+        roi_args = (pcfg.lip_crop_size, pcfg.model_input_size, pcfg.clahe_clip_limit,
+                    pcfg.clahe_grid)
+        roi_gpu = pre.mouth_roi_pipeline_from_boxes(torch.from_numpy(frames0).to("cuda"), mouth,
+                                                    *roi_args).cpu()
+        roi_cpu = pre.mouth_roi_pipeline_from_boxes(torch.from_numpy(frames0), mouth.cpu(),
+                                                    *roi_args)
+        d = (roi_gpu.int() - roi_cpu.int()).abs().numpy()
+        within1 = float((d <= 1).mean())
+        scorer = se.NeuralScorer(device="cuda").fit([r.text for r in records])
+        cpu_scorer = copy.copy(scorer)
+        cpu_scorer.model = copy.deepcopy(scorer.model).cpu()
+        cpu_scorer.device = torch.device("cpu")
+        level = [f"{a} {b}" for a in LR_WORDS[:10] for b in LR_WORDS[10:20]]   # a beam level
+        sc_gpu = np.array(scorer.score_batch(level))
+        sc_cpu = np.array(cpu_scorer.score_batch(level))
+        lm_d = float(np.abs(sc_gpu - sc_cpu).max())
+        log("lipread-e2e", f"card vs CPU: S3FD's 12 heads on a batch of "
+            f"{cfg.preprocess.face_det_batch_size} frames max|d| {worst:.3g} of each head's "
+            f"max|ref| (tol {TOL_S3FD}), {int(valid.sum())} valid detections (random weights: "
+            f"faces not required); record 0's face tracks max|d| {track_d:.3g} px (tol "
+            f"{TOL_TRACK_PX}); its {LR_FRAMES} ROI frames from the same mouth boxes max|d| "
+            f"{d.max()} levels, {within1:.5f} within 1 (want max <= 2, >= 0.99); word-LM scores of "
+            f"a beam level of {len(level)} sentences max|d| {lm_d:.3g} (tol {TOL_LM_SCORE})")
+        if not (worst <= TOL_S3FD and track_d <= TOL_TRACK_PX and d.max() <= 2
+                and within1 >= 0.99 and lm_d <= TOL_LM_SCORE):
+            raise AssertionError(f"lipread-e2e card vs CPU: heads {worst}, tracks {track_d}, ROI "
+                                 f"{d.max()} / {within1}, LM scores {lm_d}")
+    log("lipread-e2e", f"phase took {time.perf_counter() - phase_t0:.1f} s")
+    return {"launches": launches}
 
 
 def flax_unet_audio_params(cfg, seed: int) -> dict:
@@ -2286,6 +2579,7 @@ def main() -> None:
     errs = phase_kernels()
     served = phase_serve(dev)
     vivit_trained = phase_vivit_train(dev)["launches"]
+    lipread = phase_lipread_e2e(dev)["launches"]
     diffused = phase_diffuse(dev)
     trained = phase_train(dev)["launches"]
     superres = phase_superres(dev)["launches"]
@@ -2293,8 +2587,9 @@ def main() -> None:
     lipsync = phase_lipsync(dev)
     microbench = phase_microbench()
     paths = (vivit_trained, diffused, trained, superres, guided)
-    launches = {"clahe": served["clahe"],
-                "small_mha": served["small_mha"] + sum(p["small_mha"] for p in paths),
+    launches = {"clahe": served["clahe"] + lipread["clahe"],
+                "small_mha": (served["small_mha"] + lipread["small_mha"]
+                              + sum(p["small_mha"] for p in paths)),
                 "int8_matmul": (served["int8_matmul"] + lipsync["launches"]
                                 + microbench["launches"]["int8_matmul"]),
                 "bf16_matmul": microbench["launches"]["bf16_matmul"]}
@@ -2334,15 +2629,16 @@ def main() -> None:
                 "packed: one block an image, 8-bit counters packed in shared memory, an integer "
                 "LUT scan written over them (L = 1, nbins a power of two up to 256, tiles of at "
                 "most 255 pixels: the main path's (1920,48,48), timed here and on the ViViT "
-                "path); tiled: "
+                "serving path; once a clip of the lipreading chain); tiled: "
                 f"{pkg}/csrc/clahe.cu (a block a tile writes its LUT to a device workspace, a "
                 "block a row blends; any other shape, e.g. frames of 360x640)")
         if name == "small_mha":
             kern["route_detail"] = (
                 "sm90: mma.sync on bf16 tiles, double-buffered cp.async (aligned bf16 inputs, up "
                 "to 128 tokens, head dim up to 128; timed here and on the ViViT serving and "
-                f"training, sampling and diffusion training paths); cuda_core: {pkg}/csrc/small_mha.cu (float32, longer "
-                "sequences, unaligned inputs)")
+                f"training, lipreading-chain, sampling and diffusion training paths); cuda_core: "
+                f"{pkg}/csrc/small_mha.cu (float32, longer sequences, unaligned inputs; the "
+                "lipreading chain's causal word LM)")
         if name.endswith("_matmul"):
             kern["route_detail"] = (
                 "sm90: wgmma on swizzled tiles, a TMA ring kept full by a producer warpgroup, "

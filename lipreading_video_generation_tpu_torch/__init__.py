@@ -9,9 +9,17 @@ module paths and function names so each counterpart is easy to find:
   forward, training (AdamW, staircase schedule, dropout, eval, best-accuracy
   snapshot; ``data.datasets``, ``data.loader``, ``core.metrics``),
   ``predict_step`` and ``predict_step_int8``.
+- ``pipelines.lipreading_e2e`` — the lipreading chain end to end: LRS2
+  records (``data.manifest``, ``data.video``) → S3FD face tracks
+  (``models.s3fd``, ``ops.bbox``, ``pipelines.inference.detect_face_tracks``,
+  ``models.face_api``) → mouth boxes (geometric, or ``models.lip_landmark``
+  trained by ``pipelines.train_landmark``) → ROI → word clips → ViViT →
+  sentence eval scored by the causal word LM (``pipelines.sentence_eval``,
+  ``models.word_lm``; ``pipelines.phonetics``); ``core.checkpoint``.
 - ``cli`` — the command line (``train-vivit``, ``train-diffusion``,
-  ``train-superres``, ``train-noisy-classifier``) on ``core.config``'s
-  ``Config`` tree and ``--set`` overrides.
+  ``train-superres``, ``train-noisy-classifier``, ``train-landmark``,
+  ``lipread-e2e``) on ``core.config``'s ``Config`` tree and ``--set``
+  overrides.
 - ``pipelines.sample_diffusion``, ``train_diffusion``, ``train_superres``,
   ``train_classifier`` — audio+image-conditioned diffusion: sampling,
   training, the super-resolution cascade, classifier guidance

@@ -9,6 +9,9 @@ Usage:
   python -m lipreading_video_generation_tpu_torch.cli train-superres --synthetic
   python -m lipreading_video_generation_tpu_torch.cli train-noisy-classifier \\
       --synthetic --out clf.pt
+  python -m lipreading_video_generation_tpu_torch.cli train-landmark --out lm/
+  python -m lipreading_video_generation_tpu_torch.cli lipread-e2e \\
+      --data-root data/mvlrs_v1/main --landmark-checkpoint lm/
 
 Every command runs on the card (``core.device``); ``main(argv,
 device="cpu")`` runs it on the CPU, as the tests do. Data other than the
@@ -84,6 +87,24 @@ def _parser() -> argparse.ArgumentParser:
                    help="class-k-lights-quadrant-k synthetic task")
     p.add_argument("--out", required=True,
                    help="artifact path (a torch.save file of the classifier's state_dict)")
+
+    p = _base_parser(sub, "train-landmark",
+                     "train the lip-landmark regressor (MediaPipe-parity mouth crops)")
+    p.add_argument("--steps", type=int, default=2000)
+    p.add_argument("--batch-size", type=int, default=64)
+    p.add_argument("--out", default=None, help="save trained landmark params here")
+
+    p = _base_parser(sub, "lipread-e2e", "LRS2 → word clips → ViViT train → sentence eval")
+    p.add_argument("--data-root", required=True,
+                   help="LRS2-layout tree of <id>.mp4 + <id>.txt (decoded with OpenCV)")
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--max-clips", type=int, default=None)
+    p.add_argument("--landmark-checkpoint", default=None,
+                   help="trained lip-landmark params (train-landmark --out); "
+                        "defaults to the geometric mouth-box estimate")
+    p.add_argument("--s3fd-checkpoint", default=None,
+                   help="torch.save'd S3FD state dict in s3fd.pth's layout; without "
+                        "it the face detector is drawn from a seed")
     return parser
 
 
@@ -171,6 +192,26 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
         train_classifier.save_classifier(args.out, state)
         print(f"trained noisy classifier → {args.out} "
               f"({cfg.classifier.num_classes} classes)")
+        return 0
+
+    if args.cmd == "train-landmark":
+        from .pipelines import train_landmark
+
+        train_landmark.train(num_steps=args.steps, batch_size=args.batch_size, seed=cfg.seed,
+                             checkpoint_dir=args.out, device=device)
+        if args.out:
+            print(f"saved landmark params → {args.out}")
+        return 0
+
+    if args.cmd == "lipread-e2e":
+        from .pipelines import lipreading_e2e
+
+        _, stats = lipreading_e2e.run(
+            cfg, args.data_root, num_epochs=args.epochs, max_clips=args.max_clips,
+            landmark_checkpoint=args.landmark_checkpoint,
+            s3fd_checkpoint=args.s3fd_checkpoint, device=device)
+        print(f"word accuracy={stats.get('accuracy'):.4f} "
+              f"sentence accuracy={stats.get('sentence_accuracy'):.4f}")
         return 0
 
 

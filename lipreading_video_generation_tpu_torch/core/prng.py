@@ -12,7 +12,7 @@ and parity never depends on a seed.
 """
 from __future__ import annotations
 
-from typing import Iterator, Tuple
+from typing import Callable, Iterator, Tuple
 
 import torch
 
@@ -66,3 +66,11 @@ def uniform_timesteps(generator: torch.Generator, batch: int, num_timesteps: int
     """t ~ U[0, num_timesteps), (batch,) int64 on the generator's device."""
     return torch.randint(0, num_timesteps, (batch,), generator=generator,
                          device=generator.device)
+
+
+def seeded(build: Callable[[], torch.nn.Module], seed: int) -> torch.nn.Module:
+    """``build()`` with the port's Flax-style init drawn from ``seed``,
+    leaving the global random state as it was."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        return build()

@@ -6,7 +6,10 @@ for the diffusion model; ``superres_state_dict_from_flax`` and
 ``encoder_unet_state_dict_from_flax`` for the super-resolution U-Net and the
 guidance classifier; ``generator_state_dict_from_flax`` for the talking-face
 generator (with ``generator_flax_module_names``, which maps the Flax module
-paths that key JAX's static int8 scales to the port's module names). The
+paths that key JAX's static int8 scales to the port's module names);
+``s3fd_state_dict_from_flax``, ``lip_landmark_state_dict_from_flax`` and
+``word_lm_state_dict_from_flax`` for the lipreading chain's face detector,
+lip-landmark regressor and word LM. The
 params stay float32 in the port (its layers cast
 to the compute dtype inside ``forward``), so a round trip is exact. A Flax
 gradient tree has the params' structure and goes through the same
@@ -294,4 +297,53 @@ def generator_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
             _conv(sd, f"{part}.{at}.conv", block["Conv_0"])
             _norm(sd, f"{part}.{at}.norm", block["GroupNorm_0"])
     _conv(sd, "decoder.out_conv", params["FaceDecoder_0"]["Conv_0"])
+    return sd
+
+
+def s3fd_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax ``S3FD`` params → float32 ``state_dict`` for ``models.s3fd.S3FD``,
+    which is ``s3fd.pth``'s layout: the inverse of the JAX package's
+    ``convert_torch_state_dict`` (conv kernels HWIO → OIHW, the L2Norm
+    ``weight``s as they are)."""
+    from .s3fd import S3FD
+
+    want = {k.rsplit(".", 1)[0] for k in S3FD().state_dict()}
+    _exact(params, want, "S3FD")
+    sd: Dict[str, torch.Tensor] = {}
+    for name, p in params.items():
+        if "kernel" in p:
+            _conv(sd, name, _exact(p, ["kernel", "bias"], f"S3FD/{name}"))
+        else:
+            sd[f"{name}.weight"] = _tensor(_exact(p, ["weight"], f"S3FD/{name}")["weight"])
+    return sd
+
+
+def lip_landmark_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax ``LipLandmarkNet`` params → float32 ``state_dict`` for
+    ``models.lip_landmark.LipLandmarkNet`` (same module names)."""
+    convs = [f"conv{i}" for i in range(4)] + ["up2", "up1", "heat"]
+    norms = [f"norm{i}" for i in range(4)] + ["upnorm2", "upnorm1"]
+    _exact(params, convs + norms, "LipLandmarkNet")
+    sd: Dict[str, torch.Tensor] = {}
+    for name in convs:
+        _conv(sd, name, params[name])
+    for name in norms:
+        _norm(sd, name, params[name])
+    return sd
+
+
+def word_lm_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax ``WordLM`` params → float32 ``state_dict`` for
+    ``models.word_lm.WordLM`` (same module names; the embedding is also the
+    tied output head)."""
+    n = sum(1 for k in params if k.startswith("qkv_"))
+    per_layer = ("ln1", "qkv", "proj", "ln2", "fc1", "fc2")
+    _exact(params, ["embedding", "pos_embedding", "ln_f"]
+           + [f"{p}_{i}" for i in range(n) for p in per_layer], "WordLM")
+    sd = {"embedding": _tensor(params["embedding"]),
+          "pos_embedding": _tensor(params["pos_embedding"])}
+    for i in range(n):
+        for p in per_layer:
+            (_norm if p.startswith("ln") else _dense)(sd, f"{p}_{i}", params[f"{p}_{i}"])
+    _norm(sd, "ln_f", params["ln_f"])
     return sd

@@ -15,8 +15,9 @@ modules:
 - ``LayerNorm``: eps 1e-6, statistics in float32 with the fast variance
   E[x²]−E[x]² (clipped at 0), float32 scale and bias, output cast to the
   compute dtype (flax/linen/normalization.py).
-- ``GroupNorm``: groups ``min(32, c)`` lowered until they divide c, eps
-  1e-6, statistics in float32 with the same fast variance.
+- ``GroupNorm``: groups ``min(32, c)`` lowered until they divide c (or as
+  many as its ``num_groups`` argument says), eps 1e-6, statistics in float32
+  with the same fast variance.
 - ``nn.gelu`` is the tanh approximation.
 - ``UpsampleConv`` resizes with ``jax.image.resize(..., "nearest")``'s
   index rule, floor((i + 0.5)·in/out).
@@ -44,6 +45,7 @@ import torch.nn.functional as F
 
 from ..ops import quant
 from ..ops.attention import mha
+from ..ops.image import nearest_index
 
 Pair = Union[int, Tuple[int, int]]
 
@@ -122,7 +124,7 @@ class LayerNorm(nn.Module):
         return y.to(x.dtype)
 
 
-def num_groups(c: int) -> int:
+def default_groups(c: int) -> int:
     g = min(32, c)
     while c % g:
         g -= 1
@@ -130,11 +132,17 @@ def num_groups(c: int) -> int:
 
 
 class GroupNorm(nn.Module):
-    """Flax ``nn.GroupNorm(dtype=float32)`` over (B, C, ...) inputs."""
+    """Flax ``nn.GroupNorm(dtype=float32)`` over (B, C, ...) inputs, in
+    ``num_groups`` groups (None: ``default_groups(channels)``, as most of
+    the JAX package's models pick them; ``nn.GroupNorm(num_groups=8)``
+    there is ``num_groups=8`` here)."""
 
-    def __init__(self, channels: int, eps: float = 1e-6):
+    def __init__(self, channels: int, eps: float = 1e-6, num_groups: Optional[int] = None):
         super().__init__()
-        self.groups = num_groups(channels)
+        if num_groups is not None and channels % num_groups:
+            raise ValueError(f"GroupNorm: {channels} channels do not split into "
+                             f"{num_groups} groups")
+        self.groups = default_groups(channels) if num_groups is None else num_groups
         self.eps = eps
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
@@ -293,15 +301,11 @@ class ResConvBlock(nn.Module):
 
 def resize_nearest(x: torch.Tensor, target_hw: Tuple[int, int]) -> torch.Tensor:
     """(B, C, H, W) → (B, C, th, tw) with ``jax.image.resize(...,
-    "nearest")``'s source index floor((i + 0.5)·in/out), computed in
-    float32 as there. (``F.interpolate(mode="nearest")`` takes
-    floor(i·in/out), the same only at integer factors.)"""
+    "nearest")``'s source index (``ops.image.nearest_index``)."""
     for dim, n in ((2, target_hw[0]), (3, target_hw[1])):
         m = x.shape[dim]
         if n != m:
-            idx = torch.floor((torch.arange(n, dtype=torch.float32, device=x.device) + 0.5)
-                              * m / n).long()
-            x = x.index_select(dim, idx)
+            x = x.index_select(dim, nearest_index(m, n, x.device))
     return x
 
 

@@ -7,8 +7,10 @@ calls from ``ops/image.py``: ``expand_box_to_min_size``, ``rgb_to_gray``,
 diffusion path's ``normalize_uint8``, ``denormalize_to_uint8`` and the
 U-Net's nearest 2× upsample (``models/unet.py:142``); and of the lip-sync
 path's ``mask_lower_half``, ``concat_reference``, ``_bilinear_sample`` and
-``smooth_boxes``. Layouts are the JAX package's: (..., H, W, C) images and
-y1y2x1x2 boxes.
+``smooth_boxes``; and ``map_coordinates``, the counterpart of
+``jax.scipy.ndimage.map_coordinates(order=1, mode="nearest")`` that the
+lip-landmark renderers and augmentations warp with. Layouts are the JAX
+package's: (..., H, W, C) images and y1y2x1x2 boxes.
 
 Resampling reproduces ``jax.image.scale_and_translate`` (which both
 ``crop_and_resize`` and ``jax.image.resize`` use): separable per-axis
@@ -40,6 +42,7 @@ __all__ = [
     "mask_lower_half",
     "concat_reference",
     "smooth_boxes",
+    "map_coordinates",
 ]
 
 _F32_EPS = float(torch.finfo(torch.float32).eps)
@@ -89,14 +92,30 @@ def _resample(img: torch.Tensor, wy: torch.Tensor, wx: torch.Tensor) -> torch.Te
     return torch.einsum("nwx,nywc->nyxc", wx, rows)
 
 
+def nearest_index(n_in: int, n_out: int, device=None) -> torch.Tensor:
+    """Source index of each of ``n_out`` samples of an axis of ``n_in`` in
+    ``jax.image.resize(..., "nearest")``: floor((i + 0.5)·n_in/n_out),
+    computed in float32 as there. (``F.interpolate(mode="nearest")`` takes
+    floor(i·n_in/n_out), the same only at integer factors.)"""
+    pos = (torch.arange(n_out, dtype=torch.float32, device=device) + 0.5) * n_in / n_out
+    return torch.floor(pos).long()
+
+
 def resize(img: torch.Tensor, size: Tuple[int, int], method: str = "bilinear") -> torch.Tensor:
     """Resize (..., H, W, C) → (..., h, w, C) like ``jax.image.resize``
     (half-pixel centres, antialiased when downscaling). ``method``:
-    'bilinear' | 'cubic'. Integer images are rounded and clipped back."""
-    if method not in _KERNELS:
-        raise ValueError(f"resize: method {method!r} is not ported (bilinear, cubic)")
+    'bilinear' | 'cubic' | 'nearest' (``nearest_index``, no antialiasing).
+    Integer images are rounded and clipped back."""
+    if method != "nearest" and method not in _KERNELS:
+        raise ValueError(f"resize: unknown method {method!r} (bilinear, cubic, nearest)")
     h, w = size
     lead, (H, W, C) = img.shape[:-3], img.shape[-3:]
+    if method == "nearest":
+        out = img
+        for dim, n_in, n_out in ((-3, H, h), (-2, W, w)):
+            if n_in != n_out:
+                out = out.index_select(dim, nearest_index(n_in, n_out, img.device))
+        return out
     x = img.to(torch.float32).reshape(-1, H, W, C)
     n = x.shape[0]
 
@@ -231,3 +250,26 @@ def smooth_boxes(boxes: torch.Tensor, T: int = 5) -> torch.Tensor:
     start = torch.where(idx + T > n, torch.full_like(idx, max(0, n - T)), idx)
     gather = torch.clamp(start[:, None] + torch.arange(T, device=boxes.device), 0, n - 1)
     return boxes[gather].mean(dim=1)
+
+
+def map_coordinates(img: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+    """Sample float images (..., H, W) at float pixel coordinates ``ys``,
+    ``xs`` (..., h, w) → (..., h, w): ``jax.scipy.ndimage.map_coordinates(img,
+    [ys, xs], order=1, mode="nearest")`` per image. The four taps sit at the
+    integer pixels around each coordinate, clamped to the edge, and are
+    summed in JAX's order (y-tap major, weights ``w_y·w_x``)."""
+    h, w = img.shape[-2:]
+    lead = img.shape[:-2]
+    flat = img.reshape(lead + (h * w,))
+    y0f, x0f = torch.floor(ys), torch.floor(xs)
+    wy1, wx1 = ys - y0f, xs - x0f
+    wy0, wx0 = 1 - wy1, 1 - wx1
+    y0, x0 = y0f.long(), x0f.long()
+    out = None
+    for yi, wy in ((y0, wy0), (y0 + 1, wy1)):
+        for xi, wx in ((x0, wx0), (x0 + 1, wx1)):
+            idx = (torch.clamp(yi, 0, h - 1) * w + torch.clamp(xi, 0, w - 1))
+            tap = torch.gather(flat, -1, idx.reshape(lead + (-1,))).reshape(idx.shape)
+            term = wy * wx * tap
+            out = term if out is None else out + term
+    return out

@@ -14,12 +14,18 @@ through the int8 matmul kernel (``ops/quant.py``); with
 ``serve_int8_static`` one calibration pass over frames sampled evenly across
 the request fixes the activation scales first, with 5% headroom.
 
+``detect_face_tracks`` turns frames into smoothed face boxes with
+``models.s3fd`` (batches of ``PreprocessConfig.face_det_batch_size``, the
+last padded by repeating its last frame; the best face of each frame;
+undetected frames take the last detected box, whole-frame boxes where
+nothing is found), all on the detector's device.
+
 Not carried over: the JAX package runs the whole request as one device
 program (``lax.map`` over step-stacked batches, padded to a batch multiple
 and sharded over a mesh); here a Python loop takes the batches one by one on
-one device, the last one as short as it is, and ``mesh_spec`` raises. Face
-detection and video/audio file I/O (``detect_face_tracks``,
-``prepare_input_frames``, ``lipsync_video``) are not ported yet.
+one device, the last one as short as it is, and ``mesh_spec`` raises. Video
+and audio file I/O (``prepare_input_frames``, ``lipsync_video``) are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -31,12 +37,66 @@ import torch
 from ..core.config import AudioConfig, GanConfig, PreprocessConfig
 from ..core.device import resolve_device
 from ..models.generator import TalkingFaceGenerator
+from ..models.s3fd import S3FD, detect_faces
 from ..ops import audio as audio_ops
 from ..ops import image as image_ops
 from ..ops import quant
 
 # headroom on the calibrated activation scales, for frames between the sampled ones
 _STATIC_HEADROOM = 1.05
+
+
+@torch.no_grad()
+def detect_face_tracks(
+    s3fd: S3FD,
+    frames,
+    cfg: PreprocessConfig = PreprocessConfig(),
+    pads: tuple = (0, 0, 0, 0),
+    nosmooth: bool = False,
+) -> torch.Tensor:
+    """Batched S3FD over all frames → (T, 4) float32 y1y2x1x2 face boxes on
+    the detector's device.
+
+    ``frames``: (T, H, W, 3) RGB uint8, a numpy array or a tensor on any
+    device. Frames with no detection take the previous frame's box (the
+    frames before the first detection take the first); with no detection
+    at all every box is the whole frame. ``pads`` = (pady1, pady2, padx1,
+    padx2) widen the boxes, clipped to the frame; then the T =
+    ``cfg.box_smooth_T`` moving average (``ops.image.smooth_boxes``) unless
+    ``nosmooth``."""
+    device = next(s3fd.parameters()).device
+    if isinstance(frames, np.ndarray):
+        frames = torch.from_numpy(np.ascontiguousarray(frames))
+    frames = frames.to(device)
+    t, h, w = frames.shape[:3]
+    bs = cfg.face_det_batch_size
+    bgr = torch.flip(frames, dims=[-1]).to(torch.float32)
+    all_boxes, all_valid = [], []
+    for i in range(0, t, bs):
+        chunk = bgr[i: i + bs]
+        n = len(chunk)
+        if n < bs:
+            chunk = torch.cat([chunk, chunk[-1:].expand((bs - n,) + chunk.shape[1:])])
+        boxes, _, valid = detect_faces(s3fd, chunk, score_threshold=cfg.face_det_score_threshold,
+                                       nms_threshold=cfg.nms_threshold)
+        all_boxes.append(boxes[:n, 0])               # best face per frame
+        all_valid.append(valid[:n, 0])
+    boxes, valid = torch.cat(all_boxes), torch.cat(all_valid)     # (T, 4) x1y1x2y2
+    # carry the last detection forward; frames before the first take the first
+    idx = torch.arange(t, device=device)
+    last = torch.cummax(torch.where(valid, idx, torch.full_like(idx, -1)), dim=0).values
+    first = torch.argmax(valid.to(torch.int32))
+    boxes = boxes[torch.where(last >= 0, last, first)]
+    whole = torch.tensor([0.0, 0.0, w - 1.0, h - 1.0], device=device)
+    boxes = torch.where(valid.any(), boxes, whole)
+    # pads, clipped to the frame
+    pady1, pady2, padx1, padx2 = pads
+    x1 = torch.clamp(boxes[:, 0] - padx1, min=0)
+    y1 = torch.clamp(boxes[:, 1] - pady1, min=0)
+    x2 = torch.clamp(boxes[:, 2] + padx2, max=w)
+    y2 = torch.clamp(boxes[:, 3] + pady2, max=h)
+    yx = torch.stack([y1, y2, x1, x2], dim=1).to(torch.float32)
+    return yx if nosmooth else image_ops.smooth_boxes(yx, cfg.box_smooth_T)
 
 
 def _mel_chunks(mel: torch.Tensor, num_frames: int, fps: float, audio_cfg: AudioConfig,

@@ -2,10 +2,12 @@
 
 Port of ``lipreading_video_generation_tpu/pipelines/preprocess.py``'s
 ``mouth_box_from_face``, ``mouth_roi_pipeline_from_boxes``,
-``mouth_roi_pipeline`` and ``slice_word_clips``. The JAX package's ``vmap``
-over frames becomes an explicit batch dimension: crop+resize, gray, CLAHE
-and the final resize each run once over all T frames. On CUDA tensors the
-CLAHE step is the kernel K1; there is no CPU fallback for it.
+``mouth_roi_pipeline``, ``slice_word_clips`` and
+``preprocess_clip_for_lipreading`` (face tracks, mouth boxes, ROI, word
+windows for one clip). The JAX package's ``vmap`` over frames becomes an
+explicit batch dimension: crop+resize, gray, CLAHE and the final resize each
+run once over all T frames. On CUDA tensors the CLAHE step is the kernel K1
+(one launch a clip); there is no CPU fallback for it.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..core.config import PreprocessConfig
 from ..ops import image as image_ops
 
 
@@ -82,3 +85,35 @@ def slice_word_clips(
         clips.append(clip)
         words.append(word)
     return clips, words
+
+
+def preprocess_clip_for_lipreading(
+    frames: np.ndarray,
+    s3fd_params,
+    word_spans: Sequence[Tuple[str, int, int]],
+    cfg: PreprocessConfig = PreprocessConfig(),
+    max_frames: int = 5,
+    landmark_params=None,
+) -> Tuple[List[np.ndarray], List[str]]:
+    """One clip: (T, H, W, 3) RGB uint8 frames → face tracks
+    (``inference.detect_face_tracks`` with the ``models.s3fd.S3FD``
+    ``s3fd_params``) → mouth boxes (the ``LipLandmarkNet``
+    ``landmark_params`` where given, else ``mouth_box_from_face``) →
+    ``mouth_roi_pipeline_from_boxes`` → word windows. Runs on the
+    detector's device; the frames stay there from their upload to the uint8
+    ROI. Returns (clips [(max_frames, h, w, 1) uint8], words)."""
+    from ..models import lip_landmark
+    from .inference import detect_face_tracks
+
+    device = next(s3fd_params.parameters()).device
+    frames_t = torch.from_numpy(np.ascontiguousarray(frames)).to(device)
+    boxes = detect_face_tracks(s3fd_params, frames_t, cfg)
+    if landmark_params is not None:
+        mouth = lip_landmark.predict_mouth_boxes(landmark_params, frames_t, boxes,
+                                                 cfg.lip_crop_size[0])
+    else:
+        mouth = mouth_box_from_face(boxes, cfg.lip_crop_size[0])
+    processed = mouth_roi_pipeline_from_boxes(frames_t, mouth, cfg.lip_crop_size,
+                                              cfg.model_input_size, cfg.clahe_clip_limit,
+                                              cfg.clahe_grid)
+    return slice_word_clips(processed.cpu().numpy(), word_spans, max_frames)

@@ -21,10 +21,11 @@ from torch import nn
 
 from ..core.config import ClassifierConfig, DiffusionConfig
 from ..core.device import resolve_device
+from ..core.prng import seeded
 from ..models.schedulers import make_scheduler
 from ..models.unet import EncoderUNetModel
 from ..ops import image as image_ops
-from .train_diffusion import ADAM_BETAS, ADAM_EPS, draw_t_noise, seeded
+from .train_diffusion import ADAM_BETAS, ADAM_EPS, draw_t_noise
 
 
 def make_classifier(ccfg: ClassifierConfig, in_channels: int = 3) -> EncoderUNetModel:

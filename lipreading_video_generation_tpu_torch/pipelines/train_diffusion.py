@@ -30,7 +30,7 @@ from torch import nn
 
 from ..core.config import DiffusionConfig
 from ..core.device import resolve_device
-from ..core.prng import uniform_timesteps
+from ..core.prng import seeded, uniform_timesteps
 from ..models.schedulers import make_scheduler
 from ..models.unet_audio import UNetAudio
 from ..ops import image as image_ops
@@ -82,14 +82,6 @@ def new_state(model: nn.Module, cfg, seed: int, device, ema_rate: float) -> Diff
     gen = torch.Generator(device=device).manual_seed(seed)
     return DiffusionTrainState(model, ema, opt, 0, gen, make_scheduler(
         cfg.scheduler, cfg.num_timesteps, cfg.beta_start, cfg.beta_end), ema_rate)
-
-
-def seeded(build: Callable[[], nn.Module], seed: int) -> nn.Module:
-    """``build()`` with the port's Flax-style init drawn from ``seed``,
-    leaving the global random state as it was."""
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(seed)
-        return build()
 
 
 def create_state(cfg: DiffusionConfig, seed: int = 0, device=None, ema_rate: float = 0.9999,

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..core import prng
+from ..core.prng import seeded
 from ..core.config import Config, ViViTConfig
 from ..core.device import resolve_device
 from ..core.metrics import to_host
@@ -35,7 +36,7 @@ from ..data.loader import host_prefetch, iterator_feed
 from ..models.vivit import ViViT
 from ..ops import quant
 from . import losses
-from .train_diffusion import ADAM_BETAS, ADAM_EPS, seeded
+from .train_diffusion import ADAM_BETAS, ADAM_EPS
 
 
 class StaircaseSchedule:

@@ -117,6 +117,7 @@ def test_build_config_matches_jax(argv):
     (["train-vivit", "--set", "mesh.model_parallel=2"], "multi-GPU"),
     (["train-noisy-classifier", "--out", "x.pt"], "--synthetic"),
     (["sample-diffusion", "--out", "x.png"], "invalid choice"),
+    (["lipread-e2e", "--epochs", "1"], "the following arguments are required: --data-root"),
 ], ids=lambda v: v[0] if isinstance(v, list) else None)
 def test_refused_arguments_exit_with_a_usage_error(argv, message, capsys):
     with pytest.raises(SystemExit) as e:
@@ -137,5 +138,6 @@ def test_module_entry_point_runs_on_the_card_by_default():
                         "--help"], capture_output=True, text=True, env=env, cwd=ROOT,
                        timeout=120)
     assert r.returncode == 0
-    for cmd in ("train-vivit", "train-diffusion", "train-superres", "train-noisy-classifier"):
+    for cmd in ("train-vivit", "train-diffusion", "train-superres", "train-noisy-classifier",
+                "train-landmark", "lipread-e2e"):
         assert cmd in r.stdout

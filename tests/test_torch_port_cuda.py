@@ -688,7 +688,7 @@ def _vivit_state_dict(cfg, seed):
     """Seeded init (Flax's rules) with every LayerNorm and bias moved off its
     (1, 0) start, so each parameter has a gradient of its own."""
     from lipreading_video_generation_tpu_torch.models.vivit import ViViT
-    from lipreading_video_generation_tpu_torch.pipelines.train_diffusion import seeded
+    from lipreading_video_generation_tpu_torch.core.prng import seeded
 
     sd = seeded(lambda: ViViT(cfg), seed).state_dict()
     g = torch.Generator().manual_seed(seed + 1)
@@ -783,3 +783,40 @@ def test_cli_train_vivit_on_card(cuda, capsys):
     out = capsys.readouterr()
     assert [ln for ln in out.out.splitlines() if ln.startswith("best: ")]
     assert "[step 30]" in out.err
+
+
+def test_lipread_e2e_run_on_card(cuda, tmp_path):
+    """``lipreading_e2e.run`` on the card (its default) over 8 records fed
+    from memory through ``read_frames``: K1 once a clip by the packed route;
+    K2 by the tensor-core route in the bf16 ViViT (a multiple of its 2
+    layers) and by the CUDA-core route in the float32 causal word LM, 2
+    layers × (400 training steps + one beam level a word)."""
+    from lipreading_video_generation_tpu_torch.core.config import Config, parse_overrides
+    from lipreading_video_generation_tpu_torch.pipelines import lipreading_e2e as e2e
+
+    rng = np.random.default_rng(0)
+    words = ["HELLO", "WORLD", "AGAIN", "THERE", "GOOD", "NIGHT"]
+    frames_of, n_words = {}, 0
+    for i in range(8):
+        d = tmp_path / f"spk{i}"
+        d.mkdir()
+        (d / "00001.mp4").write_bytes(b"")
+        ws = list(rng.choice(words, 3))
+        n_words += len(ws)
+        (d / "00001.txt").write_text(
+            f"Text:  {' '.join(ws)}\n\nConf: 4\n\nWORD START END SCORE\n"
+            + "".join(f"{w} {0.2 * j:.2f} {0.2 * j + 0.2:.2f} 1.0\n" for j, w in enumerate(ws)))
+        frames_of[str(d / "00001.mp4")] = rng.integers(0, 256, (16, 96, 96, 3), dtype=np.uint8)
+    cfg = parse_overrides(Config(), ["vivit.hidden_size=64", "vivit.num_layers=2",
+                                     "vivit.num_heads=4", "vivit.mlp_dim=64",
+                                     "vivit.batch_size=4"])
+    k1, k2 = dict(cl.clahe_cuda.route_counts), dict(att.small_mha.route_counts)
+    _, stats = e2e.run(cfg, str(tmp_path), num_epochs=1,
+                       read_frames=lambda p: (frames_of[p], 25.0))
+    torch.cuda.synchronize()
+    assert 0.0 <= stats["accuracy"] <= 1.0 and 0.0 <= stats["sentence_accuracy"] <= 1.0
+    assert {r: n - k1[r] for r, n in cl.clahe_cuda.route_counts.items()} == {"packed": 8,
+                                                                            "tiled": 0}
+    took = {r: n - k2[r] for r, n in att.small_mha.route_counts.items()}
+    assert took["cuda_core"] == 2 * (400 + n_words)
+    assert took["sm90"] > 0 and took["sm90"] % 2 == 0

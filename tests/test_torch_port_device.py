@@ -15,7 +15,12 @@ import torch
 from lipreading_video_generation_tpu_torch import cli as tcli
 from lipreading_video_generation_tpu_torch.core import config as tcfg
 from lipreading_video_generation_tpu_torch.core import device as tdev
+from lipreading_video_generation_tpu_torch.models import face_api as tface
+from lipreading_video_generation_tpu_torch.models import word_lm as twlm
 from lipreading_video_generation_tpu_torch.pipelines import inference as tinf
+from lipreading_video_generation_tpu_torch.pipelines import lipreading_e2e as te2e
+from lipreading_video_generation_tpu_torch.pipelines import sentence_eval as tse
+from lipreading_video_generation_tpu_torch.pipelines import train_landmark as ttl
 from lipreading_video_generation_tpu_torch.pipelines import train_classifier as ttc
 from lipreading_video_generation_tpu_torch.pipelines import train_diffusion as ttd
 from lipreading_video_generation_tpu_torch.pipelines import train_superres as tsr
@@ -46,7 +51,10 @@ def test_default_device_is_the_card_where_there_is_one(monkeypatch):
 
 
 ENTRY_POINTS = [ttd.create_state, ttd.train, ttc.create_state, ttc.train, tsr.create_state,
-                tsr.train, tinf.generate_frames, ttv.create_state, ttv.train, tcli.main]
+                tsr.train, tinf.generate_frames, ttv.create_state, ttv.train, tcli.main,
+                ttl.create_state, ttl.train, ttl.load_params, twlm.train_word_lm,
+                tse.NeuralScorer, tse.fit_default_scorer, tface.FaceAlignment,
+                te2e.build_word_clip_dataset, te2e.run]
 
 
 @pytest.mark.parametrize("fn", ENTRY_POINTS,
@@ -70,6 +78,16 @@ def test_entry_points_raise_without_cuda_instead_of_stepping_down(no_cuda):
         lambda: ttv.create_state(tcfg.ViViTConfig(num_layers=1)),
         lambda: ttv.train(tcfg.Config(), lambda: iter([]), num_epochs=0),
         lambda: tcli.main(["train-vivit", "--steps", "1", "--set", "vivit.num_layers=1"]),
+        lambda: ttl.create_state(),
+        lambda: ttl.train(num_steps=0),
+        lambda: twlm.train_word_lm(["a b"], steps=0),
+        lambda: tse.NeuralScorer(),
+        lambda: tse.fit_default_scorer(["a b"] * 8),
+        lambda: tface.FaceAlignment(),
+        lambda: te2e.build_word_clip_dataset(tcfg.Config(), []),
+        lambda: te2e.run(tcfg.Config(), "/nonexistent"),
+        lambda: tcli.main(["train-landmark", "--steps", "0"]),
+        lambda: tcli.main(["lipread-e2e", "--data-root", "/nonexistent"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
