@@ -43,6 +43,16 @@ weights made from a seed, and checks every hand-written kernel on them:
   float, dynamic int8 and static int8; in the int8 modes each of the
   generator's 51 convolutions is one launch of the int8 matmul kernel K6,
   by its tensor-core route (``csrc/int8_mm_sm90.cu``);
+- the rest of the lip-sync GAN: one G+D step of ``pipelines.train_gan``
+  (generator against the discriminator and the frozen SyncNet, two Adams)
+  at the ``GanConfig`` defaults (width 1.0, 96×96 faces, T 5, batch 16,
+  bf16), the expert chain through the command line (``train-syncnet`` →
+  ``train-gan`` → ``eval-gan``), ``lipsync_video`` from a wav and frames in
+  memory (S3FD face tracks, mel windows, ``generate_frames``; K6 in the int8
+  modes) and ``ops/image.contrast_boost`` on whole frames (K1 by its tiled
+  route); the GAN step itself runs no hand-written kernel (convolutions,
+  GroupNorm, BCE and Adam are library and plain torch work, as in the JAX
+  package, where XLA does it);
 - the int8 lipreader (``predict_step_int8``: K6 once per Linear) and the K6
   microbench (``bench.microbench_int8``: both of K6's type pairs at 4096³).
 
@@ -2032,19 +2042,29 @@ def flax_generator_params(width: float, seed: int) -> dict:
                   TalkingFaceGenerator(width=width).named_modules() if hasattr(m, "weight")}
     params: dict = {}
     for flax_path, name in generator_flax_module_names().items():
-        c_out, c_in, kh, kw = shapes[name]
         *parents, leaf = flax_path.split("/")
         node = params
         for key in parents:
             node = node.setdefault(key, {})
-        node[leaf] = {"kernel": (rng.standard_normal((kh, kw, c_in, c_out))
-                                 / math.sqrt(kh * kw * c_in)).astype(np.float32),
-                      "bias": (0.02 * rng.standard_normal(c_out)).astype(np.float32)}
+        node[leaf] = _flax_conv(rng, shapes[name])
         if leaf == "Conv_0" and parents[-1].startswith("ConvBlock"):
-            node["GroupNorm_0"] = {
-                "scale": (1 + 0.05 * rng.standard_normal(c_out)).astype(np.float32),
-                "bias": (0.05 * rng.standard_normal(c_out)).astype(np.float32)}
+            node["GroupNorm_0"] = _flax_norm(rng, shapes[name][0])
     return params
+
+
+def _flax_conv(rng, shape) -> dict:
+    """A Flax ``Conv`` for a port conv weight of ``shape`` (out, in, kh, kw):
+    HWIO kernel ~ N(0, 1/fan_in), small bias."""
+    c_out, c_in, kh, kw = shape
+    return {"kernel": (rng.standard_normal((kh, kw, c_in, c_out))
+                       / math.sqrt(kh * kw * c_in)).astype(np.float32),
+            "bias": (0.02 * rng.standard_normal(c_out)).astype(np.float32)}
+
+
+def _flax_norm(rng, channels: int) -> dict:
+    """A Flax ``GroupNorm``: scales near 1, small biases."""
+    return {"scale": (1 + 0.05 * rng.standard_normal(channels)).astype(np.float32),
+            "bias": (0.05 * rng.standard_normal(channels)).astype(np.float32)}
 
 
 def lipsync_inputs(n: int, seed: int):
@@ -2203,6 +2223,548 @@ def phase_lipsync(dev: dict) -> dict:
         _profile_request(mode, lambda: inf.generate_frames(sd, frames, boxes, mels, modes[mode],
                                                            pre))
     return result
+
+
+# [gan]: the float32 G+D step card vs CPU at width 1.0 (cuDNN without TF32
+# against the CPU's kernels, through the generator, the discriminator and the
+# frozen SyncNet and their backward);
+# bf16 at the GanConfig defaults; the expert chain through the CLI;
+# lipsync_video end to end; contrast_boost
+GAN_STEP_BATCH = 2
+TOL_GAN = 1e-4
+# Each network's whole float32 gradient, card vs CPU, relative L2, per sync
+# gate: a limit above the sound reading (the generator's gradient is
+# ill-conditioned: GroupNorms of few values at 1x1-6x6 and, with the gate
+# open, the SyncNet's backward) and below the reading of each fault the
+# gate holds, planted on the card's side; the phase measures every fault in
+# every run:
+#   l1_weight: L1 weighted by 1 - syncnet_wt, disc_wt left out (G);
+#   order: D's fake batch made by the generator after its update (D);
+#   sync: the sync loss left out of G's gradient, its value kept (G);
+#   adversarial: BCE(D(g), 1) left out of G's gradient, its value kept (G):
+#     held by neither gate, its share of G's gradient is within 3x of the
+#     sound reading with the gate shut and below it with the gate open.
+GAN_GATES = ((0.0, {"gen": 1e-2, "disc": 1e-2}, ("l1_weight", "order")),
+             (0.03, {"gen": 5e-2, "disc": 1e-2}, ("sync", "order")))
+GAN_FAULT_NET = {"l1_weight": "gen", "order": "disc", "sync": "gen", "adversarial": "gen"}
+# the int8 generator against the float one over the face boxes
+LIPSYNC_INT8_PSNR_DB = 40.0
+GAN_TIMED_STEPS, GAN_FIT_STEPS = 5, 30
+GAN_SYNC_STEPS, GAN_CLI_STEPS = 64, 32
+LIPSYNC_VIDEO_S = 10.24              # 256 frames at 25 fps
+LIPSYNC_VIDEO_CPU_FRAMES = 8
+
+
+def flax_discriminator_params(width: float, seed: int) -> dict:
+    """Random weights in the tree of the Flax ``Discriminator(width=width)``
+    (``ConvBlock_0…12/Conv_0``, ``Conv_0``), shapes from the port's module."""
+    from lipreading_video_generation_tpu_torch.models.discriminator import Discriminator
+
+    rng = np.random.default_rng(seed)
+    with torch.device("meta"):
+        d = Discriminator(width=width)
+    params = {f"ConvBlock_{i}": {"Conv_0": _flax_conv(rng, b.conv.weight.shape)}
+              for i, b in enumerate(d.blocks)}
+    params["Conv_0"] = _flax_conv(rng, d.out_conv.weight.shape)
+    return params
+
+
+def flax_syncnet_params(width: float, seed: int) -> dict:
+    """Random weights in the tree of the Flax ``SyncNet(width=width)``
+    (``face_blocks_i`` / ``audio_blocks_i``, each ``Conv_0`` + ``GroupNorm_0``
+    with scales near 1)."""
+    from lipreading_video_generation_tpu_torch.models.syncnet import SyncNet
+
+    rng = np.random.default_rng(seed)
+    with torch.device("meta"):
+        s = SyncNet(width=width)
+    params = {}
+    for tower in ("face_blocks", "audio_blocks"):
+        for i, b in enumerate(getattr(s, tower)):
+            params[f"{tower}_{i}"] = {"Conv_0": _flax_conv(rng, b.conv.weight.shape),
+                                      "GroupNorm_0": _flax_norm(rng, b.conv.weight.shape[0])}
+    return params
+
+
+def gan_state_dicts(width: float, seed: int) -> dict:
+    """Generator, discriminator and SyncNet weights from seeded numpy, bridged
+    from their Flax trees (on the CPU)."""
+    from lipreading_video_generation_tpu_torch.models import convert
+
+    return {"gen": convert.generator_state_dict_from_flax(flax_generator_params(width, seed)),
+            "disc": convert.discriminator_state_dict_from_flax(
+                flax_discriminator_params(width, seed + 1)),
+            "sync": convert.syncnet_state_dict_from_flax(flax_syncnet_params(width, seed + 2))}
+
+
+def _gan_state(cfg, sds: dict, device, syncnet_wt: float = 0.0):
+    from lipreading_video_generation_tpu_torch.pipelines import train_gan as ttg
+
+    state = ttg.create_state(cfg, seed=SEED, syncnet_params=sds["sync"], device=device)
+    state.gen.load_state_dict(sds["gen"])
+    state.disc.load_state_dict(sds["disc"])
+    state.syncnet_wt = syncnet_wt
+    return state
+
+
+def _zero_grad_biases(state) -> set:
+    """Conv biases whose gradient is 0 in exact arithmetic: those of the
+    ``ConvBlock``s whose GroupNorm has one channel a group (16 and 32
+    channels at width 1.0), where each side computes float32 noise."""
+    out = set()
+    for net in ("gen", "disc"):
+        for name, m in getattr(state, net).named_modules():
+            norm = getattr(m, "norm", None)
+            if norm is not None and norm.groups == norm.weight.numel():
+                out.add(f"{net}.{name}.conv.bias")
+    return out
+
+
+@contextlib.contextmanager
+def _prepared(prep: dict):
+    """``train_gan.prepare_batch`` hands out ``prep`` (moved to the device
+    asked for) while the block runs."""
+    from lipreading_video_generation_tpu_torch.pipelines import train_gan as ttg
+
+    real = ttg.prepare_batch
+    ttg.prepare_batch = lambda batch, cfg, audio_cfg, device: {
+        k: v.to(device) for k, v in prep.items()}
+    try:
+        yield
+    finally:
+        ttg.prepare_batch = real
+
+
+@contextlib.contextmanager
+def _gan_fault(fault, state, prep: dict):
+    """Plant ``fault`` (see GAN_GATES; None: none) in ``train_gan``'s step
+    on ``state`` while the block runs."""
+    from lipreading_video_generation_tpu_torch.pipelines import losses
+    from lipreading_video_generation_tpu_torch.pipelines import train_gan as ttg
+
+    real_adv, real_sync, hook = losses.perceptual_adversarial_loss, ttg._sync_loss, None
+    real_g_loss = losses.generator_loss
+    if fault == "adversarial":
+        losses.perceptual_adversarial_loss = lambda pred: real_adv(pred).detach()
+    elif fault == "l1_weight":
+        def l1_weight(recon, sync, perceptual, lip, syncnet_wt, disc_wt, lip_weight):
+            total, terms = real_g_loss(recon, sync, perceptual, lip, syncnet_wt, disc_wt,
+                                       lip_weight)
+            return total + disc_wt * recon, terms
+
+        losses.generator_loss = l1_weight
+    elif fault == "sync":
+        ttg._sync_loss = lambda *a: real_sync(*a).detach()
+    elif fault == "order":
+        calls = []
+
+        def fake_from_new_gen(module, args):  # D's third call is its fake batch
+            calls.append(1)
+            if len(calls) == 3:
+                with torch.no_grad():
+                    return (state.gen(prep["indiv_mels"].to(state.device),
+                                      prep["x"].to(state.device)),)
+
+        hook = state.disc.register_forward_pre_hook(fake_from_new_gen)
+    elif fault is not None:
+        raise ValueError(fault)
+    try:
+        yield
+    finally:
+        losses.perceptual_adversarial_loss, ttg._sync_loss = real_adv, real_sync
+        losses.generator_loss = real_g_loss
+        if hook is not None:
+            hook.remove()
+
+
+def gan_step_capture(cfg, sds: dict, prep: dict, device, syncnet_wt: float,
+                     fault=None) -> dict:
+    """One ``train_gan.train_step`` from the given weights on the prepared
+    batch ``prep``, with ``fault`` planted: its metrics, the generated window
+    ``g`` of the G step, every G and D gradient and every updated param (on
+    the CPU)."""
+    from lipreading_video_generation_tpu_torch.pipelines import train_gan as ttg
+
+    state = _gan_state(cfg, sds, device, syncnet_wt)
+    seen = {}
+
+    def keep_g(module, inputs, out):        # the G step's window (its first call)
+        if "g" not in seen:
+            seen["g"] = out.detach().float().cpu()
+
+    hook = state.gen.register_forward_hook(keep_g)
+    with _prepared(prep), _gan_fault(fault, state, prep):
+        metrics = {k: v.item() for k, v in ttg.train_step(state, {}, cfg).items()}
+    hook.remove()
+    grads, params = {}, {}
+    for net in ("gen", "disc"):
+        for n, p in getattr(state, net).named_parameters():
+            grads[f"{net}.{n}"] = p.grad.float().cpu()
+            params[f"{net}.{n}"] = p.detach().cpu()
+    return {"metrics": metrics, "g": seen["g"], "grads": grads, "params": params,
+            "zero": _zero_grad_biases(state)}
+
+
+def gan_grad_l2(got: dict, want: dict) -> dict:
+    """Each network's whole gradient in ``got`` against ``want``, relative
+    L2, the biases of ``_zero_grad_biases`` aside (both sides noise around
+    0); and the tensors that differ most (max|d| of their largest)."""
+    num, den, errs = {}, {}, {}
+    for n, w in want["grads"].items():
+        if n in want["zero"]:
+            continue
+        diff = (got["grads"][n] - w).abs()
+        net = n.split(".")[0]
+        num[net] = num.get(net, 0.0) + float((diff.double() ** 2).sum())
+        den[net] = den.get(net, 0.0) + float((w.double() ** 2).sum())
+        errs[n] = diff.max().item() / w.abs().max().item()
+    return {net: math.sqrt(num[net] / den[net]) for net in num}, errs
+
+
+def compare_gan_steps(got: dict, want: dict, lr: float, tol_l2: dict) -> dict:
+    """``got`` (card) against ``want`` (CPU): the losses within TOL_GAN
+    relative and ``g`` within TOL_GAN of its largest; each network's whole
+    gradient within ``tol_l2[net]`` relative L2 (``gan_grad_l2``); every updated
+    param within 2·lr, and the card's and the CPU's updated params apart by
+    what Adam's first step, lr·g/(|g| + 1e-8), makes of the two gradients,
+    within 1e-6: they may differ only where the two gradients differ in sign
+    or are small enough for eps to matter. Returns the worst of each, and
+    logs the tensors whose gradient differs most."""
+    worst = {"loss": 0.0, "g": 0.0, "param": 0.0, "moved": 0, "adam": 0.0}
+    for k, w in want["metrics"].items():
+        d = abs(got["metrics"][k] - w)
+        if d > TOL_GAN * abs(w) + 1e-7:
+            raise AssertionError(f"gan step {k}: card {got['metrics'][k]} CPU {w}")
+        worst["loss"] = max(worst["loss"], d / max(abs(w), 1e-12))
+    worst["g"] = ((got["g"] - want["g"]).abs().max() / want["g"].abs().max()).item()
+    if worst["g"] > TOL_GAN:
+        raise AssertionError(f"gan step: g off by {worst['g']} of its largest")
+    for n, w in want["grads"].items():
+        g = got["grads"][n]
+        d = got["params"][n] - want["params"][n]
+        if d.abs().max().item() > 2 * lr * (1 + 1e-3):
+            raise AssertionError(f"gan step {n}: a param moved {d.abs().max().item()} from "
+                                 "the CPU's")
+        worst["param"] = max(worst["param"], d.abs().max().item())
+        worst["moved"] += int((d.abs() > 1e-6).sum())
+        step = (lr * (w / (w.abs() + 1e-8) - g / (g.abs() + 1e-8)))
+        worst["adam"] = max(worst["adam"], (d - step).abs().max().item())
+    if worst["adam"] > 1e-6:
+        raise AssertionError(f"gan step: the updated params differ by {worst['adam']} more "
+                             "than Adam's first step on the two gradients makes them differ")
+    worst["grad_l2"], errs = gan_grad_l2(got, want)
+    log("gan", "  gradients card vs CPU, worst tensors (max|d| of their largest): " + ", ".join(
+        f"{n} {e:.3g}" for n, e in sorted(errs.items(), key=lambda kv: -kv[1])[:6])
+        + "; each network's whole gradient, relative L2: " + ", ".join(
+            f"{net} {v:.3g} (tol {tol_l2[net]})" for net, v in worst["grad_l2"].items()))
+    if any(v > tol_l2[net] for net, v in worst["grad_l2"].items()):
+        raise AssertionError(f"gan step: gradients off by {worst['grad_l2']} relative L2")
+    return worst
+
+
+def _conv_share(kernels) -> float:
+    """Device time of the library's convolution kernels (forward, data and
+    weight gradients) in ms."""
+    frags = ("conv", "fprop", "dgrad", "wgrad", "cudnn", "xmma", "implicit")
+    return sum(ms for name, ms, _ in kernels if any(f in name.lower() for f in frags))
+
+
+def phase_gan(dev: dict) -> dict:
+    import dataclasses
+    import io
+    import os
+    import tempfile
+
+    from lipreading_video_generation_tpu_torch import cli
+    from lipreading_video_generation_tpu_torch.core.config import (AudioConfig, GanConfig,
+                                                                   PreprocessConfig)
+    from lipreading_video_generation_tpu_torch.core.prng import seeded
+    from lipreading_video_generation_tpu_torch.data import datasets
+    from lipreading_video_generation_tpu_torch.data import video as video_io
+    from lipreading_video_generation_tpu_torch.models.s3fd import S3FD
+    from lipreading_video_generation_tpu_torch.ops import audio as audio_ops
+    from lipreading_video_generation_tpu_torch.ops import clahe_cuda as cl
+    from lipreading_video_generation_tpu_torch.ops import image as im
+    from lipreading_video_generation_tpu_torch.ops import matmul_cuda as mm
+    from lipreading_video_generation_tpu_torch.pipelines import inference as inf
+    from lipreading_video_generation_tpu_torch.pipelines import train_gan as ttg
+    from lipreading_video_generation_tpu_torch.pipelines import train_syncnet as tts
+
+    t_phase = time.perf_counter()
+    base = GanConfig()
+    sds = gan_state_dicts(base.model_width, SEED)
+    n_params = {k: sum(v.numel() for v in sd.values()) for k, sd in sds.items()}
+    clips = datasets.synthetic_av_clips(n_clips=8, frames=50, img=base.img_size, seed=SEED)
+    sampler = datasets.GanWindowSampler(clips, base.syncnet_T, seed=SEED)
+    log("gan", f"GanConfig defaults: width {base.model_width}, faces {base.img_size}x"
+        f"{base.img_size}, T {base.syncnet_T}, batch {base.batch_size}, {base.dtype}; params "
+        f"{n_params} from seeded numpy via the Flax-tree bridges; batches of "
+        f"synthetic_av_clips (8 clips of 50 frames)")
+
+    # 1. one float32 G+D step at width 1.0, batch 2, card against CPU, sync gate
+    # open: the batch prep on each side, then the step on the same prepared batch
+    f32 = dataclasses.replace(base, dtype="float32", batch_size=GAN_STEP_BATCH)
+    batch = sampler.sample_batch(GAN_STEP_BATCH)
+    _zero_counts()
+    prep = ttg.prepare_batch(batch, f32, AudioConfig(), "cpu")
+    prep_card = ttg.prepare_batch(batch, f32, AudioConfig(), "cuda")
+    prep_d = {k: (prep_card[k].cpu() - v).abs().max().item() for k, v in prep.items()}
+    log("gan", f"prepare_batch card vs CPU (resize, mask, cuFFT against the CPU's FFT): max|d| "
+        f"{ {k: float(f'{v:.3g}') for k, v in prep_d.items()} }")
+    threads = torch.get_num_threads()
+    for wt, tol_l2, faults in GAN_GATES:
+        got = gan_step_capture(f32, sds, prep, "cuda", wt)
+        want = gan_step_capture(f32, sds, prep, "cpu", wt)
+        worst = compare_gan_steps(got, want, f32.learning_rate, tol_l2)
+        # the CPU against itself with half its threads: summation order alone
+        torch.set_num_threads(max(1, threads // 2))
+        try:
+            spread, _ = gan_grad_l2(gan_step_capture(f32, sds, prep, "cpu", wt), want)
+        finally:
+            torch.set_num_threads(threads)
+        readings = {f: gan_grad_l2(gan_step_capture(f32, sds, prep, "cuda", wt, f),
+                                   want)[0][net] for f, net in GAN_FAULT_NET.items()}
+        log("gan", f"  syncnet_wt {wt}: relative L2 of the whole gradient, the CPU with "
+            f"{max(1, threads // 2)} threads against {threads}: " + ", ".join(
+                f"{net} {v:.3g}" for net, v in spread.items()) + "; the card with a fault "
+            "planted against the CPU: " + ", ".join(
+                f"{f} ({GAN_FAULT_NET[f]}) {v:.3g}" for f, v in readings.items())
+            + f"; held: {', '.join(faults)}, each above its network's limit")
+        for fault in faults:
+            net = GAN_FAULT_NET[fault]
+            if not readings[fault] > tol_l2[net]:
+                raise AssertionError(f"gan step: the fault {fault!r} moves the {net} gradient "
+                                     f"by {readings[fault]}, within the limit {tol_l2[net]}: "
+                                     "the check cannot see it")
+        log("gan", f"float32 G+D step, batch {GAN_STEP_BATCH}, syncnet_wt {wt}, card vs CPU on "
+            f"the same prepared batch: losses "
+            f"{ {k: round(v, 6) for k, v in got['metrics'].items()} }; worst loss "
+            f"{worst['loss']:.3g} relative, g {worst['g']:.3g} of its largest (tol {TOL_GAN}); "
+            f"{len(want['zero'])} conv biases with an exact-zero gradient aside; params "
+            f"{worst['param']:.3g} apart (<= 2·lr = {2 * f32.learning_rate:g}), "
+            f"{worst['moved']} of {sum(v.numel() for v in want['params'].values())} off by "
+            f"> 1e-6, all as Adam's first step on the two gradients makes them "
+            f"(within {worst['adam']:.3g})")
+
+    # 2. bf16 at the defaults, batch 16: warm-up, timed steps, profile, a fit
+    state = _gan_state(base, sds, "cuda")
+    batches = [sampler.sample_batch(base.batch_size) for _ in range(GAN_TIMED_STEPS + 2)]
+    ttg.train_step(state, batches[0], base)                    # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for b in batches[1:GAN_TIMED_STEPS + 1]:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        m = ttg.train_step(state, b, base)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    if not all(math.isfinite(v.item()) for v in m.values()):
+        raise AssertionError(f"bf16 GAN step: non-finite metrics {m}")
+    med = statistics.median(times)
+    frames_s = base.batch_size * base.syncnet_T / (med / 1e3)
+    log("gan", f"bf16 G+D step at the defaults: {[round(t, 3) for t in times]} ms by CUDA events "
+        f"(host batch in, device prep inside), median {med:.3f} ms = {frames_s:.1f} generated "
+        f"frames/s; peak device memory {peak:.1f} MiB ({dev['smi']})")
+    wall_ms, _, kernels = _profiled(lambda: ttg.train_step(state, batches[-1], base))
+    busy = sum(ms for _, ms, _ in kernels)
+    conv = _conv_share(kernels)
+    log("gan", f"profile of one bf16 step: wall {wall_ms:.3f} ms under the profiler, device "
+        f"kernels and copies {busy:.3f} ms in {sum(c for _, _, c in kernels)} launches (busy "
+        f"share {busy / wall_ms:.3f}); cuDNN/library convolutions {conv:.3f} ms "
+        f"({conv / busy:.1%}); by kind " + ", ".join(
+            f"{kind} {ms:.3f} ms ({ms / busy:.1%}, {n}x)" for kind, (ms, n) in
+            _by_kind(kernels).items()))
+    for name, ms, count in kernels[:8]:
+        log("gan", f"  {ms:9.3f} ms {count:5d}x {name[:110]}")
+    fixed = batches[1]
+    l1 = [ttg.train_step(state, fixed, base)["loss/l1"].item() for _ in range(GAN_FIT_STEPS)]
+    log("gan", f"{GAN_FIT_STEPS} bf16 steps on one batch: L1 {l1[0]:.5f} -> {l1[-1]:.5f} "
+        f"(min {min(l1):.5f})")
+    if not l1[-1] < l1[0]:
+        raise AssertionError(f"bf16 GAN fit: L1 {l1[0]} -> {l1[-1]} did not fall")
+    if any(n for n in (cl.clahe_cuda.launch_count, mm.int8_matmul.launch_count,
+                       mm.bf16_matmul.launch_count, *_counts().values())):
+        raise AssertionError("the GAN training step launched a hand-written kernel")
+    del state, got, want
+
+    # 3. the expert chain through the command line: train-syncnet → train-gan → eval-gan
+    with tempfile.TemporaryDirectory() as tmp:
+        sync_ck, gan_ck = f"{tmp}/sync.pt", f"{tmp}/gan"
+        sync_losses, gates = [], []
+        real_sync_step, real_gate = tts.train_step, ttg.maybe_open_sync_gate
+
+        def sync_step(*a, **kw):
+            m = real_sync_step(*a, **kw)
+            sync_losses.append(m["loss"].item())
+            return m
+
+        def gate(state, eval_sync_loss, cfg):
+            before = state.syncnet_wt
+            real_gate(state, eval_sync_loss, cfg)
+            rule = (float(np.float32(cfg.syncnet_wt_after_gate))
+                    if eval_sync_loss < cfg.syncnet_gate_threshold and before == 0.0 else before)
+            gates.append((state.step, float(eval_sync_loss), before, state.syncnet_wt))
+            if state.syncnet_wt != rule:
+                raise AssertionError(f"sync gate at step {state.step}: eval sync "
+                                     f"{eval_sync_loss}, syncnet_wt {before} -> "
+                                     f"{state.syncnet_wt}, the rule gives {rule}")
+            return state
+
+        runs = {}
+        argvs = {
+            "train-syncnet": ["train-syncnet", "--synthetic", "--steps", str(GAN_SYNC_STEPS),
+                              "--out", sync_ck],
+            "train-gan": ["train-gan", "--synthetic", "--steps", str(GAN_CLI_STEPS),
+                          "--syncnet-checkpoint", sync_ck, "--checkpoint-dir", gan_ck,
+                          "--set", "gan.eval_interval=8", "--set", "gan.checkpoint_interval=16"],
+            "eval-gan": ["eval-gan", "--checkpoint", gan_ck, "--synthetic",
+                         "--syncnet-checkpoint", sync_ck],
+        }
+        tts.train_step, ttg.maybe_open_sync_gate = sync_step, gate
+        try:
+            for cmd, argv in argvs.items():
+                out, err = io.StringIO(), io.StringIO()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+                    rc = cli.main(argv)
+                torch.cuda.synchronize()
+                runs[cmd] = (time.perf_counter() - t0, out.getvalue())
+                if rc != 0:
+                    raise AssertionError(f"cli.main({argv}) returned {rc}: {err.getvalue()[-2000:]}")
+        finally:
+            tts.train_step, ttg.maybe_open_sync_gate = real_sync_step, real_gate
+        auc_line = [ln for ln in runs["train-syncnet"][1].splitlines() if "AUC=" in ln]
+        first, last = statistics.mean(sync_losses[:8]), statistics.mean(sync_losses[-8:])
+        log("gan", f"train-syncnet --synthetic --steps {GAN_SYNC_STEPS} (batch {base.batch_size}, "
+            f"the SyncNet in float32 as in the JAX package): {runs['train-syncnet'][0]:.2f} s; "
+            f"mean loss of the first 8 steps {first:.4f}, of the last 8 {last:.4f}; "
+            f"{auc_line[0] if auc_line else 'no AUC line'}")
+        if len(sync_losses) != GAN_SYNC_STEPS or not last < first or not auc_line:
+            raise AssertionError(f"train-syncnet: {len(sync_losses)} steps, loss {first} -> {last}")
+        ck_steps = sorted(int(f[5:-3]) for f in os.listdir(gan_ck))
+        opened = [g for g in gates if g[2] == 0.0 and g[3] != 0.0]
+        log("gan", f"train-gan --synthetic --steps {GAN_CLI_STEPS} against that expert: "
+            f"{runs['train-gan'][0]:.2f} s; evals (step, eval sync loss, syncnet_wt before -> "
+            f"after) {[(s, round(l, 4), b, a) for s, l, b, a in gates]}, each by the gate's rule "
+            f"(< {base.syncnet_gate_threshold}); the gate "
+            f"{'opened at step %d' % opened[0][0] if opened else 'stayed shut'}; checkpoints at "
+            f"{ck_steps}")
+        if len(gates) != GAN_CLI_STEPS // 8 or ck_steps != [16, 32]:
+            raise AssertionError(f"train-gan: {len(gates)} evals, checkpoints {ck_steps}")
+        metrics = {ln.split(":")[0]: float(ln.split(":")[1]) for ln in
+                   runs["eval-gan"][1].splitlines() if ln.startswith("eval/")}
+        log("gan", f"eval-gan --checkpoint (step 32) --synthetic: {runs['eval-gan'][0]:.2f} s; "
+            f"{metrics}")
+        if sorted(metrics) != ["eval/l1", "eval/psnr", "eval/ssim", "eval/sync_loss"] or not all(
+                math.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"eval-gan printed {runs['eval-gan'][1]!r}")
+    if any(n for n in (cl.clahe_cuda.launch_count, mm.int8_matmul.launch_count,
+                       *_counts().values())):
+        raise AssertionError("the GAN commands launched a hand-written kernel")
+
+    # 4. lipsync_video end to end: a 10.24 s wav, 360x640 frames from memory
+    pre, audio_cfg = PreprocessConfig(), AudioConfig()
+    frames, _, _ = lipsync_inputs(LIPSYNC_FRAMES, SEED)
+    gen_sd = {k: v.to("cuda") for k, v in sds["gen"].items()}
+    s3fd = seeded(S3FD, SEED).to("cuda").eval()
+    modes = {"float": base,
+             "int8_dynamic": dataclasses.replace(base, serve_int8=True),
+             "int8_static": dataclasses.replace(base, serve_int8=True, serve_int8_static=True)}
+    results, gan_k6 = {}, 0
+    with tempfile.TemporaryDirectory() as tmp:
+        rng = np.random.default_rng(SEED)
+        t = np.arange(int(LIPSYNC_VIDEO_S * audio_cfg.sample_rate)) / audio_cfg.sample_rate
+        wav_path = f"{tmp}/speech.wav"
+        video_io.save_wav(wav_path, (0.3 * np.sin(2 * np.pi * 180 * t) * (1 + np.sin(3 * t))
+                                     + 0.02 * rng.standard_normal(len(t))).astype(np.float32))
+        for mode, cfg in modes.items():
+            written = {}
+
+            def keep(path, out, fps):
+                t0 = time.perf_counter()
+                written.update(frames=out, fps=fps, s=time.perf_counter() - t0)
+
+            stages = {"detection": (inf, "detect_face_tracks"),
+                      "mel": (audio_ops, "melspectrogram"),
+                      "generation": (inf, "generate_frames")}
+            _zero_counts()
+            with contextlib.ExitStack() as stack:
+                timed = {k: stack.enter_context(_Stage(*v)) for k, v in stages.items()}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = inf.lipsync_video(gen_sd, s3fd, "in-memory", wav_path, f"{tmp}/out.mp4",
+                                        cfg, audio_cfg, pre,
+                                        read_frames=lambda path, *conditioning: (frames, 25.0),
+                                        write_video=keep)
+                total = time.perf_counter() - t0
+            k6 = mm.int8_matmul.launch_count
+            want = 51 * 2 if cfg.serve_int8 else 0
+            if res.frames.shape != (LIPSYNC_FRAMES,) + LIPSYNC_HW + (3,) or res.muxed:
+                raise AssertionError(f"lipsync_video {mode}: frames {res.frames.shape}, muxed "
+                                     f"{res.muxed}")
+            if k6 != want or written.get("frames") is not res.frames:
+                raise AssertionError(f"lipsync_video {mode}: K6 {k6}x (want {want})")
+            if cfg.serve_int8:
+                _all_by_tensor_cores("gan", mm.int8_matmul)
+                gan_k6 += k6
+            results[mode] = res
+            log("gan", f"lipsync_video {mode}: {len(res.frames)} frames of {LIPSYNC_HW} from a "
+                f"{LIPSYNC_VIDEO_S} s wav in {total * 1e3:.1f} ms = "
+                f"{len(res.frames) / total:.1f} frames/s; stages " + ", ".join(
+                    f"{k} {st.seconds * 1e3:.1f} ms" for k, st in timed.items())
+                + f", write (kept in memory) {written['s'] * 1e3:.3f} ms; K6 {k6}x, routes "
+                f"{mm.int8_matmul.route_counts}")
+        wav = video_io.load_wav(wav_path)
+    boxes = results["float"].boxes
+    y1, y2 = int(boxes[:, 0].min()), int(math.ceil(boxes[:, 1].max()))
+    x1, x2 = int(boxes[:, 2].min()), int(math.ceil(boxes[:, 3].max()))
+    ref = results["float"].frames[:, y1:y2, x1:x2].astype(np.float64)
+    for mode in ("int8_dynamic", "int8_static"):
+        mse = ((results[mode].frames[:, y1:y2, x1:x2] - ref) ** 2).mean()
+        psnr = 10 * math.log10(255 ** 2 / max(mse, 1e-12))
+        log("gan", f"lipsync_video {mode} against float over the face boxes [{y1}:{y2}, "
+            f"{x1}:{x2}]: PSNR {psnr:.2f} dB (floor {LIPSYNC_INT8_PSNR_DB})")
+        if not psnr >= LIPSYNC_INT8_PSNR_DB:
+            raise AssertionError(f"lipsync_video {mode}: PSNR {psnr} dB against float")
+    # card against CPU: the first frames on the card's boxes and the same mel windows
+    n = LIPSYNC_VIDEO_CPU_FRAMES
+    mel = audio_ops.melspectrogram(torch.from_numpy(wav), audio_cfg)
+    windows = inf._mel_chunks(mel, n, 25.0, audio_cfg).numpy()
+    on_card = inf.generate_frames(gen_sd, frames[:n], boxes[:n], windows, base, pre)
+    on_cpu = inf.generate_frames(sds["gen"], frames[:n], boxes[:n], windows, base, pre,
+                                 device="cpu")
+    d = np.abs(on_card.astype(np.int32) - on_cpu.astype(np.int32))
+    within1 = float((d <= 1).mean())
+    log("gan", f"lipsync_video's generation of {n} frames on the same boxes and mel windows, "
+        f"card vs CPU: max |d| {d.max()} gray levels, {within1:.6f} within 1 (want <= 2 and "
+        f">= 0.99)")
+    if d.max() > 2 or within1 < 0.99:
+        raise AssertionError(f"lipsync_video card vs CPU: max {d.max()}, within 1 {within1}")
+    del results, on_card, on_cpu
+
+    # 5. contrast_boost on whole frames: K1 once by the tiled route
+    x = torch.from_numpy(frames[:8]).to("cuda")
+    _zero_counts()
+    boosted = im.contrast_boost(x)
+    torch.cuda.synchronize()
+    k1, k1_launches = dict(cl.clahe_cuda.route_counts), cl.clahe_cuda.launch_count
+    if k1 != {"packed": 0, "tiled": 1} or boosted.dtype != torch.uint8 or \
+            boosted.shape != x.shape:
+        raise AssertionError(f"contrast_boost: K1 routes {k1}, {boosted.dtype} {boosted.shape}")
+    L = im.rgb_to_lab(x)[..., 0]
+    err = (im.clahe(L) - cl.clahe_reference(L.cpu()).to("cuda")).abs().max().item()
+    log("gan", f"contrast_boost of (8, 360, 640, 3) uint8 frames: K1 {k1}; its L channel by K1 "
+        f"against the plain version: max |d| {err:.3g} (tol {1 + TOL_K1}: L is not an integer "
+        f"image, limit {0.2 * 45 * 80 / 256:g} not an integer count)")
+    if not err <= 1 + TOL_K1:
+        raise AssertionError(f"contrast_boost's K1 off its plain version by {err}")
+    seconds = time.perf_counter() - t_phase
+    log("gan", f"phase took {seconds:.1f} s")
+    return {"int8_matmul": gan_k6, "clahe": k1_launches, "seconds": seconds}
 
 
 def phase_microbench() -> dict:
@@ -2585,12 +3147,13 @@ def main() -> None:
     superres = phase_superres(dev)["launches"]
     guided = phase_guidance(dev)["launches"]
     lipsync = phase_lipsync(dev)
+    gan = phase_gan(dev)
     microbench = phase_microbench()
     paths = (vivit_trained, diffused, trained, superres, guided)
-    launches = {"clahe": served["clahe"] + lipread["clahe"],
+    launches = {"clahe": served["clahe"] + lipread["clahe"] + gan["clahe"],
                 "small_mha": (served["small_mha"] + lipread["small_mha"]
                               + sum(p["small_mha"] for p in paths)),
-                "int8_matmul": (served["int8_matmul"] + lipsync["launches"]
+                "int8_matmul": (served["int8_matmul"] + lipsync["launches"] + gan["int8_matmul"]
                                 + microbench["launches"]["int8_matmul"]),
                 "bf16_matmul": microbench["launches"]["bf16_matmul"]}
     for name in ("flash_attention", "flash_bwd_dkv", "flash_bwd_dq"):
@@ -2631,7 +3194,8 @@ def main() -> None:
                 "most 255 pixels: the main path's (1920,48,48), timed here and on the ViViT "
                 "serving path; once a clip of the lipreading chain); tiled: "
                 f"{pkg}/csrc/clahe.cu (a block a tile writes its LUT to a device workspace, a "
-                "block a row blends; any other shape, e.g. frames of 360x640)")
+                "block a row blends; any other shape, e.g. frames of 360x640: once a frame "
+                "batch of ops/image.contrast_boost)")
         if name == "small_mha":
             kern["route_detail"] = (
                 "sm90: mma.sync on bf16 tiles, double-buffered cp.async (aligned bf16 inputs, up "
@@ -2644,7 +3208,8 @@ def main() -> None:
                 "sm90: wgmma on swizzled tiles, a TMA ring kept full by a producer warpgroup, "
                 "persistent blocks (rows of A and "
                 "B on 16-byte boundaries, K contiguous, or N contiguous for a bf16 B; timed here "
-                f"and on the int8 serving paths); mma_sync: {pkg}/csrc/int8_mm.cu (a row-major "
+                "and on the int8 serving paths: generate_frames and lipsync_video, 51 a batch of "
+                f"128 frames); mma_sync: {pkg}/csrc/int8_mm.cu (a row-major "
                 "int8 B, odd row strides, element strides, unaligned views)")
         if kern["launches"] < 1:
             raise AssertionError(f"kernel {name} never ran on the main path")

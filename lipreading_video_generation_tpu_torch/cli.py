@@ -12,11 +12,22 @@ Usage:
   python -m lipreading_video_generation_tpu_torch.cli train-landmark --out lm/
   python -m lipreading_video_generation_tpu_torch.cli lipread-e2e \\
       --data-root data/mvlrs_v1/main --landmark-checkpoint lm/
+  python -m lipreading_video_generation_tpu_torch.cli preprocess-gan \\
+      --data-root data/mvlrs_v1/main --out data/preprocessed
+  python -m lipreading_video_generation_tpu_torch.cli train-syncnet --synthetic \\
+      --steps 1000 --out sync.pt
+  python -m lipreading_video_generation_tpu_torch.cli train-gan --synthetic \\
+      --syncnet-checkpoint sync.pt --checkpoint-dir gan/
+  python -m lipreading_video_generation_tpu_torch.cli eval-gan --checkpoint gan/ \\
+      --syncnet-checkpoint sync.pt --synthetic
+  python -m lipreading_video_generation_tpu_torch.cli infer-lipsync \\
+      --face face.mp4 --audio speech.wav --out result.mp4 --checkpoint gan/ --int8
 
 Every command runs on the card (``core.device``); ``main(argv,
 device="cpu")`` runs it on the CPU, as the tests do. Data other than the
-synthetic sets (a frame index, packed records) and the pretrained wav2vec2
-encoder are refused with the ROADMAP item they wait for.
+synthetic sets and preprocessed clip directories (a frame index, packed
+records), several steps a dispatch, the lip-expert GAN loss and the
+pretrained wav2vec2 encoder are refused with the ROADMAP item they wait for.
 """
 from __future__ import annotations
 
@@ -34,7 +45,19 @@ _WAITING = {
                     "(ROADMAP §1 item 6, data plumbing)",
     "wav2vec2_checkpoint": "--wav2vec2-checkpoint needs the pretrained wav2vec2 port "
                            "(ROADMAP §1 item 7, pretrained-model family)",
+    "lip_expert_checkpoint": "--lip-expert-checkpoint needs the lip expert "
+                             "(ROADMAP §1 item 7, pretrained-model family)",
+    "avhubert_checkpoint": "--avhubert-checkpoint needs the AV-HuBERT port "
+                           "(ROADMAP §1 item 7, pretrained-model family)",
 }
+_S3FD_HELP = ("torch.save'd S3FD state dict in s3fd.pth's layout; without it the face "
+              "detector is drawn from a seed (its boxes are noise)")
+
+
+# train-gan's steps a dispatch: one, as every trainer of the port takes them
+_ONE_STEP_A_DISPATCH = ("--steps-per-dispatch above 1 goes with the packed-record feed "
+                        "(ROADMAP §1 item 6, data plumbing); the port takes one step a "
+                        "dispatch")
 
 
 def _base_parser(sub, name, help_):
@@ -102,10 +125,116 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--landmark-checkpoint", default=None,
                    help="trained lip-landmark params (train-landmark --out); "
                         "defaults to the geometric mouth-box estimate")
-    p.add_argument("--s3fd-checkpoint", default=None,
-                   help="torch.save'd S3FD state dict in s3fd.pth's layout; without "
-                        "it the face detector is drawn from a seed")
+    p.add_argument("--s3fd-checkpoint", default=None, help=_S3FD_HELP)
+
+    p = _base_parser(sub, "preprocess-gan", "videos → face crops + wav (offline)")
+    p.add_argument("--data-root", required=True)
+    p.add_argument("--out", required=True)
+    p.add_argument("--filelist", default=None)
+    p.add_argument("--host-id", type=int, default=0)
+    p.add_argument("--num-hosts", type=int, default=1)
+    p.add_argument("--s3fd-checkpoint", default=None, help=_S3FD_HELP)
+
+    p = _base_parser(sub, "train-gan", "train the lip-sync GAN")
+    p.add_argument("--steps", type=int, default=1000)
+    p.add_argument("--preprocessed-root", default=None,
+                   help="preprocess-gan output root (clip directories of {i}.jpg + audio.wav)")
+    p.add_argument("--records-root", default=None)
+    p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--syncnet-checkpoint", default=None,
+                   help="pretrained frozen sync expert (train-syncnet --out)")
+    p.add_argument("--lip-expert-checkpoint", default=None)
+    p.add_argument("--avhubert-checkpoint", default=None)
+    p.add_argument("--steps-per-dispatch", type=int, default=1)
+    p.add_argument("--synthetic", action="store_true")
+
+    p = _base_parser(sub, "eval-gan",
+                     "PSNR/SSIM/L1/sync metrics of a trained generator over a dataset")
+    p.add_argument("--checkpoint", required=True,
+                   help="train-gan checkpoint dir or a save_once file of {'gen': ...}")
+    p.add_argument("--syncnet-checkpoint", default=None)
+    p.add_argument("--preprocessed-root", default=None)
+    p.add_argument("--batches", type=int, default=8)
+    p.add_argument("--synthetic", action="store_true")
+
+    p = _base_parser(sub, "train-syncnet", "pretrain the SyncNet expert")
+    p.add_argument("--steps", type=int, default=1000)
+    p.add_argument("--synthetic", action="store_true")
+    p.add_argument("--preprocessed-root", default=None,
+                   help="preprocess-gan output root; --eval-auc-every holds out 2 clips "
+                        "for the discrimination report")
+    p.add_argument("--objective", choices=("infonce_hard", "infonce", "bce"),
+                   default="infonce_hard")
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--eval-auc-every", type=int, default=0,
+                   help="report the aligned-vs-shifted AUC on held-out clips every N steps")
+    p.add_argument("--out", default=None,
+                   help="save the trained expert here (train-gan/eval-gan "
+                        "--syncnet-checkpoint)")
+
+    p = _base_parser(sub, "infer-lipsync", "lip-sync a video to an audio track")
+    p.add_argument("--face", required=True)
+    p.add_argument("--audio", required=True)
+    p.add_argument("--out", required=True)
+    p.add_argument("--checkpoint", default=None,
+                   help="train-gan checkpoint dir (latest step) or save_once file; without "
+                        "it the generator is drawn from --seed")
+    p.add_argument("--static", action="store_true")
+    p.add_argument("--pads", type=int, nargs=4, default=[0, 10, 0, 0],
+                   metavar=("PADY1", "PADY2", "PADX1", "PADX2"))
+    p.add_argument("--resize-factor", type=int, default=1)
+    p.add_argument("--crop", type=int, nargs=4, default=[0, -1, 0, -1],
+                   metavar=("Y1", "Y2", "X1", "X2"))
+    p.add_argument("--rotate", action="store_true")
+    p.add_argument("--nosmooth", action="store_true")
+    p.add_argument("--s3fd-checkpoint", default=None, help=_S3FD_HELP)
+    p.add_argument("--int8", action="store_true",
+                   help="every generator conv through the int8 matmul kernel, dynamic scales")
+    p.add_argument("--int8-static", action="store_true",
+                   help="int8 with activation scales calibrated at the start of the request")
     return parser
+
+
+def _s3fd(checkpoint: Optional[str]):
+    """The face detector: ``checkpoint``'s weights, or drawn from seed 0
+    (with a warning: its detections are noise)."""
+    import torch
+
+    from .core.prng import seeded
+    from .models.s3fd import S3FD
+
+    model = seeded(S3FD, 0)
+    if checkpoint:
+        model.load_state_dict(torch.load(checkpoint, map_location="cpu", weights_only=True))
+    else:
+        print("warning: no --s3fd-checkpoint; the face detector is random and its boxes are "
+              "noise", file=sys.stderr)
+    return model
+
+
+def _gan_clips(args, parser):
+    """(training clips, held-out clips or None) of a GAN command: the
+    synthetic sets without --preprocessed-root (audio-visually correlated
+    clips for train-syncnet, 18 + 2 held out), else every clip directory
+    under it (train-syncnet with --eval-auc-every holds the last 2 out)."""
+    from .data import datasets
+
+    if args.synthetic or not args.preprocessed_root:
+        if args.cmd == "train-syncnet":
+            clips = datasets.synthetic_av_clips(n_clips=20, frames=50)
+            return clips[:-2], clips[-2:]
+        return datasets.synthetic_gan_clips(n_clips=8, frames=30), None
+    import os
+
+    clips = [datasets.load_gan_clip(root) for root, _, files in os.walk(args.preprocessed_root)
+             if "audio.wav" in files]
+    if not clips:
+        parser.error(f"no clip directory (audio.wav) under {args.preprocessed_root!r}")
+    if args.cmd == "train-syncnet" and args.eval_auc_every:
+        if len(clips) >= 4:
+            return clips[:-2], clips[-2:]
+        print("warning: --eval-auc-every needs >= 4 clips to hold 2 out; AUC report disabled")
+    return clips, None
 
 
 def main(argv: Optional[List[str]] = None, device=None) -> int:
@@ -115,6 +244,8 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
     for name, why in _WAITING.items():
         if getattr(args, name, None) is not None:
             parser.error(why)
+    if getattr(args, "steps_per_dispatch", 1) > 1:
+        parser.error(_ONE_STEP_A_DISPATCH)
     try:
         cfg = build_config(args)
     except (ValueError, NotImplementedError) as e:
@@ -212,6 +343,109 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
             s3fd_checkpoint=args.s3fd_checkpoint, device=device)
         print(f"word accuracy={stats.get('accuracy'):.4f} "
               f"sentence accuracy={stats.get('sentence_accuracy'):.4f}")
+        return 0
+
+    if args.cmd in ("preprocess-gan", "train-gan", "train-syncnet", "eval-gan",
+                    "infer-lipsync"):
+        from .core.device import resolve_device
+
+        device = resolve_device(device)     # before any data is read or made
+
+    if args.cmd == "preprocess-gan":
+        from .data.manifest import build_manifest, read_filelist
+        from .pipelines.offline_preprocess import preprocess_dataset
+
+        filelist = read_filelist(args.filelist) if args.filelist else None
+        records, skipped = build_manifest(args.data_root, filelist)
+        print(f"{len(records)} clips ({skipped} skipped)")
+        s3fd = _s3fd(args.s3fd_checkpoint).to(device).eval()
+        ok, failed = preprocess_dataset(s3fd, records, args.out, cfg.preprocess,
+                                        args.host_id, args.num_hosts)
+        print(f"ok={ok} failed={failed}")
+        return 0
+
+    if args.cmd in ("train-gan", "train-syncnet", "eval-gan"):
+        from .core.metrics import ConsoleWriter, Metrics
+        from .data.datasets import GanWindowSampler
+        from .pipelines import train_gan, train_syncnet
+
+        if cfg.gan.lip_weight > 0:
+            parser.error("gan.lip_weight > 0 needs the lip expert "
+                         "(ROADMAP §1 item 7, pretrained-model family)")
+        clips, held_out = _gan_clips(args, parser)
+        sampler = GanWindowSampler(clips, cfg.gan.syncnet_T, seed=cfg.seed)
+        writer = Metrics(ConsoleWriter(every=10))
+
+        def batch_fn():
+            return sampler.sample_batch(cfg.gan.batch_size)
+
+        syncnet_params = (train_syncnet.load_params(args.syncnet_checkpoint)
+                          if getattr(args, "syncnet_checkpoint", None) else None)
+        if args.cmd == "train-gan":
+            train_gan.train(cfg.gan, batch_fn, eval_batch_fn=batch_fn, num_steps=args.steps,
+                            seed=cfg.seed, checkpoint_dir=args.checkpoint_dir,
+                            audio_cfg=cfg.audio, metrics_writer=writer,
+                            syncnet_params=syncnet_params, device=device)
+            return 0
+        if args.cmd == "eval-gan":
+            from .core.metrics import RunningMean, to_host
+
+            state = train_gan.create_state(cfg.gan, cfg.seed, syncnet_params, device)
+            state.gen.load_state_dict(train_gan.load_generator_params(args.checkpoint))
+            mean = RunningMean()
+            for _ in range(args.batches):
+                mean.update(to_host(train_gan.gan_eval_step(state, batch_fn(), cfg.gan,
+                                                            cfg.audio)))
+            for k, v in sorted(mean.means().items()):
+                print(f"{k}: {v:.4f}")
+            if not args.syncnet_checkpoint:
+                print("note: eval/sync_loss used an untrained SyncNet "
+                      "(pass --syncnet-checkpoint)")
+            return 0
+        state = train_syncnet.train(cfg.gan, batch_fn, num_steps=args.steps, seed=cfg.seed,
+                                    lr=args.lr, objective=args.objective,
+                                    metrics_writer=writer, eval_clips=held_out,
+                                    eval_every=args.eval_auc_every, audio_cfg=cfg.audio,
+                                    device=device)
+        if held_out is not None:
+            from .pipelines.expert_proof import alignment_scores, auc
+
+            pos, neg = alignment_scores(state.model, cfg.gan, held_out, seed=cfg.seed,
+                                        audio_cfg=cfg.audio)
+            print(f"held-out discrimination AUC={auc(pos, neg):.3f} "
+                  "(aligned vs ±6-frame shifted mels)")
+        if args.out:
+            from .core.checkpoint import save_once
+
+            save_once(args.out, {"syncnet": {k: v.cpu() for k, v in
+                                             state.model.state_dict().items()}})
+            print(f"saved sync expert → {args.out}")
+        return 0
+
+    if args.cmd == "infer-lipsync":
+        import dataclasses
+
+        from .core.prng import seeded
+        from .models.generator import TalkingFaceGenerator
+        from .pipelines import train_gan
+        from .pipelines.inference import lipsync_video
+
+        if args.checkpoint:
+            gen_params = train_gan.load_generator_params(args.checkpoint)
+        else:
+            gen_params = seeded(lambda: TalkingFaceGenerator(width=cfg.gan.model_width),
+                                cfg.seed).state_dict()
+        gan_cfg = cfg.gan
+        if args.int8 or args.int8_static:
+            gan_cfg = dataclasses.replace(cfg.gan, serve_int8=True,
+                                          serve_int8_static=args.int8_static)
+        res = lipsync_video(gen_params, _s3fd(args.s3fd_checkpoint), args.face, args.audio,
+                            args.out, gan_cfg, cfg.audio, cfg.preprocess,
+                            static_frame=args.static, model_width=cfg.gan.model_width,
+                            pads=tuple(args.pads), resize_factor=args.resize_factor,
+                            crop=tuple(args.crop), rotate=args.rotate, nosmooth=args.nosmooth,
+                            device=device)
+        print(f"wrote {args.out} ({len(res.frames)} frames, muxed={res.muxed})")
         return 0
 
 

@@ -1,17 +1,24 @@
 """Dataset samplers: fixed-shape numpy batches for the trainers.
 
-Port of the part of ``lipreading_video_generation_tpu/data/datasets.py``
-the ViViT trainer needs: ``WordClipSampler`` (:347-393) and
-``synthetic_word_clips`` (:550-565), copied in numpy, so a batch and the
-shuffle order equal the JAX package's bit for bit. The rest of that module
-reads videos through OpenCV or feeds the GAN and diffusion trainers and
-comes with their slices.
+Port of the parts of ``lipreading_video_generation_tpu/data/datasets.py``
+the ViViT and GAN trainers need: ``WordClipSampler`` and
+``synthetic_word_clips``; ``GanClip``, ``GanWindowSampler``,
+``load_gan_clip``, ``synthetic_gan_clips`` and ``synthetic_av_clips`` (with
+``_formant_wave`` and ``_render_face_clip``), copied in numpy, so that a
+seed gives batches and clips equal to the JAX package's bit for bit.
+``load_gan_clip`` reads JPEGs through OpenCV, imported on call. Transcript
+batches (``with_text``) need the lip expert's tokenizer (ROADMAP §1 item 7);
+the diffusion side comes with item 6.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator, Sequence
+import os
+from dataclasses import dataclass
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
+
+from .video import _cv2, load_wav
 
 
 class WordClipSampler:
@@ -59,6 +66,163 @@ class WordClipSampler:
                 "clips": np.stack([self._fix(self.clips[j]) for j in pick]),
                 "labels": self.labels[pick],
             }
+
+
+@dataclass
+class GanClip:
+    """One preprocessed clip: face-crop frames and the raw waveform (and a
+    transcript, where there is one)."""
+
+    frames: np.ndarray  # (T, H, W, 3) uint8 face crops
+    wav: np.ndarray     # float32 @ 16 kHz
+    text: Optional[str] = None
+
+
+def _no_transcripts(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what}: transcript batches need the lip expert's tokenizer "
+        "(ROADMAP §1 item 7, pretrained-model family)")
+
+
+class GanWindowSampler:
+    """{window, wrong_window, start_frame, wav} batches: a random clip (of at
+    least 3·T frames), a random T-frame window and an independent "wrong"
+    reference window of the same clip, the whole wave zero-padded to the
+    longest clip's. The draws come from ``np.random.default_rng(seed)`` in
+    the JAX package's order."""
+
+    def __init__(self, clips: Sequence[GanClip], syncnet_T: int = 5, seed: int = 0,
+                 with_text: bool = False, max_text_len: int = 48):
+        if with_text:
+            raise _no_transcripts("GanWindowSampler(with_text=True)")
+        self.clips = [c for c in clips if len(c.frames) >= 3 * syncnet_T]
+        if not self.clips:
+            raise ValueError("no clip long enough for windowed sampling")
+        self.T = syncnet_T
+        self.rng = np.random.default_rng(seed)
+
+    def sample_batch(self, batch_size: int) -> Dict[str, np.ndarray]:
+        windows, wrongs, starts, wavs = [], [], [], []
+        max_wav = max(len(c.wav) for c in self.clips)
+        for _ in range(batch_size):
+            clip = self.clips[self.rng.integers(len(self.clips))]
+            n = len(clip.frames)
+            start = int(self.rng.integers(0, n - self.T + 1))
+            wrong = int(self.rng.integers(0, n - self.T + 1))
+            while wrong == start and n > self.T:
+                wrong = int(self.rng.integers(0, n - self.T + 1))
+            windows.append(clip.frames[start: start + self.T])
+            wrongs.append(clip.frames[wrong: wrong + self.T])
+            starts.append(start)
+            wavs.append(np.pad(clip.wav, (0, max_wav - len(clip.wav))))
+        return {
+            "window": np.stack(windows),          # (B, T, H, W, 3) uint8
+            "wrong_window": np.stack(wrongs),     # (B, T, H, W, 3) uint8
+            "start_frame": np.asarray(starts, np.int32),
+            "wav": np.stack(wavs).astype(np.float32),
+        }
+
+
+def load_gan_clip(frames_dir: str, img_size: Optional[int] = None) -> GanClip:
+    """A preprocessed clip directory of ``{i}.jpg`` frames, ``audio.wav``
+    and an optional ``text.txt`` (``preprocess-gan``'s layout) → ``GanClip``
+    (RGB frames, resized to ``img_size`` square if given)."""
+    cv2 = _cv2("load_gan_clip")
+    names = sorted((f for f in os.listdir(frames_dir) if f.endswith(".jpg")),
+                   key=lambda f: int(os.path.splitext(f)[0]))
+    frames = []
+    for name in names:
+        img = cv2.imread(os.path.join(frames_dir, name))[:, :, ::-1]
+        if img_size is not None:
+            img = cv2.resize(img, (img_size, img_size))
+        frames.append(img)
+    wav = load_wav(os.path.join(frames_dir, "audio.wav"))
+    text = None
+    text_path = os.path.join(frames_dir, "text.txt")
+    if os.path.exists(text_path):
+        with open(text_path) as f:
+            text = f.readline().strip().lower()
+    return GanClip(np.stack(frames), wav, text=text)
+
+
+def synthetic_gan_clips(n_clips: int = 4, frames: int = 25, img: int = 96, seed: int = 0,
+                        with_text: bool = False) -> List[GanClip]:
+    """Uncorrelated clips: uniform noise frames and a Gaussian wave of 1 s."""
+    if with_text:
+        raise _no_transcripts("synthetic_gan_clips(with_text=True)")
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n_clips):
+        f = rng.integers(0, 256, (frames, img, img, 3), dtype=np.uint8)
+        wav = (rng.standard_normal(16000) * 0.1).astype(np.float32)
+        out.append(GanClip(f, wav))
+    return out
+
+
+def synthetic_av_clips(n_clips: int = 6, frames: int = 50, img: int = 96, seed: int = 0,
+                       sr: int = 16000, fps: float = 25.0,
+                       with_text: bool = False) -> List[GanClip]:
+    """Audio-visually correlated clips: a smooth per-frame envelope in (0, 1]
+    drives both the wave (``_formant_wave``) and the opening of a dark mouth
+    ellipse on a static drawn face (``_render_face_clip``), so a sync expert
+    trained on them has the audio↔lip correspondence to learn."""
+    if with_text:
+        raise _no_transcripts("synthetic_av_clips(with_text=True)")
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n_clips):
+        env = rng.uniform(0.05, 1.0, frames)
+        env = np.convolve(env, [0.25, 0.5, 0.25], mode="same")
+        env = env / env.max()
+        wav = _formant_wave(env, sr=sr, fps=fps, f0=110.0 + 13.0 * i)
+        f = _render_face_clip(env, img, rng)
+        out.append(GanClip(f, wav))
+    return out
+
+
+def _formant_wave(env: np.ndarray, sr: int = 16000, fps: float = 25.0,
+                  f0: float = 110.0) -> np.ndarray:
+    """Envelope → wave: a harmonic stack on ``f0`` whose spectral centroid
+    (400 + 3000·env Hz) tracks the per-frame envelope, amplitude-modulated
+    by it."""
+    frames = len(env)
+    spf = int(sr / fps)
+    t_frame = (np.arange(frames) + 0.5) * spf
+    t_sample = np.arange(frames * spf, dtype=np.float32)
+    env_s = np.interp(t_sample, t_frame, env)
+    centroid = 400.0 + 3000.0 * env_s
+    carrier = np.zeros_like(t_sample)
+    for h in range(1, 31):
+        fh = f0 * h
+        if fh > 7000:
+            break
+        weight = np.exp(-((fh - centroid) / 800.0) ** 2)
+        carrier += weight * np.sin(2 * np.pi * fh * t_sample / sr)
+    carrier = carrier / (np.abs(carrier).max() + 1e-6)
+    return ((0.3 + 0.6 * env_s) * carrier).astype(np.float32)
+
+
+def _render_face_clip(env: np.ndarray, img: int, rng) -> np.ndarray:
+    """Envelope → (frames, img, img, 3) uint8 drawn face whose mouth ellipse
+    opens with env[t]; static eyes and face, ±6 levels of noise."""
+    frames = len(env)
+    yy, xx = np.mgrid[0:img, 0:img].astype(np.float32)
+    skin = int(rng.integers(150, 200))
+    base = np.full((img, img, 3), int(rng.integers(60, 100)), np.uint8)
+    face = ((xx - img / 2) ** 2 / (img * 0.42) ** 2
+            + (yy - img / 2) ** 2 / (img * 0.48) ** 2) <= 1.0
+    base[face] = (skin, max(0, skin - 30), max(0, skin - 45))
+    for ex in (img * 3 // 8, img * 5 // 8):       # static eyes
+        eye = ((xx - ex) ** 2 + (yy - img * 3 // 8) ** 2) <= (img * 0.04) ** 2
+        base[eye] = 25
+    cy, cx = img * 0.72, img * 0.5
+    mouth_w = img * 0.24
+    f = np.repeat(base[None], frames, axis=0)
+    for t in range(frames):
+        ap = 1.5 + env[t] * img * 0.13            # half-height of the opening
+        mouth = ((xx - cx) ** 2 / mouth_w ** 2 + (yy - cy) ** 2 / ap ** 2) <= 1.0
+        f[t][mouth] = 15
+    return np.clip(f.astype(np.int16) + rng.integers(-6, 7, f.shape), 0, 255).astype(np.uint8)
 
 
 def synthetic_word_clips(

@@ -7,6 +7,8 @@ for the diffusion model; ``superres_state_dict_from_flax`` and
 guidance classifier; ``generator_state_dict_from_flax`` for the talking-face
 generator (with ``generator_flax_module_names``, which maps the Flax module
 paths that key JAX's static int8 scales to the port's module names);
+``discriminator_state_dict_from_flax`` and ``syncnet_state_dict_from_flax``
+for the GAN's discriminator and sync expert;
 ``s3fd_state_dict_from_flax``, ``lip_landmark_state_dict_from_flax`` and
 ``word_lm_state_dict_from_flax`` for the lipreading chain's face detector,
 lip-landmark regressor and word LM. The
@@ -36,6 +38,8 @@ from typing import Dict, Iterable, Mapping
 import numpy as np
 import torch
 
+from . import discriminator as _disc
+from . import syncnet as _sync
 from .generator import AUDIO_PLAN, DECODER_PLAN, FACE_PLAN
 from .unet import encoder_plan, plan
 
@@ -297,6 +301,34 @@ def generator_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
             _conv(sd, f"{part}.{at}.conv", block["Conv_0"])
             _norm(sd, f"{part}.{at}.norm", block["GroupNorm_0"])
     _conv(sd, "decoder.out_conv", params["FaceDecoder_0"]["Conv_0"])
+    return sd
+
+
+def discriminator_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax ``Discriminator`` params (``ConvBlock_0…12``, each an unnormed
+    ``Conv_0``, then ``Conv_0``) → float32 ``state_dict`` for
+    ``models.discriminator.Discriminator``."""
+    blocks = [f"ConvBlock_{i}" for i in range(len(_disc.PLAN))]
+    _exact(params, blocks + ["Conv_0"], "Discriminator")
+    sd: Dict[str, torch.Tensor] = {}
+    for i, name in enumerate(blocks):
+        _conv(sd, f"blocks.{i}.conv", _exact(params[name], ["Conv_0"], name)["Conv_0"])
+    _conv(sd, "out_conv", params["Conv_0"])
+    return sd
+
+
+def syncnet_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax ``SyncNet`` params (``face_blocks_0…16``, ``audio_blocks_0…13``,
+    each ``Conv_0`` + ``GroupNorm_0``) → float32 ``state_dict`` for
+    ``models.syncnet.SyncNet``."""
+    towers = (("face_blocks", len(_sync.FACE_PLAN)), ("audio_blocks", len(_sync.AUDIO_PLAN)))
+    _exact(params, [f"{t}_{i}" for t, n in towers for i in range(n)], "SyncNet")
+    sd: Dict[str, torch.Tensor] = {}
+    for tower, n in towers:
+        for i in range(n):
+            block = _exact(params[f"{tower}_{i}"], ["Conv_0", "GroupNorm_0"], f"{tower}_{i}")
+            _conv(sd, f"{tower}.{i}.conv", block["Conv_0"])
+            _norm(sd, f"{tower}.{i}.norm", block["GroupNorm_0"])
     return sd
 
 

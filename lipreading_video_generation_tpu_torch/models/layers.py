@@ -1,9 +1,9 @@
 """Building blocks of the port, with Flax numerics.
 
 Port of ``lipreading_video_generation_tpu/models/layers.py``'s ``MLP`` and
-``TransformerBlock`` (with their dropout) and the lip-sync GAN's conv blocks
-(``scale_channels``, ``fold_time``, ``unfold_time``, ``ConvBlock``,
-``ResConvBlock``, ``UpsampleConv``; NCHW here, NHWC there), plus the parameter-holding layers
+``TransformerBlock`` (with their dropout), ``l2_normalize``, and the lip-sync
+GAN's conv blocks (``scale_channels``, ``fold_time``, ``unfold_time``,
+``ConvBlock``, ``ResConvBlock``, ``UpsampleConv``; NCHW here, NHWC there), plus the parameter-holding layers
 every model of the port is built from. What keeps them equal to the Flax
 modules:
 
@@ -227,6 +227,12 @@ class TransformerBlock(nn.Module):
         attn = self.proj(mha(q, k, v, self.num_heads))
         x = x + dropout(attn, self.dropout, self.training, generator)
         return x + self.mlp(self.norm2(x), generator)
+
+
+def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
+    """x / sqrt(Σ x² + eps) along ``dim`` (eps inside the root, as the JAX
+    package has it; ``F.normalize`` clamps the norm instead)."""
+    return x / torch.sqrt(torch.sum(x * x, dim=dim, keepdim=True) + eps)
 
 
 def _pair(v: Pair) -> Tuple[int, int]:

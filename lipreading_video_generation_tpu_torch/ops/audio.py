@@ -1,12 +1,15 @@
 """Log-mel audio frontend in plain torch.
 
 Port of ``lipreading_video_generation_tpu/ops/audio.py``'s
-``mel_filterbank``, ``preemphasis``, ``stft_magnitude``, ``amp_to_db``,
-``normalize_spec`` and ``melspectrogram`` (librosa conventions:
-pre-emphasis → centred STFT with reflect padding and a periodic Hann
-window → Slaney mel filterbank → amp-to-dB → ref-level shift → symmetric
-normalisation to ±max_abs_value). The filterbank is the JAX package's numpy
-construction, copied; framing is ``unfold`` and the FFT is ``torch.fft.rfft``
+``mel_filterbank``, ``preemphasis``, ``inv_preemphasis``, ``frame_signal``,
+``stft_magnitude``, ``amp_to_db``, ``db_to_amp``, ``normalize_spec``,
+``denormalize_spec``, ``melspectrogram`` and ``linearspectrogram`` (librosa
+conventions: pre-emphasis → centred STFT with reflect padding and a periodic
+Hann window → Slaney mel filterbank → amp-to-dB → ref-level shift →
+symmetric normalisation to ±max_abs_value). The filterbank is the JAX
+package's numpy construction, copied; the centre padding is numpy's
+``reflect`` by index (repeated for waves shorter than the pad, as
+``jnp.pad`` does); framing is ``unfold`` and the FFT is ``torch.fft.rfft``
 (cuFFT on the card, where the JAX package uses XLA's FFT). Batched over any
 leading dims of ``(..., samples)``. Also ``crop_mel_window`` and
 ``mel_windows``, which cut the 16-step mel windows aligned to video frames.
@@ -21,8 +24,10 @@ import torch.nn.functional as F
 
 from ..core.config import AudioConfig
 
-__all__ = ["mel_filterbank", "preemphasis", "stft_magnitude", "amp_to_db",
-           "normalize_spec", "melspectrogram", "crop_mel_window", "mel_windows"]
+__all__ = ["mel_filterbank", "preemphasis", "inv_preemphasis", "frame_signal",
+           "stft_magnitude", "amp_to_db", "db_to_amp", "normalize_spec", "denormalize_spec",
+           "melspectrogram", "linearspectrogram", "crop_mel_window", "window_starts",
+           "mel_windows"]
 
 
 def _hz_to_mel_slaney(f: np.ndarray) -> np.ndarray:
@@ -83,9 +88,57 @@ def preemphasis(wav: torch.Tensor, k: float = 0.97, apply: bool = True) -> torch
     return wav - k * F.pad(wav[..., :-1], (1, 0))
 
 
+_INV_PREEMPHASIS_BLOCK = 512
+
+
+def inv_preemphasis(wav: torch.Tensor, k: float = 0.97, apply: bool = True) -> torch.Tensor:
+    """The IIR inverse y[n] = x[n] + k·y[n−1] along the last axis, in float64
+    blocks of 512 samples: inside a block the closed form
+    y[s + t] = Σ_j k^(t−j)·x[s + j] + k^(t+1)·y[s − 1] is one triangular
+    product, and the blocks follow one another. (JAX's ``associative_scan``
+    in float32 sums in another order.)"""
+    if not apply:
+        return wav
+    n = wav.shape[-1]
+    b = max(1, min(_INV_PREEMPHASIS_BLOCK, n))
+    i = torch.arange(b, device=wav.device)
+    lag = (i[:, None] - i[None, :]).to(torch.float64)
+    weights = torch.where(lag >= 0, k ** lag, torch.zeros_like(lag))   # (t, j)
+    carry_gain = k ** (i + 1).to(torch.float64)
+    x = wav.to(torch.float64)
+    carry = torch.zeros(x.shape[:-1], dtype=torch.float64, device=wav.device)
+    out = []
+    for s in range(0, n, b):
+        xb = x[..., s:s + b]
+        m = xb.shape[-1]
+        yb = xb @ weights[:m, :m].T + carry[..., None] * carry_gain[:m]
+        out.append(yb)
+        carry = yb[..., -1]
+    return torch.cat(out, dim=-1).to(wav.dtype) if out else wav
+
+
 def _hann_periodic(win_size: int) -> np.ndarray:
     n = np.arange(win_size)
     return (0.5 - 0.5 * np.cos(2.0 * np.pi * n / win_size)).astype(np.float32)
+
+
+def frame_signal(wav: torch.Tensor, frame_length: int, hop: int) -> torch.Tensor:
+    """(..., samples) → (..., num_frames, frame_length): frames of
+    ``frame_length`` samples every ``hop``, the last one whole."""
+    return wav.unfold(-1, frame_length, hop)
+
+
+def reflect_index(n: int, pad: int, device=None) -> torch.Tensor:
+    """Source index of each of the n + 2·pad samples of a wave of ``n``
+    samples padded by ``pad`` on each side in numpy's ``reflect`` mode:
+    the reflection repeats with period 2·(n − 1) when ``pad`` ≥ n, and a
+    single sample is repeated."""
+    i = torch.arange(-pad, n + pad, device=device)
+    if n == 1:
+        return torch.zeros_like(i)
+    period = 2 * (n - 1)
+    j = torch.remainder(i, period)
+    return torch.where(j >= n, period - j, j)
 
 
 def stft_magnitude(wav: torch.Tensor, n_fft: int = 800, hop: int = 200,
@@ -94,10 +147,8 @@ def stft_magnitude(wav: torch.Tensor, n_fft: int = 800, hop: int = 200,
     Hann): (..., samples) → (..., n_fft//2+1, T), T = 1 + samples//hop."""
     if win_size > n_fft:
         raise ValueError("win_size must be <= n_fft")
-    pad = n_fft // 2
-    lead, n = wav.shape[:-1], wav.shape[-1]
-    x = F.pad(wav.reshape(-1, 1, n), (pad, pad), mode="reflect").reshape(lead + (n + 2 * pad,))
-    frames = x.unfold(-1, n_fft, hop)                     # (..., T, n_fft)
+    x = wav[..., reflect_index(wav.shape[-1], n_fft // 2, wav.device)]
+    frames = frame_signal(x, n_fft, hop)                  # (..., T, n_fft)
     window = _hann_periodic(win_size)
     if win_size < n_fft:  # centre-pad the window to n_fft, like librosa
         lpad = (n_fft - win_size) // 2
@@ -112,6 +163,10 @@ def amp_to_db(x: torch.Tensor, min_level_db: float = -100.0) -> torch.Tensor:
     return 20.0 * torch.log10(torch.clamp(x, min=min_level))
 
 
+def db_to_amp(x: torch.Tensor) -> torch.Tensor:
+    return torch.pow(10.0, x * 0.05)
+
+
 def normalize_spec(S: torch.Tensor, cfg: AudioConfig) -> torch.Tensor:
     if cfg.symmetric_mels:
         out = ((2.0 * cfg.max_abs_value) * ((S - cfg.min_level_db) / (-cfg.min_level_db))
@@ -119,6 +174,16 @@ def normalize_spec(S: torch.Tensor, cfg: AudioConfig) -> torch.Tensor:
         return torch.clamp(out, -cfg.max_abs_value, cfg.max_abs_value)
     out = cfg.max_abs_value * ((S - cfg.min_level_db) / (-cfg.min_level_db))
     return torch.clamp(out, 0.0, cfg.max_abs_value)
+
+
+def denormalize_spec(D: torch.Tensor, cfg: AudioConfig) -> torch.Tensor:
+    """The inverse of ``normalize_spec`` (after its clip)."""
+    if cfg.symmetric_mels:
+        D = torch.clamp(D, -cfg.max_abs_value, cfg.max_abs_value)
+        return ((D + cfg.max_abs_value) * -cfg.min_level_db / (2.0 * cfg.max_abs_value)
+                + cfg.min_level_db)
+    D = torch.clamp(D, 0.0, cfg.max_abs_value)
+    return D * -cfg.min_level_db / cfg.max_abs_value + cfg.min_level_db
 
 
 def melspectrogram(wav: torch.Tensor, cfg: AudioConfig = AudioConfig()) -> torch.Tensor:
@@ -133,18 +198,38 @@ def melspectrogram(wav: torch.Tensor, cfg: AudioConfig = AudioConfig()) -> torch
     return S
 
 
+def linearspectrogram(wav: torch.Tensor, cfg: AudioConfig = AudioConfig()) -> torch.Tensor:
+    """(..., samples) float32 → (..., n_fft//2+1, T) normalised log-linear
+    spectrogram."""
+    y = preemphasis(wav, cfg.preemphasis, cfg.preemphasize)
+    S = amp_to_db(stft_magnitude(y, cfg.n_fft, cfg.hop_size, cfg.win_size),
+                  cfg.min_level_db) - cfg.ref_level_db
+    if cfg.signal_normalization:
+        S = normalize_spec(S, cfg)
+    return S
+
+
+def window_starts(start_frames: torch.Tensor, num_steps: int, fps: float = 25.0,
+                  mel_step_size: int = 16, sample_rate: int = 16000,
+                  hop: int = 200) -> torch.Tensor:
+    """First mel step of the window aligned to each video frame of
+    ``start_frames`` (any shape) in a mel of ``num_steps`` steps:
+    floor(mel_steps_per_sec · start_frame / fps), clipped so that the window
+    fits; the product and the quotient are float32, as in the JAX package."""
+    starts = torch.as_tensor(start_frames, dtype=torch.float32)
+    # a true division: a CUDA tensor divided by a Python number is multiplied
+    # by the reciprocal, which can land just below an integer
+    pos = (sample_rate / hop) * starts / torch.full_like(starts, fps)
+    return torch.clamp(torch.floor(pos).long(), 0, num_steps - mel_step_size)
+
+
 def mel_windows(mel: torch.Tensor, start_frames: torch.Tensor, fps: float = 25.0,
                 mel_step_size: int = 16, sample_rate: int = 16000,
                 hop: int = 200) -> torch.Tensor:
     """Aligned mel windows: (..., num_mels, T_mel) and (N,) start frames →
-    (N, ..., num_mels, mel_step_size). Window i starts at mel step
-    floor(mel_steps_per_sec · start_frame / fps), clipped so that it fits;
-    the product and the quotient are float32, as in the JAX package."""
+    (N, ..., num_mels, mel_step_size), each at ``window_starts``."""
     starts = torch.as_tensor(start_frames, dtype=torch.float32, device=mel.device)
-    # a true division: a CUDA tensor divided by a Python number is multiplied
-    # by the reciprocal, which can land just below an integer
-    pos = (sample_rate / hop) * starts / torch.full_like(starts, fps)
-    first = torch.clamp(torch.floor(pos).long(), 0, mel.shape[-1] - mel_step_size)
+    first = window_starts(starts, mel.shape[-1], fps, mel_step_size, sample_rate, hop)
     idx = first[:, None] + torch.arange(mel_step_size, device=mel.device)
     return torch.movedim(mel[..., idx], -2, 0)
 

@@ -7,7 +7,10 @@ calls from ``ops/image.py``: ``expand_box_to_min_size``, ``rgb_to_gray``,
 diffusion path's ``normalize_uint8``, ``denormalize_to_uint8`` and the
 U-Net's nearest 2× upsample (``models/unet.py:142``); and of the lip-sync
 path's ``mask_lower_half``, ``concat_reference``, ``_bilinear_sample`` and
-``smooth_boxes``; and ``map_coordinates``, the counterpart of
+``smooth_boxes``; and of the Wav2Lip image utilities ``resize_batch``,
+``apply_mask``, ``random_crop``, ``rgb_to_lab`` / ``lab_to_rgb`` and
+``contrast_boost`` (CLAHE of the LAB L channel: on a CUDA tensor the kernel
+K1 on whole frames); and ``map_coordinates``, the counterpart of
 ``jax.scipy.ndimage.map_coordinates(order=1, mode="nearest")`` that the
 lip-landmark renderers and augmentations warp with. Layouts are the JAX
 package's: (..., H, W, C) images and y1y2x1x2 boxes.
@@ -24,15 +27,22 @@ samples whose centre lies outside the input are zero).
 """
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .clahe_cuda import clahe_cuda, clahe_reference
 
 __all__ = [
     "resize",
+    "resize_batch",
     "rgb_to_gray",
+    "rgb_to_lab",
+    "lab_to_rgb",
+    "contrast_boost",
+    "apply_mask",
+    "random_crop",
     "crop_and_resize",
     "expand_box_to_min_size",
     "clahe",
@@ -132,6 +142,11 @@ def resize(img: torch.Tensor, size: Tuple[int, int], method: str = "bilinear") -
     return out.to(img.dtype)
 
 
+def resize_batch(imgs: torch.Tensor, size: Tuple[int, int], method: str = "bilinear") -> torch.Tensor:
+    """``resize`` of a batch (..., H, W, C)."""
+    return resize(imgs, size, method)
+
+
 def normalize_uint8(img: torch.Tensor, symmetric: bool = False) -> torch.Tensor:
     """uint8 [0,255] → float32 [0,1], or [-1,1] with ``symmetric``."""
     x = img.to(torch.float32) / 255.0
@@ -155,6 +170,29 @@ def rgb_to_gray(img: torch.Tensor) -> torch.Tensor:
     """ITU-R BT.601 luma; (..., H, W, 3) → (..., H, W, 1) float32."""
     w = torch.tensor([0.299, 0.587, 0.114], dtype=torch.float32, device=img.device)
     return (img.to(torch.float32) @ w)[..., None]
+
+
+def apply_mask(frames: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Frames (..., H, W, C) times a (H, W) mask taken as mask > 0 (a {0,
+    255} or bool mask: OpenCV's ``bitwise_and`` with it)."""
+    return frames * (mask > 0).to(frames.dtype)[..., None]
+
+
+def random_crop(img: torch.Tensor, size: int, generator: Optional[torch.Generator] = None,
+                offset: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """A ``size`` × ``size`` crop of (..., H, W, C) at the top-left ``offset``
+    (y, x), or at one drawn uniformly from ``generator`` (the default one
+    when None), y then x, as the JAX package draws them from its key."""
+    h, w = img.shape[-3], img.shape[-2]
+    if offset is None:
+        y = int(torch.randint(0, h - size + 1, (), generator=generator))
+        x = int(torch.randint(0, w - size + 1, (), generator=generator))
+    else:
+        y, x = (int(v) for v in offset)
+    if not (0 <= y <= h - size and 0 <= x <= w - size):
+        raise ValueError(f"random_crop: offset {(y, x)} puts a {size}x{size} crop outside "
+                         f"{h}x{w}")
+    return img[..., y:y + size, x:x + size, :]
 
 
 def crop_and_resize(img: torch.Tensor, box: torch.Tensor, out_size: Tuple[int, int],
@@ -207,6 +245,63 @@ def clahe(img: torch.Tensor, clip_limit: float = 0.2, grid: Tuple[int, int] = (8
     h, w = img.shape[-2:]
     x = img.to(torch.float32).reshape(-1, h, w).contiguous()
     out = clahe_cuda(x, clip_limit, grid, nbins).reshape(img.shape)
+    if not img.dtype.is_floating_point:
+        return torch.clamp(torch.round(out), 0, 255).to(img.dtype)
+    return out
+
+
+# sRGB (D65) → XYZ, as OpenCV's LAB conversion
+_RGB2XYZ = np.array([[0.412453, 0.357580, 0.180423],
+                     [0.212671, 0.715160, 0.072169],
+                     [0.019334, 0.119193, 0.950227]], dtype=np.float32)
+_XYZ2RGB = np.linalg.inv(_RGB2XYZ).astype(np.float32)
+_D65 = np.array([0.950456, 1.0, 1.088754], dtype=np.float32)
+
+
+def _lab_f(t: torch.Tensor) -> torch.Tensor:
+    # the real cube root (torch.pow of a negative base is NaN)
+    cbrt = torch.sign(t) * torch.abs(t) ** (1.0 / 3.0)
+    return torch.where(t > 0.008856, cbrt, 7.787 * t + 16.0 / 116.0)
+
+
+def _lab_f_inv(t: torch.Tensor) -> torch.Tensor:
+    return torch.where(t > 0.206893, t ** 3, (t - 16.0 / 116.0) / 7.787)
+
+
+def rgb_to_lab(img: torch.Tensor) -> torch.Tensor:
+    """RGB (..., 3) in [0, 255] → LAB in OpenCV's 8-bit scaling (L·255/100,
+    a + 128, b + 128), float32, with the sRGB linearisation first."""
+    c = img.to(torch.float32) / 255.0
+    rgb = torch.where(c > 0.04045, ((c + 0.055) / 1.055) ** 2.4, c / 12.92)
+    xyz = rgb @ torch.from_numpy(_RGB2XYZ).to(img.device).T / torch.from_numpy(_D65).to(img.device)
+    f = _lab_f(xyz)
+    L = 116.0 * f[..., 1] - 16.0
+    a = 500.0 * (f[..., 0] - f[..., 1])
+    b = 200.0 * (f[..., 1] - f[..., 2])
+    return torch.stack([L * 255.0 / 100.0, a + 128.0, b + 128.0], dim=-1)
+
+
+def lab_to_rgb(lab: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``rgb_to_lab`` → RGB float32 clipped to [0, 255]."""
+    L = lab[..., 0] * 100.0 / 255.0
+    fy = (L + 16.0) / 116.0
+    fx = fy + (lab[..., 1] - 128.0) / 500.0
+    fz = fy - (lab[..., 2] - 128.0) / 200.0
+    xyz = torch.stack([_lab_f_inv(fx), _lab_f_inv(fy), _lab_f_inv(fz)], dim=-1)
+    xyz = xyz * torch.from_numpy(_D65).to(lab.device)
+    rgb = torch.clamp(xyz @ torch.from_numpy(_XYZ2RGB).to(lab.device).T, min=0.0)
+    srgb = torch.where(rgb > 0.0031308, 1.055 * rgb ** (1.0 / 2.4) - 0.055, 12.92 * rgb)
+    return torch.clamp(srgb * 255.0, 0.0, 255.0)
+
+
+def contrast_boost(img: torch.Tensor, clip_limit: float = 0.2,
+                   grid: Tuple[int, int] = (8, 8)) -> torch.Tensor:
+    """CLAHE (``clahe``: on a CUDA tensor the kernel K1, one launch for the
+    whole batch) of the LAB L channel of RGB frames (..., H, W, 3); integer
+    frames come back rounded in their dtype, float ones as float32."""
+    lab = rgb_to_lab(img)
+    L = clahe(lab[..., 0], clip_limit, grid)
+    out = lab_to_rgb(torch.stack([L, lab[..., 1], lab[..., 2]], dim=-1))
     if not img.dtype.is_floating_point:
         return torch.clamp(torch.round(out), 0, 255).to(img.dtype)
     return out

@@ -1,6 +1,9 @@
-"""Lip-sync serving from decoded frames: crop faces → generate → paste back.
+"""Lip-sync serving: a face video and a speech track → the lip-synced video.
 
-Port of ``lipreading_video_generation_tpu/pipelines/inference.py``'s
+Port of ``lipreading_video_generation_tpu/pipelines/inference.py``:
+``lipsync_video`` (read and condition the frames, the wav's mel, S3FD face
+tracks, the aligned mel windows, ``generate_frames``, write and mux) with
+``InferenceResult`` and ``prepare_input_frames``, and below it
 ``_mel_chunks``, ``paste_back``, ``gen_input_prep``, ``lipsync_batch`` and
 ``generate_frames``: host uint8 frames (N, H, W, 3), y1y2x1x2 face boxes
 (N, 4) and aligned mel windows (N, 80, 16) → per batch of
@@ -23,19 +26,24 @@ nothing is found), all on the detector's device.
 Not carried over: the JAX package runs the whole request as one device
 program (``lax.map`` over step-stacked batches, padded to a batch multiple
 and sharded over a mesh); here a Python loop takes the batches one by one on
-one device, the last one as short as it is, and ``mesh_spec`` raises. Video
-and audio file I/O (``prepare_input_frames``, ``lipsync_video``) are not
-ported yet.
+one device, the last one as short as it is, and ``mesh_spec`` raises.
+``lipsync_video`` reads and writes video through OpenCV (imported on call)
+unless its ``read_frames`` / ``write_video`` seams are given, so it runs
+from frames in memory where OpenCV is absent; without ffmpeg the video is
+written silent and ``muxed`` is False, as in the JAX package.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import dataclasses
+import os
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..core.config import AudioConfig, GanConfig, PreprocessConfig
 from ..core.device import resolve_device
+from ..data import video as video_io
 from ..models.generator import TalkingFaceGenerator
 from ..models.s3fd import S3FD, detect_faces
 from ..ops import audio as audio_ops
@@ -171,7 +179,7 @@ def generate_frames(
     in the JAX package's serving path. Returns (N, H, W, 3) uint8."""
     if mesh_spec is not None:
         raise NotImplementedError(
-            "generate_frames: mesh_spec is not ported yet (ROADMAP §1 item 13, "
+            "generate_frames: mesh_spec is not ported yet (ROADMAP §1 item 9, "
             "multi-GPU parallelism)")
     device = resolve_device(device)
     num_out = len(frames_seq)
@@ -204,3 +212,131 @@ def generate_frames(
                                 on_device(mel_windows, idx), img, int8, act_scales)
             outs.append(out.cpu().numpy())
     return np.concatenate(outs)
+
+
+@dataclasses.dataclass
+class InferenceResult:
+    frames: np.ndarray          # (T, H, W, 3) uint8 output frames
+    boxes: np.ndarray           # (T, 4) y1y2x1x2 face boxes used
+    muxed: bool                 # the audio was muxed in
+
+
+def prepare_input_frames(face_path: str, resize_factor: int = 1, rotate: bool = False,
+                         crop: tuple = (0, -1, 0, -1),
+                         default_fps: float = 25.0) -> Tuple[np.ndarray, float]:
+    """(frames (T, H, W, 3) RGB uint8, fps) of a face video, or of a still
+    image (.jpg/.jpeg/.png: one frame at ``default_fps``), through OpenCV,
+    conditioned as the reference does: downscaled by ``resize_factor``
+    (OpenCV's bilinear resize), rotated 90° clockwise, then cropped (y1, y2,
+    x1, x2), −1 meaning to the edge."""
+    cv2 = video_io._cv2("prepare_input_frames")
+    ext = face_path.rsplit(".", 1)[-1].lower()
+    if ext in ("jpg", "png", "jpeg"):
+        img = cv2.imread(face_path)
+        if img is None:
+            raise FileNotFoundError(f"cannot read image {face_path!r}")
+        frames, fps = img[None, :, :, ::-1], default_fps
+    else:
+        frames, fps = video_io.read_video_frames(face_path)
+    if resize_factor > 1:
+        h, w = frames.shape[1] // resize_factor, frames.shape[2] // resize_factor
+        frames = np.stack([cv2.resize(f, (w, h)) for f in frames])
+    if rotate:
+        frames = np.rot90(frames, k=-1, axes=(1, 2)).copy()
+    y1, y2, x1, x2 = crop
+    y2 = frames.shape[1] if y2 == -1 else y2
+    x2 = frames.shape[2] if x2 == -1 else x2
+    return frames[:, y1:y2, x1:x2], fps
+
+
+def _load_wav(audio_path: str, audio_cfg: AudioConfig) -> np.ndarray:
+    """A .wav as it is; any other file through ffmpeg's audio extraction
+    into a temporary .wav (``ValueError`` without ffmpeg or a sidecar .wav)."""
+    if audio_path.endswith(".wav"):
+        return video_io.load_wav(audio_path, audio_cfg.sample_rate)
+    import tempfile
+
+    fd, tmp_wav = tempfile.mkstemp(suffix=".wav")
+    os.close(fd)
+    try:
+        if not video_io.extract_audio(audio_path, tmp_wav, audio_cfg.sample_rate):
+            raise ValueError(
+                f"cannot extract audio from {audio_path!r} (no ffmpeg and no sidecar .wav)")
+        return video_io.load_wav(tmp_wav, audio_cfg.sample_rate)
+    finally:
+        os.unlink(tmp_wav)
+
+
+def lipsync_video(
+    gen_params: Dict[str, torch.Tensor],
+    s3fd: S3FD,
+    face_video: str,
+    audio_path: str,
+    out_path: str,
+    gan_cfg: GanConfig = GanConfig(),
+    audio_cfg: AudioConfig = AudioConfig(),
+    pre_cfg: PreprocessConfig = PreprocessConfig(),
+    static_frame: bool = False,
+    model_width: float = 1.0,
+    pads: tuple = (0, 10, 0, 0),
+    resize_factor: int = 1,
+    crop: tuple = (0, -1, 0, -1),
+    rotate: bool = False,
+    nosmooth: bool = False,
+    mesh_spec=None,
+    *,
+    read_frames: Callable[..., Tuple[np.ndarray, float]] = prepare_input_frames,
+    write_video: Callable[[str, np.ndarray, float], None] = video_io.write_video,
+    device=None,
+) -> InferenceResult:
+    """End-to-end lip-sync on ``device`` (None: the card): the frames of
+    ``face_video`` (``read_frames(path, resize_factor, rotate, crop)`` →
+    (frames, fps), by default ``prepare_input_frames``; one frame, or
+    ``static_frame``, repeats the first), the mel of ``audio_path``
+    (refused when not finite), as many output frames as the audio lasts at
+    the video's fps (the input frames wrap around), S3FD face tracks widened
+    by ``pads`` and smoothed unless ``nosmooth`` (``s3fd``: an ``S3FD`` with
+    its weights), the
+    aligned mel windows, ``generate_frames`` (``gen_params``: the
+    generator's ``state_dict``), then ``write_video(path, frames, fps)`` of
+    the silent video beside ``out_path`` and the audio muxed in with ffmpeg
+    where it is installed. A ``write_video`` that writes no file keeps the
+    result only in the returned ``InferenceResult`` (``muxed`` False)."""
+    if mesh_spec is not None:
+        raise NotImplementedError(
+            "lipsync_video: mesh_spec is not ported yet (ROADMAP §1 item 9, "
+            "multi-GPU parallelism)")
+    device = resolve_device(device)
+    frames, fps = read_frames(face_video, resize_factor, rotate, crop)
+    frames = np.asarray(frames)
+    if static_frame or len(frames) == 1:
+        frames = np.repeat(frames[:1], max(len(frames), 1), 0)
+    wav = _load_wav(audio_path, audio_cfg)
+    mel = audio_ops.melspectrogram(torch.from_numpy(wav).to(device), audio_cfg)
+    if not bool(torch.isfinite(mel).all()):
+        raise ValueError("mel contains NaN/inf")
+
+    # as many output frames as the audio lasts at the video's fps
+    num_out = int(mel.shape[-1] / audio_cfg.mel_step_per_frame / 25.0 * fps)
+    num_out = max(1, min(num_out, int(len(wav) / audio_cfg.sample_rate * fps)))
+    frames_seq = frames[np.arange(num_out) % len(frames)]
+
+    s3fd = s3fd.to(device).eval()
+    boxes = detect_face_tracks(s3fd, frames_seq, pre_cfg, pads=pads,
+                               nosmooth=nosmooth).cpu().numpy()
+    windows = _mel_chunks(mel, num_out, fps, audio_cfg).cpu().numpy()       # (N, 80, 16)
+    result = generate_frames(gen_params, frames_seq, boxes, windows, gan_cfg, pre_cfg,
+                             model_width, device=device)
+
+    tmp_video, wav_tmp = out_path + ".silent.mp4", out_path + ".wav"
+    muxed = False
+    try:
+        write_video(tmp_video, result, fps)
+        if os.path.exists(tmp_video):
+            video_io.save_wav(wav_tmp, wav, audio_cfg.sample_rate)
+            muxed = video_io.mux_audio(tmp_video, wav_tmp, out_path)
+    finally:
+        for p in (tmp_video, wav_tmp):
+            if os.path.exists(p) and p != out_path:
+                os.unlink(p)
+    return InferenceResult(frames=result, boxes=boxes, muxed=muxed)

@@ -92,7 +92,7 @@ def create_state(cfg: DiffusionConfig, seed: int = 0, device=None, ema_rate: flo
     if wav2vec2_checkpoint:
         raise NotImplementedError(
             "create_state: wav2vec2_checkpoint needs the pretrained wav2vec2 port "
-            "(ROADMAP §1 item 11, pretrained-model family)")
+            "(ROADMAP §1 item 7, pretrained-model family)")
     return new_state(seeded(lambda: UNetAudio(cfg), seed), cfg, seed, device, ema_rate)
 
 
@@ -247,7 +247,7 @@ def train(cfg: DiffusionConfig, batch_fn: Callable[[], Dict[str, Any]], num_step
     ``eval_batch_fn``, a held-out ε-MSE every ``eval_every`` steps."""
     if mesh_spec is not None:
         raise NotImplementedError(
-            "train: mesh_spec is not ported yet (ROADMAP §1 item 13, multi-GPU parallelism)")
+            "train: mesh_spec is not ported yet (ROADMAP §1 item 9, multi-GPU parallelism)")
     state = resume(create_state(cfg, seed, device, wav2vec2_checkpoint=wav2vec2_checkpoint),
                    checkpoint_dir)
     while state.step < num_steps:

@@ -64,7 +64,7 @@ def train(cfg: SuperResConfig, batch_fn: Callable[[], Dict[str, Any]], num_steps
     """Step loop as ``train_diffusion.train``; also saves the last step."""
     if mesh_spec is not None:
         raise NotImplementedError(
-            "train: mesh_spec is not ported yet (ROADMAP §1 item 13, multi-GPU parallelism)")
+            "train: mesh_spec is not ported yet (ROADMAP §1 item 9, multi-GPU parallelism)")
     state = resume(create_state(cfg, seed, device), checkpoint_dir)
     while state.step < num_steps:
         batch = batch_fn()

@@ -61,6 +61,64 @@ def test_melspectrogram_matches_jax():
     np.testing.assert_allclose(got, want, rtol=0, atol=2e-4)
 
 
+@pytest.mark.parametrize("samples", [1, 200, 400, 401, 1000])
+def test_melspectrogram_short_waves_match_jax(samples):
+    """Waves no longer than the STFT's centre pad (n_fft / 2 = 400 samples):
+    the pad reflects again and again, as numpy's ``reflect`` mode does
+    (``jnp.pad``), a single sample repeated; one wave and a batch of three.
+    Bound as ``test_melspectrogram_matches_jax``."""
+    rng = np.random.default_rng(samples)
+    for shape in ((samples,), (3, samples)):
+        wave = (0.3 * rng.standard_normal(shape)).astype(np.float32)
+        want = np.asarray(jaudio.melspectrogram(jnp.asarray(wave), JAudioCfg()))
+        got = taudio.melspectrogram(torch.from_numpy(wave), TAudioCfg()).numpy()
+        assert got.shape == want.shape == shape[:-1] + (80, 1 + samples // 200)
+        np.testing.assert_allclose(got, want, rtol=0, atol=2e-4)
+
+
+@pytest.mark.parametrize("n,pad", [(1, 3), (2, 5), (3, 7), (5, 2), (200, 400), (401, 400)])
+def test_reflect_index_is_numpys_reflect(n, pad):
+    x = np.arange(n) * 1.5 + 1
+    np.testing.assert_array_equal(x[taudio.reflect_index(n, pad).numpy()],
+                                  np.pad(x, pad, mode="reflect"))
+
+
+def test_spectrogram_helpers_match_jax():
+    """``frame_signal`` bit for bit; ``inv_preemphasis`` inverts
+    ``preemphasis`` (JAX's bound, tests/test_audio.py) and agrees with JAX's
+    scan within 1e-5; ``linearspectrogram`` within 1e-3 (its 401 bins are
+    not averaged by the mel filterbank: the FFTs' rounding at a bin of low
+    magnitude shows, 4.0e-4 at 2 of 32,882 values);
+    ``db_to_amp`` and ``denormalize_spec`` (symmetric and not) within 1e-5
+    relative, the round trip within JAX's bound."""
+    rng = np.random.default_rng(7)
+    w = (0.3 * rng.standard_normal((2, 8000))).astype(np.float32)
+    tw, jw = torch.from_numpy(w), jnp.asarray(w)
+    np.testing.assert_array_equal(taudio.frame_signal(tw, 800, 200).numpy(),
+                                  np.asarray(jaudio.frame_signal(jw, 800, 200)))
+    y = taudio.preemphasis(tw)
+    back = taudio.inv_preemphasis(y)
+    np.testing.assert_allclose(back.numpy(), w, rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose(back.numpy(), np.asarray(jaudio.inv_preemphasis(
+        jaudio.preemphasis(jw))), rtol=0, atol=1e-5)
+    assert taudio.inv_preemphasis(y, apply=False) is y
+    got = taudio.linearspectrogram(tw).numpy()
+    assert got.shape == (2, 401, 41)
+    np.testing.assert_allclose(got, np.asarray(jaudio.linearspectrogram(jw)), rtol=0, atol=1e-3)
+    S = rng.uniform(-100, 0, (80, 20)).astype(np.float32)
+    np.testing.assert_allclose(taudio.db_to_amp(torch.from_numpy(S)).numpy(),
+                               np.asarray(jaudio.db_to_amp(jnp.asarray(S))), rtol=1e-5)
+    for cfg in ({}, {"symmetric_mels": False}):
+        tc, jc = TAudioCfg(**cfg), JAudioCfg(**cfg)
+        n = taudio.normalize_spec(torch.from_numpy(S), tc)
+        d = rng.uniform(-5, 5, (80, 20)).astype(np.float32)
+        np.testing.assert_allclose(taudio.denormalize_spec(torch.from_numpy(d), tc).numpy(),
+                                   np.asarray(jaudio.denormalize_spec(jnp.asarray(d), jc)),
+                                   rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(taudio.denormalize_spec(n, tc).numpy(), S, rtol=1e-4,
+                                   atol=1e-3)
+
+
 def test_normalize_audio_matches_jax():
     wave = _waves() * np.array([[1.0], [10.0], [0.01], [1.0]], np.float32)
     want = np.asarray(jnorm(jnp.asarray(wave)))

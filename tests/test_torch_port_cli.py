@@ -118,12 +118,113 @@ def test_build_config_matches_jax(argv):
     (["train-noisy-classifier", "--out", "x.pt"], "--synthetic"),
     (["sample-diffusion", "--out", "x.png"], "invalid choice"),
     (["lipread-e2e", "--epochs", "1"], "the following arguments are required: --data-root"),
+    (["train-gan", "--records-root", "recs/"], "ROADMAP §1 item 6"),
+    (["train-gan", "--steps-per-dispatch", "4"], "ROADMAP §1 item 6"),
+    (["train-gan", "--lip-expert-checkpoint", "le/"], "ROADMAP §1 item 7"),
+    (["train-gan", "--avhubert-checkpoint", "av/"], "ROADMAP §1 item 7"),
+    (["train-gan", "--synthetic", "--set", "gan.lip_weight=0.5"], "ROADMAP §1 item 7"),
+    (["eval-gan", "--synthetic"], "the following arguments are required: --checkpoint"),
+    (["infer-lipsync", "--face", "f.mp4", "--audio", "a.wav"],
+     "the following arguments are required: --out"),
+    (["preprocess-gan", "--data-root", "d/"], "the following arguments are required: --out"),
+    (["train-syncnet", "--objective", "hinge"], "invalid choice"),
 ], ids=lambda v: v[0] if isinstance(v, list) else None)
 def test_refused_arguments_exit_with_a_usage_error(argv, message, capsys):
     with pytest.raises(SystemExit) as e:
         cli.main(argv, device="cpu")
     assert e.value.code == 2
     assert message in capsys.readouterr().err
+
+
+TINY_GAN = _set("gan", model_width=0.125, batch_size=2, dtype="float32")
+
+
+def test_gan_expert_chain(tmp_path, capsys):
+    """train-syncnet (synthetic audio-visual clips, 2 held out for the AUC)
+    → train-gan against the exported expert, with evals, the gate and
+    checkpoints → eval-gan of the checkpoint directory."""
+    sync = str(tmp_path / "sync.pt")
+    assert cli.main(["train-syncnet", "--synthetic", "--steps", "2", "--eval-auc-every", "1",
+                     "--out", sync] + TINY_GAN, device="cpu") == 0
+    out = capsys.readouterr().out
+    assert "held-out discrimination AUC=" in out and f"saved sync expert → {sync}" in out
+    ck = str(tmp_path / "gan")
+    assert cli.main(["train-gan", "--synthetic", "--steps", "4", "--syncnet-checkpoint", sync,
+                     "--checkpoint-dir", ck, "--set", "gan.eval_interval=2",
+                     "--set", "gan.checkpoint_interval=2"] + TINY_GAN, device="cpu") == 0
+    assert sorted(os.listdir(ck)) == ["step_2.pt", "step_4.pt"]
+    assert cli.main(["eval-gan", "--checkpoint", ck, "--synthetic", "--batches", "2",
+                     "--syncnet-checkpoint", sync] + TINY_GAN, device="cpu") == 0
+    out = capsys.readouterr().out
+    for key in ("eval/l1", "eval/psnr", "eval/ssim", "eval/sync_loss"):
+        assert f"{key}: " in out
+    assert "untrained SyncNet" not in out
+
+
+def _clip_dir(path, frames: int, seed: int):
+    """A preprocess-gan clip directory: {i}.jpg of 32×32 and audio.wav."""
+    import cv2
+    import numpy as np
+    from lipreading_video_generation_tpu_torch.data import video as tvideo
+
+    rng = np.random.default_rng(seed)
+    path.mkdir(parents=True)
+    for i in range(frames):
+        cv2.imwrite(str(path / f"{i}.jpg"), rng.integers(0, 256, (32, 32, 3), np.uint8))
+    tvideo.save_wav(str(path / "audio.wav"),
+                    rng.standard_normal(16000 * frames // 25).astype(np.float32))
+
+
+def test_gan_commands_on_preprocessed_clips(tmp_path, capsys):
+    """--preprocessed-root: every clip directory under it (train-syncnet with
+    --eval-auc-every holds the last two out); an empty root is refused."""
+    root = tmp_path / "pre"
+    for i in range(4):
+        _clip_dir(root / "spk" / f"{i:05d}", 20, i)
+    assert cli.main(["train-syncnet", "--preprocessed-root", str(root), "--steps", "1",
+                     "--eval-auc-every", "1"] + TINY_GAN, device="cpu") == 0
+    assert "held-out discrimination AUC=" in capsys.readouterr().out
+    assert cli.main(["train-gan", "--preprocessed-root", str(root), "--steps", "1"] + TINY_GAN,
+                    device="cpu") == 0
+    (tmp_path / "empty").mkdir()
+    with pytest.raises(SystemExit) as e:
+        cli.main(["train-gan", "--preprocessed-root", str(tmp_path / "empty")], device="cpu")
+    assert e.value.code == 2 and "no clip directory" in capsys.readouterr().err
+
+
+def test_preprocess_gan_and_infer_lipsync(tmp_path, capsys):
+    """preprocess-gan over an LRS2-style tree (mp4, sidecar wav, transcript)
+    → clip directories; infer-lipsync of a face video and a wav with a
+    generator saved by save_once, in dynamic int8, pads and no smoothing."""
+    import numpy as np
+    from lipreading_video_generation_tpu_torch.core.checkpoint import save_once
+    from lipreading_video_generation_tpu_torch.core.prng import seeded
+    from lipreading_video_generation_tpu_torch.data import video as tvideo
+    from lipreading_video_generation_tpu_torch.models.generator import TalkingFaceGenerator
+
+    rng = np.random.default_rng(0)
+    data = tmp_path / "lrs2" / "spk"
+    data.mkdir(parents=True)
+    video = str(data / "00001.mp4")
+    tvideo.write_video(video, rng.integers(0, 256, (6, 48, 48, 3), np.uint8))
+    tvideo.save_wav(str(data / "00001.wav"), rng.standard_normal(3840).astype(np.float32))
+    (data / "00001.txt").write_text("Text:  HELLO THERE\nConf:  5\n")
+    out = tmp_path / "pre"
+    assert cli.main(["preprocess-gan", "--data-root", str(tmp_path / "lrs2"), "--out", str(out)],
+                    device="cpu") == 0
+    assert "ok=1 failed=0" in capsys.readouterr().out
+    clip = out / "spk" / "00001"
+    assert sorted(os.listdir(clip)) == sorted([f"{i}.jpg" for i in range(6)]
+                                              + ["audio.wav", "text.txt"])
+    assert (clip / "text.txt").read_text() == "hello there\n"
+
+    gen = str(tmp_path / "gen.pt")
+    save_once(gen, {"gen": seeded(lambda: TalkingFaceGenerator(width=0.125), 3).state_dict()})
+    result = str(tmp_path / "result.mp4")
+    assert cli.main(["infer-lipsync", "--face", video, "--audio", str(data / "00001.wav"),
+                     "--out", result, "--checkpoint", gen, "--int8", "--nosmooth",
+                     "--pads", "0", "4", "0", "0"] + TINY_GAN, device="cpu") == 0
+    assert "(6 frames, muxed=" in capsys.readouterr().out and os.path.exists(result)
 
 
 def test_module_entry_point_runs_on_the_card_by_default():

@@ -820,3 +820,175 @@ def test_lipread_e2e_run_on_card(cuda, tmp_path):
     took = {r: n - k2[r] for r, n in att.small_mha.route_counts.items()}
     assert took["cuda_core"] == 2 * (400 + n_words)
     assert took["sm90"] > 0 and took["sm90"] % 2 == 0
+
+
+def _gan_states(cfg, devices, syncnet_wt):
+    """Train states of ``train_gan`` on ``devices`` with the same weights
+    (drawn once from seed 0 on the CPU)."""
+    from lipreading_video_generation_tpu_torch.pipelines import train_gan as ttg
+
+    ref = ttg.create_state(cfg, device="cpu")
+    sds = [m.state_dict() for m in (ref.gen, ref.disc, ref.syncnet)]
+    states = []
+    for device in devices:
+        state = ttg.create_state(cfg, syncnet_params=sds[2], device=device)
+        state.gen.load_state_dict(sds[0])
+        state.disc.load_state_dict(sds[1])
+        state.syncnet_wt = syncnet_wt
+        states.append(state)
+    return states
+
+
+def _grad_l2(a, b):
+    """Relative L2 of ``a``'s whole gradient against ``b``'s (two modules of
+    one kind), the conv biases before a GroupNorm of one channel a group
+    (gradient 0 in exact arithmetic, noise on either side) aside."""
+    zero = {f"{n}.conv.bias" for n, mod in b.named_modules()
+            if getattr(mod, "norm", None) is not None
+            and mod.norm.groups == mod.norm.weight.numel()}
+    num = den = 0.0
+    for (n, p), (_, q) in zip(a.named_parameters(), b.named_parameters()):
+        if n not in zero:
+            num += float(((p.grad.cpu() - q.grad).double() ** 2).sum())
+            den += float((q.grad.double() ** 2).sum())
+    return math.sqrt(num / den)
+
+
+def _plant_gan_fault(monkeypatch, fault, state, prep):
+    """A fault in ``train_gan``'s step on ``state``: ``l1_weight`` weights
+    L1 by 1 − syncnet_wt (disc_wt left out); ``sync`` leaves the sync loss
+    out of G's gradient (its value kept); ``order`` makes D's fake batch with
+    the updated generator."""
+    from lipreading_video_generation_tpu_torch.pipelines import losses
+    from lipreading_video_generation_tpu_torch.pipelines import train_gan as ttg
+
+    if fault == "l1_weight":
+        real = losses.generator_loss
+
+        def l1_weight(recon, sync, perceptual, lip, syncnet_wt, disc_wt, lip_weight):
+            total, terms = real(recon, sync, perceptual, lip, syncnet_wt, disc_wt, lip_weight)
+            return total + disc_wt * recon, terms
+
+        monkeypatch.setattr(losses, "generator_loss", l1_weight)
+    elif fault == "sync":
+        real = ttg._sync_loss
+        monkeypatch.setattr(ttg, "_sync_loss", lambda *a: real(*a).detach())
+    else:
+        calls = []
+
+        def fake_from_new_gen(module, args):
+            calls.append(1)
+            if len(calls) == 3:
+                with torch.no_grad():
+                    return (state.gen(prep["indiv_mels"].to(state.device),
+                                      prep["x"].to(state.device)),)
+
+        state.disc.register_forward_pre_hook(fake_from_new_gen)
+
+
+@pytest.mark.parametrize("syncnet_wt,tol_l2,faults", [
+    (0.0, {"gen": 1e-2, "disc": 1e-2}, {"l1_weight": "gen", "order": "disc"}),
+    (0.03, {"gen": 5e-2, "disc": 1e-2}, {"sync": "gen", "order": "disc"}),
+])
+def test_gan_train_step_on_card_matches_cpu(cuda, monkeypatch, syncnet_wt, tol_l2, faults):
+    """One float32 G+D step at width 0.25, batch 2, the sync gate shut and
+    open, card (cuDNN without TF32) against CPU on the same prepared batch
+    (the CPU's ``prepare_batch``): every loss within 1e-4 relative, each
+    network's whole gradient within ``tol_l2[net]`` relative L2
+    (``_grad_l2``). Each limit lies between that sound reading and the
+    reading of each fault planted on the card's side (``_plant_gan_fault``),
+    which must exceed it. No hand-written kernel runs. Prints the
+    readings."""
+    from lipreading_video_generation_tpu_torch.core.config import AudioConfig, GanConfig
+    from lipreading_video_generation_tpu_torch.data import datasets
+    from lipreading_video_generation_tpu_torch.pipelines import train_gan as ttg
+
+    cfg = GanConfig(model_width=0.25, batch_size=2, dtype="float32")
+    clips = datasets.synthetic_av_clips(n_clips=3, frames=30, img=96, seed=0)
+    batch = datasets.GanWindowSampler(clips, 5, seed=0).sample_batch(2)
+    prep = ttg.prepare_batch(batch, cfg, AudioConfig(), "cpu")
+    monkeypatch.setattr(ttg, "prepare_batch", lambda b, c, a, device: {
+        k: v.to(device) for k, v in prep.items()})
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    card, cpu, *planted = _gan_states(cfg, (cuda, "cpu") + (cuda,) * len(faults), syncnet_wt)
+    launches = (cl.clahe_cuda.launch_count, mm.int8_matmul.launch_count,
+                att.small_mha.launch_count)
+    m_card = ttg.train_step(card, batch, cfg)
+    torch.cuda.synchronize()
+    assert (cl.clahe_cuda.launch_count, mm.int8_matmul.launch_count,
+            att.small_mha.launch_count) == launches
+    m_cpu = ttg.train_step(cpu, batch, cfg)
+    for k, v in m_cpu.items():
+        assert abs(m_card[k].item() - v.item()) <= 1e-4 * abs(v.item()) + 1e-7, k
+    sound = {net: _grad_l2(getattr(card, net), getattr(cpu, net)) for net in ("gen", "disc")}
+    readings = {}
+    for (fault, net), state in zip(faults.items(), planted):
+        with monkeypatch.context() as mp:
+            _plant_gan_fault(mp, fault, state, prep)
+            ttg.train_step(state, batch, cfg)
+        readings[fault] = _grad_l2(getattr(state, net), getattr(cpu, net))
+    print(f"syncnet_wt {syncnet_wt}: card vs CPU {sound}; planted faults {readings} "
+          f"(limit {tol_l2})")
+    assert all(v <= tol_l2[net] for net, v in sound.items()), sound
+    assert all(readings[f] > tol_l2[net] for f, net in faults.items()), readings
+
+
+def test_contrast_boost_on_card_runs_k1_tiled(cuda):
+    """Whole 360×640 frames: one K1 launch by the tiled route; its L channel
+    within K1's bound of the plain version (1 + 1e-2 levels: the clip limit
+    is no integer count here)."""
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.integers(0, 256, (2, 360, 640, 3), dtype=np.uint8)).to(cuda)
+    before = dict(cl.clahe_cuda.route_counts)
+    out = im.contrast_boost(x)
+    torch.cuda.synchronize()
+    assert {r: n - before[r] for r, n in cl.clahe_cuda.route_counts.items()} == {
+        "packed": 0, "tiled": 1}
+    assert out.dtype == torch.uint8 and out.shape == x.shape
+    L = im.rgb_to_lab(x)[..., 0]
+    assert (im.clahe(L) - cl.clahe_reference(L.cpu()).to(cuda)).abs().max() <= 1.01
+
+
+def test_lipsync_video_int8_on_card(cuda, tmp_path):
+    """``lipsync_video`` on the card (its default) from frames in memory and
+    a 1.2 s wav at the generator's default width: 30 frames, one batch, K6
+    once per convolution (51) by the tensor-core route in dynamic int8."""
+    from lipreading_video_generation_tpu_torch.core.config import GanConfig
+    from lipreading_video_generation_tpu_torch.core.prng import seeded
+    from lipreading_video_generation_tpu_torch.data import video as tvideo
+    from lipreading_video_generation_tpu_torch.models.generator import TalkingFaceGenerator
+    from lipreading_video_generation_tpu_torch.models.s3fd import S3FD
+    from lipreading_video_generation_tpu_torch.pipelines import inference as tinf
+
+    rng = np.random.default_rng(4)
+    frames = rng.integers(0, 256, (30, 360, 640, 3), dtype=np.uint8)
+    tvideo.save_wav(str(tmp_path / "a.wav"), rng.standard_normal(19200).astype(np.float32))
+    gen = seeded(TalkingFaceGenerator, 0).state_dict()
+    kept = {}
+    before = dict(mm.int8_matmul.route_counts)
+    res = tinf.lipsync_video(gen, seeded(S3FD, 0), "in-memory", str(tmp_path / "a.wav"),
+                             str(tmp_path / "o.mp4"), GanConfig(serve_int8=True),
+                             read_frames=lambda p, *conditioning: (frames, 25.0),
+                             write_video=lambda p, f, fps: kept.update(frames=f))
+    assert res.frames.shape == frames.shape and kept["frames"] is res.frames and not res.muxed
+    assert {r: n - before[r] for r, n in mm.int8_matmul.route_counts.items()} == {
+        "sm90": 51, "mma_sync": 0}
+
+
+def test_cli_gan_chain_on_card(cuda, tmp_path, capsys):
+    """train-syncnet → train-gan → eval-gan through ``cli.main`` on the card
+    (its default) at width 0.25."""
+    from lipreading_video_generation_tpu_torch import cli
+
+    tiny = ["--set", "gan.model_width=0.25", "--set", "gan.batch_size=4"]
+    sync, ck = str(tmp_path / "s.pt"), str(tmp_path / "gan")
+    assert cli.main(["train-syncnet", "--synthetic", "--steps", "4", "--out", sync] + tiny) == 0
+    assert cli.main(["train-gan", "--synthetic", "--steps", "4", "--syncnet-checkpoint", sync,
+                     "--checkpoint-dir", ck, "--set", "gan.eval_interval=2",
+                     "--set", "gan.checkpoint_interval=4"] + tiny) == 0
+    assert cli.main(["eval-gan", "--checkpoint", ck, "--synthetic", "--batches", "2",
+                     "--syncnet-checkpoint", sync] + tiny) == 0
+    out = capsys.readouterr().out
+    vals = {ln.split(":")[0]: float(ln.split(":")[1]) for ln in out.splitlines()
+            if ln.startswith("eval/")}
+    assert len(vals) == 4 and all(math.isfinite(v) for v in vals.values())

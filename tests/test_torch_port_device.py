@@ -15,12 +15,16 @@ import torch
 from lipreading_video_generation_tpu_torch import cli as tcli
 from lipreading_video_generation_tpu_torch.core import config as tcfg
 from lipreading_video_generation_tpu_torch.core import device as tdev
+from lipreading_video_generation_tpu_torch.core.prng import seeded
 from lipreading_video_generation_tpu_torch.models import face_api as tface
+from lipreading_video_generation_tpu_torch.models.s3fd import S3FD as TS3FD
 from lipreading_video_generation_tpu_torch.models import word_lm as twlm
 from lipreading_video_generation_tpu_torch.pipelines import inference as tinf
 from lipreading_video_generation_tpu_torch.pipelines import lipreading_e2e as te2e
 from lipreading_video_generation_tpu_torch.pipelines import sentence_eval as tse
 from lipreading_video_generation_tpu_torch.pipelines import train_landmark as ttl
+from lipreading_video_generation_tpu_torch.pipelines import train_gan as ttg
+from lipreading_video_generation_tpu_torch.pipelines import train_syncnet as tts
 from lipreading_video_generation_tpu_torch.pipelines import train_classifier as ttc
 from lipreading_video_generation_tpu_torch.pipelines import train_diffusion as ttd
 from lipreading_video_generation_tpu_torch.pipelines import train_superres as tsr
@@ -54,7 +58,8 @@ ENTRY_POINTS = [ttd.create_state, ttd.train, ttc.create_state, ttc.train, tsr.cr
                 tsr.train, tinf.generate_frames, ttv.create_state, ttv.train, tcli.main,
                 ttl.create_state, ttl.train, ttl.load_params, twlm.train_word_lm,
                 tse.NeuralScorer, tse.fit_default_scorer, tface.FaceAlignment,
-                te2e.build_word_clip_dataset, te2e.run]
+                te2e.build_word_clip_dataset, te2e.run, ttg.create_state, ttg.train,
+                tts.create_state, tts.train, tinf.lipsync_video]
 
 
 @pytest.mark.parametrize("fn", ENTRY_POINTS,
@@ -66,6 +71,8 @@ def test_entry_points_default_to_the_card(fn):
 def test_entry_points_raise_without_cuda_instead_of_stepping_down(no_cuda):
     tiny = tcfg.DiffusionConfig(im_size=16, base_channels=32, channel_mult=(1,),
                                 num_res_blocks=1, attention_resolutions=(), audio_samples=800)
+    tiny_gan = tcfg.GanConfig(model_width=0.125, batch_size=2)
+    gan_set = ["--set", "gan.model_width=0.125", "--set", "gan.batch_size=2"]
     calls = [
         lambda: ttd.create_state(tiny),
         lambda: ttd.train(tiny, lambda: None, num_steps=0),
@@ -88,6 +95,18 @@ def test_entry_points_raise_without_cuda_instead_of_stepping_down(no_cuda):
         lambda: te2e.run(tcfg.Config(), "/nonexistent"),
         lambda: tcli.main(["train-landmark", "--steps", "0"]),
         lambda: tcli.main(["lipread-e2e", "--data-root", "/nonexistent"]),
+        lambda: ttg.create_state(tiny_gan),
+        lambda: ttg.train(tiny_gan, lambda: None, num_steps=0),
+        lambda: tts.create_state(tiny_gan),
+        lambda: tts.train(tiny_gan, lambda: None, num_steps=0),
+        lambda: tinf.lipsync_video({}, seeded(TS3FD, 0), "face.mp4", "speech.wav", "out.mp4"),
+        lambda: tcli.main(["train-gan", "--synthetic", "--steps", "1"] + gan_set),
+        lambda: tcli.main(["train-syncnet", "--synthetic", "--steps", "1"] + gan_set),
+        lambda: tcli.main(["eval-gan", "--checkpoint", "/nonexistent", "--synthetic"]
+                          + gan_set),
+        lambda: tcli.main(["infer-lipsync", "--face", "f.mp4", "--audio", "a.wav", "--out",
+                           "o.mp4"] + gan_set),
+        lambda: tcli.main(["preprocess-gan", "--data-root", "/nonexistent", "--out", "/x"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):

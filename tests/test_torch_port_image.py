@@ -222,6 +222,74 @@ def test_clahe_cpu_dispatch_is_plain_and_launches_nothing():
         tcl.clahe_cuda(x)
 
 
+def test_lab_round_trip_and_contrast_boost_match_jax():
+    """``rgb_to_lab`` / ``lab_to_rgb`` within 1e-4 of JAX (the goldens of
+    tests/test_image.py: OpenCV's LAB within 3 levels on average, the round
+    trip within 1.5); ``contrast_boost`` keeps shape and dtype and agrees with
+    JAX's within CLAHE's known differences (ROADMAP §3: the bf16 blend, and a
+    bin edge met by L values 3e-5 apart moves a tile's LUT entry): mean |d|
+    below 0.5 level (0.25 measured), over 2 levels at under 1% of the values
+    (0.11% uint8, 0.27% float)."""
+    import cv2
+
+    rng = np.random.default_rng(8)
+    x = rng.integers(0, 256, (2, 48, 64, 3), dtype=np.uint8)
+    lab = tim.rgb_to_lab(torch.from_numpy(x))
+    jlab = np.asarray(jim.rgb_to_lab(jnp.asarray(x)))
+    np.testing.assert_allclose(lab.numpy(), jlab, rtol=0, atol=1e-4)
+    assert np.mean(np.abs(lab.numpy()[0] - cv2.cvtColor(x[0], cv2.COLOR_RGB2LAB))) < 3.0
+    back = tim.lab_to_rgb(lab).numpy()
+    np.testing.assert_allclose(back, np.asarray(jim.lab_to_rgb(jnp.asarray(jlab))), rtol=0,
+                               atol=1e-3)
+    assert np.mean(np.abs(back - x)) < 1.5
+    for img in (x, x.astype(np.float32)):
+        got = tim.contrast_boost(torch.from_numpy(img))
+        want = np.asarray(jim.contrast_boost(jnp.asarray(img)))
+        assert got.shape == img.shape and got.dtype == (
+            torch.uint8 if img.dtype == np.uint8 else torch.float32)
+        d = np.abs(got.numpy().astype(np.float32) - want.astype(np.float32))
+        assert d.mean() < 0.5 and (d > 2).mean() < 0.01, (d.mean(), (d > 2).mean())
+    lo = rng.integers(100, 140, (64, 64, 3)).astype(np.uint8)   # a flat image gains contrast
+    assert tim.contrast_boost(torch.from_numpy(lo)).numpy().std() > lo.std()
+
+
+def test_resize_batch_random_crop_and_apply_mask_match_jax():
+    """``resize_batch`` is JAX's (uint8 within a level at ties, float 1e-4);
+    ``random_crop`` at a given offset is the slice JAX's draws lead to, and
+    its own draws stay inside; ``apply_mask`` as JAX's and its golden."""
+    import jax
+
+    rng = np.random.default_rng(9)
+    x = rng.integers(0, 256, (3, 40, 52, 3), dtype=np.uint8)
+    for size, method in (((20, 26), "bilinear"), ((64, 30), "cubic"), ((13, 17), "nearest")):
+        got = tim.resize_batch(torch.from_numpy(x), size, method).numpy().astype(np.int32)
+        want = np.asarray(jim.resize_batch(jnp.asarray(x), size, method)).astype(np.int32)
+        assert got.shape == want.shape == (3,) + size + (3,)
+        assert np.abs(got - want).max() <= 1
+        xf = x.astype(np.float32)
+        np.testing.assert_allclose(
+            tim.resize_batch(torch.from_numpy(xf), size, method).numpy(),
+            np.asarray(jim.resize_batch(jnp.asarray(xf), size, method)), rtol=0, atol=1e-3)
+    key = jax.random.key(3)
+    want = np.asarray(jim.random_crop(key, jnp.asarray(x), 24))
+    ky, kx = jax.random.split(key)
+    yx = (int(jax.random.randint(ky, (), 0, 40 - 24 + 1)),
+          int(jax.random.randint(kx, (), 0, 52 - 24 + 1)))
+    assert np.array_equal(tim.random_crop(torch.from_numpy(x), 24, offset=yx).numpy(), want)
+    g = torch.Generator().manual_seed(0)
+    for _ in range(20):
+        assert tim.random_crop(torch.from_numpy(x), 24, generator=g).shape == (3, 24, 24, 3)
+    with pytest.raises(ValueError, match="outside"):
+        tim.random_crop(torch.from_numpy(x), 24, offset=(17, 0))
+    frames = np.full((2, 4, 4, 3), 7.0, np.float32)
+    mask = np.zeros((4, 4), np.float32)
+    mask[:2] = 255
+    out = tim.apply_mask(torch.from_numpy(frames), torch.from_numpy(mask)).numpy()
+    np.testing.assert_array_equal(out, np.asarray(jim.apply_mask(jnp.asarray(frames),
+                                                                 jnp.asarray(mask))))
+    assert out[:, :2].min() == 7.0 and out[:, 2:].max() == 0.0
+
+
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     """No nvcc: the build raises a clear error; nothing falls back."""
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
