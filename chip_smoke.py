@@ -53,6 +53,13 @@ weights made from a seed, and checks every hand-written kernel on them:
   route); the GAN step itself runs no hand-written kernel (convolutions,
   GroupNorm, BCE and Adam are library and plain torch work, as in the JAX
   package, where XLA does it);
+- the data feed: a frame index of in-memory videos, diffusion records
+  packed from it, ``train-diffusion --records-root`` streaming them through
+  the port's native prefetch loader (``csrc/prefetch_loader.cpp``, built
+  with g++) four steps a dispatch at the ``DiffusionConfig`` defaults (K2-K5
+  in every step), ``sample-diffusion`` on the checkpoint it wrote (K2, K3),
+  and ``pack-gan-records`` → ``train-gan --records-root`` at the
+  ``GanConfig`` defaults;
 - the int8 lipreader (``predict_step_int8``: K6 once per Linear) and the K6
   microbench (``bench.microbench_int8``: both of K6's type pairs at 4096³).
 
@@ -157,7 +164,25 @@ script exits non-zero without printing a result):
    ``ClassifierConfig`` defaults on ``synthetic_batch`` (batch 32,
    128×128), then a guided ``sample_video`` of 4 frames × 10 DDIM steps
    (label 2, scale 5): K4/K5 twice a step.
-11. lipsync — ``generate_frames`` on the serving bench's inputs (256 frames
+11. data — builds ``csrc/prefetch_loader.cpp`` with g++ into the port's
+   ``_build/`` (its path must lie under the port); a frame index
+   (``build_frame_index`` through ``frame_count``) of 4 in-memory videos of
+   48 drawn 160×160 frames at 25 fps with sidecar waves; 64 records of
+   114,304 B at 128×128 (``DiffusionPairSampler`` through ``read_frames``,
+   ``write_diffusion_records``), records/s; ``cli.main(["train-diffusion",
+   "--records-root", ..., "--steps", "12", "--steps-per-dispatch", "4",
+   "--checkpoint-every", "12"])`` at the ``DiffusionConfig`` defaults
+   (batch 8): the native route, K2 52, K3 208, K4 and K5 192 each (16 a step,
+   and the eval at step 12), all by ``sm90``, step times (the first apart),
+   the share of the loop spent waiting on the feed, the first and last
+   loss, the checkpoint's write time and size; ``cli.main(["sample-diffusion",
+   "--checkpoint", ..., "--frames", "4", "--ddim-steps", "10"])``: 4 PNGs
+   read back with ``zlib``, not constant, within 1 level of ``sample_video``
+   on the same EMA params and seed, K2 4 and K3 160 by ``sm90``, load,
+   sample and write times; ``pack-gan-records --synthetic`` (32) →
+   ``train-gan --records-root --steps 8 --steps-per-dispatch 8`` at the
+   ``GanConfig`` defaults by the native route: losses, feed waits.
+12. lipsync — ``generate_frames`` on the serving bench's inputs (256 frames
    of 360×640, boxes [40,300,180,430] ± 4, standard-normal mels): one
    warm-up and 3 timed requests each in float, dynamic int8 and static
    int8; uint8 frames of the input's shape, untouched outside the boxes;
@@ -165,10 +190,10 @@ script exits non-zero without printing a result):
    by the tensor-core route) and never in float; the generator's int8 output against its float output
    (PSNR); a batch-8 float request against the CPU; a profile of one
    dynamic int8 request (device busy share, device time by int8 stage).
-12. microbench — ``bench.microbench_int8.run``: K6 in bf16 and in int8
+13. microbench — ``bench.microbench_int8.run``: K6 in bf16 and in int8
    (B row-major and B a (N, K) weight transposed) and the library's calls
    on the same operands at 4096³, after its own checks.
-13. timing — request and train-step times, frames/s, each kernel's
+14. timing — request and train-step times, frames/s, each kernel's
    CUDA-event time beside its plain version's at the main-path shapes, the
    one PyTorch call that computes the same function where there is one
    (``scaled_dot_product_attention`` and its backward, at all three U-Net
@@ -2027,6 +2052,262 @@ def phase_guidance(dev: dict) -> dict:
     return {"launches": _counts()}
 
 
+DATA_VIDEOS = 4              # in-memory videos of the frame index
+DATA_VIDEO_FRAMES = 48       # 160x160 frames each, at 25 fps
+DATA_RECORDS = 64            # diffusion records packed at 128x128
+DATA_TRAIN_STEPS = 12
+DATA_GAN_RECORDS = 32
+DATA_GAN_STEPS = 8
+
+
+@contextlib.contextmanager
+def _timed(module, name: str, times: list, after=None):
+    """Wrap ``module.name`` for the block: each call's wall seconds (after
+    ``after(result)``, e.g. a synchronise) are appended to ``times``."""
+    orig = getattr(module, name)
+
+    def wrapper(*args, **kw):
+        t0 = time.perf_counter()
+        out = orig(*args, **kw)
+        if after is not None:
+            after(out)
+        times.append(time.perf_counter() - t0)
+        return out
+
+    setattr(module, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def read_png(path: str) -> np.ndarray:
+    """An 8-bit RGB PNG of unfiltered rows (as ``data/video.write_png``
+    writes them) → (H, W, 3) uint8, decoded with ``zlib`` alone."""
+    import struct
+    import zlib
+
+    data = open(path, "rb").read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"{path}: not a PNG")
+    pos, idat, w, h = 8, b"", 0, 0
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if kind == b"IHDR":
+            w, h, depth, color = struct.unpack(">IIBB", body[:10])
+            if (depth, color) != (8, 2):
+                raise AssertionError(f"{path}: bit depth {depth}, colour type {color}")
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + n
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    if rows[:, 0].any():
+        raise AssertionError(f"{path}: filtered rows")
+    return rows[:, 1:].reshape(h, w, 3).copy()
+
+
+def phase_data(dev: dict) -> dict:
+    """The data feed at the ``DiffusionConfig`` and ``GanConfig`` defaults:
+    the native loader's build, a frame index of in-memory videos through the
+    seams, packed diffusion records, ``train-diffusion --records-root`` (4
+    steps a dispatch), ``sample-diffusion --checkpoint`` on what it saved,
+    ``pack-gan-records`` and ``train-gan --records-root``."""
+    import os
+    import tempfile
+
+    from lipreading_video_generation_tpu_torch import cli
+    from lipreading_video_generation_tpu_torch.core.config import DiffusionConfig, GanConfig
+    from lipreading_video_generation_tpu_torch.core.prng import seeded
+    from lipreading_video_generation_tpu_torch.data import datasets as tdata
+    from lipreading_video_generation_tpu_torch.data import native_loader as nl
+    from lipreading_video_generation_tpu_torch.data import records as trec
+    from lipreading_video_generation_tpu_torch.data import video as tvideo
+    from lipreading_video_generation_tpu_torch.models.unet_audio import UNetAudio
+    from lipreading_video_generation_tpu_torch.ops import attention as att
+    from lipreading_video_generation_tpu_torch.pipelines import sample_diffusion as tsd
+    from lipreading_video_generation_tpu_torch.pipelines import train_diffusion as ttd
+    from lipreading_video_generation_tpu_torch.pipelines import train_gan as ttg
+
+    phase_t0 = time.perf_counter()
+    lib = nl.build(force=True)
+    pkg = os.path.dirname(os.path.dirname(os.path.abspath(tdata.__file__)))
+    if not str(lib).startswith(pkg + os.sep) or not nl.native_available():
+        raise AssertionError(f"prefetch loader built at {lib}, not under {pkg}")
+    log("data", f"prefetch loader built by {nl.build_info['compiler']} in "
+        f"{nl.build_info['seconds']:.2f} s: {lib}")
+    cfg, gcfg = DiffusionConfig(), GanConfig()
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_data_")
+    root = work.name
+    try:
+        # frame index of in-memory videos: frames through the seams, sidecar waves on disk
+        clips = tdata.synthetic_av_clips(n_clips=DATA_VIDEOS, frames=DATA_VIDEO_FRAMES, img=160,
+                                         seed=SEED + 60)
+        os.makedirs(os.path.join(root, "videos"))
+        videos = {}
+        for i, clip in enumerate(clips):
+            path = os.path.join(root, "videos", f"{i:05d}.mp4")   # never opened
+            tvideo.save_wav(os.path.splitext(path)[0] + ".wav", clip.wav)
+            videos[path] = (clip.frames, 25.0)
+        t0 = time.perf_counter()
+        items = tdata.build_frame_index(sorted(videos), step=6,
+                                        frame_count=lambda p: len(videos[p][0]))
+        sampler = tdata.DiffusionPairSampler(items, cfg.audio_samples, cfg.buffer_frames,
+                                             seed=SEED, read_frames=videos.__getitem__)
+        recs = os.path.join(root, "diffusion_records")
+        spec = trec.write_diffusion_records(sampler, recs, DATA_RECORDS, cfg.im_size)
+        pack_s = time.perf_counter() - t0
+        want_bytes = 2 * cfg.im_size * cfg.im_size * 3 + 4 * cfg.audio_samples   # 114,304
+        if spec.record_bytes != want_bytes or len(trec.record_paths(recs)) != DATA_RECORDS:
+            raise AssertionError(f"records of {spec.record_bytes} B, "
+                                 f"{len(trec.record_paths(recs))} files")
+        log("data", f"frame index: {len(items)} pairs of {DATA_VIDEOS} in-memory videos "
+            f"({DATA_VIDEO_FRAMES} frames of 160x160 at 25 fps, sidecar waves); "
+            f"{DATA_RECORDS} diffusion records of {spec.record_bytes} B at {cfg.im_size}x"
+            f"{cfg.im_size} in {pack_s:.3f} s = {DATA_RECORDS / pack_s:.1f} records/s "
+            "(DiffusionPairSampler, resize on the host)")
+
+        # train-diffusion from the records, 4 steps a dispatch, one checkpoint
+        ck = os.path.join(root, "diffusion_ck")
+        steps, losses, waits, saves = [], [], [], []
+        native0 = dict(trec.iter_record_batches.route_counts)
+        _zero_counts()
+
+        def synced_loss(out):
+            losses.append(out["loss"].item())      # the trainer reads it next anyway
+
+        t0 = time.perf_counter()
+        with _timed(ttd, "train_step", steps, synced_loss), _timed(ttd, "take", waits), \
+                _timed(ttd, "save_checkpoint", saves):
+            rc = cli.main(["train-diffusion", "--records-root", recs, "--steps",
+                           str(DATA_TRAIN_STEPS), "--steps-per-dispatch", "4",
+                           "--checkpoint-dir", ck, "--checkpoint-every", str(DATA_TRAIN_STEPS)])
+        train_s = time.perf_counter() - t0
+        d = _counts()
+        want = {"small_mha": 4 * (DATA_TRAIN_STEPS + 1),      # + the eval at the last step
+                "flash_attention": 16 * (DATA_TRAIN_STEPS + 1),
+                "flash_bwd_dkv": 16 * DATA_TRAIN_STEPS, "flash_bwd_dq": 16 * DATA_TRAIN_STEPS}
+        routes = dict(trec.iter_record_batches.route_counts)
+        if rc != 0 or len(steps) != DATA_TRAIN_STEPS or d != want:
+            raise AssertionError(f"train-diffusion: rc {rc}, {len(steps)} steps, launches {d}, "
+                                 f"want {want}")
+        if routes["native"] != native0["native"] + 1 or routes["plain"] != native0["plain"]:
+            raise AssertionError(f"the records fed train-diffusion by the routes {routes}")
+        if not (np.isfinite(losses).all() and len(saves) == 1):
+            raise AssertionError(f"losses {losses}, {len(saves)} checkpoints")
+        _all_by_tensor_cores("data", att.small_mha, att.flash_attention, att.flash_bwd_dkv,
+                             att.flash_bwd_dq)
+        launches = dict(d)
+        ck_path = ttd.latest_checkpoint(ck)
+        ck_mb = os.path.getsize(ck_path) / 2**20
+        step_ms = [x * 1e3 for x in steps]
+        loop_s = sum(steps) + sum(waits)
+        log("data", f"train-diffusion --records-root --steps {DATA_TRAIN_STEPS} "
+            f"--steps-per-dispatch 4 at the DiffusionConfig defaults (batch {cfg.batch_size}, "
+            f"{cfg.dtype}), native route ({routes}): {train_s:.2f} s in cli.main; step 0 "
+            f"{step_ms[0]:.1f} ms, steps 1-{DATA_TRAIN_STEPS - 1} median "
+            f"{statistics.median(step_ms[1:]):.3f} ms (min {min(step_ms[1:]):.3f}, max "
+            f"{max(step_ms[1:]):.3f}) ({dev['smi']}); feed waits {len(waits)} takes, "
+            f"{sum(waits) * 1e3:.3f} ms = {sum(waits) / loop_s:.4f} of the loop (first take "
+            f"{waits[0] * 1e3:.3f} ms; the rest {sum(waits[1:]) * 1e3:.3f} ms = "
+            f"{sum(waits[1:]) / (loop_s - waits[0] - steps[0]):.4f} of steps 1-"
+            f"{DATA_TRAIN_STEPS - 1}); loss step 0 {losses[0]:.5f}, step "
+            f"{DATA_TRAIN_STEPS - 1} {losses[-1]:.5f}; checkpoint {ck_mb:.1f} MiB written in "
+            f"{saves[0]:.3f} s; launches {d} (4 K2, 16 K3/K4/K5 a step, the eval at step "
+            f"{DATA_TRAIN_STEPS} K2 4 and K3 16; all by sm90)")
+
+        # sample-diffusion from that checkpoint, held against sample_video on its EMA
+        out = os.path.join(root, "sample")
+        loads, samples, writes = [], [], []
+        before = _counts()
+        t0 = time.perf_counter()
+        with _timed(ttd, "load_sampling_params", loads), \
+                _timed(tsd, "sample_video", samples, lambda x: torch.cuda.synchronize()), \
+                _timed(tvideo, "write_png", writes):
+            rc = cli.main(["sample-diffusion", "--checkpoint", ck, "--frames", str(DIFF_FRAMES),
+                           "--ddim-steps", str(DIFF_STEPS), "--out", out])
+        request_s = time.perf_counter() - t0
+        d = _delta(before)
+        want = {"small_mha": 4, "flash_attention": 16 * DIFF_STEPS, "flash_bwd_dkv": 0,
+                "flash_bwd_dq": 0}
+        if rc != 0 or d != want:
+            raise AssertionError(f"sample-diffusion: rc {rc}, launches {d}, want {want}")
+        for k, v in d.items():
+            launches[k] += v
+        _all_by_tensor_cores("data", att.small_mha, att.flash_attention)
+        frames = np.stack([read_png(f"{out}.{j:04d}.png") for j in range(DIFF_FRAMES)])
+        if frames.shape != (DIFF_FRAMES, cfg.im_size, cfg.im_size, 3) or not all(
+                f.std() > 0 for f in frames):
+            raise AssertionError(f"sample-diffusion PNGs {frames.shape}, stds "
+                                 f"{[float(f.std()) for f in frames]}")
+        model = seeded(lambda: UNetAudio(cfg), SEED)
+        model.load_state_dict(ttd.load_sampling_params(ck))
+        model = model.to("cuda").eval()
+        rng = np.random.default_rng(SEED)        # the CLI's draws without --cond-video
+        cond = rng.integers(0, 256, (cfg.im_size, cfg.im_size, 3), dtype=np.uint8)
+        windows = rng.standard_normal((DIFF_FRAMES, cfg.audio_samples)).astype(np.float32)
+        direct = tsd.sample_video(model, cond, windows, cfg, num_inference_steps=DIFF_STEPS,
+                                  generator=torch.Generator("cuda").manual_seed(SEED)).cpu()
+        diff = int(np.abs(direct.numpy().astype(int) - frames.astype(int)).max())
+        if diff > 1:
+            raise AssertionError(f"sample-diffusion PNGs differ from sample_video by {diff} levels")
+        del model
+        log("data", f"sample-diffusion --checkpoint --frames {DIFF_FRAMES} --ddim-steps "
+            f"{DIFF_STEPS}: {request_s:.3f} s in cli.main: load "
+            f"{request_s - samples[0] - sum(writes):.3f} s (seeded init, torch.load of the "
+            f"checkpoint's EMA {loads[0]:.3f} s, copy to the card), sample {samples[0] * 1e3:.3f} ms, write {len(writes)} PNGs "
+            f"{sum(writes) * 1e3:.3f} ms ({dev['smi']}); PNGs read back with zlib: "
+            f"{frames.shape} uint8, pixel means {[round(float(f.mean()), 2) for f in frames]}, "
+            f"max {diff} levels from sample_video on the same EMA params and seed; launches {d} "
+            f"(all by sm90)")
+
+        # pack-gan-records, then train-gan from them in one dispatch of 8 steps
+        grecs = os.path.join(root, "gan_records")
+        t0 = time.perf_counter()
+        rc = cli.main(["pack-gan-records", "--synthetic", "--out", grecs, "--num-records",
+                       str(DATA_GAN_RECORDS)])
+        gpack_s = time.perf_counter() - t0
+        gspec = trec.load_spec(grecs)
+        if rc != 0 or len(trec.record_paths(grecs)) != DATA_GAN_RECORDS:
+            raise AssertionError(f"pack-gan-records: rc {rc}")
+        gsteps, gmetrics, gwaits = [], [], []
+        native0 = dict(trec.iter_record_batches.route_counts)
+        before = _counts()
+
+        def gan_metrics(out):
+            gmetrics.append({k: round(float(v), 5) for k, v in out.items()
+                             if k in ("loss/g_total", "loss/l1", "loss/d_real", "loss/d_fake")})
+
+        t0 = time.perf_counter()
+        with _timed(ttg, "train_step", gsteps, gan_metrics), _timed(ttg, "take", gwaits):
+            rc = cli.main(["train-gan", "--records-root", grecs, "--steps", str(DATA_GAN_STEPS),
+                           "--steps-per-dispatch", str(DATA_GAN_STEPS)])
+        gtrain_s = time.perf_counter() - t0
+        routes = dict(trec.iter_record_batches.route_counts)
+        if rc != 0 or len(gsteps) != DATA_GAN_STEPS or _delta(before) != dict.fromkeys(before, 0):
+            raise AssertionError(f"train-gan: rc {rc}, {len(gsteps)} steps, launches "
+                                 f"{_delta(before)}")
+        if routes["native"] != native0["native"] + 1 or routes["plain"] != native0["plain"]:
+            raise AssertionError(f"the records fed train-gan by the routes {routes}")
+        if not all(np.isfinite(list(m.values())).all() for m in gmetrics):
+            raise AssertionError(f"train-gan losses {gmetrics}")
+        gms = [x * 1e3 for x in gsteps]
+        log("data", f"pack-gan-records --synthetic: {DATA_GAN_RECORDS} records of "
+            f"{gspec.record_bytes} B in {gpack_s:.3f} s; train-gan --records-root --steps "
+            f"{DATA_GAN_STEPS} --steps-per-dispatch {DATA_GAN_STEPS} at the GanConfig defaults "
+            f"(width {gcfg.model_width}, batch {gcfg.batch_size}, {gcfg.dtype}), native route: "
+            f"{gtrain_s:.2f} s in cli.main; step 0 {gms[0]:.1f} ms, steps 1-"
+            f"{DATA_GAN_STEPS - 1} median {statistics.median(gms[1:]):.3f} ms ({dev['smi']}); "
+            f"feed waits {len(gwaits)} takes, {sum(gwaits) * 1e3:.3f} ms = "
+            f"{sum(gwaits) / (sum(gsteps) + sum(gwaits)):.4f} of the loop; losses step 0 "
+            f"{gmetrics[0]}, step {DATA_GAN_STEPS - 1} {gmetrics[-1]}; no hand-written kernel "
+            "(as in [gan])")
+    finally:
+        work.cleanup()
+    log("data", f"phase took {time.perf_counter() - phase_t0:.1f} s")
+    return {"launches": launches}
+
+
 def flax_generator_params(width: float, seed: int) -> dict:
     """Random weights in the tree and shapes of the Flax
     ``TalkingFaceGenerator(width=width)`` (the card's machine has no flax):
@@ -3146,10 +3427,11 @@ def main() -> None:
     trained = phase_train(dev)["launches"]
     superres = phase_superres(dev)["launches"]
     guided = phase_guidance(dev)["launches"]
+    fed = phase_data(dev)["launches"]
     lipsync = phase_lipsync(dev)
     gan = phase_gan(dev)
     microbench = phase_microbench()
-    paths = (vivit_trained, diffused, trained, superres, guided)
+    paths = (vivit_trained, diffused, trained, superres, guided, fed)
     launches = {"clahe": served["clahe"] + lipread["clahe"] + gan["clahe"],
                 "small_mha": (served["small_mha"] + lipread["small_mha"]
                               + sum(p["small_mha"] for p in paths)),

@@ -1,23 +1,31 @@
 """Dataset samplers: fixed-shape numpy batches for the trainers.
 
-Port of the parts of ``lipreading_video_generation_tpu/data/datasets.py``
-the ViViT and GAN trainers need: ``WordClipSampler`` and
-``synthetic_word_clips``; ``GanClip``, ``GanWindowSampler``,
-``load_gan_clip``, ``synthetic_gan_clips`` and ``synthetic_av_clips`` (with
-``_formant_wave`` and ``_render_face_clip``), copied in numpy, so that a
-seed gives batches and clips equal to the JAX package's bit for bit.
-``load_gan_clip`` reads JPEGs through OpenCV, imported on call. Transcript
-batches (``with_text``) need the lip expert's tokenizer (ROADMAP §1 item 7);
-the diffusion side comes with item 6.
+Port of ``lipreading_video_generation_tpu/data/datasets.py``, copied in
+numpy so that a seed gives batches and clips equal to the JAX package's bit
+for bit: ``WordClipSampler`` and ``synthetic_word_clips`` (ViViT);
+``GanClip``, ``GanWindowSampler``, ``load_gan_clip``, ``synthetic_gan_clips``
+and ``synthetic_av_clips`` (with ``_formant_wave`` and ``_render_face_clip``)
+(the GAN); ``FrameItem``, ``build_frame_index``, ``save_frame_index`` /
+``load_frame_index`` (pickles interchangeable with the JAX package's),
+``split_records``, ``DiffusionPairSampler``, ``condition_from_video``,
+``condition_windows_from_video`` and ``load_full_video_sample`` (diffusion).
+
+Videos are decoded with OpenCV, imported on call. Where it is absent the
+diffusion side takes frames through seams: ``frame_count=path -> int`` and
+``read_frames=path -> (frames, fps)``, defaulting to ``data/video``'s
+``video_frame_count`` and ``read_video_frames``. Transcript batches
+(``with_text``) need the lip expert's tokenizer (ROADMAP §1 item 7).
 """
 from __future__ import annotations
 
 import os
+import pickle
 from dataclasses import dataclass
-from typing import Dict, Iterator, List, Optional, Sequence
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from . import video
 from .video import _cv2, load_wav
 
 
@@ -143,6 +151,190 @@ def load_gan_clip(frames_dir: str, img_size: Optional[int] = None) -> GanClip:
         with open(text_path) as f:
             text = f.readline().strip().lower()
     return GanClip(np.stack(frames), wav, text=text)
+
+
+FrameCount = Callable[[str], int]
+ReadFrames = Callable[[str], Tuple[np.ndarray, float]]
+
+
+@dataclass(frozen=True)
+class FrameItem:
+    """(video_path, frame_start, frame_end): one diffusion frame pair."""
+
+    video_path: str
+    frame_start: int
+    frame_end: int
+
+
+def build_frame_index(video_paths: Sequence[str], step: int = 6,
+                      fps_effective: float = 30.0,
+                      frame_count: Optional[FrameCount] = None) -> List[FrameItem]:
+    """Frame pairs (start, start + ``step``) every ``step`` frames of each
+    video, up to the last full step. ``frame_count(path)`` gives a video's
+    frame count (default ``video.video_frame_count``, OpenCV)."""
+    frame_count = frame_count or video.video_frame_count
+    items: List[FrameItem] = []
+    for path in video_paths:
+        n = frame_count(path)
+        for start in range(0, max(0, n - step), step):
+            items.append(FrameItem(path, start, start + step))
+    return items
+
+
+def save_frame_index(items: Sequence[FrameItem], path: str) -> None:
+    """Pickle the index as a list of plain (path, start, end) tuples, as the
+    JAX package writes it."""
+    with open(path, "wb") as f:
+        pickle.dump([(it.video_path, it.frame_start, it.frame_end) for it in items], f)
+
+
+def load_frame_index(path: str) -> List[FrameItem]:
+    """An index pickle of tuples, ``FrameItem``s or any objects with
+    ``video_path``/``frame_start``/``frame_end`` (the reference's). Only
+    load pickles this program or a trusted tool wrote: unpickling runs code."""
+    with open(path, "rb") as f:
+        raw = pickle.load(f)
+    out = []
+    for item in raw:
+        if isinstance(item, FrameItem):
+            out.append(item)
+        elif isinstance(item, (tuple, list)):
+            out.append(FrameItem(*item))
+        else:
+            out.append(FrameItem(item.video_path, item.frame_start, item.frame_end))
+    return out
+
+
+def split_records(items: Sequence, train: float = 0.8, val: float = 0.1,
+                  seed: int = 0) -> Tuple[list, list, list]:
+    """Deterministic train/val/test split of a permutation drawn from
+    ``np.random.default_rng(seed)`` (80/10/10 by default)."""
+    rng = np.random.default_rng(seed)
+    idx = rng.permutation(len(items))
+    n_train = int(train * len(items))
+    n_val = int(val * len(items))
+    pick = lambda ids: [items[i] for i in ids]  # noqa: E731
+    return pick(idx[:n_train]), pick(idx[n_train: n_train + n_val]), pick(idx[n_train + n_val:])
+
+
+class DiffusionPairSampler:
+    """FrameItem → (condition frame ``frame_start``, target frame
+    ``frame_end``, the audio slice starting ``buffer_frames`` frames before
+    the target at the video's fps, zero-padded to ``audio_samples`` at
+    16 kHz). A video's wav is its sidecar ``.wav`` (else 1 s of silence);
+    the last ``cache_size`` videos stay decoded. ``read_frames(path)`` gives
+    (frames, fps) (default ``video.read_video_frames``, OpenCV)."""
+
+    def __init__(self, items: Sequence[FrameItem], audio_samples: int = 4000,
+                 buffer_frames: int = 5, fps: float = 25.0, seed: int = 0,
+                 cache_size: int = 64, read_frames: Optional[ReadFrames] = None):
+        self.items = list(items)
+        self.audio_samples = audio_samples
+        self.buffer_frames = buffer_frames
+        self.fps = fps
+        self.rng = np.random.default_rng(seed)
+        self._cache: Dict[str, Tuple[np.ndarray, np.ndarray, float]] = {}
+        self._cache_size = cache_size
+        self._read_frames = read_frames or video.read_video_frames
+
+    def _load(self, path: str):
+        if path not in self._cache:
+            if len(self._cache) >= self._cache_size:
+                self._cache.pop(next(iter(self._cache)))
+            frames, fps = self._read_frames(path)
+            wav_path = os.path.splitext(path)[0] + ".wav"
+            wav = load_wav(wav_path) if os.path.exists(wav_path) else np.zeros(16000, np.float32)
+            self._cache[path] = (frames, wav, fps)
+        return self._cache[path]
+
+    def get(self, item: FrameItem) -> Dict[str, np.ndarray]:
+        frames, wav, fps = self._load(item.video_path)
+        t_end = min(item.frame_end, len(frames) - 1)
+        cond = frames[min(item.frame_start, len(frames) - 1)]
+        target = frames[t_end]
+        sr = 16000
+        start = int(max(0.0, (t_end - self.buffer_frames) / fps) * sr)
+        sl = wav[start: start + self.audio_samples]
+        sl = np.pad(sl, (0, self.audio_samples - len(sl)))
+        return {"cond_frame": cond, "target_frame": target, "audio": sl.astype(np.float32)}
+
+    def sample_batch(self, batch_size: int) -> Dict[str, np.ndarray]:
+        picks = self.rng.integers(0, len(self.items), batch_size)
+        rows = [self.get(self.items[i]) for i in picks]
+        return {k: np.stack([r[k] for r in rows]) for k in rows[0]}
+
+
+def condition_from_video(video_path: str, cfg, audio_path: Optional[str] = None,
+                         frame_step: int = 6,
+                         read_frames: Optional[ReadFrames] = None) -> Tuple[np.ndarray, np.ndarray]:
+    """(condition frame uint8, audio window float32) for sampling from a real
+    clip: its first frame, and the ``buffer_frames``-before-target window of
+    its audio for the target frame ``frame_step``."""
+    frames, fps = (read_frames or video.read_video_frames)(video_path)
+    target_idx = min(frame_step, len(frames) - 1)
+    wav = _clip_audio(video_path, audio_path)
+    return frames[0], _audio_window(wav, target_idx, fps, cfg)
+
+
+def _clip_audio(video_path: str, audio_path: Optional[str] = None,
+                sr: int = 16000) -> np.ndarray:
+    """A clip's whole wave: ``audio_path``, else the sidecar ``.wav``, else
+    extracted with ffmpeg; ``ValueError`` when none of them is there."""
+    if audio_path is not None:
+        return load_wav(audio_path, sr)
+    sidecar = os.path.splitext(video_path)[0] + ".wav"
+    if os.path.exists(sidecar):
+        return load_wav(sidecar, sr)
+    import tempfile
+
+    # a temporary file in a writable directory: the source tree may be read-only
+    fd, tmp = tempfile.mkstemp(suffix=".wav")
+    os.close(fd)
+    try:
+        if video.extract_audio(video_path, tmp, sr):
+            return load_wav(tmp, sr)
+    finally:
+        os.unlink(tmp)
+    raise ValueError(f"no audio for {video_path!r}: pass --cond-audio, add a sidecar .wav, "
+                     "or install ffmpeg")
+
+
+def _audio_window(wav: np.ndarray, target_idx: int, fps: float, cfg,
+                  sr: int = 16000) -> np.ndarray:
+    """The slice from ``buffer_frames`` frames before the target, zero-padded
+    to ``cfg.audio_samples``."""
+    start = int(max(0.0, (target_idx - cfg.buffer_frames) / fps) * sr)
+    sl = wav[start: start + cfg.audio_samples]
+    return np.pad(sl, (0, cfg.audio_samples - len(sl))).astype(np.float32)
+
+
+def condition_windows_from_video(
+        video_path: str, cfg, n_frames: int, audio_path: Optional[str] = None,
+        read_frames: Optional[ReadFrames] = None) -> Tuple[np.ndarray, np.ndarray, float]:
+    """(condition frame uint8, (n_frames, audio_samples) windows, fps) for
+    whole-clip sampling: the first frame conditions every target frame j,
+    whose window is the slice before frame j."""
+    frames, fps = (read_frames or video.read_video_frames)(video_path)
+    wav = _clip_audio(video_path, audio_path)
+    windows = np.stack([_audio_window(wav, j, fps, cfg) for j in range(n_frames)])
+    return frames[0], windows, fps
+
+
+def load_full_video_sample(video_path: str, transcript_path: Optional[str] = None,
+                           audio_samples_per_frame: int = 640) -> Dict[str, object]:
+    """A whole video: every frame, the sidecar wav (else silence as long as
+    the video at ``audio_samples_per_frame`` a frame), the transcript's
+    text and the fps."""
+    from .manifest import parse_transcript
+
+    frames, fps = video.read_video_frames(video_path)
+    wav_path = os.path.splitext(video_path)[0] + ".wav"
+    wav = load_wav(wav_path) if os.path.exists(wav_path) else np.zeros(
+        int(len(frames) * audio_samples_per_frame), np.float32)
+    text = ""
+    if transcript_path and os.path.exists(transcript_path):
+        text, _ = parse_transcript(transcript_path)
+    return {"frames": frames, "audio": wav, "text": text, "fps": fps}
 
 
 def synthetic_gan_clips(n_clips: int = 4, frames: int = 25, img: int = 96, seed: int = 0,

@@ -9,13 +9,17 @@ missing ``cv2`` raises ``ImportError`` naming what needs it: the port runs
 where OpenCV is absent as long as frames come from memory (see
 ``pipelines.lipreading_e2e.run(read_frames=...)``). wav IO is scipy's;
 ffmpeg (audio extraction and muxing) is used where it is on the PATH.
+PNG images are written without OpenCV (``write_png``: ``zlib`` and
+``struct``), so the sampler writes its frames where OpenCV is absent.
 """
 from __future__ import annotations
 
 import importlib
 import os
 import shutil
+import struct
 import subprocess
+import zlib
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -85,6 +89,34 @@ def write_video(path: str, frames: np.ndarray, fps: float = 25.0) -> None:
             out.write(np.ascontiguousarray(f[:, :, ::-1]))
     finally:
         out.release()
+
+
+def _png_chunk(kind: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    """(H, W, 3) RGB uint8 → an 8-bit RGB PNG file (every row unfiltered,
+    one zlib stream), written without OpenCV."""
+    img = np.ascontiguousarray(img)
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"write_png takes (H, W, 3) uint8, got {img.dtype} {img.shape}")
+    h, w = img.shape[:2]
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, -1)], axis=1).tobytes()
+    header = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)   # 8-bit RGB, no interlace
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", header)
+                + _png_chunk(b"IDAT", zlib.compress(raw, 6)) + _png_chunk(b"IEND", b""))
+
+
+def write_image(path: str, img: np.ndarray) -> None:
+    """(H, W, 3) RGB uint8 → an image file: ``write_png`` for ``.png``,
+    OpenCV for other formats (``ImportError`` where it is absent)."""
+    if path.lower().endswith(".png"):
+        write_png(path, img)
+    elif not _cv2("write_image").imwrite(path, np.ascontiguousarray(img[:, :, ::-1])):
+        raise OSError(f"OpenCV could not write {path!r}")
 
 
 def load_wav(path: str, target_sr: int = 16000) -> np.ndarray:

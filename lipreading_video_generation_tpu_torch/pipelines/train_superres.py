@@ -4,7 +4,8 @@ Port of ``lipreading_video_generation_tpu/pipelines/train_superres.py``:
 train on (area-downsampled low, high) pairs made from the target frames,
 q-sample + ε-MSE + Adam + EMA with the diffusion trainer's state
 (``train_diffusion.DiffusionTrainState``); the trained model is the second
-stage of ``sample_diffusion.sample_cascade``. One step per iteration (no
+stage of ``sample_diffusion.sample_cascade``. A dispatch of
+``steps_per_dispatch`` batches runs as that many ordinary steps (no
 ``train_scan``); ``train_step`` takes explicit ``t`` and ``noise`` as the
 diffusion trainer's does.
 """
@@ -15,6 +16,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from ..core.config import SuperResConfig
+from ..data.loader import dispatch_bounds, host_prefetch, take
 from ..models.unet import SuperResModel, UNetModel
 from ..ops import image as image_ops
 from .losses import noise_mse
@@ -60,25 +62,36 @@ def train_step(state: DiffusionTrainState, batch: Dict[str, Any], cfg: SuperResC
 
 def train(cfg: SuperResConfig, batch_fn: Callable[[], Dict[str, Any]], num_steps: int = 1000,
           seed: int = 0, checkpoint_dir: Optional[str] = None, metrics_writer=None,
-          checkpoint_every: int = 500, mesh_spec=None, device=None) -> DiffusionTrainState:
-    """Step loop as ``train_diffusion.train``; also saves the last step."""
+          checkpoint_every: int = 500, mesh_spec=None, steps_per_dispatch: int = 4,
+          device=None) -> DiffusionTrainState:
+    """Step loop as ``train_diffusion.train`` (dispatches of up to
+    ``steps_per_dispatch`` steps cut at checkpoints, no eval); writes
+    ``{"loss"}`` at each step's count after it and also saves the last
+    step."""
     if mesh_spec is not None:
         raise NotImplementedError(
             "train: mesh_spec is not ported yet (ROADMAP §1 item 9, multi-GPU parallelism)")
     state = resume(create_state(cfg, seed, device), checkpoint_dir)
-    while state.step < num_steps:
-        batch = batch_fn()
-        if batch is None:
-            break   # finite feed exhausted
-        metrics = train_step(state, batch, cfg)
-        if metrics_writer is not None:
-            metrics_writer.write(state.step, {"loss": float(metrics["loss"])})
-        if checkpoint_dir and state.step % checkpoint_every == 0:
-            save_checkpoint(checkpoint_dir, state)
+    feed = host_prefetch(batch_fn, depth=2 * max(1, steps_per_dispatch))
+    try:
+        while state.step < num_steps:
+            raws = take(feed, dispatch_bounds(state.step, num_steps, steps_per_dispatch,
+                                              checkpoint_every))
+            if not raws:
+                break   # finite feed exhausted
+            for batch in raws:
+                metrics = train_step(state, batch, cfg)
+                if metrics_writer is not None:
+                    metrics_writer.write(state.step, {"loss": float(metrics["loss"])})
+            if checkpoint_dir and state.step % checkpoint_every == 0:
+                save_checkpoint(checkpoint_dir, state)
+    finally:
+        feed.close()
     if checkpoint_dir and state.step % checkpoint_every != 0:
         save_checkpoint(checkpoint_dir, state)
     return state
 
 
-# SR checkpoints have the diffusion trainer's layout
+# SR checkpoints have the diffusion trainer's layout: a checkpoint directory
+# (latest step, EMA params by default) or a file holding {"params": ...}
 load_sr_params = load_sampling_params

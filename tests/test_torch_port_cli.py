@@ -108,18 +108,17 @@ def test_build_config_matches_jax(argv):
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["train-diffusion", "--frame-index", "idx.pkl"], "ROADMAP §1 item 6"),
-    (["train-diffusion", "--records-root", "recs/"], "ROADMAP §1 item 6"),
     (["train-diffusion", "--wav2vec2-checkpoint", "w2v/"], "ROADMAP §1 item 7"),
-    (["train-superres", "--frame-index", "idx.pkl"], "ROADMAP §1 item 6"),
-    (["train-diffusion", "--steps-per-dispatch", "4"], "unrecognized arguments"),
+    (["sample-diffusion", "--frames", "3"], "the following arguments are required: --out"),
+    (["sample-diffusion", "--sr-checkpoint", "sr/", "--out", "x.png"], "cascade mismatch"),
     (["train-vivit", "--set", "vivit.no_such_key=1"], "unknown config key"),
     (["train-vivit", "--set", "mesh.model_parallel=2"], "multi-GPU"),
     (["train-noisy-classifier", "--out", "x.pt"], "--synthetic"),
-    (["sample-diffusion", "--out", "x.png"], "invalid choice"),
+    (["pack-diffusion-records", "--synthetic"], "the following arguments are required: --out"),
     (["lipread-e2e", "--epochs", "1"], "the following arguments are required: --data-root"),
-    (["train-gan", "--records-root", "recs/"], "ROADMAP §1 item 6"),
-    (["train-gan", "--steps-per-dispatch", "4"], "ROADMAP §1 item 6"),
+    (["pack-gan-records", "--synthetic"], "the following arguments are required: --out"),
+    (["build-frame-index", "--out", "idx.pkl"],
+     "the following arguments are required: --data-root"),
     (["train-gan", "--lip-expert-checkpoint", "le/"], "ROADMAP §1 item 7"),
     (["train-gan", "--avhubert-checkpoint", "av/"], "ROADMAP §1 item 7"),
     (["train-gan", "--synthetic", "--set", "gan.lip_weight=0.5"], "ROADMAP §1 item 7"),
@@ -240,5 +239,159 @@ def test_module_entry_point_runs_on_the_card_by_default():
                        timeout=120)
     assert r.returncode == 0
     for cmd in ("train-vivit", "train-diffusion", "train-superres", "train-noisy-classifier",
-                "train-landmark", "lipread-e2e"):
+                "train-landmark", "lipread-e2e", "build-frame-index", "pack-gan-records",
+                "pack-diffusion-records", "sample-diffusion"):
         assert cmd in r.stdout
+
+
+def _lrs2_tree(root, n=2, frames=14, size=32):
+    """An LRS2-layout tree: <spk>/<id>.mp4 (OpenCV), a sidecar wav and a
+    transcript each."""
+    import cv2
+    import numpy as np
+    from lipreading_video_generation_tpu_torch.data import video as tvideo
+
+    spk = root / "spk"
+    spk.mkdir(parents=True)
+    for i in range(n):
+        rng = np.random.default_rng(i)
+        w = cv2.VideoWriter(str(spk / f"{i:05d}.mp4"), cv2.VideoWriter_fourcc(*"mp4v"), 25.0,
+                            (size, size))
+        for _ in range(frames):
+            w.write(rng.integers(0, 256, (size, size, 3), dtype=np.uint8))
+        w.release()
+        tvideo.save_wav(str(spk / f"{i:05d}.wav"),
+                        rng.standard_normal(640 * frames).astype(np.float32))
+        (spk / f"{i:05d}.txt").write_text("Text:  HELLO THERE\nConf:  5\n")
+    return str(root)
+
+
+def test_build_frame_index_then_train_on_it(tmp_path, capsys):
+    """build-frame-index over an OpenCV-written tree gives the JAX package's
+    index; train-diffusion and train-superres take it (--frame-index)."""
+    from lipreading_video_generation_tpu.data import datasets as jdata
+    from lipreading_video_generation_tpu.data import manifest as jmanifest
+    from lipreading_video_generation_tpu_torch.data import datasets as tdata
+
+    root = _lrs2_tree(tmp_path / "lrs2")
+    idx = str(tmp_path / "idx.pkl")
+    assert cli.main(["build-frame-index", "--data-root", root, "--out", idx, "--step", "4"],
+                    device="cpu") == 0
+    records, _ = jmanifest.build_manifest(root)
+    want = jdata.build_frame_index([r.video_path for r in records], step=4)
+    got = tdata.load_frame_index(idx)
+    assert len(got) == 6 and [tuple(vars(i).values()) for i in got] == [
+        (i.video_path, i.frame_start, i.frame_end) for i in want]
+    assert f"6 frame pairs → {idx}" in capsys.readouterr().out
+    ck = tmp_path / "ck"
+    assert cli.main(["train-diffusion", "--frame-index", idx, "--steps", "2",
+                     "--checkpoint-dir", str(ck), "--checkpoint-every", "2"] + TINY_DIFFUSION,
+                    device="cpu") == 0
+    assert sorted(os.listdir(ck)) == ["step_000000002.pt"]
+    sr = tmp_path / "sr"
+    assert cli.main(["train-superres", "--frame-index", idx, "--steps", "3",
+                     "--steps-per-dispatch", "2", "--checkpoint-dir", str(sr)] + TINY_SUPERRES,
+                    device="cpu") == 0
+    assert sorted(os.listdir(sr)) == ["step_000000003.pt"]
+
+
+def _same_files(a, b):
+    import filecmp
+
+    names = sorted(os.listdir(a))
+    assert names == sorted(os.listdir(b))
+    assert all(filecmp.cmp(os.path.join(a, n), os.path.join(b, n), shallow=False) for n in names)
+
+
+def test_pack_records_equal_the_jax_cli_and_train_from_them(tmp_path, capsys):
+    """pack-gan-records / pack-diffusion-records --synthetic write the JAX
+    CLI's files byte for byte; train-gan and train-diffusion stream them by
+    the native route, several steps a dispatch."""
+    from lipreading_video_generation_tpu_torch.data import records as trec
+
+    for cmd, sets, b in (("pack-gan-records", [], 340484),
+                         ("pack-diffusion-records", TINY_DIFFUSION, 4736)):
+        argv = [cmd, "--synthetic", "--num-records", "3"] + sets
+        assert cli.main(argv + ["--out", str(tmp_path / f"t{cmd}")], device="cpu") == 0
+        assert f"3 records ({b} B each)" in capsys.readouterr().out
+        assert jcli.main(argv + ["--out", str(tmp_path / f"j{cmd}")]) == 0
+        _same_files(tmp_path / f"t{cmd}", tmp_path / f"j{cmd}")
+    before = trec.iter_record_batches.route_counts["native"]
+    ck = tmp_path / "gan"
+    assert cli.main(["train-gan", "--records-root", str(tmp_path / "tpack-gan-records"),
+                     "--steps", "3", "--steps-per-dispatch", "4", "--checkpoint-dir", str(ck),
+                     "--set", "gan.checkpoint_interval=3"] + TINY_GAN, device="cpu") == 0
+    assert sorted(os.listdir(ck)) == ["step_3.pt"]
+    ck = tmp_path / "diff"
+    assert cli.main(["train-diffusion", "--records-root",
+                     str(tmp_path / "tpack-diffusion-records"), "--steps", "3",
+                     "--checkpoint-dir", str(ck), "--checkpoint-every", "3"] + TINY_DIFFUSION,
+                    device="cpu") == 0
+    assert sorted(os.listdir(ck)) == ["step_000000003.pt"]
+    assert trec.iter_record_batches.route_counts["native"] == before + 2
+
+
+def _png(path):
+    import cv2
+
+    return cv2.imread(str(path), cv2.IMREAD_UNCHANGED)[:, :, ::-1]
+
+
+def test_sample_diffusion(tmp_path, capsys):
+    """One frame from inputs drawn as the JAX CLI draws them equals
+    ``sample`` called directly (same seeded model, generator seed); a clip
+    from a checkpoint's EMA as PNGs and as video; a frame conditioned on a
+    video; a guided frame; a two-stage cascade."""
+    import numpy as np
+    from lipreading_video_generation_tpu_torch.core.prng import seeded
+    from lipreading_video_generation_tpu_torch.models.unet_audio import UNetAudio
+    from lipreading_video_generation_tpu_torch.pipelines import sample_diffusion as tsd
+
+    out = tmp_path / "x.png"
+    assert cli.main(["sample-diffusion", "--ddim-steps", "3", "--seed", "2", "--out", str(out)]
+                    + TINY_DIFFUSION, device="cpu") == 0
+    assert f"wrote {out} (+1 snapshots available)" in capsys.readouterr().out
+    cfg = cli.build_config(argparse.Namespace(seed=2, overrides=TINY_DIFFUSION[1::2]))
+    d = cfg.diffusion
+    rng = np.random.default_rng(2)         # the JAX CLI's draws, in its order
+    cond = rng.integers(0, 256, (1, d.im_size, d.im_size, 3), dtype=np.uint8)
+    audio = rng.standard_normal((1, d.audio_samples)).astype(np.float32)
+    x0, _ = tsd.sample(seeded(lambda: UNetAudio(d), 2).eval(), cond, audio, d,
+                       num_inference_steps=3, generator=torch.Generator().manual_seed(2))
+    np.testing.assert_array_equal(_png(out), (x0[0] * 255).to(torch.uint8).numpy())
+
+    ck = str(tmp_path / "ck")
+    assert cli.main(["train-diffusion", "--synthetic", "--steps", "1", "--checkpoint-dir", ck,
+                     "--checkpoint-every", "1"] + TINY_DIFFUSION, device="cpu") == 0
+    clip = str(tmp_path / "clip")
+    assert cli.main(["sample-diffusion", "--checkpoint", ck, "--frames", "3", "--ddim-steps",
+                     "2", "--sampler", "dpmpp", "--out", clip] + TINY_DIFFUSION,
+                    device="cpu") == 0
+    assert f"wrote 3-frame clip → {clip}" in capsys.readouterr().out
+    frames = [_png(f"{clip}.{j:04d}.png") for j in range(3)]
+    assert all(f.shape == (16, 16, 3) for f in frames)
+    assert cli.main(["sample-diffusion", "--checkpoint", ck, "--no-ema", "--frames", "2",
+                     "--ddim-steps", "2", "--out", clip + ".mp4"] + TINY_DIFFUSION,
+                    device="cpu") == 0
+    assert os.path.getsize(clip + ".mp4") > 0
+
+    video = os.path.join(_lrs2_tree(tmp_path / "lrs2", n=1), "spk", "00000.mp4")
+    assert cli.main(["sample-diffusion", "--cond-video", video, "--ddim-steps", "2", "--eta",
+                     "1", "--out", str(tmp_path / "v.png")] + TINY_DIFFUSION, device="cpu") == 0
+
+    clf = str(tmp_path / "clf.pt")
+    assert cli.main(["train-noisy-classifier", "--synthetic", "--steps", "1", "--out", clf]
+                    + TINY_DIFFUSION + TINY_CLASSIFIER, device="cpu") == 0
+    assert cli.main(["sample-diffusion", "--classifier-checkpoint", clf, "--class-label", "1",
+                     "--guidance-scale", "3", "--ddim-steps", "2", "--out",
+                     str(tmp_path / "g.png")] + TINY_DIFFUSION + TINY_CLASSIFIER,
+                    device="cpu") == 0
+    assert _png(tmp_path / "g.png").shape == (16, 16, 3)
+
+    sr = str(tmp_path / "sr")
+    assert cli.main(["train-superres", "--synthetic", "--steps", "1", "--checkpoint-dir", sr]
+                    + TINY_SUPERRES, device="cpu") == 0
+    assert cli.main(["sample-diffusion", "--sr-checkpoint", sr, "--sr-steps", "2",
+                     "--ddim-steps", "2", "--out", str(tmp_path / "hi.png")] + TINY_DIFFUSION
+                    + TINY_SUPERRES + ["--set", "diffusion.im_size=8"], device="cpu") == 0
+    assert _png(tmp_path / "hi.png").shape == (16, 16, 3)

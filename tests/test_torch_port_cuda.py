@@ -992,3 +992,75 @@ def test_cli_gan_chain_on_card(cuda, tmp_path, capsys):
     vals = {ln.split(":")[0]: float(ln.split(":")[1]) for ln in out.splitlines()
             if ln.startswith("eval/")}
     assert len(vals) == 4 and all(math.isfinite(v) for v in vals.values())
+
+
+# the data feed (ROADMAP §1 item 6): a 64x64 U-Net with attention at ds 1
+# and 2, bf16, so K3-K5 take their tensor-core route
+_FEED_SET = ["--set", "diffusion.im_size=64", "--set", "diffusion.base_channels=32",
+             "--set", "diffusion.batch_size=4", "--set", "diffusion.num_timesteps=50"]
+
+
+def test_records_stream_by_the_native_route_into_training_on_card(cuda, tmp_path):
+    """Diffusion records packed on the host stream through the native
+    loader into train steps on the card: K3, K4 and K5 by ``sm90``."""
+    from lipreading_video_generation_tpu_torch import cli
+    from lipreading_video_generation_tpu_torch.data import records as trec
+
+    recs, ck = str(tmp_path / "recs"), str(tmp_path / "ck")
+    assert cli.main(["pack-diffusion-records", "--synthetic", "--out", recs, "--num-records",
+                     "8"] + _FEED_SET) == 0
+    native = trec.iter_record_batches.route_counts["native"]
+    before = {k: dict(f.route_counts) for k, f in (("k3", att.flash_attention),
+                                                    ("k4", att.flash_bwd_dkv),
+                                                    ("k5", att.flash_bwd_dq))}
+    assert cli.main(["train-diffusion", "--records-root", recs, "--steps", "3",
+                     "--steps-per-dispatch", "2", "--checkpoint-dir", ck,
+                     "--checkpoint-every", "3"] + _FEED_SET) == 0
+    assert trec.iter_record_batches.route_counts["native"] == native + 1
+    for k, f in (("k3", att.flash_attention), ("k4", att.flash_bwd_dkv),
+                 ("k5", att.flash_bwd_dq)):
+        assert f.route_counts["sm90"] > before[k]["sm90"]
+        assert f.route_counts["cuda_core"] == before[k]["cuda_core"]
+
+
+def test_cli_sample_diffusion_on_card_matches_direct_sample(cuda, tmp_path):
+    """``sample-diffusion --frames 3`` on the card (its default): the PNGs,
+    read back with chip_smoke's zlib decoder, equal ``sample_video`` on the same seeded model,
+    inputs and generator seed within a level; K3 by ``sm90``."""
+    from chip_smoke import read_png
+    from lipreading_video_generation_tpu_torch import cli
+    from lipreading_video_generation_tpu_torch.core.config import DiffusionConfig
+    from lipreading_video_generation_tpu_torch.core.prng import seeded
+    from lipreading_video_generation_tpu_torch.models.unet_audio import UNetAudio
+    from lipreading_video_generation_tpu_torch.pipelines import sample_diffusion as tsd
+
+    out = str(tmp_path / "clip")
+    sm90 = att.flash_attention.route_counts["sm90"]
+    assert cli.main(["sample-diffusion", "--frames", "3", "--ddim-steps", "4", "--seed", "1",
+                     "--out", out] + _FEED_SET) == 0
+    assert att.flash_attention.route_counts["sm90"] > sm90
+    got = np.stack([read_png(f"{out}.{j:04d}.png") for j in range(3)])
+    cfg = DiffusionConfig(im_size=64, base_channels=32, batch_size=4, num_timesteps=50)
+    rng = np.random.default_rng(1)         # the CLI's draws without --cond-video
+    cond = rng.integers(0, 256, (64, 64, 3), dtype=np.uint8)
+    windows = rng.standard_normal((3, cfg.audio_samples)).astype(np.float32)
+    model = seeded(lambda: UNetAudio(cfg), 1).to(cuda).eval()
+    want = tsd.sample_video(model, cond, windows, cfg, num_inference_steps=4,
+                            generator=torch.Generator(cuda).manual_seed(1)).cpu().numpy()
+    assert got.shape == want.shape == (3, 64, 64, 3)
+    assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+
+
+def test_prefetch_to_device_hands_out_card_tensors_equal_to_the_host_batches(cuda):
+    from lipreading_video_generation_tpu_torch.data.loader import prefetch_to_device
+
+    rng = np.random.default_rng(0)
+    host = [{"frames": rng.integers(0, 256, (4, 8, 8, 3), dtype=np.uint8),
+             "audio": rng.standard_normal((4, 100)).astype(np.float32)} for _ in range(5)]
+    it = iter(host)
+    got = list(prefetch_to_device(lambda: next(it), depth=2))
+    assert len(got) == 5
+    for g, h in zip(got, host):
+        for k in h:
+            assert g[k].is_cuda and g[k].dtype == torch.from_numpy(h[k]).dtype
+            np.testing.assert_array_equal(g[k].cpu().numpy(), h[k])

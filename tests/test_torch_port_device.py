@@ -16,6 +16,7 @@ from lipreading_video_generation_tpu_torch import cli as tcli
 from lipreading_video_generation_tpu_torch.core import config as tcfg
 from lipreading_video_generation_tpu_torch.core import device as tdev
 from lipreading_video_generation_tpu_torch.core.prng import seeded
+from lipreading_video_generation_tpu_torch.data import loader as tloader
 from lipreading_video_generation_tpu_torch.models import face_api as tface
 from lipreading_video_generation_tpu_torch.models.s3fd import S3FD as TS3FD
 from lipreading_video_generation_tpu_torch.models import word_lm as twlm
@@ -59,7 +60,7 @@ ENTRY_POINTS = [ttd.create_state, ttd.train, ttc.create_state, ttc.train, tsr.cr
                 ttl.create_state, ttl.train, ttl.load_params, twlm.train_word_lm,
                 tse.NeuralScorer, tse.fit_default_scorer, tface.FaceAlignment,
                 te2e.build_word_clip_dataset, te2e.run, ttg.create_state, ttg.train,
-                tts.create_state, tts.train, tinf.lipsync_video]
+                tts.create_state, tts.train, tinf.lipsync_video, tloader.prefetch_to_device]
 
 
 @pytest.mark.parametrize("fn", ENTRY_POINTS,
@@ -107,6 +108,11 @@ def test_entry_points_raise_without_cuda_instead_of_stepping_down(no_cuda):
         lambda: tcli.main(["infer-lipsync", "--face", "f.mp4", "--audio", "a.wav", "--out",
                            "o.mp4"] + gan_set),
         lambda: tcli.main(["preprocess-gan", "--data-root", "/nonexistent", "--out", "/x"]),
+        lambda: tloader.prefetch_to_device(lambda: None),
+        lambda: tcli.main(["build-frame-index", "--data-root", "/nonexistent", "--out", "/x"]),
+        lambda: tcli.main(["pack-gan-records", "--synthetic", "--out", "/x"]),
+        lambda: tcli.main(["pack-diffusion-records", "--synthetic", "--out", "/x"]),
+        lambda: tcli.main(["sample-diffusion", "--out", "/x.png"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -129,4 +135,16 @@ def test_port_and_chip_smoke_import_no_jax():
     assert len(files) > 30
     bad = [(str(f.relative_to(ROOT)), mod) for f in files for mod in _imported_modules(f)
            if mod.split(".")[0] in FORBIDDEN]
+    assert bad == []
+
+
+def test_port_names_no_file_of_the_jax_package_native_loader():
+    """The port builds and loads its own prefetch loader: no file of it
+    names the JAX package's ``native/`` directory or the library there."""
+    pkg = ROOT / "lipreading_video_generation_tpu_torch"
+    files = [f for f in pkg.rglob("*") if f.suffix in (".py", ".cpp", ".cu", ".cuh")]
+    files.append(ROOT / "chip_smoke.py")
+    assert any(f.name == "prefetch_loader.cpp" for f in files)
+    bad = [str(f.relative_to(ROOT)) for f in files
+           if any(s in f.read_text() for s in ("native/", "tpu/native"))]
     assert bad == []
