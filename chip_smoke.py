@@ -60,6 +60,16 @@ weights made from a seed, and checks every hand-written kernel on them:
   in every step), ``sample-diffusion`` on the checkpoint it wrote (K2, K3),
   and ``pack-gan-records`` → ``train-gan --records-root`` at the
   ``GanConfig`` defaults;
+- the pretrained encoders: wav2vec2 base (768 wide, 12 layers, 12 heads,
+  FFN 3072) as the diffusion's audio encoder through ``port-wav2vec2`` →
+  ``train-diffusion --wav2vec2-checkpoint`` → ``sample-diffusion`` at the
+  ``DiffusionConfig`` defaults (its attention is K2 by the tensor-core
+  route, bf16, T′ = 12) and alone on a 10.24 s wave (T′ = 511: K3, sm90);
+  AV-HuBERT base and the character seq2seq lip expert as the GAN's frozen
+  lip expert (``port-avhubert``, ``train-lip-expert``, ``train-gan
+  --avhubert-checkpoint`` / ``--lip-expert-checkpoint`` at the ``GanConfig``
+  defaults; float32 experts: K2 by the CUDA-core route, causal in the
+  expert's decoder);
 - the int8 lipreader (``predict_step_int8``: K6 once per Linear) and the K6
   microbench (``bench.microbench_int8``: both of K6's type pairs at 4096³).
 
@@ -190,10 +200,27 @@ script exits non-zero without printing a result):
    by the tensor-core route) and never in float; the generator's int8 output against its float output
    (PSNR); a batch-8 float request against the CPU; a profile of one
    dynamic int8 request (device busy share, device time by int8 stage).
-13. microbench — ``bench.microbench_int8.run``: K6 in bf16 and in int8
+13. pretrained — random weights from seed 0 written in the published
+   layouts: ``port-wav2vec2 --pth`` on a base ``Wav2Vec2ForCTC``-layout file
+   → ``train-diffusion --wav2vec2-checkpoint --steps 4`` at the
+   ``DiffusionConfig`` defaults (batch 8, bf16; K2 12, K3 16, K4/K5 16 a
+   step and the eval at step 4, all sm90; the encoder's weights move) →
+   ``sample-diffusion --checkpoint --frames 4 --ddim-steps 10`` (K2 12, K3
+   160); a profile of a step; float32 card vs CPU: ``encode_condition`` at
+   full width (1e-3) and a 64×64 step's loss (1e-4 relative) and wav2vec2
+   gradients (1e-3 relative L2); base wav2vec2 alone in bf16 on 163,840
+   samples: K3 12× by sm90, each layer's O within 1e-2 of
+   ``flash_reference``; ``port-avhubert --selftest``, ``port-avhubert
+   --pth`` at base width → ``train-gan --avhubert-checkpoint --steps 4``
+   (K2 24 a step by cuda_core); ``train-lip-expert --steps 8`` (K2 4 a
+   step) → ``train-gan --lip-expert-checkpoint --steps 4`` on transcript
+   batches (K2 4 a step); a float32 lip term card vs CPU (1e-4 relative;
+   its gradient w.r.t. the generated window 1e-4, G's 1e-2 relative L2);
+   each stage's wall time.
+14. microbench — ``bench.microbench_int8.run``: K6 in bf16 and in int8
    (B row-major and B a (N, K) weight transposed) and the library's calls
    on the same operands at 4096³, after its own checks.
-14. timing — request and train-step times, frames/s, each kernel's
+15. timing — request and train-step times, frames/s, each kernel's
    CUDA-event time beside its plain version's at the main-path shapes, the
    one PyTorch call that computes the same function where there is one
    (``scaled_dot_product_attention`` and its backward, at all three U-Net
@@ -475,6 +502,13 @@ def phase_kernels() -> dict:
     k2_cases += [(2, 128, 256, 2, True, bf16, "sm90", ""), (5, 40, 16, 2, False, bf16, "sm90", ""),
                  (3000, 16, 64, 4, True, bf16, "sm90", ""),
                  (2, 160, 64, 1, False, bf16, "cuda_core", "")]              # S past 128
+    # the pretrained encoders: wav2vec2 at 4,000 samples (bf16), AV-HuBERT
+    # and the conformer at T 5 (float32), the expert's causal decoder on its
+    # fused qkv (float32), at the batches of [pretrained]
+    k2_cases += [(TRAIN_BATCH, 12, 768, 12, False, bf16, "sm90", ""),
+                 (16, 5, 768, 12, False, f32, "cuda_core", ""),
+                 (16, 5, 256, 4, False, f32, "cuda_core", ""),
+                 (16, 48, 256, 4, True, f32, "cuda_core", "qkv")]
     for (b, s, e, h, causal, dtype, route, layout) in k2_cases:
         tol = TOL_K2_BF16 if dtype == bf16 else TOL_K2_F32
         if layout == "qkv":
@@ -547,7 +581,8 @@ def phase_kernels() -> dict:
                  ((2, 1, 4096, 128), 4096, False, bf16, "sm90"),
                  ((2, 1, 1024, 256), 1024, False, bf16, "sm90"),
                  ((1, 1, 16384, 64), 16384, False, bf16, "sm90"),
-                 ((1, 1, 512, 64), 512, False, f32, "cuda_core")]
+                 ((1, 1, 512, 64), 512, False, f32, "cuda_core"),
+                 ((1, 12, 511, 64), 511, False, bf16, "sm90")]          # wav2vec2, 10.24 s
                 + [c + (f32, "cuda_core") for c in small] + [c + (bf16, "sm90") for c in small]
                 + [((2, 2, 300, 64), 300, True, bf16, "cuda_core")] + wide_heads + many_heads)
     for (q_shape, s_k, causal, dtype, route) in k3_cases:
@@ -3048,6 +3083,373 @@ def phase_gan(dev: dict) -> dict:
     return {"int8_matmul": gan_k6, "clahe": k1_launches, "seconds": seconds}
 
 
+PRE_DIFF_STEPS = 4                   # train-diffusion with the ported wav2vec2
+PRE_GAN_STEPS = 4                    # train-gan with each expert
+PRE_EXPERT_STEPS = 8                 # train-lip-expert
+PRE_LIP_WEIGHT = 0.1
+LONG_WAVE_SAMPLES = 163840           # 10.24 s at 16 kHz: T' = 511, as [gan]'s lip-sync wav
+# float32 card (cuDNN without TF32, K2 by cuda_core) vs CPU (plain): summation
+# order through the 7 convs and 12 layers of base wav2vec2; the map is O(1)
+TOL_COND_F32 = 1e-3
+# wav2vec2's gradients in a float32 diffusion step, relative L2 (as [train]'s)
+TOL_W2V_GRAD = 1e-3
+# the lip term of a float32 GAN step (relative); its gradient with respect to
+# one generated window fed to both sides (relative L2: the expert alone). On
+# an H100 the card read 1.21e-6 in one run and 3.51e-3 in another (with cuDNN
+# off: PERF.md §7): a stem ReLU whose input lies within
+# float32 rounding of 0 may fall on either side, and one such unit moves the
+# gradient by ~1/sqrt(active units), ~2.5e-3 at the stem's 309,760 units.
+# So the gate is 1e-2, and a planted fault (K2's VJP zeroed) must read above
+# it. G's gradient of the lip term: relative L2 under
+# GAN_GATES' limit for G with the gate shut (G's float32 backward is
+# ill-conditioned on random weights, PERF.md §6), the same fault above it.
+TOL_LIP = 1e-4
+TOL_LIP_WINDOW_GRAD = 1e-2
+TOL_LIP_GEN_GRAD = 1e-2
+
+
+def _routes() -> dict:
+    from lipreading_video_generation_tpu_torch.ops import attention as att
+
+    return {"small_mha": dict(att.small_mha.route_counts),
+            "flash_attention": dict(att.flash_attention.route_counts)}
+
+
+def _route_delta(before: dict) -> dict:
+    return {k: {r: n - before[k][r] for r, n in v.items() if n != before[k][r]}
+            for k, v in _routes().items()}
+
+
+def phase_pretrained(dev: dict) -> dict:
+    """The pretrained encoders at full width on random weights from seed 0,
+    written in their published layouts: ``port-wav2vec2 --pth`` on a base
+    (768/12/12/3072) HF ``Wav2Vec2ForCTC``-layout file, ``train-diffusion
+    --wav2vec2-checkpoint`` and ``sample-diffusion`` at the
+    ``DiffusionConfig`` defaults (K2 12× a step or request by sm90), the
+    base encoder alone on a 10.24 s wave (K3 12× by sm90), ``port-avhubert``
+    (``--selftest``, then ``--pth`` at base width) → ``train-gan
+    --avhubert-checkpoint`` at the ``GanConfig`` defaults (K2 24× a step by
+    cuda_core), ``train-lip-expert`` → ``train-gan --lip-expert-checkpoint``
+    on transcript batches (K2 4× a step by cuda_core); card against CPU:
+    ``encode_condition``, a float32 diffusion step's wav2vec2 gradients, a
+    float32 GAN step's lip term and its gradients."""
+    import dataclasses
+    import os
+    import tempfile
+
+    from lipreading_video_generation_tpu_torch import cli
+    from lipreading_video_generation_tpu_torch.core.config import (AudioConfig, DiffusionConfig,
+                                                                   GanConfig)
+    from lipreading_video_generation_tpu_torch.core.prng import seeded
+    from lipreading_video_generation_tpu_torch.data import datasets as tdata
+    from lipreading_video_generation_tpu_torch.models import avhubert as tavh
+    from lipreading_video_generation_tpu_torch.models import ports, selftest
+    from lipreading_video_generation_tpu_torch.models.lip_expert import avhubert_video_transform
+    from lipreading_video_generation_tpu_torch.models.unet_audio import UNetAudio
+    from lipreading_video_generation_tpu_torch.models.wav2vec2 import Wav2Vec2Encoder, num_frames
+    from lipreading_video_generation_tpu_torch.ops import attention as att
+    from lipreading_video_generation_tpu_torch.pipelines import train_diffusion as ttd
+    from lipreading_video_generation_tpu_torch.pipelines import train_gan as ttg
+    from lipreading_video_generation_tpu_torch.pipelines import train_lip_expert as ttle
+
+    phase_t0 = time.perf_counter()
+    launches = dict.fromkeys(_counts(), 0)
+    walls = {}
+
+    def drive(name, fn, want: dict, routes: dict):
+        """Run one stage of the path: its wall time, its launches (added to
+        the phase's), each exactly ``want`` and by the routes ``routes``."""
+        before, before_r = _counts(), _routes()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        d, r = _delta(before), _route_delta(before_r)
+        want = dict(dict.fromkeys(d, 0), **want)
+        if d != want or any(r[k] != v for k, v in routes.items()):
+            raise AssertionError(f"{name}: launches {d} by {r}, want {want} by {routes}")
+        for k, v in d.items():
+            launches[k] += v
+        log("pretrained", f"{name}: {walls[name]:.3f} s; launches {d} by {r}")
+        return out
+
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_pretrained_")
+    root = work.name
+    try:
+        # --- 1. wav2vec2 conditioning ---------------------------------------
+        pth = os.path.join(root, "wav2vec2_base_ctc.pth")
+        t0 = time.perf_counter()
+        selftest.make_wav2vec2_selftest_pth(pth, SEED, **selftest.BASE_WAV2VEC2)
+        log("pretrained", f"wrote a base Wav2Vec2ForCTC-layout state dict "
+            f"({os.path.getsize(pth) / 2**20:.1f} MiB) in {time.perf_counter() - t0:.2f} s")
+        w2v = os.path.join(root, "w2v")
+        if drive("port-wav2vec2 --pth", lambda: cli.main(["port-wav2vec2", "--pth", pth,
+                                                            "--out", w2v]), {}, {}) != 0:
+            raise AssertionError("port-wav2vec2 failed")
+        w2v_sd, w2v_cfg = ports.load_wav2vec2_params(w2v)
+        cfg = ports.diffusion_cfg_with_wav2vec2(DiffusionConfig(), w2v_cfg)
+        if cfg != DiffusionConfig(audio_encoder="wav2vec2") or num_frames(cfg.audio_samples) != 12:
+            raise AssertionError(f"base wav2vec2 config {w2v_cfg}")
+        n_w2v = sum(v.numel() for v in w2v_sd.values())
+        ck = os.path.join(root, "ck")
+        steps, losses = [], []
+        n = PRE_DIFF_STEPS
+        with _timed(ttd, "train_step", steps, lambda m: losses.append(m["loss"].item())):
+            rc = drive("train-diffusion --wav2vec2-checkpoint", lambda: cli.main(
+                ["train-diffusion", "--synthetic", "--wav2vec2-checkpoint", w2v, "--set",
+                 "diffusion.audio_encoder=wav2vec2", "--steps", str(n), "--checkpoint-dir", ck,
+                 "--checkpoint-every", str(n)]),
+                {"small_mha": 12 * (n + 1), "flash_attention": 16 * (n + 1),
+                 "flash_bwd_dkv": 16 * n, "flash_bwd_dq": 16 * n},
+                {"small_mha": {"sm90": 12 * (n + 1)}, "flash_attention": {"sm90": 16 * (n + 1)}})
+        if rc != 0 or len(steps) != n or not np.isfinite(losses).all():
+            raise AssertionError(f"train-diffusion: rc {rc}, {len(steps)} steps, losses {losses}")
+        saved = ttd.load_checkpoint(ttd.latest_checkpoint(ck))["params"]
+        moved = float((saved["audio_encoder.proj.weight"] - w2v_sd["proj.weight"]).abs().max())
+        if not 0 < moved < 1e-2:
+            raise AssertionError(f"the wav2vec2 weights moved by {moved} in {n} steps")
+        del saved
+        log("pretrained", f"train-diffusion --wav2vec2-checkpoint at the DiffusionConfig "
+            f"defaults (batch {cfg.batch_size}, {cfg.dtype}; wav2vec2 base {n_w2v} params, "
+            f"trained jointly, T' = 12): step times {[round(x * 1e3, 1) for x in steps]} ms "
+            f"({dev['smi']}); losses {[round(x, 5) for x in losses]}; its weights moved by "
+            f"{moved:.3g} (proj, max)")
+        out = os.path.join(root, "sample")
+        rc = drive("sample-diffusion", lambda: cli.main(
+            ["sample-diffusion", "--checkpoint", ck, "--frames", str(DIFF_FRAMES), "--ddim-steps",
+             str(DIFF_STEPS), "--out", out, "--set", "diffusion.audio_encoder=wav2vec2"]),
+            {"small_mha": 12, "flash_attention": 16 * DIFF_STEPS},
+            {"small_mha": {"sm90": 12}, "flash_attention": {"sm90": 16 * DIFF_STEPS}})
+        frames = np.stack([read_png(f"{out}.{j:04d}.png") for j in range(DIFF_FRAMES)])
+        if rc != 0 or frames.shape != (DIFF_FRAMES, 128, 128, 3) or not all(
+                f.std() > 0 for f in frames):
+            raise AssertionError(f"sample-diffusion: rc {rc}, frames {frames.shape}")
+
+        state = ttd.create_state(cfg, seed=SEED, device="cuda", wav2vec2_checkpoint=w2v)
+        batch = train_batch(cfg, cfg.batch_size, SEED + 40)
+        ttd.train_step(state, batch, cfg)
+        busy_ms = _profile_step("pretrained", lambda: ttd.train_step(state, batch, cfg)[
+            "loss"].item(), "train-diffusion step with wav2vec2")
+        del state
+
+        # encode_condition and a float32 step, card against the CPU plain path
+        cfg32 = dataclasses.replace(cfg, dtype="float32", dropout=0.0, im_size=64)
+        model = seeded(lambda: UNetAudio(cfg32), SEED)
+        sd32 = ports.graft_wav2vec2_into_diffusion(model.state_dict(), w2v_sd)
+        gen = torch.Generator().manual_seed(SEED + 45)
+        for name, v in sd32.items():      # the zero-initialised layers (the output conv)
+            if not v.any():
+                sd32[name] = 0.02 * torch.randn(v.shape, generator=gen)
+        batch = train_batch(cfg32, 2, SEED + 41, size=64)
+        prep = ttd.prepare_batch(batch, cfg32, "cpu")
+        conds = {}
+        for device in ("cuda", "cpu"):
+            model.load_state_dict(sd32)
+            with torch.no_grad():
+                conds[device] = model.to(device).eval().encode_condition(
+                    prep["audio"].to(device), prep["cond"].to(device)).cpu()
+        cond_err = (conds["cuda"] - conds["cpu"]).abs().max().item()
+        t = np.array([17, 402])
+        noise = np.random.default_rng(SEED + 42).standard_normal((2, 64, 64, 3)).astype(np.float32)
+        grads = {}
+        for device in ("cuda", "cpu"):
+            st = ttd.create_state(cfg32, seed=SEED, device=device)
+            st.model.load_state_dict(sd32)
+            p = ttd.prepare_batch(batch, cfg32, device)
+            tt, nz = ttd.draw_t_noise(st, p["target"], cfg32.num_timesteps, t, noise)
+            loss = ttd.noise_mse(st.model(st.scheduler.add_noise(p["target"], nz, tt), p["cond"],
+                                          p["audio"], tt), nz)
+            loss.backward()
+            grads[device] = (loss.item(), torch.cat([
+                q.grad.flatten().double().cpu() for k, q in st.model.named_parameters()
+                if k.startswith("audio_encoder.")]))
+            del st
+        loss_rel = abs(grads["cuda"][0] - grads["cpu"][0]) / abs(grads["cpu"][0])
+        w2v_rel = ((grads["cuda"][1] - grads["cpu"][1]).norm() / grads["cpu"][1].norm()).item()
+        log("pretrained", f"float32, card vs CPU plain path: encode_condition (2 waves of "
+            f"{cfg.audio_samples} samples, base wav2vec2, K2 by cuda_core) max|d| {cond_err:.3g} "
+            f"(tol {TOL_COND_F32}, map max {conds['cpu'].abs().max().item():.3g}); a diffusion "
+            f"step at 64x64, batch 2: loss {grads['cuda'][0]:.7g} vs {grads['cpu'][0]:.7g} (rel "
+            f"{loss_rel:.3g}, tol {TOL_TRAIN_LOSS}), wav2vec2 gradients rel L2 {w2v_rel:.3g} (tol "
+            f"{TOL_W2V_GRAD})")
+        if not (cond_err <= TOL_COND_F32 and loss_rel <= TOL_TRAIN_LOSS
+                and w2v_rel <= TOL_W2V_GRAD):
+            raise AssertionError(f"wav2vec2 card vs CPU: cond {cond_err}, loss {loss_rel}, "
+                                 f"grad {w2v_rel}")
+        del model, grads
+
+        # --- 2. the base encoder on a 10.24 s wave: K3 ------------------------
+        enc = Wav2Vec2Encoder(**w2v_cfg, dtype=torch.bfloat16)
+        enc.load_state_dict(w2v_sd)
+        enc = enc.to("cuda").eval()
+        wave = ttd.normalize_audio(torch.from_numpy(np.random.default_rng(SEED + 43).standard_normal(
+            (1, LONG_WAVE_SAMPLES)).astype(np.float32))).to("cuda")
+        seen, real = [], tavh.mha
+
+        def keep(q, k, v, num_heads, *a, **kw):     # each layer's attention, as mha runs it
+            o = real(q, k, v, num_heads, *a, **kw)
+            seen.append((q, k, v, o))
+            return o
+
+        tavh.mha = keep
+        try:
+            with torch.no_grad():
+                feats = drive("wav2vec2 on a 10.24 s wave", lambda: enc(wave),
+                              {"flash_attention": 12}, {"flash_attention": {"sm90": 12}})
+        finally:
+            tavh.mha = real
+
+        def heads(x):
+            return x.reshape(x.shape[0], x.shape[1], 12, 64).transpose(1, 2)
+
+        k3_err = k3_rel = 0.0
+        for q, k, v, o in seen:     # as assert_close: |d| <= tol + tol·|want|
+            want = att.flash_reference(heads(q), heads(k), heads(v), p_dtype=torch.bfloat16)[0]
+            d = (o.float() - want.transpose(1, 2).reshape(o.shape).float()).abs()
+            k3_err = max(k3_err, d.max().item())
+            k3_rel = max(k3_rel, (d / (1 + want.transpose(1, 2).reshape(o.shape).float().abs()))
+                         .max().item())
+        if (len(seen) != 12 or feats.shape != (1, 511, 768) or not torch.isfinite(feats).all()
+                or k3_rel > TOL_K3_BF16):
+            raise AssertionError(f"long wave: {tuple(feats.shape)}, K3 max|d| {k3_err}, "
+                                 f"max|d|/(1 + |O|) {k3_rel}")
+        log("pretrained", f"base wav2vec2 (bf16) on {LONG_WAVE_SAMPLES} samples: T' = 511, "
+            f"12 layers of (1,12,511,64) attention by K3 (sm90), each layer's O against "
+            f"flash_reference (P rounded to bf16): max|d| {k3_err:.3g}, max|d|/(1 + |O|) "
+            f"{k3_rel:.3g} (tol {TOL_K3_BF16} abs/rel, one bf16 ulp of O); features finite")
+        del enc, seen
+
+        # --- 3. AV-HuBERT as the GAN's lip expert ------------------------------
+        small = os.path.join(root, "av_small")
+        if drive("port-avhubert --selftest", lambda: cli.main(
+                ["port-avhubert", "--selftest", "--out", small]), {"small_mha": 2},
+                {"small_mha": {"cuda_core": 2}}) != 0:
+            raise AssertionError("port-avhubert --selftest failed")
+        av_pth, av = os.path.join(root, "avhubert_base.pt"), os.path.join(root, "av")
+        selftest.make_avhubert_selftest_pth(av_pth, SEED, **selftest.BASE_AVHUBERT)
+        if drive("port-avhubert --pth (base)", lambda: cli.main(
+                ["port-avhubert", "--pth", av_pth, "--out", av]), {}, {}) != 0:
+            raise AssertionError("port-avhubert --pth failed")
+        gcfg = GanConfig()
+        lip_set = ["--set", f"gan.lip_weight={PRE_LIP_WEIGHT}"]
+        g_steps, g_lips = [], []
+        m = PRE_GAN_STEPS
+        with _timed(ttg, "train_step", g_steps, lambda x: g_lips.append(x["loss/lip"].item())):
+            rc = drive("train-gan --avhubert-checkpoint", lambda: cli.main(
+                ["train-gan", "--synthetic", "--avhubert-checkpoint", av, "--steps", str(m)]
+                + lip_set), {"small_mha": 24 * m}, {"small_mha": {"cuda_core": 24 * m}})
+        if rc != 0 or len(g_lips) != m or not all(np.isfinite(x) and x > 0 for x in g_lips):
+            raise AssertionError(f"train-gan --avhubert-checkpoint: rc {rc}, lip terms {g_lips}")
+        log("pretrained", f"train-gan --avhubert-checkpoint (base AV-HuBERT, float32 in the "
+            f"{gcfg.dtype} step) at the GanConfig defaults (width {gcfg.model_width}, batch "
+            f"{gcfg.batch_size}, T {gcfg.syncnet_T}), lip_weight {PRE_LIP_WEIGHT}: step times "
+            f"{[round(x * 1e3, 1) for x in g_steps]} ms ({dev['smi']}); lip terms "
+            f"{[round(x, 5) for x in g_lips]}")
+
+        # --- 4. the seq2seq expert ---------------------------------------------
+        le = os.path.join(root, "lip_expert.pt")
+        e_steps, e_losses = [], []
+        k = PRE_EXPERT_STEPS
+        with _timed(ttle, "train_step", e_steps, lambda x: e_losses.append(x["loss"].item())):
+            rc = drive("train-lip-expert", lambda: cli.main(
+                ["train-lip-expert", "--synthetic", "--steps", str(k), "--out", le]),
+                {"small_mha": 4 * k}, {"small_mha": {"cuda_core": 4 * k}})
+        if rc != 0 or not np.isfinite(e_losses).all():
+            raise AssertionError(f"train-lip-expert: rc {rc}, losses {e_losses}")
+        s_steps, s_lips = [], []
+        with _timed(ttg, "train_step", s_steps, lambda x: s_lips.append(x["loss/lip"].item())):
+            rc = drive("train-gan --lip-expert-checkpoint", lambda: cli.main(
+                ["train-gan", "--synthetic", "--lip-expert-checkpoint", le, "--steps", str(m)]
+                + lip_set), {"small_mha": 4 * m}, {"small_mha": {"cuda_core": 4 * m}})
+        if rc != 0 or len(s_lips) != m or not all(np.isfinite(x) and x > 0 for x in s_lips):
+            raise AssertionError(f"train-gan --lip-expert-checkpoint: rc {rc}, lips {s_lips}")
+        log("pretrained", f"train-lip-expert --synthetic (default_expert: embed 256, stem 64, "
+            f"2+2 layers, 4 heads; batch {gcfg.batch_size}): step times "
+            f"{[round(x * 1e3, 1) for x in e_steps]} ms, losses "
+            f"{[round(x, 4) for x in e_losses]}; train-gan --lip-expert-checkpoint on "
+            f"transcript batches: step times {[round(x * 1e3, 1) for x in s_steps]} ms, lip "
+            f"terms (character cross-entropy) {[round(x, 4) for x in s_lips]} ({dev['smi']})")
+
+        # the lip term of a float32 step and its gradients, card against CPU
+        cfg32 = dataclasses.replace(gcfg, dtype="float32", batch_size=2,
+                                    lip_weight=PRE_LIP_WEIGHT)
+        sds = gan_state_dicts(cfg32.model_width, SEED)
+        expert_sd = ttle.load_params(le)
+        clips = tdata.synthetic_gan_clips(n_clips=4, frames=30, seed=SEED + 44, with_text=True)
+        hb = tdata.GanWindowSampler(clips, cfg32.syncnet_T, seed=SEED, with_text=True
+                                    ).sample_batch(2)
+        prep = ttg.prepare_batch(hb, cfg32, AudioConfig(), "cpu")
+        window = None
+
+        def lip_step(device, fault=False):
+            """(lip term, its gradient w.r.t. the CPU's generated window, w.r.t.
+            the device's own window, G's gradient); ``fault``: K2's VJP gives
+            zeros (a planted fault the gates must see)."""
+            nonlocal window
+            real = att._SmallMHA.backward
+            if fault:
+                att._SmallMHA.backward = staticmethod(
+                    lambda ctx, g: tuple(torch.zeros_like(t) for t in ctx.saved_tensors)
+                    + (None, None))
+            try:
+                st = ttg.create_state(cfg32, seed=SEED, device=device,
+                                      lip_expert_params=expert_sd)
+                st.gen.load_state_dict(sds["gen"])
+                g = st.gen(prep["indiv_mels"].to(device), prep["x"].to(device))
+                g.retain_grad()
+                lip = ttg.lip_loss(st.lip_expert, g, prep["gt"].to(device), hb["text_tokens"])
+                lip.backward()
+                if window is None:                  # the CPU's window, for the expert alone
+                    window = g.detach().clone()
+                w = window.to(device).detach().requires_grad_()
+                ttg.lip_loss(st.lip_expert, w, prep["gt"].to(device), hb["text_tokens"]
+                             ).backward()
+                return (lip.item(), w.grad.double().cpu(), g.grad.double().cpu(), torch.cat(
+                    [q.grad.flatten().double().cpu() for q in st.gen.parameters()]))
+            finally:
+                att._SmallMHA.backward = real
+
+        def rel_l2(got, want):
+            return [abs(got[0] - want[0]) / abs(want[0])] + [
+                ((got[i] - want[i]).norm() / want[i].norm()).item() for i in (1, 2, 3)]
+
+        want = lip_step("cpu")
+        lip_rel, win_rel, own_rel, gen_rel = rel_l2(lip_step("cuda"), want)
+        with torch.backends.cudnn.flags(enabled=False):
+            off_rel = rel_l2(lip_step("cuda"), want)[1]
+        fault = rel_l2(lip_step("cuda", fault=True), want)
+        # how near 0 the expert's stem ReLUs are cut on the CPU's window: a unit
+        # within float32 rounding of 0 may fall on either side on the card
+        stems = ttle.default_expert(num_frames=cfg32.syncnet_T)
+        stems.load_state_dict(expert_sd)
+        x, nearest = avhubert_video_transform(window * 255.0).permute(0, 4, 1, 2, 3), []
+        with torch.no_grad():
+            for conv in (stems.encoder.stem1, stems.encoder.stem2, stems.encoder.stem3):
+                y = conv(x)
+                nearest.append((y.abs().min().item(), int((y.abs() < 1e-6).sum()), y.numel()))
+                x = torch.relu(y)
+        log("pretrained", f"float32 GAN lip term at width {cfg32.model_width}, batch 2, the "
+            f"trained seq2seq expert, card vs CPU plain path: {lip_rel:.3g} relative (tol "
+            f"{TOL_LIP}); its gradient w.r.t. the same generated window rel L2 {win_rel:.3g} "
+            f"(tol {TOL_LIP_WINDOW_GRAD}; cuDNN off: {off_rel:.3g}), w.r.t. each side's own "
+            f"window {own_rel:.3g} (read, not held); G's gradient rel L2 {gen_rel:.3g} (tol "
+            f"{TOL_LIP_GEN_GRAD}); with K2's VJP zeroed on the card (a planted fault): window "
+            f"{fault[1]:.3g}, G {fault[3]:.3g}; the expert's three stem convolutions on the "
+            f"CPU's window: min |pre-activation| "
+            + ", ".join(f"{m:.3g} ({n} of {t} within 1e-6 of 0)" for m, n, t in nearest))
+        if not (lip_rel <= TOL_LIP and win_rel <= TOL_LIP_WINDOW_GRAD
+                and gen_rel <= TOL_LIP_GEN_GRAD):
+            raise AssertionError(f"lip term card vs CPU: {lip_rel}, {win_rel}, {gen_rel}")
+        if not (fault[1] > TOL_LIP_WINDOW_GRAD and fault[3] > TOL_LIP_GEN_GRAD):
+            raise AssertionError(f"the gates do not see K2's VJP zeroed: {fault}")
+    finally:
+        work.cleanup()
+    log("pretrained", "stage wall times: " + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items())
+        + f"; the profiled diffusion step's kernels {busy_ms:.3f} ms; phase took "
+        f"{time.perf_counter() - phase_t0:.1f} s")
+    return {"launches": launches}
+
+
 def phase_microbench() -> dict:
     """K6's own entry point: both type pairs at 4096³ beside the library."""
     from lipreading_video_generation_tpu_torch.bench import microbench_int8
@@ -3430,8 +3832,9 @@ def main() -> None:
     fed = phase_data(dev)["launches"]
     lipsync = phase_lipsync(dev)
     gan = phase_gan(dev)
+    pretrained = phase_pretrained(dev)["launches"]
     microbench = phase_microbench()
-    paths = (vivit_trained, diffused, trained, superres, guided, fed)
+    paths = (vivit_trained, diffused, trained, superres, guided, fed, pretrained)
     launches = {"clahe": served["clahe"] + lipread["clahe"] + gan["clahe"],
                 "small_mha": (served["small_mha"] + lipread["small_mha"]
                               + sum(p["small_mha"] for p in paths)),
@@ -3461,7 +3864,8 @@ def main() -> None:
             kern["also_replaces"] = "scripts/profile_flash_dpad.py:37"
             kern["route_detail"] = (
                 "sm90: wgmma on bf16 tiles, cp.async rings (aligned bf16 inputs up to head dim "
-                "256; timed here and on the sampling and training paths); cuda_core: "
+                "256; timed here and on the sampling and training paths, and wav2vec2's 12 "
+                "layers on a 10.24 s wave, T' = 511); cuda_core: "
                 f"{pkg}/csrc/flash_fwd.cu (float32, unaligned inputs, head dims above 256, in slices of "
                 "256 columns)")
         if name.startswith("flash_bwd"):
@@ -3482,9 +3886,12 @@ def main() -> None:
             kern["route_detail"] = (
                 "sm90: mma.sync on bf16 tiles, double-buffered cp.async (aligned bf16 inputs, up "
                 "to 128 tokens, head dim up to 128; timed here and on the ViViT serving and "
-                f"training, lipreading-chain, sampling and diffusion training paths); cuda_core: "
+                f"training, lipreading-chain, sampling and diffusion training paths, and wav2vec2's "
+                f"12 layers when it conditions the diffusion); cuda_core: "
                 f"{pkg}/csrc/small_mha.cu (float32, longer sequences, unaligned inputs; the "
-                "lipreading chain's causal word LM)")
+                "lipreading chain's causal word LM, the GAN's frozen lip experts: AV-HuBERT's 12 "
+                "layers on the generated and the real window, the seq2seq expert's encoder and "
+                "causal decoder)")
         if name.endswith("_matmul"):
             kern["route_detail"] = (
                 "sm90: wgmma on swizzled tiles, a TMA ring kept full by a producer warpgroup, "

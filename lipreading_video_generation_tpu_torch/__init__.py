@@ -27,6 +27,12 @@ module paths and function names so each counterpart is easy to find:
 - ``pipelines.inference`` — lip-sync serving from decoded frames
   (``generate_frames``) with ``models.generator`` and int8 serving
   (``ops.quant``).
+- ``models.wav2vec2``, ``models.avhubert``, ``models.lip_expert``,
+  ``pipelines.train_lip_expert`` — the pretrained encoders: wav2vec2 as the
+  diffusion's audio conditioning, AV-HuBERT and the character seq2seq
+  expert as the GAN's frozen lip expert; ``models.ports`` and
+  ``models.selftest`` port published checkpoints (S3FD, AV-HuBERT,
+  wav2vec2) into this package's artifacts.
 - ``models.convert``       — Flax params → this package's ``state_dict``s.
 - ``ops.image`` / ``ops.audio`` / ``ops.attention`` / ``ops.matmul_cuda`` —
   plain torch ops plus the dispatch to the hand-written CUDA kernels in

@@ -30,13 +30,24 @@ Usage:
       --syncnet-checkpoint sync.pt --synthetic
   python -m lipreading_video_generation_tpu_torch.cli infer-lipsync \\
       --face face.mp4 --audio speech.wav --out result.mp4 --checkpoint gan/ --int8
+  python -m lipreading_video_generation_tpu_torch.cli port-wav2vec2 \\
+      --pth wav2vec2-base-960h.bin --out w2v/
+  python -m lipreading_video_generation_tpu_torch.cli train-diffusion --synthetic \\
+      --wav2vec2-checkpoint w2v/ --checkpoint-dir ckpt/
+  python -m lipreading_video_generation_tpu_torch.cli port-avhubert --pth base_vox.pt --out av/
+  python -m lipreading_video_generation_tpu_torch.cli train-lip-expert --synthetic \\
+      --steps 1000 --out expert.pt
+  python -m lipreading_video_generation_tpu_torch.cli train-gan --synthetic \\
+      --set gan.lip_weight=0.1 --lip-expert-checkpoint expert.pt   # or --avhubert-checkpoint av/
 
 Every command runs on the card (``core.device``); ``main(argv,
 device="cpu")`` runs it on the CPU, as the tests do. Packed records stream
 through the native prefetch loader (``data/records``). A frame index and
-``--cond-video`` are decoded with OpenCV, imported on call. The lip-expert
-GAN loss and the pretrained wav2vec2 encoder are refused with the ROADMAP
-item they wait for.
+``--cond-video`` are decoded with OpenCV, imported on call. The ``port-*``
+commands take exactly one of ``--pth`` (a published checkpoint) or
+``--selftest`` (one written in its layout here). ``train-feature-transformer``
+and ``port-densenet`` are refused with the ROADMAP item they wait for (the
+DenseNet feature path).
 """
 from __future__ import annotations
 
@@ -46,17 +57,13 @@ from typing import List, Optional
 
 import numpy as np
 
-# arguments of the JAX CLI whose data or weights the port cannot read yet
-_WAITING = {
-    "wav2vec2_checkpoint": "--wav2vec2-checkpoint needs the pretrained wav2vec2 port "
-                           "(ROADMAP §1 item 7, pretrained-model family)",
-    "lip_expert_checkpoint": "--lip-expert-checkpoint needs the lip expert "
-                             "(ROADMAP §1 item 7, pretrained-model family)",
-    "avhubert_checkpoint": "--avhubert-checkpoint needs the AV-HuBERT port "
-                           "(ROADMAP §1 item 7, pretrained-model family)",
-}
-_S3FD_HELP = ("torch.save'd S3FD state dict in s3fd.pth's layout; without it the face "
-              "detector is drawn from a seed (its boxes are noise)")
+# commands of the JAX CLI the port does not serve yet
+_WAITING = ("train-feature-transformer", "port-densenet")
+_S3FD_HELP = ("torch.save'd S3FD state dict in s3fd.pth's layout (s3fd.pth itself or port-s3fd "
+              "--out); without it the face detector is drawn from a seed (its boxes are noise)")
+_SELFTEST_HELP = ("write a checkpoint in the published layout here (torch.save, seeded values), "
+                  "run the whole port path on it, then the model on the artifact; prints a "
+                  "JSON summary")
 
 _DISPATCH_HELP = ("batches taken from the feed at once, cut at checkpoints and evals, and "
                   "run as that many ordinary steps (the port has no multi-step device "
@@ -114,7 +121,10 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint-every", type=int, default=500)
     p.add_argument("--steps-per-dispatch", type=int, default=4, help=_DISPATCH_HELP)
     p.add_argument("--synthetic", action="store_true")
-    p.add_argument("--wav2vec2-checkpoint", default=None)
+    p.add_argument("--wav2vec2-checkpoint", default=None,
+                   help="port-wav2vec2 --out artifact: the audio encoder starts from these "
+                        "weights and trains jointly; sets diffusion.audio_encoder=wav2vec2 and "
+                        "the w2v_* sizes from the artifact's config")
 
     p = _base_parser(sub, "sample-diffusion", "reverse-diffusion sampling")
     p.add_argument("--checkpoint", default=None,
@@ -212,8 +222,12 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--syncnet-checkpoint", default=None,
                    help="pretrained frozen sync expert (train-syncnet --out)")
-    p.add_argument("--lip-expert-checkpoint", default=None)
-    p.add_argument("--avhubert-checkpoint", default=None)
+    p.add_argument("--lip-expert-checkpoint", default=None,
+                   help="train-lip-expert --out: the frozen seq2seq lip expert of the "
+                        "gan.lip_weight > 0 loss (transcript batches)")
+    p.add_argument("--avhubert-checkpoint", default=None,
+                   help="port-avhubert --out: AV-HuBERT's video encoder as the frozen "
+                        "feature-matching lip expert; excludes --lip-expert-checkpoint")
     p.add_argument("--steps-per-dispatch", type=int, default=8, help=_DISPATCH_HELP)
     p.add_argument("--synthetic", action="store_true")
 
@@ -241,6 +255,37 @@ def _parser() -> argparse.ArgumentParser:
                    help="save the trained expert here (train-gan/eval-gan "
                         "--syncnet-checkpoint)")
 
+    p = _base_parser(sub, "train-lip-expert",
+                     "pretrain the text-conditioned lipreading expert (character seq2seq)")
+    p.add_argument("--steps", type=int, default=1000)
+    p.add_argument("--synthetic", action="store_true",
+                   help="word-coded synthetic clips (the mouth's motion codes the word)")
+    p.add_argument("--preprocessed-root", default=None,
+                   help="preprocess-gan output root whose clips carry text.txt transcripts")
+    p.add_argument("--out", default=None,
+                   help="save the expert here (train-gan --lip-expert-checkpoint)")
+
+    for name, what, flag in (("port-s3fd", "the S3FD face detector's s3fd.pth", None),
+                             ("port-avhubert", "a fairseq AV-HuBERT checkpoint's video encoder "
+                              "(the frozen lip expert)", "--avhubert-checkpoint"),
+                             ("port-wav2vec2", "an HF wav2vec2 state dict (Wav2Vec2Model or "
+                              "Wav2Vec2ForCTC, e.g. facebook/wav2vec2-base-960h)",
+                              "--wav2vec2-checkpoint")):
+        p = _base_parser(sub, name, f"port {what} to the port's artifact")
+        p.add_argument("--pth", default=None, help="the checkpoint to port")
+        p.add_argument("--selftest", action="store_true", help=_SELFTEST_HELP)
+        p.add_argument("--out", required=True,
+                       help="the artifact (--s3fd-checkpoint)" if flag is None
+                       else f"the artifact directory ({flag})")
+        if name != "port-s3fd":
+            p.add_argument("--num-heads", type=int, default=None,
+                           help="attention heads (not in the shapes; default embed_dim // 64)")
+            p.add_argument("--pos-conv-groups", type=int, default=None,
+                           help="positional-conv groups (default: AV-HuBERT 16, wav2vec2 read "
+                                "off the weight's shape)")
+    for name in _WAITING:
+        _base_parser(sub, name, "waits for the DenseNet feature path (ROADMAP §1 item 7)")
+
     p = _base_parser(sub, "infer-lipsync", "lip-sync a video to an audio track")
     p.add_argument("--face", required=True)
     p.add_argument("--audio", required=True)
@@ -267,32 +312,30 @@ def _parser() -> argparse.ArgumentParser:
 def _s3fd(checkpoint: Optional[str]):
     """The face detector: ``checkpoint``'s weights, or drawn from seed 0
     (with a warning: its detections are noise)."""
-    import torch
-
-    from .core.prng import seeded
+    from .models.ports import s3fd_params_or_init
     from .models.s3fd import S3FD
 
-    model = seeded(S3FD, 0)
-    if checkpoint:
-        model.load_state_dict(torch.load(checkpoint, map_location="cpu", weights_only=True))
-    else:
-        print("warning: no --s3fd-checkpoint; the face detector is random and its boxes are "
-              "noise", file=sys.stderr)
+    model = S3FD()
+    model.load_state_dict(s3fd_params_or_init(checkpoint))
     return model
 
 
-def _gan_clips(args, parser):
+def _gan_clips(args, parser, with_text: bool = False):
     """(training clips, held-out clips or None) of a GAN command: the
     synthetic sets without --preprocessed-root (audio-visually correlated
-    clips for train-syncnet, 18 + 2 held out), else every clip directory
-    under it (train-syncnet with --eval-auc-every holds the last 2 out)."""
+    clips for train-syncnet, 18 + 2 held out; word-coded clips for
+    train-lip-expert; transcripts drawn with them ``with_text``), else every
+    clip directory under it (train-syncnet with --eval-auc-every holds the
+    last 2 out)."""
     from .data import datasets
 
     if args.synthetic or not args.preprocessed_root:
         if args.cmd == "train-syncnet":
-            clips = datasets.synthetic_av_clips(n_clips=20, frames=50)
+            clips = datasets.synthetic_av_clips(n_clips=20, frames=50, with_text=with_text)
             return clips[:-2], clips[-2:]
-        return datasets.synthetic_gan_clips(n_clips=8, frames=30), None
+        if args.cmd == "train-lip-expert":
+            return datasets.synthetic_word_av_clips(n_clips=24, frames=40), None
+        return datasets.synthetic_gan_clips(n_clips=8, frames=30, with_text=with_text), None
     import os
 
     clips = [datasets.load_gan_clip(root) for root, _, files in os.walk(args.preprocessed_root)
@@ -409,13 +452,60 @@ def _sample_diffusion(args, cfg, parser, device) -> int:
     return 0
 
 
+def _port(args, device) -> int:
+    """``port-s3fd`` / ``port-avhubert`` / ``port-wav2vec2``: ``--pth``
+    through the port path, or ``--selftest`` (JSON summary)."""
+    import json
+
+    from .models import ports, selftest
+
+    name = args.cmd[len("port-"):]
+    if args.selftest:
+        run = getattr(selftest, f"selftest_{name}")
+        print(json.dumps({"selftest": args.cmd, **run(args.out, device=device)}))
+        return 0
+    if name == "s3fd":
+        ports.port_s3fd(args.pth, args.out)
+        print(f"ported s3fd.pth → {args.out}")
+        return 0
+    _, pcfg, skipped = getattr(ports, f"port_{name}")(
+        args.pth, args.out, num_heads=args.num_heads, pos_conv_groups=args.pos_conv_groups)
+    what = "AV-HuBERT video" if name == "avhubert" else "wav2vec2"
+    print(f"ported {what} encoder → {args.out} (embed {pcfg['embed_dim']}, "
+          f"{pcfg['num_layers']} layers, {len(skipped)} keys skipped)")
+    return 0
+
+
+def _train_lip_expert(args, cfg, batch_fn, writer, device) -> int:
+    """``train-lip-expert``: Adam steps of the seq2seq expert on transcript
+    batches; ``--out`` saves ``{"lip_expert": state_dict}``."""
+    from .core.metrics import to_host
+    from .pipelines import train_lip_expert
+
+    state = train_lip_expert.create_state(cfg.seed, syncnet_T=cfg.gan.syncnet_T, device=device)
+    for step in range(args.steps):
+        writer.write(step, to_host(train_lip_expert.train_step(state, batch_fn())))
+    if args.out:
+        from .core.checkpoint import save_once
+
+        save_once(args.out, {"lip_expert": {k: v.cpu() for k, v in
+                                            state.model.state_dict().items()}})
+        print(f"saved expert → {args.out}")
+    return 0
+
+
 def main(argv: Optional[List[str]] = None, device=None) -> int:
     """Run one subcommand; ``device`` is where it runs (``None``: the card)."""
     parser = _parser()
-    args = parser.parse_args(argv)
-    for name, why in _WAITING.items():
-        if getattr(args, name, None) is not None:
-            parser.error(why)
+    args, unknown = parser.parse_known_args(argv)
+    if args.cmd in _WAITING:
+        parser.error(f"{args.cmd} waits for the DenseNet feature path (ROADMAP §1 item 7)")
+    if unknown:
+        parser.error(f"unrecognized arguments: {' '.join(unknown)}")
+    if args.cmd.startswith("port-") and bool(args.selftest) == bool(args.pth):
+        parser.error(f"{args.cmd}: give exactly one of --pth or --selftest")
+    if getattr(args, "lip_expert_checkpoint", None) and getattr(args, "avhubert_checkpoint", None):
+        parser.error("--lip-expert-checkpoint and --avhubert-checkpoint are mutually exclusive")
     try:
         cfg = build_config(args)
     except (ValueError, NotImplementedError) as e:
@@ -439,9 +529,12 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
         print(f"best: {best}")
         return 0
 
+    if args.cmd.startswith("port-"):
+        return _port(args, device)
+
     if args.cmd in ("preprocess-gan", "train-gan", "train-syncnet", "eval-gan",
                     "infer-lipsync", "build-frame-index", "pack-gan-records",
-                    "pack-diffusion-records", "sample-diffusion"):
+                    "pack-diffusion-records", "sample-diffusion", "train-lip-expert"):
         from .core.device import resolve_device
 
         device = resolve_device(device)     # before any data is read or made
@@ -461,6 +554,16 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
         from .pipelines import train_diffusion
 
         d = cfg.diffusion
+        if getattr(args, "wav2vec2_checkpoint", None):
+            from .core.config import replace
+            from .models.ports import diffusion_cfg_with_wav2vec2, load_wav2vec2_params
+
+            try:
+                w2v_cfg = load_wav2vec2_params(args.wav2vec2_checkpoint)[1]
+            except FileNotFoundError as e:
+                parser.error(f"--wav2vec2-checkpoint: no port-wav2vec2 artifact ({e})")
+            d = diffusion_cfg_with_wav2vec2(d, w2v_cfg)
+            cfg = replace(cfg, diffusion=d)
         records = None
         if args.cmd == "train-diffusion" and args.records_root is not None:
             from .data.records import iter_record_batches
@@ -489,6 +592,7 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
                 steps_per_dispatch=args.steps_per_dispatch,
                 eval_batch_fn=batch_fn,          # held-out pull from the feed
                 eval_every=args.checkpoint_every, device=device,
+                wav2vec2_checkpoint=args.wav2vec2_checkpoint,
             )
         finally:
             if records is not None:
@@ -572,14 +676,13 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
         print(f"ok={ok} failed={failed}")
         return 0
 
-    if args.cmd in ("train-gan", "train-syncnet", "eval-gan", "pack-gan-records"):
+    if args.cmd in ("train-gan", "train-syncnet", "eval-gan", "pack-gan-records",
+                    "train-lip-expert"):
         from .core.metrics import ConsoleWriter, Metrics
         from .data.datasets import GanWindowSampler
         from .pipelines import train_gan, train_syncnet
 
-        if cfg.gan.lip_weight > 0:
-            parser.error("gan.lip_weight > 0 needs the lip expert "
-                         "(ROADMAP §1 item 7, pretrained-model family)")
+        want_text = args.cmd == "train-lip-expert" or cfg.gan.lip_weight > 0
         records = None
         if getattr(args, "records_root", None) is not None:
             from .data.records import iter_gan_record_batches
@@ -589,8 +692,13 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
             def batch_fn():
                 return next(records)
         else:
-            clips, held_out = _gan_clips(args, parser)
-            sampler = GanWindowSampler(clips, cfg.gan.syncnet_T, seed=cfg.seed)
+            clips, held_out = _gan_clips(args, parser, want_text)
+            have_text = any(c.text for c in clips)
+            if args.cmd == "train-lip-expert" and not have_text:
+                parser.error("train-lip-expert needs transcripts, but no clip under the "
+                             "dataset root has a text sidecar (text.txt); use --synthetic")
+            sampler = GanWindowSampler(clips, cfg.gan.syncnet_T, seed=cfg.seed,
+                                       with_text=want_text and have_text)
 
             def batch_fn():
                 return sampler.sample_batch(cfg.gan.batch_size)
@@ -602,15 +710,28 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
             print(f"{args.num_records} records ({spec.record_bytes} B each) → {args.out}")
             return 0
         writer = Metrics(ConsoleWriter(every=10))
+        if args.cmd == "train-lip-expert":
+            return _train_lip_expert(args, cfg, batch_fn, writer, device)
         syncnet_params = (train_syncnet.load_params(args.syncnet_checkpoint)
                           if getattr(args, "syncnet_checkpoint", None) else None)
         if args.cmd == "train-gan":
+            expert = {}
+            if args.lip_expert_checkpoint:
+                from .pipelines import train_lip_expert
+
+                expert["lip_expert_params"] = train_lip_expert.load_params(
+                    args.lip_expert_checkpoint)
+            elif args.avhubert_checkpoint:
+                from .models.ports import load_avhubert_expert
+
+                expert["lip_expert_model"], _ = load_avhubert_expert(args.avhubert_checkpoint)
             try:
                 train_gan.train(cfg.gan, batch_fn, eval_batch_fn=batch_fn, num_steps=args.steps,
                                 seed=cfg.seed, checkpoint_dir=args.checkpoint_dir,
                                 audio_cfg=cfg.audio, metrics_writer=writer,
                                 syncnet_params=syncnet_params,
-                                steps_per_dispatch=args.steps_per_dispatch, device=device)
+                                steps_per_dispatch=args.steps_per_dispatch, device=device,
+                                **expert)
             finally:
                 if records is not None:
                     records.close()              # stops the native loader's threads

@@ -179,7 +179,7 @@ class DiffusionConfig:
     audio_samples: int = 4000
     buffer_frames: int = 5
     # "native" = AudioFeatureEncoder (log-mel + conv + transformer);
-    # "wav2vec2" needs pretrained weights (ROADMAP: pretrained-model family).
+    # "wav2vec2" = models/wav2vec2 at the w2v_* sizes (port-wav2vec2 weights).
     audio_encoder: str = "native"
     w2v_num_layers: int = 12
     w2v_ffn_dim: int = 3072
@@ -200,11 +200,7 @@ class DiffusionConfig:
     sequence_axis: str = "model"
 
     def __post_init__(self):
-        if self.audio_encoder == "wav2vec2":
-            raise NotImplementedError(
-                "DiffusionConfig: audio_encoder='wav2vec2' needs the pretrained "
-                "wav2vec2 port (ROADMAP: pretrained-model family)")
-        if self.audio_encoder != "native":
+        if self.audio_encoder not in ("native", "wav2vec2"):
             raise ValueError(f"unknown audio_encoder {self.audio_encoder!r} (native | wav2vec2)")
         if self.sequence_parallel:
             raise NotImplementedError(

@@ -5,7 +5,8 @@ numpy so that a seed gives batches and clips equal to the JAX package's bit
 for bit: ``WordClipSampler`` and ``synthetic_word_clips`` (ViViT);
 ``GanClip``, ``GanWindowSampler``, ``load_gan_clip``, ``synthetic_gan_clips``
 and ``synthetic_av_clips`` (with ``_formant_wave`` and ``_render_face_clip``)
-(the GAN); ``FrameItem``, ``build_frame_index``, ``save_frame_index`` /
+(the GAN), ``synthetic_word_av_clips`` and ``mouth_aperture_proxy`` (the
+lip expert); ``FrameItem``, ``build_frame_index``, ``save_frame_index`` /
 ``load_frame_index`` (pickles interchangeable with the JAX package's),
 ``split_records``, ``DiffusionPairSampler``, ``condition_from_video``,
 ``condition_windows_from_video`` and ``load_full_video_sample`` (diffusion).
@@ -14,7 +15,11 @@ Videos are decoded with OpenCV, imported on call. Where it is absent the
 diffusion side takes frames through seams: ``frame_count=path -> int`` and
 ``read_frames=path -> (frames, fps)``, defaulting to ``data/video``'s
 ``video_frame_count`` and ``read_video_frames``. Transcript batches
-(``with_text``) need the lip expert's tokenizer (ROADMAP §1 item 7).
+(``with_text``: ``text_tokens``, the clip's transcript through
+``models.lip_expert.encode_transcript``) feed the GAN's lip-expert loss;
+``synthetic_word_av_clips`` codes a word in the mouth's motion for the
+expert's training, and ``mouth_aperture_proxy`` measures a drawn mouth's
+opening for ``pipelines/expert_proof``.
 """
 from __future__ import annotations
 
@@ -86,31 +91,29 @@ class GanClip:
     text: Optional[str] = None
 
 
-def _no_transcripts(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}: transcript batches need the lip expert's tokenizer "
-        "(ROADMAP §1 item 7, pretrained-model family)")
-
-
 class GanWindowSampler:
     """{window, wrong_window, start_frame, wav} batches: a random clip (of at
     least 3·T frames), a random T-frame window and an independent "wrong"
     reference window of the same clip, the whole wave zero-padded to the
-    longest clip's. The draws come from ``np.random.default_rng(seed)`` in
-    the JAX package's order."""
+    longest clip's; with ``with_text`` also ``text_tokens`` (B,
+    ``max_text_len``) int32, the clip's transcript PAD-padded (an empty one
+    for a clip without). The draws come from ``np.random.default_rng(seed)``
+    in the JAX package's order."""
 
     def __init__(self, clips: Sequence[GanClip], syncnet_T: int = 5, seed: int = 0,
                  with_text: bool = False, max_text_len: int = 48):
-        if with_text:
-            raise _no_transcripts("GanWindowSampler(with_text=True)")
         self.clips = [c for c in clips if len(c.frames) >= 3 * syncnet_T]
         if not self.clips:
             raise ValueError("no clip long enough for windowed sampling")
         self.T = syncnet_T
         self.rng = np.random.default_rng(seed)
+        self.with_text = with_text
+        self.max_text_len = max_text_len
 
     def sample_batch(self, batch_size: int) -> Dict[str, np.ndarray]:
-        windows, wrongs, starts, wavs = [], [], [], []
+        from ..models.lip_expert import encode_transcript
+
+        windows, wrongs, starts, wavs, tokens = [], [], [], [], []
         max_wav = max(len(c.wav) for c in self.clips)
         for _ in range(batch_size):
             clip = self.clips[self.rng.integers(len(self.clips))]
@@ -123,12 +126,17 @@ class GanWindowSampler:
             wrongs.append(clip.frames[wrong: wrong + self.T])
             starts.append(start)
             wavs.append(np.pad(clip.wav, (0, max_wav - len(clip.wav))))
-        return {
+            if self.with_text:
+                tokens.append(encode_transcript(clip.text or "", self.max_text_len))
+        batch = {
             "window": np.stack(windows),          # (B, T, H, W, 3) uint8
             "wrong_window": np.stack(wrongs),     # (B, T, H, W, 3) uint8
             "start_frame": np.asarray(starts, np.int32),
             "wav": np.stack(wavs).astype(np.float32),
         }
+        if self.with_text:
+            batch["text_tokens"] = np.stack(tokens)
+        return batch
 
 
 def load_gan_clip(frames_dir: str, img_size: Optional[int] = None) -> GanClip:
@@ -339,16 +347,22 @@ def load_full_video_sample(video_path: str, transcript_path: Optional[str] = Non
 
 def synthetic_gan_clips(n_clips: int = 4, frames: int = 25, img: int = 96, seed: int = 0,
                         with_text: bool = False) -> List[GanClip]:
-    """Uncorrelated clips: uniform noise frames and a Gaussian wave of 1 s."""
-    if with_text:
-        raise _no_transcripts("synthetic_gan_clips(with_text=True)")
+    """Uncorrelated clips: uniform noise frames and a Gaussian wave of 1 s
+    (with ``with_text``, a transcript of three words drawn after each)."""
     rng = np.random.default_rng(seed)
     out = []
     for _ in range(n_clips):
         f = rng.integers(0, 256, (frames, img, img, 3), dtype=np.uint8)
         wav = (rng.standard_normal(16000) * 0.1).astype(np.float32)
-        out.append(GanClip(f, wav))
+        out.append(GanClip(f, wav, text=_three_words(rng) if with_text else None))
     return out
+
+
+_WORDS = ["hello", "world", "about", "place", "think", "right"]
+
+
+def _three_words(rng: np.random.Generator) -> str:
+    return " ".join(_WORDS[int(j)] for j in rng.integers(0, len(_WORDS), 3))
 
 
 def synthetic_av_clips(n_clips: int = 6, frames: int = 50, img: int = 96, seed: int = 0,
@@ -357,9 +371,8 @@ def synthetic_av_clips(n_clips: int = 6, frames: int = 50, img: int = 96, seed: 
     """Audio-visually correlated clips: a smooth per-frame envelope in (0, 1]
     drives both the wave (``_formant_wave``) and the opening of a dark mouth
     ellipse on a static drawn face (``_render_face_clip``), so a sync expert
-    trained on them has the audio↔lip correspondence to learn."""
-    if with_text:
-        raise _no_transcripts("synthetic_av_clips(with_text=True)")
+    trained on them has the audio↔lip correspondence to learn (with
+    ``with_text``, a transcript of three words drawn after each)."""
     rng = np.random.default_rng(seed)
     out = []
     for i in range(n_clips):
@@ -368,7 +381,7 @@ def synthetic_av_clips(n_clips: int = 6, frames: int = 50, img: int = 96, seed: 
         env = env / env.max()
         wav = _formant_wave(env, sr=sr, fps=fps, f0=110.0 + 13.0 * i)
         f = _render_face_clip(env, img, rng)
-        out.append(GanClip(f, wav))
+        out.append(GanClip(f, wav, text=_three_words(rng) if with_text else None))
     return out
 
 
@@ -415,6 +428,45 @@ def _render_face_clip(env: np.ndarray, img: int, rng) -> np.ndarray:
         mouth = ((xx - cx) ** 2 / mouth_w ** 2 + (yy - cy) ** 2 / ap ** 2) <= 1.0
         f[t][mouth] = 15
     return np.clip(f.astype(np.int16) + rng.integers(-6, 7, f.shape), 0, 255).astype(np.uint8)
+
+
+#: synthetic_word_av_clips: word i's aperture oscillates at WORD_RATE_HZ[i]
+#: with peak opening WORD_PEAK[i].
+WORD_CODED_WORDS = ["hello", "world", "about", "place", "think", "right"]
+WORD_RATE_HZ = [0.5, 2.0, 3.5, 5.0, 6.5, 8.0]
+WORD_PEAK = [1.0, 0.52, 0.88, 0.4, 0.76, 0.64]
+
+
+def synthetic_word_av_clips(n_clips: int = 24, frames: int = 40, img: int = 96, seed: int = 0,
+                            sr: int = 16000, fps: float = 25.0, n_words: int = 4
+                            ) -> List[GanClip]:
+    """Single-word clips whose word is coded in the mouth's motion: clip i
+    says word i % ``n_words``, its aperture oscillating at that word's rate
+    and peak (random phase), the wave following the same envelope
+    (``_formant_wave``): a video → transcript correspondence for the lip
+    expert to learn."""
+    if not 1 <= n_words <= len(WORD_CODED_WORDS):
+        raise ValueError(f"n_words must be in [1, {len(WORD_CODED_WORDS)}]")
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n_clips):
+        w = i % n_words
+        t = np.arange(frames) / fps
+        phase = rng.uniform(0, 2 * np.pi)
+        env = 0.08 + 0.92 * WORD_PEAK[w] * (0.5 + 0.5 * np.sin(
+            2 * np.pi * WORD_RATE_HZ[w] * t + phase))
+        wav = _formant_wave(env, sr=sr, fps=fps, f0=110.0 + 13.0 * (i % 7))
+        out.append(GanClip(_render_face_clip(env, img, rng), wav, text=WORD_CODED_WORDS[w]))
+    return out
+
+
+def mouth_aperture_proxy(frames01: np.ndarray, img: Optional[int] = None) -> np.ndarray:
+    """Per-frame mouth opening of a drawn face (``_render_face_clip``): the
+    darkness (1 − mean) of the mouth box, rows 0.58-0.86 and columns
+    0.28-0.72 of the frame; frames01 (..., H, W, 3) in [0, 1] → (...)."""
+    h, w = frames01.shape[-3], frames01.shape[-2]
+    region = frames01[..., int(h * 0.58):int(h * 0.86), int(w * 0.28):int(w * 0.72), :]
+    return 1.0 - region.mean(axis=(-1, -2, -3))
 
 
 def synthetic_word_clips(

@@ -11,7 +11,11 @@ paths that key JAX's static int8 scales to the port's module names);
 for the GAN's discriminator and sync expert;
 ``s3fd_state_dict_from_flax``, ``lip_landmark_state_dict_from_flax`` and
 ``word_lm_state_dict_from_flax`` for the lipreading chain's face detector,
-lip-landmark regressor and word LM. The
+lip-landmark regressor and word LM; ``wav2vec2_state_dict_from_flax``,
+``avhubert_state_dict_from_flax`` and ``lip_expert_state_dict_from_flax``
+for the pretrained encoders and the seq2seq lip expert (the first two keep
+the Flax module names, so a name that does not fit shows as a missing or
+unexpected key in ``load_state_dict``). The
 params stay float32 in the port (its layers cast
 to the compute dtype inside ``forward``), so a round trip is exact. A Flax
 gradient tree has the params' structure and goes through the same
@@ -24,8 +28,8 @@ The Flax tree (``lipreading_video_generation_tpu/models/vivit.py``)::
     LayerNorm_0                             head
 
 Rules: a Dense ``kernel (in, out)`` becomes a Linear ``weight (out, in)``;
-a 2-D conv ``kernel`` HWIO becomes OIHW and a 1-D conv ``kernel`` (W, I, O)
-becomes (O, I, W); a LayerNorm or GroupNorm ``scale`` becomes ``weight``;
+a 3-D conv ``kernel`` DHWIO becomes OIDHW, a 2-D one HWIO becomes OIHW and a
+1-D one (W, I, O) becomes (O, I, W); a LayerNorm or GroupNorm ``scale`` becomes ``weight``;
 the fused qkv stays fused, so the q/k/v split order of ``jnp.split(qkv, 3)``
 carries over. Every function raises ``KeyError`` on a missing or unexpected
 entry. Takes numpy
@@ -53,12 +57,16 @@ def _dense(sd: Dict[str, torch.Tensor], name: str, p: Mapping) -> None:
     sd[f"{name}.bias"] = _tensor(p["bias"])
 
 
+_CONV_ORDER = {5: (4, 3, 0, 1, 2), 4: (3, 2, 0, 1), 3: (2, 1, 0)}
+
+
 def _conv(sd: Dict[str, torch.Tensor], name: str, p: Mapping) -> None:
-    """2-D (HWIO → OIHW) or 1-D ((W, I, O) → (O, I, W)) conv."""
+    """3-D (DHWIO → OIDHW), 2-D (HWIO → OIHW) or 1-D ((W, I, O) → (O, I, W))
+    conv, with or without a bias."""
     kernel = _tensor(p["kernel"])
-    order = (3, 2, 0, 1) if kernel.ndim == 4 else (2, 1, 0)
-    sd[f"{name}.weight"] = kernel.permute(order).contiguous()
-    sd[f"{name}.bias"] = _tensor(p["bias"])
+    sd[f"{name}.weight"] = kernel.permute(_CONV_ORDER[kernel.ndim]).contiguous()
+    if "bias" in p:
+        sd[f"{name}.bias"] = _tensor(p["bias"])
 
 
 def _exact(params: Mapping, keys: Iterable[str], where: str) -> Mapping:
@@ -234,10 +242,13 @@ def superres_state_dict_from_flax(params: Mapping, cfg) -> Dict[str, torch.Tenso
 
 
 def unet_audio_state_dict_from_flax(params: Mapping, cfg) -> Dict[str, torch.Tensor]:
-    """Flax ``UNetAudio(cfg)`` params (native audio encoder) → float32
-    ``state_dict`` for ``models.unet_audio.UNetAudio(cfg)``."""
+    """Flax ``UNetAudio(cfg)`` params (native or wav2vec2 audio encoder) →
+    float32 ``state_dict`` for ``models.unet_audio.UNetAudio(cfg)``."""
     _exact(params, ["audio_encoder", "audio_proj", "im_cond_conv", "unet"], "UNetAudio")
-    sd = audio_encoder_state_dict_from_flax(params["audio_encoder"], "audio_encoder.")
+    if cfg.audio_encoder == "wav2vec2":
+        sd = wav2vec2_state_dict_from_flax(params["audio_encoder"], "audio_encoder.")
+    else:
+        sd = audio_encoder_state_dict_from_flax(params["audio_encoder"], "audio_encoder.")
     _dense(sd, "audio_proj", params["audio_proj"])
     _conv(sd, "im_cond_conv", params["im_cond_conv"])
     sd.update(unet_state_dict_from_flax(
@@ -378,4 +389,91 @@ def word_lm_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
         for p in per_layer:
             (_norm if p.startswith("ln") else _dense)(sd, f"{p}_{i}", params[f"{p}_{i}"])
     _norm(sd, "ln_f", params["ln_f"])
+    return sd
+
+
+def _flax_named_state_dict(params: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
+    """A Flax tree whose module names the port's module keeps (AV-HuBERT,
+    wav2vec2): Dense and conv kernels transposed, a LayerNorm's or
+    GroupNorm's ``scale`` → ``weight``; a folded BatchNorm (``*bn*``: the
+    ``_Affine`` modules) keeps ``scale``; PReLU ``alpha`` as it is."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, p in params.items():
+        at = f"{prefix}{name}"
+        if not isinstance(p, Mapping):
+            raise KeyError(f"unexpected Flax leaf {at!r}")
+        if "kernel" in p:
+            (_dense if np.ndim(p["kernel"]) == 2 else _conv)(sd, at, p)
+        elif "scale" in p and "bn" in name:
+            sd[f"{at}.scale"], sd[f"{at}.bias"] = _tensor(p["scale"]), _tensor(p["bias"])
+        elif "scale" in p:
+            _norm(sd, at, p)
+        elif "alpha" in p:
+            sd[f"{at}.alpha"] = _tensor(p["alpha"])
+        else:
+            sd.update(_flax_named_state_dict(p, f"{at}."))
+    return sd
+
+
+def wav2vec2_state_dict_from_flax(params: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """Flax ``Wav2Vec2Encoder`` params → ``models.wav2vec2.Wav2Vec2Encoder``
+    entries, each key prefixed with ``prefix``."""
+    return _flax_named_state_dict(params, prefix)
+
+
+def avhubert_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax ``AVHubertVideoEncoder`` params → float32 ``state_dict`` for
+    ``models.avhubert.AVHubertVideoEncoder``."""
+    return _flax_named_state_dict(params, "")
+
+
+def _conformer_state_dict_from_flax(p: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
+    """Flax ``ConformerBlock`` (auto-named in call order: the outer Dense of
+    each FFN is built first) → ``models.lip_expert.ConformerBlock``."""
+    _exact(p, [f"Dense_{i}" for i in range(4)] + [f"LayerNorm_{i}" for i in range(4)]
+           + [f"Conv_{i}" for i in range(3)] + ["attn"], "ConformerBlock")
+    sd = block_state_dict_from_flax(p["attn"], f"{prefix}attn.")
+    for flax, port in (("LayerNorm_0", "ff1_norm"), ("LayerNorm_1", "conv_norm"),
+                       ("LayerNorm_2", "ff2_norm"), ("LayerNorm_3", "out_norm")):
+        _norm(sd, prefix + port, p[flax])
+    for flax, port in (("Dense_0", "ff1_out"), ("Dense_1", "ff1_in"), ("Dense_2", "ff2_out"),
+                       ("Dense_3", "ff2_in")):
+        _dense(sd, prefix + port, p[flax])
+    for flax, port in (("Conv_0", "conv_pw1"), ("Conv_1", "conv_dw"), ("Conv_2", "conv_pw2")):
+        _conv(sd, prefix + port, p[flax])
+    return sd
+
+
+def lip_expert_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax ``LipExpertSeq2Seq`` params → float32 ``state_dict`` for
+    ``models.lip_expert.LipExpertSeq2Seq``."""
+    n_dec = sum(1 for k in params if k.startswith("dec_") and k != "dec_pos")
+    _exact(params, ["encoder", "tok_embed", "dec_pos", "out_norm", "head"]
+           + [f"dec_{i}" for i in range(n_dec)], "LipExpertSeq2Seq")
+    enc = params["encoder"]
+    n_conf = sum(1 for k in enc if k.startswith("conf_"))
+    _exact(enc, ["Conv_0", "Conv_1", "Conv_2", "Dense_0", "pos_embedding"]
+           + [f"conf_{i}" for i in range(n_conf)], "ConformerLipEncoder")
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(3):
+        _conv(sd, f"encoder.stem{i + 1}", enc[f"Conv_{i}"])
+    _dense(sd, "encoder.proj", enc["Dense_0"])
+    sd["encoder.pos_embedding"] = _tensor(enc["pos_embedding"])
+    for i in range(n_conf):
+        sd.update(_conformer_state_dict_from_flax(enc[f"conf_{i}"], f"encoder.blocks.{i}."))
+    sd["tok_embed.weight"] = _tensor(params["tok_embed"]["embedding"])
+    sd["dec_pos"] = _tensor(params["dec_pos"])
+    for i in range(n_dec):
+        p, at = params[f"dec_{i}"], f"blocks.{i}."
+        _exact(p, ["LayerNorm_0", "LayerNorm_1", "LayerNorm_2", "Dense_0", "Dense_1", "self_qkv",
+                   "self_proj", "cross_q", "cross_kv", "cross_proj"], f"dec_{i}")
+        for flax, port in (("LayerNorm_0", "norm1"), ("LayerNorm_1", "norm2"),
+                           ("LayerNorm_2", "norm3")):
+            _norm(sd, at + port, p[flax])
+        for flax, port in (("Dense_1", "fc1"), ("Dense_0", "fc2"), ("self_qkv", "self_qkv"),
+                           ("self_proj", "self_proj"), ("cross_q", "cross_q"),
+                           ("cross_kv", "cross_kv"), ("cross_proj", "cross_proj")):
+            _dense(sd, at + port, p[flax])
+    _norm(sd, "out_norm", params["out_norm"])
+    _dense(sd, "head", params["head"])
     return sd

@@ -7,7 +7,7 @@ GAN's conv blocks (``scale_channels``, ``fold_time``, ``unfold_time``,
 every model of the port is built from. What keeps them equal to the Flax
 modules:
 
-- ``Linear``, ``Conv1d``, ``Conv2d`` keep their parameters in float32 and
+- ``Linear``, ``Conv1d``, ``Conv2d``, ``Conv3d`` keep their parameters in float32 and
   cast input, weight and bias to their compute dtype (bf16 by default)
   inside ``forward``, as Flax's ``Dense``/``Conv(dtype=...)`` with float32
   ``param_dtype`` do: an optimizer step updates the float32 master copy.
@@ -56,7 +56,8 @@ def _flax_init(layer: nn.Module) -> None:
     fan_in = layer.weight[0].numel()
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
     nn.init.trunc_normal_(layer.weight, std=std, a=-2 * std, b=2 * std)
-    nn.init.zeros_(layer.bias)
+    if layer.bias is not None:
+        nn.init.zeros_(layer.bias)
 
 
 class Linear(nn.Linear):
@@ -96,7 +97,8 @@ class _CastConv:
             if out is not None:
                 return out
         dt = self.compute_dtype
-        return self._conv_forward(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        bias = None if self.bias is None else self.bias.to(dt)
+        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
 
 
 class Conv1d(_CastConv, nn.Conv1d):
@@ -105,6 +107,10 @@ class Conv1d(_CastConv, nn.Conv1d):
 
 class Conv2d(_CastConv, nn.Conv2d):
     """2-D conv over (B, C, H, W)."""
+
+
+class Conv3d(_CastConv, nn.Conv3d):
+    """3-D conv over (B, C, T, H, W)."""
 
 
 class LayerNorm(nn.Module):

@@ -1,10 +1,15 @@
 """Audio+image-conditioned diffusion U-Net, in NCHW.
 
 Port of ``lipreading_video_generation_tpu/models/unet_audio.py``'s
-``UNetAudio`` with the native audio encoder: the noisy frame's channels,
+``UNetAudio``: the noisy frame's channels,
 the projected audio features broadcast over H×W (mean over time →
 Linear+ReLU, float32) and the condition frame through a float32 1×1 conv
-are concatenated on the channel axis and denoised by ``UNetModel``.
+are concatenated on the channel axis and denoised by ``UNetModel``. The
+audio encoder is the native ``AudioFeatureEncoder`` or, with
+``cfg.audio_encoder == "wav2vec2"``, ``models.wav2vec2.Wav2Vec2Encoder`` at
+the ``w2v_*`` sizes (``models/ports.graft_wav2vec2_into_diffusion`` puts
+ported weights into it); ``encode_condition`` takes the mean over its T′
+frames either way.
 Conditioning is split as in JAX: ``encode_condition`` runs once per
 request, ``denoise`` once per sampling step. In ``train()`` mode the U-Net
 applies ``cfg.dropout``, with masks drawn from the ``generator`` passed to
@@ -30,8 +35,16 @@ class UNetAudio(nn.Module):
         super().__init__()
         self.cfg = cfg
         dtype = getattr(torch, cfg.dtype)
-        self.audio_encoder = AudioFeatureEncoder(cfg.audio_samples, cfg.audio_embed_dim,
-                                                 dtype=dtype)
+        if cfg.audio_encoder == "wav2vec2":
+            from .wav2vec2 import Wav2Vec2Encoder
+
+            self.audio_encoder = Wav2Vec2Encoder(
+                cfg.audio_embed_dim, cfg.w2v_num_layers, cfg.w2v_num_heads, cfg.w2v_ffn_dim,
+                cfg.w2v_conv_dim, cfg.w2v_conv_kernel, cfg.w2v_conv_stride,
+                cfg.w2v_pos_conv_kernel, cfg.w2v_pos_conv_groups, dtype=dtype)
+        else:
+            self.audio_encoder = AudioFeatureEncoder(cfg.audio_samples, cfg.audio_embed_dim,
+                                                     dtype=dtype)
         self.audio_proj = Linear(cfg.audio_embed_dim, cfg.audio_proj_dim)
         self.im_cond_conv = Conv2d(cfg.im_channels, cfg.im_cond_channels, 1)
         self.unet = UNetModel(

@@ -7,7 +7,8 @@ calls from ``ops/image.py``: ``expand_box_to_min_size``, ``rgb_to_gray``,
 diffusion path's ``normalize_uint8``, ``denormalize_to_uint8`` and the
 U-Net's nearest 2× upsample (``models/unet.py:142``); and of the lip-sync
 path's ``mask_lower_half``, ``concat_reference``, ``_bilinear_sample`` and
-``smooth_boxes``; and of the Wav2Lip image utilities ``resize_batch``,
+``smooth_boxes``; and of the lip expert's ``bgr_to_gray`` and
+``center_crop``; and of the Wav2Lip image utilities ``resize_batch``,
 ``apply_mask``, ``random_crop``, ``rgb_to_lab`` / ``lab_to_rgb`` and
 ``contrast_boost`` (CLAHE of the LAB L channel: on a CUDA tensor the kernel
 K1 on whole frames); and ``map_coordinates``, the counterpart of
@@ -38,6 +39,8 @@ __all__ = [
     "resize",
     "resize_batch",
     "rgb_to_gray",
+    "bgr_to_gray",
+    "center_crop",
     "rgb_to_lab",
     "lab_to_rgb",
     "contrast_boost",
@@ -170,6 +173,21 @@ def rgb_to_gray(img: torch.Tensor) -> torch.Tensor:
     """ITU-R BT.601 luma; (..., H, W, 3) → (..., H, W, 1) float32."""
     w = torch.tensor([0.299, 0.587, 0.114], dtype=torch.float32, device=img.device)
     return (img.to(torch.float32) @ w)[..., None]
+
+
+def bgr_to_gray(img: torch.Tensor) -> torch.Tensor:
+    """BT.601 luma with the weights in BGR order (AV-HuBERT's transform);
+    (..., H, W, 3) → (..., H, W, 1) float32."""
+    w = torch.tensor([0.114, 0.587, 0.299], dtype=torch.float32, device=img.device)
+    return (img.to(torch.float32) @ w)[..., None]
+
+
+def center_crop(img: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """Center crop (..., H, W, C) → (..., h, w, C), the top-left corner at
+    ((H − h) // 2, (W − w) // 2)."""
+    h, w = size
+    top, left = (img.shape[-3] - h) // 2, (img.shape[-2] - w) // 2
+    return img[..., top:top + h, left:left + w, :]
 
 
 def apply_mask(frames: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

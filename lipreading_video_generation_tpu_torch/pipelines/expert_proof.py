@@ -7,19 +7,21 @@ start frames and waves of held-out clips, with shift headroom),
 window), ``alignment_scores`` (those cosines for aligned and for
 ±``shift``-frame shifted mels over the same face windows) and ``auc`` (the
 rank AUC of the two). The windows and shift signs come from
-``np.random.default_rng(seed)`` in the JAX package's order. The generator's
-proof (``aperture_envelope_correlation``, ``mouth_aperture_proxy``) comes
-with the lip expert (ROADMAP §1 item 7).
+``np.random.default_rng(seed)`` in the JAX package's order. And the
+generator's proof: ``frame_rms`` (the wave's per-video-frame RMS),
+``_pearson`` and ``aperture_envelope_correlation`` (the pooled correlation of
+the generated mouths' opening, ``data.datasets.mouth_aperture_proxy``, with
+that envelope, beside the ground truth's).
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Callable, Dict, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..core.config import AudioConfig, GanConfig
-from ..data.datasets import GanClip
+from ..data.datasets import GanClip, mouth_aperture_proxy
 from ..models.syncnet import SyncNet, stack_window_lower_half
 from .train_gan import prepare_batch
 
@@ -82,3 +84,48 @@ def auc(pos: np.ndarray, neg: np.ndarray) -> float:
     pos = np.asarray(pos)[:, None]
     neg = np.asarray(neg)[None, :]
     return float((pos > neg).mean() + 0.5 * (pos == neg).mean())
+
+
+def frame_rms(wav: np.ndarray, n_frames: int, sr: int = 16000, fps: float = 25.0) -> np.ndarray:
+    """Per-video-frame RMS of the wave (float32, 0 past its end)."""
+    spf = int(sr / fps)
+    out = np.zeros(n_frames, np.float32)
+    for t in range(n_frames):
+        seg = wav[t * spf:(t + 1) * spf]
+        out[t] = np.sqrt(np.mean(seg * seg)) if len(seg) else 0.0
+    return out
+
+
+def _pearson(a: np.ndarray, b: np.ndarray) -> float:
+    a = np.asarray(a, np.float64).ravel()
+    b = np.asarray(b, np.float64).ravel()
+    a -= a.mean()
+    b -= b.mean()
+    denom = np.sqrt((a * a).sum() * (b * b).sum())
+    return float((a * b).sum() / denom) if denom > 0 else 0.0
+
+
+def aperture_envelope_correlation(gen_apply: Callable[[Dict[str, np.ndarray]], object],
+                                  cfg: GanConfig, clips: Sequence[GanClip], n_windows: int = 32,
+                                  seed: int = 0, audio_cfg: AudioConfig = AudioConfig()
+                                  ) -> Dict[str, float]:
+    """Pooled Pearson r of the per-frame mouth opening and the wave's RMS
+    envelope over ``n_windows`` windows of held-out clips, for the frames
+    ``gen_apply(batch)`` generates ((B, T, H, W, 3) in [0, 1], a tensor or an
+    array; e.g. a closure over ``train_gan.generate_step``) and for the
+    ground truth (the ceiling). The reference of each window is the window
+    rolled by two frames."""
+    rng = np.random.default_rng(seed)
+    t = cfg.syncnet_T
+    batch = _window_batch(clips, t, n_windows, rng, max_shift=1)
+    batch["wrong_window"] = np.roll(batch["window"], 2, axis=1)
+    g = gen_apply(batch)
+    g = g.detach().float().cpu().numpy() if torch.is_tensor(g) else np.asarray(g)
+    gt = np.asarray(batch["window"], np.float32) / 255.0
+    spf = int(audio_cfg.sample_rate / cfg.fps)
+    rms = np.stack([
+        frame_rms(batch["wav"][i], len(batch["wav"][i]) // spf, audio_cfg.sample_rate,
+                  cfg.fps)[batch["start_frame"][i]:batch["start_frame"][i] + t]
+        for i in range(n_windows)])
+    return {"r_generated": _pearson(mouth_aperture_proxy(g), rms),
+            "r_ground_truth": _pearson(mouth_aperture_proxy(gt), rms)}

@@ -90,12 +90,19 @@ def create_state(cfg: DiffusionConfig, seed: int = 0, device=None, ema_rate: flo
                  wav2vec2_checkpoint: Optional[str] = None) -> DiffusionTrainState:
     """A fresh train state: ``UNetAudio(cfg)`` initialised from ``seed``
     (Flax's init rules; the same seed gives the same params), EMA = a copy.
-    ``device=None`` is the card (``core.device.default_device``)."""
+    ``wav2vec2_checkpoint`` (a ``port-wav2vec2 --out`` artifact) puts the
+    ported encoder into the audio-encoder submodule (``cfg`` must be
+    ``ports.diffusion_cfg_with_wav2vec2``'s: ``ValueError`` otherwise); it
+    trains jointly with the U-Net, in the same Adam and EMA, as the
+    reference's pretrained wav2vec2 does. ``device=None`` is the card
+    (``core.device.default_device``)."""
+    model = seeded(lambda: UNetAudio(cfg), seed)
     if wav2vec2_checkpoint:
-        raise NotImplementedError(
-            "create_state: wav2vec2_checkpoint needs the pretrained wav2vec2 port "
-            "(ROADMAP §1 item 7, pretrained-model family)")
-    return new_state(seeded(lambda: UNetAudio(cfg), seed), cfg, seed, device, ema_rate)
+        from ..models import ports
+
+        w2v, _ = ports.load_wav2vec2_params(wav2vec2_checkpoint)
+        model.load_state_dict(ports.graft_wav2vec2_into_diffusion(model.state_dict(), w2v))
+    return new_state(model, cfg, seed, device, ema_rate)
 
 
 @torch.no_grad()

@@ -8,8 +8,15 @@ mels at offset −1), then one G+D step in JAX's order:
 
 1. the generator's loss lip·lip_weight + syncnet_wt·sync + disc_wt·BCE(D(g), 1)
    + (1 − syncnet_wt − disc_wt)·L1 through the discriminator's params as they
-   were before this step and the frozen SyncNet, backward into the
-   generator only, then its Adam update;
+   were before this step, the frozen SyncNet and (``lip_weight`` > 0) the
+   frozen lip expert, backward into the generator only, then its Adam
+   update. The lip term: with ``text_tokens`` in the batch and a
+   ``LipExpertSeq2Seq`` expert, its character cross-entropy reading the
+   generated window (``seq2seq_expert_loss``, no token dropout); otherwise,
+   and always for an AV-HuBERT encoder, the mean squared distance of its
+   features of the generated window and of the ground truth (detached).
+   The expert runs in float32 whatever ``cfg.dtype`` is, has no gradient
+   and no optimizer;
 2. the discriminator's BCE on the real window and on ``g`` of step 1 (made
    with the generator's old params, detached), then its Adam update.
 
@@ -25,8 +32,7 @@ three modules, the two optimizers, the step and the gate, and ``train_step``
 updates it in place. The step draws nothing at random. Not carried over:
 ``gan_train_scan`` (several steps in one device program): a dispatch of
 ``steps_per_dispatch`` batches runs as that many ordinary steps.
-``mesh_spec`` raises (ROADMAP §1 item 9); so does the lip-expert loss
-(``lip_weight`` > 0, item 7).
+``mesh_spec`` raises (ROADMAP §1 item 9).
 """
 from __future__ import annotations
 
@@ -52,18 +58,13 @@ from . import losses
 from .train_diffusion import ADAM_EPS
 
 
-def _lip_expert_waits(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}: the lipreading-expert loss (gan.lip_weight > 0) needs the lip expert "
-        "(ROADMAP §1 item 7, pretrained-model family)")
-
-
 @dataclasses.dataclass
 class GanTrainState:
     """Everything a step changes: ``gen`` and ``disc`` (float32 params,
     their optimizers ``gen_opt`` and ``disc_opt``), ``step``, and the sync
-    gate ``syncnet_wt``; ``syncnet`` is the frozen sync expert (no grads, no
-    optimizer)."""
+    gate ``syncnet_wt``; ``syncnet`` is the frozen sync expert and
+    ``lip_expert`` the frozen lip expert (None at ``lip_weight`` 0): no
+    grads, no optimizer."""
 
     gen: TalkingFaceGenerator
     disc: Discriminator
@@ -72,21 +73,24 @@ class GanTrainState:
     disc_opt: torch.optim.Adam
     step: int
     syncnet_wt: float
+    lip_expert: Optional[torch.nn.Module] = None
 
     @property
     def device(self) -> torch.device:
         return next(self.gen.parameters()).device
 
 
-def create_state(cfg: GanConfig, seed: int = 0, syncnet_params=None,
-                 device=None) -> GanTrainState:
+def create_state(cfg: GanConfig, seed: int = 0, syncnet_params=None, device=None,
+                 lip_expert_params=None, lip_expert_model=None) -> GanTrainState:
     """A fresh state on ``device`` (None: the card): generator,
     discriminator and SyncNet at ``cfg.model_width`` and ``cfg.dtype``,
     initialised from ``seed`` (Flax's init rules, one fold of the seed
     each); ``syncnet_params`` (a SyncNet ``state_dict``) replaces the
-    expert's init."""
-    if cfg.lip_weight > 0:
-        raise _lip_expert_waits("train_gan.create_state")
+    expert's init. At ``cfg.lip_weight`` > 0 also the frozen lip expert:
+    ``lip_expert_model`` (e.g. ``ports.load_avhubert_expert``'s encoder)
+    or ``train_lip_expert.default_expert()`` at ``syncnet_T`` frames, with
+    ``lip_expert_params`` (a ``state_dict``) loaded into it, else drawn
+    from the seed's fourth fold; float32."""
     device = resolve_device(device)
     dtype = getattr(torch, cfg.dtype)
     kg, kd, ks = (prng.fold_in(prng.make_root_key(seed), i) for i in range(3))
@@ -98,13 +102,24 @@ def create_state(cfg: GanConfig, seed: int = 0, syncnet_params=None,
         syncnet.load_state_dict(syncnet_params)
     gen, disc = gen.to(device).train(), disc.to(device).train()
     syncnet = syncnet.to(device).eval().requires_grad_(False)
+    lip_expert = None
+    if cfg.lip_weight > 0:
+        from .train_lip_expert import default_expert
+
+        lip_expert = lip_expert_model
+        if lip_expert is None:
+            lip_expert = seeded(lambda: default_expert(num_frames=cfg.syncnet_T),
+                                prng.fold_in(prng.make_root_key(seed), 3))
+        if lip_expert_params is not None:
+            lip_expert.load_state_dict(lip_expert_params)
+        lip_expert = lip_expert.to(device, torch.float32).eval().requires_grad_(False)
     betas = (cfg.adam_b1, cfg.adam_b2)
     return GanTrainState(
         gen, disc, syncnet,
         torch.optim.Adam(gen.parameters(), lr=cfg.learning_rate, betas=betas, eps=ADAM_EPS),
         torch.optim.Adam(disc.parameters(), lr=cfg.disc_learning_rate, betas=betas,
                          eps=ADAM_EPS),
-        0, float(cfg.syncnet_wt))
+        0, float(cfg.syncnet_wt), lip_expert)
 
 
 def clip_mel_windows(mel: torch.Tensor, start_frames: torch.Tensor, cfg: GanConfig,
@@ -156,14 +171,27 @@ def _sync_loss(syncnet: SyncNet, mel: torch.Tensor, generated: torch.Tensor) -> 
     return losses.cosine_bce_sync_loss(a, v)
 
 
+def lip_loss(expert: torch.nn.Module, generated: torch.Tensor, gt: torch.Tensor,
+             text_tokens=None) -> torch.Tensor:
+    """The lip-expert term of the G loss on [0, 1] windows (see the
+    module's docstring)."""
+    from ..models.lip_expert import (LipExpertSeq2Seq, avhubert_video_transform,
+                                     seq2seq_expert_loss)
+
+    if text_tokens is not None and isinstance(expert, LipExpertSeq2Seq):
+        return seq2seq_expert_loss(expert, generated * 255.0, torch.as_tensor(text_tokens))
+    gf = expert.encode(avhubert_video_transform(generated * 255.0))
+    with torch.no_grad():
+        tf = expert.encode(avhubert_video_transform(gt * 255.0))
+    return torch.mean((gf - tf) ** 2)
+
+
 def train_step(state: GanTrainState, batch: Dict[str, Any], cfg: GanConfig,
                audio_cfg: AudioConfig = AudioConfig()) -> Dict[str, torch.Tensor]:
     """One G+D step on a host batch (see the module's docstring); updates
     ``state`` in place and leaves each network's gradients in its params'
     ``.grad``. Returns the G loss terms, ``syncnet_wt``, ``loss/d_real`` and
     ``loss/d_fake`` as device scalars."""
-    if cfg.lip_weight > 0:
-        raise _lip_expert_waits("train_gan.train_step")
     prep = prepare_batch(batch, cfg, audio_cfg, state.device)
     gen, disc = state.gen.train(), state.disc.train()
 
@@ -173,7 +201,10 @@ def train_step(state: GanTrainState, batch: Dict[str, Any], cfg: GanConfig,
         recon = losses.l1(g, prep["gt"])
         sync = _sync_loss(state.syncnet, prep["mel"], g)
         perceptual = losses.perceptual_adversarial_loss(disc(g))
-        lip = torch.zeros((), device=g.device)
+        if cfg.lip_weight > 0 and state.lip_expert is not None:
+            lip = lip_loss(state.lip_expert, g, prep["gt"], batch.get("text_tokens"))
+        else:
+            lip = torch.zeros((), device=g.device)
         total, metrics = losses.generator_loss(recon, sync, perceptual, lip, state.syncnet_wt,
                                                cfg.disc_wt, cfg.lip_weight)
         state.gen_opt.zero_grad(set_to_none=True)
@@ -274,7 +305,8 @@ def train(cfg: GanConfig, batch_fn: Callable[[], Dict[str, Any]],
           num_steps: int = 1000, seed: int = 0, checkpoint_dir: Optional[str] = None,
           audio_cfg: AudioConfig = AudioConfig(), metrics_writer=None,
           syncnet_params=None, sample_dir: Optional[str] = None, mesh_spec=None,
-          steps_per_dispatch: int = 8, device=None) -> GanTrainState:
+          steps_per_dispatch: int = 8, device=None, lip_expert_params=None,
+          lip_expert_model=None) -> GanTrainState:
     """Step loop until ``num_steps`` (or the end of a finite feed): host
     batches made ahead by a producer thread (``data.loader.host_prefetch``,
     ``2 × steps_per_dispatch`` deep); each dispatch takes up to
@@ -291,7 +323,8 @@ def train(cfg: GanConfig, batch_fn: Callable[[], Dict[str, Any]],
         raise NotImplementedError(
             "train_gan.train: mesh_spec is not ported yet (ROADMAP §1 item 9, "
             "multi-GPU parallelism)")
-    state = create_state(cfg, seed, syncnet_params, device)
+    state = create_state(cfg, seed, syncnet_params, device, lip_expert_params,
+                         lip_expert_model)
     mgr = CheckpointManager(checkpoint_dir) if checkpoint_dir else None
     if mgr is not None and mgr.latest_step() is not None:
         restore_state(state, mgr.restore())

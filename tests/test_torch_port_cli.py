@@ -108,7 +108,7 @@ def test_build_config_matches_jax(argv):
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["train-diffusion", "--wav2vec2-checkpoint", "w2v/"], "ROADMAP §1 item 7"),
+    (["train-diffusion", "--wav2vec2-checkpoint", "w2v/"], "no port-wav2vec2 artifact"),
     (["sample-diffusion", "--frames", "3"], "the following arguments are required: --out"),
     (["sample-diffusion", "--sr-checkpoint", "sr/", "--out", "x.png"], "cascade mismatch"),
     (["train-vivit", "--set", "vivit.no_such_key=1"], "unknown config key"),
@@ -119,9 +119,13 @@ def test_build_config_matches_jax(argv):
     (["pack-gan-records", "--synthetic"], "the following arguments are required: --out"),
     (["build-frame-index", "--out", "idx.pkl"],
      "the following arguments are required: --data-root"),
-    (["train-gan", "--lip-expert-checkpoint", "le/"], "ROADMAP §1 item 7"),
-    (["train-gan", "--avhubert-checkpoint", "av/"], "ROADMAP §1 item 7"),
-    (["train-gan", "--synthetic", "--set", "gan.lip_weight=0.5"], "ROADMAP §1 item 7"),
+    (["train-gan", "--lip-expert-checkpoint", "le/", "--avhubert-checkpoint", "av/"],
+     "mutually exclusive"),
+    (["port-wav2vec2", "--out", "x"], "exactly one of --pth or --selftest"),
+    (["port-avhubert", "--pth", "a.pt", "--selftest", "--out", "x"],
+     "exactly one of --pth or --selftest"),
+    (["train-feature-transformer"], "ROADMAP §1 item 7"),
+    (["port-densenet", "--selftest", "--out", "x"], "ROADMAP §1 item 7"),
     (["eval-gan", "--synthetic"], "the following arguments are required: --checkpoint"),
     (["infer-lipsync", "--face", "f.mp4", "--audio", "a.wav"],
      "the following arguments are required: --out"),

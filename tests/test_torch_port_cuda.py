@@ -1064,3 +1064,92 @@ def test_prefetch_to_device_hands_out_card_tensors_equal_to_the_host_batches(cud
         for k in h:
             assert g[k].is_cuda and g[k].dtype == torch.from_numpy(h[k]).dtype
             np.testing.assert_array_equal(g[k].cpu().numpy(), h[k])
+
+
+# --- the pretrained encoders' shapes -----------------------------------------
+
+@pytest.mark.parametrize("b,s,e,h,causal,dtype,route", [
+    (8, 12, 768, 12, False, torch.bfloat16, "sm90"),       # wav2vec2 at 4,000 samples
+    (32, 5, 768, 12, False, torch.float32, "cuda_core"),   # AV-HuBERT, T 5
+    (32, 5, 256, 4, False, torch.float32, "cuda_core"),    # the conformer encoder
+    (16, 48, 256, 4, True, torch.float32, "cuda_core"),    # the expert's causal decoder
+])
+def test_small_mha_at_the_pretrained_encoders_shapes(cuda, b, s, e, h, causal, dtype, route):
+    """K2 at the shapes the pretrained encoders give it, with q/k/v as each
+    model's projections hand them over (three Linear outputs; the decoder's
+    chunks of one fused qkv): the route, 2e-2 (bf16) / 1e-5 (float32) of
+    ``_mha_einsum``, and in float32 the gradient of the einsum VJP."""
+    if causal:
+        q, k, v = _uniform((b, s, 3 * e), -2, 2, 110, cuda, dtype).chunk(3, dim=-1)
+    else:
+        q, k, v = (_uniform((b, s, e), -2, 2, 111 + i, cuda, dtype) for i in range(3))
+    assert att.mha_route(h, s, s, e, dtype, q.device) == "small_mha"
+    routed = att.small_mha.route_counts[route]
+    got = att.mha(q, k, v, h, causal)
+    torch.cuda.synchronize()
+    assert att.small_mha.route_counts[route] == routed + 1
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    want = att._mha_einsum(q, k, v, h, causal)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if dtype == torch.float32:
+        qs = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        cot = _uniform((b, s, e), -1, 1, 115, cuda)
+        (att.mha(*qs, h, causal) * cot).sum().backward()
+        ref = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        (att._mha_einsum(*ref, h, causal) * cot).sum().backward()
+        for t, r in zip(qs, ref):
+            torch.testing.assert_close(t.grad, r.grad, rtol=1e-4, atol=1e-4)
+
+
+def test_wav2vec2_on_a_long_wave_runs_k3(cuda):
+    """The base encoder's attention on a 10.24 s wave (T′ = 511 > 128) is
+    the flash forward K3, by the tensor-core route in bf16, within 1e-2 of
+    ``flash_reference`` rounding P to bf16."""
+    from lipreading_video_generation_tpu_torch.models.wav2vec2 import num_frames
+
+    s = num_frames(163840)
+    assert s == 511 and att.mha_route(12, s, s, 768, torch.bfloat16, cuda) == "flash"
+    q, k, v = (_uniform((2, s, 768), -2, 2, 120 + i, cuda, torch.bfloat16) for i in range(3))
+    routed = att.flash_attention.route_counts["sm90"]
+    got = att.mha(q, k, v, 12)
+    torch.cuda.synchronize()
+    assert att.flash_attention.route_counts["sm90"] == routed + 1
+
+    def split(x):
+        return x.reshape(2, s, 12, 64).transpose(1, 2)
+
+    want = att.flash_reference(split(q), split(k), split(v), p_dtype=torch.bfloat16)[0]
+    torch.testing.assert_close(got.float(), want.transpose(1, 2).reshape(2, s, 768).float(),
+                               rtol=1e-2, atol=1e-2)
+
+
+def test_pretrained_encoders_on_card_match_cpu(cuda):
+    """A small wav2vec2, AV-HuBERT and seq2seq expert in float32 (K2 by
+    cuda_core, one launch a layer) on the card against the same modules on
+    the CPU: within 1e-4 (features) and 1e-5 relative (the loss)."""
+    from lipreading_video_generation_tpu_torch.core.prng import seeded
+    from lipreading_video_generation_tpu_torch.models.avhubert import AVHubertVideoEncoder
+    from lipreading_video_generation_tpu_torch.models.lip_expert import seq2seq_expert_loss
+    from lipreading_video_generation_tpu_torch.models.wav2vec2 import Wav2Vec2Encoder
+    from lipreading_video_generation_tpu_torch.pipelines.train_lip_expert import default_expert
+
+    rng = np.random.default_rng(0)
+    wave = torch.from_numpy(rng.standard_normal((2, 4000)).astype(np.float32))
+    video = torch.from_numpy(rng.standard_normal((2, 5, 88, 88, 1)).astype(np.float32))
+    rgb = torch.from_numpy(rng.uniform(0, 255, (2, 5, 96, 96, 3)).astype(np.float32))
+    tokens = torch.from_numpy(rng.integers(2, 30, (2, 48)).astype(np.int64))
+    cases = [(seeded(lambda: Wav2Vec2Encoder(embed_dim=128, num_layers=2, num_heads=2,
+                                            ffn_dim=256), 0), (wave,)),
+             (seeded(lambda: AVHubertVideoEncoder(embed_dim=128, num_layers=2, num_heads=2,
+                                                  ffn_dim=256, resnet_base=8), 1), (video,))]
+    for model, args in cases:
+        with torch.no_grad():
+            want = model.eval()(*args)
+            before = att.small_mha.route_counts["cuda_core"]
+            got = model.to(cuda)(*(a.to(cuda) for a in args)).cpu()
+        assert att.small_mha.route_counts["cuda_core"] == before + 2
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    expert = seeded(lambda: default_expert(embed_dim=64, stem_base=8), 2)
+    want = seq2seq_expert_loss(expert, rgb, tokens)
+    got = seq2seq_expert_loss(expert.to(cuda), rgb.to(cuda), tokens.to(cuda))
+    torch.testing.assert_close(got.cpu(), want.detach(), rtol=1e-5, atol=1e-6)

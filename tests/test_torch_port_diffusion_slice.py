@@ -145,8 +145,9 @@ def test_sample_options_not_ported_raise(setup):
         tsd.sample_cascade(model, cond, audio, cfg, None, SuperResConfig(low_size=8))
     with pytest.raises(ValueError, match="sampler"):
         tsd.sample(model, cond, audio, cfg, num_inference_steps=2, sampler="euler")
-    with pytest.raises(NotImplementedError, match="wav2vec2"):
-        TCfg(audio_encoder="wav2vec2")
+    assert TCfg(audio_encoder="wav2vec2").audio_encoder == "wav2vec2"
+    with pytest.raises(ValueError, match="native | wav2vec2"):
+        TCfg(audio_encoder="hubert")
     # without explicit noise the draws come from the generator: same seed, same frames
     a = tsd.sample_video(model, cond[0], audio, cfg, num_inference_steps=2,
                          generator=torch.Generator().manual_seed(0))

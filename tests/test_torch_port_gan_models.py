@@ -228,13 +228,24 @@ def test_gan_synthetic_clips_and_sampler_equal_jax():
 
 
 @pytest.mark.parametrize("call", [
-    lambda: tdata.GanWindowSampler(tdata.synthetic_gan_clips(1, 16, 8), with_text=True),
-    lambda: tdata.synthetic_gan_clips(with_text=True),
-    lambda: tdata.synthetic_av_clips(with_text=True),
+    lambda d: [d.GanWindowSampler(d.synthetic_av_clips(2, 16, 8, with_text=True), seed=3,
+                                  with_text=True).sample_batch(4)],
+    lambda d: d.synthetic_gan_clips(3, 16, 8, with_text=True),
+    lambda d: d.synthetic_av_clips(3, 16, 8, with_text=True),
 ], ids=["sampler", "gan_clips", "av_clips"])
 def test_transcripts_wait_for_the_lip_expert(call):
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 7"):
-        call()
+    """Transcripts, which waited for the lip expert's tokenizer, now come as
+    the JAX package makes them: the same texts (three words drawn after each
+    clip's frames and wave) and the same ``text_tokens`` in a sampler's
+    batch, beside equal frames and waves."""
+    got, want = call(tdata), call(jdata)
+    for g, w in zip(got, want):
+        if isinstance(w, dict):
+            assert set(g) == set(w) and g["text_tokens"].dtype == np.int32
+            assert all(np.array_equal(g[k], w[k]) for k in w)
+        else:
+            assert g.text == w.text and len(g.text.split()) == 3
+            assert np.array_equal(g.frames, w.frames) and np.array_equal(g.wav, w.wav)
 
 
 def test_load_gan_clip_matches_jax(tmp_path):

@@ -206,8 +206,9 @@ def _params_match(module, want: dict, lr: float):
 
 def test_create_state():
     """Float32 masters at the compute dtype's widths, optax adam's
-    hyperparameters for G and D, the SyncNet frozen without an optimizer;
-    the lip-expert loss and a mesh wait for ROADMAP items 7 and 9."""
+    hyperparameters for G and D, the SyncNet frozen without an optimizer; at
+    ``lip_weight`` > 0 the lip expert (the seq2seq default) frozen in
+    float32, in no optimizer; a mesh waits for ROADMAP item 9."""
     state = ttg.create_state(dataclasses.replace(CFG, dtype="bfloat16"), device="cpu")
     for m in (state.gen, state.disc, state.syncnet):
         assert all(p.dtype == torch.float32 for p in m.parameters())
@@ -218,8 +219,15 @@ def test_create_state():
         assert opt.defaults["eps"] == 1e-8 and opt.defaults["weight_decay"] == 0
     assert state.step == 0 and state.syncnet_wt == 0.0
     assert state.gen.decoder.out_conv.compute_dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 7"):
-        ttg.create_state(dataclasses.replace(CFG, lip_weight=0.5), device="cpu")
+    assert state.lip_expert is None
+    lip = ttg.create_state(dataclasses.replace(CFG, lip_weight=0.5, dtype="bfloat16"),
+                           device="cpu")
+    assert type(lip.lip_expert).__name__ == "LipExpertSeq2Seq" and not lip.lip_expert.training
+    assert all(p.dtype == torch.float32 and not p.requires_grad
+               for p in lip.lip_expert.parameters())
+    in_opt = {id(p) for opt in (lip.gen_opt, lip.disc_opt) for g in opt.param_groups
+              for p in g["params"]}
+    assert not any(id(p) in in_opt for p in lip.lip_expert.parameters())
     with pytest.raises(NotImplementedError, match="ROADMAP §1 item 9"):
         ttg.train(CFG, lambda: None, mesh_spec=object(), device="cpu")
 

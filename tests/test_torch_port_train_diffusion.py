@@ -308,7 +308,7 @@ def test_same_seed_same_params_and_eval_step():
     assert np.isfinite(m["eval/loss"].item()) and a.model.training
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         ttd.train(cfg, lambda: None, mesh_spec=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="wav2vec2"):
+    with pytest.raises(FileNotFoundError, match="wav2vec2.config.json"):
         ttd.create_state(cfg, wav2vec2_checkpoint="w2v", device="cpu")
 
 
