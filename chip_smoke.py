@@ -70,6 +70,14 @@ weights made from a seed, and checks every hand-written kernel on them:
   --avhubert-checkpoint`` / ``--lip-expert-checkpoint`` at the ``GanConfig``
   defaults; float32 experts: K2 by the CUDA-core route, causal in the
   expert's decoder);
+- the DenseNet feature path: DenseNet121 at the published widths (growth
+  32, blocks (6, 12, 24, 16), 1024 features) through ``port-densenet`` and
+  ``embed_frames``, then the ``FeatureTransformer`` at the
+  ``FeatureTransformerConfig`` defaults (1024 features, 2 heads, 2 layers,
+  float32) through ``train-feature-transformer``, synthetic and from drawn
+  LRS2-style records; the DenseNet is cuDNN's convolutions, BatchNorm and
+  pooling (XLA's in the JAX package), the transformer's attention K2 at
+  head dim 512 by its CUDA-core route, the records' ROIs K1;
 - the int8 lipreader (``predict_step_int8``: K6 once per Linear) and the K6
   microbench (``bench.microbench_int8``: both of K6's type pairs at 4096³).
 
@@ -91,7 +99,8 @@ script exits non-zero without printing a result):
    frames; K2 small MHA: 2e-2 abs/rel in
    bf16 (the tensor-core kernel, also at S = 1, 16, 17 and 128, on qkv
    slices, and the CUDA-core kernel for an unaligned view and S past 128),
-   1e-5 in float32, each with its route and equal bits of two launches, and
+   1e-5 in float32 (also at head dim 512: the FeatureTransformer's
+   (64, 5, 1024), 2 heads), each with its route and equal bits of two launches, and
    its gradient at 1e-4 in float32; K3 flash
    forward: O within 1e-2 in bf16 (one output ulp at |O| ≤ 1; the
    tensor-core kernel also rounds P to bf16 before P·V, 2^-9 a term, and
@@ -217,12 +226,27 @@ script exits non-zero without printing a result):
    batches (K2 4 a step); a float32 lip term card vs CPU (1e-4 relative;
    its gradient w.r.t. the generated window 1e-4, G's 1e-2 relative L2);
    each stage's wall time.
-14. microbench — ``bench.microbench_int8.run``: K6 in bf16 and in int8
+14. features — ``port-densenet --selftest``; DenseNet121 at full width,
+   float32, card against CPU on its artifact (8 frames of 64×64, max|d| /
+   max|f| within 1e-3); ``embed_frames`` on the CLI's 1,280 synthetic frames
+   of 32×32 (frames/s, peak memory) and the forward on 64 frames of
+   224×224 (time, peak memory, a profile: launches a batch); a
+   ``FeatureTransformer`` train step at the defaults with dropout 0, card
+   against CPU (loss 1e-5 relative, gradient 1e-4 relative L2; K2 2× by
+   cuda_core), and K2's output scaled by 1.01 on the card, a fault the
+   gradient gate must see; ``train-feature-transformer --synthetic`` (256
+   clips, 38 held out, 60 steps: K2 exactly 122× by cuda_core, val accuracy,
+   wall time of embedding and training); ``train-feature-transformer
+   --data-root`` over 4 of ``lipread_records``' records from memory (K1 4×
+   by packed, K2 2× a step and 2× in the eval, counts derived from the
+   clips).
+15. microbench — ``bench.microbench_int8.run``: K6 in bf16 and in int8
    (B row-major and B a (N, K) weight transposed) and the library's calls
    on the same operands at 4096³, after its own checks.
-15. timing — request and train-step times, frames/s, each kernel's
+16. timing — request and train-step times, frames/s, each kernel's
    CUDA-event time beside its plain version's at the main-path shapes, the
    one PyTorch call that computes the same function where there is one
+   (K2 also at the FeatureTransformer's (64, 5, 1024), 2 heads, float32)
    (``scaled_dot_product_attention`` and its backward, at all three U-Net
    shapes beside K3 and beside K4 + K5, ``torch._int_mm``,
    ``torch.matmul``; yardsticks, used on no path), each kernel's bound
@@ -294,7 +318,7 @@ LIPSYNC_FRAMES, LIPSYNC_HW = 256, (360, 640)
 LIPSYNC_EQUAL_SHARE = 0.999
 # H100 SXM peaks the bounds are stated against (NVIDIA's data sheet, dense)
 PEAK_BYTES_S = 3.35e12
-PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12}
+PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}   # f32: outside the tensor cores
 
 
 def log(phase: str, msg: str) -> None:
@@ -509,6 +533,9 @@ def phase_kernels() -> dict:
                  (16, 5, 768, 12, False, f32, "cuda_core", ""),
                  (16, 5, 256, 4, False, f32, "cuda_core", ""),
                  (16, 48, 256, 4, True, f32, "cuda_core", "qkv")]
+    # the FeatureTransformer at its defaults: 1024 features, 2 heads (head
+    # dim 512), float32, on its fused qkv, at the CLI's batch
+    k2_cases += [(64, 5, 1024, 2, False, f32, "cuda_core", "qkv")]
     for (b, s, e, h, causal, dtype, route, layout) in k2_cases:
         tol = TOL_K2_BF16 if dtype == bf16 else TOL_K2_F32
         if layout == "qkv":
@@ -3450,6 +3477,255 @@ def phase_pretrained(dev: dict) -> dict:
     return {"launches": launches}
 
 
+FT_SYNTH_CLIPS = 256           # train-feature-transformer --synthetic's clips (5 frames of 32x32)
+FT_DATA_CLIPS = 4              # records of lipread_records for --data-root --max-clips
+DN_HW = 224                    # DenseNet121's published input size
+DN_BATCH = 64
+DN_CHECK_FRAMES = 8            # frames of 64x64 in the card-vs-CPU DenseNet check
+# DenseNet121 float32, card (cuDNN without TF32) vs CPU: summation order through
+# 120 convolutions and 121 BatchNorms (eval mode); of the largest |feature|.
+TOL_DENSENET = 1e-3
+# a FeatureTransformer train step at the defaults (float32, dropout 0), card (K2
+# by cuda_core, cuBLAS without TF32) vs CPU (_mha_einsum): summation order
+# only through 2 blocks, the max over time, the head and the backward
+TOL_FT_LOSS = 1e-5             # relative
+TOL_FT_GRAD = 1e-4             # relative L2 of the whole gradient
+FT_FAULT_SCALE = 1.01          # K2's output scaled on the card: a fault the gates must see
+
+
+def phase_features(dev: dict) -> dict:
+    """The DenseNet feature path at the published widths on random weights
+    from seed 0: ``port-densenet --selftest``; DenseNet121 card against CPU
+    (float32); ``embed_frames`` on the CLI's 1,280 synthetic frames of
+    32×32 and a batch of 64 frames of 224×224; a ``FeatureTransformer``
+    train step at the ``FeatureTransformerConfig`` defaults (1024 features,
+    2 heads: K2 at head dim 512 by ``cuda_core``) card against CPU, with a
+    planted fault; ``train-feature-transformer --synthetic`` (K2 122×) and
+    ``--data-root`` over ``lipread_records`` (K1 once a record by
+    ``packed``, K2 2× a step and 2× in the eval)."""
+    import contextlib as ctx
+    import io
+    import os
+    import tempfile
+
+    from lipreading_video_generation_tpu_torch import cli
+    from lipreading_video_generation_tpu_torch.core.config import FeatureTransformerConfig
+    from lipreading_video_generation_tpu_torch.data.datasets import synthetic_word_clips
+    from lipreading_video_generation_tpu_torch.models import ports
+    from lipreading_video_generation_tpu_torch.models.densenet import (DenseNet121,
+                                                                       imagenet_preprocess)
+    from lipreading_video_generation_tpu_torch.ops import attention as att
+    from lipreading_video_generation_tpu_torch.ops import clahe_cuda as cl
+    from lipreading_video_generation_tpu_torch.pipelines import feature_extraction as tfx
+    from lipreading_video_generation_tpu_torch.pipelines import lipreading_e2e as e2e
+
+    phase_t0 = time.perf_counter()
+    launches = {"clahe": 0, "small_mha": 0}
+    walls = {}
+
+    def run_cli(name, argv):
+        """``cli.main(argv)`` on the card with the counts zeroed first: its
+        wall time, printed lines (echoed) and launches by route."""
+        _zero_counts()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with ctx.redirect_stdout(out):
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        for line in out.getvalue().splitlines():
+            log("features", f"  {name}: {line}")
+        if rc != 0:
+            raise AssertionError(f"{name}: rc {rc}")
+        got = {"clahe": dict(cl.clahe_cuda.route_counts),
+               "small_mha": dict(att.small_mha.route_counts)}
+        for k in launches:
+            launches[k] += sum(got[k].values())
+        return out.getvalue(), got
+
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_features_")
+    root = work.name
+    try:
+        # --- 1. port-densenet --selftest; DenseNet121 card vs CPU --------------
+        art = os.path.join(root, "densenet.pt")
+        text, got = run_cli("port-densenet --selftest", ["port-densenet", "--selftest", "--out",
+                                                         art])
+        if sum(got["small_mha"].values()) or sum(got["clahe"].values()) or "feature_l2" not in text:
+            raise AssertionError(f"port-densenet --selftest: {got}, {text!r}")
+        sd = ports.load_densenet_variables(art)
+        model = ports._materialise(DenseNet121, sd).eval()
+        x = _uniform((DN_CHECK_FRAMES, 64, 64, 3), -2, 2, SEED + 80).cpu()
+        with torch.no_grad():
+            want = model(x)
+            got_card = model.to("cuda")(x.to("cuda")).cpu()
+        dn_err = ((got_card - want).abs().max() / want.abs().max()).item()
+        log("features", f"DenseNet121 (growth 32, blocks (6,12,24,16), 1024 features; "
+            f"{sum(v.numel() for v in sd.values())} values) float32 on the port-densenet "
+            f"artifact, {DN_CHECK_FRAMES} frames of 64x64, card (cuDNN, tf32 off) vs CPU: "
+            f"max|d| / max|f| {dn_err:.3g} (tol {TOL_DENSENET})")
+        if not dn_err <= TOL_DENSENET:
+            raise AssertionError(f"DenseNet121 card vs CPU: {dn_err}")
+
+        # --- 2. embed_frames: the CLI's 1,280 frames; 64 frames of 224x224 -----
+        clips, _ = synthetic_word_clips(n=FT_SYNTH_CLIPS, t=5, num_classes=64)
+        stacked = np.stack(clips)[..., None]                       # (256, 5, 32, 32, 1)
+        tfx.embed_frames(model, stacked[:8], batch_frames=512, device="cuda")   # warm-up
+        embed_s = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            feats = tfx.embed_frames(model, stacked, batch_frames=512, device="cuda")
+            embed_s.append(time.perf_counter() - t0)
+        embed_peak = torch.cuda.max_memory_allocated() / 2**20
+        n_frames = stacked.shape[0] * stacked.shape[1]
+        if feats.shape != (FT_SYNTH_CLIPS, 5, 1024) or not np.isfinite(feats).all():
+            raise AssertionError(f"embed_frames: {feats.shape}")
+        big = torch.from_numpy(np.random.default_rng(SEED + 81).integers(
+            0, 256, (DN_BATCH, DN_HW, DN_HW, 3), dtype=np.uint8))
+        xb = imagenet_preprocess(big.to("cuda"))
+        with torch.no_grad():
+            model(xb)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fwd_ms = [_event_ms(lambda: model(xb), 1) for _ in range(5)]
+            fwd_peak = torch.cuda.max_memory_allocated() / 2**20
+            wall_ms, _, kernels = _profiled(lambda: model(xb))
+        host_s = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            tfx.embed_frames(model, big.numpy()[:, None], batch_frames=DN_BATCH, device="cuda")
+            host_s.append(time.perf_counter() - t0)
+        busy = sum(ms for _, ms, _ in kernels)
+        n_launch = sum(n for _, _, n in kernels)
+        fwd = statistics.median(fwd_ms)
+        log("features", f"embed_frames on {n_frames} frames of 32x32 (the CLI's synthetic "
+            f"{FT_SYNTH_CLIPS} clips x 5), batches of 512, host uint8 in, host features out: "
+            f"{[round(s * 1e3, 2) for s in embed_s]} ms = "
+            f"{n_frames / statistics.median(embed_s):.1f} frames/s, peak {embed_peak:.1f} MiB; "
+            f"DenseNet121 forward on {DN_BATCH} frames of {DN_HW}x{DN_HW} on the card: "
+            f"{[round(t, 3) for t in fwd_ms]} ms (median {fwd:.3f} ms = "
+            f"{DN_BATCH / fwd * 1e3:.1f} frames/s), peak {fwd_peak:.1f} MiB; under the profiler "
+            f"{busy:.3f} ms of kernels in {n_launch} launches a batch (wall {wall_ms:.3f} ms, "
+            f"busy {busy / wall_ms:.3f}); through embed_frames from host uint8 "
+            f"{[round(s * 1e3, 2) for s in host_s]} ms ({dev['smi']})")
+        for name, ms, count in kernels[:6]:
+            log("features", f"  {ms:9.3f} ms {count:5d}x {name[:110]}")
+        del xb, big
+
+        # --- 3. a FeatureTransformer train step, card vs CPU, a planted fault --
+        cfg0 = FeatureTransformerConfig(dropout=0.0, head_dropout=0.0)
+        rng = np.random.default_rng(SEED + 82)
+        fb = torch.from_numpy(rng.standard_normal((64, 5, 1024)).astype(np.float32))
+        lb = torch.from_numpy(rng.integers(0, cfg0.num_classes, 64))
+        weights = tfx.create_state(cfg0, SEED, device="cpu").model.state_dict()
+
+        def ft_step(device, fault=False):
+            st = tfx.create_state(cfg0, SEED, device=device)
+            st.model.load_state_dict(weights)
+            real = att._small_mha_launch
+            if fault:
+                att._small_mha_launch = lambda *a: real(*a) * FT_FAULT_SCALE
+            before = dict(att.small_mha.route_counts)
+            try:
+                m = tfx.train_step(st, fb, lb)
+            finally:
+                att._small_mha_launch = real
+            took = {r: n - before[r] for r, n in att.small_mha.route_counts.items()
+                    if n != before[r]}
+            grad = torch.cat([p.grad.flatten().double().cpu() for p in st.model.parameters()])
+            return m["loss"].item(), grad, took
+
+        want_loss, want_grad, _ = ft_step("cpu")
+        loss, grad, took = ft_step("cuda")
+        if took != {"cuda_core": cfg0.num_layers}:
+            raise AssertionError(f"FeatureTransformer step: K2 routes {took}, want "
+                                 f"{cfg0.num_layers} by cuda_core")
+        f_loss, f_grad, _ = ft_step("cuda", fault=True)
+
+        def rel(lo, gr):
+            return abs(lo - want_loss) / abs(want_loss), ((gr - want_grad).norm()
+                                                          / want_grad.norm()).item()
+
+        loss_rel, grad_rel = rel(loss, grad)
+        fault_loss, fault_grad = rel(f_loss, f_grad)
+        log("features", f"FeatureTransformer train step at the FeatureTransformerConfig defaults "
+            f"(1024 features, 2 heads: d 512, dense_dim 4, 2 layers, {cfg0.num_classes} "
+            f"classes; dropout 0), batch 64, float32, card (K2 {took}) vs CPU: loss "
+            f"{loss:.7g} vs {want_loss:.7g} (rel {loss_rel:.3g}, tol {TOL_FT_LOSS}), gradient "
+            f"rel L2 {grad_rel:.3g} (tol {TOL_FT_GRAD}); K2's output x{FT_FAULT_SCALE} on the card "
+            f"(a planted fault): loss {fault_loss:.3g}, gradient {fault_grad:.3g}")
+        if not (loss_rel <= TOL_FT_LOSS and grad_rel <= TOL_FT_GRAD):
+            raise AssertionError(f"FeatureTransformer step card vs CPU: {loss_rel}, {grad_rel}")
+        if not fault_grad > TOL_FT_GRAD:
+            raise AssertionError(f"the gate does not see K2's output scaled: {fault_grad}")
+
+        # --- 4. train-feature-transformer --synthetic at the defaults ----------
+        cfg = FeatureTransformerConfig()
+        n_val = max(1, int(cfg.val_split * FT_SYNTH_CLIPS))
+        steps = cfg.num_epochs * ((FT_SYNTH_CLIPS - n_val) // 64)
+        stages = {"embed": _Stage(tfx, "embed_frames"), "train": _Stage(tfx, "train"),
+                  "step": _Stage(tfx, "train_step")}
+        with ctx.ExitStack() as stack:
+            for stage in stages.values():
+                stack.enter_context(stage)
+            text, got = run_cli("train-feature-transformer --synthetic",
+                                ["train-feature-transformer", "--synthetic"])
+        want_k2 = cfg.num_layers * (steps + 1)
+        if got["small_mha"] != {"sm90": 0, "cuda_core": want_k2} or sum(got["clahe"].values()):
+            raise AssertionError(f"train-feature-transformer --synthetic: launches {got}, want "
+                                 f"K2 {want_k2} by cuda_core")
+        acc = float(text.split("val accuracy=")[1].split()[0])
+        s = stages
+        log("features", f"train-feature-transformer --synthetic ({FT_SYNTH_CLIPS} clips, {n_val} "
+            f"held out, batch 64: {steps} steps; the FeatureTransformerConfig defaults): K2 "
+            f"{want_k2} by cuda_core ({cfg.num_layers} a step and {cfg.num_layers} in the eval), "
+            f"as derived; val accuracy {acc:.4f}; wall {walls['train-feature-transformer --synthetic']:.3f} s: "
+            f"embed_frames {s['embed'].seconds:.3f} s, train {s['train'].seconds:.3f} s "
+            f"({s['step'].calls} steps: {s['step'].ms()}) ({dev['smi']})")
+        if s["step"].calls != steps or not 0.0 <= acc <= 1.0:
+            raise AssertionError(f"{s['step'].calls} steps, accuracy {acc}")
+
+        # --- 5. train-feature-transformer --data-root over drawn records -------
+        frames_of = lipread_records(os.path.join(root, "lrs2"), SEED + 60)
+        built = []
+        real_build = e2e.build_word_clip_dataset
+
+        def from_memory(*a, **k):     # the card's machine has no OpenCV: frames from memory
+            ds = real_build(*a, read_frames=lambda p: (frames_of[p], 25.0), **k)
+            built.append(ds)
+            return ds
+
+        e2e.build_word_clip_dataset = from_memory
+        try:
+            text, got = run_cli("train-feature-transformer --data-root", [
+                "train-feature-transformer", "--data-root", os.path.join(root, "lrs2"),
+                "--max-clips", str(FT_DATA_CLIPS)])
+        finally:
+            e2e.build_word_clip_dataset = real_build
+        n = len(built[0].clips)
+        n_val = max(1, int(cfg.val_split * n))
+        batch = min(64, n - n_val)
+        steps = cfg.num_epochs * ((n - n_val) // batch)
+        want = {"clahe": {"packed": FT_DATA_CLIPS, "tiled": 0},
+                "small_mha": {"sm90": 0, "cuda_core": cfg.num_layers * (steps + 1)}}
+        if got != want:
+            raise AssertionError(f"train-feature-transformer --data-root: launches {got}, want "
+                                 f"{want}")
+        log("features", f"train-feature-transformer --data-root over {FT_DATA_CLIPS} of "
+            f"{LR_RECORDS} drawn LRS2-style records ({LR_FRAMES} frames of {LR_HW}x{LR_HW}, from "
+            f"memory): {n} word clips, {len(built[0].vocab)} words, {n_val} held out, batch "
+            f"{batch}: {steps} steps; K1 {FT_DATA_CLIPS} by packed (one a record), K2 "
+            f"{cfg.num_layers * (steps + 1)} by cuda_core, as derived; wall "
+            f"{walls['train-feature-transformer --data-root']:.3f} s; "
+            + text.strip().splitlines()[-1])
+    finally:
+        work.cleanup()
+    log("features", "stage wall times: " + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items())
+        + f"; phase took {time.perf_counter() - phase_t0:.1f} s")
+    return {"launches": launches}
+
+
 def phase_microbench() -> dict:
     """K6's own entry point: both type pairs at 4096³ beside the library."""
     from lipreading_video_generation_tpu_torch.bench import microbench_int8
@@ -3536,10 +3812,11 @@ def _flash_fwd_sm90_launcher(q, k, v):
     return launch
 
 
-def _small_mha_sm90_launcher(q, k, v, num_heads: int):
-    """The same for the tensor-core K2 on (B, S, E) bf16 q, k, v: what
-    ``ops/attention._small_mha_launch`` does, without its host work per call
-    and without its count."""
+def _small_mha_launcher(q, k, v, num_heads: int, entry: str = "lvg_small_mha_sm90"):
+    """The same for K2 on (B, S, E) q, k, v through the C entry point
+    ``entry`` (the tensor-core kernel by default; ``lvg_small_mha_f32`` is
+    the CUDA-core one in float32): what ``ops/attention._small_mha_launch``
+    does, without its host work per call and without its count."""
     import ctypes
 
     from lipreading_video_generation_tpu_torch.ops import _build
@@ -3548,14 +3825,14 @@ def _small_mha_sm90_launcher(q, k, v, num_heads: int):
     d = e // num_heads
     out = torch.empty(b, s, e, dtype=q.dtype, device=q.device)
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    fn = _build.kernel("lvg_small_mha_sm90", [vp] * 4 + [i32] + [i64] * 6 + [i32] * 3
+    fn = _build.kernel(entry, [vp] * 4 + [i32] + [i64] * 6 + [i32] * 3
                        + [ctypes.c_float, i32, vp])
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, q.stride(0), q.stride(1),
             k.stride(0), k.stride(1), v.stride(0), v.stride(1), s, num_heads, d,
             1.0 / math.sqrt(d), 0)
 
     def launch():
-        _build.check(fn(*args, torch.cuda.current_stream().cuda_stream), "small_mha (sm90)")
+        _build.check(fn(*args, torch.cuda.current_stream().cuda_stream), f"small_mha ({entry})")
 
     launch.out = out   # the kernel writes it: it lives as long as the launcher
     return launch
@@ -3643,7 +3920,21 @@ def phase_timing(dev: dict, microbench: dict) -> dict:
         F.scaled_dot_product_attention(q4, k4, v4)
         k2_lib = _event_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4), 20)
         # the kernel alone, as for K3 below: the C entry point in a loop
-        k2_alone = _event_ms(_small_mha_sm90_launcher(q, k, v, 8), 100)
+        k2_alone = _event_ms(_small_mha_launcher(q, k, v, 8), 100)
+        # K2 as the FeatureTransformer calls it: float32 q/k/v slices of one
+        # (64, 5, 3072) qkv tensor, 2 heads of 512, by the CUDA-core kernel
+        before = att.small_mha.route_counts["cuda_core"]
+        qf, kf, vf = _uniform((64, 5, 3 * 1024), -2, 2, SEED + 5).chunk(3, dim=-1)
+        k2f_ms, k2f_plain, raw2f = _plain_vs_kernel(
+            lambda: att._mha_einsum(qf, kf, vf, 2, False),
+            lambda: att.small_mha(qf, kf, vf, 2), 20)
+        if att.small_mha.route_counts["cuda_core"] != before + 41:
+            raise AssertionError("the timed d-512 K2 launches did not take the CUDA-core kernel")
+        qf4, kf4, vf4 = (t.reshape(64, 5, 2, 512).transpose(1, 2) for t in (qf, kf, vf))
+        F.scaled_dot_product_attention(qf4, kf4, vf4)
+        k2f_lib = _event_ms(lambda: F.scaled_dot_product_attention(qf4, kf4, vf4), 20)
+        k2f_alone = _event_ms(_small_mha_launcher(qf, kf, vf, 2, "lvg_small_mha_f32"), 100)
+        del qf, kf, vf, qf4, kf4, vf4
         # K3 at the U-Net's three shapes, batch DIFF_FRAMES, as the U-Net
         # calls it: (B, 1, S, D) views of column slices of one qkv tensor
         k3, k3_lib, k3_alone = {}, {}, {}
@@ -3687,6 +3978,15 @@ def phase_timing(dev: dict, microbench: dict) -> dict:
         f"(64,360,640) grid (8,8), route tiled: {k1f_ms:.4f} ms ({k1f_bound / k1f_ms:.1%} of the "
         f"bound {k1f_bound:.4f} ms), plain {k1f_plain:.4f} ms (plain,kernel,kernel,plain = "
         f"{[round(t, 4) for t in raw1f]}) on {dev['smi']}")
+    # float32: q, k, v and O of 4 bytes; 4·b·h·s²·d operations on the CUDA cores
+    k2f_bound = _bound(4 * 64 * 5 * 1024 * 4, 4.0 * 64 * 2 * 5 * 5 * 512, "f32")
+    log("timing", f"K2 small_mha (64,5,1024) H=2 (d 512) f32 on qkv slices, route cuda_core (the "
+        f"FeatureTransformer's): kernel {k2f_ms:.4f} ms (bound {k2f_bound['bound_ms']:.5f} ms by "
+        f"{k2f_bound['bound_by']}, {k2f_bound['bound_ms'] / k2f_ms:.1%} of it), plain "
+        f"{k2f_plain:.4f} ms (plain,kernel,kernel,plain = {[round(t, 4) for t in raw2f]}), the "
+        f"library's forward (SDPA, float32) {k2f_lib:.4f} ms: {k2f_ms / k2f_lib:.2f} x; the C "
+        f"entry point in a loop, output allocated once: {k2f_alone:.4f} ms "
+        f"({k2f_bound['bound_ms'] / k2f_alone:.1%} of the bound) on {dev['smi']}")
     k2_bound = _attention_bound(384, 8, 80, 32, 4, 4)["bound_ms"]
     log("timing", f"K2 small_mha (384,80,256) H=8 bf16, route sm90: kernel {k2_ms:.4f} ms (bound "
         f"{k2_bound:.4f} ms by bytes, {k2_bound / k2_ms:.1%} of it), plain "
@@ -3798,6 +4098,9 @@ def phase_timing(dev: dict, microbench: dict) -> dict:
                                              bound_ms=k1f_bound),
                       **_bound(2 * n_img * 4, 0, "bf16")),
         "small_mha": dict(ms=k2_ms, plain_ms=k2_plain, library_ms=k2_lib,
+                          features_64x5x1024_h2_f32=dict(route="cuda_core", ms=k2f_ms,
+                                                         plain_ms=k2f_plain, library_ms=k2f_lib,
+                                                         c_entry_ms=k2f_alone, **k2f_bound),
                           **_attention_bound(384, 8, 80, 32, 4, 4)),
         "flash_attention": dict(ms=k3[(16384, 64)][0], plain_ms=k3[(16384, 64)][1],
                                 library_ms=k3_lib[(16384, 64)],
@@ -3833,9 +4136,10 @@ def main() -> None:
     lipsync = phase_lipsync(dev)
     gan = phase_gan(dev)
     pretrained = phase_pretrained(dev)["launches"]
+    features = phase_features(dev)["launches"]
     microbench = phase_microbench()
-    paths = (vivit_trained, diffused, trained, superres, guided, fed, pretrained)
-    launches = {"clahe": served["clahe"] + lipread["clahe"] + gan["clahe"],
+    paths = (vivit_trained, diffused, trained, superres, guided, fed, pretrained, features)
+    launches = {"clahe": served["clahe"] + lipread["clahe"] + gan["clahe"] + features["clahe"],
                 "small_mha": (served["small_mha"] + lipread["small_mha"]
                               + sum(p["small_mha"] for p in paths)),
                 "int8_matmul": (served["int8_matmul"] + lipsync["launches"] + gan["int8_matmul"]
@@ -3891,7 +4195,8 @@ def main() -> None:
                 f"{pkg}/csrc/small_mha.cu (float32, longer sequences, unaligned inputs; the "
                 "lipreading chain's causal word LM, the GAN's frozen lip experts: AV-HuBERT's 12 "
                 "layers on the generated and the real window, the seq2seq expert's encoder and "
-                "causal decoder)")
+                "causal decoder; the FeatureTransformer's 2 layers at head dim 512, timed here "
+                "as features_64x5x1024_h2_f32)")
         if name.endswith("_matmul"):
             kern["route_detail"] = (
                 "sm90: wgmma on swizzled tiles, a TMA ring kept full by a producer warpgroup, "

@@ -39,15 +39,17 @@ Usage:
       --steps 1000 --out expert.pt
   python -m lipreading_video_generation_tpu_torch.cli train-gan --synthetic \\
       --set gan.lip_weight=0.1 --lip-expert-checkpoint expert.pt   # or --avhubert-checkpoint av/
+  python -m lipreading_video_generation_tpu_torch.cli port-densenet --pth densenet121.pth \\
+      --out densenet.pt
+  python -m lipreading_video_generation_tpu_torch.cli train-feature-transformer \\
+      --data-root data/mvlrs_v1/main --densenet-checkpoint densenet.pt
 
 Every command runs on the card (``core.device``); ``main(argv,
 device="cpu")`` runs it on the CPU, as the tests do. Packed records stream
 through the native prefetch loader (``data/records``). A frame index and
 ``--cond-video`` are decoded with OpenCV, imported on call. The ``port-*``
 commands take exactly one of ``--pth`` (a published checkpoint) or
-``--selftest`` (one written in its layout here). ``train-feature-transformer``
-and ``port-densenet`` are refused with the ROADMAP item they wait for (the
-DenseNet feature path).
+``--selftest`` (one written in its layout here).
 """
 from __future__ import annotations
 
@@ -58,7 +60,7 @@ from typing import List, Optional
 import numpy as np
 
 # commands of the JAX CLI the port does not serve yet
-_WAITING = ("train-feature-transformer", "port-densenet")
+_WAITING = ()
 _S3FD_HELP = ("torch.save'd S3FD state dict in s3fd.pth's layout (s3fd.pth itself or port-s3fd "
               "--out); without it the face detector is drawn from a seed (its boxes are noise)")
 _SELFTEST_HELP = ("write a checkpoint in the published layout here (torch.save, seeded values), "
@@ -265,26 +267,43 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--out", default=None,
                    help="save the expert here (train-gan --lip-expert-checkpoint)")
 
-    for name, what, flag in (("port-s3fd", "the S3FD face detector's s3fd.pth", None),
-                             ("port-avhubert", "a fairseq AV-HuBERT checkpoint's video encoder "
-                              "(the frozen lip expert)", "--avhubert-checkpoint"),
-                             ("port-wav2vec2", "an HF wav2vec2 state dict (Wav2Vec2Model or "
-                              "Wav2Vec2ForCTC, e.g. facebook/wav2vec2-base-960h)",
-                              "--wav2vec2-checkpoint")):
+    for name, what, out in (("port-s3fd", "the S3FD face detector's s3fd.pth",
+                             "the artifact (--s3fd-checkpoint)"),
+                            ("port-densenet", "a torchvision densenet121 state dict (the "
+                             "imagenet frame embedder)", "the artifact (--densenet-checkpoint)"),
+                            ("port-avhubert", "a fairseq AV-HuBERT checkpoint's video encoder "
+                             "(the frozen lip expert)",
+                             "the artifact directory (--avhubert-checkpoint)"),
+                            ("port-wav2vec2", "an HF wav2vec2 state dict (Wav2Vec2Model or "
+                             "Wav2Vec2ForCTC, e.g. facebook/wav2vec2-base-960h)",
+                             "the artifact directory (--wav2vec2-checkpoint)")):
         p = _base_parser(sub, name, f"port {what} to the port's artifact")
         p.add_argument("--pth", default=None, help="the checkpoint to port")
         p.add_argument("--selftest", action="store_true", help=_SELFTEST_HELP)
-        p.add_argument("--out", required=True,
-                       help="the artifact (--s3fd-checkpoint)" if flag is None
-                       else f"the artifact directory ({flag})")
-        if name != "port-s3fd":
+        p.add_argument("--out", required=True, help=out)
+        if name in ("port-avhubert", "port-wav2vec2"):
             p.add_argument("--num-heads", type=int, default=None,
                            help="attention heads (not in the shapes; default embed_dim // 64)")
             p.add_argument("--pos-conv-groups", type=int, default=None,
                            help="positional-conv groups (default: AV-HuBERT 16, wav2vec2 read "
                                 "off the weight's shape)")
     for name in _WAITING:
-        _base_parser(sub, name, "waits for the DenseNet feature path (ROADMAP §1 item 7)")
+        _base_parser(sub, name, "not served by the port yet")
+
+    p = _base_parser(sub, "train-feature-transformer",
+                     "DenseNet121 frame features → small transformer classifier (the "
+                     "reference's Keras path)")
+    p.add_argument("--data-root", default=None,
+                   help="LRS2-style tree (videos decoded with OpenCV); omit (or --synthetic) "
+                        "for synthetic word clips")
+    p.add_argument("--max-clips", type=int, default=None)
+    p.add_argument("--synthetic", action="store_true")
+    p.add_argument("--densenet-checkpoint", default=None,
+                   help="port-densenet --out file or a torchvision densenet121 .pth; without "
+                        "it the frame embedder is drawn from --seed")
+    p.add_argument("--s3fd-checkpoint", default=None, help=_S3FD_HELP)
+    p.add_argument("--landmark-checkpoint", default=None,
+                   help="trained lip-landmark params (train-landmark --out)")
 
     p = _base_parser(sub, "infer-lipsync", "lip-sync a video to an audio track")
     p.add_argument("--face", required=True)
@@ -453,7 +472,7 @@ def _sample_diffusion(args, cfg, parser, device) -> int:
 
 
 def _port(args, device) -> int:
-    """``port-s3fd`` / ``port-avhubert`` / ``port-wav2vec2``: ``--pth``
+    """``port-s3fd`` / ``port-densenet`` / ``port-avhubert`` / ``port-wav2vec2``: ``--pth``
     through the port path, or ``--selftest`` (JSON summary)."""
     import json
 
@@ -467,6 +486,10 @@ def _port(args, device) -> int:
     if name == "s3fd":
         ports.port_s3fd(args.pth, args.out)
         print(f"ported s3fd.pth → {args.out}")
+        return 0
+    if name == "densenet":
+        ports.port_densenet(args.pth, args.out)
+        print(f"ported densenet121 → {args.out}")
         return 0
     _, pcfg, skipped = getattr(ports, f"port_{name}")(
         args.pth, args.out, num_heads=args.num_heads, pos_conv_groups=args.pos_conv_groups)
@@ -494,12 +517,62 @@ def _train_lip_expert(args, cfg, batch_fn, writer, device) -> int:
     return 0
 
 
+def _train_feature_transformer(args, cfg, parser, device) -> int:
+    """``train-feature-transformer``: word clips (synthetic, or from an LRS2
+    tree through ``build_word_clip_dataset``) fixed to
+    ``max_seq_length`` frames → DenseNet121 features → ``train``; prints the
+    validation accuracy and loss."""
+    from .core.config import replace
+    from .core.device import resolve_device
+    from .core.metrics import ConsoleWriter, Metrics
+    from .data.datasets import WordClipSampler, synthetic_word_clips
+    from .models.ports import densenet_variables_or_init
+    from .pipelines import feature_extraction
+
+    device = resolve_device(device)     # before any data is read or made
+    ft = cfg.feature_transformer
+    if args.synthetic or not args.data_root:
+        clips, labels = synthetic_word_clips(n=args.max_clips or 256, t=ft.max_seq_length,
+                                             num_classes=ft.num_classes)
+        labels = np.asarray(labels, np.int32)
+    else:
+        from .data.manifest import build_manifest
+        from .pipelines.lipreading_e2e import build_word_clip_dataset
+
+        records, _ = build_manifest(args.data_root, require_transcript=True)
+        landmark = None
+        if args.landmark_checkpoint:
+            from .pipelines.train_landmark import load_params
+
+            landmark = load_params(args.landmark_checkpoint, device=device)
+        ds = build_word_clip_dataset(cfg, records, s3fd_params=_s3fd(args.s3fd_checkpoint),
+                                     max_clips=args.max_clips, landmark_params=landmark,
+                                     device=device)
+        if not ds.clips:
+            parser.error(f"no word clips extracted from {args.data_root!r}")
+        clips, labels = ds.clips, ds.labels
+        ft = replace(ft, num_classes=max(2, len(ds.vocab)))
+    fixer = WordClipSampler(clips, labels, ft.max_seq_length)
+    stacked = np.stack([fixer._fix(c) for c in clips])     # (N, T, H, W, 1)
+    variables = densenet_variables_or_init(args.densenet_checkpoint, cfg.seed)
+    feats = feature_extraction.embed_frames(
+        variables, stacked, batch_frames=min(512, len(stacked) * stacked.shape[1]),
+        device=device)
+    n_train = len(clips) - max(1, int(ft.val_split * len(clips)))
+    _, val = feature_extraction.train(ft, feats, labels, seed=cfg.seed,
+                                      batch_size=min(64, max(1, n_train)),
+                                      metrics_writer=Metrics(ConsoleWriter(every=10)),
+                                      device=device)
+    print(f"val accuracy={val['accuracy']:.4f} loss={val['loss']:.4f}")
+    return 0
+
+
 def main(argv: Optional[List[str]] = None, device=None) -> int:
     """Run one subcommand; ``device`` is where it runs (``None``: the card)."""
     parser = _parser()
     args, unknown = parser.parse_known_args(argv)
     if args.cmd in _WAITING:
-        parser.error(f"{args.cmd} waits for the DenseNet feature path (ROADMAP §1 item 7)")
+        parser.error(f"{args.cmd} is not served by the port yet")
     if unknown:
         parser.error(f"unrecognized arguments: {' '.join(unknown)}")
     if args.cmd.startswith("port-") and bool(args.selftest) == bool(args.pth):
@@ -651,6 +724,9 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
         if args.out:
             print(f"saved landmark params → {args.out}")
         return 0
+
+    if args.cmd == "train-feature-transformer":
+        return _train_feature_transformer(args, cfg, parser, device)
 
     if args.cmd == "lipread-e2e":
         from .pipelines import lipreading_e2e

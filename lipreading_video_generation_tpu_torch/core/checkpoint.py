@@ -6,7 +6,8 @@ object ``torch.save`` takes: a dict of ``state_dict``s, tensors, numbers),
 at most ``max_to_keep`` of them, and restores the latest or a given step;
 ``save_once`` / ``load_once`` write and read one file. Saves are synchronous
 (the JAX package's are asynchronous through Orbax, which the port does not
-need) and atomic: a file is written beside its final name and renamed.
+need; so ``wait`` and ``close`` do nothing) and atomic: a file is written
+beside its final name and renamed.
 Orbax checkpoints are not read. ``restore`` and ``load_once`` map tensors
 onto the CPU unless ``map_location`` says otherwise.
 """
@@ -62,6 +63,13 @@ class CheckpointManager:
     def latest_step(self) -> Optional[int]:
         steps = self.steps()
         return steps[-1] if steps else None
+
+    def wait(self) -> None:
+        """Nothing to wait for: ``save`` returns once the file is in place
+        (JAX's manager waits here for its asynchronous saves)."""
+
+    def close(self) -> None:
+        """Nothing to release: the manager holds no thread or file."""
 
 
 def save_once(path: str, state: Any) -> None:

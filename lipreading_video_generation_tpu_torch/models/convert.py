@@ -15,7 +15,9 @@ lip-landmark regressor and word LM; ``wav2vec2_state_dict_from_flax``,
 ``avhubert_state_dict_from_flax`` and ``lip_expert_state_dict_from_flax``
 for the pretrained encoders and the seq2seq lip expert (the first two keep
 the Flax module names, so a name that does not fit shows as a missing or
-unexpected key in ``load_state_dict``). The
+unexpected key in ``load_state_dict``); ``densenet_state_dict_from_flax``
+(params and ``batch_stats``, into torchvision's ``densenet121`` layout) and
+``feature_transformer_state_dict_from_flax`` for the DenseNet feature path. The
 params stay float32 in the port (its layers cast
 to the compute dtype inside ``forward``), so a round trip is exact. A Flax
 gradient tree has the params' structure and goes through the same
@@ -475,5 +477,63 @@ def lip_expert_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
                            ("cross_kv", "cross_kv"), ("cross_proj", "cross_proj")):
             _dense(sd, at + port, p[flax])
     _norm(sd, "out_norm", params["out_norm"])
+    _dense(sd, "head", params["head"])
+    return sd
+
+
+def densenet_state_dict_from_flax(params: Mapping, batch_stats: Mapping
+                                  ) -> Dict[str, torch.Tensor]:
+    """Flax ``DenseNet121`` params and ``batch_stats`` → float32
+    ``state_dict`` for ``models.densenet.DenseNet121``, which is
+    torchvision's layout: the inverse of the JAX package's
+    ``convert_torch_state_dict`` (``block{i}_layer{j}`` →
+    ``features.denseblock{i+1}.denselayer{j+1}``, ``transition{i}`` →
+    ``features.transition{i+1}``, ``norm_final`` → ``features.norm5``;
+    kernels HWIO → OIHW, a BatchNorm's ``scale``/``mean``/``var`` →
+    ``weight``/``running_mean``/``running_var``)."""
+    _exact(batch_stats, [k for k in params if k != "conv0"], "DenseNet121 batch_stats")
+
+    def module(name: str) -> str:
+        if name.startswith("block"):
+            bi, li = name[len("block"):].split("_layer")
+            return f"features.denseblock{int(bi) + 1}.denselayer{int(li) + 1}"
+        if name.startswith("transition"):
+            return f"features.transition{int(name[len('transition'):]) + 1}"
+        if name == "norm_final":
+            return "features.norm5"
+        if name in ("conv0", "norm0"):
+            return f"features.{name}"
+        raise KeyError(f"DenseNet121: unexpected Flax module {name!r}")
+
+    sd: Dict[str, torch.Tensor] = {}
+
+    def put(at: str, p: Mapping, stats: Mapping) -> None:
+        if "kernel" in p:
+            _conv(sd, at, _exact(p, ["kernel"], at))
+            return
+        _norm(sd, at, _exact(p, ["scale", "bias"], at))
+        stats = _exact(stats, ["mean", "var"], at)
+        sd[f"{at}.running_mean"] = _tensor(stats["mean"])
+        sd[f"{at}.running_var"] = _tensor(stats["var"])
+
+    for name, p in params.items():
+        at = module(name)
+        if name in ("conv0", "norm0", "norm_final"):
+            put(at, p, batch_stats.get(name, {}))
+        else:
+            for sub, q in p.items():
+                put(f"{at}.{sub}", q, batch_stats[name].get(sub, {}))
+    return sd
+
+
+def feature_transformer_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax ``FeatureTransformer`` params → float32 ``state_dict`` for
+    ``models.vivit.FeatureTransformer``."""
+    n = sum(1 for k in params if k.startswith("block_"))
+    _exact(params, ["pos_embedding", "head"] + [f"block_{i}" for i in range(n)],
+           "FeatureTransformer")
+    sd = {"pos_embedding": _tensor(params["pos_embedding"])}
+    for i in range(n):
+        sd.update(block_state_dict_from_flax(params[f"block_{i}"], f"blocks.{i}."))
     _dense(sd, "head", params["head"])
     return sd

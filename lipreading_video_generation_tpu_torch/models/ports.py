@@ -1,14 +1,18 @@
 """Pretrained-weight ports: torch checkpoints → the port's artifacts.
 
-Port of ``lipreading_video_generation_tpu/models/ports.py`` without the
-DenseNet functions (they come with the DenseNet feature path, ROADMAP §1
-item 7): read a checkpoint on the host, convert it with the model modules'
-converters, check the result against the module's own ``state_dict`` (same
-names, same shapes: ``_validate_against_init``), save it.
+Port of ``lipreading_video_generation_tpu/models/ports.py``: read a
+checkpoint on the host, convert it with the model modules' converters,
+check the result against the module's own ``state_dict`` (same names, same
+shapes: ``_validate_against_init``), save it.
 
 - S3FD: the port's ``models.s3fd.S3FD`` has ``s3fd.pth``'s layout, so
   ``port_s3fd`` only validates the file and saves its float32 state dict
   (what ``--s3fd-checkpoint`` reads, like ``s3fd.pth`` itself).
+- DenseNet121: the port's ``models.densenet.DenseNet121`` has torchvision's
+  ``densenet121`` layout, so ``port_densenet`` drops what the JAX converter
+  drops (``classifier.*``, ``num_batches_tracked``), validates the rest and
+  saves it as a float32 state dict (what ``--densenet-checkpoint`` reads,
+  like a torchvision ``.pth`` itself).
 - AV-HuBERT (fairseq ``.pt``) and wav2vec2 (HF ``.pth``/``.bin``): an
   artifact is a directory holding ``<name>.pt`` (a ``core.checkpoint``
   file of ``{"<name>": state_dict}``) and ``<name>.config.json``, the
@@ -129,6 +133,55 @@ def s3fd_params_or_init(checkpoint_path: Optional[str], seed: int = 0) -> Dict[s
     print("warning: no --s3fd-checkpoint — face detector is RANDOM-INIT; detections will be "
           "garbage (run port-s3fd on s3fd.pth first)", file=sys.stderr)
     return seeded(S3FD, seed).state_dict()
+
+
+# --------------------------------------------------------------------------
+# DenseNet121
+# --------------------------------------------------------------------------
+
+def _densenet_template() -> Dict[str, torch.Tensor]:
+    from .densenet import DenseNet121
+
+    return _template(DenseNet121)
+
+
+def load_densenet_variables(checkpoint_path: str) -> Dict[str, torch.Tensor]:
+    """A ``port-densenet --out`` file or a torchvision ``densenet121``
+    ``.pth`` itself → the validated float32 state dict of
+    ``models.densenet.DenseNet121``."""
+    from .densenet import convert_torch_state_dict
+
+    sd = convert_torch_state_dict(_load_torch_state_dict(checkpoint_path))
+    _validate_against_init(sd, _densenet_template())
+    return sd
+
+
+def port_densenet(pth_path: str, out_path: str) -> Dict[str, torch.Tensor]:
+    """torchvision ``densenet121`` state dict → its validated float32 state
+    dict saved at ``out_path`` (a file ``--densenet-checkpoint`` reads);
+    returns it."""
+    from ..core.checkpoint import save_once
+
+    sd = load_densenet_variables(pth_path)
+    save_once(out_path, sd)
+    return sd
+
+
+def densenet_variables_or_init(checkpoint_path: Optional[str], seed: int = 0
+                               ) -> Dict[str, torch.Tensor]:
+    """Ported imagenet weights when a checkpoint is given, else a seeded
+    init with a warning: random features are still a fixed projection the
+    transformer can learn against, but the reference always uses imagenet
+    features."""
+    if checkpoint_path:
+        return load_densenet_variables(checkpoint_path)
+    from ..core.prng import seeded
+    from .densenet import DenseNet121
+
+    print("warning: no --densenet-checkpoint — frame embedder is RANDOM-INIT (run "
+          "port-densenet on torchvision densenet121 weights for imagenet-quality features)",
+          file=sys.stderr)
+    return seeded(DenseNet121, seed).state_dict()
 
 
 # --------------------------------------------------------------------------

@@ -1,10 +1,10 @@
 """Port selftests: write a checkpoint in the published layout, run the whole
 port path on it, then run the model on the ported artifact.
 
-Port of ``lipreading_video_generation_tpu/models/selftest.py`` without
-DenseNet (it comes with the DenseNet feature path). The published binaries
-(``s3fd.pth``, the fairseq AV-HuBERT ``.pt``, ``facebook/wav2vec2-base-960h``)
-are not in the repository and are not fetched, so each selftest writes a
+Port of ``lipreading_video_generation_tpu/models/selftest.py``. The
+published binaries (``s3fd.pth``, torchvision's ``densenet121``, the fairseq
+AV-HuBERT ``.pt``, ``facebook/wav2vec2-base-960h``) are not in the
+repository and are not fetched, so each selftest writes a
 real file with ``torch.save`` — the exact key layout, seeded values — drives
 the same ``port_*`` function the CLI runs on a user's file, loads the
 artifact back and runs the model on it, on ``device`` (None: the card).
@@ -112,6 +112,62 @@ def selftest_s3fd(out_path: str, seed: int = 0, device=None) -> Dict[str, Any]:
     kept = boxes[0][valid[0]].cpu().numpy()
     return {"pth": pth, "pth_sha256": _sha256(pth), "artifact": out_path, "n_detections": n,
             "first_box": [round(float(v), 2) for v in kept[0]]}
+
+
+# ---------------------------------------------------------------------------
+# DenseNet121
+# ---------------------------------------------------------------------------
+
+def make_densenet_selftest_pth(pth_path: str, seed: int = 0) -> str:
+    """A torchvision-``densenet121``-layout state dict with seeded weights:
+    fan-in-scaled conv kernels, BatchNorm scales near 1, small biases and
+    means, variances in [0.5, 1.5). The draws are the JAX package's, in its
+    order (every kernel drawn HWIO and stored OIHW, the scales and biases
+    module by module, then the means and variances), so the two write the
+    same tensors for a seed."""
+    from . import ports
+
+    rng = np.random.default_rng(seed)
+    tmpl = ports._densenet_template()
+    sd: Dict[str, torch.Tensor] = {}
+    for key, t in tmpl.items():                       # Flax's params tree
+        leaf, shape = key.rsplit(".", 1)[1], tuple(t.shape)
+        if leaf == "weight" and len(shape) == 4:
+            co, ci, kh, kw = shape
+            w = rng.standard_normal((kh, kw, ci, co)) * (2.0 / (kh * kw * ci)) ** 0.5
+            sd[key] = torch.from_numpy(w.astype(np.float32).transpose(3, 2, 0, 1).copy())
+        elif leaf == "weight":
+            sd[key] = torch.from_numpy((1.0 + 0.05 * rng.standard_normal(shape)).astype(np.float32))
+        elif leaf == "bias":
+            sd[key] = torch.from_numpy((0.05 * rng.standard_normal(shape)).astype(np.float32))
+    for key, t in tmpl.items():                       # then its batch_stats tree
+        leaf, shape = key.rsplit(".", 1)[1], tuple(t.shape)
+        if leaf == "running_mean":
+            sd[key] = torch.from_numpy((0.1 * rng.standard_normal(shape)).astype(np.float32))
+        elif leaf == "running_var":
+            sd[key] = torch.from_numpy((0.5 + rng.uniform(0, 1, shape)).astype(np.float32))
+    torch.save(sd, pth_path)
+    return pth_path
+
+
+def selftest_densenet(out_path: str, seed: int = 0, device=None) -> Dict[str, Any]:
+    """.pth → ``port_densenet`` → load → pooled 1024-d features of two
+    64×64 images on ``device`` (None: the card)."""
+    from . import ports
+    from .densenet import DenseNet121
+
+    device = resolve_device(device)
+    pth = make_densenet_selftest_pth(_src_path(out_path, ".selftest_src.pth"), seed)
+    ports.port_densenet(pth, out_path)
+    model = ports._materialise(DenseNet121, ports.load_densenet_variables(out_path))
+    img = np.random.default_rng(seed + 1).uniform(-1, 1, (2, 64, 64, 3)).astype(np.float32)
+    with torch.no_grad():
+        feats = model.to(device).eval()(torch.from_numpy(img).to(device)).cpu().numpy()
+    if not np.all(np.isfinite(feats)) or float(np.abs(feats).sum()) == 0.0:
+        raise RuntimeError("port selftest FAILED: non-finite or all-zero features")
+    return {"pth": pth, "pth_sha256": _sha256(pth), "artifact": out_path,
+            "feature_shape": list(feats.shape),
+            "feature_l2": round(float(np.linalg.norm(feats)), 4)}
 
 
 # ---------------------------------------------------------------------------

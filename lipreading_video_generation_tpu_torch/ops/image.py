@@ -13,8 +13,10 @@ path's ``mask_lower_half``, ``concat_reference``, ``_bilinear_sample`` and
 ``contrast_boost`` (CLAHE of the LAB L channel: on a CUDA tensor the kernel
 K1 on whole frames); and ``map_coordinates``, the counterpart of
 ``jax.scipy.ndimage.map_coordinates(order=1, mode="nearest")`` that the
-lip-landmark renderers and augmentations warp with. Layouts are the JAX
-package's: (..., H, W, C) images and y1y2x1x2 boxes.
+lip-landmark renderers and augmentations warp with; and the reference's
+two remaining OpenCV stand-ins, ``canny_edges`` (with ``_sobel``) and
+``lucas_kanade_flow``, which no path calls (as in the JAX package). Layouts
+are the JAX package's: (..., H, W, C) images and y1y2x1x2 boxes.
 
 Resampling reproduces ``jax.image.scale_and_translate`` (which both
 ``crop_and_resize`` and ``jax.image.resize`` use): separable per-axis
@@ -386,3 +388,111 @@ def map_coordinates(img: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor) -> to
             term = wy * wx * tap
             out = term if out is None else out + term
     return out
+
+
+def _sobel(img: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """3×3 Sobel x and y gradients of float (..., H, W) images, edges
+    replicated (cv2's BORDER_REPLICATE)."""
+    kx = torch.tensor([[-1.0, 0.0, 1.0], [-2.0, 0.0, 2.0], [-1.0, 0.0, 1.0]], device=img.device)
+    h, w = img.shape[-2:]
+    xp = torch.nn.functional.pad(img.reshape(-1, 1, h, w), (1, 1, 1, 1), mode="replicate")
+    return tuple(torch.nn.functional.conv2d(xp, k[None, None]).reshape(img.shape)
+                 for k in (kx, kx.T))
+
+
+def canny_edges(img: torch.Tensor, low: float = 200.0, high: float = 400.0,
+                hysteresis_iters: int = 8) -> torch.Tensor:
+    """Canny edge map of (..., H, W) grayscale in [0, 255]: Sobel gradients
+    (L1 magnitude, as cv2's default), non-maximum suppression across one of
+    four direction sectors, a double threshold, and hysteresis as
+    ``hysteresis_iters`` masked dilations. Neighbours wrap around the border
+    (``roll``), as in the JAX package. {0, 255} uint8, like cv2.Canny."""
+    x = img.to(torch.float32)
+    gx, gy = _sobel(x)
+    mag = gx.abs() + gy.abs()
+    a = torch.remainder(torch.atan2(gy, gx), np.pi)
+    sector = torch.remainder(torch.floor((a + np.pi / 8) / (np.pi / 4)).to(torch.int32), 4)
+
+    def shift(arr, dy, dx):
+        return torch.roll(torch.roll(arr, dy, dims=-2), dx, dims=-1)
+
+    na = torch.where(sector == 0, shift(mag, 0, 1), torch.where(
+        sector == 1, shift(mag, 1, 1), torch.where(sector == 2, shift(mag, 1, 0),
+                                                   shift(mag, 1, -1))))
+    nb = torch.where(sector == 0, shift(mag, 0, -1), torch.where(
+        sector == 1, shift(mag, -1, -1), torch.where(sector == 2, shift(mag, -1, 0),
+                                                     shift(mag, -1, 1))))
+    mag = torch.where((mag >= na) & (mag >= nb), mag, 0.0)
+    strong = mag >= high
+    weak = (mag >= low) & ~strong
+
+    def dilate(m):
+        out = m
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                if dy or dx:
+                    out = out | shift(m, dy, dx)
+        return out
+
+    edges = strong
+    for _ in range(hysteresis_iters):
+        edges = edges | (dilate(edges) & weak)
+    return edges.to(torch.uint8) * 255
+
+
+def lucas_kanade_flow(prev: torch.Tensor, curr: torch.Tensor, points: torch.Tensor,
+                      win: int = 5, levels: int = 2, iters: int = 10
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pyramidal Lucas-Kanade tracking of (N, 2) (x, y) ``points`` from the
+    (H, W) grayscale ``prev`` to ``curr``: ``levels`` 2×2 average-pooled
+    halvings, a ``win``×``win`` patch a point sampled bilinearly (indices
+    clamped to the edge), ``iters`` Newton steps a level from the coarsest
+    down. Returns (new points (N, 2), in-bounds status (N,) bool); cv2's
+    ``calcOpticalFlowPyrLK`` is the reference's."""
+    prev, curr = prev.to(torch.float32), curr.to(torch.float32)
+    pts = points.to(torch.float32)
+    pyr_prev, pyr_curr = [prev], [curr]
+    for _ in range(levels):
+        pyr_prev.append(torch.nn.functional.avg_pool2d(pyr_prev[-1][None, None], 2, 2)[0, 0])
+        pyr_curr.append(torch.nn.functional.avg_pool2d(pyr_curr[-1][None, None], 2, 2)[0, 0])
+    half = win // 2
+    r = torch.arange(-half, half + 1, dtype=torch.float32, device=prev.device)
+    oy, ox = (o.reshape(-1) for o in torch.meshgrid(r, r, indexing="ij"))
+
+    def sample_patch(img, cy, cx):
+        """(N,) centres → (N, win·win) bilinear samples."""
+        h, w = img.shape
+        ys, xs = cy[:, None] + oy, cx[:, None] + ox
+        y0f, x0f = torch.floor(ys), torch.floor(xs)
+        wy, wx = ys - y0f, xs - x0f
+        y0, x0 = y0f.long(), x0f.long()
+
+        def g(yi, xi):
+            return img[yi.clamp(0, h - 1), xi.clamp(0, w - 1)]
+
+        return (g(y0, x0) * (1 - wy) * (1 - wx) + g(y0, x0 + 1) * (1 - wy) * wx
+                + g(y0 + 1, x0) * wy * (1 - wx) + g(y0 + 1, x0 + 1) * wy * wx)
+
+    g = torch.zeros_like(pts)              # flow (x, y) at the finest scale
+    eye = 1e-6 * torch.eye(2, device=prev.device)
+    for lvl in range(levels, -1, -1):
+        scale = 2.0 ** lvl
+        ip, ic = pyr_prev[lvl], pyr_curr[lvl]
+        cx, cy = pts[:, 0] / scale, pts[:, 1] / scale
+        p = sample_patch(ip, cy, cx)
+        ix = (sample_patch(ip, cy, cx + 1.0) - sample_patch(ip, cy, cx - 1.0)) / 2.0
+        iy = (sample_patch(ip, cy + 1.0, cx) - sample_patch(ip, cy - 1.0, cx)) / 2.0
+        sxy = (ix * iy).sum(-1)
+        a = torch.stack([torch.stack([(ix * ix).sum(-1), sxy], -1),
+                         torch.stack([sxy, (iy * iy).sum(-1)], -1)], -2)
+        a_inv = torch.linalg.inv(a + eye)
+        gl = g / scale
+        for _ in range(iters):
+            diff = p - sample_patch(ic, cy + gl[:, 1], cx + gl[:, 0])
+            b = torch.stack([(diff * ix).sum(-1), (diff * iy).sum(-1)], -1)
+            gl = gl + (a_inv @ b[:, :, None])[:, :, 0]
+        g = gl * scale
+    new = pts + g
+    h, w = prev.shape
+    ok = (new[:, 0] >= 0) & (new[:, 0] < w) & (new[:, 1] >= 0) & (new[:, 1] < h)
+    return new, ok

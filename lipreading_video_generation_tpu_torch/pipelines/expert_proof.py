@@ -1,7 +1,7 @@
 """Does the sync expert discriminate? Aligned against shifted mel windows.
 
-Port of the part of ``lipreading_video_generation_tpu/pipelines/expert_proof.py``
-that ``train_syncnet.train`` reports with: ``_window_batch`` (face windows,
+Port of ``lipreading_video_generation_tpu/pipelines/expert_proof.py``. What
+``train_syncnet.train`` reports with: ``_window_batch`` (face windows,
 start frames and waves of held-out clips, with shift headroom),
 ``_sync_sims`` (the SyncNet's cosine of the window mel and the real face
 window), ``alignment_scores`` (those cosines for aligned and for
@@ -11,11 +11,12 @@ rank AUC of the two). The windows and shift signs come from
 generator's proof: ``frame_rms`` (the wave's per-video-frame RMS),
 ``_pearson`` and ``aperture_envelope_correlation`` (the pooled correlation of
 the generated mouths' opening, ``data.datasets.mouth_aperture_proxy``, with
-that envelope, beside the ground truth's).
+that envelope, beside the ground truth's). And ``train_val_split``: all but the
+last ``n_held_out`` clips, and those.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Sequence, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -129,3 +130,9 @@ def aperture_envelope_correlation(gen_apply: Callable[[Dict[str, np.ndarray]], o
         for i in range(n_windows)])
     return {"r_generated": _pearson(mouth_aperture_proxy(g), rms),
             "r_ground_truth": _pearson(mouth_aperture_proxy(gt), rms)}
+
+
+def train_val_split(clips: List[GanClip], n_held_out: int = 2
+                    ) -> Tuple[List[GanClip], List[GanClip]]:
+    """(all but the last ``n_held_out`` clips, the last ``n_held_out``)."""
+    return clips[:-n_held_out], clips[-n_held_out:]

@@ -124,8 +124,9 @@ def test_build_config_matches_jax(argv):
     (["port-wav2vec2", "--out", "x"], "exactly one of --pth or --selftest"),
     (["port-avhubert", "--pth", "a.pt", "--selftest", "--out", "x"],
      "exactly one of --pth or --selftest"),
-    (["train-feature-transformer"], "ROADMAP §1 item 7"),
-    (["port-densenet", "--selftest", "--out", "x"], "ROADMAP §1 item 7"),
+    (["train-feature-transformer", "--set", "feature_transformer.no_such_key=1"],
+     "unknown config key"),
+    (["port-densenet", "--out", "x"], "exactly one of --pth or --selftest"),
     (["eval-gan", "--synthetic"], "the following arguments are required: --checkpoint"),
     (["infer-lipsync", "--face", "f.mp4", "--audio", "a.wav"],
      "the following arguments are required: --out"),
@@ -137,6 +138,62 @@ def test_refused_arguments_exit_with_a_usage_error(argv, message, capsys):
         cli.main(argv, device="cpu")
     assert e.value.code == 2
     assert message in capsys.readouterr().err
+
+
+def _jax_commands(capsys):
+    with pytest.raises(SystemExit):
+        jcli.main(["--help"])
+    usage = capsys.readouterr().out
+    return set(usage[usage.index("{") + 1:usage.index("}")].split(","))
+
+
+def test_port_serves_every_command_of_the_jax_cli(capsys):
+    """All 21 of the JAX CLI's subcommands, and no command waits."""
+    want = _jax_commands(capsys)
+    with pytest.raises(SystemExit):
+        cli.main(["--help"], device="cpu")
+    usage = capsys.readouterr().out
+    got = set(usage[usage.index("{") + 1:usage.index("}")].split(","))
+    assert got == want and len(want) == 21 and cli._WAITING == ()
+
+
+def test_port_densenet_selftest_then_pth(tmp_path, capsys):
+    """``port-densenet --selftest`` prints the JAX selftest's keys;
+    ``--pth`` on the file it wrote gives the same artifact; the artifact
+    feeds ``train-feature-transformer --densenet-checkpoint`` (no
+    random-init warning)."""
+    import json
+
+    a = str(tmp_path / "a.pt")
+    assert cli.main(["port-densenet", "--selftest", "--out", a], device="cpu") == 0
+    r = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert r["selftest"] == "port-densenet" and r["feature_shape"] == [2, 1024]
+    assert r["feature_l2"] > 0 and r["artifact"] == a
+    b = str(tmp_path / "b.pt")
+    assert cli.main(["port-densenet", "--pth", r["pth"], "--out", b], device="cpu") == 0
+    assert f"ported densenet121 → {b}" in capsys.readouterr().out
+    want, got = torch.load(a), torch.load(b)
+    assert want.keys() == got.keys() and all(torch.equal(want[k], got[k]) for k in want)
+    assert cli.main(["train-feature-transformer", "--synthetic", "--max-clips", "12",
+                     "--densenet-checkpoint", b, "--set", "feature_transformer.num_epochs=1",
+                     "--set", "feature_transformer.num_classes=4"], device="cpu") == 0
+    out = capsys.readouterr()
+    assert "val accuracy=" in out.out and "RANDOM-INIT" not in out.err
+
+
+def test_train_feature_transformer_synthetic(capsys):
+    """``train-feature-transformer --synthetic``: synthetic word clips →
+    the random-init DenseNet121 (warned) → the FeatureTransformer at its
+    defaults but 4 classes and 3 epochs (24 clips: 3 held out, one step of
+    21 an epoch) → ``val accuracy=… loss=…``."""
+    assert cli.main(["train-feature-transformer", "--synthetic", "--max-clips", "24",
+                     "--set", "feature_transformer.num_classes=4",
+                     "--set", "feature_transformer.num_epochs=3"], device="cpu") == 0
+    out = capsys.readouterr()
+    line = [ln for ln in out.out.splitlines() if ln.startswith("val accuracy=")]
+    assert len(line) == 1 and " loss=" in line[0]
+    assert 0.0 <= float(line[0].split("=")[1].split()[0]) <= 1.0
+    assert "RANDOM-INIT" in out.err
 
 
 TINY_GAN = _set("gan", model_width=0.125, batch_size=2, dtype="float32")
@@ -244,7 +301,8 @@ def test_module_entry_point_runs_on_the_card_by_default():
     assert r.returncode == 0
     for cmd in ("train-vivit", "train-diffusion", "train-superres", "train-noisy-classifier",
                 "train-landmark", "lipread-e2e", "build-frame-index", "pack-gan-records",
-                "pack-diffusion-records", "sample-diffusion"):
+                "pack-diffusion-records", "sample-diffusion", "train-feature-transformer",
+                "port-densenet"):
         assert cmd in r.stdout
 
 

@@ -1153,3 +1153,79 @@ def test_pretrained_encoders_on_card_match_cpu(cuda):
     want = seq2seq_expert_loss(expert, rgb, tokens)
     got = seq2seq_expert_loss(expert.to(cuda), rgb.to(cuda), tokens.to(cuda))
     torch.testing.assert_close(got.cpu(), want.detach(), rtol=1e-5, atol=1e-6)
+
+
+# --- the DenseNet feature path -----------------------------------------------
+
+def test_small_mha_at_the_feature_transformer_shape(cuda):
+    """K2 as the FeatureTransformer at its defaults calls it: float32 q/k/v
+    slices of one (64, 5, 3072) qkv tensor, 2 heads of 512: the CUDA-core
+    route, within 1e-5 of ``_mha_einsum``, the einsum VJP's gradient within
+    1e-4."""
+    q, k, v = _uniform((64, 5, 3 * 1024), -2, 2, 130, cuda).chunk(3, dim=-1)
+    assert att.mha_route(2, 5, 5, 1024, torch.float32, q.device) == "small_mha"
+    routed = att.small_mha.route_counts["cuda_core"]
+    got = att.mha(q, k, v, 2)
+    torch.cuda.synchronize()
+    assert att.small_mha.route_counts["cuda_core"] == routed + 1
+    torch.testing.assert_close(got, att._mha_einsum(q, k, v, 2, False), rtol=1e-5, atol=1e-5)
+    qs = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    cot = _uniform((64, 5, 1024), -1, 1, 131, cuda)
+    (att.mha(*qs, 2) * cot).sum().backward()
+    ref = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    (att._mha_einsum(*ref, 2, False) * cot).sum().backward()
+    for t, r in zip(qs, ref):
+        torch.testing.assert_close(t.grad, r.grad, rtol=1e-4, atol=1e-4)
+
+
+def test_densenet_on_card_matches_cpu(cuda, monkeypatch):
+    """DenseNet121 at full width in float32 (cuDNN without TF32) on the card
+    against the CPU on the same seeded weights: the features of 4 frames of
+    64×64 within 1e-3 of the largest, and ``embed_frames`` likewise, zero
+    for padded frames."""
+    from lipreading_video_generation_tpu_torch.core.prng import seeded
+    from lipreading_video_generation_tpu_torch.models.densenet import DenseNet121
+    from lipreading_video_generation_tpu_torch.pipelines import feature_extraction as tfx
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    sd = seeded(DenseNet121, 0).state_dict()
+    rng = np.random.default_rng(0)
+    for name, v in sd.items():          # BatchNorm away from its init, where a swap shows
+        if name.endswith(("running_mean", "bias")):
+            sd[name] = torch.from_numpy(0.1 * rng.standard_normal(v.shape).astype(np.float32))
+        elif name.endswith("running_var"):
+            sd[name] = torch.from_numpy((0.5 + rng.uniform(0, 1, v.shape)).astype(np.float32))
+    x = torch.from_numpy(rng.uniform(-2, 2, (4, 64, 64, 3)).astype(np.float32))
+    model = DenseNet121()
+    model.load_state_dict(sd)
+    with torch.no_grad():
+        want = model.eval()(x)
+        got = model.to(cuda)(x.to(cuda)).cpu()
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-3
+    clips = rng.integers(1, 256, (2, 5, 32, 32, 1), dtype=np.uint8)
+    clips[1, 3:] = 0
+    got = tfx.embed_frames(sd, clips, batch_frames=4, device=cuda)
+    want = tfx.embed_frames(sd, clips, batch_frames=4, device="cpu")
+    assert np.abs(got - want).max() <= 1e-3 * np.abs(want).max()
+    assert np.abs(got[1, 3:]).max() == 0.0
+
+
+def test_cli_feature_path_on_card(cuda, tmp_path, capsys):
+    """``port-densenet --selftest`` and ``train-feature-transformer
+    --synthetic --densenet-checkpoint`` on the card: K2 by cuda_core exactly
+    twice a step (2 layers) and twice in the validation eval."""
+    import json
+
+    from lipreading_video_generation_tpu_torch import cli
+
+    art = str(tmp_path / "densenet.pt")
+    assert cli.main(["port-densenet", "--selftest", "--out", art]) == 0
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])["feature_l2"] > 0
+    before = dict(att.small_mha.route_counts)
+    assert cli.main(["train-feature-transformer", "--synthetic", "--max-clips", "40",
+                     "--densenet-checkpoint", art, "--set", "feature_transformer.num_epochs=3",
+                     "--set", "feature_transformer.num_classes=4"]) == 0
+    torch.cuda.synchronize()
+    took = {r: n - before[r] for r, n in att.small_mha.route_counts.items() if n != before[r]}
+    assert took == {"cuda_core": 2 * (3 * 1 + 1)}       # 34 train clips: one step of 34 an epoch
+    assert "val accuracy=" in capsys.readouterr().out

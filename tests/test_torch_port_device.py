@@ -9,6 +9,7 @@ import ast
 import inspect
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -20,6 +21,8 @@ from lipreading_video_generation_tpu_torch.data import loader as tloader
 from lipreading_video_generation_tpu_torch.models import face_api as tface
 from lipreading_video_generation_tpu_torch.models.s3fd import S3FD as TS3FD
 from lipreading_video_generation_tpu_torch.models import word_lm as twlm
+from lipreading_video_generation_tpu_torch.models import selftest as tselftest
+from lipreading_video_generation_tpu_torch.pipelines import feature_extraction as tfx
 from lipreading_video_generation_tpu_torch.pipelines import inference as tinf
 from lipreading_video_generation_tpu_torch.pipelines import lipreading_e2e as te2e
 from lipreading_video_generation_tpu_torch.pipelines import sentence_eval as tse
@@ -60,7 +63,8 @@ ENTRY_POINTS = [ttd.create_state, ttd.train, ttc.create_state, ttc.train, tsr.cr
                 ttl.create_state, ttl.train, ttl.load_params, twlm.train_word_lm,
                 tse.NeuralScorer, tse.fit_default_scorer, tface.FaceAlignment,
                 te2e.build_word_clip_dataset, te2e.run, ttg.create_state, ttg.train,
-                tts.create_state, tts.train, tinf.lipsync_video, tloader.prefetch_to_device]
+                tts.create_state, tts.train, tinf.lipsync_video, tloader.prefetch_to_device,
+                tfx.embed_frames, tfx.create_state, tfx.train, tselftest.selftest_densenet]
 
 
 @pytest.mark.parametrize("fn", ENTRY_POINTS,
@@ -113,6 +117,13 @@ def test_entry_points_raise_without_cuda_instead_of_stepping_down(no_cuda):
         lambda: tcli.main(["pack-gan-records", "--synthetic", "--out", "/x"]),
         lambda: tcli.main(["pack-diffusion-records", "--synthetic", "--out", "/x"]),
         lambda: tcli.main(["sample-diffusion", "--out", "/x.png"]),
+        lambda: tfx.embed_frames({}, np.zeros((1, 5, 32, 32, 1), np.uint8)),
+        lambda: tfx.create_state(tcfg.FeatureTransformerConfig()),
+        lambda: tfx.train(tcfg.FeatureTransformerConfig(), np.zeros((4, 5, 1024), np.float32),
+                          np.zeros(4, np.int64)),
+        lambda: tselftest.selftest_densenet("/x/densenet.pt"),
+        lambda: tcli.main(["train-feature-transformer", "--synthetic"]),
+        lambda: tcli.main(["port-densenet", "--selftest", "--out", "/x/densenet.pt"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -290,6 +290,47 @@ def test_resize_batch_random_crop_and_apply_mask_match_jax():
     assert out[:, :2].min() == 7.0 and out[:, 2:].max() == 0.0
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_canny_edges_match_jax(seed):
+    """Sobel gradients equal JAX's; the edge maps of a step edge and of
+    blurred noise equal JAX's but for at most 0.5% of the pixels (the
+    direction sector comes from float32 atan2, which may differ by an ulp
+    at a sector's edge, and hysteresis spreads such a pixel's change)."""
+    rng = np.random.default_rng(seed)
+    x = np.zeros((2, 48, 64), np.float32)
+    x[0, :, 30:] = 255.0
+    noise = rng.uniform(0, 255, (48, 64)).astype(np.float32)
+    x[1] = sum(np.roll(np.roll(noise, dy, 0), dx, 1) for dy in (-1, 0, 1) for dx in (-1, 0, 1)) / 9
+    for got, want in zip(tim._sobel(torch.from_numpy(x)), jim._sobel(jnp.asarray(x))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-3)
+    got = tim.canny_edges(torch.from_numpy(x), low=60.0, high=150.0).numpy()
+    want = np.asarray(jim.canny_edges(jnp.asarray(x), low=60.0, high=150.0))
+    assert got.dtype == np.uint8 and set(np.unique(got)) <= {0, 255}
+    assert (got != want).mean() <= 5e-3
+    np.testing.assert_array_equal(got[0], want[0])
+    assert (got[0][:, 28:32] == 255).any(axis=1).all() and got[0][:, :26].max() == 0
+
+
+def test_lucas_kanade_flow_matches_jax():
+    """Points tracked through a smooth image shifted by (dx, dy) = (3, 2):
+    within 1e-3 px of JAX's, the same in-bounds status, near the shift."""
+    rng = np.random.default_rng(5)
+    noise = rng.standard_normal((64, 64)).astype(np.float32)
+    base = noise
+    for _ in range(3):     # a box blur thrice: smooth enough for LK's linearisation
+        base = sum(np.roll(np.roll(base, dy, 0), dx, 1) for dy in (-1, 0, 1)
+                   for dx in (-1, 0, 1)) / 9
+    base = (base * 400 + 128).astype(np.float32)
+    shifted = np.roll(base, (2, 3), axis=(0, 1))
+    pts = np.array([[20.0, 20.0], [32.0, 40.0], [40.0, 25.0], [63.5, 10.0]], np.float32)
+    got, ok = tim.lucas_kanade_flow(torch.from_numpy(base), torch.from_numpy(shifted),
+                                    torch.from_numpy(pts))
+    want, jok = jim.lucas_kanade_flow(jnp.asarray(base), jnp.asarray(shifted), jnp.asarray(pts))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-3)
+    np.testing.assert_array_equal(ok.numpy(), np.asarray(jok))
+    np.testing.assert_allclose(got.numpy()[:3] - pts[:3], np.tile([[3.0, 2.0]], (3, 1)), atol=0.5)
+
+
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     """No nvcc: the build raises a clear error; nothing falls back."""
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)

@@ -337,3 +337,16 @@ def test_word_clips_aperture_and_envelope_correlation_match_jax():
     np.testing.assert_array_equal(tproof.frame_rms(wav, 30), jproof.frame_rms(wav, 30))
     with pytest.raises(ValueError, match="n_words"):
         tdata.synthetic_word_av_clips(n_words=7)
+
+
+def test_train_val_split_matches_jax():
+    """All but the last ``n_held_out`` clips, and those, as JAX's."""
+    from lipreading_video_generation_tpu.pipelines import expert_proof as jproof
+    from lipreading_video_generation_tpu_torch.pipelines import expert_proof as tproof
+
+    clips = tdata.synthetic_gan_clips(n_clips=5, frames=8, img=16)
+    for n in (1, 2, 4):
+        got, want = tproof.train_val_split(clips, n), jproof.train_val_split(clips, n)
+        assert [len(x) for x in got] == [5 - n, n]
+        assert all(a is b for g, w in zip(got, want) for a, b in zip(g, w))
+    assert tproof.train_val_split(clips)[1] == clips[-2:]

@@ -121,6 +121,20 @@ def test_run_reads_frames_through_the_seam_and_an_s3fd_checkpoint(lrs2_tree, tmp
     assert state.model.cfg.num_classes == 4           # [UNK] HELLO WORLD AGAIN
 
 
+def test_cli_train_feature_transformer_on_an_lrs2_tree(lrs2_tree, tmp_path, capsys):
+    """``train-feature-transformer --data-root`` on the CPU: the tree's 4
+    word clips (``build_word_clip_dataset`` with an ``s3fd.pth``-layout
+    detector) → DenseNet121 features → the FeatureTransformer over the
+    vocabulary of 4 ([UNK] HELLO WORLD AGAIN); 1 clip held out."""
+    torch.save(ts3fd.S3FD().state_dict(), tmp_path / "s3fd.pt")
+    assert cli.main(["train-feature-transformer", "--data-root", lrs2_tree, "--s3fd-checkpoint",
+                     str(tmp_path / "s3fd.pt"), "--set", "feature_transformer.num_epochs=2"],
+                    device="cpu") == 0
+    line = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("val accuracy=")]
+    assert len(line) == 1
+    assert float(line[0].split("=")[1].split()[0]) in (0.0, 1.0)     # one held-out clip
+
+
 def test_cli_train_landmark_then_lipread_e2e(lrs2_tree, tmp_path, capsys):
     """``train-landmark --out`` then ``lipread-e2e --landmark-checkpoint``
     through ``cli.main(..., device="cpu")``: the landmark params round-trip

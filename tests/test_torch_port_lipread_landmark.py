@@ -220,3 +220,15 @@ def test_checkpoint_manager_keeps_the_latest(tmp_path):
     with pytest.raises(FileNotFoundError):
         mgr.restore(1)
     assert sorted(os.listdir(tmp_path)) == ["step_5.pt", "step_9.pt"]
+
+
+def test_checkpoint_manager_wait_and_close_are_no_ops(tmp_path):
+    """Saves are synchronous: ``wait`` and ``close`` (the JAX manager's
+    wait for its asynchronous saves and its shutdown) change nothing, and
+    the manager still saves and restores after ``close``."""
+    mgr = tckpt.CheckpointManager(str(tmp_path), max_to_keep=2)
+    mgr.save(3, {"step": 3})
+    assert mgr.wait() is None and mgr.close() is None
+    assert mgr.steps() == [3] and mgr.restore()["step"] == 3
+    mgr.save(4, {"step": 4})
+    assert mgr.latest_step() == 4
