@@ -78,6 +78,11 @@ weights made from a seed, and checks every hand-written kernel on them:
   LRS2-style records; the DenseNet is cuDNN's convolutions, BatchNorm and
   pooling (XLA's in the JAX package), the transformer's attention K2 at
   head dim 512 by its CUDA-core route, the records' ROIs K1;
+- the multi-GPU story on the one card: torchrun at world size 1 under NCCL,
+  and two gloo ranks sharing the card running data-parallel diffusion
+  training with ZeRO-1, int8 lip-sync serving, ViViT serving, ring
+  attention at the U-Net's full-resolution shape, the sequence-parallel and
+  the pipelined ViViT (K1-K6 on each rank);
 - the int8 lipreader (``predict_step_int8``: K6 once per Linear) and the K6
   microbench (``bench.microbench_int8``: both of K6's type pairs at 4096³).
 
@@ -240,10 +245,39 @@ script exits non-zero without printing a result):
    --data-root`` over 4 of ``lipread_records``' records from memory (K1 4×
    by packed, K2 2× a step and 2× in the eval, counts derived from the
    clips).
-15. microbench — ``bench.microbench_int8.run``: K6 in bf16 and in int8
+15. parallel — the multi-GPU story on the one card. World size 1 under NCCL:
+   ``train-vivit --synthetic --steps 32`` and ``sample-diffusion --frames 2``
+   at the defaults through ``python -m torch.distributed.run --standalone
+   --nproc-per-node 1`` against the same commands run in this process
+   without a process group (the ``best:`` line and the PNG bytes equal),
+   then a NCCL group of one in this process, where every mesh entry point
+   (``predict_sharded``, int8 ``generate_frames``, ``sample_video``, the
+   diffusion, ViViT, GAN and super-resolution trainers,
+   ``prefetch_to_device``) through ``build_mesh()`` equals
+   ``mesh_spec=None`` bit for bit. Two gloo ranks sharing the card
+   (``tests/torch_parallel_tasks.py``'s ``LocalGroup``; NCCL refuses two
+   ranks on one device), each against one process's run saved to a file:
+   a bf16 diffusion step at the ``DiffusionConfig`` defaults, global batch
+   8 (4 a rank), two steps (ranks bit-equal, ZeRO-1 bit-equal to plain
+   data parallelism, the first reduced gradient within
+   ``TOL_PAR_GRAD_BF16`` of one process's, K3-K5 16 and K2 4 a step a
+   rank, step times beside one process's, the share of a step in gloo's
+   host transport; the diffusion runs go through the CPU tests' driver
+   ``diffusion_dp``); a float32 step at 64×64
+   whose reduced gradient must lie within ``TOL_PAR_GRAD`` of one
+   process's, and the same with rank 1's gradient × 1.01 before the
+   reduction, which must not; int8 ``generate_frames`` at width 1.0 (16
+   frames of 360×640, K6 51 a rank); ``ring_attention`` at (1,4,16384,64)
+   forward and backward, plain and causal, against
+   ``attention_reference``; the ViViT defaults with ``sequence_parallel``
+   against their local forward; the pipelined ViViT (2 stages, n_micro 2
+   and 4, float32) against the canonical model's logits and gradients; a
+   ViViT request whose ROIs (K1) and rows (K2) split over the ranks. Each
+   run's backend and each rank's launches are printed.
+16. microbench — ``bench.microbench_int8.run``: K6 in bf16 and in int8
    (B row-major and B a (N, K) weight transposed) and the library's calls
    on the same operands at 4096³, after its own checks.
-16. timing — request and train-step times, frames/s, each kernel's
+17. timing — request and train-step times, frames/s, each kernel's
    CUDA-event time beside its plain version's at the main-path shapes, the
    one PyTorch call that computes the same function where there is one
    (K2 also at the FeatureTransformer's (64, 5, 1024), 2 heads, float32)
@@ -264,14 +298,23 @@ Run from the repository root: ``python3 chip_smoke.py``.
 from __future__ import annotations
 
 import contextlib
+import hashlib
+import io
 import json
 import math
+import os
 import statistics
 import subprocess
+import sys
 import time
 
 import numpy as np
 import torch
+
+# TF32 flags of a freshly started process, before ``phase_device`` turns
+# TF32 off: the in-process runs held against a ``python -m ...cli`` process
+# run with these
+FRESH_TF32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
 
 SEED = 0
 TOL_K1 = 1e-2        # gray levels: exact LUTs, float32 blend rounding only
@@ -3726,6 +3769,686 @@ def phase_features(dev: dict) -> dict:
     return {"launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# [parallel]: the multi-GPU story on the one card: a torchrun process group of
+# one under NCCL, and two gloo ranks sharing the card
+
+PAR_BATCH = 8            # global batch of the data-parallel diffusion steps: 4 a rank
+# float32 data-parallel step (2 ranks, 4 rows each) against one process on the
+# 8 rows, the same t, noise and dropout masks: the reduced gradient (relative
+# L2 of the whole vector) differs by the order of summation only (the mean
+# over the ranks' halves, conv algorithms at batch 4); the planted fault (one
+# rank's gradient × 1.01 before the reduction) moves it by 0.005 of that
+# rank's half-batch gradient, ~3e-3 of the whole
+TOL_PAR_GRAD = 1e-4
+TOL_PAR_LOSS = 1e-5      # float32 loss, relative
+# bf16 at the defaults, two steps: the first loss (bf16 convs at batch 4 and
+# 8 round at other points) within 2e-2 relative, and no parameter more than
+# 4·lr from one process's (each of Adam's first two steps moves a weight by
+# at most ~lr)
+TOL_PAR_LOSS_BF16 = 2e-2
+# and the first reduced gradient (relative L2 of the whole vector) against
+# one process's: bf16 rounds the activation gradients at batch 4 and 8 at
+# other points (read 1.19e-3 on an H100 80GB HBM3 at 700 W); the gate sits
+# at about twice that and half the float32 planted fault's reading (4.98e-3)
+TOL_PAR_GRAD_BF16 = 2.5e-3
+TOL_RING = 1e-4          # float32 ring vs attention_reference, of each tensor's largest
+TOL_PP = 1e-4            # float32 pipelined ViViT: logits abs, each gradient leaf rel. L2
+PAR_FAULT = 1.01
+
+
+def _worst(values) -> float:
+    """The largest of ``values``, NaN if any is NaN (``max`` drops a NaN
+    that is not first, and a gate must not pass one)."""
+    values = [float(v) for v in values]
+    return math.nan if any(math.isnan(v) for v in values) else max(values)
+
+PAR_FRAMES = 16          # int8 generate_frames request: 16 frames of 360x640, 8 a rank
+RING_SHAPE = (1, 4, 16384, 64)   # the U-Net's attention at 128x128, one head of 64 x 4
+
+
+def _par_counts() -> dict:
+    from lipreading_video_generation_tpu_torch.ops import clahe_cuda as cl
+    from lipreading_video_generation_tpu_torch.ops import matmul_cuda as mm
+
+    return {"clahe": cl.clahe_cuda.launch_count, **_counts(),
+            "int8_matmul": mm.int8_matmul.launch_count}
+
+
+def _par_begin() -> torch.device:
+    """A check's start on a rank: full float32 (no TF32), deterministic
+    algorithms (two runs compared bit for bit must not differ by atomics),
+    every launch count and the gloo transport's counters at 0."""
+    from lipreading_video_generation_tpu_torch.parallel import mesh as pmesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    _zero_counts()
+    pmesh.transport_stats.reset()
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _par_end(out: dict) -> dict:
+    """``out`` with this rank's launches, backend and gloo transport."""
+    import torch.distributed as dist
+
+    from lipreading_video_generation_tpu_torch.parallel import mesh as pmesh
+
+    t = pmesh.transport_stats
+    out.update(counts=_par_counts(), backend=dist.get_backend() if dist.is_initialized() else None,
+               transport_s=t.seconds, transport_calls=t.calls, transport_bytes=t.bytes)
+    return out
+
+
+def _digest(params) -> str:
+    """sha256 of a module's (or a ``state_dict``'s) tensors."""
+    sd = params.state_dict() if hasattr(params, "state_dict") else params
+    h = hashlib.sha256()
+    for k, v in sd.items():
+        h.update(k.encode())
+        h.update(v.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _parallel_tasks():
+    """``tests/torch_parallel_tasks.py``: ``LocalGroup`` and the
+    data-parallel diffusion driver the CPU tests also run (the two gloo
+    ranks import it from the same path)."""
+    tests_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests_dir not in sys.path:
+        sys.path.insert(0, tests_dir)
+    import torch_parallel_tasks
+
+    return torch_parallel_tasks
+
+
+def _par_batches(cfg_kw: dict, steps: int) -> list:
+    """The global batches of the data-parallel diffusion check (every rank
+    gets the same feed)."""
+    from lipreading_video_generation_tpu_torch.core.config import DiffusionConfig
+
+    return [train_batch(DiffusionConfig(**cfg_kw), PAR_BATCH, SEED + 90 + i)
+            for i in range(steps)]
+
+
+def _par_diffusion(cfg_kw: dict, steps: int, mesh_kw, device, fault: bool = False) -> dict:
+    """``steps`` diffusion steps from seed 0 on ``_par_batches``,
+    data-parallel over ``build_mesh(MeshConfig(**mesh_kw))`` (None: one
+    process), through the CPU tests' driver: the first step's (reduced)
+    gradient as one vector, the losses, step times and params. ``fault``:
+    rank 1 scales its gradient by ``PAR_FAULT`` before the reduction."""
+    run = _parallel_tasks().diffusion_dp(cfg_kw, None, _par_batches(cfg_kw, steps), None,
+                                         mesh_kw, device=device, seed=SEED,
+                                         fault=PAR_FAULT if fault else None)
+    run["grads"] = torch.cat([g.reshape(-1).float() for g in run["grads"].values()])
+    return run
+
+
+def _par_diffusion_task(cfg_kw: dict, steps: int, mesh_kw: dict, fault: bool,
+                        ref_file: str) -> dict:
+    """A rank of the two-rank diffusion check: its params' digest, losses,
+    step times, and against one process's run (``ref_file``) the first
+    gradient's relative L2 and the params' largest difference."""
+    device = _par_begin()
+    run = _par_diffusion(cfg_kw, steps, mesh_kw, device, fault)
+    ref = torch.load(ref_file, weights_only=True)
+    g, rg = run["grads"], ref["grads"].to(device)
+    out = {"digest": _digest(run["params"]), "losses": run["losses"], "step_ms": run["step_ms"],
+           "grad_rel": float((g - rg).norm() / rg.norm()),
+           "param_max": _worst((v.float() - ref["params"][k].to(device).float()).abs().max()
+                               for k, v in run["params"].items()),
+           "moments_sharded": run["shards"]}
+    return _par_end(out)
+
+
+def _par_generate_task(ref_file: str) -> dict:
+    """A rank of the int8 generate_frames check: its frames against one
+    process's."""
+    from lipreading_video_generation_tpu_torch.core.config import GanConfig, PreprocessConfig
+    from lipreading_video_generation_tpu_torch.models.generator import TalkingFaceGenerator
+    from lipreading_video_generation_tpu_torch.core.prng import seeded
+    from lipreading_video_generation_tpu_torch.parallel import mesh as pmesh
+    from lipreading_video_generation_tpu_torch.pipelines import inference
+
+    device = _par_begin()
+    gen = seeded(lambda: TalkingFaceGenerator(width=1.0), SEED).state_dict()
+    frames, boxes, mels = lipsync_inputs(PAR_FRAMES, SEED + 96)
+    got = inference.generate_frames(gen, frames, boxes, mels, GanConfig(serve_int8=True),
+                                    PreprocessConfig(), 1.0, mesh_spec=pmesh.build_mesh(),
+                                    device=device)
+    want = np.load(ref_file)
+    d = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    return _par_end({"max_diff": int(d.max()), "equal_share": float((d == 0).mean()),
+                     "shape": got.shape})
+
+
+def _ring_inputs(device):
+    g = torch.Generator(device=device).manual_seed(SEED + 97)
+    return [torch.randn(RING_SHAPE, generator=g, device=device) for _ in range(4)]
+
+
+def _par_ring_task(ref_file: str) -> dict:
+    """A rank of the ring check: forward and backward over 2 ranks of the
+    model axis, plain and causal, against ``attention_reference``."""
+    from lipreading_video_generation_tpu_torch.core.config import MeshConfig
+    from lipreading_video_generation_tpu_torch.ops.ring_attention import ring_attention
+    from lipreading_video_generation_tpu_torch.parallel import mesh as pmesh
+
+    device = _par_begin()
+    spec = pmesh.build_mesh(MeshConfig(model_parallel=2))
+    ref = torch.load(ref_file, weights_only=True)
+    q, k, v, do = _ring_inputs(device)
+    out = {}
+    for causal in (False, True):
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o = ring_attention(*leaves, mesh=spec, axis_name="model", causal=causal)
+        grads = torch.autograd.grad(o, leaves, do)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        want = ref["causal" if causal else "plain"]
+        errs = [float((a.detach() - w.to(device)).abs().max() / w.abs().max())
+                for a, w in zip([o] + list(grads), want)]
+        out["causal" if causal else "plain"] = {"err": _worst(errs), "ms": ms}
+        del leaves, o, grads
+    return _par_end(out)
+
+
+def _par_vivit_sp_task() -> dict:
+    """A rank of the sequence-parallel ViViT check at the defaults (12
+    layers, 80 tokens, 40 a rank, bf16): logits through the ring against
+    the same model's local attention (K2)."""
+    from lipreading_video_generation_tpu_torch.core.config import MeshConfig, ViViTConfig
+    from lipreading_video_generation_tpu_torch.core.prng import seeded
+    from lipreading_video_generation_tpu_torch.models.vivit import ViViT
+    from lipreading_video_generation_tpu_torch.parallel import mesh as pmesh
+
+    device = _par_begin()
+    spec = pmesh.build_mesh(MeshConfig(model_parallel=2))
+    model = seeded(lambda: ViViT(ViViTConfig(num_classes=8, sequence_parallel=True)),
+                   SEED).to(device).eval()
+    clips = torch.from_numpy(_vt_batch(PAR_BATCH, SEED + 98)["clips"]).to(device).float() / 255.0
+    with torch.no_grad():
+        local = model(clips)
+        k2 = _par_counts()["small_mha"]
+        with pmesh.use_mesh(spec):
+            ring = model(clips)
+    err = float((ring - local).abs().max())
+    rel = float((ring - local).norm() / local.norm())
+    return _par_end({"err": err, "rel": rel, "k2_local": k2,
+                     "finite": bool(torch.isfinite(ring).all())})
+
+
+def _par_pp_task(n_micro: int) -> dict:
+    """A rank of the pipeline check: the ViViT at its default widths (12
+    layers in 2 stages of 6) in float32, ``n_micro`` microbatches of a batch
+    of 8: logits and one train step's gradients against the canonical
+    model's on the same batch."""
+    from lipreading_video_generation_tpu_torch.core.config import MeshConfig, ViViTConfig
+    from lipreading_video_generation_tpu_torch.core.prng import seeded
+    from lipreading_video_generation_tpu_torch.models.vivit import ViViT
+    from lipreading_video_generation_tpu_torch.parallel import mesh as pmesh
+    from lipreading_video_generation_tpu_torch.parallel import pipeline as pipe
+    from lipreading_video_generation_tpu_torch.pipelines import losses
+    from lipreading_video_generation_tpu_torch.pipelines import train_vivit as ttv
+
+    device = _par_begin()
+    spec = pmesh.build_mesh(MeshConfig(model_parallel=2))
+    cfg = ViViTConfig(num_classes=8, dtype="float32")
+    batch = _vt_batch(PAR_BATCH, SEED + 99)
+    clips = torch.from_numpy(batch["clips"]).to(device).float() / 255.0
+    labels = torch.from_numpy(batch["labels"]).to(device, torch.long)
+    canonical = seeded(lambda: ViViT(cfg), SEED).to(device).eval()
+    state = ttv.place_pp_state(spec, ttv.create_state_pp(cfg, SEED, spec, device))
+    with torch.no_grad():
+        want = canonical(clips)
+        got = state.model.eval()(clips, n_micro=n_micro)
+    losses.softmax_xent(canonical(clips), labels).backward()
+    step, _ = ttv.make_pp_train_step(cfg, spec, n_micro)
+    pmesh.run_sharded(spec, step, state, batch)
+    layers = pipe.stage_layers(cfg.num_layers, spec)
+    canon = dict(canonical.named_parameters())
+    worst = 0.0
+    for name, p in state.model.named_parameters():
+        hit = pipe.split_block_key(name)
+        ref = canon[name if hit is None else f"blocks.{layers[hit[0]]}.{hit[1]}"].grad
+        worst = _worst([worst, (p.grad - ref).norm() / ref.norm().clamp_min(1e-30)])
+    return _par_end({"logit_err": float((got - want).abs().max()), "grad_rel": worst,
+                     "stage": [layers.start, layers.stop]})
+
+
+def _par_serve_request(model, spec, device) -> torch.Tensor:
+    """A ViViT request of 8 clips data-parallel over ``spec``: each data
+    rank makes the ROIs of its clips' frames (K1), the ROIs are gathered,
+    and ``predict_sharded`` runs each rank's rows (K2)."""
+    from lipreading_video_generation_tpu_torch.core.config import PreprocessConfig
+    from lipreading_video_generation_tpu_torch.parallel import mesh as pmesh
+    from lipreading_video_generation_tpu_torch.pipelines import train_vivit as ttv
+    from lipreading_video_generation_tpu_torch.pipelines.preprocess import mouth_roi_pipeline
+
+    pre, cfg = PreprocessConfig(), model.cfg
+    frames, boxes = request_inputs(PAR_BATCH, SEED + 95)
+    rows = (pmesh.padded_rows(spec, PAR_BATCH) if not pmesh.is_degenerate(spec)
+            else pmesh.RowShard(PAR_BATCH, 0, PAR_BATCH))
+    mine = slice(rows.start * CLIP_FRAMES, (rows.start + rows.count) * CLIP_FRAMES)
+    roi = mouth_roi_pipeline(torch.from_numpy(frames[mine]).to(device),
+                             torch.from_numpy(boxes[mine]).to(device), pre.lip_crop_size,
+                             pre.model_input_size, pre.clahe_clip_limit, pre.clahe_grid)
+    if not pmesh.is_degenerate(spec):
+        roi = pmesh.all_gather(roi, spec, spec.data_axis)
+    clips = roi.reshape(-1, cfg.num_frames, cfg.image_size, cfg.image_size, 1)
+    return ttv.predict_sharded(model, clips, mesh_spec=spec)
+
+
+def _par_serve_task(ref_file: str) -> dict:
+    from lipreading_video_generation_tpu_torch.core.config import ViViTConfig
+    from lipreading_video_generation_tpu_torch.core.prng import seeded
+    from lipreading_video_generation_tpu_torch.models.vivit import ViViT
+    from lipreading_video_generation_tpu_torch.parallel import mesh as pmesh
+
+    device = _par_begin()
+    model = seeded(lambda: ViViT(ViViTConfig()), SEED).to(device).eval()
+    got = _par_serve_request(model, pmesh.build_mesh(), device).cpu()
+    want = torch.load(ref_file, weights_only=True)
+    return _par_end({"err": float((got - want).abs().max()),
+                     "top1": float((got.argmax(-1) == want.argmax(-1)).float().mean())})
+
+
+def _torchrun(argv: list) -> subprocess.Popen:
+    """Start ``argv`` of the port's CLI under ``python -m
+    torch.distributed.run --standalone --nproc-per-node 1``; ``_finished``
+    waits for it."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           "1", "-m", "lipreading_video_generation_tpu_torch.cli"] + argv
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+
+
+def _finished(proc: subprocess.Popen, what: str, timeout: float = 400) -> str:
+    """The standard output of a ``_torchrun`` process once it has ended;
+    raises when it fails or runs past ``timeout``."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"torchrun {what}: no end within {timeout} s") from None
+    if proc.returncode != 0:
+        raise AssertionError(f"torchrun {what} exited {proc.returncode}:\n{out[-3000:]}\n"
+                             f"{err[-3000:]}")
+    return out
+
+
+@contextlib.contextmanager
+def _fresh_process_flags():
+    """The matmul and convolution flags of a freshly started process (what
+    a ``python -m ...cli`` run has), for in-process runs held against one."""
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = FRESH_TF32
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def _cli_in_process(argv: list) -> str:
+    from lipreading_video_generation_tpu_torch import cli
+
+    out = io.StringIO()
+    with _fresh_process_flags(), contextlib.redirect_stdout(out):
+        if cli.main(argv) != 0:
+            raise AssertionError(f"cli.main({argv[0]}) failed")
+    return out.getvalue()
+
+
+_VIVIT_ARGV = ["train-vivit", "--synthetic", "--steps", "32", "--set", "vivit.num_classes=8"]
+_SAMPLE_ARGV = ["sample-diffusion", "--frames", "2", "--ddim-steps", "4"]
+
+
+def _par_launch(work: str) -> dict:
+    """Start ``train-vivit`` and ``sample-diffusion`` at the defaults under
+    torchrun (world size 1, NCCL): the launcher check's processes, which
+    run while this process does its own work."""
+    return {"t0": time.perf_counter(), "vivit": _torchrun(_VIVIT_ARGV),
+            "sample": _torchrun(_SAMPLE_ARGV + ["--out", os.path.join(work, "nccl.png")])}
+
+
+def _par_launcher(dev: dict, work: str, launched: dict) -> None:
+    """World size 1 under NCCL through the real launcher: the torchrun
+    processes of ``_par_launch`` against the same commands run in this
+    process without a process group (mesh_spec=None's path)."""
+    here = [line for line in _cli_in_process(_VIVIT_ARGV).splitlines()
+            if line.startswith("best:")]
+    _cli_in_process(_SAMPLE_ARGV + ["--out", os.path.join(work, "none.png")])
+    out = _finished(launched["vivit"], "train-vivit")
+    _finished(launched["sample"], "sample-diffusion")
+    launch_s = time.perf_counter() - launched["t0"]
+    if "backend nccl, world size 1" not in out:
+        raise AssertionError(f"torchrun train-vivit did not run on a NCCL group:\n{out}")
+    best = [line for line in out.splitlines() if line.startswith("best:")]
+    if not best or best != here:
+        raise AssertionError(f"train-vivit: torchrun {best} != in process {here}")
+    for j in range(2):
+        a, b = (open(os.path.join(work, f"{n}.png.{j:04d}.png"), "rb").read()
+                for n in ("nccl", "none"))
+        if a != b:
+            raise AssertionError(f"sample-diffusion frame {j}: torchrun's PNG differs")
+    log("parallel", f"torchrun --nproc-per-node 1 (backend nccl, world size 1): train-vivit 32 "
+        f"steps at the ViViTConfig defaults gives the in-process run's {best[0]!r}; "
+        f"sample-diffusion --frames 2 --ddim-steps 4 at the DiffusionConfig defaults writes the "
+        f"same PNG bytes (both launches, beside this process's runs, {launch_s:.1f} s) on "
+        f"{dev['smi']}")
+
+
+def _par_in_process(dev: dict, work: str) -> dict:
+    """A NCCL process group of one in this process: each mesh entry point
+    with ``build_mesh()`` against ``mesh_spec=None``, bit for bit."""
+    import torch.distributed as dist
+
+    from lipreading_video_generation_tpu_torch.core.config import (
+        DiffusionConfig, GanConfig, PreprocessConfig, SuperResConfig, ViViTConfig, Config)
+    from lipreading_video_generation_tpu_torch.core.prng import seeded
+    from lipreading_video_generation_tpu_torch.data import datasets
+    from lipreading_video_generation_tpu_torch.data.loader import prefetch_to_device
+    from lipreading_video_generation_tpu_torch.models.generator import TalkingFaceGenerator
+    from lipreading_video_generation_tpu_torch.models.unet_audio import UNetAudio
+    from lipreading_video_generation_tpu_torch.models.vivit import ViViT
+    from lipreading_video_generation_tpu_torch.parallel import distributed
+    from lipreading_video_generation_tpu_torch.parallel import mesh as pmesh
+    from lipreading_video_generation_tpu_torch.pipelines import (
+        inference, sample_diffusion, train_diffusion, train_gan, train_superres, train_vivit)
+
+    device = torch.device("cuda", 0)
+    d = DiffusionConfig(batch_size=4)
+    unet = seeded(lambda: UNetAudio(d), SEED).to(device).eval()
+    rng = np.random.default_rng(SEED + 100)
+    cond = rng.integers(0, 256, (d.im_size, d.im_size, 3), dtype=np.uint8)
+    audio = rng.standard_normal((3, d.audio_samples)).astype(np.float32)
+    vivit = seeded(lambda: ViViT(ViViTConfig()), SEED).to(device).eval()
+    gen = seeded(lambda: TalkingFaceGenerator(width=1.0), SEED).state_dict()
+    frames, boxes, mels = lipsync_inputs(8, SEED + 101)
+    gan_cfg = GanConfig(batch_size=4)
+    gan_clips = datasets.synthetic_gan_clips(n_clips=2, frames=20)
+    sr = SuperResConfig(batch_size=2)
+
+    def feed(n, make):
+        items = iter([make(i) for i in range(n)])
+        return lambda: next(items, None)
+
+    def entry_points(spec) -> dict:
+        out = {"predict_sharded": _par_serve_request(vivit, spec, device).cpu(),
+               "generate_frames_int8": inference.generate_frames(
+                   gen, frames, boxes, mels, GanConfig(serve_int8=True), PreprocessConfig(),
+                   1.0, mesh_spec=spec, device=device),
+               "sample_video": sample_diffusion.sample_video(
+                   unet, cond, audio, d, num_inference_steps=3, mesh_spec=spec,
+                   generator=torch.Generator(device).manual_seed(SEED)).cpu()}
+        st = train_diffusion.train(d, feed(2, lambda i: train_batch(d, 4, SEED + 102 + i)),
+                                   num_steps=2, mesh_spec=spec, device=device)
+        out["train_diffusion"] = _digest(st.model)
+        vcfg = Config(vivit=ViViTConfig(num_classes=8))
+        st, _ = train_vivit.train(vcfg, lambda: iter([_vt_batch(16, SEED + 104 + i)
+                                                      for i in range(2)]),
+                                  num_epochs=1, mesh_spec=spec, device=device)
+        out["train_vivit"] = _digest(st.model)
+        sampler = datasets.GanWindowSampler(gan_clips, seed=SEED)
+        st = train_gan.train(gan_cfg, lambda: sampler.sample_batch(4), num_steps=1,
+                             mesh_spec=spec, device=device)
+        out["train_gan"] = _digest(st.gen) + _digest(st.disc)
+        st = train_superres.train(sr, feed(1, lambda i: {"target_frame": train_batch(
+            d, 2, SEED + 106)["target_frame"]}), num_steps=1, mesh_spec=spec, device=device)
+        out["train_superres"] = _digest(st.model)
+        fed = list(prefetch_to_device(feed(2, lambda i: train_batch(d, 4, SEED + 107 + i)),
+                                      spec=spec, device=device))
+        out["prefetch_to_device"] = [t.cpu() for b in fed for t in b.values()]
+        return out
+
+    t0 = time.perf_counter()
+    want = entry_points(None)
+    none_s = time.perf_counter() - t0
+    distributed.initialize(rank=0, world_size=1,
+                           store=dist.FileStore(os.path.join(work, "nccl_store"), 1))
+    try:
+        spec = pmesh.build_mesh()
+        backend = dist.get_backend()
+        if backend != "nccl" or pmesh.is_degenerate(spec):
+            raise AssertionError(f"in-process group: backend {backend}, mesh {spec}")
+        t0 = time.perf_counter()
+        got = entry_points(spec)
+        mesh_s = time.perf_counter() - t0
+    finally:
+        distributed.shutdown()
+    for name, w in want.items():
+        g = got[name]
+        same = (all(torch.equal(a, b) for a, b in zip(g, w)) if isinstance(w, list)
+                else torch.equal(g, w) if isinstance(w, torch.Tensor)
+                else np.array_equal(g, w) if isinstance(w, np.ndarray) else g == w)
+        if not same:
+            raise AssertionError(f"{name}: build_mesh() under NCCL (world size 1) differs from "
+                                 "mesh_spec=None")
+    log("parallel", f"NCCL process group of one in this process (backend {backend}): "
+        f"{', '.join(want)} through build_mesh() equal mesh_spec=None bit for bit "
+        f"({none_s:.1f} s without the mesh, {mesh_s:.1f} s with it) on {dev['smi']}")
+    return {}
+
+
+def phase_parallel(dev: dict) -> dict:
+    """[parallel]: see the module's docstring."""
+    import tempfile
+
+    from lipreading_video_generation_tpu_torch.core.config import (
+        GanConfig, PreprocessConfig, ViViTConfig)
+    from lipreading_video_generation_tpu_torch.core.prng import seeded
+    from lipreading_video_generation_tpu_torch.models.generator import TalkingFaceGenerator
+    from lipreading_video_generation_tpu_torch.models.vivit import ViViT
+    from lipreading_video_generation_tpu_torch.ops.attention import attention_reference
+    from lipreading_video_generation_tpu_torch.pipelines import inference
+
+    phase_t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_")
+    launches = dict.fromkeys(("clahe", "small_mha", "flash_attention", "flash_bwd_dkv",
+                              "flash_bwd_dq", "int8_matmul"), 0)
+    launched, group = {}, None
+    try:
+        # the torchrun processes and the two gloo ranks start while this
+        # process runs the launcher's references and the NCCL group of one
+        launched = _par_launch(work.name)
+        group = _parallel_tasks().LocalGroup(2, os.path.join(work.name, "gloo_store"),
+                                             device="cuda:0", backend="gloo")
+        _par_launcher(dev, work.name, launched)
+        _par_begin()
+        _par_in_process(dev, work.name)
+        for k, n in _par_counts().items():
+            launches[k] += n
+        group.run(_par_begin)       # both ranks up before one process's timed references
+        # one process's references for the two-rank checks
+        device = _par_begin()
+        bf16, f32 = {}, {"im_size": 64, "dtype": "float32"}
+        refs = {}
+        for name, cfg_kw, steps in (("bf16", bf16, 2), ("f32", f32, 1)):
+            run = _par_diffusion(cfg_kw, steps, None, device)
+            refs[name] = run
+            path = os.path.join(work.name, f"diffusion_{name}.pt")
+            torch.save({"grads": run["grads"].cpu(),
+                        "params": {k: v.cpu() for k, v in run["params"].items()}}, path)
+            run["file"] = path
+            del run["params"], run["ema"], run["grads"]
+        gen = seeded(lambda: TalkingFaceGenerator(width=1.0), SEED).state_dict()
+        frames, boxes, mels = lipsync_inputs(PAR_FRAMES, SEED + 96)
+        gen_ref = inference.generate_frames(gen, frames, boxes, mels,
+                                            GanConfig(serve_int8=True), PreprocessConfig(),
+                                            1.0, device=device)
+        np.save(os.path.join(work.name, "frames.npy"), gen_ref)
+        ring_ref = {}
+        q, k, v, do = _ring_inputs(device)
+        for causal in (False, True):
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            o = attention_reference(*leaves, causal=causal)
+            grads = torch.autograd.grad(o, leaves, do)
+            ring_ref["causal" if causal else "plain"] = [o.detach().cpu()] + [
+                g.cpu() for g in grads]
+            del leaves, o, grads
+        del q, k, v, do
+        torch.save(ring_ref, os.path.join(work.name, "ring.pt"))
+        vivit = seeded(lambda: ViViT(ViViTConfig()), SEED).to(device).eval()
+        torch.save(_par_serve_request(vivit, None, device).cpu(),
+                   os.path.join(work.name, "serve.pt"))
+        del vivit
+        for k, n in _par_counts().items():
+            launches[k] += n
+        torch.cuda.empty_cache()
+
+        runs = {
+            "bf16": group.run(_par_diffusion_task, bf16, 2, {}, False, refs["bf16"]["file"]),
+            "bf16_zero1": group.run(_par_diffusion_task, bf16, 2, {"zero1": True}, False,
+                                    refs["bf16"]["file"]),
+            "f32": group.run(_par_diffusion_task, f32, 1, {}, False, refs["f32"]["file"]),
+            "f32_fault": group.run(_par_diffusion_task, f32, 1, {}, True,
+                                   refs["f32"]["file"]),
+            "generate_int8": group.run(_par_generate_task,
+                                       os.path.join(work.name, "frames.npy")),
+            "ring": group.run(_par_ring_task, os.path.join(work.name, "ring.pt")),
+            "vivit_sp": group.run(_par_vivit_sp_task),
+            "pp_micro2": group.run(_par_pp_task, 2),
+            "pp_micro4": group.run(_par_pp_task, 4),
+            "serve": group.run(_par_serve_task, os.path.join(work.name, "serve.pt")),
+        }
+        for name, ranks in runs.items():
+            backends = {r["backend"] for r in ranks}
+            if backends != {"gloo"}:
+                raise AssertionError(f"{name}: backends {backends}")
+            per_rank = [{k: n for k, n in r["counts"].items() if n} for r in ranks]
+            log("parallel", f"{name} (backend gloo, 2 ranks on cuda:0): launches a rank "
+                f"{per_rank}; gloo transport a rank "
+                + ", ".join(f"{r['transport_calls']} calls, {r['transport_bytes'] / 1e6:.1f} MB, "
+                            f"{r['transport_s'] * 1e3:.1f} ms" for r in ranks))
+            if name != "f32_fault":
+                for r in ranks:
+                    for k, n in r["counts"].items():
+                        launches[k] += n
+        _par_gates(dev, runs, refs)
+    finally:
+        for proc in (p for k, p in launched.items() if k != "t0"):
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        if group is not None:
+            group.close()
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+        work.cleanup()
+    log("parallel", f"phase took {time.perf_counter() - phase_t0:.1f} s on {dev['smi']}")
+    return {"launches": launches}
+
+
+def _par_gates(dev: dict, runs: dict, refs: dict) -> None:
+    """Hold the two-rank results against one process's and print them."""
+    lr = 1e-4   # DiffusionConfig.learning_rate
+    bf = runs["bf16"]
+    if bf[0]["digest"] != bf[1]["digest"]:
+        raise AssertionError("bf16 data-parallel diffusion: the ranks' params differ")
+    z1 = runs["bf16_zero1"]
+    if {r["digest"] for r in z1} != {bf[0]["digest"]} or not z1[0]["moments_sharded"] >= 1:
+        raise AssertionError("ZeRO-1: params differ from plain data parallelism's (or no "
+                             "moment was sharded)")
+    loss_rel = abs(bf[0]["losses"][0] - refs["bf16"]["losses"][0]) / abs(refs["bf16"]["losses"][0])
+    pmax = _worst(r["param_max"] for r in bf)
+    g_bf = _worst(r["grad_rel"] for r in bf)
+    for r in bf + z1:
+        want = {"flash_attention": 32, "flash_bwd_dkv": 32, "flash_bwd_dq": 32, "small_mha": 8}
+        if any(r["counts"][k] != n for k, n in want.items()):
+            raise AssertionError(f"bf16 diffusion rank launches {r['counts']}, want {want}")
+    # written so that a NaN fails: every comparison with NaN is false
+    if not (loss_rel <= TOL_PAR_LOSS_BF16 and g_bf <= TOL_PAR_GRAD_BF16 and pmax <= 4 * lr):
+        raise AssertionError(f"bf16 data-parallel diffusion against one process: loss "
+                             f"{loss_rel:.3g} (want <= {TOL_PAR_LOSS_BF16}), first gradient "
+                             f"{g_bf:.3g} (want <= {TOL_PAR_GRAD_BF16}), params {pmax:.3g} "
+                             f"(want <= {4 * lr})")
+    one_ms = refs["bf16"]["step_ms"][-1]
+    two_ms = max(r["step_ms"][-1] for r in bf)
+    share = max(r["transport_s"] / (sum(r["step_ms"]) / 1e3) for r in bf)
+    log("parallel", f"bf16 diffusion step at the DiffusionConfig defaults, global batch "
+        f"{PAR_BATCH}: the 2 ranks' params equal bit for bit, ZeRO-1 ({z1[0]['moments_sharded']} "
+        f"moment leaves sharded a rank) equal to plain data parallelism bit for bit; against one "
+        f"process on the 8 rows: first loss {loss_rel:.3g} relative (want <= "
+        f"{TOL_PAR_LOSS_BF16}), first reduced gradient {g_bf:.3g} relative L2 (want <= "
+        f"{TOL_PAR_GRAD_BF16}), params after 2 steps at most {pmax:.3g} apart (want <= 4 lr = "
+        f"{4 * lr:g}); step time: one process, batch 8: {one_ms:.1f} ms; 2 ranks sharing the card, "
+        f"4 rows each: {two_ms:.1f} ms (the card is shared: no speed-up to claim); gloo "
+        f"transport {share:.1%} of a rank's step time on {dev['smi']}")
+    f32, fault = runs["f32"], runs["f32_fault"]
+    g = _worst(r["grad_rel"] for r in f32)
+    loss = abs(f32[0]["losses"][0] - refs["f32"]["losses"][0]) / abs(refs["f32"]["losses"][0])
+    g_fault = _worst(r["grad_rel"] for r in fault)
+    if f32[0]["digest"] != f32[1]["digest"] or not (g <= TOL_PAR_GRAD and loss <= TOL_PAR_LOSS):
+        raise AssertionError(f"float32 data-parallel step: gradient {g:.3g} (want <= "
+                             f"{TOL_PAR_GRAD}), loss {loss:.3g} (want <= {TOL_PAR_LOSS})")
+    if not (g_fault > TOL_PAR_GRAD and g_fault > TOL_PAR_GRAD_BF16 and math.isfinite(g_fault)):
+        raise AssertionError(f"the planted fault (rank 1's gradient x {PAR_FAULT}) passed a "
+                             f"gradient gate: {g_fault:.3g} (gates {TOL_PAR_GRAD}, bf16 "
+                             f"{TOL_PAR_GRAD_BF16})")
+    log("parallel", f"float32 step at 64x64 (full channel plan), global batch {PAR_BATCH}: "
+        f"reduced gradient {g:.3g} relative L2 from one process's (gate {TOL_PAR_GRAD}), loss "
+        f"{loss:.3g} (gate {TOL_PAR_LOSS}); planted fault, rank 1's gradient x {PAR_FAULT} "
+        f"before the reduction: {g_fault:.3g}, caught by the gate")
+    gen = runs["generate_int8"]
+    worst = _worst(r["max_diff"] for r in gen)
+    if not worst <= 1 or tuple(gen[0]["shape"]) != (PAR_FRAMES,) + LIPSYNC_HW + (3,):
+        raise AssertionError(f"int8 generate_frames on 2 ranks: frames {worst} levels from one "
+                             "process's")
+    for r in gen:
+        if r["counts"]["int8_matmul"] != 51:
+            raise AssertionError(f"int8 generate_frames: K6 {r['counts']['int8_matmul']} a rank, "
+                                 "want 51")
+    log("parallel", f"int8 generate_frames at width 1.0, {PAR_FRAMES} frames of 360x640, "
+        f"{PAR_FRAMES // 2} a "
+        f"rank: frames against one process's: max {worst:g} level(s), "
+        f"{min(r['equal_share'] for r in gen):.6f} of the values equal; K6 51 a rank")
+    ring = runs["ring"]
+    for r in ring:
+        for kind in ("plain", "causal"):
+            if not r[kind]["err"] <= TOL_RING:
+                raise AssertionError(f"ring attention {kind}: {r[kind]['err']:.3g} of the largest "
+                                     f"(want <= {TOL_RING})")
+    log("parallel", f"ring_attention {RING_SHAPE} float32 over 2 ranks of the model axis, "
+        "forward and backward against attention_reference: "
+        + ", ".join(f"{kind} {_worst(r[kind]['err'] for r in ring):.3g} of the largest, "
+                    f"{max(r[kind]['ms'] for r in ring):.1f} ms" for kind in ("plain", "causal"))
+        + f" (gate {TOL_RING}) on {dev['smi']}")
+    sp = runs["vivit_sp"]
+    if not all(r["err"] <= TOL_LOGITS and r["finite"] for r in sp):
+        raise AssertionError(f"sequence-parallel ViViT: logits {_worst(r['err'] for r in sp):.3g} "
+                             f"from local (want <= {TOL_LOGITS})")
+    log("parallel", f"ViViT defaults (12 layers, 80 tokens, bf16) with sequence_parallel over 2 "
+        f"ranks (40 tokens each, ring attention): logits {_worst(r['err'] for r in sp):.3g} "
+        f"max abs, "
+        f"{_worst(r['rel'] for r in sp):.3g} relative L2 from the local forward (K2 "
+        f"{sp[0]['k2_local']}x) (gate {TOL_LOGITS})")
+    for name in ("pp_micro2", "pp_micro4"):
+        pp = runs[name]
+        le, ge = _worst(r["logit_err"] for r in pp), _worst(r["grad_rel"] for r in pp)
+        if not (le <= TOL_PP and ge <= TOL_PP) or [r["stage"] for r in pp] != [[0, 6], [6, 12]]:
+            raise AssertionError(f"{name}: logits {le:.3g}, gradients {ge:.3g} (want <= "
+                                 f"{TOL_PP}), stages {[r['stage'] for r in pp]}")
+        log("parallel", f"pipelined ViViT, 2 stages of 6 layers, n_micro {name[-1]}, float32: "
+            f"logits {le:.3g} max abs from the canonical model, one train step's gradients at "
+            f"most {ge:.3g} relative L2 a leaf (gate {TOL_PP}); K2 a rank "
+            f"{[r['counts']['small_mha'] for r in pp]}")
+    serve = runs["serve"]
+    if not all(r["err"] <= TOL_LOGITS for r in serve):
+        raise AssertionError(f"predict_sharded on 2 ranks: {_worst(r['err'] for r in serve):.3g}")
+    for r in serve:
+        if r["counts"]["clahe"] != 1 or r["counts"]["small_mha"] != 12:
+            raise AssertionError(f"predict_sharded rank launches {r['counts']}, want K1 1, K2 12")
+    log("parallel", f"ViViT request of {PAR_BATCH} clips, 4 a rank (ROIs by K1 on each rank's "
+        f"frames, then predict_sharded): log-probs {_worst(r['err'] for r in serve):.3g} from one "
+        f"process's (gate {TOL_LOGITS}), top-1 agreement {min(r['top1'] for r in serve):.4f}")
+
+
 def phase_microbench() -> dict:
     """K6's own entry point: both type pairs at 4096³ beside the library."""
     from lipreading_video_generation_tpu_torch.bench import microbench_int8
@@ -4137,16 +4860,19 @@ def main() -> None:
     gan = phase_gan(dev)
     pretrained = phase_pretrained(dev)["launches"]
     features = phase_features(dev)["launches"]
+    parallel = phase_parallel(dev)["launches"]
     microbench = phase_microbench()
     paths = (vivit_trained, diffused, trained, superres, guided, fed, pretrained, features)
-    launches = {"clahe": served["clahe"] + lipread["clahe"] + gan["clahe"] + features["clahe"],
+    launches = {"clahe": (served["clahe"] + lipread["clahe"] + gan["clahe"] + features["clahe"]
+                          + parallel["clahe"]),
                 "small_mha": (served["small_mha"] + lipread["small_mha"]
-                              + sum(p["small_mha"] for p in paths)),
+                              + sum(p["small_mha"] for p in paths) + parallel["small_mha"]),
                 "int8_matmul": (served["int8_matmul"] + lipsync["launches"] + gan["int8_matmul"]
-                                + microbench["launches"]["int8_matmul"]),
+                                + microbench["launches"]["int8_matmul"]
+                                + parallel["int8_matmul"]),
                 "bf16_matmul": microbench["launches"]["bf16_matmul"]}
     for name in ("flash_attention", "flash_bwd_dkv", "flash_bwd_dq"):
-        launches[name] = sum(p.get(name, 0) for p in paths)
+        launches[name] = sum(p.get(name, 0) for p in paths) + parallel[name]
     times = phase_timing(dev, microbench)
     pkg = "lipreading_video_generation_tpu_torch"
     jax_pkg = "lipreading_video_generation_tpu"

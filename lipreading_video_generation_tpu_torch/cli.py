@@ -45,7 +45,14 @@ Usage:
       --data-root data/mvlrs_v1/main --densenet-checkpoint densenet.pt
 
 Every command runs on the card (``core.device``); ``main(argv,
-device="cpu")`` runs it on the CPU, as the tests do. Packed records stream
+device="cpu")`` runs it on the CPU, as the tests do. Under torchrun
+(``python -m torch.distributed.run --nproc-per-node N -m
+lipreading_video_generation_tpu_torch.cli <command>``) each process joins the
+process group (``parallel.distributed.initialize``, its own card) and the
+trainers and ``sample-diffusion --frames`` / ``infer-lipsync`` run
+data-parallel over the mesh, as the JAX CLI's do over its devices; the
+primary rank writes the outputs. ``--set mesh.*`` lays out the mesh
+(``build_mesh``; a layout the process count does not fit is a usage error). Packed records stream
 through the native prefetch loader (``data/records``). A frame index and
 ``--cond-video`` are decoded with OpenCV, imported on call. The ``port-*``
 commands take exactly one of ``--pth`` (a published checkpoint) or
@@ -385,12 +392,23 @@ class _SyntheticPairSampler:
         }
 
 
-def _sample_diffusion(args, cfg, parser, device) -> int:
+def _say(msg: str) -> None:
+    """Print on the primary rank only."""
+    from .parallel.distributed import is_primary
+
+    if is_primary():
+        print(msg)
+
+
+def _sample_diffusion(args, cfg, parser, device, mesh) -> int:
     """``sample-diffusion``: one frame (``--out`` an image) or a clip of
-    ``--frames`` frames (``<out>.<j:04d>.png``, or a video for .mp4/.avi),
+    ``--frames`` frames (``<out>.<j:04d>.png``, or a video for .mp4/.avi;
+    its frames data-parallel over ``mesh``, as in the JAX CLI),
     conditioned on ``--cond-video`` or on inputs drawn from ``--seed`` as
     the JAX CLI draws them; the noise comes from ``torch.Generator(seed)``
-    on ``device``, the SR stage's from seed + 1."""
+    on ``device``, the SR stage's from seed + 1. The primary rank writes."""
+    from .parallel.distributed import is_primary
+
     import torch
 
     from .core.prng import seeded
@@ -445,10 +463,12 @@ def _sample_diffusion(args, cfg, parser, device) -> int:
         else:
             cond = rng.integers(0, 256, (d.im_size, d.im_size, 3), dtype=np.uint8)
             windows = rng.standard_normal((args.frames, d.audio_samples)).astype(np.float32)
-        clip = sample_diffusion.sample_video(model, cond, windows, d, **sample_kw)
+        clip = sample_diffusion.sample_video(model, cond, windows, d, mesh_spec=mesh, **sample_kw)
         if args.sr_checkpoint:
             clip = (sr(clip.float() / 255.0) * 255).to(torch.uint8)
         clip = clip.cpu().numpy()
+        if not is_primary():
+            return 0
         if args.out.endswith((".mp4", ".avi")):
             video_io.write_video(args.out, clip, fps=fps)
         else:
@@ -466,6 +486,8 @@ def _sample_diffusion(args, cfg, parser, device) -> int:
         audio = rng.standard_normal((1, d.audio_samples)).astype(np.float32)
     x0, snaps = sample_diffusion.sample(model, cond, audio, d, **sample_kw)
     img = (sr(x0)[0] * 255).to(torch.uint8).cpu().numpy()
+    if not is_primary():
+        return 0
     video_io.write_image(args.out, img)
     print(f"wrote {args.out} (+{snaps.shape[0]} snapshots available)")
     return 0
@@ -568,7 +590,26 @@ def _train_feature_transformer(args, cfg, parser, device) -> int:
 
 
 def main(argv: Optional[List[str]] = None, device=None) -> int:
-    """Run one subcommand; ``device`` is where it runs (``None``: the card)."""
+    """Run one subcommand; ``device`` is where it runs (``None``: the card,
+    the rank's own under torchrun, which this call joins to the process
+    group and leaves at the end)."""
+    import torch.distributed as dist
+
+    from .parallel import distributed
+
+    started = not dist.is_initialized()
+    distributed.initialize(device=device)
+    if dist.is_initialized():
+        _say(f"[distributed] backend {dist.get_backend()}, world size {dist.get_world_size()}, "
+             f"device {distributed.rank_device() or device}")
+    try:
+        return _main(argv, device)
+    finally:
+        if started:
+            distributed.shutdown()
+
+
+def _main(argv: Optional[List[str]], device) -> int:
     parser = _parser()
     args, unknown = parser.parse_known_args(argv)
     if args.cmd in _WAITING:
@@ -581,6 +622,9 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
         parser.error("--lip-expert-checkpoint and --avhubert-checkpoint are mutually exclusive")
     try:
         cfg = build_config(args)
+        from .parallel.mesh import build_mesh
+
+        mesh = build_mesh(cfg.mesh)
     except (ValueError, NotImplementedError) as e:
         parser.error(str(e))
 
@@ -596,10 +640,10 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
             lambda: sampler.batches(cfg.vivit.batch_size),
             lambda: sampler.batches(cfg.vivit.batch_size, shuffle=False),
             num_epochs=max(1, args.steps // max(1, len(clips) // cfg.vivit.batch_size)),
-            metrics_writer=Metrics(ConsoleWriter(every=10)),
+            mesh_spec=mesh, metrics_writer=Metrics(ConsoleWriter(every=10)),
             device=device,
         )
-        print(f"best: {best}")
+        _say(f"best: {best}")
         return 0
 
     if args.cmd.startswith("port-"):
@@ -673,7 +717,7 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
         return 0
 
     if args.cmd == "sample-diffusion":
-        return _sample_diffusion(args, cfg, parser, device)
+        return _sample_diffusion(args, cfg, parser, device, mesh)
 
     if args.cmd == "train-superres":
         from .core.metrics import ConsoleWriter, Metrics
@@ -869,8 +913,8 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
                             static_frame=args.static, model_width=cfg.gan.model_width,
                             pads=tuple(args.pads), resize_factor=args.resize_factor,
                             crop=tuple(args.crop), rotate=args.rotate, nosmooth=args.nosmooth,
-                            device=device)
-        print(f"wrote {args.out} ({len(res.frames)} frames, muxed={res.muxed})")
+                            mesh_spec=mesh, device=device)
+        _say(f"wrote {args.out} ({len(res.frames)} frames, muxed={res.muxed})")
         return 0
 
 

@@ -7,7 +7,9 @@ at most ``max_to_keep`` of them, and restores the latest or a given step;
 ``save_once`` / ``load_once`` write and read one file. Saves are synchronous
 (the JAX package's are asynchronous through Orbax, which the port does not
 need; so ``wait`` and ``close`` do nothing) and atomic: a file is written
-beside its final name and renamed.
+beside its final name and renamed. Under a process group only the primary
+rank writes, and every rank waits at a barrier until the file is in place,
+so all of them call ``save`` (the state is the same on every rank).
 Orbax checkpoints are not read. ``restore`` and ``load_once`` map tensors
 onto the CPU unless ``map_location`` says otherwise.
 """
@@ -19,13 +21,17 @@ from typing import Any, List, Optional
 
 import torch
 
+from ..parallel.distributed import barrier, is_primary
+
 _STEP_FILE = re.compile(r"^step_(\d+)\.pt$")
 
 
-def _atomic_save(path: str, state: Any) -> None:
-    tmp = path + ".tmp"
-    torch.save(state, tmp)
-    os.replace(tmp, path)
+def atomic_save(path: str, state: Any) -> None:
+    if is_primary():
+        tmp = path + ".tmp"
+        torch.save(state, tmp)
+        os.replace(tmp, path)
+    barrier()
 
 
 class CheckpointManager:
@@ -46,8 +52,8 @@ class CheckpointManager:
 
     def save(self, step: int, state: Any) -> None:
         """Write ``state`` as ``step``; drop the oldest beyond ``max_to_keep``."""
-        _atomic_save(self._path(step), state)
-        if self.max_to_keep:
+        atomic_save(self._path(step), state)
+        if self.max_to_keep and is_primary():
             for old in self.steps()[:-self.max_to_keep]:
                 os.remove(self._path(old))
 
@@ -75,8 +81,9 @@ class CheckpointManager:
 def save_once(path: str, state: Any) -> None:
     """One-shot save (an inference export)."""
     path = os.path.abspath(path)
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    _atomic_save(path, state)
+    if is_primary():
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+    atomic_save(path, state)
 
 
 def load_once(path: str, map_location="cpu") -> Any:

@@ -7,8 +7,7 @@ Copies of ``lipreading_video_generation_tpu/core/config.py``'s dataclasses
 and the root ``Config``) with the same field names and defaults, and of its
 ``replace`` and ``parse_overrides``, so ``--set section.key=value`` means
 the same on both sides: the JAX package's ``core/__init__`` imports jax and
-orbax, so the port cannot import the originals. Fields this port cannot
-honour yet raise when set.
+orbax, so the port cannot import the originals.
 """
 from __future__ import annotations
 
@@ -46,9 +45,9 @@ class AudioConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Device mesh layout (data and model axes). The port runs on one GPU:
-    only the single-device layout is accepted (ROADMAP: multi-GPU
-    parallelism)."""
+    """Device mesh layout: the ``data`` and ``model`` axes of
+    ``parallel.mesh.build_mesh``, over the processes of a
+    ``torch.distributed`` group (one a GPU)."""
 
     data_axis: str = "data"
     model_axis: str = "model"
@@ -58,12 +57,6 @@ class MeshConfig:
     model_shard_threshold: int = 2**22
     zero1: bool = False
     zero1_min_size: int = 2**16
-
-    def __post_init__(self):
-        if self.data_parallel not in (-1, 1) or self.model_parallel != 1 or self.zero1:
-            raise NotImplementedError(
-                "MeshConfig: data_parallel, model_parallel and zero1 other than the "
-                "single-device layout are not ported yet (ROADMAP: multi-GPU parallelism)")
 
 
 @dataclass(frozen=True)
@@ -89,18 +82,14 @@ class ViViTConfig:
     lr_step_gamma: float = 0.2
     num_epochs: int = 10
     dtype: str = "bfloat16"
-    # Sequence- and pipeline-parallel encoders need a device mesh, which the
-    # port does not have yet (ROADMAP, multi-GPU parallelism).
+    # sequence parallelism: attention through the ring over this mesh axis
+    # (ops/ring_attention.py) when it is live; pipeline parallelism: the
+    # encoder blocks in stages over the model axis (parallel/pipeline.py),
+    # pp_num_micro microbatches (0: the stage count)
     sequence_parallel: bool = False
     sequence_axis: str = "model"
     pipeline_parallel: bool = False
     pp_num_micro: int = 0
-
-    def __post_init__(self):
-        if self.sequence_parallel or self.pipeline_parallel:
-            raise NotImplementedError(
-                "ViViTConfig: sequence_parallel and pipeline_parallel are not "
-                "ported yet (ROADMAP: multi-GPU parallelism)")
 
 
 @dataclass(frozen=True)
@@ -194,7 +183,7 @@ class DiffusionConfig:
     num_epochs: int = 10
     dtype: str = "bfloat16"
     # ResBlock rematerialisation (torch.utils.checkpoint); sequence-parallel
-    # attention needs several GPUs.
+    # attention through the ring over ``sequence_axis`` when it is live
     remat: bool = False
     sequence_parallel: bool = False
     sequence_axis: str = "model"
@@ -202,10 +191,6 @@ class DiffusionConfig:
     def __post_init__(self):
         if self.audio_encoder not in ("native", "wav2vec2"):
             raise ValueError(f"unknown audio_encoder {self.audio_encoder!r} (native | wav2vec2)")
-        if self.sequence_parallel:
-            raise NotImplementedError(
-                "DiffusionConfig: sequence_parallel is not ported yet "
-                "(ROADMAP: multi-GPU parallelism)")
 
 
 @dataclass(frozen=True)

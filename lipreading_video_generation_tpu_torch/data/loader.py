@@ -26,11 +26,11 @@ def prefetch_to_device(batch_fn: Callable[[], Dict[str, np.ndarray]], spec=None,
     copied ahead, until ``num_batches`` or the end of the feed (a
     ``StopIteration`` or ``None`` from ``batch_fn``). The copies run in the
     producer thread on the device's current stream, so work queued after
-    them sees their data. ``spec`` (a mesh) is not ported yet and raises."""
-    if spec is not None:
-        raise NotImplementedError(
-            "prefetch_to_device: spec (a mesh) is not ported yet (ROADMAP §1 item 9, "
-            "multi-GPU parallelism)")
+    them sees their data. With ``spec`` (a mesh) each rank copies only its
+    rows of every batch (``parallel.mesh.shard_batch``: the whole batch
+    where its rows do not divide the data axis)."""
+    from ..parallel.mesh import shard_batch
+
     device = resolve_device(device)
     produced = itertools.count()
 
@@ -41,7 +41,7 @@ def prefetch_to_device(batch_fn: Callable[[], Dict[str, np.ndarray]], spec=None,
         if batch is None:
             return None
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-                for k, v in batch.items()}
+                for k, v in shard_batch(spec, batch).items()}
 
     return host_prefetch(on_device, depth)
 

@@ -1,6 +1,8 @@
 """Weights bridge: Flax params → the port's ``state_dict``s.
 
-``vivit_state_dict_from_flax`` for the ViViT; ``unet_audio_state_dict_from_flax``
+``vivit_state_dict_from_flax`` for the ViViT (``vivit_pp_state_dict_from_flax``
+from the JAX package's pipeline layout, and ``flax_vivit_params_from_state_dict``
+back to either Flax layout); ``unet_audio_state_dict_from_flax``
 (with ``unet_state_dict_from_flax`` and ``audio_encoder_state_dict_from_flax``)
 for the diffusion model; ``superres_state_dict_from_flax`` and
 ``encoder_unet_state_dict_from_flax`` for the super-resolution U-Net and the
@@ -121,6 +123,60 @@ def vivit_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
     if extra:
         raise KeyError(f"vivit_state_dict_from_flax: unexpected Flax params {sorted(extra)}")
     return sd
+
+
+def _map_tree(fn, tree):
+    return ({k: _map_tree(fn, v) for k, v in tree.items()} if isinstance(tree, Mapping)
+            else fn(tree))
+
+
+def vivit_pp_state_dict_from_flax(params: Mapping, num_layers: int) -> Dict[str, torch.Tensor]:
+    """The JAX package's pipeline layout of ViViT params (``pp_params``: the
+    ``block_i`` subtrees stacked into one ``blocks`` tree) → the port's
+    canonical ``ViViT`` ``state_dict`` (``models.vivit.pp_params`` stacks
+    it for the port's pipeline)."""
+    canonical = {k: v for k, v in params.items() if k != "blocks"}
+    for i in range(num_layers):
+        canonical[f"block_{i}"] = _map_tree(lambda a, i=i: np.asarray(a)[i], params["blocks"])
+    return vivit_state_dict_from_flax(canonical)
+
+
+def _flax_dense(sd: Mapping, name: str) -> Dict[str, np.ndarray]:
+    return {"kernel": sd[f"{name}.weight"].detach().cpu().numpy().T.copy(),
+            "bias": sd[f"{name}.bias"].detach().cpu().numpy()}
+
+
+def _flax_norm(sd: Mapping, name: str) -> Dict[str, np.ndarray]:
+    return {"scale": sd[f"{name}.weight"].detach().cpu().numpy(),
+            "bias": sd[f"{name}.bias"].detach().cpu().numpy()}
+
+
+def flax_vivit_params_from_state_dict(sd: Mapping[str, torch.Tensor],
+                                      pipeline: bool = False) -> Dict:
+    """Inverse of ``vivit_state_dict_from_flax``: a canonical ``ViViT``
+    ``state_dict`` → the Flax params tree (numpy), or with ``pipeline`` the
+    JAX package's ``pp_params`` layout (one ``blocks`` tree stacked over the
+    layers), so a checkpoint of either package's trainer loads in the
+    other's model."""
+    n = len({k.split(".")[1] for k in sd if k.startswith("blocks.")})
+    blocks = [{"LayerNorm_0": _flax_norm(sd, f"blocks.{i}.norm1"),
+               "qkv": _flax_dense(sd, f"blocks.{i}.qkv"),
+               "proj": _flax_dense(sd, f"blocks.{i}.proj"),
+               "LayerNorm_1": _flax_norm(sd, f"blocks.{i}.norm2"),
+               "MLP_0": {"Dense_0": _flax_dense(sd, f"blocks.{i}.mlp.fc1"),
+                         "Dense_1": _flax_dense(sd, f"blocks.{i}.mlp.fc2")}}
+              for i in range(n)]
+    params = {"TubeletEmbed_0": {"proj": _flax_dense(sd, "tubelet.proj")},
+              "pos_embedding": sd["pos_embedding"].detach().cpu().numpy(),
+              "LayerNorm_0": _flax_norm(sd, "norm"), "head": _flax_dense(sd, "head")}
+    if pipeline:
+        def stack(*leaves):
+            return np.stack(leaves) if not isinstance(leaves[0], Mapping) else {
+                k: stack(*(leaf[k] for leaf in leaves)) for k in leaves[0]}
+        params["blocks"] = stack(*blocks)
+    else:
+        params.update({f"block_{i}": b for i, b in enumerate(blocks)})
+    return params
 
 
 def audio_encoder_state_dict_from_flax(params: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:

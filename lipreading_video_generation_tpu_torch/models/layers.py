@@ -25,14 +25,16 @@ modules:
   the input's dtype, the rest zero. It acts only in ``train()`` mode at a
   rate above 0, with masks (``dropout_mask``) drawn from the generator the
   caller passes; Flax draws from its own key tree, so the two frameworks'
-  masks differ.
+  masks differ. In a data-parallel step a mask is drawn for the global
+  batch and sliced to this rank's rows (``parallel.mesh.draw_batch``).
 
 Inside ``ops.quant.int8_serving`` a ``Linear`` and a rerouted ``Conv2d``
 compute their product in int8 (see ``ops/quant.py``).
 
-Ring attention (``ring_axis``) needs a device mesh and is not ported; the
-TP activation constraints of the JAX modules are no-ops off-mesh and are
-dropped.
+``TransformerBlock(ring_axis=...)`` runs its attention through the ring
+(``ops/ring_attention.py``) when a mesh with that axis is live; the TP
+activation constraints of the JAX modules are dropped (tensor parallelism
+is not ported).
 """
 from __future__ import annotations
 
@@ -46,6 +48,8 @@ import torch.nn.functional as F
 from ..ops import quant
 from ..ops.attention import mha
 from ..ops.image import nearest_index
+from ..ops.ring_attention import live_ring_mesh, model_ring_attention
+from ..parallel.mesh import draw_batch
 
 Pair = Union[int, Tuple[int, int]]
 
@@ -170,9 +174,11 @@ class GroupNorm(nn.Module):
 def dropout_mask(shape, rate: float, generator: Optional[torch.Generator],
                  device) -> torch.Tensor:
     """Keep-mask of ``shape`` (True with probability 1 − rate), drawn from
-    ``generator`` (the default one when None) on ``device``."""
-    return torch.empty(shape, dtype=torch.bool, device=device).bernoulli_(
-        1.0 - rate, generator=generator)
+    ``generator`` (the default one when None) on ``device``. Axis 0 of
+    ``shape`` is the batch: in a data-parallel step the mask is drawn for
+    the global batch and sliced (``parallel.mesh.draw_batch``)."""
+    return draw_batch(lambda s: torch.empty(s, dtype=torch.bool, device=device).bernoulli_(
+        1.0 - rate, generator=generator), shape)
 
 
 def dropout(x: torch.Tensor, rate: float, training: bool,
@@ -209,16 +215,16 @@ class MLP(nn.Module):
 class TransformerBlock(nn.Module):
     """Pre-LN encoder block over (B, S, E): fused qkv projection, ``mha``
     (the small-MHA kernel K2 on CUDA), output projection, dropout, MLP.
-    ``generator`` draws the dropout masks in ``train()`` mode."""
+    ``generator`` draws the dropout masks in ``train()`` mode. With
+    ``ring_axis``, attention runs through the sequence-parallel ring
+    (``ops/ring_attention.py``) while a mesh with that axis (more than one
+    rank) is live; elsewhere the same block runs ``mha``."""
 
     def __init__(self, features: int, num_heads: int, mlp_dim: int,
                  dtype: torch.dtype = torch.float32, dropout: float = 0.0,
                  ring_axis: str = None):
         super().__init__()
-        if ring_axis is not None:
-            raise NotImplementedError(
-                "TransformerBlock: ring attention is not ported yet "
-                "(ROADMAP: multi-GPU parallelism)")
+        self.ring_axis = ring_axis
         self.num_heads = num_heads
         self.dropout = dropout
         self.norm1 = LayerNorm(features)
@@ -230,7 +236,11 @@ class TransformerBlock(nn.Module):
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         q, k, v = self.qkv(self.norm1(x)).chunk(3, dim=-1)
-        attn = self.proj(mha(q, k, v, self.num_heads))
+        ring = live_ring_mesh(self.ring_axis)
+        if ring is not None:
+            attn = self.proj(model_ring_attention(q, k, v, self.num_heads, ring, self.ring_axis))
+        else:
+            attn = self.proj(mha(q, k, v, self.num_heads))
         x = x + dropout(attn, self.dropout, self.training, generator)
         return x + self.mlp(self.norm2(x), generator)
 

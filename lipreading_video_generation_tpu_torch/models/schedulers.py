@@ -17,6 +17,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..parallel.mesh import draw_batch
+
 __all__ = ["LinearScheduler", "LinearSchedulerV2", "CosineScheduler", "make_scheduler"]
 
 
@@ -30,8 +32,9 @@ def _noise(z: Optional[torch.Tensor], like: torch.Tensor,
     if z is not None:
         return z.to(like.device, like.dtype)
     dev = generator.device if generator is not None else like.device
-    return torch.randn(like.shape, generator=generator, device=dev,
-                       dtype=like.dtype).to(like.device)
+    # axis 0 of x_t is the batch: drawn for the global one in a sharded request
+    return draw_batch(lambda s: torch.randn(s, generator=generator, device=dev,
+                                            dtype=like.dtype), like.shape).to(like.device)
 
 
 @dataclasses.dataclass(frozen=True)

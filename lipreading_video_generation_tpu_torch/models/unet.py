@@ -46,6 +46,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import mha
+from ..ops.ring_attention import live_ring_mesh, model_ring_attention
 from ..ops.image import resize, upsample_nearest2x
 from .layers import Conv2d, GroupNorm, Linear, dropout_mask
 
@@ -98,10 +99,16 @@ class ResBlock(nn.Module):
 
 
 class AttentionBlock(nn.Module):
-    """Spatial self-attention over the H·W tokens with a residual."""
+    """Spatial self-attention over the H·W tokens with a residual. With
+    ``ring_axis``, the tokens split over that mesh axis and attention runs
+    through the ring (``ops/ring_attention.py``) while such a mesh is live:
+    the long-context route of the full-resolution attention (16,384 tokens
+    at 128², the U-Net's FLOP-heaviest op)."""
 
-    def __init__(self, channels: int, num_heads: int, dtype: torch.dtype):
+    def __init__(self, channels: int, num_heads: int, dtype: torch.dtype,
+                 ring_axis: Optional[str] = None):
         super().__init__()
+        self.ring_axis = ring_axis
         self.num_heads = num_heads
         self.dtype = dtype
         self.norm = GroupNorm(channels)
@@ -113,7 +120,11 @@ class AttentionBlock(nn.Module):
         b, c, h, w = x.shape
         flat = self.norm(x).to(self.dtype).reshape(b, c, h * w).transpose(1, 2)
         q, k, v = self.qkv(flat).chunk(3, dim=-1)
-        out = self.proj(mha(q, k, v, self.num_heads))            # (B, H·W, C)
+        ring = live_ring_mesh(self.ring_axis)
+        if ring is not None:
+            out = self.proj(model_ring_attention(q, k, v, self.num_heads, ring, self.ring_axis))
+        else:
+            out = self.proj(mha(q, k, v, self.num_heads))        # (B, H·W, C)
         return x + out.transpose(1, 2).reshape(b, c, h, w)
 
 
@@ -179,7 +190,8 @@ class _UNetBase(nn.Module):
     """Time MLP, stem and the ``steps`` of a plan, shared by both U-Nets."""
 
     def __init__(self, in_channels: int, steps: List[Tuple], base_channels: int, num_heads: int,
-                 time_embed_dim: int, dropout: float, dtype: torch.dtype, remat: bool):
+                 time_embed_dim: int, dropout: float, dtype: torch.dtype, remat: bool,
+                 ring_axis: Optional[str] = None):
         super().__init__()
         self.dtype = dtype
         self.base_channels = base_channels
@@ -194,7 +206,7 @@ class _UNetBase(nn.Module):
             if step[0] == "res":
                 self.layers.append(ResBlock(step[1], step[2], time_embed_dim, dtype, dropout))
             elif step[0] == "attn":
-                self.layers.append(AttentionBlock(step[1], num_heads, dtype))
+                self.layers.append(AttentionBlock(step[1], num_heads, dtype, ring_axis))
             elif step[0] == "down":
                 self.layers.append(Downsample(step[1], dtype))
             elif step[0] == "up":
@@ -232,10 +244,11 @@ class UNetModel(_UNetBase):
                  channel_mult: Sequence[int] = (1, 2, 4, 8), num_res_blocks: int = 2,
                  attention_resolutions: Sequence[int] = (1, 2, 4), num_heads: int = 4,
                  time_embed_dim: int = 256, dtype: torch.dtype = torch.float32,
-                 dropout: float = 0.0, remat: bool = False):
+                 dropout: float = 0.0, remat: bool = False, ring_axis: Optional[str] = None):
         super().__init__(in_channels, plan(base_channels, channel_mult, num_res_blocks,
                                            attention_resolutions),
-                         base_channels, num_heads, time_embed_dim, dropout, dtype, remat)
+                         base_channels, num_heads, time_embed_dim, dropout, dtype, remat,
+                         ring_axis)
         ch = base_channels * channel_mult[0]
         self.out_norm = GroupNorm(ch)
         self.out_conv = Conv2d(ch, out_channels, 3, padding=1)

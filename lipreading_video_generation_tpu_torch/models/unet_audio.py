@@ -53,7 +53,7 @@ class UNetAudio(nn.Module):
             channel_mult=cfg.channel_mult, num_res_blocks=cfg.num_res_blocks,
             attention_resolutions=cfg.attention_resolutions, num_heads=cfg.num_heads,
             time_embed_dim=cfg.time_embed_dim, dtype=dtype, dropout=cfg.dropout,
-            remat=cfg.remat)
+            remat=cfg.remat, ring_axis=cfg.sequence_axis if cfg.sequence_parallel else None)
 
     def encode_condition(self, audio_wave: torch.Tensor, cond_image: torch.Tensor) -> torch.Tensor:
         """(B, samples) waveform + (B, C, h, w) condition frame →

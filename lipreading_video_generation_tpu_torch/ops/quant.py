@@ -35,7 +35,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
-from typing import Dict, Iterable, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -72,13 +72,19 @@ def _const(value: float, device) -> torch.Tensor:
     return torch.full((), value, dtype=torch.float32, device=device)
 
 
-def _quantized_values(x: torch.Tensor, act_scale) -> Tuple[torch.Tensor, torch.Tensor]:
+def _quantized_values(x: torch.Tensor, act_scale,
+                      reduce: Optional[Callable] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(clip(round(x / s), ±127) as float32, s): ``s`` from ``max|x|`` when
-    ``act_scale`` is None (on the device, no host read), else ``act_scale``."""
+    ``act_scale`` is None (on the device, no host read; ``reduce`` takes
+    that max to the global batch's in a data-parallel request, as JAX's
+    SPMD max is), else ``act_scale``."""
     xf = x.to(torch.float32)
     if act_scale is None:
         lo, hi = torch.aminmax(xf)
-        s = torch.clamp(torch.maximum(-lo, hi), min=1e-8) / _const(127.0, x.device)
+        m = torch.maximum(-lo, hi)
+        if reduce is not None:
+            m = reduce(m)
+        s = torch.clamp(m, min=1e-8) / _const(127.0, x.device)
     else:
         s = torch.as_tensor(act_scale, dtype=torch.float32).to(x.device)
     return torch.div(xf, s).round_().clamp_(-127, 127), s
@@ -172,13 +178,14 @@ def _dequantize(acc: torch.Tensor, x_scale: torch.Tensor, w_scale: torch.Tensor,
 
 def _conv_quantized(x: torch.Tensor, w_nk: torch.Tensor, w_scale: torch.Tensor,
                     kernel_hw: Tuple[int, int], bias, strides, padding: Padding,
-                    out_dtype: torch.dtype, act_scale) -> torch.Tensor:
+                    out_dtype: torch.dtype, act_scale,
+                    reduce: Optional[Callable] = None) -> torch.Tensor:
     kh, kw = kernel_hw
     strides = (int(strides[0]), int(strides[1]))
     pads = _explicit_padding(padding, x.shape[1:3], (kh, kw), strides)
     # the four stages carry profiler labels: PERF.md's breakdown reads them
     with record_function("int8/quantise"):
-        q, x_scale = _quantized_values(x, act_scale)
+        q, x_scale = _quantized_values(x, act_scale, reduce)
     with record_function("int8/im2col"):
         cols, (b, oh, ow) = _im2col(q, kh, kw, strides, pads)
     del q
@@ -205,9 +212,10 @@ def int8_conv(x: torch.Tensor, kernel: torch.Tensor, bias, strides, padding: Pad
 
 
 def _dense_quantized(x: torch.Tensor, w_nk: torch.Tensor, w_scale: torch.Tensor, bias,
-                     out_dtype: torch.dtype, act_scale) -> torch.Tensor:
+                     out_dtype: torch.dtype, act_scale,
+                     reduce: Optional[Callable] = None) -> torch.Tensor:
     with record_function("int8/quantise"):
-        q, x_scale = _quantized_values(x, act_scale)
+        q, x_scale = _quantized_values(x, act_scale, reduce)
         x_q = torch.empty(q.shape, dtype=torch.int8, device=q.device).copy_(q)
     with record_function("int8/matmul"):
         acc = int8_matmul(x_q.view(-1, x.shape[-1]), w_nk.t())
@@ -232,9 +240,10 @@ class _Serving:
     modules' names, the static scales, and each module's quantised weight."""
 
     def __init__(self, model: nn.Module, act_scales: Optional[Dict[str, float]],
-                 record: bool = False):
+                 record: bool = False, scale_reducer: Optional[Callable] = None):
         self.names = {id(m): name for name, m in model.named_modules()}
         self.act_scales = act_scales
+        self.scale_reducer = scale_reducer
         self.record = record
         self.amax: Dict[str, torch.Tensor] = {}
         self._weights: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
@@ -267,7 +276,7 @@ class _Serving:
             self._weights[id(module)] = (w_q, w_scale.reshape(-1))
         bias = None if module.bias is None else module.bias.detach()
         return _dense_quantized(x, *self._weights[id(module)], bias, module.compute_dtype,
-                                self._act_scale(module, x.device))
+                                self._act_scale(module, x.device), self.scale_reducer)
 
     def conv(self, module: nn.Module, x: torch.Tensor) -> Optional[torch.Tensor]:
         """The int8 result of a conv over (B, C, H, W), as a (B, C, H, W)
@@ -286,7 +295,8 @@ class _Serving:
         bias = None if module.bias is None else module.bias.detach()
         out = _conv_quantized(x.permute(0, 2, 3, 1), *self._weights[id(module)],
                               module.kernel_size, bias, module.stride, ((ph, ph), (pw, pw)),
-                              module.compute_dtype, self._act_scale(module, x.device))
+                              module.compute_dtype, self._act_scale(module, x.device),
+                              self.scale_reducer)
         return out.permute(0, 3, 1, 2)
 
 
@@ -309,17 +319,19 @@ def _activate(serving: _Serving):
 
 
 @contextlib.contextmanager
-def int8_serving(model: nn.Module, act_scales: Optional[Dict[str, float]] = None):
+def int8_serving(model: nn.Module, act_scales: Optional[Dict[str, float]] = None,
+                 scale_reducer: Optional[Callable] = None):
     """Context manager: every forward of ``model`` inside routes its
     ``Linear`` and 2-D conv products through int8 — dynamic activation
     scales by default, the calibrated static scale where ``act_scales``
     (``named_modules()`` path → float, from ``calibrate_activation_scales``)
-    has one.
+    has one. ``scale_reducer`` (a max over the ranks that share a batch,
+    ``parallel.mesh.data_max``) makes a dynamic scale the global batch's.
 
     >>> with int8_serving(gen):
     ...     out = gen(mel, faces)
     """
-    with _activate(_Serving(model, act_scales)):
+    with _activate(_Serving(model, act_scales, scale_reducer=scale_reducer)):
         yield
 
 

@@ -49,6 +49,8 @@ from ..models.s3fd import S3FD, detect_faces
 from ..ops import audio as audio_ops
 from ..ops import image as image_ops
 from ..ops import quant
+from ..parallel import mesh as pmesh
+from ..parallel.distributed import is_primary
 
 # headroom on the calibrated activation scales, for frames between the sampled ones
 _STATIC_HEADROOM = 1.05
@@ -145,15 +147,18 @@ def gen_input_prep(frames_f: torch.Tensor, boxes: torch.Tensor, img: int) -> tor
 
 def lipsync_batch(gen: TalkingFaceGenerator, frames_u8: torch.Tensor, boxes: torch.Tensor,
                   mels: torch.Tensor, img: int, int8: bool = False,
-                  act_scales: Optional[Dict[str, float]] = None) -> torch.Tensor:
+                  act_scales: Optional[Dict[str, float]] = None,
+                  scale_reducer=None) -> torch.Tensor:
     """One generation batch on ``gen``'s device: uint8 frames (B, H, W, 3),
     boxes (B, 4), mel windows (B, 80, 16) → uint8 frames with the generated
     faces pasted in. ``int8`` routes the generator's convs through
-    ``quant.int8_serving`` (with the static ``act_scales`` if given)."""
+    ``quant.int8_serving`` (with the static ``act_scales`` if given; a
+    ``scale_reducer`` makes the dynamic scales those of the global batch
+    whose rows these are)."""
     frames_f = frames_u8.to(torch.float32)
     x = gen_input_prep(frames_f, boxes, img)
     if int8:
-        with quant.int8_serving(gen, act_scales):
+        with quant.int8_serving(gen, act_scales, scale_reducer):
             g = gen(mels[..., None], x)
     else:
         g = gen(mels[..., None], x)
@@ -176,11 +181,14 @@ def generate_frames(
     frames at a time, on ``device`` (None: the card). ``gen_params`` is the
     generator's ``state_dict`` (``models.convert.generator_state_dict_from_flax``
     bridges Flax params), on any device. The generator runs in float32, as
-    in the JAX package's serving path. Returns (N, H, W, 3) uint8."""
-    if mesh_spec is not None:
-        raise NotImplementedError(
-            "generate_frames: mesh_spec is not ported yet (ROADMAP §1 item 9, "
-            "multi-GPU parallelism)")
+    in the JAX package's serving path. Returns (N, H, W, 3) uint8.
+
+    ``mesh_spec`` (default ``build_mesh()``; 1×1 without a process group)
+    serves data-parallel: every rank holds the request, each batch is padded
+    to a data multiple, each data rank generates its rows and the frames are
+    gathered on every rank (the static-int8 calibration runs the same
+    frames on every rank, so the scales agree)."""
+    spec = mesh_spec or pmesh.build_mesh()
     device = resolve_device(device)
     num_out = len(frames_seq)
     if num_out == 0:
@@ -188,6 +196,7 @@ def generate_frames(
     with torch.device(device):
         gen = TalkingFaceGenerator(width=model_width).eval()
     gen.load_state_dict(gen_params)
+    pmesh.shard_params(spec, gen)
     img = gan_cfg.img_size
     int8 = gan_cfg.serve_int8
 
@@ -207,9 +216,16 @@ def generate_frames(
             act_scales = {k: s * _STATIC_HEADROOM for k, s in act_scales.items()}
             del x_cal, mel_cal
         for i in range(0, num_out, pre_cfg.gen_batch_size):
-            idx = slice(i, i + pre_cfg.gen_batch_size)
+            idx = np.arange(i, min(i + pre_cfg.gen_batch_size, num_out))
+            n = len(idx)
+            if not pmesh.is_degenerate(spec):
+                rows = pmesh.padded_rows(spec, n)
+                idx = np.concatenate([idx, np.full(rows.count * spec.data_size - n, idx[-1])])
+                idx = idx[rows.start:rows.start + rows.count]
             out = lipsync_batch(gen, on_device(frames_seq, idx), on_device(boxes, idx),
-                                on_device(mel_windows, idx), img, int8, act_scales)
+                                on_device(mel_windows, idx), img, int8, act_scales,
+                                pmesh.data_max(spec))
+            out = pmesh.all_gather(out, spec, spec.data_axis)[:n]
             outs.append(out.cpu().numpy())
     return np.concatenate(outs)
 
@@ -301,11 +317,9 @@ def lipsync_video(
     generator's ``state_dict``), then ``write_video(path, frames, fps)`` of
     the silent video beside ``out_path`` and the audio muxed in with ffmpeg
     where it is installed. A ``write_video`` that writes no file keeps the
-    result only in the returned ``InferenceResult`` (``muxed`` False)."""
-    if mesh_spec is not None:
-        raise NotImplementedError(
-            "lipsync_video: mesh_spec is not ported yet (ROADMAP §1 item 9, "
-            "multi-GPU parallelism)")
+    result only in the returned ``InferenceResult`` (``muxed`` False).
+    ``mesh_spec``: ``generate_frames`` data-parallel over it (every rank
+    runs the whole request around it); the primary rank writes the video."""
     device = resolve_device(device)
     frames, fps = read_frames(face_video, resize_factor, rotate, crop)
     frames = np.asarray(frames)
@@ -326,7 +340,9 @@ def lipsync_video(
                                nosmooth=nosmooth).cpu().numpy()
     windows = _mel_chunks(mel, num_out, fps, audio_cfg).cpu().numpy()       # (N, 80, 16)
     result = generate_frames(gen_params, frames_seq, boxes, windows, gan_cfg, pre_cfg,
-                             model_width, device=device)
+                             model_width, mesh_spec=mesh_spec, device=device)
+    if not is_primary():
+        return InferenceResult(frames=result, boxes=boxes, muxed=False)
 
     tmp_video, wav_tmp = out_path + ".silent.mp4", out_path + ".wav"
     muxed = False

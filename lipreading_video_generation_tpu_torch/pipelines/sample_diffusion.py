@@ -23,7 +23,11 @@ outputs keep the JAX layouts: (B, h, w, 3) uint8 condition frames,
 (B, H, W, C) and ``step_noise`` the per-step draws in (steps, B, H, W, C),
 so a test can feed the JAX package's draws (the two random streams differ).
 
-The mesh (``mesh_spec``) is not ported yet and raises.
+``mesh_spec`` serves data-parallel: the batch is padded to a data multiple,
+each data rank samples its rows, drawing every step's noise for the whole
+batch from the shared generator and keeping its rows (so the result does
+not depend on the mesh, as the JAX package's threefry draws do not), and
+the frames are gathered on every rank with the padding cut off.
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ from ..models.schedulers import make_scheduler
 from ..models.unet import SuperResModel
 from ..models.unet_audio import UNetAudio
 from ..ops import image as image_ops
+from ..parallel import mesh as pmesh
 from .train_classifier import load_classifier
 from .train_diffusion import normalize_audio
 
@@ -146,9 +151,13 @@ def sample(model: UNetAudio, cond_frame_uint8, audio_wave, cfg: DiffusionConfig,
     if sampler not in ("ddim", "dpmpp"):
         raise ValueError(f"unknown sampler {sampler!r} (ddim | dpmpp)")
     _check_guidance(classifier_cfg, classifier_params, class_label)
-    if mesh_spec is not None:
-        raise NotImplementedError(
-            "sample: mesh_spec is not ported yet (ROADMAP: multi-GPU parallelism)")
+    kw = dict(snapshot_every=snapshot_every, segment_size=segment_size,
+              num_inference_steps=num_inference_steps, eta=eta, sampler=sampler,
+              classifier_cfg=classifier_cfg, classifier_params=classifier_params,
+              guidance_scale=guidance_scale, out_uint8=out_uint8, generator=generator)
+    if not pmesh.is_degenerate(mesh_spec):
+        return _sample_sharded(model, cond_frame_uint8, audio_wave, cfg, mesh_spec, class_label,
+                               noise, step_noise, **kw)
     device = _device(model)
     few_step = num_inference_steps is not None and num_inference_steps < cfg.num_timesteps
     dpmpp = few_step and sampler == "dpmpp"
@@ -183,7 +192,8 @@ def sample(model: UNetAudio, cond_frame_uint8, audio_wave, cfg: DiffusionConfig,
             xt = _nchw(noise).to(device)
         else:
             gen_dev = generator.device if generator is not None else device
-            xt = torch.randn(shape, generator=generator, device=gen_dev).to(device)
+            xt = pmesh.draw_batch(lambda s: torch.randn(s, generator=generator, device=gen_dev),
+                                  shape).to(device)
         d_prev = torch.zeros_like(xt)
         snaps = []
         for i, t in enumerate(ts):
@@ -214,6 +224,34 @@ def sample(model: UNetAudio, cond_frame_uint8, audio_wave, cfg: DiffusionConfig,
             snapshots = torch.zeros((0, b, cfg.im_size, cfg.im_size, cfg.im_channels),
                                     device=device)
     return final, snapshots
+
+
+def _sample_sharded(model: UNetAudio, cond_frame_uint8, audio_wave, cfg: DiffusionConfig,
+                    spec, class_label, noise, step_noise, **kw) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``sample`` data-parallel over ``spec`` (see the module's docstring)."""
+    pmesh.shard_params(spec, model)
+    b = len(cond_frame_uint8)
+    rows = pmesh.padded_rows(spec, b)
+    n = rows.count * spec.data_size
+
+    def mine(x, axis: int = 0):
+        """This rank's rows of ``x`` padded to ``n`` by repeating its last row."""
+        if x is None:
+            return None
+        t = torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor) else x)
+        t = t.movedim(axis, 0)
+        t = torch.cat([t, t[-1:].expand((n - b,) + tuple(t.shape[1:]))])
+        return t[rows.start:rows.start + rows.count].movedim(0, axis)
+
+    if class_label is not None:
+        class_label = mine(np.broadcast_to(np.asarray(class_label), (b,)))
+    with pmesh.use_mesh(spec, rows):
+        x0, snaps = sample(model, mine(cond_frame_uint8), mine(audio_wave), cfg,
+                           class_label=class_label, noise=mine(noise),
+                           step_noise=mine(step_noise, 1), **kw)
+    axis = spec.data_axis
+    return (pmesh.all_gather(x0, spec, axis)[:b],
+            pmesh.all_gather(snaps, spec, axis, dim=1)[:, :b])
 
 
 def sample_video(model: UNetAudio, cond_frame_uint8, audio_windows, cfg: DiffusionConfig,

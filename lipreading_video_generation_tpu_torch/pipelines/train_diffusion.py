@@ -17,6 +17,13 @@ frameworks' random streams differ, so ``train_step`` also takes explicit
 ``steps_per_dispatch`` batches runs as that many ordinary steps.
 Checkpoints are ``torch.save`` files of params, EMA, Adam moments, step and
 generator state.
+
+On a mesh (``parallel/mesh.py``; ``train`` builds one over the process
+group as the JAX package's does over its devices) each data rank runs the
+step on its rows of the batch, with t, the noise and the dropout masks drawn
+for the global batch and sliced, the gradients averaged over ``data`` (and
+the Adam moments sharded under ZeRO-1) and the metrics averaged; the
+primary rank writes the checkpoints.
 """
 from __future__ import annotations
 
@@ -29,10 +36,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..core.config import DiffusionConfig
+from ..core.checkpoint import atomic_save
+from ..core.config import DiffusionConfig, MeshConfig
 from ..core.device import resolve_device
 from ..core.prng import seeded, uniform_timesteps
 from ..data.loader import dispatch_bounds, host_prefetch, take
+from ..parallel import mesh as pmesh
+from ..parallel.distributed import is_primary
 from ..models.schedulers import make_scheduler
 from ..models.unet_audio import UNetAudio
 from ..ops import image as image_ops
@@ -131,15 +141,21 @@ def prepare_batch(batch: Dict[str, Any], cfg: DiffusionConfig, device) -> Dict[s
 
 def draw_t_noise(state: DiffusionTrainState, like: torch.Tensor, num_timesteps: int, t=None,
                  noise=None):
-    """(t, noise): as given (t (B,), noise (B, H, W, C) as in JAX), or
-    drawn from the state's generator."""
-    b = like.shape[0]
-    t = (uniform_timesteps(state.generator, b, num_timesteps) if t is None
-         else torch.as_tensor(t))
-    if noise is None:
-        noise = torch.randn(like.shape, generator=state.generator, device=state.generator.device)
+    """(t, noise): as given (t (B,), noise (B, H, W, C) as in JAX; in a
+    data-parallel step, the global batch's, of which this rank takes its
+    rows), or drawn from the state's generator (for the global batch in a
+    data-parallel step)."""
+    gen = state.generator
+    if t is None:
+        t = pmesh.draw_batch(lambda s: uniform_timesteps(gen, s[0], num_timesteps),
+                             (like.shape[0],))
     else:
-        noise = torch.as_tensor(noise, dtype=torch.float32).permute(0, 3, 1, 2)
+        t = pmesh.global_rows(torch.as_tensor(t))
+    if noise is None:
+        noise = pmesh.draw_batch(lambda s: torch.randn(s, generator=gen, device=gen.device),
+                                 like.shape)
+    else:
+        noise = pmesh.global_rows(torch.as_tensor(noise, dtype=torch.float32)).permute(0, 3, 1, 2)
     return t.to(like.device, torch.long), noise.to(like.device)
 
 
@@ -213,10 +229,11 @@ def latest_checkpoint(checkpoint_dir: str) -> Optional[str]:
 
 
 def save_checkpoint(checkpoint_dir: str, state: DiffusionTrainState) -> str:
+    """Write ``state`` at its step (atomic; on the primary rank, while every
+    rank calls this: ZeRO-1 moments are gathered for it)."""
     os.makedirs(checkpoint_dir, exist_ok=True)
     path = _ckpt_path(checkpoint_dir, state.step)
-    torch.save(checkpoint_tree(state), path + ".tmp")
-    os.replace(path + ".tmp", path)    # a reader never sees half a file
+    atomic_save(path, checkpoint_tree(state))
     return path
 
 
@@ -259,12 +276,17 @@ def train(cfg: DiffusionConfig, batch_fn: Callable[[], Dict[str, Any]], num_step
     {name: float})`` after each step; with ``eval_batch_fn``, a held-out
     ε-MSE every ``eval_every`` steps (on the feed's next batch when it is
     ``batch_fn``); a checkpoint in ``checkpoint_dir`` every
-    ``checkpoint_every`` steps. Resumes from the latest checkpoint there."""
-    if mesh_spec is not None:
-        raise NotImplementedError(
-            "train: mesh_spec is not ported yet (ROADMAP §1 item 9, multi-GPU parallelism)")
+    ``checkpoint_every`` steps. Resumes from the latest checkpoint there.
+
+    ``mesh_spec`` (default: ``build_mesh()`` over the process group, 1×1
+    without one) runs the steps data-parallel: every rank calls ``train``
+    with the same feed and takes its rows of each batch; the primary rank
+    writes the metrics and checkpoints."""
+    spec = mesh_spec or pmesh.build_mesh(MeshConfig())
     state = resume(create_state(cfg, seed, device, wav2vec2_checkpoint=wav2vec2_checkpoint),
                    checkpoint_dir)
+    state = pmesh.shard_state(spec, state)
+    writer = metrics_writer if is_primary() else None
     feed = host_prefetch(batch_fn, depth=2 * max(1, steps_per_dispatch))
     try:
         while state.step < num_steps:
@@ -274,9 +296,9 @@ def train(cfg: DiffusionConfig, batch_fn: Callable[[], Dict[str, Any]], num_step
             if not raws:
                 break   # finite feed exhausted
             for batch in raws:
-                metrics = train_step(state, batch, cfg)
-                if metrics_writer is not None:
-                    metrics_writer.write(state.step - 1, _scalars(metrics))
+                metrics = pmesh.run_sharded(spec, train_step, state, batch, cfg)
+                if writer is not None:
+                    writer.write(state.step - 1, _scalars(metrics))
             step = state.step
             if eval_batch_fn is not None and step % eval_every == 0:
                 if eval_batch_fn is batch_fn:   # the producer thread owns batch_fn
@@ -285,9 +307,9 @@ def train(cfg: DiffusionConfig, batch_fn: Callable[[], Dict[str, Any]], num_step
                 else:
                     eb = eval_batch_fn()
                 if eb is not None:
-                    em = eval_step(state, eb, cfg)
-                    if metrics_writer is not None:
-                        metrics_writer.write(step - 1, _scalars(em))
+                    em = pmesh.run_sharded(spec, eval_step, state, eb, cfg)
+                    if writer is not None:
+                        writer.write(step - 1, _scalars(em))
             if checkpoint_dir and step % checkpoint_every == 0:
                 save_checkpoint(checkpoint_dir, state)
     finally:

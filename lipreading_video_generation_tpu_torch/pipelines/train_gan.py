@@ -32,7 +32,12 @@ three modules, the two optimizers, the step and the gate, and ``train_step``
 updates it in place. The step draws nothing at random. Not carried over:
 ``gan_train_scan`` (several steps in one device program): a dispatch of
 ``steps_per_dispatch`` batches runs as that many ordinary steps.
-``mesh_spec`` raises (ROADMAP §1 item 9).
+On a mesh (``train(mesh_spec=...)``, by default ``build_mesh()`` over the
+process group) each data rank runs the step on its rows of the batch, both
+networks' gradients are averaged over ``data`` (their Adam moments sharded
+under ZeRO-1), the losses and the eval that drives the gate are averaged,
+and the primary rank writes checkpoints and sample dumps. The networks use
+GroupNorm, so there are no batch statistics to reduce.
 """
 from __future__ import annotations
 
@@ -45,7 +50,7 @@ import torch
 
 from ..core import prng
 from ..core.checkpoint import CheckpointManager, load_once
-from ..core.config import AudioConfig, GanConfig
+from ..core.config import AudioConfig, GanConfig, MeshConfig
 from ..core.device import resolve_device
 from ..core.prng import seeded
 from ..data.loader import dispatch_bounds, host_prefetch, take
@@ -54,6 +59,8 @@ from ..models.generator import TalkingFaceGenerator
 from ..models.syncnet import SyncNet, stack_window_lower_half
 from ..ops import audio as audio_ops
 from ..ops import image as image_ops
+from ..parallel import mesh as pmesh
+from ..parallel.distributed import is_primary
 from . import losses
 from .train_diffusion import ADAM_EPS
 
@@ -318,16 +325,17 @@ def train(cfg: GanConfig, batch_fn: Callable[[], Dict[str, Any]],
     ``batch_fn``, else the dispatch's last) and the gate; every
     ``cfg.checkpoint_interval`` steps a checkpoint in ``checkpoint_dir`` and
     a sample dump of the dispatch's last batch in ``sample_dir``. Resumes
-    from the latest checkpoint of ``checkpoint_dir``."""
-    if mesh_spec is not None:
-        raise NotImplementedError(
-            "train_gan.train: mesh_spec is not ported yet (ROADMAP §1 item 9, "
-            "multi-GPU parallelism)")
+    from the latest checkpoint of ``checkpoint_dir``. ``mesh_spec`` (default
+    ``build_mesh()``) runs the steps data-parallel (see the module's
+    docstring)."""
+    spec = mesh_spec or pmesh.build_mesh(MeshConfig())
     state = create_state(cfg, seed, syncnet_params, device, lip_expert_params,
                          lip_expert_model)
     mgr = CheckpointManager(checkpoint_dir) if checkpoint_dir else None
     if mgr is not None and mgr.latest_step() is not None:
         restore_state(state, mgr.restore())
+    state = pmesh.shard_state(spec, state)
+    writer = metrics_writer if is_primary() else None
     feed = host_prefetch(batch_fn, depth=2 * max(1, steps_per_dispatch))
     try:
         while state.step < num_steps:
@@ -336,9 +344,9 @@ def train(cfg: GanConfig, batch_fn: Callable[[], Dict[str, Any]],
             if not raws:
                 break   # finite feed exhausted
             for batch in raws:
-                metrics = train_step(state, batch, cfg, audio_cfg)
-                if metrics_writer is not None:
-                    metrics_writer.write(state.step - 1, metrics)
+                metrics = pmesh.run_sharded(spec, train_step, state, batch, cfg, audio_cfg)
+                if writer is not None:
+                    writer.write(state.step - 1, metrics)
             step = state.step
             if eval_batch_fn is not None and step % cfg.eval_interval == 0:
                 if eval_batch_fn is batch_fn:   # the producer thread owns batch_fn
@@ -346,13 +354,13 @@ def train(cfg: GanConfig, batch_fn: Callable[[], Dict[str, Any]],
                     eb = nb[0] if nb else batch
                 else:
                     eb = eval_batch_fn()
-                em = gan_eval_step(state, eb, cfg, audio_cfg)
+                em = pmesh.run_sharded(spec, gan_eval_step, state, eb, cfg, audio_cfg)
                 maybe_open_sync_gate(state, float(em["eval/sync_loss"]), cfg)
-                if metrics_writer is not None:
-                    metrics_writer.write(step - 1, em)
+                if writer is not None:
+                    writer.write(step - 1, em)
             if mgr is not None and step % cfg.checkpoint_interval == 0:
                 mgr.save(step, checkpoint_tree(state))
-            if sample_dir is not None and step % cfg.checkpoint_interval == 0:
+            if sample_dir is not None and step % cfg.checkpoint_interval == 0 and is_primary():
                 _dump_sample(sample_dir, step, generate_step(state, batch, cfg, audio_cfg))
     finally:
         feed.close()

@@ -7,7 +7,8 @@ q-sample + ε-MSE + Adam + EMA with the diffusion trainer's state
 stage of ``sample_diffusion.sample_cascade``. A dispatch of
 ``steps_per_dispatch`` batches runs as that many ordinary steps (no
 ``train_scan``); ``train_step`` takes explicit ``t`` and ``noise`` as the
-diffusion trainer's does.
+diffusion trainer's does. On a mesh the steps run data-parallel as the
+diffusion trainer's do.
 """
 from __future__ import annotations
 
@@ -15,8 +16,10 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
-from ..core.config import SuperResConfig
+from ..core.config import MeshConfig, SuperResConfig
 from ..data.loader import dispatch_bounds, host_prefetch, take
+from ..parallel import mesh as pmesh
+from ..parallel.distributed import is_primary
 from ..models.unet import SuperResModel, UNetModel
 from ..ops import image as image_ops
 from .losses import noise_mse
@@ -67,11 +70,10 @@ def train(cfg: SuperResConfig, batch_fn: Callable[[], Dict[str, Any]], num_steps
     """Step loop as ``train_diffusion.train`` (dispatches of up to
     ``steps_per_dispatch`` steps cut at checkpoints, no eval); writes
     ``{"loss"}`` at each step's count after it and also saves the last
-    step."""
-    if mesh_spec is not None:
-        raise NotImplementedError(
-            "train: mesh_spec is not ported yet (ROADMAP §1 item 9, multi-GPU parallelism)")
-    state = resume(create_state(cfg, seed, device), checkpoint_dir)
+    step; ``mesh_spec`` (default ``build_mesh()``) as in ``train_diffusion.train``."""
+    spec = mesh_spec or pmesh.build_mesh(MeshConfig())
+    state = pmesh.shard_state(spec, resume(create_state(cfg, seed, device), checkpoint_dir))
+    writer = metrics_writer if is_primary() else None
     feed = host_prefetch(batch_fn, depth=2 * max(1, steps_per_dispatch))
     try:
         while state.step < num_steps:
@@ -80,9 +82,9 @@ def train(cfg: SuperResConfig, batch_fn: Callable[[], Dict[str, Any]], num_steps
             if not raws:
                 break   # finite feed exhausted
             for batch in raws:
-                metrics = train_step(state, batch, cfg)
-                if metrics_writer is not None:
-                    metrics_writer.write(state.step, {"loss": float(metrics["loss"])})
+                metrics = pmesh.run_sharded(spec, train_step, state, batch, cfg)
+                if writer is not None:
+                    writer.write(state.step, {"loss": float(metrics["loss"])})
             if checkpoint_dir and state.step % checkpoint_every == 0:
                 save_checkpoint(checkpoint_dir, state)
     finally:

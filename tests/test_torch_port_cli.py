@@ -112,7 +112,8 @@ def test_build_config_matches_jax(argv):
     (["sample-diffusion", "--frames", "3"], "the following arguments are required: --out"),
     (["sample-diffusion", "--sr-checkpoint", "sr/", "--out", "x.png"], "cascade mismatch"),
     (["train-vivit", "--set", "vivit.no_such_key=1"], "unknown config key"),
-    (["train-vivit", "--set", "mesh.model_parallel=2"], "multi-GPU"),
+    (["train-vivit", "--set", "mesh.model_parallel=2"],
+     "model_parallel=2 does not divide device count 1"),
     (["train-noisy-classifier", "--out", "x.pt"], "--synthetic"),
     (["pack-diffusion-records", "--synthetic"], "the following arguments are required: --out"),
     (["lipread-e2e", "--epochs", "1"], "the following arguments are required: --data-root"),

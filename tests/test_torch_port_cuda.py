@@ -1229,3 +1229,90 @@ def test_cli_feature_path_on_card(cuda, tmp_path, capsys):
     took = {r: n - before[r] for r, n in att.small_mha.route_counts.items() if n != before[r]}
     assert took == {"cuda_core": 2 * (3 * 1 + 1)}       # 34 train clips: one step of 34 an epoch
     assert "val accuracy=" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# multi-GPU parallelism on one card
+
+
+_DIFF = dict(im_size=16, base_channels=32, channel_mult=(1, 2), num_res_blocks=1,
+             attention_resolutions=(1, 2), num_heads=2, time_embed_dim=32,
+             audio_embed_dim=32, audio_proj_dim=8, im_cond_channels=4,
+             audio_samples=800, num_timesteps=50, dropout=0.0, dtype="bfloat16")
+
+
+def _diff_inputs(seed, b=4):
+    rng = np.random.default_rng(seed)
+    batch = {"target_frame": rng.integers(0, 256, (b, 16, 16, 3), dtype=np.uint8),
+             "cond_frame": rng.integers(0, 256, (b, 16, 16, 3), dtype=np.uint8),
+             "audio": rng.standard_normal((b, 800)).astype(np.float32)}
+    return batch, (rng.integers(0, 50, b), rng.standard_normal((b, 16, 16, 3)).astype(np.float32))
+
+
+def test_nccl_world_size_one_mesh_gives_mesh_none_bits(cuda, tmp_path):
+    """A process group of one under NCCL: two diffusion steps and a ViViT
+    request through ``build_mesh()`` (gradient all-reduce, gathers) equal
+    ``mesh_spec=None``'s bit for bit."""
+    import torch.distributed as dist
+
+    from lipreading_video_generation_tpu_torch.core.config import DiffusionConfig, ViViTConfig
+    from lipreading_video_generation_tpu_torch.core.prng import seeded
+    from lipreading_video_generation_tpu_torch.models.vivit import ViViT
+    from lipreading_video_generation_tpu_torch.parallel import distributed, mesh as pmesh
+    from lipreading_video_generation_tpu_torch.pipelines import train_diffusion as ttd
+    from lipreading_video_generation_tpu_torch.pipelines import train_vivit as ttv
+
+    cfg = DiffusionConfig(**_DIFF)
+    steps = [_diff_inputs(s) for s in (1, 2)]
+    vivit = seeded(lambda: ViViT(ViViTConfig(num_layers=2, num_classes=8)), 0).to(cuda).eval()
+    clips = np.random.default_rng(3).integers(0, 256, (5, 5, 32, 32, 1), dtype=np.uint8)
+
+    def run(spec):
+        state = pmesh.shard_state(spec, ttd.create_state(cfg, seed=0, device=cuda))
+        for batch, (t, noise) in steps:
+            pmesh.run_sharded(spec, ttd.train_step, state, batch, cfg, t, noise)
+        return state.model.state_dict(), ttv.predict_sharded(vivit, clips, mesh_spec=spec)
+
+    want_params, want_logp = run(None)
+    distributed.initialize(rank=0, world_size=1, store=dist.FileStore(str(tmp_path / "s"), 1))
+    try:
+        spec = pmesh.build_mesh()
+        assert dist.get_backend() == "nccl" and not pmesh.is_degenerate(spec)
+        got_params, got_logp = run(spec)
+    finally:
+        distributed.shutdown()
+    assert all(torch.equal(got_params[k], want_params[k]) for k in want_params)
+    assert torch.equal(got_logp, want_logp)
+
+
+def test_two_gloo_ranks_diffusion_step_on_one_card(cuda, tmp_path):
+    """Two gloo ranks sharing the card (NCCL refuses two ranks on one
+    device): a data-parallel bf16 diffusion step through K3-K5, the ranks'
+    params bit-equal, ZeRO-1 bit-equal to plain data parallelism."""
+    import torch_parallel_tasks as tasks
+    from torch_parallel_tasks import LocalGroup
+
+    from lipreading_video_generation_tpu_torch.core.config import DiffusionConfig
+    from lipreading_video_generation_tpu_torch.core.prng import seeded
+    from lipreading_video_generation_tpu_torch.models.unet_audio import UNetAudio
+
+    params = {k: v.numpy() for k, v in seeded(lambda: UNetAudio(DiffusionConfig(**_DIFF)),
+                                                0).state_dict().items()}
+    batch, draw = _diff_inputs(4)
+    with LocalGroup(2, str(tmp_path / "store"), device="cuda:0", backend="gloo") as group:
+        plain = group.run(tasks.diffusion_dp, _DIFF, params, [batch] * 2, [draw] * 2, {},
+                          None, "cuda:0")
+        z1 = group.run(tasks.diffusion_dp, _DIFF, params, [batch] * 2, [draw] * 2,
+                       {"zero1": True, "zero1_min_size": 0}, None, "cuda:0")
+    for k in plain[0]["params"]:
+        assert np.array_equal(plain[0]["params"][k], plain[1]["params"][k]), k
+        assert np.array_equal(plain[0]["params"][k], z1[0]["params"][k]), k
+    assert np.isfinite(plain[0]["losses"]).all()
+
+
+def test_initialize_refuses_a_local_rank_without_a_card(cuda, monkeypatch):
+    from lipreading_video_generation_tpu_torch.parallel import distributed
+
+    monkeypatch.setenv("LOCAL_RANK", str(torch.cuda.device_count()))
+    with pytest.raises(RuntimeError, match="has no card"):
+        distributed.initialize(rank=0, world_size=1, init_method="tcp://localhost:1")

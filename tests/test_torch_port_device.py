@@ -33,6 +33,8 @@ from lipreading_video_generation_tpu_torch.pipelines import train_classifier as 
 from lipreading_video_generation_tpu_torch.pipelines import train_diffusion as ttd
 from lipreading_video_generation_tpu_torch.pipelines import train_superres as tsr
 from lipreading_video_generation_tpu_torch.pipelines import train_vivit as ttv
+from lipreading_video_generation_tpu_torch.parallel import distributed as tdist
+from lipreading_video_generation_tpu_torch.parallel import mesh as tmesh
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "flax", "optax", "orbax", "cv2", "lipreading_video_generation_tpu")
@@ -64,7 +66,8 @@ ENTRY_POINTS = [ttd.create_state, ttd.train, ttc.create_state, ttc.train, tsr.cr
                 tse.NeuralScorer, tse.fit_default_scorer, tface.FaceAlignment,
                 te2e.build_word_clip_dataset, te2e.run, ttg.create_state, ttg.train,
                 tts.create_state, tts.train, tinf.lipsync_video, tloader.prefetch_to_device,
-                tfx.embed_frames, tfx.create_state, tfx.train, tselftest.selftest_densenet]
+                tfx.embed_frames, tfx.create_state, tfx.train, tselftest.selftest_densenet,
+                tmesh.build_mesh, tdist.initialize]
 
 
 @pytest.mark.parametrize("fn", ENTRY_POINTS,
@@ -124,10 +127,30 @@ def test_entry_points_raise_without_cuda_instead_of_stepping_down(no_cuda):
         lambda: tselftest.selftest_densenet("/x/densenet.pt"),
         lambda: tcli.main(["train-feature-transformer", "--synthetic"]),
         lambda: tcli.main(["port-densenet", "--selftest", "--out", "/x/densenet.pt"]),
+        lambda: tdist.initialize(rank=0, world_size=1, init_method="file:///nonexistent/x"),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def test_mesh_entry_points_on_one_process():
+    """Without a launcher ``initialize`` makes no group and ``build_mesh`` a
+    1×1 mesh with no device of its own; ``ring_attention`` and
+    ``apply_pipelined`` compute where their inputs are (the CPU here)."""
+    from lipreading_video_generation_tpu_torch.models.vivit import ViViT, apply_pipelined, pp_params
+    from lipreading_video_generation_tpu_torch.ops.ring_attention import ring_attention
+
+    assert tdist.initialize() == (0, 1) and not torch.distributed.is_initialized()
+    spec = tmesh.build_mesh()
+    assert spec.device is None and spec.shape == {"data": 1, "model": 1}
+    q = torch.randn(1, 2, 8, 4)
+    assert ring_attention(q, q, q, spec).device == torch.device("cpu")
+    cfg = tcfg.ViViTConfig(num_layers=1, hidden_size=16, num_heads=2, mlp_dim=16,
+                           dtype="float32")
+    params = pp_params(seeded(lambda: ViViT(cfg), 0).state_dict(), cfg)
+    out = apply_pipelined(cfg, params, torch.zeros(1, 5, 32, 32, 1), spec)
+    assert out.device == torch.device("cpu")
 
 
 def _imported_modules(path: Path):

@@ -139,8 +139,14 @@ def test_sample_options_not_ported_raise(setup):
     with pytest.raises(ValueError, match="classifier_params"):
         tsd.sample(model, cond, audio, cfg, num_inference_steps=2, class_label=1,
                    classifier_cfg=ClassifierConfig())
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tsd.sample(model, cond, audio, cfg, num_inference_steps=2, mesh_spec=object())
+    # the 1×1 mesh of one process gives mesh_spec=None's bits
+    from lipreading_video_generation_tpu_torch.parallel.mesh import build_mesh
+
+    def run(mesh):
+        return tsd.sample(model, cond, audio, cfg, num_inference_steps=2, eta=1.0,
+                          mesh_spec=mesh, generator=torch.Generator().manual_seed(3))
+    for a, b in zip(run(None), run(build_mesh())):
+        assert torch.equal(a, b)
     with pytest.raises(ValueError, match="cascade mismatch"):
         tsd.sample_cascade(model, cond, audio, cfg, None, SuperResConfig(low_size=8))
     with pytest.raises(ValueError, match="sampler"):

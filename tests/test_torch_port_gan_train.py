@@ -228,8 +228,14 @@ def test_create_state():
     in_opt = {id(p) for opt in (lip.gen_opt, lip.disc_opt) for g in opt.param_groups
               for p in g["params"]}
     assert not any(id(p) in in_opt for p in lip.lip_expert.parameters())
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 9"):
-        ttg.train(CFG, lambda: None, mesh_spec=object(), device="cpu")
+    # the 1×1 mesh of one process gives mesh_spec=None's state
+    from lipreading_video_generation_tpu_torch.parallel.mesh import build_mesh
+
+    plain = ttg.train(CFG, lambda: None, device="cpu")
+    meshed = ttg.train(CFG, lambda: None, mesh_spec=build_mesh(), device="cpu")
+    assert plain.step == meshed.step == 0
+    for a, b in zip(plain.gen.state_dict().values(), meshed.gen.state_dict().values()):
+        assert torch.equal(a, b)
 
 
 def test_prepare_batch_matches_jax(batch):

@@ -208,9 +208,12 @@ def test_generate_frames_edges(tiny_generator):
     empty = tinf.generate_frames(sd, frames[:0], boxes[:0], mels[:0], model_width=WIDTH,
                                  device="cpu")
     assert empty.shape == (0, 32, 32, 3) and empty.dtype == np.uint8
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tinf.generate_frames(sd, frames, boxes, mels, model_width=WIDTH, mesh_spec=object(),
-                             device="cpu")
+    from lipreading_video_generation_tpu_torch.parallel.mesh import build_mesh
+
+    plain = tinf.generate_frames(sd, frames, boxes, mels, model_width=WIDTH, device="cpu")
+    meshed = tinf.generate_frames(sd, frames, boxes, mels, model_width=WIDTH,
+                                  mesh_spec=build_mesh(), device="cpu")
+    np.testing.assert_array_equal(meshed, plain)    # the 1×1 mesh: the same bits
     with pytest.raises(RuntimeError, match="size mismatch"):
         tinf.generate_frames(sd, frames, boxes, mels, model_width=0.25, device="cpu")
 

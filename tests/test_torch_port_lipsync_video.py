@@ -182,7 +182,7 @@ def test_lipsync_video_from_memory(clip, jax_result):
 def test_lipsync_video_knobs_and_guards(clip, monkeypatch):
     """``static_frame`` repeats the first frame; dynamic int8 runs every
     generator conv through K6's plain version on the CPU; a non-finite mel
-    and a mesh are refused."""
+    is refused; the 1×1 mesh of one process gives the same frames."""
     seen = {}
     real = tinf.detect_face_tracks
 
@@ -202,8 +202,10 @@ def test_lipsync_video_knobs_and_guards(clip, monkeypatch):
     monkeypatch.setattr(tvideo, "load_wav", lambda *a: np.full(5120, np.nan, np.float32))
     with pytest.raises(ValueError, match="NaN/inf"):
         _port(clip)
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 9"):
-        _port(clip, mesh_spec=object())
+    from lipreading_video_generation_tpu_torch.parallel.mesh import build_mesh
+
+    monkeypatch.undo()
+    np.testing.assert_array_equal(_port(clip, mesh_spec=build_mesh()).frames, float_out)
 
 
 @pytest.mark.parametrize("kw", [

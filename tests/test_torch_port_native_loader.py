@@ -127,8 +127,16 @@ def test_prefetch_to_device_raises_the_producers_error_and_refuses_a_mesh():
 
     with pytest.raises(KeyError, match="no such clip"):
         list(tloader.prefetch_to_device(broken, device="cpu"))
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tloader.prefetch_to_device(broken, spec=object(), device="cpu")
+    # a mesh: each rank copies its rows; the 1×1 mesh copies every row
+    from lipreading_video_generation_tpu_torch.parallel.mesh import build_mesh
+
+    with pytest.raises(KeyError, match="no such clip"):
+        list(tloader.prefetch_to_device(broken, spec=build_mesh(), device="cpu"))
+    batches = iter([{"x": np.arange(6).reshape(3, 2)}] * 2)
+    got = list(tloader.prefetch_to_device(lambda: next(batches), spec=build_mesh(),
+                                          device="cpu"))
+    assert len(got) == 2 and all(torch.equal(b["x"], torch.arange(6).reshape(3, 2))
+                                 for b in got)
 
 
 def test_closing_the_feed_stops_its_producer():

@@ -306,8 +306,14 @@ def test_same_seed_same_params_and_eval_step():
     assert a.model.unet.out_conv.weight.abs().max() == 0
     m = ttd.eval_step(a, _batch(4), cfg)
     assert np.isfinite(m["eval/loss"].item()) and a.model.training
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        ttd.train(cfg, lambda: None, mesh_spec=object(), device="cpu")
+    # the 1×1 mesh of one process gives mesh_spec=None's state
+    from lipreading_video_generation_tpu_torch.parallel.mesh import build_mesh
+
+    plain = ttd.train(cfg, lambda: None, device="cpu")
+    meshed = ttd.train(cfg, lambda: None, mesh_spec=build_mesh(), device="cpu")
+    assert plain.step == meshed.step == 0
+    for n, v in plain.model.state_dict().items():
+        assert torch.equal(v, meshed.model.state_dict()[n])
     with pytest.raises(FileNotFoundError, match="wav2vec2.config.json"):
         ttd.create_state(cfg, wav2vec2_checkpoint="w2v", device="cpu")
 

@@ -7,6 +7,7 @@ its properties instead). Float32 where the point is the algorithm; each
 tolerance states its bound.
 """
 import dataclasses
+import re
 
 import numpy as np
 import pytest
@@ -31,6 +32,7 @@ from lipreading_video_generation_tpu_torch.models.layers import MLP, dropout, dr
 from lipreading_video_generation_tpu_torch.models.vivit import ViViT
 from lipreading_video_generation_tpu_torch.pipelines import losses as tlosses
 from lipreading_video_generation_tpu_torch.pipelines import train_vivit as ttv
+from lipreading_video_generation_tpu_torch.parallel.mesh import build_mesh
 
 SMALL = dict(num_layers=2, hidden_size=64, num_heads=4, mlp_dim=128, num_classes=8)
 B = 8   # a multiple of the 8 virtual CPU devices JAX's train() shards over
@@ -487,15 +489,14 @@ def test_loader_host_side_matches_jax():
 
 def test_predict_sharded_on_one_device(params0):
     """``predict_sharded`` is ``predict_step`` on the model's device for any
-    clip count; a mesh raises."""
+    clip count; so it is on the 1×1 mesh of one process, bit for bit."""
     model = ViViT(tcfg.ViViTConfig(dtype="float32", **SMALL)).eval()
     model.load_state_dict(vivit_state_dict_from_flax(params0))
     clips = np.random.default_rng(13).integers(0, 256, (5, 5, 32, 32, 1), dtype=np.uint8)
     want = ttv.predict_step(model, torch.from_numpy(clips))
     assert torch.equal(ttv.predict_sharded(model, clips), want)
     assert ttv.predict_sharded(model, clips, int8=True).shape == (5, 8)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ttv.predict_sharded(model, clips, mesh_spec=object())
+    assert torch.equal(ttv.predict_sharded(model, clips, mesh_spec=build_mesh()), want)
 
 
 OVERRIDES = [
@@ -533,8 +534,18 @@ def test_mesh_and_other_configs_mirror_jax():
         assert dataclasses.asdict(getattr(tcfg, name)()) == dataclasses.asdict(
             getattr(jcfg, name)())
     assert tcfg.MeshConfig(data_parallel=1).data_parallel == 1
+    from lipreading_video_generation_tpu.parallel.mesh import build_mesh as jbuild
+
     for kw in (dict(model_parallel=2), dict(data_parallel=4), dict(zero1=True)):
-        with pytest.raises(NotImplementedError, match="multi-GPU"):
-            tcfg.MeshConfig(**kw)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tcfg.parse_overrides(tcfg.Config(), ["mesh.model_parallel=2"])
+        assert dataclasses.asdict(tcfg.MeshConfig(**kw)) == dataclasses.asdict(
+            jcfg.MeshConfig(**kw))
+        # one process is one device: JAX's build_mesh over one device says the same
+        if kw.get("zero1"):
+            assert build_mesh(tcfg.MeshConfig(**kw)).zero1
+            continue
+        with pytest.raises(ValueError) as want:
+            jbuild(jcfg.MeshConfig(**kw), devices=jax.devices()[:1])
+        with pytest.raises(ValueError, match=re.escape(str(want.value))):
+            build_mesh(tcfg.MeshConfig(**kw))
+    assert dataclasses.asdict(tcfg.parse_overrides(tcfg.Config(), ["mesh.model_parallel=2"])) \
+        == dataclasses.asdict(jcfg.parse_overrides(jcfg.Config(), ["mesh.model_parallel=2"]))

@@ -88,5 +88,15 @@ def test_configs_mirror_jax():
         assert dataclasses.asdict(getattr(tcfg, name)()) == dataclasses.asdict(
             getattr(jcfg, name)())
     for flag in ("sequence_parallel", "pipeline_parallel"):
-        with pytest.raises(NotImplementedError):
-            tcfg.ViViTConfig(**{flag: True})
+        assert dataclasses.asdict(tcfg.ViViTConfig(**{flag: True})) == dataclasses.asdict(
+            jcfg.ViViTConfig(**{flag: True}))
+    # JAX's own ValueError: pipeline and sequence parallelism both claim the model axis
+    from lipreading_video_generation_tpu.models.vivit import apply_pipelined as japply
+    from lipreading_video_generation_tpu_torch.models.vivit import apply_pipelined as tapply
+    from lipreading_video_generation_tpu_torch.parallel.mesh import build_mesh
+
+    both = dict(SMALL, sequence_parallel=True, pipeline_parallel=True)
+    with pytest.raises(ValueError, match="model axis"):
+        japply(jcfg.ViViTConfig(**both), {}, jnp.zeros((1, 5, 32, 32, 1)), None)
+    with pytest.raises(ValueError, match="model axis"):
+        tapply(tcfg.ViViTConfig(**both), {}, torch.zeros(1, 5, 32, 32, 1), build_mesh())
