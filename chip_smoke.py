@@ -272,8 +272,29 @@ script exits non-zero without printing a result):
    ``attention_reference``; the ViViT defaults with ``sequence_parallel``
    against their local forward; the pipelined ViViT (2 stages, n_micro 2
    and 4, float32) against the canonical model's logits and gradients; a
-   ViViT request whose ROIs (K1) and rows (K2) split over the ranks. Each
-   run's backend and each rank's launches are printed.
+   ViViT request whose ROIs (K1) and rows (K2) split over the ranks. Then
+   tensor parallelism on the same two ranks as one data row of two model
+   ranks, every model at full width: ``tp2_generate`` (``generate_frames``
+   at the ``GanConfig`` defaults and the default threshold, where the
+   decoder's two 512x1024x3x3 convs are sharded: int8 frames 0 levels and
+   float frames within 1 of one process's, K6 51 a rank with its routes),
+   ``tp2_gan`` (``train_gan.train`` at the defaults, bf16, batch 16, 2
+   steps: the ranks' leaves equal, the primary's checkpoint holding the
+   two convs and their Adam moments whole; a float32 step's gradients
+   within ``TOL_TP_GAN_GRAD`` of one process's), ``tp2_diffusion`` (the
+   ``DiffusionConfig`` defaults at threshold 2^16 from drawn params: 2
+   bf16 steps, the first gradient within ``TOL_TP_GRAD_BF16`` of one
+   process's on the leaves outside ``AUDIO_GATED``, K3-K5 16 and K2 4 a
+   step a rank, and a float32 step at 64x64 within ``TOL_TP_GRAD`` on
+   all leaves), ``tp2_serve`` (``predict_sharded`` at the ViViT
+   defaults, threshold 2^16, the caller's model unchanged, K1 1 and K2 12
+   a rank) and ``tp2_cli`` (``cli.main(["sample-diffusion", "--frames",
+   "2", ..., "--set", "mesh.model_parallel=2", ...])`` in each rank: the
+   PNGs written by the primary alone); each gate written ``not (x <=
+   tol)`` and held below a planted fault's reading in the same run (rank
+   1's slice of a sharded leaf, or its gradient, x 1.01), each case's
+   bytes of params, EMA and Adam moments a rank against one process's.
+   Each run's backend and each rank's launches are printed.
 16. microbench — ``bench.microbench_int8.run``: K6 in bf16 and in int8
    (B row-major and B a (N, K) weight transposed) and the library's calls
    on the same operands at 4096³, after its own checks.
@@ -3873,33 +3894,70 @@ def _par_batches(cfg_kw: dict, steps: int) -> list:
             for i in range(steps)]
 
 
-def _par_diffusion(cfg_kw: dict, steps: int, mesh_kw, device, fault: bool = False) -> dict:
+# the U-Net's leaves whose gradients pass the ReLU on the audio projection
+# (``UNetAudio.encode_condition``): a pre-activation within rounding of 0 opens or
+# shuts its gate, so two bf16 runs that round apart there differ on these leaves
+# by whole gate elements, not by rounding
+AUDIO_GATED = ("audio_encoder.", "audio_proj.")
+
+
+def _par_diffusion(cfg_kw: dict, steps: int, mesh_kw, device, fault: bool = False,
+                   fault_leaf=None, params_file=None) -> dict:
     """``steps`` diffusion steps from seed 0 on ``_par_batches``,
-    data-parallel over ``build_mesh(MeshConfig(**mesh_kw))`` (None: one
-    process), through the CPU tests' driver: the first step's (reduced)
-    gradient as one vector, the losses, step times and params. ``fault``:
-    rank 1 scales its gradient by ``PAR_FAULT`` before the reduction."""
-    run = _parallel_tasks().diffusion_dp(cfg_kw, None, _par_batches(cfg_kw, steps), None,
+    data-parallel (and tensor-parallel, as ``mesh_kw`` says) over
+    ``build_mesh(MeshConfig(**mesh_kw))`` (None: one process), through the
+    CPU tests' ``diffusion_dp``: the first step's (reduced) gradient as one
+    vector (``grads``; ``grads_ungated``: the leaves outside
+    ``AUDIO_GATED``; ``last_grads`` likewise for the last step), the losses,
+    step times and params (whole), the bytes of params, EMA and moments
+    held. ``fault``: rank 1 scales its gradient (of ``fault_leaf`` only, a
+    name or names, when given) by ``PAR_FAULT`` before the reduction.
+    ``params_file``: the params to start from (``_tp_params``; default the
+    seeded init)."""
+    params = None if params_file is None else torch.load(params_file, weights_only=True)
+    run = _parallel_tasks().diffusion_dp(cfg_kw, params, _par_batches(cfg_kw, steps), None,
                                          mesh_kw, device=device, seed=SEED,
-                                         fault=PAR_FAULT if fault else None)
-    run["grads"] = torch.cat([g.reshape(-1).float() for g in run["grads"].values()])
+                                         fault=PAR_FAULT if fault else None,
+                                         fault_leaf=fault_leaf)
+    for k in ("grads", "last_grads"):
+        if k in run:
+            grads = run[k]
+            run[k] = torch.cat([g.reshape(-1).float() for g in grads.values()])
+            run[k + "_ungated"] = torch.cat([g.reshape(-1).float() for n, g in grads.items()
+                                             if not n.startswith(AUDIO_GATED)])
     return run
 
 
 def _par_diffusion_task(cfg_kw: dict, steps: int, mesh_kw: dict, fault: bool,
-                        ref_file: str) -> dict:
+                        ref_file: str, fault_leaf=None, params_file=None) -> dict:
     """A rank of the two-rank diffusion check: its params' digest, losses,
-    step times, and against one process's run (``ref_file``) the first
-    gradient's relative L2 and the params' largest difference."""
+    step times, and against one process's run (``ref_file``) the relative
+    L2 of the first (and the last) step's gradient, of all leaves and of
+    the ungated ones, and the params' largest difference; where the
+    reference holds ``truth`` (the float32 gradient of the same params and
+    batch), the first gradient's relative L2 from it; the tensor-parallel
+    leaves and the bytes this rank holds."""
     device = _par_begin()
-    run = _par_diffusion(cfg_kw, steps, mesh_kw, device, fault)
+    run = _par_diffusion(cfg_kw, steps, mesh_kw, device, fault, fault_leaf, params_file)
     ref = torch.load(ref_file, weights_only=True)
-    g, rg = run["grads"], ref["grads"].to(device)
+
+    def rel(key):
+        if key not in ref or key not in run:
+            return None
+        g, rg = run[key], ref[key].to(device)
+        return float((g - rg).norm() / rg.norm())
+
     out = {"digest": _digest(run["params"]), "losses": run["losses"], "step_ms": run["step_ms"],
-           "grad_rel": float((g - rg).norm() / rg.norm()),
+           **{f"{key}_rel": rel(key) for key in ("grads", "grads_ungated", "last_grads",
+                                                 "last_grads_ungated")},
+           "truth_rel": [float((run[k] - ref[f"truth{x}"].to(device)).norm()
+                               / ref[f"truth{x}"].norm())
+                         for k, x in (("grads", ""), ("grads_ungated", "_ungated"))
+                         if f"truth{x}" in ref],
            "param_max": _worst((v.float() - ref["params"][k].to(device).float()).abs().max()
                                for k, v in run["params"].items()),
-           "moments_sharded": run["shards"]}
+           "moments_sharded": run["shards"], "tp": run["tp"], "bytes": run["bytes"],
+           "step_transport_s": run["step_transport_s"]}
     return _par_end(out)
 
 
@@ -4055,6 +4113,496 @@ def _par_serve_task(ref_file: str) -> dict:
     want = torch.load(ref_file, weights_only=True)
     return _par_end({"err": float((got - want).abs().max()),
                      "top1": float((got.argmax(-1) == want.argmax(-1)).float().mean())})
+
+
+# tensor parallelism: the two gloo ranks as one data row of two model ranks
+TP2 = {"model_parallel": 2}          # the default threshold, 2^22: the generator's 2 decoder convs
+TP2_LOW = {"model_parallel": 2, "model_shard_threshold": 2**16}   # 97.5% of the U-Net's params
+TP_FAULT_LEAF = "decoder.layers.1.block.conv.weight"   # a (512, 1024, 3, 3) leaf TP2 shards
+# float32 steps on the two model ranks against one process on the same card and
+# inputs: the sharded layers' input gradients are sums of two ranks' partial
+# products and cuDNN may pick another algorithm for a slice's output channels,
+# so they differ by the order of summation (6.5e-7 relative L2 for a small
+# U-Net on the CPU); the planted faults (rank 1's gradient of one sharded leaf
+# x 1.01) must read above these gates in the same run
+TOL_TP_GRAD = 1e-4
+TOL_TP_GAN_GRAD = 1e-4
+# bf16 U-Net step from drawn params, the first gradient (relative L2) against one
+# process's over the leaves outside AUDIO_GATED: the two runs round apart where a
+# slice's product sums in another order, and a deep bf16 backward carries that
+# (read 2.63e-3 on an H100 80GB HBM3 at 700 W, and both runs 1.2e-2 from the float32
+# gradient); behind the audio gate the runs differ by whole gate elements (all
+# leaves read 1.77e-2), which the float32 check holds; the gate sits between the
+# clean reading and the planted fault's (rank 1's gradients of its slices x 1.01:
+# 5.96e-3), about 1.5x from each
+TOL_TP_GRAD_BF16 = 4e-3
+# the CLI's 2-frame clip at the defaults (bf16, 4 DDIM steps) against one process's PNGs
+TOL_TP_CLI_LEVELS = 2
+# float generate_frames on two model ranks: within a level of one process's frames
+# (the uint8 round of cuDNN's float32 convs), and no more than this share of the
+# values off by one (read 0 on an H100 80GB HBM3 at 700 W: the sliced convs give
+# one process's bits); the planted fault (rank 1's slice x 1.01) moved 2.64e-5
+TOL_TP_FLOAT_LEVELS = 1
+TOL_TP_FLOAT_SHARE = 1e-6
+
+
+def _tp_params(cfg_kw: dict, path: str) -> None:
+    """The ``UNetAudio(DiffusionConfig(**cfg_kw))`` params of the
+    tensor-parallel diffusion checks, saved at ``path``: the seeded init
+    with every >=2-D leaf drawn anew, lecun-normal from seeded numpy (the
+    init zeroes ``out_conv``, the residual convs' second conv and the
+    attention projections, which would hold every sharded layer's first
+    gradient at 0)."""
+    from lipreading_video_generation_tpu_torch.core.config import DiffusionConfig
+    from lipreading_video_generation_tpu_torch.core.prng import seeded
+    from lipreading_video_generation_tpu_torch.models.unet_audio import UNetAudio
+
+    rng = np.random.default_rng(SEED + 93)
+    sd = seeded(lambda: UNetAudio(DiffusionConfig(**cfg_kw)), SEED).state_dict()
+    torch.save({k: (torch.from_numpy((rng.standard_normal(tuple(v.shape))
+                                      / math.sqrt(v[0].numel())).astype(np.float32))
+                    if v.ndim >= 2 else v) for k, v in sd.items()}, path)
+
+
+def _tp_generate_task(ref_files: dict, fault: bool) -> dict:
+    """A rank of ``tp2_generate``: ``generate_frames`` at the defaults on
+    two model ranks (the decoder's two 512x1024x3x3 convs column-parallel)
+    in int8 and float against one process's frames; K6's launches and
+    routes a mode. ``fault``: rank 1's slice of ``TP_FAULT_LEAF`` x
+    ``PAR_FAULT`` once placed."""
+    import torch.distributed as dist
+
+    from lipreading_video_generation_tpu_torch.core.config import (
+        GanConfig, MeshConfig, PreprocessConfig)
+    from lipreading_video_generation_tpu_torch.core.prng import seeded
+    from lipreading_video_generation_tpu_torch.models.generator import TalkingFaceGenerator
+    from lipreading_video_generation_tpu_torch.ops import matmul_cuda as mm
+    from lipreading_video_generation_tpu_torch.parallel import mesh as pmesh
+    from lipreading_video_generation_tpu_torch.pipelines import inference
+
+    device = _par_begin()
+    spec = pmesh.build_mesh(MeshConfig(**TP2))
+    gen = seeded(lambda: TalkingFaceGenerator(width=1.0), SEED).state_dict()
+    frames, boxes, mels = lipsync_inputs(PAR_FRAMES, SEED + 96)
+    tasks = _parallel_tasks()
+    real = pmesh.shard_params
+    out = {}
+
+    def placed(spec_, module):          # the generator generate_frames builds, placed
+        real(spec_, module)
+        out["bytes"] = tasks.held_bytes([module], [])
+        out["bytes_one"] = tasks.held_bytes([module], [], spec_)
+        if fault and dist.get_rank() == 1:
+            with torch.no_grad():
+                module.get_parameter(TP_FAULT_LEAF).mul_(PAR_FAULT)
+        return module
+
+    pmesh.shard_params = placed
+    try:
+        for mode, gan_cfg in (("int8", GanConfig(serve_int8=True)), ("float", GanConfig())):
+            before = (_par_counts()["int8_matmul"], dict(mm.int8_matmul.route_counts))
+            got = inference.generate_frames(gen, frames, boxes, mels, gan_cfg,
+                                            PreprocessConfig(), 1.0, mesh_spec=spec,
+                                            device=device)
+            want = np.load(ref_files[mode])
+            d = np.abs(got.astype(np.int32) - want.astype(np.int32))
+            out[mode] = {"max_diff": int(d.max()), "equal_share": float((d == 0).mean()),
+                         "shape": got.shape,
+                         "k6": _par_counts()["int8_matmul"] - before[0],
+                         "routes": {k: n - before[1][k]
+                                    for k, n in mm.int8_matmul.route_counts.items()}}
+    finally:
+        pmesh.shard_params = real
+    with torch.device("meta"):
+        out["leaves"] = pmesh.tensor_parallel_leaves(spec, TalkingFaceGenerator(width=1.0))
+    return _par_end(out)
+
+
+def _tp_gan_train_task(ck_dir: str) -> dict:
+    """A rank of ``tp2_gan``: ``train_gan.train`` at the ``GanConfig``
+    defaults (bf16, batch 16) for 2 steps on two model ranks at the default
+    threshold, a checkpoint at step 2: the digests of this rank's replicated
+    leaves and of the whole state, the sharded leaves of each network, the
+    step times, the bytes held (params of G, D and SyncNet and both Adam
+    states) against one process's."""
+    import dataclasses
+
+    from lipreading_video_generation_tpu_torch.core.config import GanConfig, MeshConfig
+    from lipreading_video_generation_tpu_torch.data import datasets
+    from lipreading_video_generation_tpu_torch.parallel import mesh as pmesh
+    from lipreading_video_generation_tpu_torch.pipelines import train_gan as ttg
+
+    device = _par_begin()
+    tasks = _parallel_tasks()
+    spec = pmesh.build_mesh(MeshConfig(**TP2))
+    cfg = dataclasses.replace(GanConfig(), checkpoint_interval=2)
+    clips = datasets.synthetic_av_clips(n_clips=8, frames=50, img=cfg.img_size, seed=SEED)
+    sampler = datasets.GanWindowSampler(clips, cfg.syncnet_T, seed=SEED)
+    marks = []
+
+    class Clock:        # train() writes each step's metrics on the primary rank
+        def write(self, step, metrics):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+
+    t0 = time.perf_counter()
+    state = ttg.train(cfg, lambda: sampler.sample_batch(cfg.batch_size), num_steps=2,
+                      checkpoint_dir=ck_dir, mesh_spec=spec, device=device,
+                      metrics_writer=Clock())
+    leaves = {net: pmesh.tensor_parallel_leaves(spec, getattr(state, net))
+              for net in ("gen", "disc", "syncnet")}
+    replicated = {f"{net}.{k}": v for net in ("gen", "disc")
+                  for k, v in getattr(state, net).state_dict().items() if k not in leaves[net]}
+    whole = {f"{net}.{k}": v for net in ("gen", "disc")
+             for k, v in pmesh.full_state_dict(spec, getattr(state, net)).items()}
+    nets, opts = [state.gen, state.disc, state.syncnet], [state.gen_opt, state.disc_opt]
+    held, one = tasks.held_bytes(nets, opts), tasks.held_bytes(nets, opts, spec)
+    return _par_end({"replicated": _digest(replicated), "whole": _digest(whole),
+                     "leaves": leaves, "bytes": held, "bytes_one": one,
+                     "step_ms": (marks[1] - marks[0]) * 1e3 if len(marks) > 1 else None,
+                     "wall_s": time.perf_counter() - t0, "files": sorted(os.listdir(ck_dir))})
+
+
+def _tp_gan_step_task(files: dict, fault: bool) -> dict:
+    """A rank of ``tp2_gan``'s float32 check: one G+D step at width 1.0,
+    batch 2, sync gate open, on two model ranks at the default threshold,
+    from the weights and prepared batch one process stepped from
+    (``files``); each network's whole gradient against one process's
+    (``gan_grad_l2``). ``fault``: rank 1's gradient of its slice of
+    ``TP_FAULT_LEAF`` x ``PAR_FAULT`` before the update."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from lipreading_video_generation_tpu_torch.core.config import GanConfig, MeshConfig
+    from lipreading_video_generation_tpu_torch.parallel import mesh as pmesh
+    from lipreading_video_generation_tpu_torch.pipelines import train_gan as ttg
+
+    device = _par_begin()
+    tasks = _parallel_tasks()
+    spec = pmesh.build_mesh(MeshConfig(**TP2))
+    f32 = dataclasses.replace(GanConfig(), dtype="float32", batch_size=GAN_STEP_BATCH)
+    sds = torch.load(files["sds"], weights_only=True)
+    prep = torch.load(files["prep"], weights_only=True)
+    want = torch.load(files["ref"], weights_only=True)
+    state = pmesh.shard_state(spec, _gan_state(f32, sds, device, 0.03))
+    if fault and dist.get_rank() == 1:
+        opt, reduce = state.gen_opt, state.gen_opt.reduce_gradients
+        leaf = state.gen.get_parameter(TP_FAULT_LEAF)
+
+        def faulty():
+            leaf.grad.mul_(PAR_FAULT)
+            reduce()
+
+        opt.reduce_gradients = faulty
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _prepared(prep):
+        ttg.train_step(state, {}, f32)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    grads = {f"{net}.{n}": g.float().cpu() for net in ("gen", "disc")
+             for n, g in tasks.whole_grads(spec, getattr(state, net)).items()}
+    l2, _ = gan_grad_l2({"grads": grads}, want)
+    return _par_end({"grad_l2": l2, "ms": ms,
+                     "tp": pmesh.tensor_parallel_leaves(spec, state.gen)})
+
+
+def _tp_serve_task(ref_file: str) -> dict:
+    """A rank of ``tp2_serve``: a ViViT request at the defaults (bf16)
+    through ``predict_sharded`` on two model ranks at threshold 2^16: the
+    log-probs against one process's, the caller's model before and after."""
+    from lipreading_video_generation_tpu_torch.core.config import MeshConfig, ViViTConfig
+    from lipreading_video_generation_tpu_torch.core.prng import seeded
+    from lipreading_video_generation_tpu_torch.models.vivit import ViViT
+    from lipreading_video_generation_tpu_torch.parallel import mesh as pmesh
+
+    device = _par_begin()
+    tasks = _parallel_tasks()
+    model = seeded(lambda: ViViT(ViViTConfig()), SEED).to(device).eval()
+    before = _digest(model)
+    spec = pmesh.build_mesh(MeshConfig(**TP2_LOW))
+    real, held = pmesh.shard_params, []
+
+    def placed(spec_, module):          # the copy predict_sharded places
+        real(spec_, module)
+        held.append(tasks.held_bytes([module], []))
+        return module
+
+    pmesh.shard_params = placed
+    try:
+        t0 = time.perf_counter()
+        got = _par_serve_request(model, spec, device).cpu()
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        pmesh.shard_params = real
+    want = torch.load(ref_file, weights_only=True)
+    return _par_end({"err": float((got - want).abs().max()),
+                     "top1": float((got.argmax(-1) == want.argmax(-1)).float().mean()),
+                     "unchanged": _digest(model) == before and not pmesh.is_placed(model),
+                     "leaves": len(pmesh.tensor_parallel_leaves(spec, model)), "ms": ms,
+                     "bytes": held[-1], "bytes_one": tasks.held_bytes([model], [])})
+
+
+def _tp_cli_task(out_dir: str) -> dict:
+    """A rank of ``tp2_cli``: ``sample-diffusion --frames 2`` at the
+    defaults through ``cli.main`` with ``--set mesh.model_parallel=2
+    mesh.model_shard_threshold=65536``; rank 1 may write nothing under
+    ``out_dir`` (its writes there are recorded)."""
+    device = _par_begin()
+    with _fresh_process_flags():
+        out = _parallel_tasks().cli_main(
+            _SAMPLE_ARGV + ["--out", os.path.join(out_dir, "tp.png"), "--set",
+                            "mesh.model_parallel=2", "--set", "mesh.model_shard_threshold=65536"],
+            watch_root=out_dir, device=str(device))
+    return _par_end(out)
+
+
+def _par_tp(dev: dict, group, work: str) -> tuple:
+    """The tensor-parallel cases on the two gloo ranks (see the module's
+    docstring): one process's references first, then each case; returns
+    (the runs, what this process read), which ``_tp_gates`` holds."""
+    import dataclasses
+
+    from lipreading_video_generation_tpu_torch.core.config import AudioConfig, GanConfig
+    from lipreading_video_generation_tpu_torch.core.config import PreprocessConfig
+    from lipreading_video_generation_tpu_torch.core.prng import seeded
+    from lipreading_video_generation_tpu_torch.data import datasets
+    from lipreading_video_generation_tpu_torch.models.generator import TalkingFaceGenerator
+    from lipreading_video_generation_tpu_torch.pipelines import inference
+    from lipreading_video_generation_tpu_torch.pipelines import train_gan as ttg
+
+    device = _par_begin()
+    gen = seeded(lambda: TalkingFaceGenerator(width=1.0), SEED).state_dict()
+    frames, boxes, mels = lipsync_inputs(PAR_FRAMES, SEED + 96)
+    files = {"int8": os.path.join(work, "frames.npy"),
+             "float": os.path.join(work, "frames_float.npy")}
+    np.save(files["float"], inference.generate_frames(gen, frames, boxes, mels, GanConfig(),
+                                                      PreprocessConfig(), 1.0, device=device))
+    base = GanConfig()
+    f32 = dataclasses.replace(base, dtype="float32", batch_size=GAN_STEP_BATCH)
+    sds = gan_state_dicts(base.model_width, SEED)
+    clips = datasets.synthetic_av_clips(n_clips=8, frames=50, img=base.img_size, seed=SEED)
+    batch = datasets.GanWindowSampler(clips, base.syncnet_T, seed=SEED).sample_batch(
+        GAN_STEP_BATCH)
+    prep = ttg.prepare_batch(batch, f32, AudioConfig(), "cpu")
+    want = gan_step_capture(f32, sds, prep, device, 0.03)
+    gan_files = {k: os.path.join(work, f"gan_{k}.pt") for k in ("sds", "prep", "ref")}
+    torch.save(sds, gan_files["sds"])
+    torch.save(prep, gan_files["prep"])
+    torch.save({"grads": want["grads"], "zero": sorted(want["zero"])}, gan_files["ref"])
+    del want, sds
+    # the U-Net checks from drawn params (the seeded init zeroes out_conv, so at
+    # step 1 no gradient would reach a sharded layer): one process's runs, saved
+    diff = {"bf16": ({}, 2), "f32": ({"im_size": 64, "dtype": "float32"}, 1)}
+    diff_one = {}
+    for name, (kw, steps) in diff.items():
+        pfile, ref = (os.path.join(work, f"tp_unet_{name}{x}.pt") for x in ("", "_ref"))
+        _tp_params(kw, pfile)
+        run = _par_diffusion(kw, steps, None, device, params_file=pfile)
+        keys = [k + x for k in ("grads", "last_grads") for x in ("", "_ungated") if k + x in run]
+        saved = {k: run[k].cpu() for k in keys}
+        saved["params"] = {k: v.cpu() for k, v in run["params"].items()}
+        diff_one[name] = {"pfile": pfile, "ref": ref, "losses": run["losses"],
+                          "step_ms": run["step_ms"], "bytes": run["bytes"]}
+        del run
+        torch.cuda.empty_cache()
+        if kw.get("dtype", "bfloat16") != "float32":
+            # the float32 gradient of the same params and batch: how far bf16 is from it
+            truth = _par_diffusion(dict(kw, dtype="float32"), 1, None, device,
+                                   params_file=pfile)
+            diff_one[name]["truth_rel"] = []
+            for x in ("", "_ungated"):
+                saved["truth" + x] = t = truth["grads" + x].cpu()
+                diff_one[name]["truth_rel"].append(float((saved["grads" + x] - t).norm()
+                                                         / t.norm()))
+            del truth
+            torch.cuda.empty_cache()
+        torch.save(saved, ref)
+    ck = os.path.join(work, "tp_gan_ck")
+    cli_dir = os.path.join(work, "tp_cli")
+    os.makedirs(cli_dir)
+    runs = {
+        "tp2_generate": group.run(_tp_generate_task, files, False),
+        "tp2_generate_fault": group.run(_tp_generate_task, files, True),
+        "tp2_gan": group.run(_tp_gan_train_task, ck),
+        "tp2_gan_f32": group.run(_tp_gan_step_task, gan_files, False),
+        "tp2_gan_f32_fault": group.run(_tp_gan_step_task, gan_files, True),
+    }
+    for name, (kw, steps) in diff.items():
+        one_run = diff_one[name]
+        clean = group.run(_par_diffusion_task, kw, steps, TP2_LOW, False, one_run["ref"], None,
+                          one_run["pfile"])
+        runs[f"tp2_diffusion_{name}"] = clean
+        # the planted fault: rank 1's gradients of its slices x 1.01 at every step
+        runs[f"tp2_diffusion_{name}_fault"] = group.run(
+            _par_diffusion_task, kw, 1, TP2_LOW, True, one_run["ref"],
+            sorted(clean[0]["tp"]), one_run["pfile"])
+    runs["tp2_serve"] = group.run(_tp_serve_task, os.path.join(work, "serve.pt"))
+    runs["tp2_cli"] = group.run(_tp_cli_task, cli_dir)
+    ckpt = torch.load(os.path.join(ck, "step_2.pt"), map_location="cpu", weights_only=True)
+    one = {"diffusion": diff_one, "ckpt": ckpt, "ckpt_files": sorted(os.listdir(ck)),
+           "cli_files": sorted(os.listdir(cli_dir)),
+           "cli_frames": [read_png(os.path.join(cli_dir, f"tp.png.{j:04d}.png"))
+                          for j in range(2)],
+           "none_frames": [read_png(os.path.join(work, f"none.png.{j:04d}.png"))
+                           for j in range(2)]}
+    return runs, one
+
+
+def _tp_gates(dev: dict, runs: dict, one: dict) -> None:
+    """Hold the tensor-parallel cases against one process's runs and print
+    them: each case's readings are printed first, then every gate is held
+    (``not (x <= tol)``, NaN-safe), each below a planted fault's reading in
+    the same run."""
+    from lipreading_video_generation_tpu_torch.models.generator import TalkingFaceGenerator
+
+    fails = []
+
+    def gate(ok: bool, what: str) -> None:
+        if not ok:
+            fails.append(what)
+
+    # tp2_generate
+    gen, fault = runs["tp2_generate"], runs["tp2_generate_fault"]
+    i8 = _worst(r["int8"]["max_diff"] for r in gen)
+    fl = _worst(r["float"]["max_diff"] for r in gen)
+    fl_share = _worst(1.0 - r["float"]["equal_share"] for r in gen)
+    i8_fault = _worst(r["int8"]["max_diff"] for r in fault)
+    fl_fault = _worst(r["float"]["max_diff"] for r in fault)
+    fl_fault_share = _worst(1.0 - r["float"]["equal_share"] for r in fault)
+    want_leaves = {"decoder.layers.1.block.conv.weight": 0,
+                   "decoder.layers.3.block.conv.weight": 0}
+    log("parallel", f"tp2_generate: generate_frames at the GanConfig defaults, width 1.0, "
+        f"{PAR_FRAMES} frames of 360x640 on 2 model ranks at the default threshold (sharded: "
+        f"{sorted(gen[0]['leaves'])}): int8 frames {i8} levels from one process's (gate 0); "
+        f"float {fl} levels (gate {TOL_TP_FLOAT_LEVELS}), {fl_share:.3g} of the values differ "
+        f"(gate {TOL_TP_FLOAT_SHARE}); planted fault, rank 1's slice of {TP_FAULT_LEAF} x "
+        f"{PAR_FAULT}: int8 {i8_fault} levels, float {fl_fault} levels with {fl_fault_share:.3g} "
+        f"of the values off; K6 a rank {gen[0]['int8']['k6']} in int8, routes a rank "
+        f"{[r['int8']['routes'] for r in gen]}; params a rank {gen[0]['bytes'] / 1e6:.1f} MB of "
+        f"one process's {gen[0]['bytes_one'] / 1e6:.1f} MB "
+        f"({gen[0]['bytes'] / gen[0]['bytes_one']:.3f}x)")
+    gate(i8 <= 0 and fl <= TOL_TP_FLOAT_LEVELS and fl_share <= TOL_TP_FLOAT_SHARE,
+         f"tp2 generate_frames: int8 {i8} levels, float {fl} levels / {fl_share:.3g} of the "
+         "values from one process's")
+    gate(gen[0]["leaves"] == want_leaves, f"tp2 generate_frames: sharded {gen[0]['leaves']}")
+    gate(i8_fault > 0 and fl_fault_share > TOL_TP_FLOAT_SHARE,
+         f"tp2 generate_frames: the planted fault read int8 {i8_fault} levels, float "
+         f"{fl_fault_share:.3g} of the values: not above the gates")
+    gate(all(r["int8"]["k6"] == 51 and r["float"]["k6"] == 0 for r in gen),
+         f"tp2 generate_frames: K6 {[(r['int8']['k6'], r['float']['k6']) for r in gen]} a "
+         "rank, want 51 (int8) and 0 (float)")
+    # tp2_gan
+    gan = runs["tp2_gan"]
+    with torch.device("meta"):
+        names = [n for n, _ in TalkingFaceGenerator(width=1.0).named_parameters()]
+    ck = one["ckpt"]
+    whole = (512, 1024, 3, 3)
+    shapes = {}
+    for n in want_leaves:
+        st = ck["gen_opt"]["state"].get(names.index(n), {})
+        shapes[n] = (tuple(ck["gen"][n].shape), tuple(st.get("exp_avg", torch.zeros(0)).shape),
+                     tuple(st.get("exp_avg_sq", torch.zeros(0)).shape))
+    f32, f32_fault = runs["tp2_gan_f32"], runs["tp2_gan_f32_fault"]
+    g_gen = _worst(r["grad_l2"]["gen"] for r in f32)
+    g_disc = _worst(r["grad_l2"]["disc"] for r in f32)
+    g_fault = _worst(r["grad_l2"]["gen"] for r in f32_fault)
+    step_ms = gan[0]["step_ms"]
+    log("parallel", f"tp2_gan: train_gan.train at the GanConfig defaults (bf16, batch 16) on 2 "
+        f"model ranks, default threshold, 2 steps: the ranks' whole params "
+        f"{'equal' if len({r['whole'] for r in gan}) == 1 else 'DIFFER'}, their replicated "
+        f"leaves {'equal' if len({r['replicated'] for r in gan}) == 1 else 'DIFFER'}; "
+        f"checkpoint files {one['ckpt_files']}, the sharded leaves and their Adam moments "
+        f"there {shapes}; step 2 took {step_ms} ms on the primary (train() "
+        f"{max(r['wall_s'] for r in gan):.1f} s in all); float32 step at width 1.0, batch 2, "
+        f"sync gate open: whole gradients gen {g_gen:.3g}, disc {g_disc:.3g} relative L2 from "
+        f"one process's (gate {TOL_TP_GAN_GRAD}), {max(r['ms'] for r in f32):.1f} ms a rank; "
+        f"planted fault, rank 1's gradient of its slice of {TP_FAULT_LEAF} x {PAR_FAULT}: gen "
+        f"{g_fault:.3g}; params + Adam moments a rank {gan[0]['bytes'] / 1e6:.1f} MB of one "
+        f"process's {gan[0]['bytes_one'] / 1e6:.1f} MB "
+        f"({gan[0]['bytes'] / gan[0]['bytes_one']:.3f}x)")
+    gate(len({r["replicated"] for r in gan}) == 1 and len({r["whole"] for r in gan}) == 1,
+         "tp2 train_gan: the ranks' replicated leaves or whole params differ")
+    gate(gan[0]["leaves"]["gen"] == want_leaves and not gan[0]["leaves"]["disc"]
+         and not gan[0]["leaves"]["syncnet"], f"tp2 train_gan: sharded {gan[0]['leaves']}")
+    gate(all(v == (whole,) * 3 for v in shapes.values()) and one["ckpt_files"] == ["step_2.pt"]
+         and ck["step"] == 2 and step_ms is not None,
+         f"tp2 train_gan checkpoint: {one['ckpt_files']}, {shapes}")
+    gate(g_gen <= TOL_TP_GAN_GRAD and g_disc <= TOL_TP_GAN_GRAD,
+         f"tp2 GAN float32 step: gradients gen {g_gen:.3g}, disc {g_disc:.3g}")
+    gate(g_fault > TOL_TP_GAN_GRAD, f"tp2 GAN: the planted fault read {g_fault:.3g}")
+    # tp2_diffusion
+    bf, bff = runs["tp2_diffusion_bf16"], runs["tp2_diffusion_bf16_fault"]
+    f, ff = runs["tp2_diffusion_f32"], runs["tp2_diffusion_f32_fault"]
+    one_bf, one_f = one["diffusion"]["bf16"], one["diffusion"]["f32"]
+    loss_bf = abs(bf[0]["losses"][0] - one_bf["losses"][0]) / abs(one_bf["losses"][0])
+    loss_f = abs(f[0]["losses"][0] - one_f["losses"][0]) / abs(one_f["losses"][0])
+    g_bf = _worst(r["grads_ungated_rel"] for r in bf)
+    g_bff = _worst(r["grads_ungated_rel"] for r in bff)
+    g_f, g_ff = _worst(r["grads_rel"] for r in f), _worst(r["grads_rel"] for r in ff)
+    share = _worst(r["step_transport_s"] / (sum(r["step_ms"]) / 1e3) for r in bf)
+    pmax = _worst(r["param_max"] for r in bf)
+
+    def rels(key):
+        return [round(r[key], 7) for r in bf]
+    log("parallel", f"tp2_diffusion: DiffusionConfig defaults on 2 model ranks at threshold "
+        f"2^16 ({len(bf[0]['tp'])} leaves sharded), from drawn params: bf16, global batch "
+        f"{PAR_BATCH}, 2 steps: ranks {'equal' if len({r['digest'] for r in bf}) == 1 else 'DIFFER'}"
+        f", first loss {loss_bf:.3g} relative; against one process's gradients (relative L2), "
+        f"step 1: the leaves outside {AUDIO_GATED} {rels('grads_ungated_rel')} (gate "
+        f"{TOL_TP_GRAD_BF16}), all leaves {rels('grads_rel')}; step 2: "
+        f"{rels('last_grads_ungated_rel')}, all {rels('last_grads_rel')}; planted fault (rank 1's "
+        f"gradients of its slices x {PAR_FAULT}) {g_bff:.4g} outside, "
+        f"{_worst(r['grads_rel'] for r in bff):.4g} all; against the float32 gradient of the same "
+        f"params and batch (all leaves, outside): one process {one_bf['truth_rel']}, two model "
+        f"ranks {bf[0]['truth_rel']}, the fault {bff[0]['truth_rel']}; params after 2 steps at "
+        f"most {pmax:.3g} apart; step times {[round(t, 1) for t in bf[0]['step_ms']]} ms a rank "
+        f"against one process's {[round(t, 1) for t in one_bf['step_ms']]} ms, gloo transport "
+        f"{share:.1%} of them; float32 at 64x64: gradient {g_f:.3g} (gate {TOL_TP_GRAD}), loss "
+        f"{loss_f:.3g}, planted fault {g_ff:.3g}; params + EMA + Adam moments a rank "
+        f"{bf[0]['bytes'] / 1e6:.1f} MB of one process's {one_bf['bytes'] / 1e6:.1f} MB "
+        f"({bf[0]['bytes'] / one_bf['bytes']:.3f}x) on {dev['smi']}")
+    gate(len({r["digest"] for r in bf}) == 1 and len({r["digest"] for r in f}) == 1,
+         "tp2 diffusion: the ranks' whole params differ")
+    want_k = {"flash_attention": 32, "flash_bwd_dkv": 32, "flash_bwd_dq": 32, "small_mha": 8}
+    gate(all(r["counts"][k] == n for r in bf for k, n in want_k.items()),
+         f"tp2 bf16 diffusion launches {[r['counts'] for r in bf]}, want {want_k} a rank")
+    gate(loss_bf <= TOL_PAR_LOSS_BF16 and g_bf <= TOL_TP_GRAD_BF16,
+         f"tp2 bf16 diffusion: loss {loss_bf:.3g}, gradient {g_bf:.3g}")
+    gate(g_bff > TOL_TP_GRAD_BF16, f"tp2 bf16 diffusion: the planted fault read {g_bff:.3g}")
+    gate(g_f <= TOL_TP_GRAD and loss_f <= TOL_PAR_LOSS,
+         f"tp2 float32 diffusion: gradient {g_f:.3g}, loss {loss_f:.3g}")
+    gate(g_ff > TOL_TP_GRAD, f"tp2 float32 diffusion: the planted fault read {g_ff:.3g}")
+    # tp2_serve
+    serve = runs["tp2_serve"]
+    err = _worst(r["err"] for r in serve)
+    log("parallel", f"tp2_serve: ViViT request of {PAR_BATCH} clips at the defaults (bf16) on 2 "
+        f"model ranks at threshold 2^16 ({serve[0]['leaves']} leaves sharded in a placed copy; "
+        f"the caller's model unchanged: {[r['unchanged'] for r in serve]}): log-probs "
+        f"{err:.3g} from one process's (gate {TOL_LOGITS}), top-1 agreement "
+        f"{min(r['top1'] for r in serve):.4f}, {max(r['ms'] for r in serve):.1f} ms; launches a "
+        f"rank {[r['counts'] for r in serve]}; params a rank {serve[0]['bytes'] / 1e6:.1f} MB of "
+        f"{serve[0]['bytes_one'] / 1e6:.1f} MB ({serve[0]['bytes'] / serve[0]['bytes_one']:.3f}x)")
+    gate(err <= TOL_LOGITS and all(r["unchanged"] for r in serve),
+         f"tp2 predict_sharded: log-probs {err:.3g}, unchanged {[r['unchanged'] for r in serve]}")
+    gate(all(r["counts"]["clahe"] == 1 and r["counts"]["small_mha"] == 12 for r in serve),
+         f"tp2 predict_sharded launches {[r['counts'] for r in serve]}, want K1 1, K2 12")
+    # tp2_cli
+    cli = runs["tp2_cli"]
+    want_files = ["tp.png.0000.png", "tp.png.0001.png"]
+    levels = _worst(np.abs(a.astype(int) - b.astype(int)).max()
+                    for a, b in zip(one["cli_frames"], one["none_frames"]))
+    log("parallel", f"tp2_cli: cli.main sample-diffusion --frames 2 at the defaults with "
+        f"mesh.model_parallel=2, model_shard_threshold=65536 in each rank: exit codes "
+        f"{[r['rc'] for r in cli]}, files {one['cli_files']} (rank 1 wrote {cli[1]['wrote']}), "
+        f"{levels} levels from one process's PNGs (gate {TOL_TP_CLI_LEVELS}); launches a rank "
+        f"{[r['counts'] for r in cli]}")
+    gate([(r["rc"], r["wrote"]) for r in cli] == [(0, [])] * 2 and one["cli_files"] == want_files,
+         f"tp2 sample-diffusion: exit codes {[r['rc'] for r in cli]}, files {one['cli_files']}")
+    gate(levels <= TOL_TP_CLI_LEVELS, f"tp2 sample-diffusion: frames {levels} levels apart")
+    if fails:
+        raise AssertionError("tensor parallelism: " + "; ".join(fails))
 
 
 def _torchrun(argv: list) -> subprocess.Popen:
@@ -4277,6 +4825,7 @@ def phase_parallel(dev: dict) -> dict:
                         "params": {k: v.cpu() for k, v in run["params"].items()}}, path)
             run["file"] = path
             del run["params"], run["ema"], run["grads"]
+            run.pop("last_grads", None)
         gen = seeded(lambda: TalkingFaceGenerator(width=1.0), SEED).state_dict()
         frames, boxes, mels = lipsync_inputs(PAR_FRAMES, SEED + 96)
         gen_ref = inference.generate_frames(gen, frames, boxes, mels,
@@ -4317,6 +4866,8 @@ def phase_parallel(dev: dict) -> dict:
             "pp_micro4": group.run(_par_pp_task, 4),
             "serve": group.run(_par_serve_task, os.path.join(work.name, "serve.pt")),
         }
+        tp_runs, tp_one = _par_tp(dev, group, work.name)
+        runs.update(tp_runs)
         for name, ranks in runs.items():
             backends = {r["backend"] for r in ranks}
             if backends != {"gloo"}:
@@ -4326,11 +4877,12 @@ def phase_parallel(dev: dict) -> dict:
                 f"{per_rank}; gloo transport a rank "
                 + ", ".join(f"{r['transport_calls']} calls, {r['transport_bytes'] / 1e6:.1f} MB, "
                             f"{r['transport_s'] * 1e3:.1f} ms" for r in ranks))
-            if name != "f32_fault":
+            if not name.endswith("_fault"):
                 for r in ranks:
                     for k, n in r["counts"].items():
                         launches[k] += n
         _par_gates(dev, runs, refs)
+        _tp_gates(dev, runs, tp_one)
     finally:
         for proc in (p for k, p in launched.items() if k != "t0"):
             if proc.poll() is None:
@@ -4357,7 +4909,7 @@ def _par_gates(dev: dict, runs: dict, refs: dict) -> None:
                              "moment was sharded)")
     loss_rel = abs(bf[0]["losses"][0] - refs["bf16"]["losses"][0]) / abs(refs["bf16"]["losses"][0])
     pmax = _worst(r["param_max"] for r in bf)
-    g_bf = _worst(r["grad_rel"] for r in bf)
+    g_bf = _worst(r["grads_rel"] for r in bf)
     for r in bf + z1:
         want = {"flash_attention": 32, "flash_bwd_dkv": 32, "flash_bwd_dq": 32, "small_mha": 8}
         if any(r["counts"][k] != n for k, n in want.items()):
@@ -4381,9 +4933,9 @@ def _par_gates(dev: dict, runs: dict, refs: dict) -> None:
         f"4 rows each: {two_ms:.1f} ms (the card is shared: no speed-up to claim); gloo "
         f"transport {share:.1%} of a rank's step time on {dev['smi']}")
     f32, fault = runs["f32"], runs["f32_fault"]
-    g = _worst(r["grad_rel"] for r in f32)
+    g = _worst(r["grads_rel"] for r in f32)
     loss = abs(f32[0]["losses"][0] - refs["f32"]["losses"][0]) / abs(refs["f32"]["losses"][0])
-    g_fault = _worst(r["grad_rel"] for r in fault)
+    g_fault = _worst(r["grads_rel"] for r in fault)
     if f32[0]["digest"] != f32[1]["digest"] or not (g <= TOL_PAR_GRAD and loss <= TOL_PAR_LOSS):
         raise AssertionError(f"float32 data-parallel step: gradient {g:.3g} (want <= "
                              f"{TOL_PAR_GRAD}), loss {loss:.3g} (want <= {TOL_PAR_LOSS})")

@@ -209,8 +209,10 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--data-root", required=True)
     p.add_argument("--out", required=True)
     p.add_argument("--filelist", default=None)
-    p.add_argument("--host-id", type=int, default=0)
-    p.add_argument("--num-hosts", type=int, default=1)
+    p.add_argument("--host-id", type=int, default=None,
+                   help="this host's share of the clips (default: the process rank)")
+    p.add_argument("--num-hosts", type=int, default=None,
+                   help="how many hosts share them (default: the world size)")
     p.add_argument("--s3fd-checkpoint", default=None, help=_S3FD_HELP)
 
     p = _base_parser(sub, "pack-gan-records",
@@ -625,7 +627,7 @@ def _main(argv: Optional[List[str]], device) -> int:
         from .parallel.mesh import build_mesh
 
         mesh = build_mesh(cfg.mesh)
-    except (ValueError, NotImplementedError) as e:
+    except ValueError as e:
         parser.error(str(e))
 
     if args.cmd == "train-vivit":
@@ -787,12 +789,23 @@ def _main(argv: Optional[List[str]], device) -> int:
         from .data.manifest import build_manifest, read_filelist
         from .pipelines.offline_preprocess import preprocess_dataset
 
+        from .parallel.distributed import process_count, process_index
+
+        host_id, num_hosts = args.host_id, args.num_hosts
+        if host_id is None and num_hosts is None:
+            host_id, num_hosts = process_index(), process_count()
+        elif process_count() > 1:
+            parser.error(f"preprocess-gan: --host-id/--num-hosts are taken from the rank and "
+                         f"world size under a process group of {process_count()}; give "
+                         f"neither")
+        host_id = 0 if host_id is None else host_id
+        num_hosts = 1 if num_hosts is None else num_hosts
         filelist = read_filelist(args.filelist) if args.filelist else None
         records, skipped = build_manifest(args.data_root, filelist)
         print(f"{len(records)} clips ({skipped} skipped)")
         s3fd = _s3fd(args.s3fd_checkpoint).to(device).eval()
         ok, failed = preprocess_dataset(s3fd, records, args.out, cfg.preprocess,
-                                        args.host_id, args.num_hosts)
+                                        host_id, num_hosts)
         print(f"ok={ok} failed={failed}")
         return 0
 

@@ -9,7 +9,9 @@ at most ``max_to_keep`` of them, and restores the latest or a given step;
 need; so ``wait`` and ``close`` do nothing) and atomic: a file is written
 beside its final name and renamed. Under a process group only the primary
 rank writes, and every rank waits at a barrier until the file is in place,
-so all of them call ``save`` (the state is the same on every rank).
+so all of them call ``save`` (the state is the same on every rank). A
+tensor-parallel state is whole by the time it arrives here: the trainers
+build their trees with ``parallel.mesh.full_state_dict`` on every rank.
 Orbax checkpoints are not read. ``restore`` and ``load_once`` map tensors
 onto the CPU unless ``map_location`` says otherwise.
 """
@@ -21,17 +23,13 @@ from typing import Any, List, Optional
 
 import torch
 
-from ..parallel.distributed import barrier, is_primary
+from ..parallel.distributed import is_primary, write_once
 
 _STEP_FILE = re.compile(r"^step_(\d+)\.pt$")
 
 
 def atomic_save(path: str, state: Any) -> None:
-    if is_primary():
-        tmp = path + ".tmp"
-        torch.save(state, tmp)
-        os.replace(tmp, path)
-    barrier()
+    write_once(path, lambda tmp: torch.save(state, tmp))
 
 
 class CheckpointManager:

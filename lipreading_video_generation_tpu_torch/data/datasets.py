@@ -191,9 +191,17 @@ def build_frame_index(video_paths: Sequence[str], step: int = 6,
 
 def save_frame_index(items: Sequence[FrameItem], path: str) -> None:
     """Pickle the index as a list of plain (path, start, end) tuples, as the
-    JAX package writes it."""
-    with open(path, "wb") as f:
-        pickle.dump([(it.video_path, it.frame_start, it.frame_end) for it in items], f)
+    JAX package writes it (once, by the primary rank under a process group:
+    ``parallel.distributed.write_once``)."""
+    from ..parallel.distributed import write_once
+
+    rows = [(it.video_path, it.frame_start, it.frame_end) for it in items]
+
+    def write(tmp: str) -> None:
+        with open(tmp, "wb") as f:
+            pickle.dump(rows, f)
+
+    write_once(path, write)
 
 
 def load_frame_index(path: str) -> List[FrameItem]:

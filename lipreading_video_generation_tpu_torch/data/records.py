@@ -23,6 +23,34 @@ import numpy as np
 SPEC_FILENAME = "records_spec.json"
 
 
+def _write_json(path: str, obj) -> None:
+    """``obj`` as JSON at ``path``, written once under a process group
+    (every rank calls this)."""
+    from ..parallel.distributed import write_once
+
+    def write(tmp: str) -> None:
+        with open(tmp, "w") as f:
+            json.dump(obj, f)
+
+    write_once(path, write)
+
+
+def _write_records(out_dir: str, num_records: int, draw, pack) -> None:
+    """Record ``i`` = ``pack(draw())`` for i < ``num_records``, one file
+    each. Every rank draws (so a sampler advances alike on all of them);
+    only the primary rank writes, and every rank waits at a barrier until
+    the files are in place."""
+    from ..parallel.distributed import barrier, is_primary
+
+    primary = is_primary()
+    for i in range(num_records):
+        sample = draw()
+        if primary:
+            with open(os.path.join(out_dir, _record_name(i, num_records)), "wb") as f:
+                f.write(pack(sample))
+    barrier()
+
+
 @dataclasses.dataclass(frozen=True)
 class GanRecordSpec:
     """Byte layout of one packed GAN training sample: window, wrong_window
@@ -64,8 +92,7 @@ class GanRecordSpec:
         return self._tensor_spec().unpack(raw)
 
     def save(self, directory: str) -> None:
-        with open(os.path.join(directory, SPEC_FILENAME), "w") as f:
-            json.dump(dataclasses.asdict(self), f)
+        _write_json(os.path.join(directory, SPEC_FILENAME), dataclasses.asdict(self))
 
     @classmethod
     def load(cls, directory: str) -> "GanRecordSpec":
@@ -109,8 +136,8 @@ class TensorRecordSpec:
         return out
 
     def save(self, directory: str) -> None:
-        with open(os.path.join(directory, SPEC_FILENAME), "w") as f:
-            json.dump({"kind": "tensor", "fields": list(self.fields)}, f)
+        _write_json(os.path.join(directory, SPEC_FILENAME),
+                    {"kind": "tensor", "fields": list(self.fields)})
 
     @classmethod
     def from_json(cls, obj: dict) -> "TensorRecordSpec":
@@ -135,7 +162,8 @@ def write_gan_records(sampler, out_dir: str, num_records: int,
                       wav_len: Optional[int] = None) -> GanRecordSpec:
     """Draw ``num_records`` windows from a ``GanWindowSampler`` (after one
     probe draw that fixes the shapes, as in JAX) and write one record file
-    each, the wav zero-padded to ``wav_len`` (default the probe's)."""
+    each, the wav zero-padded to ``wav_len`` (default the probe's). Under
+    a process group every rank calls this and the primary writes."""
     os.makedirs(out_dir, exist_ok=True)
     probe = sampler.sample_batch(1)
     t, h, w = probe["window"].shape[1:4]
@@ -145,12 +173,14 @@ def write_gan_records(sampler, out_dir: str, num_records: int,
         max_text_len=probe["text_tokens"].shape[1] if "text_tokens" in probe else 0,
     )
     spec.save(out_dir)
-    for i in range(num_records):
+
+    def draw() -> Dict[str, np.ndarray]:
         sample = {k: v[0] for k, v in sampler.sample_batch(1).items()}
         if len(sample["wav"]) < wav_len:
             sample["wav"] = np.pad(sample["wav"], (0, wav_len - len(sample["wav"])))
-        with open(os.path.join(out_dir, _record_name(i, num_records)), "wb") as f:
-            f.write(spec.pack(sample))
+        return sample
+
+    _write_records(out_dir, num_records, draw, spec.pack)
     return spec
 
 
@@ -224,7 +254,8 @@ def write_diffusion_records(sampler, out_dir: str, num_records: int,
     resize both frames to ``im_size`` on the CPU with ``ops/image.resize``
     (the op the train step uses; at the train size it is the identity, so
     the records equal the JAX package's byte for byte) and write one record
-    file each."""
+    file each. Under a process group every rank calls this and the primary
+    writes."""
     import torch
 
     from ..ops import image as image_ops
@@ -238,10 +269,10 @@ def write_diffusion_records(sampler, out_dir: str, num_records: int,
         return image_ops.resize(torch.from_numpy(np.ascontiguousarray(frame)),
                                 (im_size, im_size)).numpy()
 
-    for i in range(num_records):
+    def draw() -> Dict[str, np.ndarray]:
         b = sampler.sample_batch(1)
-        sample = {"cond_frame": sized(b["cond_frame"][0]),
-                  "target_frame": sized(b["target_frame"][0]), "audio": b["audio"][0]}
-        with open(os.path.join(out_dir, _record_name(i, num_records)), "wb") as f:
-            f.write(spec.pack(sample))
+        return {"cond_frame": sized(b["cond_frame"][0]),
+                "target_frame": sized(b["target_frame"][0]), "audio": b["audio"][0]}
+
+    _write_records(out_dir, num_records, draw, spec.pack)
     return spec

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from ..core.config import AudioConfig
 from ..ops import audio as audio_ops
+from ..parallel.mesh import whole_param
 from .layers import Conv1d, LayerNorm, TransformerBlock
 
 
@@ -53,7 +54,7 @@ class AudioFeatureEncoder(nn.Module):
         mel = audio_ops.melspectrogram(wave.float(), self.audio_cfg)   # (B, 80, T)
         x = F.gelu(self.conv1(mel.to(self.dtype)), approximate="tanh")
         x = F.gelu(self.conv2(x), approximate="tanh").transpose(1, 2)  # (B, T', E)
-        x = self.norm_in(x) + self.pos_embedding.to(self.dtype)
+        x = self.norm_in(x) + whole_param(self, "pos_embedding").to(self.dtype)
         for block in self.blocks:
             x = block(x)
         return self.norm_out(x)

@@ -31,10 +31,16 @@ modules:
 Inside ``ops.quant.int8_serving`` a ``Linear`` and a rerouted ``Conv2d``
 compute their product in int8 (see ``ops/quant.py``).
 
+A ``Linear`` or conv whose weight ``parallel.mesh.shard_params`` cut to a
+model-axis slice of its output channels runs column-parallel, its float
+or int8 product alike: its rank's channels from the whole input with their
+part of the whole bias, all-gathered (``_column_parallel``), so every
+model rank holds whole activations, as under JAX's GSPMD with the TP
+layout; the JAX modules' activation constraints have nothing left to pin
+(``parallel.mesh.activation_constraint``).
+
 ``TransformerBlock(ring_axis=...)`` runs its attention through the ring
-(``ops/ring_attention.py``) when a mesh with that axis is live; the TP
-activation constraints of the JAX modules are dropped (tensor parallelism
-is not ported).
+(``ops/ring_attention.py``) when a mesh with that axis is live.
 """
 from __future__ import annotations
 
@@ -49,7 +55,8 @@ from ..ops import quant
 from ..ops.attention import mha
 from ..ops.image import nearest_index
 from ..ops.ring_attention import live_ring_mesh, model_ring_attention
-from ..parallel.mesh import draw_batch
+from ..parallel.mesh import (column_input, draw_batch, gather_from, scatter_to, tp_layout,
+                             whole_param)
 
 Pair = Union[int, Tuple[int, int]]
 
@@ -64,8 +71,41 @@ def _flax_init(layer: nn.Module) -> None:
         nn.init.zeros_(layer.bias)
 
 
+def _column_parallel(layer: nn.Module, x: torch.Tensor, product, channel_dim: int,
+                     grad_input=None) -> torch.Tensor:
+    """``product(x, bias)``: the layer's output, its channels along
+    ``channel_dim``. Where the layer's weight is a model-axis slice of its
+    output channels (``parallel.mesh.shard_params``), the product gives this
+    rank's channels from the whole input, with their part of the bias added
+    in the same kernel as one process adds it, and they are all-gathered
+    into the whole output. The bias stays a whole leaf on every rank: its
+    part enters through ``scatter_to``, whose backward all-gathers the
+    parts' gradients, so each rank gets the whole bias gradient (a bias cut
+    to the slice would get only its slice's, and the ranks would drift).
+    ``grad_input(g)``: the input's gradient from the output's ``g`` in
+    float32, which ``column_input`` sums over the model ranks and rounds
+    once, as one process rounds it; None for a product without a backward
+    (int8 serving)."""
+    tp = tp_layout(layer)
+    if tp is None:
+        return product(x, layer.bias)
+    spec, axis = tp[0], tp[0].model_axis
+    bias = None if layer.bias is None else scatter_to(layer.bias, spec, axis, 0)
+    if grad_input is None:
+        y = product(x, bias)
+    else:
+        y = column_input(product(x.detach(), bias), x, spec, axis, grad_input,
+                         layer.compute_dtype)
+    return gather_from(y, spec, axis, channel_dim)
+
+
+def _cast(t: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tensor]:
+    return None if t is None else t.to(dtype)
+
+
 class Linear(nn.Linear):
-    """Dense layer: float32 params, computed in ``dtype``."""
+    """Dense layer: float32 params, computed in ``dtype``; column-parallel
+    over the model axis where its weight is a slice."""
 
     def __init__(self, in_features: int, out_features: int, dtype: torch.dtype = torch.float32):
         super().__init__(in_features, out_features)
@@ -76,16 +116,20 @@ class Linear(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         serving = quant.active()
-        if serving is not None:
-            out = serving.linear(self, x)
-            if out is not None:
-                return out
+        product = None if serving is None else serving.linear(self, x)
+        if product is not None:
+            return _column_parallel(self, x, product, -1)
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        w = self.weight.to(dt)
+        return _column_parallel(self, x, lambda v, b: F.linear(v.to(dt), w, _cast(b, dt)), -1,
+                                lambda g: g @ w.detach().float())
 
 
 class _CastConv:
-    """Mixin for ``nn.ConvNd``: float32 params, computed in ``dtype``."""
+    """Mixin for ``nn.ConvNd``: float32 params, computed in ``dtype``;
+    column-parallel over the model axis where its weight is a slice (a
+    grouped conv gathers its weight at the use instead: a slice of its
+    output channels reads only its groups' input channels)."""
 
     def __init__(self, *args, dtype: torch.dtype = torch.float32, **kwargs):
         super().__init__(*args, **kwargs)
@@ -96,13 +140,23 @@ class _CastConv:
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         serving = quant.active()
-        if serving is not None:
-            out = serving.conv(self, x)
-            if out is not None:
-                return out
+        nhwc = None if serving is None else serving.conv(self, x)
+        if nhwc is not None:
+            return _column_parallel(self, x, nhwc, -1).permute(0, 3, 1, 2)
         dt = self.compute_dtype
-        bias = None if self.bias is None else self.bias.to(dt)
-        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+        if self.groups > 1 and tp_layout(self) is not None:
+            return self._conv_forward(x.to(dt), whole_param(self, "weight").to(dt),
+                                      _cast(self.bias, dt))
+        w = self.weight.to(dt)
+        return _column_parallel(self, x, lambda v, b: self._conv_forward(v.to(dt), w, _cast(b, dt)),
+                                1, lambda g: self._grad_input(g, x.shape, w.detach().float()))
+
+    def _grad_input(self, g: torch.Tensor, shape, w: torch.Tensor) -> torch.Tensor:
+        """The gradient of the input (of ``shape``) from the output's ``g``."""
+        nd = w.ndim - 2
+        return torch.ops.aten.convolution_backward(
+            g, g.new_empty(1).expand(shape), w, None, self.stride, self.padding, self.dilation,
+            False, [0] * nd, self.groups, (True, False, False))[0]
 
 
 class Conv1d(_CastConv, nn.Conv1d):

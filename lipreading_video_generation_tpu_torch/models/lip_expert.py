@@ -34,6 +34,7 @@ import torch.nn.functional as F
 
 from ..ops import image as image_ops
 from ..ops.attention import mha
+from ..parallel.mesh import whole_param
 from .layers import Conv1d, Conv3d, LayerNorm, Linear, TransformerBlock
 
 
@@ -94,7 +95,7 @@ class ConformerLipEncoder(nn.Module):
         for conv in (self.stem1, self.stem2, self.stem3):
             x = F.relu(conv(x))
         x = self.proj(x.mean(dim=(3, 4)).transpose(1, 2))          # (B, T, E)
-        x = x + self.pos_embedding.to(self.dtype)
+        x = x + whole_param(self, "pos_embedding").to(self.dtype)
         for block in self.blocks:
             x = block(x)
         return x.to(torch.float32)
@@ -182,8 +183,8 @@ class LipExpertSeq2Seq(nn.Module):
 
     def forward(self, video: torch.Tensor, tokens_in: torch.Tensor) -> torch.Tensor:
         memory = self.encoder(video)
-        x = self.tok_embed(tokens_in.long()).to(self.dtype)
-        x = x + self.dec_pos[:, : x.shape[1]].to(self.dtype)
+        x = F.embedding(tokens_in.long(), whole_param(self.tok_embed, "weight")).to(self.dtype)
+        x = x + whole_param(self, "dec_pos")[:, : x.shape[1]].to(self.dtype)
         for block in self.blocks:
             x = block(x, memory)
         return self.head(self.out_norm(x)).to(torch.float32)

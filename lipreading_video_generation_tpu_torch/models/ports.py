@@ -79,10 +79,16 @@ def _save_artifact(out_path: str, name: str, state_dict: Dict[str, torch.Tensor]
                    cfg: Dict[str, Any]) -> None:
     from ..core.checkpoint import save_once
 
+    from ..parallel.distributed import write_once
+
     out = os.path.abspath(out_path)
     save_once(os.path.join(out, f"{name}.pt"), {name: state_dict})
-    with open(os.path.join(out, f"{name}.config.json"), "w") as f:
-        json.dump({k: list(v) if isinstance(v, tuple) else v for k, v in cfg.items()}, f)
+
+    def write(tmp: str) -> None:
+        with open(tmp, "w") as f:
+            json.dump({k: list(v) if isinstance(v, tuple) else v for k, v in cfg.items()}, f)
+
+    write_once(os.path.join(out, f"{name}.config.json"), write)
 
 
 def _load_artifact(path: str, name: str) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:

@@ -24,6 +24,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from ..core.checkpoint import atomic_save
 from ..core.device import resolve_device
 
 SMALL_WAV2VEC2 = dict(embed_dim=64, num_layers=2, num_heads=4, ffn_dim=128,
@@ -88,7 +89,7 @@ def make_s3fd_selftest_pth(pth_path: str, seed: int = 0) -> str:
         else:
             scale = 0.05 if "mbox_loc" in mod else 0.01
             sd[key] = torch.from_numpy((scale * rng.standard_normal(shape)).astype(np.float32))
-    torch.save(sd, pth_path)
+    atomic_save(pth_path, sd)
     return pth_path
 
 
@@ -146,7 +147,7 @@ def make_densenet_selftest_pth(pth_path: str, seed: int = 0) -> str:
             sd[key] = torch.from_numpy((0.1 * rng.standard_normal(shape)).astype(np.float32))
         elif leaf == "running_var":
             sd[key] = torch.from_numpy((0.5 + rng.uniform(0, 1, shape)).astype(np.float32))
-    torch.save(sd, pth_path)
+    atomic_save(pth_path, sd)
     return pth_path
 
 
@@ -243,7 +244,7 @@ def make_avhubert_selftest_pth(pth_path: str, seed: int = 0, embed: int = 64, la
         sd[f"{lp}.final_layer_norm.bias"] = t((embed,), 0.01)
     sd["final_proj.weight"] = t((embed, embed))
     sd["mask_emb"] = t((embed,), 0.02)
-    torch.save({"model": sd}, pth_path)
+    atomic_save(pth_path, {"model": sd})
     return pth_path
 
 
@@ -303,7 +304,7 @@ def make_wav2vec2_selftest_pth(pth_path: str, seed: int = 0, weight_norm: str = 
     sd["wav2vec2.masked_spec_embed"] = torch.rand((e,), generator=gen)
     sd["lm_head.weight"] = draw((32, e), "lm_head")
     sd["lm_head.bias"] = torch.zeros(32)
-    torch.save(sd, pth_path)
+    atomic_save(pth_path, sd)
     return pth_path
 
 

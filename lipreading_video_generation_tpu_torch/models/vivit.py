@@ -31,6 +31,7 @@ from torch import nn
 
 from ..core.config import ViViTConfig
 from ..parallel import pipeline as pipe
+from ..parallel.mesh import whole_param
 from .layers import LayerNorm, Linear, TransformerBlock, dropout
 
 
@@ -93,7 +94,7 @@ class ViViT(nn.Module):
         """``generator`` draws the dropout masks in ``train()`` mode (needed
         there when ``cfg.dropout`` > 0); ``n_micro``: the pipeline's
         microbatches (``pipeline_blocks``)."""
-        x = self.tubelet(clips.to(self.dtype)) + self.pos_embedding.to(self.dtype)
+        x = self.tubelet(clips.to(self.dtype)) + whole_param(self, "pos_embedding").to(self.dtype)
         x = dropout(x, self.cfg.dropout, self.training, generator)
 
         def stage(h: torch.Tensor) -> torch.Tensor:
@@ -181,7 +182,7 @@ class FeatureTransformer(nn.Module):
         if t != self.pos_embedding.shape[1]:
             raise ValueError(f"FeatureTransformer: {t} frames, the position embedding has "
                              f"{self.pos_embedding.shape[1]}")
-        x = feats.to(self.dtype) + self.pos_embedding.to(self.dtype)
+        x = feats.to(self.dtype) + whole_param(self, "pos_embedding").to(self.dtype)
         for block in self.blocks:
             x = block(x, generator)
         x = dropout(x.amax(dim=1), self.head_dropout, self.training, generator)

@@ -265,23 +265,28 @@ class _Serving:
                                               device=device)
         return self._scales[name]
 
-    def linear(self, module: nn.Linear, x: torch.Tensor) -> Optional[torch.Tensor]:
-        """The int8 result of a ``Linear``; None while calibrating (the
-        caller then runs its float path)."""
+    def linear(self, module: nn.Linear, x: torch.Tensor) -> Optional[Callable]:
+        """The int8 product of a ``Linear``: ``product(x, bias)``, which the
+        layer runs (column-parallel where its weight is a model-axis slice:
+        the scales are per output channel, so a slice's integers and scales
+        are the whole weight's for its channels, and the activation's scale
+        is the whole input's, one process's values); None while calibrating
+        (the caller then runs its float path)."""
         if self.record:
             self._observe(module, x)
             return None
         if id(module) not in self._weights:
             w_q, w_scale = quantize_channelwise(module.weight.detach(), axis=0)
             self._weights[id(module)] = (w_q, w_scale.reshape(-1))
-        bias = None if module.bias is None else module.bias.detach()
-        return _dense_quantized(x, *self._weights[id(module)], bias, module.compute_dtype,
-                                self._act_scale(module, x.device), self.scale_reducer)
+        return lambda v, bias: _dense_quantized(
+            v, *self._weights[id(module)], _detached(bias), module.compute_dtype,
+            self._act_scale(module, v.device), self.scale_reducer)
 
-    def conv(self, module: nn.Module, x: torch.Tensor) -> Optional[torch.Tensor]:
-        """The int8 result of a conv over (B, C, H, W), as a (B, C, H, W)
-        view of the NHWC result; None for a conv that is not rerouted (1-D,
-        grouped, dilated, non-zero padding mode) and while calibrating."""
+    def conv(self, module: nn.Module, x: torch.Tensor) -> Optional[Callable]:
+        """The int8 product of a conv over (B, C, H, W): ``product(x,
+        bias)``, its NHWC result, as ``linear``; None for a conv that is not
+        rerouted (1-D, grouped, dilated, non-zero padding mode) and while
+        calibrating."""
         if self.record:
             self._observe(module, x)
             return None
@@ -292,12 +297,14 @@ class _Serving:
         if id(module) not in self._weights:
             self._weights[id(module)] = _conv_weight(module.weight.detach().permute(2, 3, 1, 0))
         ph, pw = module.padding
-        bias = None if module.bias is None else module.bias.detach()
-        out = _conv_quantized(x.permute(0, 2, 3, 1), *self._weights[id(module)],
-                              module.kernel_size, bias, module.stride, ((ph, ph), (pw, pw)),
-                              module.compute_dtype, self._act_scale(module, x.device),
-                              self.scale_reducer)
-        return out.permute(0, 3, 1, 2)
+        return lambda v, bias: _conv_quantized(
+            v.permute(0, 2, 3, 1), *self._weights[id(module)], module.kernel_size,
+            _detached(bias), module.stride, ((ph, ph), (pw, pw)), module.compute_dtype,
+            self._act_scale(module, v.device), self.scale_reducer)
+
+
+def _detached(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    return None if t is None else t.detach()
 
 
 _ACTIVE: contextvars.ContextVar = contextvars.ContextVar("lvg_int8_serving", default=None)

@@ -14,7 +14,7 @@ rank; each rank feeds its own share of a batch (``local_batch_slice``).
 from __future__ import annotations
 
 import os
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -141,3 +141,15 @@ def barrier() -> None:
     """Wait for every process (nothing to wait for without a group)."""
     if dist.is_initialized():
         dist.barrier()
+
+
+def write_once(path: str, write: Callable[[str], None]) -> None:
+    """One file written once under a process group: ``write(tmp)`` on the
+    primary rank into a file beside ``path``, renamed onto it; every rank
+    calls this and waits at a barrier until the file is in place. Without
+    a group the process writes it."""
+    if is_primary():
+        tmp = path + ".tmp"
+        write(tmp)
+        os.replace(tmp, path)
+    barrier()

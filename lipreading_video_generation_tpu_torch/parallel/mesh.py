@@ -23,12 +23,24 @@ collective itself. The names and the semantics stay JAX's:
   of every Adam moment leaf that ``zero1_partition_spec`` shards, then the
   updated params are all-gathered. Adam is elementwise, so the params equal
   plain data parallelism's bit for bit.
-- The model axis replicates compute (every rank of a data row runs the same
-  step on the same rows) unless a sequence-parallel ring
-  (``ops/ring_attention.py``) or the pipeline (``parallel/pipeline.py``)
-  claims it. Tensor parallelism (the JAX package's ``param_partition_spec``
-  sharding of large kernels) is not ported: ``check_tensor_parallel``
-  refuses a mesh on which a parameter would be sharded.
+- Tensor parallelism over the model axis, in the JAX package's layout:
+  ``param_partition_spec`` lists every ≥2-D leaf of at least
+  ``model_shard_threshold`` elements whose output dim (``output_dim``: dim
+  0 of a torch ``Linear``/conv weight, the last dim of a raw parameter;
+  the Flax layout's last dim either way) the model axis divides, frozen
+  experts included. ``shard_params`` / ``shard_state`` cut each such leaf,
+  its EMA shadow and (in ``DataParallelOptimizer``) its Adam moments to
+  this model rank's slice; a sharded ``Linear`` or conv computes its
+  rank's output channels from the whole input and all-gathers them
+  (column parallelism, ``models/layers.py``; its input gradient is
+  summed over the model ranks in float32, ``column_input``), a raw
+  parameter is gathered at its use (``whole_param``), so activations stay
+  whole on every model
+  rank and the rest of the step is replicated there. ``full_state_dict``
+  and ``load_full_state_dict`` read and write the one-process layout.
+  The model axis otherwise replicates compute unless a sequence-parallel
+  ring (``ops/ring_attention.py``) or the pipeline (``parallel/pipeline.py``,
+  whose state the TP rule does not place) claims it.
 
 Collectives over a gloo group move CUDA tensors through host memory for the
 transport only (gloo's point-to-point and all-gather take CPU tensors); the
@@ -40,7 +52,9 @@ Differentiable collectives (``torch.distributed`` has no autograd):
 VJP is a psum), and the pairs that join replicated and partial values:
 ``copy_to`` (identity, backward psum), ``reduce_from`` (psum, backward
 identity), ``scatter_to`` (this rank's slice, backward all-gather) and
-``gather_from`` (all-gather, backward this rank's slice). Every rank must
+``gather_from`` (all-gather, backward this rank's slice); and
+``column_input``, a column-parallel layer's whole input joined to its
+rank's output channels. Every rank must
 run the same graph: a collective's backward runs on all ranks of its group
 or on none.
 """
@@ -48,6 +62,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import copy
 import dataclasses
 import logging
 import math
@@ -327,6 +342,20 @@ class _GatherFrom(torch.autograd.Function):
         return g.narrow(ctx.dim, r * ctx.size, ctx.size).contiguous(), None, None
 
 
+class _ColumnInput(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, x, grad_input, dtype, group):
+        ctx.grad_input, ctx.dtype, ctx.group = grad_input, dtype, group
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        dx = None
+        if ctx.needs_input_grad[1]:
+            dx = _all_reduce(ctx.grad_input(g.float()), ctx.group).to(ctx.dtype)
+        return g, dx, None, None, None
+
+
 def _axis_group(spec: Optional[MeshSpec], axis: str):
     """The group of ``axis``, or None where the collective is the identity
     (no mesh, no group)."""
@@ -373,6 +402,23 @@ def gather_from(x: torch.Tensor, spec: MeshSpec, axis: str, dim: int) -> torch.T
     each rank's gradient is its slice of the replicated gradient."""
     group = _axis_group(spec, axis)
     return x if group is None else _GatherFrom.apply(x, group, dim)
+
+
+def column_input(y: torch.Tensor, x: torch.Tensor, spec: MeshSpec, axis: str,
+                 grad_input: Callable[[torch.Tensor], torch.Tensor],
+                 dtype: torch.dtype) -> torch.Tensor:
+    """``y``, this rank's output channels of a layer computed from
+    ``x.detach()`` (its backward reaches this rank's weight and bias parts
+    only), joined to the whole input ``x``: backward, ``x``'s gradient is
+    ``grad_input(g)``, this rank's partial product of ``y``'s gradient
+    ``g`` in float32, summed over ``axis`` in float32 and rounded once to
+    ``dtype``, the compute dtype, where one process's input gradient is
+    rounded. (``copy_to`` would sum partials that the layer's backward
+    already rounded to a bf16 compute dtype, and then round the sum: three
+    roundings where one process has one, a drift that grows layer by layer
+    through a deep backward.)"""
+    group = _axis_group(spec, axis)
+    return y if group is None else _ColumnInput.apply(y, x, grad_input, dtype, group)
 
 
 def all_gather(x: torch.Tensor, spec: Optional[MeshSpec], axis: str, dim: int = 0) -> torch.Tensor:
@@ -565,89 +611,201 @@ def pad_to_multiple(n: int, m: int) -> int:
 # parameter layouts
 
 
-def param_partition_spec(leaf, spec: MeshSpec,
-                         model_shard_threshold: Optional[int] = None) -> Tuple:
-    """The JAX package's tensor-parallel layout of one leaf in its Flax
-    layout (output dimension last): ``()`` replicated, or the model axis on
-    the last dim of a ≥2-D leaf of at least ``model_shard_threshold``
-    elements whose last dim the model axis divides."""
+_WEIGHT_MODULES = (nn.Linear, nn.Conv1d, nn.Conv2d, nn.Conv3d)
+
+
+def output_dim(module: nn.Module, name: str, leaf) -> int:
+    """The dim of a torch-layout leaf that holds its output features, the
+    one the Flax layout keeps last: dim 0 of a ``Linear`` or conv weight
+    (Flax stores these kernels (in, out) and (*kernel, in, out)), the last
+    dim of every other leaf (a raw parameter such as ``pos_embedding``, an
+    ``Embedding`` table: the two frameworks share their layout)."""
+    return 0 if isinstance(module, _WEIGHT_MODULES) and name == "weight" else np.ndim(leaf) - 1
+
+
+def param_partition_spec(leaf, spec: MeshSpec, model_shard_threshold: Optional[int] = None,
+                         out_dim: int = -1) -> Tuple:
+    """The JAX package's tensor-parallel layout of one leaf: ``()``
+    replicated, or the model axis on the leaf's output dim ``out_dim``
+    (``output_dim``; the default, the last dim, is the Flax layout's) of a
+    ≥2-D leaf of at least ``model_shard_threshold`` elements whose output
+    dim the model axis divides. On a torch leaf with its ``output_dim`` it
+    picks the leaves and dims JAX's rule picks on the Flax leaf."""
     if model_shard_threshold is None:
         model_shard_threshold = spec.model_shard_threshold
     shape = tuple(np.shape(leaf))
-    if (spec.model_size > 1 and len(shape) >= 2 and math.prod(shape) >= model_shard_threshold
-            and shape[-1] % spec.model_size == 0):
-        return (None,) * (len(shape) - 1) + (spec.model_axis,)
-    return ()
+    if spec.model_size == 1 or len(shape) < 2 or math.prod(shape) < model_shard_threshold:
+        return ()
+    d = out_dim % len(shape)
+    if shape[d] % spec.model_size:
+        return ()
+    parts = [None] * len(shape)
+    parts[d] = spec.model_axis
+    return tuple(parts)
 
 
-def zero1_partition_spec(leaf, spec: MeshSpec) -> Tuple:
-    """ZeRO-1 layout of one optimizer-moment leaf, as in the JAX package:
-    the tensor-parallel layout, plus the data axis on the largest dim of
-    the leaf that it divides and that layout leaves free; ``()`` (or the TP
-    layout) for leaves below ``zero1_min_size``, scalars and leaves with no
-    such dim."""
-    base = param_partition_spec(leaf, spec)
+def zero1_partition_spec(leaf, spec: MeshSpec, out_dim: int = -1) -> Tuple:
+    """ZeRO-1 layout of one optimizer-moment leaf (its whole shape), as in
+    the JAX package: the tensor-parallel layout (``param_partition_spec``
+    with the leaf's ``out_dim``), plus the data axis on the largest dim of
+    the leaf that it divides and that layout leaves free; ``()`` (or the
+    TP layout) for leaves below ``zero1_min_size``, scalars and leaves with
+    no such dim."""
+    base = param_partition_spec(leaf, spec, out_dim=out_dim)
     shape = tuple(np.shape(leaf))
-    if (not shape or math.prod(shape) < spec.zero1_min_size or spec.data_size == 1):
+    d = _zero1_dim(shape, spec, base.index(spec.model_axis) if base else None)
+    if d is None:
         return base
     parts = list(base) + [None] * (len(shape) - len(base))
-    free = [d for d in range(len(shape))
-            if parts[d] is None and shape[d] % spec.data_size == 0]
-    if not free:
-        return base
-    d = max(free, key=lambda i: shape[i])
     parts[d] = spec.data_axis
     return tuple(parts)
 
 
-_WEIGHT_MODULES = (nn.Linear, nn.Conv1d, nn.Conv2d, nn.Conv3d)
+def _zero1_dim(shape: Tuple[int, ...], spec: MeshSpec, model_dim: Optional[int]) -> Optional[int]:
+    """The dim of a leaf of whole ``shape`` that ZeRO-1 puts on the data
+    axis (the largest one it divides, other than the model-axis dim
+    ``model_dim``), or None."""
+    if not shape or math.prod(shape) < spec.zero1_min_size or spec.data_size == 1:
+        return None
+    free = [d for d in range(len(shape)) if d != model_dim and shape[d] % spec.data_size == 0]
+    return max(free, key=lambda i: shape[i]) if free else None
 
 
-def tensor_parallel_leaves(spec: MeshSpec, module: nn.Module) -> List[str]:
-    """The trainable parameters of ``module`` that the JAX package's
-    ``param_partition_spec`` would shard over the model axis: ≥2-D, at
-    least ``model_shard_threshold`` elements, output features (dim 0 of a
-    Linear or conv weight, the last dim otherwise) divisible by the model
-    axis."""
-    if spec.model_size == 1:
-        return []
-    out = []
+def tensor_parallel_leaves(spec: MeshSpec, module: nn.Module) -> Dict[str, int]:
+    """The parameters of ``module`` (trainable or frozen) that
+    ``param_partition_spec`` shards over the model axis, each with its dim:
+    the leaves JAX's rule picks. A module already placed answers with the
+    layout it was cut to."""
+    if is_placed(module):
+        return {k: d for k, (_, d) in _tp_keys(module).items()}
+    out: Dict[str, int] = {}
     for mname, mod in module.named_modules():
         for pname, p in mod.named_parameters(recurse=False):
-            if not p.requires_grad or p.ndim < 2 or p.numel() < spec.model_shard_threshold:
-                continue
-            out_dim = p.shape[0] if (isinstance(mod, _WEIGHT_MODULES)
-                                     and pname == "weight") else p.shape[-1]
-            if out_dim % spec.model_size == 0:
-                out.append(f"{mname}.{pname}" if mname else pname)
+            parts = param_partition_spec(p, spec, out_dim=output_dim(mod, pname, p))
+            if parts:
+                out[f"{mname}.{pname}" if mname else pname] = parts.index(spec.model_axis)
     return out
 
 
-def check_tensor_parallel(spec: Optional[MeshSpec], *modules: nn.Module) -> None:
-    """``NotImplementedError`` when the mesh would shard a parameter over the
-    model axis (tensor parallelism is not ported); otherwise the model axis
-    replicates compute, as the JAX package's does below the threshold."""
-    if is_degenerate(spec) or spec.model_size == 1:
-        return
-    leaves = [n for m in modules if m is not None for n in tensor_parallel_leaves(spec, m)]
-    if leaves:
-        raise NotImplementedError(
-            f"tensor parallelism is not ported (ROADMAP §1 item 9): model_parallel="
-            f"{spec.model_size} would shard {len(leaves)} parameter(s) of at least "
-            f"model_shard_threshold={spec.model_shard_threshold} elements, e.g. {leaves[0]!r}; "
-            f"raise mesh.model_shard_threshold above the largest parameter")
+@dataclass
+class TPLayout:
+    """What a placed module holds: the mesh and, per parameter name, the
+    dim along which the parameter is this model rank's slice."""
+
+    spec: MeshSpec
+    dims: Dict[str, int]
+
+
+def tp_layout(module: nn.Module, name: str = "weight") -> Optional[Tuple[MeshSpec, int]]:
+    """(mesh, dim) when ``module``'s parameter ``name`` is a model-axis
+    slice, else None."""
+    layout = module.__dict__.get("_tp_layout")
+    if layout is None or name not in layout.dims:
+        return None
+    return layout.spec, layout.dims[name]
+
+
+def whole_param(module: nn.Module, name: str) -> torch.Tensor:
+    """``module``'s parameter ``name``, gathered over the model axis where
+    it is a slice (differentiable: its backward hands this rank the slice
+    of the gradient); the parameter itself elsewhere. Raw parameters of the
+    models go through this at their use."""
+    p = getattr(module, name)
+    tp = tp_layout(module, name)
+    return p if tp is None else gather_from(p, tp[0], tp[0].model_axis, tp[1])
+
+
+def is_placed(module: nn.Module) -> bool:
+    """Whether ``module`` (or a submodule) holds model-axis slices."""
+    return any("_tp_layout" in m.__dict__ for m in module.modules())
+
+
+def _slice(t: torch.Tensor, spec: MeshSpec, dim: int) -> torch.Tensor:
+    """This model rank's slice of a whole ``t`` along ``dim``."""
+    size = t.shape[dim] // spec.model_size
+    return t.narrow(dim, spec.model_rank * size, size)
+
+
+@torch.no_grad()
+def _cut(spec: MeshSpec, module: nn.Module) -> None:
+    """Cut every leaf the rule lists (``tensor_parallel_leaves``) to this
+    model rank's slice, in place (the ``Parameter`` objects stay, so
+    optimizers keep them), and record the layout on each module that holds
+    one."""
+    layouts: Dict[str, TPLayout] = {}
+    for key, d in tensor_parallel_leaves(spec, module).items():
+        p = module.get_parameter(key)
+        p.data = _slice(p.data, spec, d).clone()
+        mname, _, pname = key.rpartition(".")
+        layouts.setdefault(mname, TPLayout(spec, {})).dims[pname] = d
+    for mname, layout in layouts.items():
+        module.get_submodule(mname)._tp_layout = layout
 
 
 @torch.no_grad()
 def shard_params(spec: Optional[MeshSpec], module: nn.Module) -> nn.Module:
-    """Place ``module``'s parameters and buffers on the mesh: the same on
-    every rank, broadcast from rank 0 (pure data parallelism; a mesh that
-    would shard a parameter raises, see ``check_tensor_parallel``)."""
-    if is_degenerate(spec):
+    """Place ``module`` on the mesh, in place: its parameters and buffers
+    broadcast from rank 0, then every parameter ``param_partition_spec``
+    lists (``tensor_parallel_leaves``) cut to this model rank's slice along
+    its output dim; the ``Linear`` and conv layers then compute column-
+    parallel (``models/layers.py``). A module already placed is left as it
+    is. ``full_state_dict`` reads the whole leaves back."""
+    if is_degenerate(spec) or is_placed(module):
         return module
-    check_tensor_parallel(spec, module)
     broadcast_module(module, dist.group.WORLD)
+    if spec.model_size > 1:
+        _cut(spec, module)
     return module
+
+
+def placed_copy(spec: Optional[MeshSpec], module: nn.Module) -> nn.Module:
+    """A copy of ``module`` placed on the mesh (``shard_params``): serving
+    entry points cut the copy, so the caller's module stays whole. On a
+    1×1 mesh, or where nothing would be cut, the module itself (made the
+    same on every rank)."""
+    if is_degenerate(spec) or is_placed(module) or not tensor_parallel_leaves(spec, module):
+        return shard_params(spec, module)
+    return shard_params(spec, copy.deepcopy(module))
+
+
+def _tp_keys(module: nn.Module) -> Dict[str, Tuple[MeshSpec, int]]:
+    """``state_dict`` key → (mesh, dim) of every model-axis slice."""
+    out = {}
+    for mname, mod in module.named_modules():
+        layout = mod.__dict__.get("_tp_layout")
+        if layout is not None:
+            prefix = f"{mname}." if mname else ""
+            out.update({prefix + n: (layout.spec, d) for n, d in layout.dims.items()})
+    return out
+
+
+def full_state_dict(spec: Optional[MeshSpec], module: nn.Module) -> Dict[str, torch.Tensor]:
+    """``module``'s state dict in the one-process layout: each model-axis
+    slice all-gathered into its whole leaf (a collective: every rank calls
+    it), the rest as ``state_dict()`` gives it. ``spec`` is the mesh the
+    module was placed on (None: the one its layout records).
+    ``module.state_dict()`` itself keeps the slices, so a caller that
+    misses this fails on shape."""
+    sd = module.state_dict()
+    for key, (placed, d) in _tp_keys(module).items():
+        mesh = spec or placed
+        sd[key] = _all_gather(sd[key].detach(), mesh.group(mesh.model_axis), d)
+    return sd
+
+
+def load_full_state_dict(spec: Optional[MeshSpec], module: nn.Module,
+                         sd: Dict[str, torch.Tensor], strict: bool = True):
+    """``module.load_state_dict`` of a state dict in the one-process layout
+    (a checkpoint of one process, a bridged Flax tree): each leaf the
+    module holds as a model-axis slice is cut to this rank's slice first.
+    ``spec`` as in ``full_state_dict``."""
+    keys = _tp_keys(module)
+    if keys:
+        sd = dict(sd)
+        for key, (placed, d) in keys.items():
+            if key in sd:
+                sd[key] = _slice(torch.as_tensor(sd[key]), spec or placed, d)
+    return module.load_state_dict(sd, strict=strict)
 
 
 def _bucketed(tensors: Sequence[torch.Tensor], collective: Callable) -> None:
@@ -683,26 +841,38 @@ def _state_fields(state) -> Tuple[List[Tuple[str, nn.Module]], List[Tuple[str, A
     return mods, opts
 
 
-def replicate_state(spec: Optional[MeshSpec], state):
-    """Every module of a train state (a dataclass of modules, optimizers and
-    counters) the same on every rank, and each optimizer wrapped to average
-    its gradients over ``data`` (``DataParallelOptimizer``)."""
-    if is_degenerate(spec):
-        return state
+def _slice_dims(modules: Sequence[nn.Module]) -> Dict[int, int]:
+    """id(parameter) → its model-axis dim, for every slice that the placed
+    ``modules`` hold."""
+    return {id(m.get_parameter(k)): d for m in modules for k, (_, d) in _tp_keys(m).items()}
+
+
+def _place_state(spec: MeshSpec, state, zero1: bool):
     mods, opts = _state_fields(state)
-    check_tensor_parallel(spec, *(m for _, m in mods))
     for _, m in mods:
-        broadcast_module(m, dist.group.WORLD)
+        shard_params(spec, m)
     for name, opt in opts:
         if not isinstance(opt, DataParallelOptimizer):
-            setattr(state, name, DataParallelOptimizer(opt, spec, zero1=False))
+            setattr(state, name, DataParallelOptimizer(opt, spec, zero1, [m for _, m in mods]))
     return state
 
 
-def shard_opt_state(spec: MeshSpec, optimizer: torch.optim.Optimizer) -> "DataParallelOptimizer":
+def replicate_state(spec: Optional[MeshSpec], state):
+    """Every module of a train state (a dataclass of modules, optimizers and
+    counters) placed by ``shard_params`` (the same on every rank, the
+    leaves the tensor-parallel rule lists cut to this model rank's slice:
+    params, the EMA and frozen experts alike), and each optimizer wrapped to
+    average its gradients over ``data`` (``DataParallelOptimizer``), its
+    Adam moments following their params' slices."""
+    return state if is_degenerate(spec) else _place_state(spec, state, zero1=False)
+
+
+def shard_opt_state(spec: MeshSpec, optimizer: torch.optim.Optimizer,
+                    modules: Sequence[nn.Module] = ()) -> "DataParallelOptimizer":
     """``optimizer`` with its moments sharded over ``data`` per the ZeRO-1
-    policy (``zero1_partition_spec``) and its gradients averaged there."""
-    return DataParallelOptimizer(optimizer, spec, zero1=True)
+    policy (``zero1_partition_spec``) and its gradients averaged there;
+    ``modules``: the placed modules that hold its params."""
+    return DataParallelOptimizer(optimizer, spec, zero1=True, modules=modules)
 
 
 def shard_state(spec: Optional[MeshSpec], state):
@@ -710,53 +880,69 @@ def shard_state(spec: Optional[MeshSpec], state):
     ``data`` when the mesh says ``zero1`` (``zero1_partition_spec``)."""
     if is_degenerate(spec):
         return state
-    state = replicate_state(spec, state)
-    if spec.zero1 and spec.data_size > 1:
-        for name, opt in _state_fields(state)[1]:
-            setattr(state, name, shard_opt_state(spec, opt.optimizer))
-    return state
+    return _place_state(spec, state, zero1=spec.zero1 and spec.data_size > 1)
 
 
 class DataParallelOptimizer:
     """An optimizer that averages its parameters' gradients over the data
     axis before each update, so every rank applies the global batch's mean
-    gradient and the params stay the same on every rank.
+    gradient and the params stay the same on every rank of a model slice.
+
+    Tensor parallelism (``modules``: the placed modules that hold the
+    params; their slices are read from them once): a slice's gradient is
+    local to its model rank and a replicated param's is the same on every
+    model rank (a column-parallel layer's backward sums the input gradient
+    over ``model``, ``column_input``), so the reduction stays over
+    ``data``; each slice's Adam moments are slices too.
 
     With ``zero1`` each parameter whose ``zero1_partition_spec`` names the
-    data axis is updated through a slice along that dim: the wrapped
-    optimizer holds this rank's slice and its moments only, and after the
-    update the slices are all-gathered into the parameter; moments the
-    optimizer already holds (a run resumed into the plain optimizer before
-    it was wrapped, as the trainers do) are sliced the same way. ``state_dict``
-    (a collective: every rank calls it) gathers the moments into the
-    layout the plain optimizer has; ``load_state_dict`` takes that layout.
-    ``param_groups`` are the wrapped optimizer's (trainers set their rate
-    there)."""
+    data axis is updated through a slice along that dim (the largest one
+    of its whole shape that the data axis divides, other than a model-axis
+    slice's dim, as JAX's rule picks it): the wrapped optimizer holds this rank's slice and
+    its moments only, and after the update the slices are all-gathered into
+    the parameter. Moments the optimizer already holds (a run resumed into
+    the plain optimizer before it was wrapped, as the trainers do) are cut
+    the same way. ``state_dict`` (a collective: every rank calls it)
+    gathers the moments over ``data`` and ``model`` into the layout the
+    plain optimizer of one process has; ``load_state_dict`` takes that
+    layout. ``param_groups`` are the wrapped optimizer's (trainers set
+    their rate there)."""
 
-    def __init__(self, optimizer: torch.optim.Optimizer, spec: MeshSpec, zero1: bool = False):
+    def __init__(self, optimizer: torch.optim.Optimizer, spec: MeshSpec, zero1: bool = False,
+                 modules: Sequence[nn.Module] = ()):
         self.optimizer = optimizer
         self.spec = spec
         self.axis = spec.data_axis
         self.group = spec.group(self.axis)
         self.size = spec.size(self.axis)
+        self.tp = _slice_dims(modules)
         self.params: List[torch.Tensor] = [p for g in optimizer.param_groups for p in g["params"]]
         self.shards: List[Tuple[torch.Tensor, int, torch.Tensor]] = []
+        # moments already there (a resumed run): whole, or cut to the model
+        # slice by an earlier wrap; made local below
+        restored = optimizer.state_dict() if optimizer.state else None
+        if restored is not None:
+            restored = self._map_state(restored, self._tp_local)
         if zero1 and self.size > 1:
-            # moments already there (a resumed run) are sliced like the params
-            restored = optimizer.state_dict() if optimizer.state else None
             r = spec.rank(self.axis)
             for g in optimizer.param_groups:
                 for i, p in enumerate(g["params"]):
-                    layout = zero1_partition_spec(p, spec)
-                    if self.axis not in layout:
+                    d = _zero1_dim(self._whole_shape(p), spec, self.tp.get(id(p)))
+                    if d is None:
                         continue
-                    d = layout.index(self.axis)
                     size = p.shape[d] // self.size
                     shard = nn.Parameter(p.detach().narrow(d, r * size, size).clone())
                     g["params"][i] = shard
                     self.shards.append((p, d, shard))
-            if restored is not None:
-                self.load_state_dict(restored)
+        if restored is not None:
+            optimizer.load_state_dict(self._map_state(restored, self._zero1_local))
+
+    def _whole_shape(self, p: torch.Tensor) -> Tuple[int, ...]:
+        """``p``'s whole shape (a model-axis slice widened)."""
+        shape = list(p.shape)
+        if id(p) in self.tp:
+            shape[self.tp[id(p)]] *= self.spec.model_size
+        return tuple(shape)
 
     @property
     def param_groups(self):
@@ -792,52 +978,67 @@ class DataParallelOptimizer:
             if p.grad is not None:
                 p.copy_(_all_gather(shard.detach(), self.group, d))
 
-    def _shard_index(self) -> Dict[int, Tuple[int, torch.Tensor, int]]:
-        """Position of each sharded param in the state dict's numbering →
-        (dim, param)."""
-        by_id = {id(shard): (d, p) for p, d, shard in self.shards}
+    def _positions(self) -> Dict[int, Tuple[torch.Tensor, Optional[int]]]:
+        """Position of each param in the state dict's numbering → (the
+        parameter, its ZeRO-1 dim or None)."""
+        by_id = {id(shard): (p, d) for p, d, shard in self.shards}
         out, i = {}, 0
         for g in self.optimizer.param_groups:
             for q in g["params"]:
-                if id(q) in by_id:
-                    out[i] = by_id[id(q)]
+                out[i] = by_id.get(id(q), (q, None))
                 i += 1
         return out
 
-    def state_dict(self) -> Dict[str, Any]:
-        sd = self.optimizer.state_dict()
-        if not self.shards:
-            return sd
-        index = self._shard_index()
+    def _map_state(self, sd: Dict[str, Any], fn: Callable) -> Dict[str, Any]:
+        """``sd`` with each moment ``v`` (a tensor shaped like its param)
+        replaced by ``fn(v, param, zero1_dim)``."""
+        pos = self._positions()
         state = {}
         for i, s in sd["state"].items():
-            if i in index:
-                d, p = index[i]
-                s = {k: (_all_gather(v, self.group, d)
-                         if isinstance(v, torch.Tensor) and v.ndim == p.ndim else v)
-                     for k, v in s.items()}
-            state[i] = s
+            p, d = pos[int(i)]
+            state[i] = {k: (fn(v, p, d) if isinstance(v, torch.Tensor) and v.ndim == p.ndim
+                            and v.ndim > 0 else v) for k, v in s.items()}
         return {**sd, "state": state}
 
+    def _tp_local(self, v, p, d):
+        """A whole moment → this model rank's slice (one already cut stays)."""
+        t = self.tp.get(id(p))
+        if t is None or v.shape[t] == p.shape[t]:
+            return v
+        return _slice(v, self.spec, t).clone()
+
+    def _zero1_local(self, v, p, d):
+        """A model-local moment → this data rank's ZeRO-1 slice."""
+        if d is None:
+            return v
+        size = p.shape[d] // self.size
+        return v.narrow(d, self.spec.rank(self.axis) * size, size).clone()
+
+    def _whole(self, v, p, d):
+        """This rank's moment → the whole leaf (gathered over data, then model)."""
+        if d is not None:
+            v = _all_gather(v, self.group, d)
+        t = self.tp.get(id(p))
+        if t is not None:
+            v = _all_gather(v, self.spec.group(self.spec.model_axis), t)
+        return v
+
+    def state_dict(self) -> Dict[str, Any]:
+        sd = self.optimizer.state_dict()
+        if not (self.shards or self.tp):
+            return sd
+        return self._map_state(sd, self._whole)
+
     def load_state_dict(self, sd: Dict[str, Any]) -> None:
-        if self.shards:
-            index = self._shard_index()
-            r = self.spec.rank(self.axis)
-            state = {}
-            for i, s in sd["state"].items():
-                i = int(i)
-                if i in index:
-                    d, p = index[i]
-                    size = p.shape[d] // self.size
-                    s = {k: (v.narrow(d, r * size, size).clone()
-                             if isinstance(v, torch.Tensor) and v.ndim == p.ndim else v)
-                         for k, v in s.items()}
-                state[i] = s
-            sd = {**sd, "state": state}
+        if self.shards or self.tp:
+            sd = self._map_state(self._map_state(sd, self._tp_local), self._zero1_local)
         self.optimizer.load_state_dict(sd)
 
 
 def activation_constraint(x, *parts):
-    """Identity: the JAX package's tensor-parallel activation hints have no
-    counterpart until tensor parallelism is ported."""
+    """Identity. In the JAX package it pins an activation's layout over the
+    mesh so that GSPMD partitions the matmuls around it; the port's
+    tensor-parallel layers (``models/layers.py``) say their collectives
+    themselves and hand back whole activations on every model rank, so
+    there is nothing left to pin."""
     return x

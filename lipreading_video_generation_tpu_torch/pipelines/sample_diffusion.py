@@ -228,8 +228,9 @@ def sample(model: UNetAudio, cond_frame_uint8, audio_wave, cfg: DiffusionConfig,
 
 def _sample_sharded(model: UNetAudio, cond_frame_uint8, audio_wave, cfg: DiffusionConfig,
                     spec, class_label, noise, step_noise, **kw) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``sample`` data-parallel over ``spec`` (see the module's docstring)."""
-    pmesh.shard_params(spec, model)
+    """``sample`` data-parallel over ``spec`` (see the module's docstring),
+    on a placed copy of ``model`` where the model axis shards leaves."""
+    model = pmesh.placed_copy(spec, model)
     b = len(cond_frame_uint8)
     rows = pmesh.padded_rows(spec, b)
     n = rows.count * spec.data_size

@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core.checkpoint import atomic_save
 from ..core.config import ClassifierConfig, DiffusionConfig
 from ..core.device import resolve_device
 from ..core.prng import seeded
@@ -115,7 +116,9 @@ def train(ccfg: ClassifierConfig, dcfg: DiffusionConfig,
 
 
 def save_classifier(path: str, state: ClassifierTrainState) -> None:
-    torch.save({"classifier": state.model.state_dict()}, path)
+    """``{"classifier": state_dict}`` at ``path``, written once (by the
+    primary rank under a process group)."""
+    atomic_save(path, {"classifier": state.model.state_dict()})
 
 
 def load_classifier_params(path: str) -> Dict[str, torch.Tensor]:

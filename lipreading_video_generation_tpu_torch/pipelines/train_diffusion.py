@@ -117,7 +117,8 @@ def create_state(cfg: DiffusionConfig, seed: int = 0, device=None, ema_rate: flo
 
 @torch.no_grad()
 def update_ema(ema: nn.Module, model: nn.Module, rate: float) -> None:
-    """ema ← rate·ema + (1−rate)·params, in place."""
+    """ema ← rate·ema + (1−rate)·params, in place (on a mesh, each
+    tensor-parallel slice of the EMA with the same slice of the params)."""
     e = list(ema.parameters())
     torch._foreach_mul_(e, rate)
     torch._foreach_add_(e, [p.detach() for p in model.parameters()], alpha=1.0 - rate)
@@ -200,15 +201,20 @@ def eval_step(state: DiffusionTrainState, batch: Dict[str, Any], cfg: DiffusionC
 
 def checkpoint_tree(state: DiffusionTrainState) -> Dict[str, Any]:
     """Everything resume needs: params, EMA, Adam moments, step and the
-    generator's state."""
-    return {"params": state.model.state_dict(), "ema_params": state.ema.state_dict(),
+    generator's state, in the one-process layout: a state placed on a mesh
+    gathers its tensor-parallel and ZeRO-1 slices (collectives: every rank
+    builds the tree)."""
+    return {"params": pmesh.full_state_dict(None, state.model),
+            "ema_params": pmesh.full_state_dict(None, state.ema),
             "opt_state": state.optimizer.state_dict(), "step": state.step,
             "generator": state.generator.get_state()}
 
 
 def restore_state(state: DiffusionTrainState, restored: Dict[str, Any]) -> DiffusionTrainState:
-    state.model.load_state_dict(restored["params"])
-    state.ema.load_state_dict(restored["ema_params"])
+    """``checkpoint_tree``'s tree (one-process layout) into ``state``,
+    placed on a mesh or not."""
+    pmesh.load_full_state_dict(None, state.model, restored["params"])
+    pmesh.load_full_state_dict(None, state.ema, restored["ema_params"])
     state.optimizer.load_state_dict(restored["opt_state"])
     state.step = int(restored["step"])
     state.generator.set_state(restored["generator"])

@@ -266,15 +266,18 @@ def maybe_open_sync_gate(state: GanTrainState, eval_sync_loss: float,
 
 def checkpoint_tree(state: GanTrainState) -> Dict[str, Any]:
     """What resume needs: both networks, both Adam states, the gate and the
-    step."""
-    return {"gen": state.gen.state_dict(), "disc": state.disc.state_dict(),
+    step, in the one-process layout (a state placed on a mesh gathers its
+    slices: every rank builds the tree)."""
+    return {"gen": pmesh.full_state_dict(None, state.gen),
+            "disc": pmesh.full_state_dict(None, state.disc),
             "gen_opt": state.gen_opt.state_dict(), "disc_opt": state.disc_opt.state_dict(),
             "syncnet_wt": float(state.syncnet_wt), "step": int(state.step)}
 
 
 def restore_state(state: GanTrainState, restored: Dict[str, Any]) -> GanTrainState:
-    state.gen.load_state_dict(restored["gen"])
-    state.disc.load_state_dict(restored["disc"])
+    """``checkpoint_tree``'s tree into ``state``, placed on a mesh or not."""
+    pmesh.load_full_state_dict(None, state.gen, restored["gen"])
+    pmesh.load_full_state_dict(None, state.disc, restored["disc"])
     state.gen_opt.load_state_dict(restored["gen_opt"])
     state.disc_opt.load_state_dict(restored["disc_opt"])
     state.syncnet_wt = float(restored["syncnet_wt"])

@@ -189,13 +189,15 @@ def predict_sharded(model: ViViT, clips_uint8, mesh_spec=None, int8: bool = Fals
     ``build_mesh()``; on a 1×1 mesh it is ``predict_step``): the params are
     made the same on every rank (``shard_params``), the clips padded to a
     data multiple, each data rank predicts its rows, and the log-probs are
-    gathered on every rank and the padding cut off."""
+    gathered on every rank and the padding cut off. Where the mesh's model
+    axis shards leaves (tensor parallelism), a placed copy serves
+    (``placed_copy``): the caller's model stays whole."""
     spec = mesh_spec or pmesh.build_mesh()
     device = next(model.parameters()).device
     clips = torch.as_tensor(clips_uint8)
     if pmesh.is_degenerate(spec):
         return (predict_step_int8 if int8 else predict_step)(model, clips.to(device))
-    pmesh.shard_params(spec, model)
+    model = pmesh.placed_copy(spec, model)
     n = clips.shape[0]
     rows = pmesh.padded_rows(spec, n)
     padded = torch.cat([clips, clips[-1:].expand((rows.count * spec.data_size - n,)
@@ -344,10 +346,10 @@ def train(cfg: Config, train_batches_fn, eval_batches_fn=None,
             stats = evaluate(state, eval_batches_fn(), **eval_kw)
             if stats["accuracy"] > best["accuracy"]:
                 best = stats
-                best_params = {k: v.detach().clone()
-                               for k, v in state.model.state_dict().items()}
+                best_params = {k: v.detach().clone() for k, v in
+                               pmesh.full_state_dict(None, state.model).items()}
     if best_params is not None:
-        state.model.load_state_dict(best_params)
+        pmesh.load_full_state_dict(None, state.model, best_params)
     if pp:
         state = pp_to_canonical(state, cfg.vivit, spec)
     return state, best

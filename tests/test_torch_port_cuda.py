@@ -1310,6 +1310,33 @@ def test_two_gloo_ranks_diffusion_step_on_one_card(cuda, tmp_path):
     assert np.isfinite(plain[0]["losses"]).all()
 
 
+def test_two_gloo_ranks_tensor_parallel_int8_frames_on_one_card(cuda, tmp_path):
+    """Two gloo ranks sharing the card as two model ranks (tensor
+    parallelism at the default threshold: the generator's two 512x1024x3x3
+    decoder convs column-parallel): int8 ``generate_frames`` at width 1.0
+    gives one process's frames, 0 levels apart (K6 is exact in integers
+    and its scales are per output channel)."""
+    import torch_parallel_tasks as tasks
+    from torch_parallel_tasks import LocalGroup
+
+    from lipreading_video_generation_tpu_torch.core.prng import seeded
+    from lipreading_video_generation_tpu_torch.models.generator import TalkingFaceGenerator
+
+    params = {k: v.numpy() for k, v in seeded(lambda: TalkingFaceGenerator(width=1.0),
+                                                0).state_dict().items()}
+    rng = np.random.default_rng(11)
+    frames = rng.integers(0, 256, (6, 120, 160, 3), dtype=np.uint8)
+    boxes = np.tile(np.asarray([10.0, 106.0, 30.0, 126.0], np.float32), (6, 1))
+    mels = rng.standard_normal((6, 80, 16)).astype(np.float32)
+    args = (params, frames, boxes, mels, 1.0, {"serve_int8": True}, 4)
+    want = tasks.generate_frames_dp(*args, None, "cuda:0")
+    with LocalGroup(2, str(tmp_path / "store"), device="cuda:0", backend="gloo") as group:
+        got = group.run(tasks.generate_frames_dp, *args, {"model_parallel": 2}, "cuda:0")
+    assert got[0].shape == want.shape == frames.shape
+    np.testing.assert_array_equal(got[0], want)
+    np.testing.assert_array_equal(got[1], want)
+
+
 def test_initialize_refuses_a_local_rank_without_a_card(cuda, monkeypatch):
     from lipreading_video_generation_tpu_torch.parallel import distributed
 

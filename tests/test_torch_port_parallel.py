@@ -328,13 +328,28 @@ def test_dp_gan_step_matches_jax_mesh(group, gan_setup):
 
 
 def test_tensor_parallel_leaf_raises_citing_the_roadmap(group):
-    """A model axis on which a parameter would be tensor-parallel (the MLP's
-    1024×256 kernel at a threshold of 2^18) is refused; below it the model
-    axis replicates compute."""
-    out = group.run(tasks.tensor_parallel_refusal, 2**18)
-    assert all("ROADMAP §1 item 9" in o["error"] for o in out)
-    assert "blocks.0.mlp.fc1.weight" in out[0]["leaves"]
-    assert [o["error"] for o in group.run(tasks.tensor_parallel_refusal, 2**22)] == [None] * 2
+    """(The name is from when tensor parallelism was refused here; it now
+    holds the parity the refusal stood for.) A model axis on which the
+    MLP's 1024×256 kernels reach the threshold (2^18) cuts them to a half
+    each, as JAX's rule does, and a ViViT train step on the two ranks
+    equals one process's: the same loss, the params by the Adam rule, the
+    same on both ranks. At 2^22 nothing is cut."""
+    rng = np.random.default_rng(12)
+    batch = {"clips": rng.integers(0, 256, (4, 5, 32, 32, 1), dtype=np.uint8),
+             "labels": rng.integers(0, 4, (4,))}
+    out = group.run(tasks.tensor_parallel_refusal, 2**18, batch)
+    one = tasks.tensor_parallel_refusal(2**18, batch, mesh=False)
+    assert out[0]["leaves"] == out[1]["leaves"] == {"blocks.0.mlp.fc1.weight": 0,
+                                                    "blocks.0.mlp.fc2.weight": 0}
+    assert out[0]["shapes"]["blocks.0.mlp.fc1.weight"] == (512, 256)
+    assert out[0]["shapes"]["blocks.0.mlp.fc1.bias"] == (1024,)
+    np.testing.assert_allclose([o["loss"] for o in out], one["loss"], rtol=1e-6)
+    _adam_rule(out[0]["params"], {k: v.numpy() for k, v in one["params"].items()}, 1e-4)
+    for k in out[0]["params"]:
+        assert np.array_equal(out[0]["params"][k], out[1]["params"][k]), k
+    below = group.run(tasks.tensor_parallel_refusal, 2**22)
+    assert [o["leaves"] for o in below] == [{}, {}]
+    assert below[0]["shapes"] == one["shapes"]
 
 
 def test_train_loop_writes_once_and_ranks_agree(group, tmp_path):

@@ -210,15 +210,79 @@ def collectives():
 # data-parallel training
 
 
+def whole_grads(spec, model):
+    """Each parameter's gradient in the one-process layout: the model-axis
+    slices of a tensor-parallel model gathered."""
+    leaves = {} if spec is None else pmesh.tensor_parallel_leaves(spec, model)
+    out = {}
+    for n, p in model.named_parameters():
+        g = p.grad
+        if g is not None and n in leaves:
+            g = pmesh.all_gather(g, spec, spec.model_axis, leaves[n])
+        out[n] = None if g is None else g.clone()
+    return out
+
+
+def held_bytes(modules, optimizers, spec=None):
+    """Bytes of the params of ``modules`` and of the Adam moments of
+    ``optimizers`` that this rank holds; with ``spec``, the mesh the modules
+    were placed on, what one process holds of the same state instead (each
+    model-axis slice, and a ZeRO-1 moment's slice, at its whole size)."""
+    size = {}
+    for m in modules:
+        leaves = {} if spec is None else pmesh.tensor_parallel_leaves(spec, m)
+        for n, p in m.named_parameters():
+            size[id(p)] = p.numel() * p.element_size() * (
+                spec.model_size if n in leaves else 1)
+    total = sum(size.values())
+    for opt in optimizers:
+        inner = getattr(opt, "optimizer", opt)
+        whole = {id(s): id(p) for p, _, s in getattr(opt, "shards", [])}
+        for q, st in inner.state.items():
+            for k, v in st.items():
+                if k in ("exp_avg", "exp_avg_sq"):
+                    total += (v.numel() * v.element_size() if spec is None
+                              else size[whole.get(id(q), id(q))])
+    return total
+
+
+def _plant(state_opt, model, spec, fault, fault_leaf):
+    """Scale, on world rank 1, the gradient of ``fault_leaf`` (a name or a
+    list of names; every gradient when None) by ``fault`` before the
+    reduction."""
+    import torch.distributed as dist
+
+    if fault is None or dist.get_rank() != 1:
+        return
+    opt, reduce = state_opt, state_opt.reduce_gradients
+    named = dict(model.named_parameters())
+    names = [fault_leaf] if isinstance(fault_leaf, str) else fault_leaf
+    targets = None if names is None else {id(named[n]) for n in names}
+
+    def faulty():
+        for p in opt.params:
+            if p.grad is not None and (targets is None or id(p) in targets):
+                p.grad.mul_(fault)
+        reduce()
+
+    opt.reduce_gradients = faulty
+
+
 def diffusion_dp(cfg_kw, params, batches, draws, mesh_kw, ckpt_dir=None, device="cpu",
-                 seed=0, fault=None):
+                 seed=0, fault=None, fault_leaf=None):
     """Steps of the diffusion trainer on this rank's rows, from ``params``
     (None: ``create_state``'s from ``seed``), with t and noise given for the
     global batch (``draws``; None: drawn from the state's generator). The
-    reduced gradients of the first step, the losses and step times, the
-    params and EMA after the last step, and the optimizer's per-param moment
-    shapes. ``mesh_kw`` None: one process, no mesh. ``fault``: data rank 1
-    scales its gradient by it before the reduction (a planted fault)."""
+    reduced gradients of the first step (and of the last, ``last_grads``,
+    where there are two or more), the losses and step times, the
+    params and EMA after the last step (all three whole, in the one-process
+    layout; ``local``: this rank's params as it holds them), the optimizer's
+    per-param moment shapes, the tensor-parallel leaves and the bytes of
+    params, EMA and moments this rank holds (``bytes_one``: one process's,
+    counted from the same state). ``mesh_kw`` None: one process,
+    no mesh. ``fault``: world rank 1 scales its gradient of ``fault_leaf``
+    (a name or names; all of them when None) by it before the reduction (a
+    planted fault)."""
     from lipreading_video_generation_tpu_torch.pipelines import train_diffusion as ttd
 
     on_card = torch.device(device).type == "cuda"
@@ -231,30 +295,28 @@ def diffusion_dp(cfg_kw, params, batches, draws, mesh_kw, ckpt_dir=None, device=
         state.model.load_state_dict(_sd(params))
         state.ema.load_state_dict(_sd(params))
     state = pmesh.shard_state(spec, state)
-    if fault is not None and spec.data_rank == 1:
-        opt, reduce = state.optimizer, state.optimizer.reduce_gradients
-
-        def faulty():
-            for p in opt.params:
-                if p.grad is not None:
-                    p.grad.mul_(fault)
-            reduce()
-
-        opt.reduce_gradients = faulty
+    _plant(state.optimizer, state.model, spec, fault, fault_leaf)
     pmesh.transport_stats.reset()      # the steps' transport, not the params' broadcast
-    out = {"losses": [], "step_ms": []}
+    out = {"losses": [], "step_ms": [], "step_transport_s": 0.0}
     for i, batch in enumerate(batches):
         t, noise = draws[i] if draws is not None else (None, None)
         if on_card:
             torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        t0, moved = time.perf_counter(), pmesh.transport_stats.seconds
         m = pmesh.run_sharded(spec, ttd.train_step, state, batch, cfg, t, noise)
         out["losses"].append(float(m["loss"]))
         out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["step_transport_s"] += pmesh.transport_stats.seconds - moved
         if i == 0:
-            out["grads"] = {n: p.grad.clone() for n, p in state.model.named_parameters()}
-    out["params"] = state.model.state_dict()
-    out["ema"] = state.ema.state_dict()
+            out["grads"] = whole_grads(spec, state.model)
+        elif i == len(batches) - 1:
+            out["last_grads"] = whole_grads(spec, state.model)
+    out["params"] = pmesh.full_state_dict(spec, state.model)
+    out["ema"] = pmesh.full_state_dict(spec, state.ema)
+    out["local"] = state.model.state_dict()
+    out["tp"] = {} if spec is None else pmesh.tensor_parallel_leaves(spec, state.model)
+    out["bytes"] = held_bytes([state.model, state.ema], [state.optimizer])
+    out["bytes_one"] = held_bytes([state.model, state.ema], [state.optimizer], spec)
     opt = state.optimizer
     inner = getattr(opt, "optimizer", opt)
     names = {id(p): n for n, p in state.model.named_parameters()}
@@ -275,7 +337,10 @@ def diffusion_dp(cfg_kw, params, batches, draws, mesh_kw, ckpt_dir=None, device=
 
 def gan_dp(cfg_kw, params, prep, mesh_kw, steps=1):
     """G+D steps of the GAN trainer on this rank's rows of an already
-    prepared batch (``prepare_batch`` passes it through)."""
+    prepared batch (``prepare_batch`` passes it through): the metrics, both
+    networks' params after the steps and their gradients of the last step
+    (whole, in the one-process layout), the tensor-parallel leaves of each
+    network and SyncNet, and each rank's own slices (``local``)."""
     from lipreading_video_generation_tpu_torch.models import convert
     from lipreading_video_generation_tpu_torch.pipelines import train_gan as ttg
 
@@ -283,7 +348,7 @@ def gan_dp(cfg_kw, params, prep, mesh_kw, steps=1):
     ttg.prepare_batch = lambda b, cfg, audio_cfg, device: {
         k: torch.from_numpy(np.array(v)) for k, v in b.items()}
     cfg = tcfg.GanConfig(**cfg_kw)
-    spec = _mesh(mesh_kw)
+    spec = None if mesh_kw is None else _mesh(mesh_kw)
     state = ttg.create_state(cfg, syncnet_params=convert.syncnet_state_dict_from_flax(
         params["sync"]), device="cpu")
     state.gen.load_state_dict(convert.generator_state_dict_from_flax(params["gen"]))
@@ -291,23 +356,34 @@ def gan_dp(cfg_kw, params, prep, mesh_kw, steps=1):
     state = pmesh.shard_state(spec, state)
     metrics = [pmesh.run_sharded(spec, ttg.train_step, state, prep, cfg)
                for _ in range(steps)]
-    return {"metrics": metrics, "gen": state.gen.state_dict(),
-            "disc": state.disc.state_dict()}
+    nets = {"gen": state.gen, "disc": state.disc, "sync": state.syncnet}
+    return {"metrics": metrics,
+            "gen": pmesh.full_state_dict(spec, state.gen),
+            "disc": pmesh.full_state_dict(spec, state.disc),
+            "grads": {k: whole_grads(spec, nets[k]) for k in ("gen", "disc")},
+            "tp": {k: ({} if spec is None else pmesh.tensor_parallel_leaves(spec, m))
+                   for k, m in nets.items()},
+            "local": {k: nets[k].state_dict() for k in ("gen", "disc")}}
 
 
-def tensor_parallel_refusal(threshold):
+def tensor_parallel_refusal(threshold, batch=None, mesh=True):
     """A model_parallel=2 mesh over a ViViT whose 256×1024 MLP kernels reach
-    the threshold."""
+    the threshold (``mesh`` False: one process, no mesh): the leaves it
+    shards, the shapes each rank holds and, given a ``batch``, one train
+    step's loss and the params after it (whole)."""
     from lipreading_video_generation_tpu_torch.pipelines import train_vivit as ttv
 
-    spec = _mesh({"model_parallel": 2, "model_shard_threshold": threshold})
+    _threads()
+    spec = _mesh({"model_parallel": 2, "model_shard_threshold": threshold}) if mesh else None
     state = ttv.create_state(tcfg.ViViTConfig(num_layers=1, num_classes=4, dtype="float32"),
                              device="cpu")
-    try:
-        pmesh.shard_state(spec, state)
-    except NotImplementedError as e:
-        return {"error": str(e), "leaves": pmesh.tensor_parallel_leaves(spec, state.model)}
-    return {"error": None, "leaves": []}
+    state = pmesh.shard_state(spec, state)
+    out = {"leaves": {} if spec is None else pmesh.tensor_parallel_leaves(spec, state.model),
+           "shapes": {k: tuple(v.shape) for k, v in state.model.state_dict().items()}}
+    if batch is not None:
+        out["loss"] = float(pmesh.run_sharded(spec, ttv.train_step, state, batch)["loss"])
+        out["params"] = pmesh.full_state_dict(spec, state.model)
+    return out
 
 
 def diffusion_train_loop(cfg_kw, batches, ckpt_dir, mesh_kw, num_steps=None,
@@ -321,10 +397,11 @@ def diffusion_train_loop(cfg_kw, batches, ckpt_dir, mesh_kw, num_steps=None,
     _threads()
     cfg = tcfg.DiffusionConfig(**cfg_kw)
     feed = iter(batches)
+    spec = _mesh(mesh_kw)
     state = ttd.train(cfg, lambda: next(feed, None), num_steps=num_steps or len(batches),
                       checkpoint_dir=ckpt_dir, checkpoint_every=checkpoint_every or len(batches),
-                      mesh_spec=_mesh(mesh_kw), device="cpu")
-    return {"step": state.step, "params": state.model.state_dict(),
+                      mesh_spec=spec, device="cpu")
+    return {"step": state.step, "params": pmesh.full_state_dict(spec, state.model),
             "files": sorted(os.listdir(ckpt_dir))}
 
 
@@ -345,15 +422,17 @@ def sample_video_dp(cfg_kw, params, cond, audio, seed, steps, mesh_kw):
                             mesh_spec=spec, generator=torch.Generator().manual_seed(seed))
 
 
-def generate_frames_dp(gen_params, frames, boxes, mels, width, gan_kw, batch, mesh_kw):
+def generate_frames_dp(gen_params, frames, boxes, mels, width, gan_kw, batch, mesh_kw,
+                       device="cpu"):
     from lipreading_video_generation_tpu_torch.pipelines import inference as tinf
 
-    _threads()
+    if torch.device(device).type != "cuda":
+        _threads()
     spec = None if mesh_kw is None else _mesh(mesh_kw)
     return tinf.generate_frames(_sd(gen_params), frames, boxes, mels,
                                 tcfg.GanConfig(model_width=width, dtype="float32", **gan_kw),
                                 tcfg.PreprocessConfig(gen_batch_size=batch),
-                                model_width=width, mesh_spec=spec, device="cpu")
+                                model_width=width, mesh_spec=spec, device=device)
 
 
 def predict_sharded_dp(cfg_kw, params, clips, int8, mesh_kw):
@@ -487,3 +566,189 @@ def pp_train_loop(cfg_kw, batches, mesh_kw):
                             num_epochs=1, device="cpu")
     return {"step": state.step, "keys": sorted(state.model.state_dict()),
             "params": state.model.state_dict(), "best": best}
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism
+
+
+def vivit_tp(cfg_kw, params, clips, mesh_kw):
+    """ViViT logits on a mesh whose model axis shards its leaves (placed by
+    ``shard_params``; with ``sequence_parallel`` in ``cfg_kw`` the ring
+    runs over the same axis), and the gradient of their sum, whole. ``mesh_kw``
+    None: one process."""
+    from lipreading_video_generation_tpu_torch.models.vivit import ViViT
+
+    _threads()
+    model = ViViT(tcfg.ViViTConfig(**cfg_kw)).eval()
+    model.load_state_dict(_sd(params))
+    spec = None if mesh_kw is None else _mesh(mesh_kw)
+    pmesh.shard_params(spec, model)
+    with pmesh.use_mesh(spec):
+        logits = model(torch.from_numpy(clips))
+        logits.sum().backward()
+    return {"logits": logits.detach(), "grads": whole_grads(spec, model),
+            "tp": {} if spec is None else pmesh.tensor_parallel_leaves(spec, model)}
+
+
+def predict_sharded_tp(cfg_kw, params, clips, int8, mesh_kw):
+    """``predict_sharded`` log-probs, the caller's params after the call and
+    the leaves the served copy shards."""
+    from lipreading_video_generation_tpu_torch.models.vivit import ViViT
+    from lipreading_video_generation_tpu_torch.pipelines import train_vivit as ttv
+
+    _threads()
+    model = ViViT(tcfg.ViViTConfig(**cfg_kw)).eval()
+    model.load_state_dict(_sd(params))
+    spec = None if mesh_kw is None else _mesh(mesh_kw)
+    out = ttv.predict_sharded(model, clips, mesh_spec=spec, int8=int8)
+    return {"out": out, "after": model.state_dict(), "placed": pmesh.is_placed(model),
+            "tp": {} if spec is None else pmesh.tensor_parallel_leaves(spec, model)}
+
+
+def pp_placement(cfg_kw, mesh_kw):
+    """A pipeline state placed for training (``place_pp_state``): whether
+    any leaf was cut by the tensor-parallel rule, and each stage leaf's
+    shape before and after placement."""
+    from lipreading_video_generation_tpu_torch.pipelines import train_vivit as ttv
+
+    _threads()
+    cfg = tcfg.ViViTConfig(**cfg_kw)
+    spec = _mesh(mesh_kw)
+    state = ttv.create_state_pp(cfg, 0, spec, device="cpu")
+    before = {k: tuple(v.shape) for k, v in state.model.state_dict().items()}
+    state = ttv.place_pp_state(spec, state)
+    return {"placed": pmesh.is_placed(state.model), "before": before,
+            "after": {k: tuple(v.shape) for k, v in state.model.state_dict().items()},
+            "rule": pmesh.tensor_parallel_leaves(spec, state.model)}
+
+
+def cli_main(argv, watch_root=None, device="cpu"):
+    """``cli.main(argv, device=device)`` on every rank: {"rc": its exit
+    code, "wrote": the paths under ``watch_root`` this rank wrote (``open``
+    for writing, ``os.replace`` onto, ``torch.save`` to), recorded on every
+    rank but the primary (which the command leaves its files to)}."""
+    import builtins
+
+    import torch.distributed as dist
+
+    from lipreading_video_generation_tpu_torch import cli
+
+    if torch.device(device).type != "cuda":
+        _threads()
+    wrote, patched = [], []
+    if watch_root is not None and dist.get_rank() != 0:
+        root = os.path.abspath(watch_root)
+
+        def note(path) -> None:
+            if isinstance(path, (str, os.PathLike)) and \
+                    os.path.abspath(os.fspath(path)).startswith(root):
+                wrote.append(os.fspath(path))
+
+        real_open, real_replace, real_save = builtins.open, os.replace, torch.save
+
+        def watched_open(file, mode="r", *a, **k):
+            if any(c in mode for c in "wax+"):
+                note(file)
+            return real_open(file, mode, *a, **k)
+
+        def watched_replace(src, dst, *a, **k):
+            note(dst)
+            return real_replace(src, dst, *a, **k)
+
+        def watched_save(obj, f, *a, **k):
+            note(f)
+            return real_save(obj, f, *a, **k)
+
+        for owner, name, fn in ((builtins, "open", watched_open),
+                                (os, "replace", watched_replace), (torch, "save", watched_save)):
+            patched.append((owner, name, getattr(owner, name)))
+            setattr(owner, name, fn)
+    try:
+        rc = cli.main(list(argv), device=device)
+    finally:
+        for owner, name, fn in patched:
+            setattr(owner, name, fn)
+    return {"rc": rc, "wrote": wrote}
+
+
+def preprocess_shares(n_clips, host_id=None, num_hosts=None):
+    """The share of ``n_clips`` clips (their indices) that ``preprocess-gan``
+    hands this rank's ``preprocess_dataset``, through the host id and count
+    the CLI chooses (the pipeline and the detector stubbed out), or the
+    exit code of a usage error."""
+    from lipreading_video_generation_tpu_torch import cli
+    from lipreading_video_generation_tpu_torch.pipelines import offline_preprocess as op
+
+    seen = {}
+
+    def fake(s3fd, records, out, cfg, host_id, num_hosts):
+        seen["ids"] = [r for r in op.shard_for_host(list(range(n_clips)), host_id, num_hosts)]
+        return len(seen["ids"]), 0
+
+    real, real_s3fd = op.preprocess_dataset, cli._s3fd
+    op.preprocess_dataset, cli._s3fd = fake, lambda checkpoint: torch.nn.Identity()
+    try:
+        argv = ["preprocess-gan", "--data-root", "/nonexistent", "--out", "/nonexistent"]
+        if host_id is not None:
+            argv += ["--host-id", str(host_id)]
+        if num_hosts is not None:
+            argv += ["--num-hosts", str(num_hosts)]
+        try:
+            rc = cli.main(argv, device="cpu")
+        except SystemExit as e:
+            return {"exit": e.code}
+    finally:
+        op.preprocess_dataset, cli._s3fd = real, real_s3fd
+    return {"exit": rc, "ids": seen.get("ids")}
+
+
+def vivit_loaded(cfg_kw, sd, clips, mesh_kw):
+    """A ViViT placed on the mesh first (its init cut), then given a whole
+    state dict through ``load_full_state_dict``: its logits, the whole
+    state dict it reads back and its tensor-parallel leaves."""
+    from lipreading_video_generation_tpu_torch.models.vivit import ViViT
+
+    _threads()
+    model = ViViT(tcfg.ViViTConfig(**cfg_kw)).eval()
+    spec = None if mesh_kw is None else _mesh(mesh_kw)
+    pmesh.shard_params(spec, model)
+    pmesh.load_full_state_dict(spec, model, _sd(sd))
+    with torch.no_grad():
+        logits = model(torch.from_numpy(clips))
+    return {"logits": logits, "whole": pmesh.full_state_dict(spec, model),
+            "tp": {} if spec is None else pmesh.tensor_parallel_leaves(spec, model)}
+
+
+def tp_layers(x, mesh_kw, dtype=torch.float32):
+    """A stack of the port's layers (Linear, a grouped Conv1d, a Conv2d with
+    and without a bias), computed in ``dtype``, at a threshold that cuts
+    every weight, placed by ``shard_params`` (``mesh_kw`` None: one process,
+    no mesh): the output of a forward from ``x`` and the whole gradient of
+    its sum."""
+    from lipreading_video_generation_tpu_torch.core.prng import seeded
+    from lipreading_video_generation_tpu_torch.models import layers
+
+    _threads()
+
+    class Stack(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.fc = layers.Linear(12, 16, dtype=dtype)
+            self.grouped = layers.Conv1d(4, 8, 3, padding=1, groups=2, dtype=dtype)
+            self.conv = layers.Conv2d(2, 6, 3, padding=1, dtype=dtype)
+            self.plain = layers.Conv2d(6, 4, 1, bias=False, dtype=dtype)
+
+        def forward(self, v):
+            h = self.fc(v)                                     # (B, 12) -> (B, 16)
+            h = self.grouped(h.reshape(-1, 4, 4))              # (B, 8, 4)
+            return self.plain(self.conv(h.reshape(-1, 2, 4, 4)))
+
+    model = seeded(Stack, 0)
+    spec = None if mesh_kw is None else _mesh(mesh_kw)
+    pmesh.shard_params(spec, model)
+    xt = torch.from_numpy(x).requires_grad_()
+    out = model(xt)
+    out.float().sum().backward()
+    return {"out": out.detach().float(), "grads": whole_grads(spec, model), "x_grad": xt.grad,
+            "tp": {} if spec is None else pmesh.tensor_parallel_leaves(spec, model)}
