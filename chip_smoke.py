@@ -103,9 +103,13 @@ script exits non-zero without printing a result):
    ``ops/image.clahe`` at grid (16, 16), 128 and 512 bins and 360 x 640
    frames; K2 small MHA: 2e-2 abs/rel in
    bf16 (the tensor-core kernel, also at S = 1, 16, 17 and 128, on qkv
-   slices, and the CUDA-core kernel for an unaligned view and S past 128),
-   1e-5 in float32 (also at head dim 512: the FeatureTransformer's
-   (64, 5, 1024), 2 heads), each with its route and equal bits of two launches, and
+   slices, and the CUDA-core kernel for unaligned views, d 18 and S past 128),
+   1e-5 in float32 (the CUDA-core kernel at every float32 shape of the main
+   paths: the word LM's (100, 31, 64), AV-HuBERT's, the seq2seq expert's and
+   the FeatureTransformer's (64, 5, 1024) at head dim 512; and at its
+   variants' edges: S 1, 8, 9, 32, 33, 64, 65 and 768, d 6, 132 and 600,
+   views one element in), each with its route (and the CUDA-core kernel's
+   variant) and equal bits of two launches, and
    its gradient at 1e-4 in float32; K3 flash
    forward: O within 1e-2 in bf16 (one output ulp at |O| ≤ 1; the
    tensor-core kernel also rounds P to bf16 before P·V, 2^-9 a term, and
@@ -158,7 +162,10 @@ script exits non-zero without printing a result):
    ROI, ViViT steps, eval, prediction, scorer fit, beam search); K1 once a
    clip by ``packed``, K2 by ``sm90`` 12× a ViViT step, eval batch and
    prediction, and by ``cuda_core`` 2× a word-LM step (400) and beam level
-   (one a word), exactly; accuracies in [0, 1]; ``train_landmark.train``
+   (one a word), exactly (its variant ``rows_vec4``, as in ``pretrained``'s
+   lip experts and ``features``' FeatureTransformer: those three phases log
+   the CUDA-core launches by variant and fail without that one's);
+   accuracies in [0, 1]; ``train_landmark.train``
    (48 steps, batch 64, width 32) and ``build_word_clip_dataset`` over 3
    records with its net (K1 once a clip); card against CPU: S3FD's 12 heads
    on a batch of 16 frames (1e-3 of each head's largest), record 0's face
@@ -301,14 +308,19 @@ script exits non-zero without printing a result):
 17. timing — request and train-step times, frames/s, each kernel's
    CUDA-event time beside its plain version's at the main-path shapes, the
    one PyTorch call that computes the same function where there is one
-   (K2 also at the FeatureTransformer's (64, 5, 1024), 2 heads, float32)
    (``scaled_dot_product_attention`` and its backward, at all three U-Net
    shapes beside K3 and beside K4 + K5, ``torch._int_mm``,
    ``torch.matmul``; yardsticks, used on no path), each kernel's bound
    (the larger of its bytes over 3.35 TB/s and its operations over the
-   tensor-core peak of its type) and its share of it, K1, K2, K3 and K6 also
-   through their C entry points in a loop (without the wrappers' host work),
-   and K1 on 64 frames of 360 x 640 (its tiled route).
+   tensor-core peak of its type, or 67 TFLOP/s in float32 outside them) and
+   its share of it, K1, K2, K3 and K6 also through their C entry points in
+   a loop (without the wrappers' host work), and K1 on 64 frames of 360 x
+   640 (its tiled route). K2's CUDA-core route at the five float32 shapes
+   of the main paths (``bench/small_mha_timing.py``): through ``small_mha``,
+   its C entry point in a loop and from a CUDA graph of 20 launches, beside
+   SDPA float32 from a CUDA graph of 20 calls; the float32 CUDA-core K3 and
+   K4/K5 at (2, 1, 4096, 64), the float32 U-Net's at 64 x 64, beside SDPA
+   float32's forward and backward.
 
 The line before the last is ``nvidia-smi``'s name and power limit; before
 it, one JSON object with the kernels; the last line is the result:
@@ -432,9 +444,11 @@ def phase_build() -> None:
 
     log("build", f"dynamic shared memory per block at the main-path shapes: K1 packed route "
         f"{clahe_packed_layout(48, 48, (8, 8), 256)['smem']} B (8x8 tiles of 256 8-bit counters, "
-        "2,304 bins, row and column tables), K2 "
+        "2,304 bins, row and column tables), K2 CUDA-core route: in its rows variants (S <= "
+        "64, every float32 main-path shape) K and V of a block's pairs, 8 s d B a pair: "
+        f"{8 * 5 * 512} B (S=5, d=512), {8 * 48 * 64} B (S=48, d=64); in its general ones "
         f"{_small_mha_smem_bytes(80, 32)} B (S=80, d=32), "
-        f"{_small_mha_smem_bytes(11, 96)} B (S=11, d=96)"
+        f"{_small_mha_smem_bytes(768, 32)} B (S=768, d=32)"
         + "".join(f"; K3 {what} " + ", ".join(
             f"{flash_smem_bytes(d, route)} B (head dim {d})" for d in dims)
             for route, what, dims in (("sm90", "tensor-core route (bf16 tiles)", (64, 128, 256)),
@@ -576,53 +590,84 @@ def phase_kernels() -> dict:
     # kernel's edges: S = 1, 16, 17 and 128 (its largest), causal and not, head
     # dims 8, 64 and 128, more heads than blocks at once; column slices of one
     # qkv tensor, as the models pass them; a bf16 view that starts 8 bytes
-    # into its rows, which 16-byte copies cannot read (CUDA-core kernel)
+    # into its rows, which 16-byte copies cannot read (CUDA-core kernel). The
+    # kind is "sm90" or the variant of csrc/small_mha.cu that the CUDA-core
+    # route must take ("off1": views that start one element into their rows)
     bf16, f32 = torch.bfloat16, torch.float32
     k2_cases = [(384, 80, 256, 8, False, bf16, "sm90", ""),
                 (DIFF_FRAMES, 11, 768, 8, False, bf16, "sm90", ""),         # audio encoder
                 (2, 33, 64, 4, True, bf16, "sm90", ""),
-                (2, 33, 64, 4, True, f32, "cuda_core", ""),
+                (2, 33, 64, 4, True, f32, "rows_vec4", ""),
                 (384, 80, 256, 8, False, bf16, "sm90", "qkv"),
-                (3, 33, 64, 4, True, bf16, "cuda_core", "unaligned")]
+                (3, 33, 64, 4, True, bf16, "rows", "unaligned")]
     k2_cases += [(3, s, 64, 4, causal, bf16, "sm90", "")
                  for s in (1, 16, 17) for causal in (False, True)]
     k2_cases += [(2, 128, 256, 4, causal, bf16, "sm90", "") for causal in (False, True)]
     k2_cases += [(2, 128, 256, 2, True, bf16, "sm90", ""), (5, 40, 16, 2, False, bf16, "sm90", ""),
                  (3000, 16, 64, 4, True, bf16, "sm90", ""),
-                 (2, 160, 64, 1, False, bf16, "cuda_core", "")]              # S past 128
+                 (2, 160, 64, 1, False, bf16, "general", "")]                # S past 128
     # the pretrained encoders: wav2vec2 at 4,000 samples (bf16), AV-HuBERT
     # and the conformer at T 5 (float32), the expert's causal decoder on its
     # fused qkv (float32), at the batches of [pretrained]
     k2_cases += [(TRAIN_BATCH, 12, 768, 12, False, bf16, "sm90", ""),
-                 (16, 5, 768, 12, False, f32, "cuda_core", ""),
-                 (16, 5, 256, 4, False, f32, "cuda_core", ""),
-                 (16, 48, 256, 4, True, f32, "cuda_core", "qkv")]
+                 (16, 5, 768, 12, False, f32, "rows_vec4", ""),
+                 (16, 5, 256, 4, False, f32, "rows_vec4", ""),
+                 (16, 5, 256, 4, False, f32, "rows_vec4", "qkv"),
+                 (16, 48, 256, 4, True, f32, "rows_vec4", "qkv")]
     # the FeatureTransformer at its defaults: 1024 features, 2 heads (head
-    # dim 512), float32, on its fused qkv, at the CLI's batch
-    k2_cases += [(64, 5, 1024, 2, False, f32, "cuda_core", "qkv")]
-    for (b, s, e, h, causal, dtype, route, layout) in k2_cases:
+    # dim 512), float32, on its fused qkv, at the CLI's batch; the word LM's
+    # causal (B <= 100, 31, 64), 4 heads, on its fused qkv
+    k2_cases += [(64, 5, 1024, 2, False, f32, "rows_vec4", "qkv"),
+                 (100, 31, 64, 4, True, f32, "rows_vec4", "qkv")]
+    # the CUDA-core variants' edges: S 1, 8/9, 32/33, 64/65 (the rows
+    # kernel's register room for scores, then the general kernel), d 6, 512
+    # at S 33, views one element in (element loads), d past 128 / 512 there,
+    # one head of 768 tokens, the float32 ViViT's S 80
+    k2_cases += [(3, 1, 64, 4, False, f32, "rows_vec4", ""),
+                 (3, 8, 256, 4, True, f32, "rows_vec4", "qkv"),
+                 (3, 9, 256, 4, False, f32, "rows_vec4", ""),
+                 (3, 32, 64, 4, True, f32, "rows_vec4", "qkv"),
+                 (3, 64, 256, 4, True, f32, "rows_vec4", ""),
+                 (2, 65, 64, 4, True, f32, "general_vec4", "qkv"),
+                 (3, 5, 24, 4, True, f32, "rows", ""),
+                 (2, 33, 1024, 2, True, f32, "rows_vec4", ""),
+                 (3, 48, 256, 4, True, f32, "rows", "off1"),
+                 (3, 33, 72, 4, False, bf16, "rows", "off1"),
+                 (2, 5, 528, 4, False, f32, "general", "off1"),
+                 (2, 5, 2400, 4, False, f32, "general_vec4", "qkv"),
+                 (1, 768, 32, 1, True, f32, "general_vec4", ""),
+                 (4, 80, 256, 8, False, f32, "general_vec4", "qkv")]
+    for (b, s, e, h, causal, dtype, kind, layout) in k2_cases:
         tol = TOL_K2_BF16 if dtype == bf16 else TOL_K2_F32
+        route = "sm90" if kind == "sm90" else "cuda_core"
         if layout == "qkv":
             q, k, v = _uniform((b, s, 3 * e), -2, 2, SEED, dtype).chunk(3, dim=-1)
         elif layout == "unaligned":
             q, k, v = (_uniform((b, s, e + 8), -2, 2, SEED + i, dtype)[..., 4:4 + e]
                        for i in range(3))
+        elif layout == "off1":
+            q, k, v = (_uniform((b, s, e + 4), -2, 2, SEED + i, dtype)[..., 1:1 + e]
+                       for i in range(3))
         else:
             q, k, v = (_uniform((b, s, e), -2, 2, SEED + i, dtype) for i in range(3))
         before = dict(att.small_mha.route_counts)
+        before_v = dict(att.small_mha.variant_counts)
         got = att.small_mha(q, k, v, h, causal)
         again = att.small_mha(q, k, v, h, causal)
         torch.cuda.synchronize()
         took = {r: n - before[r] for r, n in att.small_mha.route_counts.items() if n != before[r]}
-        if took != {route: 2}:
-            raise AssertionError(f"K2 ({b},{s},{e}) H={h} {dtype} {layout}: routes {took}, want "
-                                 f"{route}")
+        took_v = {r: n - before_v[r] for r, n in att.small_mha.variant_counts.items()
+                  if n != before_v[r]}
+        if took != {route: 2} or took_v != ({} if kind == "sm90" else {kind: 2}):
+            raise AssertionError(f"K2 ({b},{s},{e}) H={h} {dtype} {layout}: routes {took}, "
+                                 f"variants {took_v}, want {kind}")
         if not torch.equal(got, again):
             raise AssertionError(f"K2 ({b},{s},{e}) H={h} {dtype}: two launches gave different bits")
         want = att._mha_einsum(q, k, v, h, causal)
         err = (got.float() - want.float()).abs().max().item()
         log("kernels", f"K2 small_mha ({b},{s},{e}) H={h} causal={causal} {dtype}"
-            f"{' (' + layout + ')' if layout else ''}, route {route}: "
+            f"{' (' + layout + ')' if layout else ''}, route {route}"
+            f"{'' if kind == 'sm90' else ', variant ' + kind}: "
             f"max|d| {err:.3g} (tol {tol} abs/rel); two launches equal bits")
         torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
         errs["small_mha"] = max(errs["small_mha"], err)
@@ -1838,6 +1883,22 @@ def _all_by_tensor_cores(phase: str, *fns) -> None:
         if fn.route_counts["sm90"] != fn.launch_count or others or fn.launch_count < 1:
             raise AssertionError(f"{phase}: {fn.__name__} took the routes {fn.route_counts} in "
                                  f"{fn.launch_count} launches, want all by the tensor cores")
+
+
+def _k2_rows_phase(phase: str, run) -> dict:
+    """Run a phase whose float32 K2 launches are a main path's, and check
+    that its CUDA-core launches went through the rows_vec4 variant of
+    ``csrc/small_mha.cu``; log them by variant."""
+    from lipreading_video_generation_tpu_torch.ops import attention as att
+
+    before = dict(att.small_mha.variant_counts)
+    out = run()
+    took = {v: n - before[v] for v, n in att.small_mha.variant_counts.items() if n != before[v]}
+    log(phase, f"K2 by cuda_core, launches by variant: {took}")
+    if not took.get("rows_vec4"):
+        raise AssertionError(f"{phase}: K2's CUDA-core launches took the variants {took}, want "
+                             "the main path's by rows_vec4")
+    return out
 
 
 def _delta(before: dict) -> dict:
@@ -5087,11 +5148,64 @@ def _flash_fwd_sm90_launcher(q, k, v):
     return launch
 
 
-def _small_mha_launcher(q, k, v, num_heads: int, entry: str = "lvg_small_mha_sm90"):
-    """The same for K2 on (B, S, E) q, k, v through the C entry point
-    ``entry`` (the tensor-core kernel by default; ``lvg_small_mha_f32`` is
-    the CUDA-core one in float32): what ``ops/attention._small_mha_launch``
-    does, without its host work per call and without its count."""
+def _flash_f32_timing() -> dict:
+    """The float32 CUDA-core K3 (``csrc/flash_fwd.cu``) and K4/K5
+    (``csrc/flash_bwd.cu``) at the float32 U-Net's heaviest attention at
+    64x64, (2, 1, 4096, 64) views of column slices of one qkv tensor, each
+    beside its plain version and SDPA float32 (forward; the backward's dQ,
+    dK, dV in one call for K4 and K5), with the bytes (q, k, v, O or the
+    gradients, dO, lse and Δ, float32) and operations of a call."""
+    import torch.nn.functional as F
+
+    from lipreading_video_generation_tpu_torch.ops import attention as att
+
+    b, s, d = 2, 4096, 64
+    qkv = _uniform((b, s, 3 * d), -2, 2, SEED + 80)
+    q, k, v = (t.reshape(b, s, 1, d).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
+    do = _uniform((b, s, d), -1, 1, SEED + 81).reshape(b, s, 1, d).transpose(1, 2)
+    tensor, rows = b * s * d * 4, b * s * 4
+    out = {}
+    with torch.no_grad():
+        before = att.flash_attention.route_counts["cuda_core"]
+        ms, plain, _ = _plain_vs_kernel(lambda: att.flash_reference(q, k, v),
+                                        lambda: att.flash_attention(q, k, v), 3, 20)
+        n = att.flash_attention.route_counts["cuda_core"] - before
+        F.scaled_dot_product_attention(q, k, v)
+        lib = _event_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20)
+        out["fwd"] = dict(what="K3 flash_attention", route="cuda_core", timed_launches=n, ms=ms,
+                          plain_ms=plain, library_ms=lib, library_what="forward",
+                          bytes=4 * tensor + rows, ops=4.0 * b * s * s * d)
+        o, lse = att.flash_attention(q, k, v, return_lse=True)
+        delta = (do.float() * o.float()).sum(-1)
+        for kern, fn, ops, n_tensors in (("dkv", att.flash_bwd_dkv, 8.0, 6),
+                                         ("dq", att.flash_bwd_dq, 6.0, 5)):
+            before = fn.route_counts["cuda_core"]
+            ms, plain, _ = _plain_vs_kernel(
+                lambda: att.flash_backward_reference(q, k, v, do, lse, delta, dq=kern == "dq",
+                                                     dkv=kern == "dkv"),
+                lambda: fn(q, k, v, do, lse, delta), 3, 20)
+            out[kern] = dict(what="K4 flash_bwd_dkv" if kern == "dkv" else "K5 flash_bwd_dq",
+                             route="cuda_core", timed_launches=fn.route_counts["cuda_core"] - before,
+                             ms=ms, plain_ms=plain, library_what="backward (dQ, dK, dV)",
+                             bytes=n_tensors * tensor + 2 * rows, ops=ops * b * s * s * d)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    res = F.scaled_dot_product_attention(*leaves)
+    torch.autograd.grad(res, leaves, do, retain_graph=True)
+    lib = _event_ms(lambda: torch.autograd.grad(res, leaves, do, retain_graph=True), 20)
+    for kern in ("dkv", "dq"):
+        out[kern]["library_ms"] = lib
+    for kern, r in out.items():
+        if r["timed_launches"] != 41:
+            raise AssertionError(f"{r['what']} f32: {r['timed_launches']} cuda_core launches "
+                                 "counted, want 41")
+    return out
+
+
+def _small_mha_launcher(q, k, v, num_heads: int):
+    """The same for the tensor-core K2 on (B, S, E) bf16 q, k, v: what
+    ``ops/attention._small_mha_launch`` does, without its host work per call
+    and without its count (the CUDA-core K2's is
+    ``bench/small_mha_timing.c_entry_launcher``)."""
     import ctypes
 
     from lipreading_video_generation_tpu_torch.ops import _build
@@ -5100,14 +5214,14 @@ def _small_mha_launcher(q, k, v, num_heads: int, entry: str = "lvg_small_mha_sm9
     d = e // num_heads
     out = torch.empty(b, s, e, dtype=q.dtype, device=q.device)
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    fn = _build.kernel(entry, [vp] * 4 + [i32] + [i64] * 6 + [i32] * 3
+    fn = _build.kernel("lvg_small_mha_sm90", [vp] * 4 + [i32] + [i64] * 6 + [i32] * 3
                        + [ctypes.c_float, i32, vp])
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, q.stride(0), q.stride(1),
             k.stride(0), k.stride(1), v.stride(0), v.stride(1), s, num_heads, d,
             1.0 / math.sqrt(d), 0)
 
     def launch():
-        _build.check(fn(*args, torch.cuda.current_stream().cuda_stream), f"small_mha ({entry})")
+        _build.check(fn(*args, torch.cuda.current_stream().cuda_stream), "small_mha (sm90)")
 
     launch.out = out   # the kernel writes it: it lives as long as the launcher
     return launch
@@ -5160,6 +5274,7 @@ def _mm_sm90_launcher(a, b):
 def phase_timing(dev: dict, microbench: dict) -> dict:
     import torch.nn.functional as F
 
+    from lipreading_video_generation_tpu_torch.bench import small_mha_timing
     from lipreading_video_generation_tpu_torch.bench.microbench_int8 import make_operands
     from lipreading_video_generation_tpu_torch.bench.timing import graph_ms
     from lipreading_video_generation_tpu_torch.ops import attention as att
@@ -5196,20 +5311,12 @@ def phase_timing(dev: dict, microbench: dict) -> dict:
         k2_lib = _event_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4), 20)
         # the kernel alone, as for K3 below: the C entry point in a loop
         k2_alone = _event_ms(_small_mha_launcher(q, k, v, 8), 100)
-        # K2 as the FeatureTransformer calls it: float32 q/k/v slices of one
-        # (64, 5, 3072) qkv tensor, 2 heads of 512, by the CUDA-core kernel
+        # K2's CUDA-core route at the five float32 shapes of the main paths:
+        # through small_mha, its C entry point in a loop and from a CUDA graph,
+        # SDPA float32 from a CUDA graph (bench/small_mha_timing.py)
         before = att.small_mha.route_counts["cuda_core"]
-        qf, kf, vf = _uniform((64, 5, 3 * 1024), -2, 2, SEED + 5).chunk(3, dim=-1)
-        k2f_ms, k2f_plain, raw2f = _plain_vs_kernel(
-            lambda: att._mha_einsum(qf, kf, vf, 2, False),
-            lambda: att.small_mha(qf, kf, vf, 2), 20)
-        if att.small_mha.route_counts["cuda_core"] != before + 41:
-            raise AssertionError("the timed d-512 K2 launches did not take the CUDA-core kernel")
-        qf4, kf4, vf4 = (t.reshape(64, 5, 2, 512).transpose(1, 2) for t in (qf, kf, vf))
-        F.scaled_dot_product_attention(qf4, kf4, vf4)
-        k2f_lib = _event_ms(lambda: F.scaled_dot_product_attention(qf4, kf4, vf4), 20)
-        k2f_alone = _event_ms(_small_mha_launcher(qf, kf, vf, 2, "lvg_small_mha_f32"), 100)
-        del qf, kf, vf, qf4, kf4, vf4
+        k2c = small_mha_timing.run(SEED)
+        n_k2c = att.small_mha.route_counts["cuda_core"] - before
         # K3 at the U-Net's three shapes, batch DIFF_FRAMES, as the U-Net
         # calls it: (B, 1, S, D) views of column slices of one qkv tensor
         k3, k3_lib, k3_alone = {}, {}, {}
@@ -5253,15 +5360,38 @@ def phase_timing(dev: dict, microbench: dict) -> dict:
         f"(64,360,640) grid (8,8), route tiled: {k1f_ms:.4f} ms ({k1f_bound / k1f_ms:.1%} of the "
         f"bound {k1f_bound:.4f} ms), plain {k1f_plain:.4f} ms (plain,kernel,kernel,plain = "
         f"{[round(t, 4) for t in raw1f]}) on {dev['smi']}")
-    # float32: q, k, v and O of 4 bytes; 4·b·h·s²·d operations on the CUDA cores
-    k2f_bound = _bound(4 * 64 * 5 * 1024 * 4, 4.0 * 64 * 2 * 5 * 5 * 512, "f32")
-    log("timing", f"K2 small_mha (64,5,1024) H=2 (d 512) f32 on qkv slices, route cuda_core (the "
-        f"FeatureTransformer's): kernel {k2f_ms:.4f} ms (bound {k2f_bound['bound_ms']:.5f} ms by "
-        f"{k2f_bound['bound_by']}, {k2f_bound['bound_ms'] / k2f_ms:.1%} of it), plain "
-        f"{k2f_plain:.4f} ms (plain,kernel,kernel,plain = {[round(t, 4) for t in raw2f]}), the "
-        f"library's forward (SDPA, float32) {k2f_lib:.4f} ms: {k2f_ms / k2f_lib:.2f} x; the C "
-        f"entry point in a loop, output allocated once: {k2f_alone:.4f} ms "
-        f"({k2f_bound['bound_ms'] / k2f_alone:.1%} of the bound) on {dev['smi']}")
+    # the float32 CUDA-core K3 and K4/K5 at the float32 U-Net's heaviest
+    # attention at 64x64: (2, 1, 4096, 64), as a float32 step at batch 2
+    # calls them, against SDPA float32's forward and backward (outside
+    # inference mode: the library's backward needs its graph)
+    fl = _flash_f32_timing()
+    k2c_rows = {}
+    for name, r in k2c.items():
+        bound = _bound(r["bytes"], r["ops"], "f32")
+        k2c_rows[name] = dict(variant=r["variant"], ms=r["graph_ms"], c_entry_ms=r["c_entry_ms"],
+                              wrapper_ms=r["wrapper_ms"], plain_ms=r["plain_ms"],
+                              library_ms=r["sdpa_graph_ms"], max_abs_err=r["max_abs_err"],
+                              **bound)
+        log("timing", f"K2 small_mha {tuple(r['shape'])} H={r['heads']} causal={r['causal']} f32"
+            f"{' on qkv slices' if r['layout'] == 'qkv' else ''} ({name}), route cuda_core, "
+            f"variant {r['variant']}: from a CUDA graph of {small_mha_timing.GRAPH_LAUNCHES} "
+            f"launches {r['graph_ms']:.4f} ms ({bound['bound_ms'] / r['graph_ms']:.1%} of the "
+            f"bound {bound['bound_ms']:.5f} ms by {bound['bound_by']}); the C entry point in a "
+            f"loop, output allocated once {r['c_entry_ms']:.4f} ms; through small_mha "
+            f"{r['wrapper_ms']:.4f} ms; plain {r['plain_ms']:.4f} ms; SDPA float32 from a CUDA "
+            f"graph of {small_mha_timing.GRAPH_LAUNCHES} calls {r['sdpa_graph_ms']:.4f} ms "
+            f"(kernel/SDPA {r['graph_ms'] / r['sdpa_graph_ms']:.2f} x); max|d| "
+            f"{r['max_abs_err']:.3g} from _mha_einsum on {dev['smi']}")
+    log("timing", f"K2 cuda_core launches counted while timed through small_mha: {n_k2c}")
+    for kern, r in fl.items():
+        bound = _bound(r["bytes"], r["ops"], "f32")
+        fl[kern].update(bound)
+        log("timing", f"{r['what']} (2,1,4096,64) f32, route {r['route']} ({r['timed_launches']} "
+            f"launches counted): kernel {r['ms']:.4f} ms ({r['ops'] / r['ms'] / 1e9:.2f} TFLOP/s; "
+            f"bound {bound['bound_ms']:.4f} ms by {bound['bound_by']}, "
+            f"{bound['bound_ms'] / r['ms']:.1%} of it), plain {r['plain_ms']:.4f} ms, the "
+            f"library's {r['library_what']} (SDPA float32) {r['library_ms']:.4f} ms: "
+            f"{r['ms'] / r['library_ms']:.2f} x on {dev['smi']}")
     k2_bound = _attention_bound(384, 8, 80, 32, 4, 4)["bound_ms"]
     log("timing", f"K2 small_mha (384,80,256) H=8 bf16, route sm90: kernel {k2_ms:.4f} ms (bound "
         f"{k2_bound:.4f} ms by bytes, {k2_bound / k2_ms:.1%} of it), plain "
@@ -5372,21 +5502,22 @@ def phase_timing(dev: dict, microbench: dict) -> dict:
                       frames_64x360x640=dict(route="tiled", ms=k1f_ms, plain_ms=k1f_plain,
                                              bound_ms=k1f_bound),
                       **_bound(2 * n_img * 4, 0, "bf16")),
-        "small_mha": dict(ms=k2_ms, plain_ms=k2_plain, library_ms=k2_lib,
-                          features_64x5x1024_h2_f32=dict(route="cuda_core", ms=k2f_ms,
-                                                         plain_ms=k2f_plain, library_ms=k2f_lib,
-                                                         c_entry_ms=k2f_alone, **k2f_bound),
+        # cuda_core: a main path's shape each, timed from a CUDA graph (ms) and
+        # three more ways, SDPA float32 from a CUDA graph as library_ms
+        "small_mha": dict(ms=k2_ms, plain_ms=k2_plain, library_ms=k2_lib, cuda_core=k2c_rows,
                           **_attention_bound(384, 8, 80, 32, 4, 4)),
         "flash_attention": dict(ms=k3[(16384, 64)][0], plain_ms=k3[(16384, 64)][1],
-                                library_ms=k3_lib[(16384, 64)],
+                                library_ms=k3_lib[(16384, 64)], cuda_core_f32=fl["fwd"],
                                 **_attention_bound(DIFF_FRAMES, 1, 16384, 64, 4, 4)),
         # K4 reads q, k, v, dO and writes dK, dV; K5 reads the four and writes
         # dQ; both read lse and delta. The library call covers both kernels.
         "flash_bwd_dkv": dict(ms=bwd[("dkv", 16384, 64)][0], plain_ms=bwd[("dkv", 16384, 64)][1],
                               library_ms=bwd_lib, library_covers="flash_bwd_dkv+flash_bwd_dq",
+                              cuda_core_f32=fl["dkv"],
                               **_attention_bound(DIFF_FRAMES, 1, 16384, 64, 8, 6)),
         "flash_bwd_dq": dict(ms=bwd[("dq", 16384, 64)][0], plain_ms=bwd[("dq", 16384, 64)][1],
                              library_ms=bwd_lib, library_covers="flash_bwd_dkv+flash_bwd_dq",
+                             cuda_core_f32=fl["dq"],
                              **_attention_bound(DIFF_FRAMES, 1, 16384, 64, 6, 5)),
         "int8_matmul": k6[(m, kk, n)],
         "bf16_matmul": dict(ms=mb["k6_bf16_ms"], plain_ms=bf16_plain,
@@ -5402,7 +5533,7 @@ def main() -> None:
     errs = phase_kernels()
     served = phase_serve(dev)
     vivit_trained = phase_vivit_train(dev)["launches"]
-    lipread = phase_lipread_e2e(dev)["launches"]
+    lipread = _k2_rows_phase("lipread-e2e", lambda: phase_lipread_e2e(dev))["launches"]
     diffused = phase_diffuse(dev)
     trained = phase_train(dev)["launches"]
     superres = phase_superres(dev)["launches"]
@@ -5410,8 +5541,8 @@ def main() -> None:
     fed = phase_data(dev)["launches"]
     lipsync = phase_lipsync(dev)
     gan = phase_gan(dev)
-    pretrained = phase_pretrained(dev)["launches"]
-    features = phase_features(dev)["launches"]
+    pretrained = _k2_rows_phase("pretrained", lambda: phase_pretrained(dev))["launches"]
+    features = _k2_rows_phase("features", lambda: phase_features(dev))["launches"]
     parallel = phase_parallel(dev)["launches"]
     microbench = phase_microbench()
     paths = (vivit_trained, diffused, trained, superres, guided, fed, pretrained, features)
@@ -5470,11 +5601,18 @@ def main() -> None:
                 "to 128 tokens, head dim up to 128; timed here and on the ViViT serving and "
                 f"training, lipreading-chain, sampling and diffusion training paths, and wav2vec2's "
                 f"12 layers when it conditions the diffusion); cuda_core: "
-                f"{pkg}/csrc/small_mha.cu (float32, longer sequences, unaligned inputs; the "
-                "lipreading chain's causal word LM, the GAN's frozen lip experts: AV-HuBERT's 12 "
-                "layers on the generated and the real window, the seq2seq expert's encoder and "
-                "causal decoder; the FeatureTransformer's 2 layers at head dim 512, timed here "
-                "as features_64x5x1024_h2_f32)")
+                f"{pkg}/csrc/small_mha.cu (float32, longer sequences, unaligned inputs), in "
+                "four variants picked by ops/attention.small_mha_variant: rows_vec4 (S <= 64, "
+                "float32, 16-byte copies: a block's K and V staged in shared memory by "
+                "cp.async, a group of lanes a query row over d, a key tile's dot products "
+                "reduce-scattered over the group, softmax and P in registers; the lipreading "
+                "chain's causal word LM, "
+                "the GAN's frozen lip experts: AV-HuBERT's 12 layers on the generated and the "
+                "real window, the seq2seq expert's encoder and causal decoder; the "
+                "FeatureTransformer's 2 layers at head dim 512; each timed here under "
+                "cuda_core), rows (the same, an element a load: unaligned, d not a multiple "
+                "of 4, bf16), general_vec4 and general (S past 64 or d past the rows "
+                "kernel's: a block a head, K and V staged in shared memory)")
         if name.endswith("_matmul"):
             kern["route_detail"] = (
                 "sm90: wgmma on swizzled tiles, a TMA ring kept full by a producer warpgroup, "

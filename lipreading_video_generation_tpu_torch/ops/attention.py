@@ -1,7 +1,8 @@
 """Multi-head attention of the port: the hand-written CUDA kernels K2
 (small MHA: ``csrc/small_mha_sm90.cu`` on the tensor cores for aligned bf16
 inputs of up to 128 tokens, ``csrc/small_mha.cu`` on CUDA cores for the rest;
-``small_mha_route`` picks), K3 (flash-attention forward:
+``small_mha_route`` picks, and ``small_mha_variant`` picks the CUDA-core
+kernel's variant), K3 (flash-attention forward:
 ``csrc/flash_fwd_sm90.cu`` on the tensor cores for aligned bf16 inputs,
 ``csrc/flash_fwd.cu`` on CUDA cores for the rest) and K4/K5 (its backward:
 ``csrc/flash_bwd_sm90.cu`` and ``csrc/flash_bwd.cu`` likewise; one rule,
@@ -36,12 +37,17 @@ from . import _build
 
 __all__ = ["attention_reference", "flash_attention", "flash_backward_reference",
            "flash_bwd_dkv", "flash_bwd_dq", "flash_bwd_route", "flash_reference", "flash_route",
-           "mha", "mha_route", "small_mha", "small_mha_route", "small_mha_viable"]
+           "mha", "mha_route", "small_mha", "small_mha_route", "small_mha_variant",
+           "small_mha_viable"]
 
 _NEG_INF = float(torch.finfo(torch.float32).min) / 2
 _SMALL_MHA_MAX_HS = 768     # the JAX package's bound on H·pad(S)
-_KERNEL_WARPS = 8           # csrc/small_mha.cu's kWarps
+_KERNEL_WARPS = 8           # csrc/small_mha.cu's kGenWarps (its general variants)
 _SMALL_MHA_ROUTES = ("sm90", "cuda_core")
+# csrc/small_mha.cu's Variant, in its order (the C entry points take the index)
+_SMALL_MHA_VARIANTS = ("general", "general_vec4", "rows", "rows_vec4")
+_SMALL_MHA_ROWS_MAX_S = 64          # its kRowsMaxS: a row's scores are registers
+_SMALL_MHA_ROWS_MAX_CHUNKS = 128    # its kRowsMaxChunks: 32 lanes x 4 loads of a row
 _SMALL_MHA_MAX_S_SM90 = 128     # csrc/small_mha_sm90.cu: the score strip of a warp, 16 x 128
 _SMALL_MHA_MAX_D_SM90 = 128     # and its O strip, 16 x 128, both in registers
 
@@ -89,9 +95,25 @@ def _small_mha_pad(num_heads: int, s: int) -> int:
 
 
 def _small_mha_smem_bytes(s: int, d: int) -> int:
-    """Shared memory of one csrc/small_mha.cu block: K (padded rows) and V
-    of one head, plus a query row and a score row per warp, as float."""
+    """Shared memory of one block of csrc/small_mha.cu's general variants:
+    K (padded rows) and V of one head, plus a query row and a score row per
+    warp, as float. (Its rows variants hold K and V alone, 8·s·d bytes a
+    head, which is less: every shape this bound lets through fits them.)"""
     return (s * (2 * d + 1) + _KERNEL_WARPS * (d + s)) * 4
+
+
+def _aligned(strides, offsets, elems: int, nbytes: int) -> bool:
+    """Every stride (elements, one tuple per tensor) a multiple of ``elems``
+    and every base offset a multiple of ``nbytes`` bytes. (Plain loops: the
+    wrapper asks on every launch, and generators cost it microseconds.)"""
+    for t in strides:
+        for st in t:
+            if st % elems:
+                return False
+    for o in offsets:
+        if o % nbytes:
+            return False
+    return True
 
 
 def small_mha_route(dtype: torch.dtype, s: int, d: int, strides, offsets) -> str:
@@ -107,9 +129,28 @@ def small_mha_route(dtype: torch.dtype, s: int, d: int, strides, offsets) -> str
     if (dtype != torch.bfloat16 or d % 8 or d > _SMALL_MHA_MAX_D_SM90
             or not 1 <= s <= _SMALL_MHA_MAX_S_SM90):
         return "cuda_core"
-    if any(st % 8 for t in strides for st in t) or any(o % 16 for o in offsets):
-        return "cuda_core"
-    return "sm90"
+    return "sm90" if _aligned(strides, offsets, 8, 16) else "cuda_core"
+
+
+def small_mha_variant(dtype: torch.dtype, s: int, d: int, strides, offsets) -> str:
+    """Which kernel of ``csrc/small_mha.cu`` the "cuda_core" route launches
+    (``strides`` and ``offsets`` as for ``small_mha_route``):
+
+    - "rows" (S ≤ 64 and d ≤ 128): a group of lanes a query row, its lanes
+      over d; a block's K and V staged in shared memory, the row's scores,
+      softmax and P in registers; an element a load;
+    - "rows_vec4": the same, 16 bytes a load, for float32 whose d and every
+      (batch, row) stride are multiples of 4 elements and whose bases lie on
+      16 bytes, up to d 512 (four loads a lane of 32);
+    - "general" / "general_vec4": everything else, S up to what
+      ``small_mha_viable`` takes: a block a (batch, head), K and V staged in
+      shared memory, a warp a query row with its lanes over keys.
+
+    The causal mask does not enter the choice: every variant takes it."""
+    vec4 = dtype == torch.float32 and d % 4 == 0 and _aligned(strides, offsets, 4, 16)
+    chunks = d // 4 if vec4 else d
+    rows = 1 <= s <= _SMALL_MHA_ROWS_MAX_S and chunks <= _SMALL_MHA_ROWS_MAX_CHUNKS
+    return ("rows" if rows else "general") + ("_vec4" if vec4 else "")
 
 
 def small_mha_viable(num_heads: int, s_q: int, s_k: int, e: int,
@@ -126,6 +167,12 @@ def small_mha_viable(num_heads: int, s_q: int, s_k: int, e: int,
 
 
 _ENTRY_POINTS = {torch.bfloat16: "lvg_small_mha_bf16", torch.float32: "lvg_small_mha_f32"}
+# q, k, v, o, batch, the (batch, row) strides of q, k, v, s, heads, d, scale,
+# causal, then the stream (sm90) or the variant and the stream (cuda_core)
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 3 \
+    + [ctypes.c_float, ctypes.c_int]
+_SM90_ARGTYPES = _ARGTYPES + [ctypes.c_void_p]
+_CUDA_CORE_ARGTYPES = _ARGTYPES + [ctypes.c_int, ctypes.c_void_p]
 
 
 def _small_mha_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -150,24 +197,29 @@ def _small_mha_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("small_mha needs unit stride along E")
     d = e // num_heads
-    route = small_mha_route(q.dtype, s, d, [t.stride()[:2] for t in (q, k, v)],
-                            [t.data_ptr() for t in (q, k, v)])
+    strides = (q.stride()[:2], k.stride()[:2], v.stride()[:2])
+    offsets = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    route = small_mha_route(q.dtype, s, d, strides, offsets)
     if not small_mha_viable(num_heads, s, s, e, route):
         raise ValueError(f"small_mha kernel does not take S={s} E={e} heads={num_heads}")
     out = torch.empty(b, s, e, dtype=q.dtype, device=q.device)
     if b == 0 or s == 0:
         return out
-    vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    fn = _build.kernel("lvg_small_mha_sm90" if route == "sm90" else _ENTRY_POINTS[q.dtype],
-                       [vp, vp, vp, vp, i32, i64, i64, i64, i64, i64, i64,
-                        i32, i32, i32, ctypes.c_float, i32, vp])
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
-            q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-            s, num_heads, d, 1.0 / math.sqrt(d), int(causal),
-            torch.cuda.current_stream().cuda_stream)
+    args = (*offsets, out.data_ptr(), b, *strides[0], *strides[1], *strides[2], s, num_heads, d,
+            1.0 / math.sqrt(d), int(causal))
+    if route == "sm90":
+        fn = _build.kernel("lvg_small_mha_sm90", _SM90_ARGTYPES)
+        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        variant = small_mha_variant(q.dtype, s, d, strides, offsets)
+        fn = _build.kernel(_ENTRY_POINTS[q.dtype], _CUDA_CORE_ARGTYPES)
+        rc = fn(*args, _SMALL_MHA_VARIANTS.index(variant),
+                torch.cuda.current_stream().cuda_stream)
     _build.check(rc, f"small_mha ({route})")
     small_mha.launch_count += 1
     small_mha.route_counts[route] += 1
+    if route == "cuda_core":
+        small_mha.variant_counts[variant] += 1
     return out
 
 
@@ -194,7 +246,8 @@ def small_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
               causal: bool = False) -> torch.Tensor:
     """Small-sequence self-attention over (B, S, E): K2 for CUDA tensors
     (``launch_count`` counts its launches, ``route_counts`` those of each
-    route of ``small_mha_route``), ``_mha_einsum`` for CPU ones."""
+    route of ``small_mha_route``, ``variant_counts`` those of the "cuda_core"
+    route by ``small_mha_variant``), ``_mha_einsum`` for CPU ones."""
     if not q.is_cuda:
         return _mha_einsum(q, k, v, num_heads, causal)
     return _SmallMHA.apply(q, k, v, num_heads, causal)
@@ -202,6 +255,7 @@ def small_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
 
 small_mha.launch_count = 0
 small_mha.route_counts = dict.fromkeys(_SMALL_MHA_ROUTES, 0)
+small_mha.variant_counts = dict.fromkeys(_SMALL_MHA_VARIANTS, 0)
 
 
 _FLASH_BQ = _FLASH_BK = 64          # csrc/flash_fwd.cu's tile (Layout::BQ, BK)

@@ -165,10 +165,100 @@ def test_small_mha_route_of_real_tensors():
 
 def test_small_mha_counts_no_route_on_cpu():
     arrs = _to_torch(_bse(7, 2, 33, 64), torch.bfloat16)
-    before = dict(tatt.small_mha.route_counts), tatt.small_mha.launch_count
+    before = (dict(tatt.small_mha.route_counts), dict(tatt.small_mha.variant_counts),
+              tatt.small_mha.launch_count)
     tatt.small_mha(*arrs, 4, True)
-    assert (tatt.small_mha.route_counts, tatt.small_mha.launch_count) == before
+    assert (tatt.small_mha.route_counts, tatt.small_mha.variant_counts,
+            tatt.small_mha.launch_count) == before
     assert set(tatt.small_mha.route_counts) == {"sm90", "cuda_core"}
+    assert set(tatt.small_mha.variant_counts) == {"general", "general_vec4", "rows", "rows_vec4"}
+
+
+# K2's CUDA-core main-path shapes, at small batch: the word LM (causal, d 16),
+# AV-HuBERT (d 64), the seq2seq expert's encoder and causal decoder (d 64),
+# the FeatureTransformer (d 512)
+_CUDA_CORE_SHAPES = [(3, 31, 64, 4, True), (2, 5, 768, 12, False), (2, 5, 256, 4, False),
+                     (2, 48, 256, 4, True), (2, 5, 1024, 2, False)]
+
+
+@pytest.mark.parametrize("b,s,e,h,causal", _CUDA_CORE_SHAPES)
+def test_small_mha_at_the_cuda_core_main_path_shapes(b, s, e, h, causal):
+    """``small_mha`` on the CPU (the plain path) at the float32 shapes that the
+    CUDA-core kernel takes on the main paths: against the JAX Pallas kernel in
+    interpret mode at its test tolerance, and against JAX's ``_mha_einsum``
+    to float32 summation order."""
+    arrs = _bse(8, b, s, e)
+    assert tatt.small_mha_viable(h, s, s, e) and jatt.small_mha_viable(h, s, s, e)
+    got = tatt.small_mha(*_to_torch(arrs, torch.float32), h, causal).numpy()
+    kernel = np.asarray(jatt._small_mha(*_to_jax(arrs, jnp.float32), h, causal, True))
+    np.testing.assert_allclose(got, kernel, rtol=5e-4, atol=5e-4)
+    einsum = np.asarray(jatt._mha_einsum(*_to_jax(arrs, jnp.float32), h, causal))
+    np.testing.assert_allclose(got, einsum, rtol=1e-5, atol=1e-5)
+
+
+def _qkv_slices(b, s, e, itemsize=4):
+    """Strides (elements) and byte offsets of q, k, v as column slices of one
+    (b, s, 3e) projection."""
+    return [(s * 3 * e, 3 * e)] * 3, [0, e * itemsize, 2 * e * itemsize]
+
+
+@pytest.mark.parametrize("dtype,s,d,layout,variant", [
+    # the main paths' float32 shapes, as the models pass them: 16-byte loads
+    (torch.float32, 31, 16, _qkv_slices(100, 31, 64), "rows_vec4"),            # word LM
+    (torch.float32, 5, 64, ([(5 * 768, 768)] * 3, [0, 0, 0]), "rows_vec4"),   # AV-HuBERT
+    (torch.float32, 5, 64, _qkv_slices(16, 5, 256), "rows_vec4"),              # expert encoder
+    (torch.float32, 48, 64, _qkv_slices(16, 48, 256), "rows_vec4"),            # expert decoder
+    (torch.float32, 5, 512, _qkv_slices(64, 5, 1024), "rows_vec4"),            # FeatureTransformer
+    (torch.float32, 11, 96, _qkv_slices(4, 11, 768), "rows_vec4"),             # audio encoder
+    # the rows kernels' bounds: S 1 to 64, d up to 512 in float4s, 128 in elements
+    (torch.float32, 1, 16, ([(64, 64)] * 3, [0, 0, 0]), "rows_vec4"),
+    (torch.float32, 64, 512, ([(64 * 1024, 1024)] * 3, [0, 0, 0]), "rows_vec4"),
+    (torch.float32, 65, 16, ([(65 * 64, 64)] * 3, [0, 0, 0]), "general_vec4"),
+    (torch.float32, 80, 32, _qkv_slices(16, 80, 256), "general_vec4"),         # float32 ViViT
+    (torch.float32, 5, 516, ([(5 * 1032, 1032)] * 3, [0, 0, 0]), "general_vec4"),
+    (torch.float32, 768, 32, ([(768 * 32, 32)] * 3, [0, 0, 0]), "general_vec4"),
+    (torch.float32, 0, 16, ([(0, 64)] * 3, [0, 0, 0]), "general_vec4"),
+    # element loads: d not a multiple of 4, strides or bases off 16 bytes, bf16
+    (torch.float32, 5, 6, ([(5 * 24, 24)] * 3, [0, 0, 0]), "rows"),
+    (torch.float32, 48, 64, ([(48 * 260, 260)] * 3, [4, 4, 4]), "rows"),
+    (torch.float32, 48, 64, ([(48 * 256, 256)] * 3, [0, 0, 8]), "rows"),
+    (torch.float32, 48, 64, ([(48 * 256, 256), (48 * 256, 256), (48 * 256 + 2, 256)],
+                             [0, 0, 0]), "rows"),
+    (torch.float32, 48, 64, ([(48 * 258, 258)] * 3, [0, 0, 0]), "rows"),
+    (torch.float32, 5, 128, ([(5 * 132, 132)] * 3, [4, 4, 4]), "rows"),
+    (torch.float32, 5, 132, ([(5 * 528, 528)] * 3, [4, 4, 4]), "general"),
+    (torch.bfloat16, 33, 16, ([(33 * 72, 72)] * 3, [8, 8, 8]), "rows"),        # unaligned bf16
+    (torch.bfloat16, 64, 18, ([(64 * 72, 72)] * 3, [0, 0, 0]), "rows"),        # d % 8
+    (torch.bfloat16, 160, 64, ([(160 * 64, 64)] * 3, [0, 0, 0]), "general"),   # S past 128
+])
+def test_small_mha_variant(dtype, s, d, layout, variant):
+    """The CUDA-core kernel's variant by dtype, S, d, strides (elements) and
+    base offsets (bytes)."""
+    strides, offsets = layout
+    assert tatt.small_mha_variant(dtype, s, d, strides, offsets) == variant
+    assert variant in tatt._SMALL_MHA_VARIANTS
+
+
+def _first_viable(h, s, e):
+    """The CUDA-core kernel's first rule, before its variants: the JAX
+    package's, and one head's K and V as float, a query and a score row for
+    each of 8 warps, in a block's 227 KB of shared memory."""
+    d = e // h
+    return (jatt.small_mha_viable(h, s, s, e)
+            and (s * (2 * d + 1) + 8 * (d + s)) * 4 <= 227 * 1024)
+
+
+def test_small_mha_cuda_core_takes_every_shape_it_took():
+    """Every (heads, S, d) that the CUDA-core kernel took under its first
+    shared-memory formula is still viable on that route."""
+    checked = 0
+    for h in (1, 2, 3, 4, 8, 12, 16):
+        for s in (1, 5, 8, 9, 31, 32, 33, 48, 64, 65, 80, 96, 128, 129, 200, 256, 384, 768):
+            for d in (1, 6, 16, 32, 64, 96, 128, 132, 256, 424, 512, 600, 1024, 2048, 3000):
+                if _first_viable(h, s, h * d):
+                    checked += 1
+                    assert tatt.small_mha_viable(h, s, s, h * d, route="cuda_core"), (h, s, d)
+    assert checked > 500
 
 
 def test_mha_dispatch_on_cpu():

@@ -187,6 +187,106 @@ def test_small_mha_routes_what_the_tensor_core_kernel_does_not_take(cuda):
         torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
 
 
+# the CUDA-core K2's variants at their edges: (b, s, e, heads, causal, dtype,
+# layout, variant); "qkv": column slices of one (b, s, 3e) tensor, "off1": views
+# one element into their rows, "off4": bf16 views 8 bytes in
+_F32, _BF16 = torch.float32, torch.bfloat16
+_K2_CUDA_CORE = [
+    (3, 1, 64, 4, False, _F32, "", "rows_vec4"),             # S 1, d 16
+    (3, 5, 64, 4, True, _F32, "qkv", "rows_vec4"),
+    (3, 8, 256, 4, False, _F32, "qkv", "rows_vec4"),         # S 8 / 9: 8 or 32 scores a lane
+    (3, 9, 256, 4, True, _F32, "", "rows_vec4"),
+    (3, 32, 64, 4, True, _F32, "qkv", "rows_vec4"),          # S 32 / 33: 32 or 64
+    (3, 33, 64, 4, False, _F32, "", "rows_vec4"),
+    (3, 48, 256, 4, True, _F32, "qkv", "rows_vec4"),
+    (3, 64, 256, 4, False, _F32, "", "rows_vec4"),           # S 64, the rows kernels' last
+    (3, 64, 64, 4, True, _F32, "qkv", "rows_vec4"),
+    (3, 17, 256, 8, True, _F32, "", "rows_vec4"),            # d 32: 8 lanes a row
+    (2, 11, 768, 8, False, _F32, "qkv", "rows_vec4"),        # d 96: 32 lanes, 24 of them busy
+    (2, 9, 1024, 4, True, _F32, "", "rows_vec4"),            # d 256: 2 chunks a lane
+    (2, 5, 1024, 2, False, _F32, "qkv", "rows_vec4"),        # d 512: 4 chunks a lane
+    (2, 33, 1024, 2, True, _F32, "", "rows_vec4"),
+    (100, 31, 64, 4, True, _F32, "qkv", "rows_vec4"),        # the word LM at batch 100
+    (16, 5, 768, 12, False, _F32, "", "rows_vec4"),          # AV-HuBERT
+    (3, 5, 24, 4, True, _F32, "", "rows"),                   # d 6
+    (3, 7, 12, 4, False, _F32, "", "rows"),                  # d 3: 4 lanes, one idle
+    (3, 33, 256, 4, False, _F32, "off1", "rows"),
+    (2, 64, 512, 4, True, _F32, "off1", "rows"),             # d 128 in elements
+    (3, 33, 64, 4, True, _BF16, "off4", "rows"),             # unaligned bf16
+    (3, 64, 72, 4, False, _BF16, "", "rows"),                # bf16 d 18
+    (2, 65, 64, 4, True, _F32, "qkv", "general_vec4"),       # S 65: the general kernels
+    (2, 80, 256, 8, False, _F32, "", "general_vec4"),
+    (2, 5, 2400, 4, False, _F32, "qkv", "general_vec4"),     # d 600
+    (2, 5, 528, 4, True, _F32, "off1", "general"),           # d 132 in elements
+    (1, 768, 32, 1, False, _F32, "", "general_vec4"),
+    (1, 768, 32, 1, True, _F32, "", "general_vec4"),
+    (2, 160, 64, 1, False, _BF16, "", "general"),            # bf16 S 160
+    (2, 160, 64, 1, True, _BF16, "", "general"),
+]
+
+
+@pytest.mark.parametrize("b,s,e,h,causal,dtype,layout,variant", _K2_CUDA_CORE)
+def test_small_mha_cuda_core_variants_match_plain(cuda, b, s, e, h, causal, dtype, layout,
+                                                  variant):
+    """The CUDA-core K2, each variant at its edges: within 1e-5 (float32) or
+    2e-2 (bf16: one rounding of P and of O) of ``_mha_einsum``, the same bits
+    from a second launch, both counted on the "cuda_core" route and the
+    variant."""
+    if layout == "qkv":
+        q, k, v = _uniform((b, s, 3 * e), -2, 2, 40, cuda, dtype).chunk(3, dim=-1)
+    elif layout:
+        pad = 4 if layout == "off1" else 8
+        lo = 1 if layout == "off1" else 4
+        q, k, v = (_uniform((b, s, e + pad), -2, 2, 40 + i, cuda, dtype)[..., lo:lo + e]
+                   for i in range(3))
+    else:
+        q, k, v = (_uniform((b, s, e), -2, 2, 40 + i, cuda, dtype) for i in range(3))
+    routes, variants = dict(att.small_mha.route_counts), dict(att.small_mha.variant_counts)
+    got = att.small_mha(q, k, v, h, causal)
+    again = att.small_mha(q, k, v, h, causal)
+    torch.cuda.synchronize()
+    assert {r: n - routes[r] for r, n in att.small_mha.route_counts.items()
+            if n != routes[r]} == {"cuda_core": 2}
+    assert {r: n - variants[r] for r, n in att.small_mha.variant_counts.items()
+            if n != variants[r]} == {variant: 2}
+    assert torch.isfinite(got.float()).all() and torch.equal(got, again)
+    tol = 1e-5 if dtype == _F32 else 2e-2
+    want = att._mha_einsum(q, k, v, h, causal)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_small_mha_entry_point_refuses_a_variant_that_does_not_fit(cuda):
+    """The C entry point checks what a variant needs: 16-byte loads on a view
+    one element into its rows, the rows kernels past 64 tokens, an unknown
+    variant, the vec4 variants in bf16: each returns an error, nothing runs."""
+    import ctypes
+
+    from lipreading_video_generation_tpu_torch.ops import _build
+
+    vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    argtypes = [vp] * 4 + [i32] + [i64] * 6 + [i32] * 3 + [ctypes.c_float, i32, i32, vp]
+
+    def rc(entry, q, variant):
+        b, s, e = q.shape
+        out = torch.empty(b, s, e, dtype=q.dtype, device=q.device)
+        return _build.kernel(entry, argtypes)(
+            q.data_ptr(), q.data_ptr(), q.data_ptr(), out.data_ptr(), b, q.stride(0),
+            q.stride(1), q.stride(0), q.stride(1), q.stride(0), q.stride(1), s, 4, e // 4,
+            0.25, 0, att._SMALL_MHA_VARIANTS.index(variant) if variant in
+            att._SMALL_MHA_VARIANTS else 7, torch.cuda.current_stream().cuda_stream)
+
+    off1 = _uniform((2, 5, 68), -1, 1, 50, cuda)[..., 1:65]
+    long = _uniform((2, 65, 64), -1, 1, 51, cuda)
+    bf = _uniform((2, 5, 64), -1, 1, 52, cuda, torch.bfloat16)
+    assert rc("lvg_small_mha_f32", off1, "rows_vec4") != 0
+    assert rc("lvg_small_mha_f32", off1, "general_vec4") != 0
+    assert rc("lvg_small_mha_f32", long, "rows_vec4") != 0
+    assert rc("lvg_small_mha_f32", long, "unknown") != 0
+    assert rc("lvg_small_mha_bf16", bf, "rows_vec4") != 0
+    assert rc("lvg_small_mha_f32", off1, "rows") == 0
+    torch.cuda.synchronize()
+
+
 def test_small_mha_kernel_takes_qkv_slices(cuda):
     """The main path passes column slices of one fused qkv tensor."""
     q, k, v = _uniform((4, 80, 768), -2, 2, 3, cuda, torch.bfloat16).chunk(3, dim=-1)
