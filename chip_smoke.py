@@ -122,7 +122,12 @@ script exits non-zero without printing a result):
    head dims above 256 the CUDA-core kernels, two launches must give equal
    bits, and head dims 320 and 512 and more than 65,535 (batch, head)
    pairs run forward and backward, and head dims 640 and 1024 (above 512 the
-   CUDA-core kernels walk d in slices of 256) in float32 and bf16; K6 matmul: int8 exactly equal, bf16 within 1e-3 of the
+   CUDA-core kernels walk d in slices of 256) in float32 and bf16; K4/K5's
+   CUDA-core launches each by the variant of ``csrc/flash_bwd.cu`` the case
+   names ("tiled": every float32 case with 16-byte rows and d up to 256,
+   the float32 U-Net's three shapes at 64 x 64 contiguous and as qkv slices
+   among them; "general": a float32 view 4 bytes into its rows, bf16, d
+   above 256); K6 matmul: int8 exactly equal, bf16 within 1e-3 of the
    largest |C| (the output is the unrounded float32 sum; only the order of
    summation differs), every serving shape and the tile edges by the
    tensor-core route, odd depths, a row-major int8 B and an unaligned view
@@ -186,7 +191,8 @@ script exits non-zero without printing a result):
    steps on one batch with fixed t and noise must end below the first
    loss; one float32 step at the full channel plan but 64×64, batch 2,
    dropout 0, card against the CPU plain path (loss within 1e-4 relative,
-   the whole gradient within 1e-3 relative L2).
+   the whole gradient within 1e-3 relative L2), every K4/K5 launch of it by
+   the "tiled" kernels of ``csrc/flash_bwd.cu``.
 9. superres — 3 ``train_superres.train_step``s at the ``SuperResConfig``
    defaults, batch 8 (6 AttentionBlocks of 1024 tokens, d=192), then one
    ``sample_cascade`` request: base at ``DiffusionConfig(im_size=64)``, 4
@@ -229,7 +235,8 @@ script exits non-zero without printing a result):
    ``sample-diffusion --checkpoint --frames 4 --ddim-steps 10`` (K2 12, K3
    160); a profile of a step; float32 card vs CPU: ``encode_condition`` at
    full width (1e-3) and a 64×64 step's loss (1e-4 relative) and wav2vec2
-   gradients (1e-3 relative L2); base wav2vec2 alone in bf16 on 163,840
+   gradients (1e-3 relative L2), its K4/K5 launches all by "tiled"; base
+   wav2vec2 alone in bf16 on 163,840
    samples: K3 12× by sm90, each layer's O within 1e-2 of
    ``flash_reference``; ``port-avhubert --selftest``, ``port-avhubert
    --pth`` at base width → ``train-gan --avhubert-checkpoint --steps 4``
@@ -273,7 +280,7 @@ script exits non-zero without printing a result):
    ``diffusion_dp``); a float32 step at 64×64
    whose reduced gradient must lie within ``TOL_PAR_GRAD`` of one
    process's, and the same with rank 1's gradient × 1.01 before the
-   reduction, which must not; int8 ``generate_frames`` at width 1.0 (16
+   reduction, which must not (each rank's K4/K5 launches all by "tiled"); int8 ``generate_frames`` at width 1.0 (16
    frames of 360×640, K6 51 a rank); ``ring_attention`` at (1,4,16384,64)
    forward and backward, plain and causal, against
    ``attention_reference``; the ViViT defaults with ``sequence_parallel``
@@ -293,7 +300,7 @@ script exits non-zero without printing a result):
    bf16 steps, the first gradient within ``TOL_TP_GRAD_BF16`` of one
    process's on the leaves outside ``AUDIO_GATED``, K3-K5 16 and K2 4 a
    step a rank, and a float32 step at 64x64 within ``TOL_TP_GRAD`` on
-   all leaves), ``tp2_serve`` (``predict_sharded`` at the ViViT
+   all leaves, its K4/K5 launches all by "tiled"), ``tp2_serve`` (``predict_sharded`` at the ViViT
    defaults, threshold 2^16, the caller's model unchanged, K1 1 and K2 12
    a rank) and ``tp2_cli`` (``cli.main(["sample-diffusion", "--frames",
    "2", ..., "--set", "mesh.model_parallel=2", ...])`` in each rank: the
@@ -318,9 +325,14 @@ script exits non-zero without printing a result):
    640 (its tiled route). K2's CUDA-core route at the five float32 shapes
    of the main paths (``bench/small_mha_timing.py``): through ``small_mha``,
    its C entry point in a loop and from a CUDA graph of 20 launches, beside
-   SDPA float32 from a CUDA graph of 20 calls; the float32 CUDA-core K3 and
-   K4/K5 at (2, 1, 4096, 64), the float32 U-Net's at 64 x 64, beside SDPA
-   float32's forward and backward.
+   SDPA float32 from a CUDA graph of 20 calls; the float32 CUDA-core K3 at
+   (2, 1, 4096, 64), the float32 U-Net's at 64 x 64, beside SDPA float32's
+   forward; K4/K5's CUDA-core kernels in both variants at the float32
+   U-Net's three shapes at 64 x 64 and (2, 1, 16384, 64)
+   (``bench/flash_bwd_timing.py``): each variant's C entry point from a CUDA
+   graph of 20 launches, "tiled" also through the wrappers (launches
+   counted by variant), the plain version, SDPA float32's backward from a
+   CUDA graph where its capture works, and the library kernel it runs.
 
 The line before the last is ``nvidia-smi``'s name and power limit; before
 it, one JSON object with the kernels; the last line is the result:
@@ -455,10 +467,13 @@ def phase_build() -> None:
                                       ("cuda_core", "CUDA-core route (float tiles)",
                                        (64, 128, 256, 512, 1024))))
         + "".join(f"; {name} {what} " + ", ".join(
-            f"{flash_bwd_smem_bytes(d, kern, route)} B (head dim {d})" for d in dims)
-            for route, what, dims in (("sm90", "tensor-core route (bf16 tiles)", (64, 128, 256)),
-                                      ("cuda_core", "CUDA-core route (float tiles)",
-                                       (64, 128, 256, 512, 1024)))
+            f"{flash_bwd_smem_bytes(d, kern, route, variant)} B (head dim {d})" for d in dims)
+            for route, variant, what, dims in (
+                ("sm90", "general", "tensor-core route (bf16 tiles)", (64, 128, 256)),
+                ("cuda_core", "general", "CUDA-core route, general variant (float tiles)",
+                 (64, 128, 256, 512, 1024)),
+                ("cuda_core", "tiled", "CUDA-core route, tiled variant (float tiles, two "
+                 "stages of the streamed pair)", (64, 128, 256)))
             for name, kern in (("K4", "dkv"), ("K5", "dq")))
         + "; K6 tensor-core route 4 stages of (128 + N tile) rows of 128 bytes, their 8 "
         "mbarriers + 1 KB: "
@@ -698,15 +713,23 @@ def phase_kernels() -> dict:
     many_heads = [((4097, 17, 132, 16), 132, True, bf16, "sm90"),
                   ((2048, 33, 132, 16), 132, False, f32, "cuda_core")]
 
-    def flash_inputs(q_shape, s_k, dtype, unaligned, seed):
-        """q, k, v and a cotangent; ``unaligned``: columns 4..d+3 of rows of
-        d + 8, a view that starts 8 bytes into its rows."""
+    def flash_inputs(q_shape, s_k, dtype, layout, seed):
+        """q, k, v and a cotangent. ``layout`` "unaligned": columns 4..d+3 of
+        rows of d + 8, a view that starts 8 bytes into its rows (bf16);
+        "off4": columns 1..d of rows of d + 4, 4 bytes in (float32); "qkv":
+        (B, H, S, D) views of column slices of one (B, S, 3 H D) tensor, as
+        the U-Net passes them (s_k = s_q); "": contiguous."""
         b, h, s_q, d = q_shape
-        wide = d + 8 if unaligned else d
-        q = _uniform((b, h, s_q, wide), -2, 2, seed, dtype)
-        k, v = (_uniform((b, h, s_k, wide), -2, 2, seed + 1 + i, dtype) for i in range(2))
-        do = _uniform((b, h, s_q, wide), -1, 1, seed + 3, dtype)
-        return [t[..., 4:4 + d] if unaligned else t for t in (q, k, v, do)]
+        if layout == "qkv":
+            qkv = _uniform((b, s_q, 3 * h * d), -2, 2, seed, dtype)
+            q, k, v = (t.reshape(b, s_q, h, d).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
+            do = _uniform((b, s_q, h * d), -1, 1, seed + 3, dtype)
+            return [q, k, v, do.reshape(b, s_q, h, d).transpose(1, 2)]
+        start, pad = {"unaligned": (4, 8), "off4": (1, 4)}.get(layout, (0, 0))
+        q = _uniform((b, h, s_q, d + pad), -2, 2, seed, dtype)
+        k, v = (_uniform((b, h, s_k, d + pad), -2, 2, seed + 1 + i, dtype) for i in range(2))
+        do = _uniform((b, h, s_q, d + pad), -1, 1, seed + 3, dtype)
+        return [t[..., start:start + d] if pad else t for t in (q, k, v, do)]
 
     # K3: the U-Net's three shapes (batch 2), scripts/profile_flash_dpad.py's
     # two, the small cases in float32 (the CUDA-core kernel) and in bf16 (the
@@ -723,7 +746,7 @@ def phase_kernels() -> dict:
                 + [((2, 2, 300, 64), 300, True, bf16, "cuda_core")] + wide_heads + many_heads)
     for (q_shape, s_k, causal, dtype, route) in k3_cases:
         unaligned = q_shape == (2, 2, 300, 64)
-        q, k, v, _ = flash_inputs(q_shape, s_k, dtype, unaligned, SEED)
+        q, k, v, _ = flash_inputs(q_shape, s_k, dtype, "unaligned" if unaligned else "", SEED)
         before = dict(att.flash_attention.route_counts)
         got_o, got_lse = att.flash_attention(q, k, v, causal, return_lse=True)
         again_o, again_lse = att.flash_attention(q, k, v, causal, return_lse=True)
@@ -762,25 +785,40 @@ def phase_kernels() -> dict:
     # CUDA-core kernels) and in bf16 (the tensor-core kernels), and a bf16
     # view that starts 8 bytes into its rows, which 16-byte copies cannot
     # read: it must take the CUDA-core kernels; head dims 320 and 512; more
-    # than 65,535 (batch, head) pairs. Every lse comes from K3 by the route
-    # of the same inputs, so the pair forward + backward is held
-    cases = ([((2, 1, 16384, 64), 16384, False, torch.bfloat16, "sm90"),
-              ((2, 1, 4096, 128), 4096, False, torch.bfloat16, "sm90"),
-              ((2, 1, 1024, 256), 1024, False, torch.bfloat16, "sm90"),
-              ((2, 1, 1024, 192), 1024, False, torch.bfloat16, "sm90"),
-              ((2, 2, 1024, 64), 1024, False, torch.bfloat16, "sm90"),
-              ((1, 1, 512, 64), 512, False, torch.float32, "cuda_core")]
-             + [c + (torch.float32, "cuda_core") for c in small]
-             + [c + (torch.bfloat16, "sm90") for c in small]
-             + [((2, 2, 300, 64), 300, True, torch.bfloat16, "cuda_core")]
-             + wide_heads + many_heads)
+    # than 65,535 (batch, head) pairs. The float32 cases name the variant of
+    # csrc/flash_bwd.cu they must take: "tiled" for the float32 U-Net's three
+    # shapes at 64x64, contiguous and as slices of its fused qkv, head dims
+    # 32, 100 and 192 (padded), the small cases (causal with s_q < s_k,
+    # ragged, rows that see no key) and more than 65,535 pairs; "general" for
+    # a float32 view 4 bytes into its rows, for bf16 and above head dim 256.
+    # Every lse comes from K3 by the route of the same inputs, so the pair
+    # forward + backward is held. (q, s_k, causal, dtype, route, variant of
+    # the CUDA-core route or None, layout of flash_inputs)
+    f32, cc = torch.float32, "cuda_core"
+    cases = ([((2, 1, 16384, 64), 16384, False, bf16, "sm90", None, ""),
+              ((2, 1, 4096, 128), 4096, False, bf16, "sm90", None, ""),
+              ((2, 1, 1024, 256), 1024, False, bf16, "sm90", None, ""),
+              ((2, 1, 1024, 192), 1024, False, bf16, "sm90", None, ""),
+              ((2, 2, 1024, 64), 1024, False, bf16, "sm90", None, ""),
+              ((1, 1, 512, 64), 512, False, f32, cc, "tiled", "")]
+             + [((2, 1, s, d), s, False, f32, cc, "tiled", layout)
+                for s, d in ((4096, 64), (1024, 128), (256, 256)) for layout in ("", "qkv")]
+             + [((2, 2, 300, 32), 300, True, f32, cc, "tiled", ""),
+                ((2, 2, 200, 100), 200, True, f32, cc, "tiled", ""),
+                ((2, 2, 300, 192), 300, False, f32, cc, "tiled", "")]
+             + [c + (f32, cc, "tiled", "") for c in small]
+             + [c + (bf16, "sm90", None, "") for c in small]
+             + [((2, 2, 300, 64), 300, True, bf16, cc, "general", "unaligned"),
+                ((2, 2, 300, 64), 300, True, f32, cc, "general", "off4")]
+             + [c + ("general", "") for c in wide_heads]
+             + [c + ("tiled" if c[3] == f32 else None, "") for c in many_heads])
     errs["flash_bwd_dkv"] = errs["flash_bwd_dq"] = 0.0
-    for (q_shape, s_k, causal, dtype, route) in cases:
-        unaligned = q_shape == (2, 2, 300, 64)
-        q, k, v, do = flash_inputs(q_shape, s_k, dtype, unaligned, SEED + 20)
+    for (q_shape, s_k, causal, dtype, route, variant, layout) in cases:
+        q, k, v, do = flash_inputs(q_shape, s_k, dtype, layout, SEED + 20)
         o, lse = att.flash_attention(q, k, v, causal, return_lse=True)
         delta = (do.float() * o.float()).sum(-1)
         before = dict(att.flash_bwd_dkv.route_counts), dict(att.flash_bwd_dq.route_counts)
+        before_v = _bwd_variants()
         dk, dv = att.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
         dq = att.flash_bwd_dq(q, k, v, do, lse, delta, causal)
         dk2, dv2 = att.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
@@ -788,8 +826,11 @@ def phase_kernels() -> dict:
         torch.cuda.synchronize()
         for fn, was in zip((att.flash_bwd_dkv, att.flash_bwd_dq), before):
             took = {r: n - was[r] for r, n in fn.route_counts.items() if n != was[r]}
-            if took != {route: 2}:
-                raise AssertionError(f"K4/K5 q{q_shape} {dtype}: routes {took}, want {route}")
+            took_v = {v_: n - before_v[fn.__name__][v_] for v_, n in fn.variant_counts.items()
+                      if n != before_v[fn.__name__][v_]}
+            if took != {route: 2} or took_v != ({} if variant is None else {variant: 2}):
+                raise AssertionError(f"K4/K5 q{q_shape} {dtype} {layout}: routes {took}, "
+                                     f"variants {took_v}, want {route} {variant}")
         if not (torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)):
             raise AssertionError(f"K4/K5 q{q_shape} {dtype}: two launches gave different bits")
         want = att.flash_backward_reference(q, k, v, do, lse, delta, causal)
@@ -810,7 +851,9 @@ def phase_kernels() -> dict:
             errs["flash_bwd_dq" if name == "dq" else "flash_bwd_dkv"] = max(
                 errs["flash_bwd_dq" if name == "dq" else "flash_bwd_dkv"], diff)
         log("kernels", f"K4/K5 flash backward q{q_shape} s_k={s_k} causal={causal} {dtype}"
-            f"{' (view 8 bytes into its rows)' if unaligned else ''}, route {route}: "
+            + {"unaligned": " (view 8 bytes into its rows)", "off4": " (view 4 bytes into its "
+               "rows)", "qkv": " (slices of one qkv)"}.get(layout, "")
+            + f", route {route}{'' if variant is None else ', variant ' + variant}: "
             f"max|d|/max|ref| dq {rel[0]:.3g} dk {rel[1]:.3g} dv {rel[2]:.3g} (tol {tol})"
             + (f"; against the plain version with bf16 P and dS dq {rel_p[0]:.3g} dk "
                f"{rel_p[1]:.3g} dv {rel_p[2]:.3g}" if route == "sm90" else "")
@@ -1871,8 +1914,9 @@ def _zero_counts() -> None:
     for fn in (cl.clahe_cuda, att.small_mha, att.flash_attention, att.flash_bwd_dkv,
                att.flash_bwd_dq, mm.int8_matmul, mm.bf16_matmul):
         fn.launch_count = 0
-        if hasattr(fn, "route_counts"):
-            fn.route_counts = dict.fromkeys(fn.route_counts, 0)
+        for counts in ("route_counts", "variant_counts"):
+            if hasattr(fn, counts):
+                setattr(fn, counts, dict.fromkeys(getattr(fn, counts), 0))
 
 
 def _all_by_tensor_cores(phase: str, *fns) -> None:
@@ -1898,6 +1942,36 @@ def _k2_rows_phase(phase: str, run) -> dict:
     if not took.get("rows_vec4"):
         raise AssertionError(f"{phase}: K2's CUDA-core launches took the variants {took}, want "
                              "the main path's by rows_vec4")
+    return out
+
+
+def _bwd_variants() -> dict:
+    """K4's and K5's CUDA-core launches so far, by variant of
+    ``csrc/flash_bwd.cu``."""
+    from lipreading_video_generation_tpu_torch.ops import attention as att
+
+    return {"flash_bwd_dkv": dict(att.flash_bwd_dkv.variant_counts),
+            "flash_bwd_dq": dict(att.flash_bwd_dq.variant_counts)}
+
+
+def _bwd_tiled(phase: str, what: str, took: dict) -> None:
+    """Fail unless K4's and K5's CUDA-core launches in ``took`` (by kernel,
+    then by variant) are some, and all by the "tiled" variant: a float32
+    diffusion step on the main path. Logs them."""
+    log(phase, f"{what}: K4/K5 by cuda_core, launches by variant: {took}")
+    for name, by_variant in took.items():
+        if not by_variant.get("tiled") or any(n for v, n in by_variant.items() if v != "tiled"):
+            raise AssertionError(f"{phase}: {what}: {name} took the variants {by_variant}, want "
+                                 "every launch by tiled")
+
+
+def _bwd_tiled_run(phase: str, what: str, run):
+    """``run()``, then ``_bwd_tiled`` on the K4/K5 launches it made."""
+    before = _bwd_variants()
+    out = run()
+    after = _bwd_variants()
+    _bwd_tiled(phase, what, {k: {v: n - before[k][v] for v, n in after[k].items()
+                                 if n != before[k][v]} for k in after})
     return out
 
 
@@ -2095,8 +2169,10 @@ def phase_train(dev: dict) -> dict:
     batch = train_batch(cfg32, 2, SEED + 11, size=64)
     t = np.array([17, 402])
     noise = np.random.default_rng(SEED + 12).standard_normal((2, 64, 64, 3)).astype(np.float32)
-    (l_gpu, g_gpu), (l_cpu, g_cpu) = (_grad_step(cfg32, sd, batch, t, noise, d)
-                                      for d in ("cuda", "cpu"))
+    # its K4/K5 launches by the tiled kernels of csrc/flash_bwd.cu
+    l_gpu, g_gpu = _bwd_tiled_run("train", "float32 step at 64x64",
+                                  lambda: _grad_step(cfg32, sd, batch, t, noise, "cuda"))
+    l_cpu, g_cpu = _grad_step(cfg32, sd, batch, t, noise, "cpu")
     loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
     grad_rel = ((g_gpu - g_cpu).norm() / g_cpu.norm()).item()
     log("train", f"float32 step at 64x64, batch 2, card vs CPU plain path: loss {l_gpu:.7g} vs "
@@ -3403,8 +3479,7 @@ def phase_pretrained(dev: dict) -> dict:
         cond_err = (conds["cuda"] - conds["cpu"]).abs().max().item()
         t = np.array([17, 402])
         noise = np.random.default_rng(SEED + 42).standard_normal((2, 64, 64, 3)).astype(np.float32)
-        grads = {}
-        for device in ("cuda", "cpu"):
+        def w2v_step(device):
             st = ttd.create_state(cfg32, seed=SEED, device=device)
             st.model.load_state_dict(sd32)
             p = ttd.prepare_batch(batch, cfg32, device)
@@ -3412,10 +3487,14 @@ def phase_pretrained(dev: dict) -> dict:
             loss = ttd.noise_mse(st.model(st.scheduler.add_noise(p["target"], nz, tt), p["cond"],
                                           p["audio"], tt), nz)
             loss.backward()
-            grads[device] = (loss.item(), torch.cat([
+            return (loss.item(), torch.cat([
                 q.grad.flatten().double().cpu() for k, q in st.model.named_parameters()
                 if k.startswith("audio_encoder.")]))
-            del st
+
+        # the card's K4/K5 launches by the tiled kernels of csrc/flash_bwd.cu
+        grads = {"cuda": _bwd_tiled_run("pretrained", "float32 diffusion step with wav2vec2 "
+                                        "at 64x64", lambda: w2v_step("cuda")),
+                 "cpu": w2v_step("cpu")}
         loss_rel = abs(grads["cuda"][0] - grads["cpu"][0]) / abs(grads["cpu"][0])
         w2v_rel = ((grads["cuda"][1] - grads["cpu"][1]).norm() / grads["cpu"][1].norm()).item()
         log("pretrained", f"float32, card vs CPU plain path: encode_condition (2 waves of "
@@ -3919,7 +3998,8 @@ def _par_end(out: dict) -> dict:
     from lipreading_video_generation_tpu_torch.parallel import mesh as pmesh
 
     t = pmesh.transport_stats
-    out.update(counts=_par_counts(), backend=dist.get_backend() if dist.is_initialized() else None,
+    out.update(counts=_par_counts(), bwd_variants=_bwd_variants(),
+               backend=dist.get_backend() if dist.is_initialized() else None,
                transport_s=t.seconds, transport_calls=t.calls, transport_bytes=t.bytes)
     return out
 
@@ -4626,6 +4706,9 @@ def _tp_gates(dev: dict, runs: dict, one: dict) -> None:
         f"({bf[0]['bytes'] / one_bf['bytes']:.3f}x) on {dev['smi']}")
     gate(len({r["digest"] for r in bf}) == 1 and len({r["digest"] for r in f}) == 1,
          "tp2 diffusion: the ranks' whole params differ")
+    for i, r in enumerate(f + ff):   # float32: K4/K5 by the tiled kernels on both model ranks
+        _bwd_tiled("parallel", f"tp2 float32 diffusion step, model rank {i % 2}",
+                   {k: {v: n for v, n in c.items() if n} for k, c in r["bwd_variants"].items()})
     want_k = {"flash_attention": 32, "flash_bwd_dkv": 32, "flash_bwd_dq": 32, "small_mha": 8}
     gate(all(r["counts"][k] == n for r in bf for k, n in want_k.items()),
          f"tp2 bf16 diffusion launches {[r['counts'] for r in bf]}, want {want_k} a rank")
@@ -5004,6 +5087,9 @@ def _par_gates(dev: dict, runs: dict, refs: dict) -> None:
         raise AssertionError(f"the planted fault (rank 1's gradient x {PAR_FAULT}) passed a "
                              f"gradient gate: {g_fault:.3g} (gates {TOL_PAR_GRAD}, bf16 "
                              f"{TOL_PAR_GRAD_BF16})")
+    for i, r in enumerate(f32 + fault):   # both ranks, clean and with the fault
+        _bwd_tiled("parallel", f"float32 data-parallel step, rank {i % 2}",
+                   {k: {v: n for v, n in c.items() if n} for k, c in r["bwd_variants"].items()})
     log("parallel", f"float32 step at 64x64 (full channel plan), global batch {PAR_BATCH}: "
         f"reduced gradient {g:.3g} relative L2 from one process's (gate {TOL_PAR_GRAD}), loss "
         f"{loss:.3g} (gate {TOL_PAR_LOSS}); planted fault, rank 1's gradient x {PAR_FAULT} "
@@ -5149,20 +5235,22 @@ def _flash_fwd_sm90_launcher(q, k, v):
 
 
 def _flash_f32_timing() -> dict:
-    """The float32 CUDA-core K3 (``csrc/flash_fwd.cu``) and K4/K5
-    (``csrc/flash_bwd.cu``) at the float32 U-Net's heaviest attention at
-    64x64, (2, 1, 4096, 64) views of column slices of one qkv tensor, each
-    beside its plain version and SDPA float32 (forward; the backward's dQ,
-    dK, dV in one call for K4 and K5), with the bytes (q, k, v, O or the
-    gradients, dO, lse and Δ, float32) and operations of a call."""
+    """The float32 CUDA-core K3 (``csrc/flash_fwd.cu``) at the float32
+    U-Net's heaviest attention at 64x64, (2, 1, 4096, 64) views of column
+    slices of one qkv tensor, beside its plain version and SDPA float32's
+    forward, with the bytes (q, k, v, O, lse, float32) and operations of a
+    call; and (``bwd``) K4/K5's CUDA-core kernels (``csrc/flash_bwd.cu``) in
+    both variants at the float32 U-Net's three attention shapes at 64x64 and
+    its heaviest at the 128x128 defaults, beside SDPA float32's backward
+    (``bench/flash_bwd_timing.run``)."""
     import torch.nn.functional as F
 
+    from lipreading_video_generation_tpu_torch.bench import flash_bwd_timing
     from lipreading_video_generation_tpu_torch.ops import attention as att
 
     b, s, d = 2, 4096, 64
     qkv = _uniform((b, s, 3 * d), -2, 2, SEED + 80)
     q, k, v = (t.reshape(b, s, 1, d).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
-    do = _uniform((b, s, d), -1, 1, SEED + 81).reshape(b, s, 1, d).transpose(1, 2)
     tensor, rows = b * s * d * 4, b * s * 4
     out = {}
     with torch.no_grad():
@@ -5175,30 +5263,58 @@ def _flash_f32_timing() -> dict:
         out["fwd"] = dict(what="K3 flash_attention", route="cuda_core", timed_launches=n, ms=ms,
                           plain_ms=plain, library_ms=lib, library_what="forward",
                           bytes=4 * tensor + rows, ops=4.0 * b * s * s * d)
-        o, lse = att.flash_attention(q, k, v, return_lse=True)
-        delta = (do.float() * o.float()).sum(-1)
-        for kern, fn, ops, n_tensors in (("dkv", att.flash_bwd_dkv, 8.0, 6),
-                                         ("dq", att.flash_bwd_dq, 6.0, 5)):
-            before = fn.route_counts["cuda_core"]
-            ms, plain, _ = _plain_vs_kernel(
-                lambda: att.flash_backward_reference(q, k, v, do, lse, delta, dq=kern == "dq",
-                                                     dkv=kern == "dkv"),
-                lambda: fn(q, k, v, do, lse, delta), 3, 20)
-            out[kern] = dict(what="K4 flash_bwd_dkv" if kern == "dkv" else "K5 flash_bwd_dq",
-                             route="cuda_core", timed_launches=fn.route_counts["cuda_core"] - before,
-                             ms=ms, plain_ms=plain, library_what="backward (dQ, dK, dV)",
-                             bytes=n_tensors * tensor + 2 * rows, ops=ops * b * s * s * d)
-    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-    res = F.scaled_dot_product_attention(*leaves)
-    torch.autograd.grad(res, leaves, do, retain_graph=True)
-    lib = _event_ms(lambda: torch.autograd.grad(res, leaves, do, retain_graph=True), 20)
-    for kern in ("dkv", "dq"):
-        out[kern]["library_ms"] = lib
-    for kern, r in out.items():
-        if r["timed_launches"] != 41:
-            raise AssertionError(f"{r['what']} f32: {r['timed_launches']} cuda_core launches "
-                                 "counted, want 41")
+    if out["fwd"]["timed_launches"] != 41:
+        raise AssertionError(f"K3 f32: {out['fwd']['timed_launches']} cuda_core launches "
+                             "counted, want 41")
+    del qkv, q, k, v
+    out["bwd"] = flash_bwd_timing.run(SEED + 80)
     return out
+
+
+def _flash_bwd_f32_rows(dev: dict, res: dict) -> dict:
+    """Log ``bench/flash_bwd_timing.run``'s K4/K5 float32 readings with each
+    kernel's bound and share of it, hold them (every variant within
+    TOL_BWD_F32 of the plain version with equal bits of two launches, every
+    launch through the wrappers by the variant the port picks: "tiled"), and
+    return the JSON rows: kernel -> shape -> readings."""
+    rows = {"dkv": {}, "dq": {}}
+    for name, r in res.items():
+        shape = tuple(r["shape"])
+        for kern in ("dkv", "dq"):
+            kr = r[kern]
+            bound = _bound(kr["bytes"], kr["ops"], "f32")
+            if not (kr["picked"] == "tiled" and set(kr["wrapper_launches"]) == {"tiled"}
+                    and all(kr[v]["max_rel_err"] <= TOL_BWD_F32 and kr[v]["equal_bits"]
+                            for v in ("tiled", "general"))):
+                raise AssertionError(f"K4/K5 f32 timing {shape} {kern}: {kr}")
+            row = dict(shape=list(shape), variant=kr["picked"], ms=kr["tiled"]["graph_ms"],
+                       wrapper_ms=kr["wrapper_ms"], plain_ms=kr["plain_ms"],
+                       library_ms=r["sdpa_bwd_ms"], library_timed=r["sdpa_timed"],
+                       launches=kr["wrapper_launches"], **bound,
+                       variants={v: dict(ms=kr[v]["graph_ms"],
+                                         share=bound["bound_ms"] / kr[v]["graph_ms"],
+                                         max_rel_err=kr[v]["max_rel_err"])
+                                 for v in ("tiled", "general")})
+            rows[kern][name] = row
+            log("timing", f"{'K4 flash_bwd_dkv' if kern == 'dkv' else 'K5 flash_bwd_dq'} "
+                f"{shape} f32, route cuda_core, from a CUDA graph of 20 launches of the C entry "
+                "point: "
+                + ", ".join(f"{v} {kr[v]['graph_ms']:.4f} ms ({bound['bound_ms'] / kr[v]['graph_ms']:.1%}"
+                            f" of the bound)" for v in ("tiled", "general"))
+                + f"; bound {bound['bound_ms']:.4f} ms by {bound['bound_by']}; through the "
+                f"wrapper ({kr['picked']}) {kr['wrapper_ms']:.4f} ms, launches counted "
+                f"{kr['wrapper_launches']}; plain {kr['plain_ms']:.4f} ms; max|d|/max|ref| tiled "
+                f"{kr['tiled']['max_rel_err']:.3g}, general {kr['general']['max_rel_err']:.3g} "
+                f"on {dev['smi']}")
+        both = {v: r["dkv"][v]["graph_ms"] + r["dq"][v]["graph_ms"] for v in ("tiled", "general")}
+        log("timing", f"K4 + K5 {shape} f32: tiled {both['tiled']:.4f} ms, general "
+            f"{both['general']:.4f} ms, against SDPA float32's backward (dQ, dK, dV in one call, "
+            f"timed from {r['sdpa_timed']}) {r['sdpa_bwd_ms']:.4f} ms: tiled "
+            f"{both['tiled'] / r['sdpa_bwd_ms']:.2f} x on {dev['smi']}")
+        if "sdpa_bwd_kernels" in r:
+            log("timing", f"SDPA float32 backward {shape} runs (torch.profiler, device ms, "
+                f"launches): {r['sdpa_bwd_kernels']}")
+    return rows
 
 
 def _small_mha_launcher(q, k, v, num_heads: int):
@@ -5383,6 +5499,7 @@ def phase_timing(dev: dict, microbench: dict) -> dict:
             f"(kernel/SDPA {r['graph_ms'] / r['sdpa_graph_ms']:.2f} x); max|d| "
             f"{r['max_abs_err']:.3g} from _mha_einsum on {dev['smi']}")
     log("timing", f"K2 cuda_core launches counted while timed through small_mha: {n_k2c}")
+    bwd32 = fl.pop("bwd")
     for kern, r in fl.items():
         bound = _bound(r["bytes"], r["ops"], "f32")
         fl[kern].update(bound)
@@ -5392,6 +5509,7 @@ def phase_timing(dev: dict, microbench: dict) -> dict:
             f"{bound['bound_ms'] / r['ms']:.1%} of it), plain {r['plain_ms']:.4f} ms, the "
             f"library's {r['library_what']} (SDPA float32) {r['library_ms']:.4f} ms: "
             f"{r['ms'] / r['library_ms']:.2f} x on {dev['smi']}")
+    bwd_rows = _flash_bwd_f32_rows(dev, bwd32)
     k2_bound = _attention_bound(384, 8, 80, 32, 4, 4)["bound_ms"]
     log("timing", f"K2 small_mha (384,80,256) H=8 bf16, route sm90: kernel {k2_ms:.4f} ms (bound "
         f"{k2_bound:.4f} ms by bytes, {k2_bound / k2_ms:.1%} of it), plain "
@@ -5511,13 +5629,16 @@ def phase_timing(dev: dict, microbench: dict) -> dict:
                                 **_attention_bound(DIFF_FRAMES, 1, 16384, 64, 4, 4)),
         # K4 reads q, k, v, dO and writes dK, dV; K5 reads the four and writes
         # dQ; both read lse and delta. The library call covers both kernels.
+        # cuda_core_f32: the float32 CUDA-core kernels at four shapes, by
+        # variant (ms from a CUDA graph of 20 launches), library_ms SDPA
+        # float32's whole backward
         "flash_bwd_dkv": dict(ms=bwd[("dkv", 16384, 64)][0], plain_ms=bwd[("dkv", 16384, 64)][1],
                               library_ms=bwd_lib, library_covers="flash_bwd_dkv+flash_bwd_dq",
-                              cuda_core_f32=fl["dkv"],
+                              cuda_core_f32=bwd_rows["dkv"],
                               **_attention_bound(DIFF_FRAMES, 1, 16384, 64, 8, 6)),
         "flash_bwd_dq": dict(ms=bwd[("dq", 16384, 64)][0], plain_ms=bwd[("dq", 16384, 64)][1],
                              library_ms=bwd_lib, library_covers="flash_bwd_dkv+flash_bwd_dq",
-                             cuda_core_f32=fl["dq"],
+                             cuda_core_f32=bwd_rows["dq"],
                              **_attention_bound(DIFF_FRAMES, 1, 16384, 64, 6, 5)),
         "int8_matmul": k6[(m, kk, n)],
         "bf16_matmul": dict(ms=mb["k6_bf16_ms"], plain_ms=bf16_plain,
@@ -5585,7 +5706,11 @@ def main() -> None:
             kern["route_detail"] = (
                 "sm90: wgmma on bf16 tiles, cp.async ring (aligned bf16 inputs up to head dim "
                 f"256; timed here and on the training path); cuda_core: {pkg}/csrc/flash_bwd.cu "
-                "(float32, unaligned inputs, head dims above 256, in slices of 256 columns)")
+                "in two variants picked by ops/attention.flash_bwd_variant: tiled (float32 with "
+                "16-byte rows up to head dim 256: 128-thread blocks, two an SM, the streamed "
+                "tiles by cp.async in two stages; every float32 diffusion training step, timed "
+                "here under cuda_core_f32) and general (unaligned inputs, bf16 views, head dims "
+                "above 256 in slices of 256 columns)")
         if name == "clahe":
             kern["route_detail"] = (
                 "packed: one block an image, 8-bit counters packed in shared memory, an integer "

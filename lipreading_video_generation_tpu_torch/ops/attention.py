@@ -6,8 +6,8 @@ kernel's variant), K3 (flash-attention forward:
 ``csrc/flash_fwd_sm90.cu`` on the tensor cores for aligned bf16 inputs,
 ``csrc/flash_fwd.cu`` on CUDA cores for the rest) and K4/K5 (its backward:
 ``csrc/flash_bwd_sm90.cu`` and ``csrc/flash_bwd.cu`` likewise; one rule,
-``flash_route``, picks the route of all three) and their plain torch
-versions.
+``flash_route``, picks the route of all three, and ``flash_bwd_variant`` the
+variant of ``csrc/flash_bwd.cu``) and their plain torch versions.
 
 Port of ``lipreading_video_generation_tpu/ops/attention.py``'s
 ``attention_reference``, ``flash_attention`` (with its custom VJP),
@@ -36,7 +36,8 @@ import torch
 from . import _build
 
 __all__ = ["attention_reference", "flash_attention", "flash_backward_reference",
-           "flash_bwd_dkv", "flash_bwd_dq", "flash_bwd_route", "flash_reference", "flash_route",
+           "flash_bwd_dkv", "flash_bwd_dq", "flash_bwd_route", "flash_bwd_variant",
+           "flash_reference", "flash_route",
            "mha", "mha_route", "small_mha", "small_mha_route", "small_mha_variant",
            "small_mha_viable"]
 
@@ -462,18 +463,59 @@ def flash_backward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 _BWD_DTYPE_SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}   # the CUDA-core entry points
+# csrc/flash_bwd.cu's variants, in its order (its C entry points take the index)
+_FLASH_BWD_VARIANTS = ("general", "tiled")
+_FLASH_BWD_TILED_MAX_D = 256
 
 
-def flash_bwd_block_q(d: int, route: str = "cuda_core", kernel: str = "dkv") -> int:
+def flash_bwd_variant(dtype: torch.dtype, d: int, strides, offsets) -> str:
+    """Which kernels of ``csrc/flash_bwd.cu`` the "cuda_core" route of K4
+    and K5 launches (``strides`` and ``offsets`` as for ``flash_route``, over
+    q, k, v, dO and the gradients):
+
+    - "tiled": float32 with ``d`` a multiple of 4 up to 256 whose every
+      (batch, head, row) stride is a multiple of 4 elements and whose every
+      base lies on 16 bytes: 128-thread blocks, two an SM, the streamed
+      tiles copied by 16-byte ``cp.async`` into two stages;
+    - "general": everything else (bf16 views the tensor-core kernels cannot
+      read, unaligned float32, ``d`` not a multiple of 4, and head dims above
+      256, walked in slices of 256 columns).
+
+    The causal mask and the lengths do not enter the choice."""
+    if (dtype == torch.float32 and d % 4 == 0 and d <= _FLASH_BWD_TILED_MAX_D
+            and _aligned(strides, offsets, 4, 16)):
+        return "tiled"
+    return "general"
+
+
+def _flash_bwd_tiled_tiles(d: int, kernel: str):
+    """(query rows, keys) of a tile of the "tiled" kernels
+    (``csrc/flash_bwd.cu``'s DkvTiles / DqTiles) at head dim ``d``: K4 a
+    block of 32 keys (16 at head dim 256) over query tiles of 64 rows (32
+    above head dim 64); K5 a block of 32 queries over key tiles of 64, 32
+    or 16 keys at head dims 64, 128, 256."""
+    dp = flash_head_dim_pad(d)
+    if dp > _FLASH_BWD_TILED_MAX_D:
+        raise ValueError(f"flash backward: the tiled kernels take no head dim {d}")
+    if kernel == "dkv":
+        return (64 if dp == 64 else 32), (16 if dp == 256 else 32)
+    return 32, {64: 64, 128: 32, 256: 16}[dp]
+
+
+def flash_bwd_block_q(d: int, route: str = "cuda_core", kernel: str = "dkv",
+                      variant: str = "general") -> int:
     """Query rows per tile (K4) or per block (K5). CUDA-core route
-    (``csrc/flash_bwd.cu``'s BQ): 32 from head dim 256 on, where larger
-    tiles would not fit a block's shared memory (above 256 the tiles of 256
-    hold one slice of d), else 64. "sm90"
+    (``csrc/flash_bwd.cu``'s BQ), ``variant`` "general": 32 from head dim 256
+    on, where larger tiles would not fit a block's shared memory (above 256
+    the tiles of 256 hold one slice of d), else 64; "tiled": see
+    ``_flash_bwd_tiled_tiles``. "sm90"
     (``csrc/flash_bwd_sm90.cu``'s DkvCfg / DqCfg): K4 walks 128-query tiles
     at head dim 64 and 64-query tiles above; a K5 block owns 128 queries
     (two warpgroups), 64 at head dim 256."""
     dp = flash_head_dim_pad(d)
     if route == "cuda_core":
+        if variant == "tiled":
+            return _flash_bwd_tiled_tiles(d, kernel)[0]
         return 32 if _flash_tile_dim(d) == 256 else 64
     if dp > _FLASH_MAX_D_SM90:
         raise ValueError(f"flash backward: the tensor-core kernels take no head dim {d}")
@@ -482,17 +524,29 @@ def flash_bwd_block_q(d: int, route: str = "cuda_core", kernel: str = "dkv") -> 
     return 64 if dp == 256 else 128
 
 
-def flash_bwd_smem_bytes(d: int, kernel: str, route: str = "cuda_core") -> int:
+def flash_bwd_smem_bytes(d: int, kernel: str, route: str = "cuda_core",
+                         variant: str = "general") -> int:
     """Dynamic shared memory of one K4 ("dkv") or K5 ("dq") block.
-    CUDA-core route: Q, dO, K, V tiles row-major as float (rows padded by
-    4; 64 keys; above head dim 256 those of 256, one slice of d at a
-    time), plus the P and dS tiles (K4) or the dS
-    tile (K5), plus lse and Δ of the query tile (K4). "sm90": bf16 tiles; the outer tile pair (K4: K, V
+    CUDA-core route, ``variant`` "general": Q, dO, K, V tiles row-major as
+    float (rows padded by 4; 64 keys; above head dim 256 those of 256, one
+    slice of d at a time), plus the P and dS tiles (K4) or the dS
+    tile (K5), plus lse and Δ of the query tile (K4); "tiled": as float,
+    rows padded by 4, K4 Kᵀ and Vᵀ of its keys, two stages of Q and dO, P
+    and dS; K5 Q and dO of its queries, two stages of K and V, dSᵀ. "sm90":
+    bf16 tiles; the outer tile pair (K4: K, V
     of 128 keys, 64 at head dim 256; K5: Q, dO of the block's queries) and
     two stages of the inner pair (K4: Q, dO and 1 KB of lse and Δ; K5: K, V
     of 128 keys at head dim 64, else 64), plus 1 KB to align the tiles to
     the swizzle's 1024 bytes."""
     dp = flash_head_dim_pad(d)
+    if route == "cuda_core" and variant == "tiled":
+        bq, bk = _flash_bwd_tiled_tiles(d, kernel)
+        pad = _FLASH_PAD
+        if kernel == "dkv":
+            floats = 2 * dp * (bk + pad) + 4 * bq * (dp + pad) + 2 * bq * (bk + pad)
+        else:
+            floats = 2 * bq * (dp + pad) + 4 * bk * (dp + pad) + bk * (bq + pad)
+        return floats * 4
     if route == "cuda_core":
         dp = _flash_tile_dim(d)
         bq, bk = flash_bwd_block_q(d), _FLASH_BK
@@ -513,7 +567,8 @@ def _flash_bwd_launch(kernel: str, q, k, v, do, lse, delta, causal: bool, sm_sca
     on CUDA (B, H, S, D) q/k/v/dO of one dtype with unit stride along D;
     ``lse`` and ``delta`` (B, H, S_q) float32. Each gradient comes out as a
     (B, H, S, D) view of a contiguous (B, S, H, D) tensor. The kernels are
-    those ``flash_route`` names. Raises on anything else."""
+    those ``flash_route`` names, on the "cuda_core" route the variant
+    ``flash_bwd_variant`` names. Raises on anything else."""
     if not all(t.is_cuda for t in (q, k, v, do, lse, delta)):
         raise ValueError("flash backward kernels take CUDA tensors")
     if q.device.index != torch.cuda.current_device():
@@ -549,29 +604,38 @@ def _flash_bwd_launch(kernel: str, q, k, v, do, lse, delta, causal: bool, sm_sca
             o.zero_()
         return outs
     tensors = (q, k, v, do) + outs
-    route = flash_route(q.dtype, d, [t.stride()[:3] for t in tensors],
-                        [t.data_ptr() for t in tensors])
-    strides = (ctypes.c_longlong * (3 * len(tensors)))(
-        *(st for t in tensors for st in t.stride()[:3]))
+    t_strides = [t.stride()[:3] for t in tensors]
+    offsets = [t.data_ptr() for t in tensors]
+    route = flash_route(q.dtype, d, t_strides, offsets)
+    strides = (ctypes.c_longlong * (3 * len(tensors)))(*(st for t in t_strides for st in t))
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    suffix = "sm90" if route == "sm90" else _BWD_DTYPE_SUFFIX[q.dtype]
-    fn = _build.kernel(f"lvg_flash_bwd_{kernel}_{suffix}",
-                       [vp] * (6 + len(outs)) + [i32] * 5
-                       + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, i32, vp])
-    rc = fn(*(t.data_ptr() for t in (q, k, v, do, lse, delta) + outs),
-            b, h, s_q, s_k, d, strides, sm_scale, int(causal),
-            torch.cuda.current_stream().cuda_stream)
+    args = [*(t.data_ptr() for t in (q, k, v, do, lse, delta) + outs),
+            b, h, s_q, s_k, d, strides, sm_scale, int(causal)]
+    argtypes = ([vp] * (6 + len(outs)) + [i32] * 5
+                + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, i32])
+    if route == "sm90":
+        fn = _build.kernel(f"lvg_flash_bwd_{kernel}_sm90", argtypes + [vp])
+    else:
+        variant = flash_bwd_variant(q.dtype, d, t_strides, offsets)
+        fn = _build.kernel(f"lvg_flash_bwd_{kernel}_{_BWD_DTYPE_SUFFIX[q.dtype]}",
+                           argtypes + [i32, vp])
+        args.append(_FLASH_BWD_VARIANTS.index(variant))
+    rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     _build.check(rc, f"flash backward ({kernel}, {route})")
     wrapper = flash_bwd_dkv if kernel == "dkv" else flash_bwd_dq
     wrapper.launch_count += 1
     wrapper.route_counts[route] += 1
+    if route == "cuda_core":
+        wrapper.variant_counts[variant] += 1
     return outs
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False,
                   sm_scale: Optional[float] = None):
     """K4: (dK, dV) of flash attention; ``launch_count`` counts its launches,
-    ``route_counts`` those of each route of ``flash_route``."""
+    ``route_counts`` those of each route of ``flash_route``,
+    ``variant_counts`` those of the "cuda_core" route by
+    ``flash_bwd_variant``."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     return _flash_bwd_launch("dkv", q, k, v, do, lse, delta, causal, sm_scale)
@@ -580,7 +644,9 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False,
 def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = False,
                  sm_scale: Optional[float] = None):
     """K5: dQ of flash attention; ``launch_count`` counts its launches,
-    ``route_counts`` those of each route of ``flash_route``."""
+    ``route_counts`` those of each route of ``flash_route``,
+    ``variant_counts`` those of the "cuda_core" route by
+    ``flash_bwd_variant``."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     return _flash_bwd_launch("dq", q, k, v, do, lse, delta, causal, sm_scale)[0]
@@ -590,6 +656,8 @@ flash_bwd_dkv.launch_count = 0
 flash_bwd_dq.launch_count = 0
 flash_bwd_dkv.route_counts = dict.fromkeys(_FLASH_ROUTES, 0)
 flash_bwd_dq.route_counts = dict.fromkeys(_FLASH_ROUTES, 0)
+flash_bwd_dkv.variant_counts = dict.fromkeys(_FLASH_BWD_VARIANTS, 0)
+flash_bwd_dq.variant_counts = dict.fromkeys(_FLASH_BWD_VARIANTS, 0)
 
 
 class _Flash(torch.autograd.Function):

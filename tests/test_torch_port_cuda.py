@@ -500,6 +500,18 @@ _FLASH_BWD = [
 ]
 
 
+def _bwd_variant_counts():
+    return [dict(fn.variant_counts) for fn in (att.flash_bwd_dkv, att.flash_bwd_dq)]
+
+
+def _bwd_variants_taken(before):
+    """The variants K4 and K5 launched since ``before`` (both must agree)."""
+    took = [{v: n - was[v] for v, n in fn.variant_counts.items() if n != was[v]}
+            for fn, was in zip((att.flash_bwd_dkv, att.flash_bwd_dq), before)]
+    assert took[0] == took[1], took
+    return took[0]
+
+
 def _rel_err(got, want):
     """max |got − want| over max |want|: float32 sums in another order
     (≤ 1e-4), or one rounding of each gradient to bf16 (2^-8 of the value,
@@ -517,7 +529,10 @@ def test_flash_backward_kernels_match_plain(cuda, q_shape, s_k, causal, dtype):
     delta = (do.float() * o.float()).sum(-1)
     before = att.flash_bwd_dkv.launch_count, att.flash_bwd_dq.launch_count
     route = "sm90" if dtype == torch.bfloat16 else "cuda_core"   # all contiguous here
+    # contiguous float32 with d up to 256: the tiled kernels of csrc/flash_bwd.cu
+    variant = "tiled" if route == "cuda_core" else None
     routed = att.flash_bwd_dkv.route_counts[route], att.flash_bwd_dq.route_counts[route]
+    by_variant = _bwd_variant_counts()
     dk, dv = att.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
     dq = att.flash_bwd_dq(q, k, v, do, lse, delta, causal)
     torch.cuda.synchronize()
@@ -525,6 +540,7 @@ def test_flash_backward_kernels_match_plain(cuda, q_shape, s_k, causal, dtype):
         before[0] + 1, before[1] + 1)
     assert (att.flash_bwd_dkv.route_counts[route], att.flash_bwd_dq.route_counts[route]) == (
         routed[0] + 1, routed[1] + 1)
+    assert _bwd_variants_taken(by_variant) == ({} if variant is None else {variant: 1})
     want = att.flash_backward_reference(q, k, v, do, lse, delta, causal)
     tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
     for got, ref, name in zip((dq, dk, dv), want, ("dq", "dk", "dv")):
@@ -534,6 +550,98 @@ def test_flash_backward_kernels_match_plain(cuda, q_shape, s_k, causal, dtype):
     dk2, dv2 = att.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
     dq2 = att.flash_bwd_dq(q, k, v, do, lse, delta, causal)
     assert torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)
+
+
+def _bwd_inputs(q_shape, s_k, layout, device, seed=90):
+    """float32 q, k, v, dO; ``layout`` "qkv": (B, H, S, D) views of column
+    slices of one (B, S, 3 H D) tensor, as the U-Net passes them; "off4":
+    columns 1..d of rows of d + 4 (a view 4 bytes into its rows)."""
+    b, h, s_q, d = q_shape
+    if layout == "qkv":
+        qkv = _uniform((b, s_q, 3 * h * d), -2, 2, seed, device)
+        q, k, v = (t.reshape(b, s_q, h, d).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
+        do = _uniform((b, s_q, h * d), -1, 1, seed + 3, device)
+        return q, k, v, do.reshape(b, s_q, h, d).transpose(1, 2)
+    pad, start = (4, 1) if layout == "off4" else (0, 0)
+    q = _uniform((b, h, s_q, d + pad), -2, 2, seed, device)
+    k, v = (_uniform((b, h, s_k, d + pad), -2, 2, seed + 1 + i, device) for i in range(2))
+    do = _uniform((b, h, s_q, d + pad), -1, 1, seed + 3, device)
+    return tuple(t[..., start:start + d] for t in (q, k, v, do))
+
+
+# chip_smoke.py [kernels]' float32 K4/K5 cases: the float32 U-Net's three
+# shapes at 64x64, contiguous and as slices of its fused qkv; head dims 32,
+# 100 and 192 (padded to 64, 128, 256); causal with s_q < s_k, ragged,
+# cross, rows that see no key; more than 65,535 (batch, head) pairs; and a
+# view 4 bytes into its rows, which must keep the general kernels.
+# (q_shape, s_k, causal, layout, variant)
+_FLASH_BWD_F32 = [
+    ((2, 1, 4096, 64), 4096, False, "", "tiled"),
+    ((2, 1, 1024, 128), 1024, False, "", "tiled"),
+    ((2, 1, 256, 256), 256, False, "", "tiled"),
+    ((2, 1, 4096, 64), 4096, False, "qkv", "tiled"),
+    ((2, 1, 1024, 128), 1024, False, "qkv", "tiled"),
+    ((2, 1, 256, 256), 256, False, "qkv", "tiled"),
+    ((2, 2, 300, 32), 300, True, "", "tiled"),
+    ((2, 2, 200, 100), 200, True, "", "tiled"),
+    ((2, 2, 300, 192), 300, False, "", "tiled"),
+    ((2, 3, 160, 40), 320, True, "", "tiled"),        # causal, s_q < s_k
+    ((2, 3, 200, 16), 200, False, "", "tiled"),       # ragged
+    ((1, 2, 160, 128), 320, False, "", "tiled"),      # cross
+    ((1, 2, 200, 64), 150, True, "", "tiled"),        # 50 rows see no key
+    ((2048, 33, 132, 16), 132, False, "", "tiled"),   # 67,584 (batch, head) pairs
+    ((2, 2, 300, 64), 300, True, "off4", "general"),
+]
+
+
+@pytest.mark.parametrize("q_shape,s_k,causal,layout,variant", _FLASH_BWD_F32)
+def test_flash_backward_tiled_matches_plain(cuda, q_shape, s_k, causal, layout, variant):
+    """K4 and K5 in float32 by the variant ``flash_bwd_variant`` names: each
+    gradient within 1e-4 of the largest of the plain version's (float32 sums
+    in another order), one launch each by the cuda_core route and that
+    variant, equal bits on a second launch."""
+    q, k, v, do = _bwd_inputs(q_shape, s_k, layout, cuda)
+    o, lse = att.flash_attention(q, k, v, causal, return_lse=True)
+    delta = (do * o).sum(-1)
+    routed = att.flash_bwd_dkv.route_counts["cuda_core"], att.flash_bwd_dq.route_counts["cuda_core"]
+    by_variant = _bwd_variant_counts()
+    dk, dv = att.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+    dq = att.flash_bwd_dq(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    assert (att.flash_bwd_dkv.route_counts["cuda_core"],
+            att.flash_bwd_dq.route_counts["cuda_core"]) == (routed[0] + 1, routed[1] + 1)
+    assert _bwd_variants_taken(by_variant) == {variant: 1}
+    want = att.flash_backward_reference(q, k, v, do, lse, delta, causal)
+    for got, ref, name in zip((dq, dk, dv), want, ("dq", "dk", "dv")):
+        assert got.shape == ref.shape and got.dtype == ref.dtype
+        assert _rel_err(got, ref) <= 1e-4, (name, _rel_err(got, ref))
+    dk2, dv2 = att.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+    dq2 = att.flash_bwd_dq(q, k, v, do, lse, delta, causal)
+    assert torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)
+
+
+@pytest.mark.parametrize("kernel", ["dkv", "dq"])
+def test_flash_backward_entry_point_refuses_tiled_on_unaligned_input(cuda, kernel):
+    """The C entry points check the tiled kernels' preconditions themselves:
+    asked for "tiled" on a view 4 bytes into its rows, they return an error
+    (cudaErrorInvalidValue) and launch nothing, and the caller raises; the
+    general kernels take the same inputs."""
+    from lipreading_video_generation_tpu_torch.bench.flash_bwd_timing import c_entry_launcher
+
+    q, k, v, do = _bwd_inputs((1, 1, 300, 64), 300, "off4", cuda)
+    o, lse = att.flash_attention(q, k, v, False, return_lse=True)
+    delta = (do * o).sum(-1)
+    assert att.flash_bwd_variant(q.dtype, 64, [t.stride()[:3] for t in (q, k, v, do)],
+                                 [t.data_ptr() for t in (q, k, v, do)]) == "general"
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        c_entry_launcher(att, kernel, q, k, v, do, lse, delta, variant="tiled")()
+    general = c_entry_launcher(att, kernel, q, k, v, do, lse, delta, variant="general")
+    general()
+    torch.cuda.synchronize()
+    want = att.flash_backward_reference(q, k, v, do, lse, delta, dq=kernel == "dq",
+                                        dkv=kernel == "dkv")
+    for got, ref in zip(general.outs, [w for w in want if w is not None]):
+        assert _rel_err(got, ref) <= 1e-4
 
 
 def test_flash_backward_unaligned_bf16_view_takes_cuda_cores(cuda):

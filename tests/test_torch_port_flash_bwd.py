@@ -264,3 +264,107 @@ def test_flash_bwd_route_keeps_cuda_cores_for_the_rest(case):
         return
     assert tensors[0].stride(-1) == 1
     assert _route_of(tensors) == "cuda_core"
+
+
+def _variant_of(tensors):
+    size = tensors[0].element_size()
+    return tatt.flash_bwd_variant(tensors[0].dtype, tensors[0].shape[-1],
+                                  [t.stride()[:3] for t in tensors],
+                                  [t.storage_offset() * size for t in tensors])
+
+
+def _with_grads(q, k, v):
+    """q, k, v, dO (q's layout) and the kernels' outputs, (B, H, S, D) views
+    of contiguous (B, S, H, D) tensors: every tensor a launch passes."""
+    def grad_like(x):
+        return torch.empty(x.shape[0], x.shape[2], x.shape[1], x.shape[3],
+                           dtype=x.dtype).transpose(1, 2)
+    return [q, k, v, q, grad_like(k), grad_like(v), grad_like(q)]
+
+
+def _variant_case(layout, d):
+    """The tensors of one launch for ``test_flash_bwd_variant``."""
+    if layout == "fused":                      # the U-Net's column slices of one qkv
+        return _with_grads(*_bhsd_from_fused(d, dtype=torch.float32))
+    if layout == "bf16":
+        return _with_grads(*[torch.zeros(1, 2, 24, d, dtype=torch.bfloat16)] * 3)
+    if layout == "off4":                       # columns 1..d of rows of d + 4: 4 bytes in
+        return _with_grads(*[torch.zeros(1, 2, 24, d + 4)[..., 1:1 + d]] * 3)
+    if layout == "row_stride":                 # d of d + 2 columns: rows of 4 (d + 2) bytes
+        return _with_grads(*[torch.zeros(1, 2, 24, d + 2)[..., :d]] * 3)
+    return _with_grads(*[torch.zeros(1, 2, 24, d)] * 3)
+
+
+@pytest.mark.parametrize("layout,d,want", [
+    *[("contiguous", d, "tiled") for d in (32, 64, 100, 128, 192, 256)],
+    *[("fused", d, "tiled") for d in (64, 128, 256)],
+    ("contiguous", 6, "general"),              # d % 4 != 0
+    ("contiguous", 320, "general"),            # past 256: the sliced kernels
+    ("bf16", 64, "general"),
+    ("off4", 64, "general"),
+    ("row_stride", 64, "general"),
+])
+def test_flash_bwd_variant(layout, d, want):
+    """The "tiled" kernels of csrc/flash_bwd.cu take float32 with d a
+    multiple of 4 up to 256, 16-byte rows and bases: every float32 U-Net
+    head dim, contiguous or as slices of its fused qkv; the rest keeps the
+    "general" ones."""
+    tensors = _variant_case(layout, d)
+    assert tensors[0].stride(-1) == 1
+    assert _variant_of(tensors) == want
+    if want == "tiled":       # the same tensors on the CUDA-core route
+        assert _route_of(tensors) == "cuda_core"
+
+
+def test_flash_bwd_variant_reads_every_offset():
+    """One tensor of the seven off 16 bytes (a gradient, say) is enough to
+    keep the general kernels."""
+    strides = [(3 * 24 * 64, 64, 3 * 64)] * 4 + [(24 * 64, 64, 64)] * 3
+    assert tatt.flash_bwd_variant(torch.float32, 64, strides, [0, 256, 512, 0, 0, 0, 0]) == "tiled"
+    assert tatt.flash_bwd_variant(torch.float32, 64, strides, [0, 256, 512, 0, 0, 0, 8]) == "general"
+
+
+def test_flash_bwd_tiled_smem_fits_a_block_and_two_share_an_sm():
+    """The tiled kernels' shared memory fits a block at every head dim they
+    take, and two blocks (each with the 1 KB the card reserves a block) share
+    an SM's 228 KB at head dims 64 and 128; the "general" default still
+    describes the general kernels."""
+    from lipreading_video_generation_tpu_torch.ops import _build
+
+    for d in (32, 64, 100, 128, 192, 256):
+        for kernel in ("dkv", "dq"):
+            assert tatt.flash_bwd_smem_bytes(d, kernel, variant="tiled") <= _build.SMEM_PER_BLOCK
+    for d in (64, 128):
+        for kernel in ("dkv", "dq"):
+            assert 2 * (tatt.flash_bwd_smem_bytes(d, kernel, variant="tiled") + 1024) <= 228 * 1024
+    # K4: K^T, V^T of 32 keys (rows of 36 floats), two stages of Q and dO (64
+    # rows of 68), P and dS; K5: Q and dO of 32 rows, two stages of K and V
+    # (64 rows of 68), dS^T (64 rows of 36)
+    assert tatt.flash_bwd_smem_bytes(64, "dkv", variant="tiled") == 106496
+    assert tatt.flash_bwd_smem_bytes(64, "dq", variant="tiled") == 96256
+    assert [tatt.flash_bwd_block_q(d, kernel="dkv", variant="tiled") for d in (64, 128, 256)] == [
+        64, 32, 32]
+    assert [tatt.flash_bwd_block_q(d, kernel="dq", variant="tiled") for d in (64, 128, 256)] == [
+        32, 32, 32]
+    for d in (64, 256, 512):
+        for kernel in ("dkv", "dq"):
+            assert tatt.flash_bwd_smem_bytes(d, kernel) == tatt.flash_bwd_smem_bytes(
+                d, kernel, "cuda_core", "general")
+    with pytest.raises(ValueError):
+        tatt.flash_bwd_smem_bytes(320, "dkv", variant="tiled")
+
+
+def test_flash_gradients_on_the_cpu_count_no_route_or_variant():
+    """CPU tensors run the plain backward: no launch, route or variant of K4
+    or K5 is counted."""
+    fns = (tatt.flash_bwd_dkv, tatt.flash_bwd_dq)
+
+    def counts():
+        return [(fn.launch_count, dict(fn.route_counts), dict(fn.variant_counts)) for fn in fns]
+
+    before = counts()
+    arrs, w = _inputs(7, 1, 2, 200, 200, 64)
+    for g in _port_grads(arrs, w, True):
+        assert np.isfinite(g).all()
+    assert counts() == before
+    assert all(set(fn.variant_counts) == {"general", "tiled"} for fn in fns)
