@@ -462,10 +462,13 @@ def phase_build() -> None:
         f"{_small_mha_smem_bytes(80, 32)} B (S=80, d=32), "
         f"{_small_mha_smem_bytes(768, 32)} B (S=768, d=32)"
         + "".join(f"; K3 {what} " + ", ".join(
-            f"{flash_smem_bytes(d, route)} B (head dim {d})" for d in dims)
-            for route, what, dims in (("sm90", "tensor-core route (bf16 tiles)", (64, 128, 256)),
-                                      ("cuda_core", "CUDA-core route (float tiles)",
-                                       (64, 128, 256, 512, 1024))))
+            f"{flash_smem_bytes(d, route, variant)} B (head dim {d})" for d in dims)
+            for route, variant, what, dims in (
+                ("sm90", "general", "tensor-core route (bf16 tiles)", (64, 128, 256)),
+                ("cuda_core", "general", "CUDA-core route, general variant (float tiles)",
+                 (64, 128, 256, 512, 1024)),
+                ("cuda_core", "tiled", "CUDA-core route, tiled variant (float tiles, two stages "
+                 "of K and V)", (64, 128, 256))))
         + "".join(f"; {name} {what} " + ", ".join(
             f"{flash_bwd_smem_bytes(d, kern, route, variant)} B (head dim {d})" for d in dims)
             for route, variant, what, dims in (
@@ -595,6 +598,7 @@ def check_clahe() -> float:
 
 
 def phase_kernels() -> dict:
+    from lipreading_video_generation_tpu_torch.bench import flash_fwd_timing
     from lipreading_video_generation_tpu_torch.ops import attention as att
     from lipreading_video_generation_tpu_torch.ops import clahe_cuda as cl
 
@@ -735,26 +739,51 @@ def phase_kernels() -> dict:
     # two, the small cases in float32 (the CUDA-core kernel) and in bf16 (the
     # tensor-core kernel), a bf16 view that starts 8 bytes into its rows,
     # which 16-byte copies cannot read (it must take the CUDA-core kernel),
-    # head dims 320 and 512, and more than 65,535 (batch, head) pairs
-    k3_cases = ([((2, 1, 16384, 64), 16384, False, bf16, "sm90"),
-                 ((2, 1, 4096, 128), 4096, False, bf16, "sm90"),
-                 ((2, 1, 1024, 256), 1024, False, bf16, "sm90"),
-                 ((1, 1, 16384, 64), 16384, False, bf16, "sm90"),
-                 ((1, 1, 512, 64), 512, False, f32, "cuda_core"),
-                 ((1, 12, 511, 64), 511, False, bf16, "sm90")]          # wav2vec2, 10.24 s
-                + [c + (f32, "cuda_core") for c in small] + [c + (bf16, "sm90") for c in small]
-                + [((2, 2, 300, 64), 300, True, bf16, "cuda_core")] + wide_heads + many_heads)
-    for (q_shape, s_k, causal, dtype, route) in k3_cases:
-        unaligned = q_shape == (2, 2, 300, 64)
-        q, k, v, _ = flash_inputs(q_shape, s_k, dtype, "unaligned" if unaligned else "", SEED)
+    # head dims 320 and 512, and more than 65,535 (batch, head) pairs. The
+    # float32 cases name the variant of csrc/flash_fwd.cu they must take:
+    # "tiled" for the float32 U-Net's three shapes at 64x64 and its heaviest
+    # at 128x128, contiguous and as slices of its fused qkv (the two smaller
+    # split the key axis, and the combine kernel joins the splits), the
+    # small cases (causal with s_q < s_k, ragged, rows that see no key) and
+    # more than 65,535 pairs; "general" for a float32 view 4 bytes into its
+    # rows and above head dim 256. (q, s_k, causal, dtype, route, variant of
+    # the CUDA-core route or None, layout of flash_inputs)
+    cc = "cuda_core"
+    k3_cases = ([((2, 1, 16384, 64), 16384, False, bf16, "sm90", None, ""),
+                 ((2, 1, 4096, 128), 4096, False, bf16, "sm90", None, ""),
+                 ((2, 1, 1024, 256), 1024, False, bf16, "sm90", None, ""),
+                 ((1, 1, 16384, 64), 16384, False, bf16, "sm90", None, ""),
+                 ((1, 1, 512, 64), 512, False, f32, cc, "tiled", ""),
+                 ((1, 12, 511, 64), 511, False, bf16, "sm90", None, "")]   # wav2vec2, 10.24 s
+                + [((2, 1, s, d), s, False, f32, cc, "tiled", layout)
+                   for s, d in ((4096, 64), (1024, 128), (256, 256), (16384, 64))
+                   for layout in ("", "qkv")]
+                + [c + (f32, cc, "tiled", "") for c in small]
+                + [c + (bf16, "sm90", None, "") for c in small]
+                + [((2, 2, 300, 64), 300, True, bf16, cc, "general", "unaligned"),
+                   ((2, 2, 300, 64), 300, True, f32, cc, "general", "off4")]
+                + [c + ("general", "") for c in wide_heads]
+                + [c + ("tiled" if c[3] == f32 else None, "") for c in many_heads])
+    errs["flash_fwd_combine"] = 0.0
+    for (q_shape, s_k, causal, dtype, route, variant, layout) in k3_cases:
+        q, k, v, _ = flash_inputs(q_shape, s_k, dtype, layout, SEED)
+        b, h, s_q, d = q_shape
+        splits = att.flash_fwd_splits(b * h, s_q, s_k, d) if variant == "tiled" else 1
         before = dict(att.flash_attention.route_counts)
+        before_v = dict(att.flash_attention.variant_counts)
+        combined = att.flash_fwd_combine.launch_count
         got_o, got_lse = att.flash_attention(q, k, v, causal, return_lse=True)
         again_o, again_lse = att.flash_attention(q, k, v, causal, return_lse=True)
         torch.cuda.synchronize()
         took = {r: n - before[r] for r, n in att.flash_attention.route_counts.items()
                 if n != before[r]}
-        if took != {route: 2}:
-            raise AssertionError(f"K3 q{q_shape} {dtype}: routes {took}, want {route}")
+        took_v = {v_: n - before_v[v_] for v_, n in att.flash_attention.variant_counts.items()
+                  if n != before_v[v_]}
+        if (took != {route: 2} or took_v != ({} if variant is None else {variant: 2})
+                or att.flash_fwd_combine.launch_count != combined + 2 * (splits > 1)):
+            raise AssertionError(f"K3 q{q_shape} {dtype} {layout}: routes {took}, variants "
+                                 f"{took_v}, combines {att.flash_fwd_combine.launch_count - combined}"
+                                 f", want {route} {variant} ({splits} splits)")
         if not (torch.equal(got_o, again_o) and torch.equal(got_lse, again_lse)):
             raise AssertionError(f"K3 q{q_shape} {dtype}: two launches gave different bits")
         want_o, want_lse = att.flash_reference(q, k, v, causal)
@@ -770,8 +799,26 @@ def phase_kernels() -> dict:
             note = (f"; against the plain version with bf16 P "
                     f"{(got_o.float() - want_p.float()).abs().max().item():.3g}")
             del want_p
+        if splits > 1:
+            # the combine kernel through its wrapper, on the partials the tiled
+            # kernel wrote for these inputs, against its plain version
+            launch = flash_fwd_timing.c_entry_launcher(att, q, k, v, causal, n_split=splits)
+            launch()
+            comb_o, comb_lse = att.flash_fwd_combine(*launch.parts)
+            torch.cuda.synchronize()
+            ref_o, ref_lse = att.flash_combine_reference(*launch.parts)
+            c_err = max((comb_o - ref_o).abs().max().item(),
+                        (comb_lse - ref_lse).abs().max().item())
+            note += (f"; {splits} key splits, the combine kernel on them against "
+                     f"flash_combine_reference max|d| {c_err:.3g} (tol {TOL_K3_F32} abs/rel)")
+            torch.testing.assert_close(comb_o, ref_o, rtol=TOL_K3_F32, atol=TOL_K3_F32)
+            torch.testing.assert_close(comb_lse, ref_lse, rtol=TOL_LSE, atol=TOL_LSE)
+            errs["flash_fwd_combine"] = max(errs["flash_fwd_combine"], c_err)
+            del launch, comb_o, comb_lse, ref_o, ref_lse
         log("kernels", f"K3 flash_attention q{q_shape} s_k={s_k} causal={causal} {dtype}"
-            f"{' (view 8 bytes into its rows)' if unaligned else ''}, route {route}: "
+            + {"unaligned": " (view 8 bytes into its rows)", "off4": " (view 4 bytes into its "
+               "rows)", "qkv": " (slices of one qkv)"}.get(layout, "")
+            + f", route {route}{'' if variant is None else ', variant ' + variant}: "
             f"O max|d| {err:.3g} (tol {tol} abs/rel){note}, lse max|d| {err_lse:.3g} "
             f"(tol {TOL_LSE} abs/rel); two launches equal bits")
         torch.testing.assert_close(got_o.float(), want_o.float(), rtol=tol, atol=tol)
@@ -794,7 +841,6 @@ def phase_kernels() -> dict:
     # Every lse comes from K3 by the route of the same inputs, so the pair
     # forward + backward is held. (q, s_k, causal, dtype, route, variant of
     # the CUDA-core route or None, layout of flash_inputs)
-    f32, cc = torch.float32, "cuda_core"
     cases = ([((2, 1, 16384, 64), 16384, False, bf16, "sm90", None, ""),
               ((2, 1, 4096, 128), 4096, False, bf16, "sm90", None, ""),
               ((2, 1, 1024, 256), 1024, False, bf16, "sm90", None, ""),
@@ -818,7 +864,7 @@ def phase_kernels() -> dict:
         o, lse = att.flash_attention(q, k, v, causal, return_lse=True)
         delta = (do.float() * o.float()).sum(-1)
         before = dict(att.flash_bwd_dkv.route_counts), dict(att.flash_bwd_dq.route_counts)
-        before_v = _bwd_variants()
+        before_v = _flash_variants()
         dk, dv = att.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
         dq = att.flash_bwd_dq(q, k, v, do, lse, delta, causal)
         dk2, dv2 = att.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
@@ -1911,8 +1957,8 @@ def _zero_counts() -> None:
     from lipreading_video_generation_tpu_torch.ops import clahe_cuda as cl
     from lipreading_video_generation_tpu_torch.ops import matmul_cuda as mm
 
-    for fn in (cl.clahe_cuda, att.small_mha, att.flash_attention, att.flash_bwd_dkv,
-               att.flash_bwd_dq, mm.int8_matmul, mm.bf16_matmul):
+    for fn in (cl.clahe_cuda, att.small_mha, att.flash_attention, att.flash_fwd_combine,
+               att.flash_bwd_dkv, att.flash_bwd_dq, mm.int8_matmul, mm.bf16_matmul):
         fn.launch_count = 0
         for counts in ("route_counts", "variant_counts"):
             if hasattr(fn, counts):
@@ -1945,33 +1991,44 @@ def _k2_rows_phase(phase: str, run) -> dict:
     return out
 
 
-def _bwd_variants() -> dict:
-    """K4's and K5's CUDA-core launches so far, by variant of
-    ``csrc/flash_bwd.cu``."""
+# the float32 diffusion steps' launches of the combine kernel, tallied by
+# _flash_tiled (those steps are its main path)
+TILED_COMBINES = {"flash_fwd_combine": 0}
+
+
+def _flash_variants() -> dict:
+    """K3's, K4's and K5's CUDA-core launches so far, by variant of
+    ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``, and the launches of
+    K3's combine kernel."""
     from lipreading_video_generation_tpu_torch.ops import attention as att
 
-    return {"flash_bwd_dkv": dict(att.flash_bwd_dkv.variant_counts),
-            "flash_bwd_dq": dict(att.flash_bwd_dq.variant_counts)}
+    return {"flash_attention": dict(att.flash_attention.variant_counts),
+            "flash_bwd_dkv": dict(att.flash_bwd_dkv.variant_counts),
+            "flash_bwd_dq": dict(att.flash_bwd_dq.variant_counts),
+            "flash_fwd_combine": {"launches": att.flash_fwd_combine.launch_count}}
 
 
-def _bwd_tiled(phase: str, what: str, took: dict) -> None:
-    """Fail unless K4's and K5's CUDA-core launches in ``took`` (by kernel,
-    then by variant) are some, and all by the "tiled" variant: a float32
-    diffusion step on the main path. Logs them."""
-    log(phase, f"{what}: K4/K5 by cuda_core, launches by variant: {took}")
+def _flash_tiled(phase: str, what: str, took: dict) -> None:
+    """Fail unless K3's, K4's and K5's CUDA-core launches in ``took`` (by
+    kernel, then by variant, as ``_flash_variants`` gives them) are some, and
+    all by the "tiled" variant: a float32 diffusion step on the main path.
+    Logs them, and tallies the combine kernel's launches."""
+    log(phase, f"{what}: K3/K4/K5 by cuda_core, launches by variant: {took}")
     for name, by_variant in took.items():
-        if not by_variant.get("tiled") or any(n for v, n in by_variant.items() if v != "tiled"):
+        if name == "flash_fwd_combine":
+            TILED_COMBINES[name] += by_variant.get("launches", 0)
+        elif not by_variant.get("tiled") or any(n for v, n in by_variant.items() if v != "tiled"):
             raise AssertionError(f"{phase}: {what}: {name} took the variants {by_variant}, want "
                                  "every launch by tiled")
 
 
-def _bwd_tiled_run(phase: str, what: str, run):
-    """``run()``, then ``_bwd_tiled`` on the K4/K5 launches it made."""
-    before = _bwd_variants()
+def _tiled_run(phase: str, what: str, run):
+    """``run()``, then ``_flash_tiled`` on the K3/K4/K5 launches it made."""
+    before = _flash_variants()
     out = run()
-    after = _bwd_variants()
-    _bwd_tiled(phase, what, {k: {v: n - before[k][v] for v, n in after[k].items()
-                                 if n != before[k][v]} for k in after})
+    after = _flash_variants()
+    _flash_tiled(phase, what, {k: {v: n - before[k][v] for v, n in after[k].items()
+                                   if n != before[k][v]} for k in after})
     return out
 
 
@@ -2169,9 +2226,9 @@ def phase_train(dev: dict) -> dict:
     batch = train_batch(cfg32, 2, SEED + 11, size=64)
     t = np.array([17, 402])
     noise = np.random.default_rng(SEED + 12).standard_normal((2, 64, 64, 3)).astype(np.float32)
-    # its K4/K5 launches by the tiled kernels of csrc/flash_bwd.cu
-    l_gpu, g_gpu = _bwd_tiled_run("train", "float32 step at 64x64",
-                                  lambda: _grad_step(cfg32, sd, batch, t, noise, "cuda"))
+    # its K3/K4/K5 launches by the tiled kernels of csrc/flash_fwd.cu and flash_bwd.cu
+    l_gpu, g_gpu = _tiled_run("train", "float32 step at 64x64",
+                              lambda: _grad_step(cfg32, sd, batch, t, noise, "cuda"))
     l_cpu, g_cpu = _grad_step(cfg32, sd, batch, t, noise, "cpu")
     loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
     grad_rel = ((g_gpu - g_cpu).norm() / g_cpu.norm()).item()
@@ -3491,9 +3548,10 @@ def phase_pretrained(dev: dict) -> dict:
                 q.grad.flatten().double().cpu() for k, q in st.model.named_parameters()
                 if k.startswith("audio_encoder.")]))
 
-        # the card's K4/K5 launches by the tiled kernels of csrc/flash_bwd.cu
-        grads = {"cuda": _bwd_tiled_run("pretrained", "float32 diffusion step with wav2vec2 "
-                                        "at 64x64", lambda: w2v_step("cuda")),
+        # the card's K3/K4/K5 launches by the tiled kernels of csrc/flash_fwd.cu
+        # and flash_bwd.cu
+        grads = {"cuda": _tiled_run("pretrained", "float32 diffusion step with wav2vec2 at "
+                                    "64x64", lambda: w2v_step("cuda")),
                  "cpu": w2v_step("cpu")}
         loss_rel = abs(grads["cuda"][0] - grads["cpu"][0]) / abs(grads["cpu"][0])
         w2v_rel = ((grads["cuda"][1] - grads["cpu"][1]).norm() / grads["cpu"][1].norm()).item()
@@ -3998,7 +4056,7 @@ def _par_end(out: dict) -> dict:
     from lipreading_video_generation_tpu_torch.parallel import mesh as pmesh
 
     t = pmesh.transport_stats
-    out.update(counts=_par_counts(), bwd_variants=_bwd_variants(),
+    out.update(counts=_par_counts(), flash_variants=_flash_variants(),
                backend=dist.get_backend() if dist.is_initialized() else None,
                transport_s=t.seconds, transport_calls=t.calls, transport_bytes=t.bytes)
     return out
@@ -4706,9 +4764,9 @@ def _tp_gates(dev: dict, runs: dict, one: dict) -> None:
         f"({bf[0]['bytes'] / one_bf['bytes']:.3f}x) on {dev['smi']}")
     gate(len({r["digest"] for r in bf}) == 1 and len({r["digest"] for r in f}) == 1,
          "tp2 diffusion: the ranks' whole params differ")
-    for i, r in enumerate(f + ff):   # float32: K4/K5 by the tiled kernels on both model ranks
-        _bwd_tiled("parallel", f"tp2 float32 diffusion step, model rank {i % 2}",
-                   {k: {v: n for v, n in c.items() if n} for k, c in r["bwd_variants"].items()})
+    for i, r in enumerate(f + ff):   # float32: K3/K4/K5 by the tiled kernels on both model ranks
+        _flash_tiled("parallel", f"tp2 float32 diffusion step, model rank {i % 2}",
+                     {k: {v: n for v, n in c.items() if n} for k, c in r["flash_variants"].items()})
     want_k = {"flash_attention": 32, "flash_bwd_dkv": 32, "flash_bwd_dq": 32, "small_mha": 8}
     gate(all(r["counts"][k] == n for r in bf for k, n in want_k.items()),
          f"tp2 bf16 diffusion launches {[r['counts'] for r in bf]}, want {want_k} a rank")
@@ -5088,8 +5146,8 @@ def _par_gates(dev: dict, runs: dict, refs: dict) -> None:
                              f"gradient gate: {g_fault:.3g} (gates {TOL_PAR_GRAD}, bf16 "
                              f"{TOL_PAR_GRAD_BF16})")
     for i, r in enumerate(f32 + fault):   # both ranks, clean and with the fault
-        _bwd_tiled("parallel", f"float32 data-parallel step, rank {i % 2}",
-                   {k: {v: n for v, n in c.items() if n} for k, c in r["bwd_variants"].items()})
+        _flash_tiled("parallel", f"float32 data-parallel step, rank {i % 2}",
+                     {k: {v: n for v, n in c.items() if n} for k, c in r["flash_variants"].items()})
     log("parallel", f"float32 step at 64x64 (full channel plan), global batch {PAR_BATCH}: "
         f"reduced gradient {g:.3g} relative L2 from one process's (gate {TOL_PAR_GRAD}), loss "
         f"{loss:.3g} (gate {TOL_PAR_LOSS}); planted fault, rank 1's gradient x {PAR_FAULT} "
@@ -5235,40 +5293,74 @@ def _flash_fwd_sm90_launcher(q, k, v):
 
 
 def _flash_f32_timing() -> dict:
-    """The float32 CUDA-core K3 (``csrc/flash_fwd.cu``) at the float32
-    U-Net's heaviest attention at 64x64, (2, 1, 4096, 64) views of column
-    slices of one qkv tensor, beside its plain version and SDPA float32's
-    forward, with the bytes (q, k, v, O, lse, float32) and operations of a
-    call; and (``bwd``) K4/K5's CUDA-core kernels (``csrc/flash_bwd.cu``) in
-    both variants at the float32 U-Net's three attention shapes at 64x64 and
-    its heaviest at the 128x128 defaults, beside SDPA float32's backward
-    (``bench/flash_bwd_timing.run``)."""
-    import torch.nn.functional as F
+    """The float32 CUDA-core K3 (``csrc/flash_fwd.cu``) and K4/K5
+    (``csrc/flash_bwd.cu``) in both variants at the float32 U-Net's three
+    attention shapes at 64x64 and its heaviest at the 128x128 defaults,
+    beside SDPA float32's forward and backward (``bench/flash_fwd_timing.run``,
+    ``bench/flash_bwd_timing.run``): ``fwd`` and ``bwd``."""
+    from lipreading_video_generation_tpu_torch.bench import flash_bwd_timing, flash_fwd_timing
 
-    from lipreading_video_generation_tpu_torch.bench import flash_bwd_timing
-    from lipreading_video_generation_tpu_torch.ops import attention as att
+    return {"fwd": flash_fwd_timing.run(SEED + 80), "bwd": flash_bwd_timing.run(SEED + 80)}
 
-    b, s, d = 2, 4096, 64
-    qkv = _uniform((b, s, 3 * d), -2, 2, SEED + 80)
-    q, k, v = (t.reshape(b, s, 1, d).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
-    tensor, rows = b * s * d * 4, b * s * 4
-    out = {}
-    with torch.no_grad():
-        before = att.flash_attention.route_counts["cuda_core"]
-        ms, plain, _ = _plain_vs_kernel(lambda: att.flash_reference(q, k, v),
-                                        lambda: att.flash_attention(q, k, v), 3, 20)
-        n = att.flash_attention.route_counts["cuda_core"] - before
-        F.scaled_dot_product_attention(q, k, v)
-        lib = _event_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20)
-        out["fwd"] = dict(what="K3 flash_attention", route="cuda_core", timed_launches=n, ms=ms,
-                          plain_ms=plain, library_ms=lib, library_what="forward",
-                          bytes=4 * tensor + rows, ops=4.0 * b * s * s * d)
-    if out["fwd"]["timed_launches"] != 41:
-        raise AssertionError(f"K3 f32: {out['fwd']['timed_launches']} cuda_core launches "
-                             "counted, want 41")
-    del qkv, q, k, v
-    out["bwd"] = flash_bwd_timing.run(SEED + 80)
-    return out
+
+def _flash_fwd_f32_rows(dev: dict, res: dict) -> tuple:
+    """Log ``bench/flash_fwd_timing.run``'s K3 float32 readings with each
+    variant's bound and share of it, hold them (both variants within
+    TOL_K3_F32 of the plain version, lse within TOL_LSE, equal bits of two
+    launches; the partials of a split within TOL_K3_F32 of their plain
+    version and the combine kernel on them within TOL_K3_F32 of its; every
+    launch through the wrapper by the variant the port picks: "tiled"), and
+    return the JSON rows (shape -> readings) and the combine kernel's
+    (shape -> readings, at the shapes that split)."""
+    rows, combine = {}, {}
+    for name, r in res.items():
+        shape = tuple(r["shape"])
+        bound = _bound(r["bytes"], r["ops"], "f32")
+        tiled = r["tiled"]
+        parts = tiled.get("partials_err", {})
+        if not (r["picked"] == "tiled" and set(r["wrapper_launches"]) == {"tiled"}
+                and r["wrapper_combines"] == (r["wrapper_launches"]["tiled"]
+                                              if r["n_split"] > 1 else 0)
+                and all(r[v]["o_err"] <= TOL_K3_F32 and r[v]["lse_err"] <= TOL_LSE
+                        and r[v]["equal_bits"] for v in ("tiled", "general"))
+                and all(e <= TOL_K3_F32 for e in parts.values())):
+            raise AssertionError(f"K3 f32 timing {shape}: {r}")
+        rows[name] = dict(shape=list(shape), variant=r["picked"], n_split=r["n_split"],
+                          ms=tiled["graph_ms"], wrapper_ms=r["wrapper_ms"],
+                          plain_ms=r["plain_ms"], library_ms=r["sdpa_fwd_ms"],
+                          launches=r["wrapper_launches"], **bound,
+                          tiled_ms_by_splits=r["tiled_splits_ms"],
+                          variants={v: dict(ms=r[v]["graph_ms"], n_split=r[v]["n_split"],
+                                            share=bound["bound_ms"] / r[v]["graph_ms"],
+                                            o_err=r[v]["o_err"], lse_err=r[v]["lse_err"])
+                                    for v in ("tiled", "general")})
+        log("timing", f"K3 flash_attention {shape} f32, route cuda_core, from a CUDA graph of 20 "
+            "launches of the C entry point: "
+            + ", ".join(f"{v} {r[v]['graph_ms']:.4f} ms ({bound['bound_ms'] / r[v]['graph_ms']:.1%}"
+                        f" of the bound; {r[v]['n_split']} key splits)" for v in ("tiled", "general"))
+            + f"; tiled by key splits {r['tiled_splits_ms']}; bound {bound['bound_ms']:.4f} ms by "
+            f"{bound['bound_by']}; through flash_attention ({r['picked']}) {r['wrapper_ms']:.4f} "
+            f"ms, launches counted {r['wrapper_launches']} and {r['wrapper_combines']} of the "
+            f"combine kernel; plain {r['plain_ms']:.4f} ms; SDPA float32's forward from a CUDA "
+            f"graph of 20 calls {r['sdpa_fwd_ms']:.4f} ms: tiled "
+            f"{tiled['graph_ms'] / r['sdpa_fwd_ms']:.2f} x, general "
+            f"{r['general']['graph_ms'] / r['sdpa_fwd_ms']:.2f} x; O max|d|/max(1, max|ref|) tiled "
+            f"{tiled['o_err']:.3g}, general {r['general']['o_err']:.3g} on {dev['smi']}")
+        if parts:
+            cb = _bound(tiled["combine_work"]["bytes"], tiled["combine_work"]["ops"], "f32")
+            combine[name] = dict(shape=list(shape), n_split=r["n_split"], ms=tiled["combine_ms"],
+                                 plain_ms=tiled["combine_plain_ms"], **cb,
+                                 max_abs_err=max(parts["combine_o"], parts["combine_lse"]))
+            log("timing", f"K3's combine kernel {shape} f32, {r['n_split']} key splits, from a CUDA "
+                f"graph of 20 launches: {tiled['combine_ms']:.4f} ms ({cb['bound_ms'] / tiled['combine_ms']:.1%} "
+                f"of the bound {cb['bound_ms']:.5f} ms by {cb['bound_by']}), plain "
+                f"{tiled['combine_plain_ms']:.4f} ms; the tiled kernel's partials against "
+                f"flash_partials_reference and the combine against flash_combine_reference: "
+                f"{parts} on {dev['smi']}")
+        if "sdpa_fwd_kernels" in r:
+            log("timing", f"SDPA float32 forward {shape} runs (torch.profiler, device ms, "
+                f"launches): {r['sdpa_fwd_kernels']}")
+    return rows, combine
 
 
 def _flash_bwd_f32_rows(dev: dict, res: dict) -> dict:
@@ -5476,10 +5568,9 @@ def phase_timing(dev: dict, microbench: dict) -> dict:
         f"(64,360,640) grid (8,8), route tiled: {k1f_ms:.4f} ms ({k1f_bound / k1f_ms:.1%} of the "
         f"bound {k1f_bound:.4f} ms), plain {k1f_plain:.4f} ms (plain,kernel,kernel,plain = "
         f"{[round(t, 4) for t in raw1f]}) on {dev['smi']}")
-    # the float32 CUDA-core K3 and K4/K5 at the float32 U-Net's heaviest
-    # attention at 64x64: (2, 1, 4096, 64), as a float32 step at batch 2
-    # calls them, against SDPA float32's forward and backward (outside
-    # inference mode: the library's backward needs its graph)
+    # the float32 CUDA-core K3 and K4/K5 at the float32 U-Net's shapes, as a
+    # float32 step at batch 2 calls them, against SDPA float32's forward and
+    # backward (outside inference mode: the library's backward needs its graph)
     fl = _flash_f32_timing()
     k2c_rows = {}
     for name, r in k2c.items():
@@ -5499,17 +5590,8 @@ def phase_timing(dev: dict, microbench: dict) -> dict:
             f"(kernel/SDPA {r['graph_ms'] / r['sdpa_graph_ms']:.2f} x); max|d| "
             f"{r['max_abs_err']:.3g} from _mha_einsum on {dev['smi']}")
     log("timing", f"K2 cuda_core launches counted while timed through small_mha: {n_k2c}")
-    bwd32 = fl.pop("bwd")
-    for kern, r in fl.items():
-        bound = _bound(r["bytes"], r["ops"], "f32")
-        fl[kern].update(bound)
-        log("timing", f"{r['what']} (2,1,4096,64) f32, route {r['route']} ({r['timed_launches']} "
-            f"launches counted): kernel {r['ms']:.4f} ms ({r['ops'] / r['ms'] / 1e9:.2f} TFLOP/s; "
-            f"bound {bound['bound_ms']:.4f} ms by {bound['bound_by']}, "
-            f"{bound['bound_ms'] / r['ms']:.1%} of it), plain {r['plain_ms']:.4f} ms, the "
-            f"library's {r['library_what']} (SDPA float32) {r['library_ms']:.4f} ms: "
-            f"{r['ms'] / r['library_ms']:.2f} x on {dev['smi']}")
-    bwd_rows = _flash_bwd_f32_rows(dev, bwd32)
+    fwd_rows, combine_rows = _flash_fwd_f32_rows(dev, fl["fwd"])
+    bwd_rows = _flash_bwd_f32_rows(dev, fl["bwd"])
     k2_bound = _attention_bound(384, 8, 80, 32, 4, 4)["bound_ms"]
     log("timing", f"K2 small_mha (384,80,256) H=8 bf16, route sm90: kernel {k2_ms:.4f} ms (bound "
         f"{k2_bound:.4f} ms by bytes, {k2_bound / k2_ms:.1%} of it), plain "
@@ -5624,9 +5706,16 @@ def phase_timing(dev: dict, microbench: dict) -> dict:
         # three more ways, SDPA float32 from a CUDA graph as library_ms
         "small_mha": dict(ms=k2_ms, plain_ms=k2_plain, library_ms=k2_lib, cuda_core=k2c_rows,
                           **_attention_bound(384, 8, 80, 32, 4, 4)),
+        # cuda_core_f32: the float32 CUDA-core kernel at four shapes, by variant
+        # (ms from a CUDA graph of 20 launches), library_ms SDPA float32's forward
         "flash_attention": dict(ms=k3[(16384, 64)][0], plain_ms=k3[(16384, 64)][1],
-                                library_ms=k3_lib[(16384, 64)], cuda_core_f32=fl["fwd"],
+                                library_ms=k3_lib[(16384, 64)], cuda_core_f32=fwd_rows,
                                 **_attention_bound(DIFF_FRAMES, 1, 16384, 64, 4, 4)),
+        # K3's combine kernel at the float32 U-Net's shapes that split the key
+        # axis (no one PyTorch call computes it); the first of them on top
+        "flash_fwd_combine": dict(**{k_: v_ for k_, v_ in next(iter(combine_rows.values())).items()
+                                     if k_ not in ("max_abs_err",)},
+                                  library_ms=None, by_shape=combine_rows) if combine_rows else None,
         # K4 reads q, k, v, dO and writes dK, dV; K5 reads the four and writes
         # dQ; both read lse and delta. The library call covers both kernels.
         # cuda_core_f32: the float32 CUDA-core kernels at four shapes, by
@@ -5677,6 +5766,9 @@ def main() -> None:
                 "bf16_matmul": microbench["launches"]["bf16_matmul"]}
     for name in ("flash_attention", "flash_bwd_dkv", "flash_bwd_dq"):
         launches[name] = sum(p.get(name, 0) for p in paths) + parallel[name]
+    # the combine kernel's main path: the float32 diffusion steps of [train],
+    # [pretrained] and [parallel] (tallied by _flash_tiled)
+    launches["flash_fwd_combine"] = TILED_COMBINES["flash_fwd_combine"]
     times = phase_timing(dev, microbench)
     pkg = "lipreading_video_generation_tpu_torch"
     jax_pkg = "lipreading_video_generation_tpu"
@@ -5684,12 +5776,16 @@ def main() -> None:
         "clahe": ("clahe_packed.cu", f"{jax_pkg}/ops/clahe_pallas.py:102"),
         "small_mha": ("small_mha_sm90.cu", f"{jax_pkg}/ops/attention.py:570"),
         "flash_attention": ("flash_fwd_sm90.cu", f"{jax_pkg}/ops/attention.py:66"),
+        # the last kv step of _flash_kernel (its _finish), where the key axis is split
+        "flash_fwd_combine": ("flash_fwd.cu", f"{jax_pkg}/ops/attention.py:112"),
         "flash_bwd_dkv": ("flash_bwd_sm90.cu", f"{jax_pkg}/ops/attention.py:216"),
         "flash_bwd_dq": ("flash_bwd_sm90.cu", f"{jax_pkg}/ops/attention.py:272"),
         "int8_matmul": ("int8_mm_sm90.cu", "scripts/microbench_int8_pallas.py:44"),
         "bf16_matmul": ("int8_mm_sm90.cu", "scripts/microbench_int8_pallas.py:44"),
     }
     kernels = []
+    if times["flash_fwd_combine"] is None:      # no float32 shape splits the key axis
+        del sources["flash_fwd_combine"]
     for name, (source, replaces) in sources.items():
         kern = {"name": name, "route": "cuda", "source": f"{pkg}/csrc/{source}",
                 "replaces": replaces, "launches": launches[name], "max_abs_err": errs[name],
@@ -5700,8 +5796,19 @@ def main() -> None:
                 "sm90: wgmma on bf16 tiles, cp.async rings (aligned bf16 inputs up to head dim "
                 "256; timed here and on the sampling and training paths, and wav2vec2's 12 "
                 "layers on a 10.24 s wave, T' = 511); cuda_core: "
-                f"{pkg}/csrc/flash_fwd.cu (float32, unaligned inputs, head dims above 256, in slices of "
-                "256 columns)")
+                f"{pkg}/csrc/flash_fwd.cu in two variants picked by "
+                "ops/attention.flash_fwd_variant: tiled (float32 with 16-byte rows up to head dim "
+                "256: 128-thread blocks of 32 query rows, two an SM, K and V by cp.async in two "
+                "stages, the key axis split where the row blocks do not fill the card, "
+                "flash_fwd_combine joining the splits; every float32 diffusion step, timed here "
+                "under cuda_core_f32) and general (unaligned inputs, bf16 views, head dims above "
+                "256 in slices of 256 columns)")
+        if name == "flash_fwd_combine":
+            kern["route_detail"] = (
+                "the tiled K3's splits of the key axis, (m, l, unnormalised O) each, joined in "
+                "split order into O and lse: a thread a float4 of O; launched once a split K3 "
+                "launch on the float32 diffusion steps, timed here alone at the float32 U-Net's "
+                "shapes that split (by_shape)")
         if name.startswith("flash_bwd"):
             kern["route_detail"] = (
                 "sm90: wgmma on bf16 tiles, cp.async ring (aligned bf16 inputs up to head dim "

@@ -28,16 +28,14 @@ and the card and its power limit as ``nvidia-smi`` gives them.
 """
 from __future__ import annotations
 
-import ctypes
 import json
 import subprocess
 
 import torch
 
-from ..ops import _build
 from ..ops import attention as att
 from . import flash_bwd_timing
-from .timing import graph_ms
+from .timing import build_variants, graph_ms
 
 SHAPE = (2, 1, 4096, 64)
 # build -> its -D flags
@@ -50,31 +48,11 @@ _BUILDS = {
 }
 
 
-def _build_all() -> dict:
-    """Compile each build of ``csrc/flash_bwd.cu`` (all at once) into
-    ``_build/phases/`` and return its library."""
-    source = _build.CSRC_DIR / "flash_bwd.cu"
-    out_dir = _build.BUILD_DIR / "phases"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {name: subprocess.Popen(
-        [_build.find_nvcc(), *_build.NVCC_FLAGS, *flags, "-shared",
-         "-o", str(out_dir / f"flash_bwd_{name}.so"), str(source)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for name, flags in _BUILDS.items()}
-    libs = {}
-    for name, proc in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on the {name!r} build:\n{log}")
-        libs[name] = ctypes.CDLL(str(out_dir / f"flash_bwd_{name}.so"))
-    return libs
-
-
 def run(seed: int = 0) -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("flash_bwd_phases times kernels on a CUDA device; none is available")
     q, k, v, do, lse, delta = flash_bwd_timing.inputs(SHAPE, seed)
-    libs = _build_all()
+    libs = build_variants("flash_bwd.cu", _BUILDS)
     want = att.flash_backward_reference(q, k, v, do, lse, delta)
     errs = {}
     for kernel in ("dkv", "dq"):

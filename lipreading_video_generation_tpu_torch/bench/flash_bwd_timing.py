@@ -185,19 +185,16 @@ def sdpa_backward_ms(q, k, v, do, n: int = GRAPH_LAUNCHES):
         return ms, f"events ({type(err).__name__}: {str(err)[:80]})"
 
 
-def sdpa_backward_kernels(q, k, v, do) -> list:
-    """(name, device ms, launches) of the kernels SDPA float32's backward
-    runs, from ``torch.profiler``."""
-    import torch.nn.functional as F
+def profiled_kernels(fn) -> list:
+    """(name, device ms, launches) of the kernels one call of ``fn`` runs
+    (after a call to warm up), from ``torch.profiler``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-    out = F.scaled_dot_product_attention(*leaves)
-    torch.autograd.grad(out, leaves, do, retain_graph=True)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.autograd.grad(out, leaves, do, retain_graph=True)
+        fn()
         torch.cuda.synchronize()
     events = prof.key_averages()
     host = {e.key for e in events if e.device_type == DeviceType.CPU}
@@ -206,12 +203,24 @@ def sdpa_backward_kernels(q, k, v, do) -> list:
                   key=lambda r: -r[1])
 
 
-def sdpa_kernels_in_own_process(shape) -> list:
-    """``sdpa_backward_kernels`` at ``shape``, in a fresh Python process."""
+def sdpa_backward_kernels(q, k, v, do) -> list:
+    """The kernels SDPA float32's backward runs (``profiled_kernels``)."""
+    import torch.nn.functional as F
+
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves)
+    return profiled_kernels(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True))
+
+
+def sdpa_kernels_in_own_process(
+        shape, module: str = "lipreading_video_generation_tpu_torch.bench.flash_bwd_timing"
+) -> list:
+    """What ``python -m module --sdpa-kernels`` lists at ``shape`` (by
+    default this module's: ``sdpa_backward_kernels``), in a fresh Python
+    process."""
     root = Path(__file__).resolve().parents[2]
     out = subprocess.run(
-        [sys.executable, "-m", "lipreading_video_generation_tpu_torch.bench.flash_bwd_timing",
-         "--sdpa-kernels", ",".join(map(str, shape))],
+        [sys.executable, "-m", module, "--sdpa-kernels", ",".join(map(str, shape))],
         cwd=root, capture_output=True, text=True, timeout=300, check=True).stdout
     return json.loads(out.strip().splitlines()[-1])
 

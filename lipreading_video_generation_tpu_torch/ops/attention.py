@@ -6,8 +6,9 @@ kernel's variant), K3 (flash-attention forward:
 ``csrc/flash_fwd_sm90.cu`` on the tensor cores for aligned bf16 inputs,
 ``csrc/flash_fwd.cu`` on CUDA cores for the rest) and K4/K5 (its backward:
 ``csrc/flash_bwd_sm90.cu`` and ``csrc/flash_bwd.cu`` likewise; one rule,
-``flash_route``, picks the route of all three, and ``flash_bwd_variant`` the
-variant of ``csrc/flash_bwd.cu``) and their plain torch versions.
+``flash_route``, picks the route of all three, ``flash_fwd_variant`` the
+variant of ``csrc/flash_fwd.cu`` and ``flash_bwd_variant`` that of
+``csrc/flash_bwd.cu``) and their plain torch versions.
 
 Port of ``lipreading_video_generation_tpu/ops/attention.py``'s
 ``attention_reference``, ``flash_attention`` (with its custom VJP),
@@ -37,7 +38,8 @@ from . import _build
 
 __all__ = ["attention_reference", "flash_attention", "flash_backward_reference",
            "flash_bwd_dkv", "flash_bwd_dq", "flash_bwd_route", "flash_bwd_variant",
-           "flash_reference", "flash_route",
+           "flash_combine_reference", "flash_fwd_combine", "flash_fwd_splits",
+           "flash_fwd_variant", "flash_partials_reference", "flash_reference", "flash_route",
            "mha", "mha_route", "small_mha", "small_mha_route", "small_mha_variant",
            "small_mha_viable"]
 
@@ -263,8 +265,23 @@ _FLASH_BQ = _FLASH_BK = 64          # csrc/flash_fwd.cu's tile (Layout::BQ, BK)
 _FLASH_PAD = 4                      # its kPad
 _FLASH_SLICE = 256                  # the CUDA-core kernels walk larger head dims in slices of 256
 _FLASH_MAX_D_SM90 = 256             # the tensor-core kernels' largest head dim
+_FLASH_TILED_MAX_D = 256            # the "tiled" kernels' (csrc/flash_fwd.cu, flash_bwd.cu)
 _FLASH_ROUTES = ("sm90", "cuda_core")
 _FLASH_ENTRY_POINTS = {torch.bfloat16: "lvg_flash_fwd_bf16", torch.float32: "lvg_flash_fwd_f32"}
+# csrc/flash_fwd.cu's variants, in its order (its C entry points take the index)
+_FLASH_FWD_VARIANTS = ("general", "tiled")
+# K3's "tiled" kernel splits the key axis where fewer row blocks than this
+# (one an SM of the H100's 132) would run, into as many splits as keep the
+# grid within _FLASH_FWD_SPLIT_BLOCKS blocks (two an SM: one wave), each of
+# at least _FLASH_FWD_SPLIT_TILES key tiles
+_FLASH_FWD_FILL = 132
+_FLASH_FWD_SPLIT_BLOCKS = 264
+_FLASH_FWD_SPLIT_TILES = 2
+_LOG2E = 1.4426950408889634
+_LN2 = 0.6931471805599453
+# the score, in log2 units, of every key of a row that sees no key (the
+# tiled kernel's kNegInf2)
+_NEG_INF_LOG2 = _NEG_INF * _LOG2E
 # past this many scores a plain-version call walks its queries in chunks
 _FLASH_REF_CHUNK = 1 << 26
 
@@ -307,16 +324,94 @@ def flash_route(dtype: torch.dtype, d: int, strides, offsets) -> str:
 flash_bwd_route = flash_route       # the name the rule had when only K4/K5 followed it
 
 
-def flash_smem_bytes(d: int, route: str = "cuda_core") -> int:
-    """Dynamic shared memory of one K3 block. CUDA-core route
-    (``csrc/flash_fwd.cu``'s Layout): Qᵀ, Kᵀ, V and P tiles as float, 64
-    rows and 64 keys; above head dim 256 the tiles of 256 hold one slice of
-    d at a time. "sm90"
+def _flash_tiled(dtype: torch.dtype, d: int, strides, offsets) -> str:
+    """The variant rule of ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``:
+    "tiled" for float32 with ``d`` a multiple of 4 up to 256 whose every
+    (batch, head, row) stride is a multiple of 4 elements and whose every
+    base lies on 16 bytes, else "general"."""
+    if (dtype == torch.float32 and d % 4 == 0 and d <= _FLASH_TILED_MAX_D
+            and _aligned(strides, offsets, 4, 16)):
+        return "tiled"
+    return "general"
+
+
+def flash_fwd_variant(dtype: torch.dtype, d: int, strides, offsets) -> str:
+    """Which kernel of ``csrc/flash_fwd.cu`` the "cuda_core" route of K3
+    launches (``strides`` and ``offsets`` as for ``flash_route``, over q, k,
+    v and O):
+
+    - "tiled": float32 with ``d`` a multiple of 4 up to 256 whose every
+      (batch, head, row) stride is a multiple of 4 elements and whose every
+      base lies on 16 bytes: 128-thread blocks of 64 query rows (32 at head
+      dim 256), two an SM,
+      K and V tiles copied by 16-byte ``cp.async`` into two stages, the key
+      axis split over blocks where the row blocks do not fill the card
+      (``flash_fwd_splits``);
+    - "general": everything else (bf16 views the tensor-core kernel cannot
+      read, unaligned float32, ``d`` not a multiple of 4, and head dims above
+      256, walked in slices of 256 columns).
+
+    The causal mask and the lengths do not enter the choice (the rule of
+    ``flash_bwd_variant``)."""
+    return _flash_tiled(dtype, d, strides, offsets)
+
+
+def _flash_fwd_tiled_tiles(d: int):
+    """(query rows a block, keys a tile) of K3's "tiled" kernel
+    (``csrc/flash_fwd.cu``'s FwdTiles) at head dim ``d``: 64 rows (8 a
+    thread) up to head dim 128, 32 (4 a thread) at 256; 64, 32 or 16 keys at
+    head dims (padded) 64, 128, 256."""
+    dp = flash_head_dim_pad(d)
+    if dp > _FLASH_TILED_MAX_D:
+        raise ValueError(f"flash_attention: the tiled kernel takes no head dim {d}")
+    return (32 if dp == 256 else 64), {64: 64, 128: 32, 256: 16}[dp]
+
+
+def flash_fwd_splits(batch_heads: int, s_q: int, s_k: int, d: int) -> int:
+    """Into how many runs of whole key tiles K3's "tiled" kernel splits the
+    key axis (each run a block of its own; ``flash_fwd_combine`` joins their
+    partials): 1 where the grid of row blocks, ``batch_heads`` times the
+    blocks of ``s_q`` (``_flash_fwd_tiled_tiles``), already fills the card
+    (``_FLASH_FWD_FILL`` blocks, one an SM); below that, as many as keep the
+    grid within ``_FLASH_FWD_SPLIT_BLOCKS`` blocks (one wave of two an SM),
+    each of at least ``_FLASH_FWD_SPLIT_TILES`` key tiles, all but the last
+    run as long as the first."""
+    bq, bk = _flash_fwd_tiled_tiles(d)
+    row_blocks = batch_heads * -(-s_q // bq)
+    tiles = -(-s_k // bk)
+    if row_blocks >= _FLASH_FWD_FILL:
+        return 1
+    want = max(1, min(_FLASH_FWD_SPLIT_BLOCKS // row_blocks, tiles // _FLASH_FWD_SPLIT_TILES))
+    per = -(-tiles // want)
+    return -(-tiles // per)
+
+
+def _flash_fwd_split_keys(s_k: int, d: int, n_split: int):
+    """The keys [start, stop) of each split of the tiled kernel: runs of
+    ceil(tiles / n_split) whole tiles, the last one shorter (a split past
+    the last tile is empty)."""
+    _, bk = _flash_fwd_tiled_tiles(d)
+    tiles = -(-s_k // bk)
+    per = -(-tiles // n_split) * bk
+    return [(min(i * per, s_k), min((i + 1) * per, s_k)) for i in range(n_split)]
+
+
+def flash_smem_bytes(d: int, route: str = "cuda_core", variant: str = "general") -> int:
+    """Dynamic shared memory of one K3 block. CUDA-core route, ``variant``
+    "general" (``csrc/flash_fwd.cu``'s Layout): Qᵀ, Kᵀ, V and P tiles as
+    float, 64 rows and 64 keys; above head dim 256 the tiles of 256 hold one
+    slice of d at a time; "tiled" (its FwdTiles): as float, rows padded by
+    4, Q of the block's rows, two stages of K and V and Pᵀ
+    (``_flash_fwd_tiled_tiles``). "sm90"
     (``csrc/flash_fwd_sm90.cu``'s FwdCfg): bf16 tiles; Q of the block's
     queries (128, 64 at head dim 256), two stages each of K and V (64 keys,
     128 at head dim 128), plus 1 KB to align the tiles to the swizzle's 1024
     bytes."""
     dp = flash_head_dim_pad(d)
+    if route == "cuda_core" and variant == "tiled":
+        bq, bk = _flash_fwd_tiled_tiles(d)
+        ld = dp + _FLASH_PAD
+        return (bq * ld + 4 * bk * ld + bk * (bq + _FLASH_PAD)) * 4
     if route == "cuda_core":
         dp = _flash_tile_dim(d)
         bq, bk = _FLASH_BQ, _FLASH_BK
@@ -363,6 +458,98 @@ def flash_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: b
     return torch.cat(outs, dim=2), torch.cat(lses, dim=2)
 
 
+def flash_partials_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             causal: bool = False, sm_scale: Optional[float] = None,
+                             n_split: int = 1):
+    """Plain version of what K3's "tiled" kernel writes with ``n_split`` > 1:
+    for each split of the keys (``_flash_fwd_split_keys``), on (B, H, S, D)
+    q, k, v, float32 (m, l, acc) of shapes (n_split, B, H, S_q) twice and
+    (n_split, B, H, S_q, D). Scores s = (q·kᵀ)·scale·log2(e) (log2 units); a
+    key a row does not see scores −inf, except that every key of a row that
+    sees no key at all scores finfo.min/2·log2(e); m is the split's largest
+    score (−inf where the row sees none of its keys, and then m = −inf,
+    l = 0, acc = 0), l = Σ 2^(s − m) and acc = Σ 2^(s − m)·v. m and l are
+    kept apart, not folded into an lse: for a row that sees no key, m has
+    absorbed log l, and a combine over lse would sum the splits' means of V
+    instead of averaging them."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    b, h, s_q, d = q.shape
+    s_k = k.shape[2]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    rows = torch.arange(s_q, device=q.device)[:, None]
+    # a hidden key scores -inf, or finfo.min/2 in log2 units in a row that sees no key
+    hidden = torch.where(rows + (s_k - s_q) < 0, _NEG_INF_LOG2, -math.inf)
+    ms, ls, accs = [], [], []
+    for start, stop in _flash_fwd_split_keys(s_k, d, n_split):
+        x = torch.einsum("bhqd,bhkd->bhqk", qf, kf[:, :, start:stop]) * (sm_scale * _LOG2E)
+        if causal:
+            keys = torch.arange(start, stop, device=q.device)[None, :]
+            x = torch.where(keys > rows + (s_k - s_q), hidden, x)
+        m = x.amax(dim=-1) if stop > start else torch.full((b, h, s_q), -math.inf,
+                                                            device=q.device)
+        p = torch.exp2(x - torch.where(m == -math.inf, 0.0, m)[..., None])
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.einsum("bhqk,bhkd->bhqd", p, vf[:, :, start:stop]))
+    return torch.stack(ms), torch.stack(ls), torch.stack(accs)
+
+
+def flash_combine_reference(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
+                            dtype: torch.dtype = torch.float32):
+    """Plain version of K3's combine kernel: the splits' (m, l, acc) of
+    ``flash_partials_reference`` joined, in split order, into (O in
+    ``dtype``, lse float32): m* = max mᵢ, l = Σ lᵢ·2^(mᵢ − m*),
+    O = Σ accᵢ·2^(mᵢ − m*) / max(l, 1e-30), lse = m*·ln 2 + log max(l, 1e-30)."""
+    mx = m.amax(dim=0)
+    w = torch.exp2(m - torch.where(mx == -math.inf, 0.0, mx))
+    denom = torch.clamp((l * w).sum(dim=0), min=1e-30)
+    o = (acc * w[..., None]).sum(dim=0) / denom[..., None]
+    return o.to(dtype), mx * _LN2 + torch.log(denom)
+
+
+def flash_fwd_combine(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
+                      out: Optional[torch.Tensor] = None, lse: Optional[torch.Tensor] = None):
+    """K3's combine kernel (``csrc/flash_fwd.cu``, ``lvg_flash_fwd_combine``):
+    the splits' partials (contiguous float32 m, l of (n_split, B, H, S_q) and
+    acc of (n_split, B, H, S_q, D), D a multiple of 4) joined into (O, lse)
+    for CUDA tensors, into ``out`` ((B, H, S_q, D) float32 with (batch,
+    head, row) strides that are multiples of 4 and a base on 16 bytes;
+    default a view of a contiguous (B, S_q, H, D)) and ``lse`` (contiguous
+    (B, H, S_q) float32); ``flash_combine_reference`` for CPU ones.
+    ``launch_count`` counts its launches. Raises on anything else."""
+    if not acc.is_cuda:
+        return flash_combine_reference(m, l, acc)
+    n, b, h, s_q, d = acc.shape
+    if not all(t.is_cuda and t.device == acc.device for t in (m, l)):
+        raise ValueError("flash_fwd_combine: m, l and acc on different devices")
+    if (m.shape != (n, b, h, s_q) or l.shape != m.shape or d % 4
+            or any(t.dtype != torch.float32 or not t.is_contiguous() for t in (m, l, acc))):
+        raise ValueError(f"flash_fwd_combine takes contiguous float32 m, l (n, B, H, S) and acc "
+                         f"(n, B, H, S, D), D a multiple of 4; got {tuple(m.shape)}, "
+                         f"{tuple(l.shape)}, {tuple(acc.shape)}")
+    if out is None:
+        out = torch.empty(b, s_q, h, d, device=acc.device).transpose(1, 2)
+    if lse is None:
+        lse = torch.empty(b, h, s_q, device=acc.device)
+    if (out.shape != (b, h, s_q, d) or out.dtype != torch.float32 or out.stride(-1) != 1
+            or lse.shape != (b, h, s_q) or lse.dtype != torch.float32 or not lse.is_contiguous()):
+        raise ValueError("flash_fwd_combine: out must be (B, H, S, D) float32 with unit column "
+                         "stride, lse contiguous (B, H, S) float32")
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    fn = _build.kernel("lvg_flash_fwd_combine", [vp] * 5 + [i32] * 5
+                       + [ctypes.POINTER(ctypes.c_longlong), vp])
+    rc = fn(acc.data_ptr(), m.data_ptr(), l.data_ptr(), out.data_ptr(), lse.data_ptr(), b, h,
+            s_q, d, n, (ctypes.c_longlong * 3)(*out.stride()[:3]),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "flash_fwd_combine")
+    flash_fwd_combine.launch_count += 1
+    return out, lse
+
+
+flash_fwd_combine.launch_count = 0
+
+
 def _flash_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
                   sm_scale: float):
     """Launch K3 on CUDA (B, H, S, D) q/k/v of one dtype (bf16 or float32,
@@ -394,19 +581,37 @@ def _flash_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: boo
     if s_k == 0:
         raise ValueError("flash_attention: no keys")
     tensors = (q, k, v, out)
-    route = flash_route(q.dtype, d, [t.stride()[:3] for t in tensors],
-                        [t.data_ptr() for t in tensors])
-    strides = (ctypes.c_longlong * 12)(*(st for t in tensors for st in t.stride()[:3]))
+    t_strides = [t.stride()[:3] for t in tensors]
+    offsets = [t.data_ptr() for t in tensors]
+    route = flash_route(q.dtype, d, t_strides, offsets)
+    strides = (ctypes.c_longlong * 12)(*(st for t in t_strides for st in t))
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    fn = _build.kernel("lvg_flash_fwd_sm90" if route == "sm90" else _FLASH_ENTRY_POINTS[q.dtype],
-                       [vp, vp, vp, vp, vp, i32, i32, i32, i32, i32,
-                        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, i32, vp])
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            b, h, s_q, s_k, d, strides, sm_scale, int(causal),
-            torch.cuda.current_stream().cuda_stream)
+    args = [*offsets, lse.data_ptr(), b, h, s_q, s_k, d, strides, sm_scale, int(causal)]
+    argtypes = [vp] * 5 + [i32] * 5 + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, i32]
+    parts = None      # the tiled kernel's partials (m, l, acc) where it splits the keys
+    if route == "sm90":
+        fn = _build.kernel("lvg_flash_fwd_sm90", argtypes + [vp])
+    else:
+        variant = flash_fwd_variant(q.dtype, d, t_strides, offsets)
+        n_split = flash_fwd_splits(b * h, s_q, s_k, d) if variant == "tiled" else 1
+        if n_split > 1:       # one float32 workspace: acc, then m, then l
+            n_rows = n_split * b * h * s_q
+            ws = torch.empty(n_rows * (d + 2), device=q.device)
+            parts = (ws[n_rows * d:n_rows * (d + 1)].view(n_split, b, h, s_q),
+                     ws[n_rows * (d + 1):].view(n_split, b, h, s_q),
+                     ws[:n_rows * d].view(n_split, b, h, s_q, d))
+        fn = _build.kernel(_FLASH_ENTRY_POINTS[q.dtype], argtypes + [i32, i32] + [vp] * 4)
+        args += [_FLASH_FWD_VARIANTS.index(variant), n_split,
+                 *((None,) * 3 if parts is None else (parts[2].data_ptr(), parts[0].data_ptr(),
+                                                      parts[1].data_ptr()))]
+    rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     _build.check(rc, f"flash_attention ({route})")
     flash_attention.launch_count += 1
     flash_attention.route_counts[route] += 1
+    if route == "cuda_core":
+        flash_attention.variant_counts[variant] += 1
+    if parts is not None:
+        flash_fwd_combine(*parts, out, lse)
     return out, lse
 
 
@@ -465,7 +670,6 @@ def flash_backward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 _BWD_DTYPE_SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}   # the CUDA-core entry points
 # csrc/flash_bwd.cu's variants, in its order (its C entry points take the index)
 _FLASH_BWD_VARIANTS = ("general", "tiled")
-_FLASH_BWD_TILED_MAX_D = 256
 
 
 def flash_bwd_variant(dtype: torch.dtype, d: int, strides, offsets) -> str:
@@ -482,10 +686,7 @@ def flash_bwd_variant(dtype: torch.dtype, d: int, strides, offsets) -> str:
       256, walked in slices of 256 columns).
 
     The causal mask and the lengths do not enter the choice."""
-    if (dtype == torch.float32 and d % 4 == 0 and d <= _FLASH_BWD_TILED_MAX_D
-            and _aligned(strides, offsets, 4, 16)):
-        return "tiled"
-    return "general"
+    return _flash_tiled(dtype, d, strides, offsets)
 
 
 def _flash_bwd_tiled_tiles(d: int, kernel: str):
@@ -495,7 +696,7 @@ def _flash_bwd_tiled_tiles(d: int, kernel: str):
     above head dim 64); K5 a block of 32 queries over key tiles of 64, 32
     or 16 keys at head dims 64, 128, 256."""
     dp = flash_head_dim_pad(d)
-    if dp > _FLASH_BWD_TILED_MAX_D:
+    if dp > _FLASH_TILED_MAX_D:
         raise ValueError(f"flash backward: the tiled kernels take no head dim {d}")
     if kernel == "dkv":
         return (64 if dp == 64 else 32), (16 if dp == 256 else 32)
@@ -698,7 +899,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: b
     """Flash attention over (B, H, S, D), as the JAX package's
     ``flash_attention``: up to 128² scores it is ``attention_reference``;
     above, K3 for CUDA tensors (``launch_count`` counts its launches,
-    ``route_counts`` those of each route of ``flash_route``) and
+    ``route_counts`` those of each route of ``flash_route``,
+    ``variant_counts`` those of the "cuda_core" route by
+    ``flash_fwd_variant``; split launches of the "tiled" kernel add one
+    ``flash_fwd_combine`` launch each) and
     ``flash_reference`` for CPU ones, differentiable through ``_Flash``
     (K4/K5 on CUDA). ``return_lse`` also returns the per-row logsumexp
     (B, H, S_q) float32 (above 128² only; not differentiable)."""
@@ -716,6 +920,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: b
 
 flash_attention.launch_count = 0
 flash_attention.route_counts = dict.fromkeys(_FLASH_ROUTES, 0)
+flash_attention.variant_counts = dict.fromkeys(_FLASH_FWD_VARIANTS, 0)
 
 
 def mha_route(num_heads: int, s_q: int, s_k: int, e: int, dtype: torch.dtype,

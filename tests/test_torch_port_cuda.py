@@ -644,6 +644,120 @@ def test_flash_backward_entry_point_refuses_tiled_on_unaligned_input(cuda, kerne
         assert _rel_err(got, ref) <= 1e-4
 
 
+# K3's float32 cases, each with the variant of csrc/flash_fwd.cu it must
+# take: the float32 U-Net's three shapes at 64x64 and its heaviest at
+# 128x128, contiguous and as slices of its fused qkv (the two smaller split
+# the key axis); causal with s_q < s_k, ragged, cross, rows that see no key;
+# head dims 32, 100 and 192 (padded); more than 65,535 (batch, head) pairs;
+# and a view 4 bytes into its rows, which must keep the general kernel.
+# (q_shape, s_k, causal, layout, variant)
+_FLASH_FWD_F32 = [
+    ((2, 1, 4096, 64), 4096, False, "", "tiled"),
+    ((2, 1, 1024, 128), 1024, False, "", "tiled"),
+    ((2, 1, 256, 256), 256, False, "", "tiled"),
+    ((2, 1, 16384, 64), 16384, False, "", "tiled"),
+    ((2, 1, 4096, 64), 4096, False, "qkv", "tiled"),
+    ((2, 1, 1024, 128), 1024, False, "qkv", "tiled"),
+    ((2, 1, 256, 256), 256, False, "qkv", "tiled"),
+    ((2, 1, 16384, 64), 16384, False, "qkv", "tiled"),
+    ((2, 2, 300, 32), 300, True, "", "tiled"),
+    ((2, 2, 200, 100), 200, True, "", "tiled"),
+    ((2, 2, 300, 192), 300, False, "", "tiled"),
+    ((2, 3, 160, 40), 320, True, "", "tiled"),        # causal, s_q < s_k
+    ((2, 3, 200, 16), 200, False, "", "tiled"),       # ragged
+    ((1, 2, 160, 128), 320, False, "", "tiled"),      # cross
+    ((1, 2, 200, 64), 150, True, "", "tiled"),        # 50 rows see no key
+    ((1, 2, 300, 256), 60, True, "", "tiled"),        # 240 rows see no key, d 256
+    ((2048, 33, 132, 16), 132, False, "", "tiled"),   # 67,584 (batch, head) pairs
+    ((2, 2, 300, 64), 300, True, "off4", "general"),
+]
+
+
+@pytest.mark.parametrize("q_shape,s_k,causal,layout,variant", _FLASH_FWD_F32)
+def test_flash_forward_tiled_matches_plain(cuda, q_shape, s_k, causal, layout, variant):
+    """K3 in float32 by the variant ``flash_fwd_variant`` names: O and lse
+    within 1e-4 of the plain version's (float32 sums in another order), one
+    launch by the cuda_core route and that variant (and one of the combine
+    kernel where ``flash_fwd_splits`` splits the key axis), equal bits on a
+    second launch."""
+    q, k, v, _ = _bwd_inputs(q_shape, s_k, layout, cuda, seed=110)
+    b, h, s_q, d = q_shape
+    splits = att.flash_fwd_splits(b * h, s_q, s_k, d) if variant == "tiled" else 1
+    routed = att.flash_attention.route_counts["cuda_core"]
+    by_variant = dict(att.flash_attention.variant_counts)
+    combined = att.flash_fwd_combine.launch_count
+    o, lse = att.flash_attention(q, k, v, causal, return_lse=True)
+    torch.cuda.synchronize()
+    assert att.flash_attention.route_counts["cuda_core"] == routed + 1
+    assert {v_: n - by_variant[v_] for v_, n in att.flash_attention.variant_counts.items()
+            if n != by_variant[v_]} == {variant: 1}
+    assert att.flash_fwd_combine.launch_count == combined + (splits > 1)
+    want_o, want_lse = att.flash_reference(q, k, v, causal)
+    torch.testing.assert_close(o, want_o, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
+    o2, lse2 = att.flash_attention(q, k, v, causal, return_lse=True)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+def test_flash_forward_entry_point_refuses_tiled_on_unaligned_input(cuda):
+    """The C entry point checks the tiled kernel's preconditions itself:
+    asked for "tiled" on a view 4 bytes into its rows, it returns an error
+    (cudaErrorInvalidValue) and launches nothing, and the caller raises; the
+    general kernel takes the same inputs."""
+    from lipreading_video_generation_tpu_torch.bench.flash_fwd_timing import c_entry_launcher
+
+    q, k, v, _ = _bwd_inputs((1, 1, 300, 64), 300, "off4", cuda)
+    out = torch.empty(1, 300, 1, 64, device=cuda).transpose(1, 2)
+    assert att.flash_fwd_variant(q.dtype, 64, [t.stride()[:3] for t in (q, k, v, out)],
+                                 [t.data_ptr() for t in (q, k, v, out)]) == "general"
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        c_entry_launcher(att, q, k, v, variant="tiled")()
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        c_entry_launcher(att, q, k, v, variant="general", n_split=2)()
+    general = c_entry_launcher(att, q, k, v, variant="general")
+    general()
+    torch.cuda.synchronize()
+    want_o, want_lse = att.flash_reference(q, k, v)
+    torch.testing.assert_close(general.out, want_o, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(general.lse, want_lse, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("q_shape,s_k,causal,n_split", [
+    ((2, 1, 1024, 128), 1024, False, 5), ((2, 1, 256, 256), 256, False, 16),
+    ((1, 2, 200, 64), 150, True, 3), ((2, 3, 160, 40), 320, True, 2)])
+def test_flash_forward_split_partials_and_combine_match_plain(cuda, q_shape, s_k, causal,
+                                                              n_split):
+    """The tiled kernel's partials at ``n_split`` splits against
+    ``flash_partials_reference`` (m where finite, which it is exactly where
+    the plain version's is; l and acc of their largest), and the combine
+    kernel on those partials, through ``flash_fwd_combine``, against
+    ``flash_combine_reference`` on the same partials: within 1e-5 of the
+    largest value; equal bits on a second launch."""
+    from lipreading_video_generation_tpu_torch.bench.flash_fwd_timing import c_entry_launcher
+
+    q, k, v, _ = _bwd_inputs(q_shape, s_k, "", cuda, seed=120)
+    launch = c_entry_launcher(att, q, k, v, causal, n_split=n_split)
+    launch()
+    torch.cuda.synchronize()
+    m, l, acc = launch.parts
+    want_m, want_l, want_acc = att.flash_partials_reference(q, k, v, causal, n_split=n_split)
+    finite = torch.isfinite(want_m)
+    assert torch.equal(finite, torch.isfinite(m))
+    for got, want in ((m[finite], want_m[finite]), (l, want_l), (acc, want_acc)):
+        assert _rel_err(got, want) <= 1e-5
+    before = att.flash_fwd_combine.launch_count
+    o, lse = att.flash_fwd_combine(m, l, acc)
+    o2, lse2 = att.flash_fwd_combine(m, l, acc)
+    torch.cuda.synchronize()
+    assert att.flash_fwd_combine.launch_count == before + 2
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    want_o, want_lse = att.flash_combine_reference(m, l, acc)
+    torch.testing.assert_close(o, want_o, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(launch.out, o, rtol=0, atol=0)
+    torch.testing.assert_close(launch.lse, lse, rtol=0, atol=0)
+
+
 def test_flash_backward_unaligned_bf16_view_takes_cuda_cores(cuda):
     """A bf16 view that starts 8 bytes into its rows cannot be read by
     16-byte copies: it runs the CUDA-core kernels, to the same bound."""
@@ -1331,10 +1445,14 @@ def test_wav2vec2_on_a_long_wave_runs_k3(cuda):
                                rtol=1e-2, atol=1e-2)
 
 
-def test_pretrained_encoders_on_card_match_cpu(cuda):
+def test_pretrained_encoders_on_card_match_cpu(cuda, monkeypatch):
     """A small wav2vec2, AV-HuBERT and seq2seq expert in float32 (K2 by
     cuda_core, one launch a layer) on the card against the same modules on
-    the CPU: within 1e-4 (features) and 1e-5 relative (the loss)."""
+    the CPU: within 1e-4 (features) and 1e-5 relative (the loss). cuDNN's
+    TF32 is off, as in the file's other float32 card-vs-CPU tests: the
+    wav2vec2 feature extractor's and AV-HuBERT's convolutions go through
+    cuDNN, which would otherwise run them in TF32 (about three decimal
+    digits)."""
     from lipreading_video_generation_tpu_torch.core.prng import seeded
     from lipreading_video_generation_tpu_torch.models.avhubert import AVHubertVideoEncoder
     from lipreading_video_generation_tpu_torch.models.lip_expert import seq2seq_expert_loss
@@ -1346,6 +1464,7 @@ def test_pretrained_encoders_on_card_match_cpu(cuda):
     video = torch.from_numpy(rng.standard_normal((2, 5, 88, 88, 1)).astype(np.float32))
     rgb = torch.from_numpy(rng.uniform(0, 255, (2, 5, 96, 96, 3)).astype(np.float32))
     tokens = torch.from_numpy(rng.integers(2, 30, (2, 48)).astype(np.int64))
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
     cases = [(seeded(lambda: Wav2Vec2Encoder(embed_dim=128, num_layers=2, num_heads=2,
                                             ffn_dim=256), 0), (wave,)),
              (seeded(lambda: AVHubertVideoEncoder(embed_dim=128, num_layers=2, num_heads=2,

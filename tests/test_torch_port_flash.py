@@ -329,3 +329,173 @@ def test_flash_head_dim_640_matches_jax():
     want = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, arrs))
     for t, r in zip(qkv, want):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(r), rtol=5e-4, atol=5e-4)
+
+
+# --- K3's float32 "tiled" kernel: its variant rule, tiles, key splits ------
+
+def _fwd_variant_case(layout, d):
+    """q, k, v and the (B, S, H, D) output ``_flash_launch`` allocates, for
+    ``test_flash_fwd_variant``."""
+    if layout == "fused":                      # the U-Net's column slices of one qkv
+        q, k, v = _fused_qkv(d, dtype=torch.float32)
+    elif layout == "off4":                     # columns 1..d of rows of d + 4: 4 bytes in
+        q = k = v = torch.zeros(1, 2, 24, d + 4)[..., 1:1 + d]
+    elif layout == "bf16":
+        q = k = v = torch.zeros(1, 2, 24, d, dtype=torch.bfloat16)
+    else:
+        q = k = v = torch.zeros(1, 2, 24, d)
+    out = torch.empty(q.shape[0], q.shape[2], q.shape[1], d, dtype=q.dtype).transpose(1, 2)
+    return q, k, v, out
+
+
+def _fwd_variant_of(tensors, offsets=None):
+    size = tensors[0].element_size()
+    return tatt.flash_fwd_variant(tensors[0].dtype, tensors[0].shape[-1],
+                                  [t.stride()[:3] for t in tensors],
+                                  offsets or [t.storage_offset() * size for t in tensors])
+
+
+@pytest.mark.parametrize("layout,d,want", [
+    *[("contiguous", d, "tiled") for d in (32, 64, 100, 128, 192, 256)],
+    *[("fused", d, "tiled") for d in (64, 128, 256)],
+    ("off4", 64, "general"),                   # a float32 view 4 bytes into its rows
+    ("bf16", 64, "general"),                   # the CUDA-core route's bf16 views
+    ("contiguous", 30, "general"),             # d % 4 != 0
+    ("contiguous", 320, "general"),            # past 256: the sliced kernel
+])
+def test_flash_fwd_variant(layout, d, want):
+    """The "tiled" kernel of csrc/flash_fwd.cu takes float32 with d a
+    multiple of 4 up to 256, 16-byte rows and bases: every float32 U-Net
+    head dim, contiguous or as slices of its fused qkv; the rest keeps the
+    "general" one. The rule is the backward's."""
+    tensors = _fwd_variant_case(layout, d)
+    assert all(t.stride(-1) == 1 for t in tensors)
+    assert _fwd_variant_of(tensors) == want
+    assert tatt.flash_bwd_variant(tensors[0].dtype, d, [t.stride()[:3] for t in tensors],
+                                  [t.storage_offset() * t.element_size() for t in tensors]) == want
+    if want == "tiled":       # the same tensors on the CUDA-core route
+        assert _forward_route(*tensors[:3]) == "cuda_core"
+
+
+def test_flash_fwd_variant_reads_every_offset():
+    """An output off 16 bytes alone (the rest aligned) keeps the general
+    kernel: the rule reads all four tensors."""
+    tensors = _fwd_variant_case("fused", 64)
+    assert _fwd_variant_of(tensors, [0, 256, 512, 0]) == "tiled"
+    assert _fwd_variant_of(tensors, [0, 256, 512, 8]) == "general"
+    assert _fwd_variant_of(tensors, [0, 256, 516, 0]) == "general"
+    assert set(tatt.flash_attention.variant_counts) == set(tatt._FLASH_FWD_VARIANTS) == {
+        "general", "tiled"}
+
+
+@pytest.mark.parametrize("d,want", [(64, 104448), (128, 110080), (256, 102144)])
+def test_flash_fwd_tiled_smem_fits_a_block_and_two_share_an_sm(d, want):
+    """The tiled kernel's shared memory (Q of 64 rows, 32 at head dim 256, two
+    stages of K and V of 64, 32 or 16 keys, Pᵀ; rows padded by 4 floats) fits a block, and two
+    blocks (each with the 1 KB the card reserves a block) share an SM's
+    228 KB at every head dim it takes; the "general" default still describes
+    the general kernel."""
+    from lipreading_video_generation_tpu_torch.ops import _build
+
+    got = tatt.flash_smem_bytes(d, "cuda_core", "tiled")
+    assert got == want <= _build.SMEM_PER_BLOCK
+    assert 2 * (got + 1024) <= 228 * 1024
+    assert tatt.flash_smem_bytes(d) == tatt.flash_smem_bytes(d, "cuda_core", "general")
+    with pytest.raises(ValueError, match="tiled"):
+        tatt.flash_smem_bytes(320, "cuda_core", "tiled")
+
+
+@pytest.mark.parametrize("bh,s_q,s_k,d,want", [
+    (2, 16384, 16384, 64, 1),      # 512 row blocks of 64: the card is full
+    (4, 4096, 4096, 128, 1),       # the bf16 U-Net's shape in float32: 256
+    (67584, 132, 132, 16, 1),
+    (2, 4096, 4096, 64, 2),        # 128 row blocks, 4 short of the card: two runs of 32 tiles
+    (2, 1024, 1024, 128, 8),       # 32 row blocks: 8 runs of 4 of the 32 key tiles
+    (2, 256, 256, 256, 8),         # 16 row blocks of 32: 8 runs of two 16-key tiles
+    (2, 300, 300, 192, 7),         # 20 row blocks, 19 tiles: 6 runs of 3, then one
+    (2, 200, 150, 64, 1),          # 3 key tiles: too few for two runs of two
+    (1, 40, 4096, 64, 32),         # 1 row block, 64 key tiles
+])
+def test_flash_fwd_splits(bh, s_q, s_k, d, want):
+    """1 where the row blocks fill the card (one an SM of 132); above 1 at
+    the float32 U-Net's (2,1,1024,128) and (2,1,256,256); never more than
+    the grid of one wave (two blocks an SM) holds, nor than half the key
+    tiles; every split holds keys, all but the last as many."""
+    n = tatt.flash_fwd_splits(bh, s_q, s_k, d)
+    assert n == want
+    bq, bk = tatt._flash_fwd_tiled_tiles(d)
+    dp = tatt.flash_head_dim_pad(d)
+    assert (bq, bk) == ((32 if dp == 256 else 64), {64: 64, 128: 32, 256: 16}[dp])
+    assert n == 1 or (n * bh * -(-s_q // bq) <= 264 and 2 * n <= -(-s_k // bk))
+    keys = tatt._flash_fwd_split_keys(s_k, d, n)
+    assert keys[0][0] == 0 and keys[-1][1] == s_k
+    assert all(a < b for a, b in keys) and all(b == a for (_, b), (a, _) in zip(keys, keys[1:]))
+    assert len({b - a for a, b in keys[:-1]}) <= 1
+
+
+def _split_combine(arrs, causal, n_split, dtype=torch.float32):
+    q, k, v = (torch.from_numpy(a).to(dtype) for a in arrs)
+    return tatt.flash_combine_reference(
+        *tatt.flash_partials_reference(q, k, v, causal, n_split=n_split), dtype)
+
+
+@pytest.mark.parametrize("n_split", [2, 3])
+@pytest.mark.parametrize("s_q,s_k,causal", _CASES)
+def test_flash_split_combine_matches_jax(s_q, s_k, causal, n_split):
+    """The tiled kernel's algebra: the keys split into runs of whole tiles,
+    each run's (m, l, acc) apart, joined by the combine, against the JAX
+    package's flash kernel (interpret mode) at ``test_flash_matches_jax``'s
+    float32 tolerances."""
+    arrs = _qkv(13, 2, 2, s_q, s_k, 32)
+    want_o, want_lse = _jax_flash(arrs, causal, jnp.float32)
+    got_o, got_lse = _split_combine(arrs, causal, n_split)
+    np.testing.assert_allclose(got_o.numpy(), want_o, rtol=5e-4, atol=5e-4)
+    np.testing.assert_allclose(got_lse.numpy(), want_lse, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("n_split", [2, 3])
+@pytest.mark.parametrize("s_q,s_k,causal", _CASES + [(200, 150, True)])
+def test_flash_split_combine_matches_flash_reference(s_q, s_k, causal, n_split):
+    """The same against ``flash_reference`` (the plain version of K3 without
+    splits): within 1e-6 (float32 sums in another order, exp2 in log2 units
+    for exp)."""
+    arrs = _qkv(14, 2, 2, s_q, s_k, 32)
+    want_o, want_lse = tatt.flash_reference(*map(torch.from_numpy, arrs), causal)
+    got_o, got_lse = _split_combine(arrs, causal, n_split)
+    torch.testing.assert_close(got_o, want_o, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(got_lse, want_lse, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("n_split", [2, 3])
+def test_flash_split_combine_rows_that_see_no_key(n_split):
+    """Causal with s_q > s_k: the first 50 rows see no key and get the mean
+    of V over the s_k keys, as ``attention_reference`` gives them, whatever
+    the split. Each split's m has absorbed log l there (finfo.min/2), so a
+    combine of per-split lse values would weigh the splits alike and sum
+    their means of V: the partials keep m and l apart."""
+    arrs = _qkv(15, 1, 2, 200, 150, 32)
+    ref = np.asarray(jatt.attention_reference(*map(jnp.asarray, arrs), causal=True))
+    got_o, _ = _split_combine(arrs, True, n_split)
+    np.testing.assert_allclose(got_o.numpy(), ref, rtol=5e-4, atol=5e-4)
+    np.testing.assert_allclose(got_o[:, :, :50].numpy(), np.broadcast_to(
+        arrs[2].mean(axis=2, keepdims=True), (1, 2, 50, 32)), rtol=1e-5, atol=1e-5)
+    # what a combine over lse = m ln 2 + log l would give those rows
+    m, l, acc = tatt.flash_partials_reference(*map(torch.from_numpy, arrs), True,
+                                              n_split=n_split)
+    lse = m * tatt._LN2 + torch.log(l)
+    w = torch.softmax(lse, dim=0)
+    by_lse = (acc / l[..., None] * w[..., None]).sum(0)
+    assert (by_lse[:, :, :50] - got_o[:, :, :50]).abs().max() > 1e-2
+
+
+def test_flash_fwd_combine_on_the_cpu_is_the_plain_version():
+    """CPU partials take ``flash_combine_reference``: the same bits, and no
+    launch counted."""
+    q, k, v = map(torch.from_numpy, _qkv(16, 1, 2, 200, 150, 32))
+    parts = tatt.flash_partials_reference(q, k, v, True, n_split=3)
+    before = tatt.flash_fwd_combine.launch_count, dict(tatt.flash_attention.variant_counts)
+    got = tatt.flash_fwd_combine(*parts)
+    want = tatt.flash_combine_reference(*parts)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    tatt.flash_attention(q, k, v, causal=True)
+    assert (tatt.flash_fwd_combine.launch_count, tatt.flash_attention.variant_counts) == before
