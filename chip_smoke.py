@@ -131,8 +131,13 @@ script exits non-zero without printing a result):
    largest |C| (the output is the unrounded float32 sum; only the order of
    summation differs), every serving shape and the tile edges by the
    tensor-core route, odd depths, a row-major int8 B and an unaligned view
-   by the mma.sync route, more than 65,535 x 64 columns, equal bits of two
-   launches), at the shapes the paths give them.
+   by the packed route (each operand a tensor map cannot read copied to
+   K-major rows by ``csrc/int8_mm.cu``, then the same wgmma kernel; its
+   packs counted), more than 65,535 x 64 columns, equal bits of two
+   launches); K6's pack bit for bit against ``pack_reference`` in int8 and
+   bf16 (the row-major shapes' A and B, an unaligned view, a broadcast A of
+   row stride 0, the 4096² transposition), each by the path it must take;
+   at the shapes the paths give them.
 4. serve   — 3 requests of 8 clips and 3 of 384 clips (5 frames each, 96×96
    RGB uint8 frames and face boxes as in bench.py), host frames in, host
    logits out; every request must launch K1 once (by the packed route) and
@@ -310,8 +315,11 @@ script exits non-zero without printing a result):
    bytes of params, EMA and Adam moments a rank against one process's.
    Each run's backend and each rank's launches are printed.
 16. microbench — ``bench.microbench_int8.run``: K6 in bf16 and in int8
-   (B row-major and B a (N, K) weight transposed) and the library's calls
-   on the same operands at 4096³, after its own checks.
+   (B row-major, route "packed": one pack of B a product, and B a (N, K)
+   weight transposed) and the library's calls on the same operands at
+   4096³, after its own checks; then ``ops.quant.int8_dense`` at the ViViT's
+   (30720, 256) x (256, 768) on the card equal to its CPU plain path, with
+   one pack and one wgmma product.
 17. timing — request and train-step times, frames/s, each kernel's
    CUDA-event time beside its plain version's at the main-path shapes, the
    one PyTorch call that computes the same function where there is one
@@ -481,7 +489,7 @@ def phase_build() -> None:
         + "; K6 tensor-core route 4 stages of (128 + N tile) rows of 128 bytes, their 8 "
         "mbarriers + 1 KB: "
         + ", ".join(f"{4 * (128 + bn) * 128 + 1024 + 64} B (N tile {bn})" for bn in (8, 64, 256))
-        + ", mma.sync route 15360 B static (128 and 64 rows of 80 bytes); K2 tensor-core route "
+        + ", pack 16384 B static (a tile of 128 depths x 128 bytes); K2 tensor-core route "
         "two buffers of Q, K, V rows of 2 d_pad + 16 bytes: "
         f"{2 * 3 * 80 * (2 * 32 + 16)} B (S=80, d=32), {2 * 3 * 16 * (2 * 128 + 16)} B (S=11, d=96)")
 
@@ -967,12 +975,13 @@ def _int8(shape, seed):
 K6_SERVING_SHAPES = [(65536, 304, 16), (65536, 16, 32), (65536, 720, 32), (128, 4608, 512),
                      (65536, 32, 3), (65536, 1440, 64),
                      (30720, 256, 768), (30720, 256, 1024), (30720, 1024, 256)]
-# Row-major B, depths that are no multiple of 16 (the element-wise loads of
-# the mma.sync kernel): the stems before padding and ragged shapes.
+# Row-major B, depths that are no multiple of 16 (route "packed": the pack's
+# transposing or gathering path for B, its shifting path for A): the stems
+# before padding and ragged shapes.
 K6_ROW_MAJOR_SHAPES = [(65536, 294, 16), (65536, 9, 32), (257, 131, 67), (5, 9, 3)]
 # The tensor-core kernel's edges, B the (N, K) weight transposed: M, N and K
 # one above and one below a tile, a single element of C, and more columns
-# than the mma.sync kernel's grid takes (65,535 x 64).
+# than one grid axis of 64-column blocks holds (65,535 x 64).
 K6_EDGE_SHAPES = [(129, 144, 72), (255, 4608, 8), (1, 16, 1), (2, 16, 65535 * 64 + 8)]
 
 
@@ -982,14 +991,14 @@ def check_matmul() -> dict:
     errs = {"int8_matmul": 0.0, "bf16_matmul": 0.0}
     # (shape, layout of B, route of int8, route of bf16)
     cases = ([(shape, "transposed", "sm90", "sm90") for shape in K6_SERVING_SHAPES]
-             + [(shape, "row_major", "mma_sync", "mma_sync") for shape in K6_ROW_MAJOR_SHAPES]
+             + [(shape, "row_major", "packed", "packed") for shape in K6_ROW_MAJOR_SHAPES]
              # the microbench's operands: a row-major bf16 B is the tensor-core
-             # kernel's MN-major operand, a row-major int8 B has none there
-             + [((4096, 4096, 4096), "row_major", "mma_sync", "sm90"),
+             # kernel's MN-major operand, a row-major int8 B is packed first
+             + [((4096, 4096, 4096), "row_major", "packed", "sm90"),
                 ((4096, 4096, 4096), "transposed", "sm90", "sm90")]
              + [(shape, "transposed", "sm90", "sm90") for shape in K6_EDGE_SHAPES]
-             # views that start one element into wider rows: no 16-byte copies
-             + [((300, 64, 48), "unaligned", "mma_sync", "mma_sync")])
+             # views that start one element into wider rows: no tensor map reads them
+             + [((300, 64, 48), "unaligned", "packed", "packed")])
     for (m, k, n), layout, route8, route16 in cases:
         pad = 16 if layout == "unaligned" else 0
 
@@ -1004,14 +1013,21 @@ def check_matmul() -> dict:
         a16, b16 = operands(lambda sh: _uniform(sh, -1, 1, SEED + 62, torch.bfloat16),
                             lambda sh: _uniform(sh, -1, 1, SEED + 63, torch.bfloat16))
         before = dict(mm.int8_matmul.route_counts), dict(mm.bf16_matmul.route_counts)
+        packs = mm.int8_matmul.pack_launch_count, mm.bf16_matmul.pack_launch_count
         got, again = mm.int8_matmul(a8, b8), mm.int8_matmul(a8, b8)
         got16, again16 = mm.bf16_matmul(a16, b16), mm.bf16_matmul(a16, b16)
         torch.cuda.synchronize()
-        for fn, was, route in zip((mm.int8_matmul, mm.bf16_matmul), before, (route8, route16)):
+        for fn, was, route, (a, b), packed in zip((mm.int8_matmul, mm.bf16_matmul), before,
+                                                   (route8, route16), ((a8, b8), (a16, b16)),
+                                                   packs):
             took = {r: c - was[r] for r, c in fn.route_counts.items() if c != was[r]}
-            if took != {route: 2}:
+            # two launches, each packing the operands no tensor map reads
+            want_packs = 2 * sum(mm._packs(a.dtype, m, n, k, a.stride(), b.stride(),
+                                           a.data_ptr(), b.data_ptr()))
+            if took != {route: 2} or fn.pack_launch_count - packed != want_packs:
                 raise AssertionError(f"K6 {fn.__name__} ({m},{k},{n}) B {layout}: routes {took}, "
-                                     f"want {route}")
+                                     f"{fn.pack_launch_count - packed} packs; want {route}, "
+                                     f"{want_packs}")
         if not (torch.equal(got, again) and torch.equal(got16, again16)):
             raise AssertionError(f"K6 ({m},{k},{n}) B {layout}: two launches gave different bits")
         want = mm.matmul_reference(a8, b8)
@@ -1029,7 +1045,54 @@ def check_matmul() -> dict:
         errs["int8_matmul"] = max(errs["int8_matmul"], float(err8))
         errs["bf16_matmul"] = max(errs["bf16_matmul"], err16)
         del a8, b8, got, again, want, a16, b16, got16, again16, want16
+    errs["matmul_pack"] = check_pack()
     return errs
+
+
+def check_pack() -> float:
+    """K6's pack (``csrc/int8_mm.cu``) bit for bit against ``pack_reference``
+    in int8 and bf16, each case by the path it must take: the row-major
+    shapes' A (odd K: shifted rows) and B read as (N, K) (transposed where
+    its depths start on 16-byte boundaries, else gathered), the unaligned
+    view's A and B, a broadcast A (row stride 0) and the 4096² transposition.
+    Returns the largest difference (0)."""
+    from lipreading_video_generation_tpu_torch.ops import matmul_cuda as mm
+
+    for dtype in (torch.int8, torch.bfloat16):
+        size = 1 if dtype == torch.int8 else 2
+
+        def draw(shape, seed):
+            return (_int8(shape, seed) if dtype == torch.int8
+                    else _uniform(shape, -1, 1, seed, torch.bfloat16))
+
+        cases = []
+        for m, k, n in K6_ROW_MAJOR_SHAPES:
+            cases += [(f"A ({m},{k})", draw((m, k), SEED + 64), "rows"),
+                      (f"B ({k},{n}) row-major as (N,K)", draw((k, n), SEED + 65).t(),
+                       "transpose" if (n * size) % 16 == 0 else "gather")]
+        m, k, n = 300, 64, 48
+        cases += [("A (300,64) one element in", draw((m, k + 16), SEED + 66)[:, 1:1 + k], "rows"),
+                  ("B (48,64) one element in", draw((n, k + 16), SEED + 67)[:, 1:1 + k], "rows"),
+                  ("A (64,32) broadcast rows", draw((1, 32), SEED + 68).expand(64, 32), "rows"),
+                  ("B (4096,4096) row-major as (N,K)", draw((4096, 4096), SEED + 69).t(),
+                   "transpose")]
+        for name, x, path in cases:
+            got_path = mm.pack_path(dtype, x.stride(), x.data_ptr())
+            before = mm.pack_k_major.launch_count, mm.pack_k_major.path_counts[path]
+            got, want = mm.pack_k_major(x), mm.pack_reference(x)
+            torch.cuda.synchronize()
+            counted = (mm.pack_k_major.launch_count - before[0],
+                       mm.pack_k_major.path_counts[path] - before[1])
+            bits = (lambda t: t) if dtype == torch.int8 else (lambda t: t.view(torch.int16))
+            if got_path != path or counted != (1, 1) or not torch.equal(bits(got), bits(want)):
+                raise AssertionError(f"K6 pack {dtype} {name}: path {got_path} (want {path}), "
+                                     f"launches {counted}, equal bits "
+                                     f"{torch.equal(bits(got), bits(want))}")
+            log("kernels", f"K6 pack {str(dtype).split('.')[-1]} {name} {tuple(x.shape)} strides "
+                f"{x.stride()}: path {path}, equal bits to pack_reference, rows "
+                f"{got.stride(0)} elements apart")
+            del x, got, want
+    return 0.0
 
 
 def flax_vivit_params(cfg, seed: int) -> dict:
@@ -1958,9 +2021,12 @@ def _zero_counts() -> None:
     from lipreading_video_generation_tpu_torch.ops import matmul_cuda as mm
 
     for fn in (cl.clahe_cuda, att.small_mha, att.flash_attention, att.flash_fwd_combine,
-               att.flash_bwd_dkv, att.flash_bwd_dq, mm.int8_matmul, mm.bf16_matmul):
+               att.flash_bwd_dkv, att.flash_bwd_dq, mm.int8_matmul, mm.bf16_matmul,
+               mm.pack_k_major):
         fn.launch_count = 0
-        for counts in ("route_counts", "variant_counts"):
+        if hasattr(fn, "pack_launch_count"):
+            fn.pack_launch_count = 0
+        for counts in ("route_counts", "variant_counts", "path_counts"):
             if hasattr(fn, counts):
                 setattr(fn, counts, dict.fromkeys(getattr(fn, counts), 0))
 
@@ -5207,26 +5273,61 @@ def _par_gates(dev: dict, runs: dict, refs: dict) -> None:
 
 
 def phase_microbench() -> dict:
-    """K6's own entry point: both type pairs at 4096³ beside the library."""
+    """K6's own entry point: both type pairs at 4096³ beside the library;
+    then ``int8_dense`` at a ViViT Dense shape, its (in, out) kernel a
+    row-major B (route "packed"), against its CPU plain path."""
     from lipreading_video_generation_tpu_torch.bench import microbench_int8
     from lipreading_video_generation_tpu_torch.ops import matmul_cuda as mm
+    from lipreading_video_generation_tpu_torch.ops import quant
 
     _zero_counts()
     res = microbench_int8.run(size=4096, iters=10, seed=SEED)
-    launches = {"int8_matmul": mm.int8_matmul.launch_count,
-                "bf16_matmul": mm.bf16_matmul.launch_count}
-    want = {"k6_bf16": "sm90", "k6_int8": "mma_sync", "k6_int8_kmajor": "sm90"}
-    if res["routes"] != want or mm.bf16_matmul.route_counts["mma_sync"] or (
-            mm.int8_matmul.route_counts["sm90"] != mm.int8_matmul.route_counts["mma_sync"]):
-        raise AssertionError(f"microbench routes {res['routes']}, {mm.int8_matmul.route_counts}, "
-                             f"{mm.bf16_matmul.route_counts}; want {want}")
+    want = {"k6_bf16": "sm90", "k6_int8": "packed", "k6_int8_kmajor": "sm90"}
+    int8_routes = dict(mm.int8_matmul.route_counts)
+    # as many products with each layout of B, one pack of B for each row-major one
+    if (res["routes"] != want or mm.bf16_matmul.route_counts["packed"]
+            or mm.bf16_matmul.pack_launch_count
+            or int8_routes["sm90"] != int8_routes["packed"]
+            or mm.int8_matmul.pack_launch_count != int8_routes["packed"]
+            or mm.pack_k_major.path_counts["transpose"] != int8_routes["packed"]):
+        raise AssertionError(f"microbench routes {res['routes']}, {int8_routes}, "
+                             f"{mm.bf16_matmul.route_counts}, packs {mm.int8_matmul.pack_launch_count}"
+                             f" {mm.pack_k_major.path_counts}; want {want}")
     log("microbench", f"4096^3: K6 bf16 {res['k6_bf16_ms']:.4f} ms (B row-major, route sm90), "
         f"torch.matmul bf16 {res['torch_matmul_bf16_ms']:.4f} ms; K6 int8, B the (N,K) weight "
         f"transposed (route sm90) {res['k6_int8_kmajor_ms']:.4f} ms, torch._int_mm on the same "
-        f"{res['torch_int_mm_kmajor_ms']:.4f} ms; K6 int8, B row-major (route mma_sync) "
-        f"{res['k6_int8_ms']:.4f} ms, torch._int_mm {res['torch_int_mm_ms']:.4f} ms; launches "
-        f"{launches}, routes int8 {mm.int8_matmul.route_counts} bf16 "
-        f"{mm.bf16_matmul.route_counts}")
+        f"{res['torch_int_mm_kmajor_ms']:.4f} ms; K6 int8, B row-major (route packed: the pack "
+        f"of B, then the wgmma kernel) {res['k6_int8_ms']:.4f} ms, torch._int_mm "
+        f"{res['torch_int_mm_ms']:.4f} ms; routes int8 {int8_routes} bf16 "
+        f"{mm.bf16_matmul.route_counts}, packs {mm.int8_matmul.pack_launch_count} "
+        f"{mm.pack_k_major.path_counts}")
+
+    # int8_dense as JAX's int8 serving calls it for an nn.Dense: the ViViT's
+    # MLP-in product, (30720, 256) x (256, 768), on the card and on the CPU
+    rng = np.random.default_rng(SEED + 90)
+    x = torch.from_numpy(rng.standard_normal((30720, 256)).astype(np.float32))
+    kernel = torch.from_numpy((rng.standard_normal((256, 768)) / 16).astype(np.float32))
+    bias = torch.from_numpy((0.02 * rng.standard_normal(768)).astype(np.float32))
+    before = (mm.int8_matmul.launch_count, dict(mm.int8_matmul.route_counts),
+              mm.int8_matmul.pack_launch_count)
+    t0 = time.perf_counter()
+    got = quant.int8_dense(x.cuda(), kernel.cuda(), bias.cuda()).cpu()
+    card_s = time.perf_counter() - t0
+    took = (mm.int8_matmul.launch_count - before[0],
+            {r: c - before[1][r] for r, c in mm.int8_matmul.route_counts.items() if c != before[1][r]},
+            mm.int8_matmul.pack_launch_count - before[2])
+    want_out = quant.int8_dense(x, kernel, bias)
+    err = (got - want_out).abs().max().item()
+    if took != (1, {"packed": 1}, 1) or not torch.equal(got, want_out):
+        raise AssertionError(f"int8_dense (30720,256)x(256,768): launches, routes, packs {took}; "
+                             f"max|d| from the CPU plain path {err}")
+    log("microbench", f"int8_dense (30720,256) x (256,768) float32: one pack of the (in,out) "
+        f"kernel and one wgmma product (route packed), output equal to the CPU plain path's "
+        f"(max|d| {err}); {card_s:.3f} s on the card with the copies")
+    launches = {"int8_matmul": mm.int8_matmul.launch_count,
+                "bf16_matmul": mm.bf16_matmul.launch_count,
+                "matmul_pack": mm.pack_k_major.launch_count}
+    log("microbench", f"launches {launches}")
     return {"launches": launches, "result": res}
 
 
@@ -5678,7 +5779,27 @@ def phase_timing(dev: dict, microbench: dict) -> dict:
     bf16_plain = _event_ms(lambda: mm.matmul_reference(ops["a16"], ops["b16"]), 5)
     alone16 = _event_ms(_mm_sm90_launcher(ops["a16"], ops["b16"]), 20)
     alone8 = _event_ms(_mm_sm90_launcher(ops["a8"], ops["b8_kmajor"]), 20)
-    del ops
+    # K6's pack at the microbench's row-major int8 B read as (N, K), the
+    # 4096^2 transposition of its "packed" route: through pack_k_major beside
+    # pack_reference, and the kernel and one library call that makes the same
+    # copy (.contiguous() of the transposed view; timed only) from CUDA graphs
+    bt = ops["b8"].t()
+    before = mm.pack_k_major.path_counts["transpose"]
+    pack_ms, pack_plain, raw_p = _plain_vs_kernel(lambda: mm.pack_reference(bt),
+                                                  lambda: mm.pack_k_major(bt), 5, 20)
+    if mm.pack_k_major.path_counts["transpose"] != before + 41:
+        raise AssertionError("the timed K6 packs did not take the transposing path")
+    pack_graph = graph_ms(lambda: mm.pack_k_major(bt), 20)
+    pack_lib = graph_ms(lambda: bt.contiguous(), 20)
+    pack_bound = _bound(2 * 4096 * 4096, 0, "int8")
+    log("timing", f"K6 pack 4096^2 int8, B row-major read as (N,K) (path transpose): "
+        f"{pack_graph:.4f} ms from a CUDA graph of 20 (bound {pack_bound['bound_ms']:.4f} ms by "
+        f"bytes, {pack_bound['bound_ms'] / pack_graph:.1%} of it; the source is the same 16 MB "
+        f"each launch, so it reads from a warm L2), {pack_ms:.4f} ms through pack_k_major, "
+        f"plain (pack_reference) {pack_plain:.4f} ms (plain,kernel,kernel,plain = "
+        f"{[round(t, 4) for t in raw_p]}), .contiguous() from a graph {pack_lib:.4f} ms "
+        f"({pack_graph / pack_lib:.2f} x) on {dev['smi']}")
+    del ops, bt
     bound16 = _bound(2 * 4096 * 4096 * 2 + 4096 * 4096 * 4, 2.0 * 4096 ** 3, "bf16")
     bound8 = _bound(2 * 4096 * 4096 + 4096 * 4096 * 4, 2.0 * 4096 ** 3, "int8")
     log("timing", f"K6 at 4096^3 (routes {mb['routes']}): bf16, B row-major: kernel "
@@ -5690,8 +5811,10 @@ def phase_timing(dev: dict, microbench: dict) -> dict:
         f"transposed: kernel {mb['k6_int8_kmajor_ms']:.4f} ms (bound {bound8['bound_ms']:.4f} ms "
         f"by operations, {bound8['bound_ms'] / mb['k6_int8_kmajor_ms']:.1%} of it; C entry point "
         f"alone {alone8:.4f} ms), torch._int_mm {mb['torch_int_mm_kmajor_ms']:.4f} ms; int8, B "
-        f"row-major (mma.sync kernel): kernel {mb['k6_int8_ms']:.4f} ms, torch._int_mm "
-        f"{mb['torch_int_mm_ms']:.4f} ms on {dev['smi']}")
+        f"row-major (route packed: pack, then the wgmma kernel): {mb['k6_int8_ms']:.4f} ms "
+        f"({bound8['bound_ms'] / mb['k6_int8_ms']:.1%} of the bound), torch._int_mm "
+        f"{mb['torch_int_mm_ms']:.4f} ms: {mb['k6_int8_ms'] / mb['torch_int_mm_ms']:.2f} x on "
+        f"{dev['smi']}")
     m, kk, n = 128 * 96 * 96, 1440, 64
 
     # the JSON line carries K3, K4 and K5 at the U-Net's FLOP-heaviest shape
@@ -5732,6 +5855,10 @@ def phase_timing(dev: dict, microbench: dict) -> dict:
         "int8_matmul": k6[(m, kk, n)],
         "bf16_matmul": dict(ms=mb["k6_bf16_ms"], plain_ms=bf16_plain,
                             library_ms=mb["torch_matmul_bf16_ms"], **bound16),
+        # ms from a CUDA graph (device time), wrapper_ms through pack_k_major,
+        # library_ms .contiguous() of the transposed view from a graph
+        "matmul_pack": dict(ms=pack_graph, wrapper_ms=pack_ms, plain_ms=pack_plain,
+                            library_ms=pack_lib, **pack_bound),
     }
 
 
@@ -5763,7 +5890,8 @@ def main() -> None:
                 "int8_matmul": (served["int8_matmul"] + lipsync["launches"] + gan["int8_matmul"]
                                 + microbench["launches"]["int8_matmul"]
                                 + parallel["int8_matmul"]),
-                "bf16_matmul": microbench["launches"]["bf16_matmul"]}
+                "bf16_matmul": microbench["launches"]["bf16_matmul"],
+                "matmul_pack": microbench["launches"]["matmul_pack"]}
     for name in ("flash_attention", "flash_bwd_dkv", "flash_bwd_dq"):
         launches[name] = sum(p.get(name, 0) for p in paths) + parallel[name]
     # the combine kernel's main path: the float32 diffusion steps of [train],
@@ -5782,6 +5910,8 @@ def main() -> None:
         "flash_bwd_dq": ("flash_bwd_sm90.cu", f"{jax_pkg}/ops/attention.py:272"),
         "int8_matmul": ("int8_mm_sm90.cu", "scripts/microbench_int8_pallas.py:44"),
         "bf16_matmul": ("int8_mm_sm90.cu", "scripts/microbench_int8_pallas.py:44"),
+        # the first half of K6's "packed" route: the TPU kernel's row-major B
+        "matmul_pack": ("int8_mm.cu", "scripts/microbench_int8_pallas.py:44"),
     }
     kernels = []
     if times["flash_fwd_combine"] is None:      # no float32 shape splits the key axis
@@ -5851,8 +5981,20 @@ def main() -> None:
                 "persistent blocks (rows of A and "
                 "B on 16-byte boundaries, K contiguous, or N contiguous for a bf16 B; timed here "
                 "and on the int8 serving paths: generate_frames and lipsync_video, 51 a batch of "
-                f"128 frames); mma_sync: {pkg}/csrc/int8_mm.cu (a row-major "
-                "int8 B, odd row strides, element strides, unaligned views)")
+                f"128 frames); packed: each operand no tensor map reads (a row-major int8 B, odd "
+                "row strides, element strides, unaligned or broadcast views) copied to K-major "
+                f"rows by {pkg}/csrc/int8_mm.cu (matmul_pack), then the same wgmma kernel "
+                "(the microbench's int8 row-major B and int8_dense's (in,out) weight)")
+        if name == "matmul_pack":
+            kern["route_detail"] = (
+                "K6's pack: a (rows, K) operand with any strides copied to rows of K contiguous "
+                "elements, pad16(K size) bytes apart, in three paths picked by "
+                "ops/matmul_cuda.pack_path: rows (K contiguous, any row start: aligned 16-byte "
+                "words funnel-shifted into place), transpose (rows contiguous at 16-byte depth "
+                "starts: tiles of 128 depths x 128 bytes through swizzled shared memory, byte "
+                "permutes in registers; the 4096^2 row-major B timed here and in [microbench], "
+                "int8_dense's (in,out) weight) and gather (element strides); every store 16 "
+                "bytes; one launch a packed operand of the packed route")
         if kern["launches"] < 1:
             raise AssertionError(f"kernel {name} never ran on the main path")
         kernels.append(kern)

@@ -1,209 +1,260 @@
-// K6: tiled matrix product C(M,N) = A(M,K) . B(K,N), int8 x int8 -> int32 and
-// bf16 x bf16 -> float32, for any M, N, K and any element strides of A and B.
+// K6's packing pass: a copy of a (rows, K) int8 or bf16 operand with K
+// contiguous and rows pad16(K * size) bytes apart, for the layouts that the
+// tensor maps of int8_mm_sm90.cu cannot read.
 //
-// Replaces scripts/microbench_int8_pallas.py::mm_kernel (make_mm). The TPU
-// kernel walks a grid (M/512, N/512, K/512) in order and accumulates over the
-// k axis through its output block; that is Mosaic's pipeline. Here blocks run
-// in parallel, so a block owns one 128 x 64 tile of C, loops over K itself
-// and keeps the int32 / float32 sums in registers until the end.
+// Replaces nothing of scripts/microbench_int8_pallas.py::mm_kernel on its
+// own: it is the first half of K6's "packed" route (ops/matmul_cuda.py), of
+// which int8_mm_sm90.cu's wgmma kernel is the second. Integer wgmma takes
+// K-major operands only, and a tensor map wants 16-byte row starts and rows
+// that do not overlap, so the TPU kernel's own row-major int8 B, int8_dense's
+// (in, out) weight, odd depths, element strides, views that start inside a
+// 16-byte word and broadcast rows come here first. Element (r, k) of the
+// source lies at src[r * rs + k * ks] (strides in elements, any alignment);
+// the copy holds it at dst[r * ld + k]. The bytes of a row past K are left as
+// they fall: the product's tensor map has a K extent of K and fills what lies
+// past it with zeros, so it never reads them.
 //
-// Per block (256 threads, 8 warps as 4 x 2, a 32 x 32 warp tile): each step
-// brings 64 bytes of K (64 int8 or 32 bf16 values) of 128 rows of A and of 64
-// columns of B into shared memory, B stored column by column so that both
-// operands have K contiguous, then every warp runs mma.sync on them
-// (m16n8k32 s8 or m16n8k16 bf16; in bytes the two fragment layouts are the
-// same, so one kernel body serves both types). Shared rows are 80 bytes
-// apart, which spreads the eight rows a fragment load touches over all banks.
-// Rows, columns and depth beyond the matrices are zero in shared memory and
-// masked at the store, so no shape needs padding.
-//
-// Loads: an operand whose K stride is 1 and whose rows start on 16-byte
-// boundaries (the im2col matrix and a quantised (N, K) weight taken as a
-// strided B) comes in as 16-byte vectors; any other layout (a row-major B,
-// odd K) goes element by element through its strides.
-//
-// Bound: bytes for the convolution shapes of the lip-sync generator (M up to
-// 1.2e6 rows against N <= 64 columns: A is read once, at most 1.7 GB), and
-// operations at 4096^3, where this kernel, with mma.sync, one tile in flight
-// and no TMA or wgmma, stays far from the tensor-core peak; PERF.md has both.
+// Bound: bytes, the operand read once and the copy written once (at 4096^2
+// int8, 33.5 MB: 10.0 us at 3.35 TB/s). What the design does about it: every
+// store is 16 bytes, and three paths, picked by the caller
+// (ops/matmul_cuda.pack_path), read as wide as the layout allows:
+//   - "rows" (K contiguous, any row start: odd K, views one element in,
+//     broadcast or overlapping rows): a thread a 16-byte chunk of a row,
+//     neighbouring threads on neighbouring chunks. It reads the one or two
+//     aligned 16-byte words that hold the chunk and shifts the bytes into
+//     place with funnel shifts.
+//   - "transpose" (rows contiguous at 16-byte row starts: a row-major (K, N)
+//     B read as (N, K)): a block moves a tile of 128 depths x 128 bytes of
+//     rows through 16 KB of shared memory, loading 16 bytes along the rows,
+//     then each thread reads a column strip of 16 bytes of K for 4 rows,
+//     transposes it in registers with byte permutes (4 x 4 bytes for int8,
+//     2 x 2 halves for bf16) and stores 16 bytes along K. The tile's 16-byte
+//     chunks are XOR-swizzled by depth, so the loads' writes and the
+//     strips' reads meet distinct banks.
+//   - "gather" (anything else: element strides on both axes, unaligned rows
+//     of a row-major B): the same tile, filled element by element with
+//     neighbouring threads on the smaller stride.
 #include <cstdint>
+#include <type_traits>
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kBM = 128;          // rows of C per block
-constexpr int kBN = 64;           // columns of C per block
-constexpr int kTileBytes = 64;    // bytes of K per step
-constexpr int kLd = kTileBytes + 16;  // shared row stride in bytes
+constexpr int kTileK = 128;        // depths (K) of a tile
+constexpr int kTileBytes = 128;    // bytes of rows of a tile
+constexpr int kRowBlocks = 1 << 16;   // blocks of the rows path; it strides past them
 
-template <typename T> struct Traits;
-template <> struct Traits<int8_t> {
-  using Acc = int;
-  using Raw = uint8_t;
-};
-template <> struct Traits<__nv_bfloat16> {
-  using Acc = float;
-  using Raw = uint16_t;
-};
-
-__device__ __forceinline__ void mma_tile(int (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void mma_tile(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// ROWS x 64 bytes of a matrix whose element (r, k) lives at
-// src[r * rs + k * ks], rows r0.. and depth k0.., into dst[r * kLd + k * size];
-// what lies beyond `rows` or `depth` becomes zero. `vec`: ks == 1, every row
-// 16-byte aligned and depth a whole number of 16-byte chunks.
-template <typename Raw, int ROWS>
-__device__ __forceinline__ void load_tile(unsigned char* dst, const Raw* src, long long rs,
-                                          long long ks, int r0, int k0, int rows, int depth,
-                                          int vec) {
-  constexpr int kElems = kTileBytes / static_cast<int>(sizeof(Raw));   // K values a row
-  if (vec) {
-    constexpr int kPer = 16 / static_cast<int>(sizeof(Raw));           // K values a chunk
-    for (int c = threadIdx.x; c < ROWS * 4; c += kThreads) {
-      const int r = c >> 2, part = c & 3;
-      const int kk = k0 + part * kPer;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (r0 + r < rows && kk < depth)
-        v = *reinterpret_cast<const uint4*>(src + static_cast<long long>(r0 + r) * rs + kk);
-      *reinterpret_cast<uint4*>(dst + r * kLd + part * 16) = v;
-    }
-    return;
-  }
-  // neighbouring threads walk the axis with the smaller stride
-  const bool rows_fastest = rs < ks;
-  for (int i = threadIdx.x; i < ROWS * kElems; i += kThreads) {
-    const int r = rows_fastest ? i % ROWS : i / kElems;
-    const int kk = rows_fastest ? i / ROWS : i % kElems;
-    Raw v = 0;
-    if (r0 + r < rows && k0 + kk < depth)
-      v = src[static_cast<long long>(r0 + r) * rs + static_cast<long long>(k0 + kk) * ks];
-    *reinterpret_cast<Raw*>(dst + r * kLd + kk * static_cast<int>(sizeof(Raw))) = v;
-  }
-}
-
-// Strides in elements: A(m, k) at a[m * sam + k * sak], B(k, n) at
-// b[k * sbk + n * sbn]; C is contiguous (M, N).
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 3)
-mm_kernel(const T* __restrict__ a, const T* __restrict__ b,
-          typename Traits<T>::Acc* __restrict__ c, int m, int n, int k, long long sam,
-          long long sak, long long sbk, long long sbn, int a_vec, int b_vec) {
-  using Acc = typename Traits<T>::Acc;
-  using Raw = typename Traits<T>::Raw;
-  constexpr int kElems = kTileBytes / static_cast<int>(sizeof(Raw));
-  __shared__ __align__(16) unsigned char as[kBM * kLd];
-  __shared__ __align__(16) unsigned char bs[kBN * kLd];
-
-  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = (warp & 3) * 32, wn = (warp >> 2) * 32;
-  const int g = lane >> 2, t = lane & 3;
-
-  Acc acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0;
-
-  const Raw* ar = reinterpret_cast<const Raw*>(a);
-  const Raw* br = reinterpret_cast<const Raw*>(b);
-  for (int k0 = 0; k0 < k; k0 += kElems) {
-    load_tile<Raw, kBM>(as, ar, sam, sak, m0, k0, m, k, a_vec);
-    load_tile<Raw, kBN>(bs, br, sbn, sbk, n0, k0, n, k, b_vec);
-    __syncthreads();
-#pragma unroll
-    for (int kb = 0; kb < kTileBytes; kb += 32) {
-      uint32_t fa[2][4], fb[4][2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const unsigned char* p = as + (wm + i * 16 + g) * kLd + kb + t * 4;
-        fa[i][0] = *reinterpret_cast<const uint32_t*>(p);
-        fa[i][1] = *reinterpret_cast<const uint32_t*>(p + 8 * kLd);
-        fa[i][2] = *reinterpret_cast<const uint32_t*>(p + 16);
-        fa[i][3] = *reinterpret_cast<const uint32_t*>(p + 8 * kLd + 16);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const unsigned char* p = bs + (wn + j * 8 + g) * kLd + kb + t * 4;
-        fb[j][0] = *reinterpret_cast<const uint32_t*>(p);
-        fb[j][1] = *reinterpret_cast<const uint32_t*>(p + 16);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_tile(acc[i][j], fa[i], fb[j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
+// ---- "rows": K contiguous ------------------------------------------------
+// Chunk c of row r is bytes [16c, 16c + 16) of the row; the copy's rows are
+// ld_bytes apart (a multiple of 16), so it is one aligned 16-byte store.
+__global__ void __launch_bounds__(kThreads)
+rows_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst, long long rows,
+            int row_bytes, long long src_row_bytes, long long ld_bytes) {
+  const long long per_row = (row_bytes + 15) / 16;
+  const long long total = rows * per_row;
+  const long long step = static_cast<long long>(gridDim.x) * kThreads;
+  for (long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x; i < total;
+       i += step) {
+    const long long r = i / per_row;
+    const int c = static_cast<int>(i - r * per_row);
+    const uint8_t* p = src + r * src_row_bytes + 16 * c;
+    const int off = static_cast<int>(reinterpret_cast<uintptr_t>(p) & 15);
+    // the aligned words holding the chunk; the second only where it holds a
+    // byte of the row (an aligned word with one byte of the row lies in the
+    // row's page, so no read leaves the allocation's pages)
+    const uint4* w = reinterpret_cast<const uint4*>(p - off);
+    const uint4 lo = __ldg(w);
+    uint4 hi = make_uint4(0u, 0u, 0u, 0u);
+    if (off != 0 && 16 * c + 16 - off < row_bytes) hi = __ldg(w + 1);
+    const uint32_t x[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+    const int q = off >> 2;
+    const uint32_t s = 8u * static_cast<uint32_t>(off & 3);
+    uint32_t o[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const int col = n0 + wn + j * 8 + t * 2;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + wm + i * 16 + g + h * 8;
-        if (row < m) {
-          Acc* out = c + static_cast<long long>(row) * n + col;
-          if (col < n) out[0] = acc[i][j][2 * h];
-          if (col + 1 < n) out[1] = acc[i][j][2 * h + 1];
-        }
-      }
+      // words j + q and j + q + 1 by selects: no indexing into local memory
+      const uint32_t a = q == 0 ? x[j] : q == 1 ? x[j + 1] : q == 2 ? x[j + 2] : x[j + 3];
+      const uint32_t b = q == 0 ? x[j + 1] : q == 1 ? x[j + 2] : q == 2 ? x[j + 3] : x[j + 4];
+      o[j] = __funnelshift_r(a, b, s);
     }
+    *reinterpret_cast<uint4*>(dst + r * ld_bytes + 16 * c) = make_uint4(o[0], o[1], o[2], o[3]);
+  }
 }
 
-template <typename T>
-int launch(const void* a, const void* b, void* c, int m, int n, int k, long long sam,
-           long long sak, long long sbk, long long sbn, void* stream) {
-  const long long size = static_cast<long long>(sizeof(T));
-  auto vec = [&](const void* p, long long row_stride, long long k_stride) {
-    return k_stride == 1 && reinterpret_cast<uintptr_t>(p) % 16 == 0 &&
-           (row_stride * size) % 16 == 0 && (static_cast<long long>(k) * size) % 16 == 0;
-  };
-  const dim3 grid((m + kBM - 1) / kBM, (n + kBN - 1) / kBN);
-  mm_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(a), static_cast<const T*>(b),
-      static_cast<typename Traits<T>::Acc*>(c), m, n, k, sam, sak, sbk, sbn,
-      vec(a, sam, sak) ? 1 : 0, vec(b, sbn, sbk) ? 1 : 0);
+// ---- "transpose" and "gather": a tile through shared memory ---------------
+// The tile holds depths k0 .. k0 + 127 (its rows) x 128 bytes of operand rows
+// (its columns). Chunk c of tile row d sits at chunk c ^ swizzle(d), where
+// the swizzle changes with every group of 16 bytes of K (16 int8 or 8 bf16
+// depths): the groups that one warp's strips read then fall on distinct
+// banks, and the 8 chunks of one depth, which 8 neighbouring threads load,
+// stay on distinct chunks.
+template <int SIZE>
+__device__ __forceinline__ int tile_offset(int d, int col_byte) {
+  const int swz = (2 * (d / (16 / SIZE))) & 7;
+  return d * kTileBytes + ((((col_byte >> 4) ^ swz)) << 4) + (col_byte & 15);
+}
+
+// Byte-wise 4 x 4 transpose: r[i] holds byte j of row (operand row) j at
+// depth i; out[j] holds depths 0..3 of operand row j.
+__device__ __forceinline__ void transpose4x4(const uint32_t (&r)[4], uint32_t (&out)[4]) {
+  const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140), t1 = __byte_perm(r[0], r[1], 0x7362);
+  const uint32_t t2 = __byte_perm(r[2], r[3], 0x5140), t3 = __byte_perm(r[2], r[3], 0x7362);
+  out[0] = __byte_perm(t0, t2, 0x5410);
+  out[1] = __byte_perm(t0, t2, 0x7632);
+  out[2] = __byte_perm(t1, t3, 0x5410);
+  out[3] = __byte_perm(t1, t3, 0x7632);
+}
+
+template <int SIZE, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+tile_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst, int rows, int depth,
+            long long rs, long long ks, long long ld_bytes, int tiles_rows) {
+  constexpr int kTileRows = kTileBytes / SIZE;   // operand rows of a tile
+  __shared__ __align__(16) uint8_t tile[kTileK * kTileBytes];
+  const int tr = static_cast<int>(blockIdx.x % tiles_rows);
+  const int r0 = tr * kTileRows, k0 = static_cast<int>(blockIdx.x / tiles_rows) * kTileK;
+  const int tid = threadIdx.x;
+
+  if constexpr (VEC) {
+    // rs == 1, 16-byte depth starts: 16 bytes along the rows a load
+    const long long row_end = static_cast<long long>(rows) * SIZE;
+#pragma unroll
+    for (int it = 0; it < kTileK * 8 / kThreads; ++it) {
+      const int idx = tid + it * kThreads, d = idx >> 3, c = idx & 7;
+      const long long cb = static_cast<long long>(r0) * SIZE + 16 * c;
+      if (k0 + d < depth && cb < row_end) {
+        const uint4 v = __ldg(reinterpret_cast<const uint4*>(
+            src + static_cast<long long>(k0 + d) * ks * SIZE + cb));
+        *reinterpret_cast<uint4*>(tile + tile_offset<SIZE>(d, 16 * c)) = v;
+      }
+    }
+  } else {
+    // element loads, neighbouring threads along the smaller stride, kBatch
+    // of them in flight a thread before their stores (one at a time, a
+    // tile's 64 or 32 loads a thread ran one latency each)
+    using Raw = typename std::conditional<SIZE == 1, uint8_t, uint16_t>::type;
+    constexpr int kElems = kTileK * kTileRows, kBatch = 16;
+    const Raw* in = reinterpret_cast<const Raw*>(src);
+    const bool rows_fastest = rs <= ks;
+    for (int base = tid; base < kElems; base += kThreads * kBatch) {
+      Raw v[kBatch];
+      int at[kBatch];
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        const int idx = base + j * kThreads;
+        const int r = rows_fastest ? idx % kTileRows : idx / kTileK;
+        const int d = rows_fastest ? idx / kTileRows : idx % kTileK;
+        at[j] = -1;
+        if (idx < kElems && k0 + d < depth && r0 + r < rows) {
+          v[j] = in[static_cast<long long>(r0 + r) * rs + static_cast<long long>(k0 + d) * ks];
+          at[j] = tile_offset<SIZE>(d, r * SIZE);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j)
+        if (at[j] >= 0) *reinterpret_cast<Raw*>(tile + at[j]) = v[j];
+    }
+  }
+  __syncthreads();
+
+  // each thread: 16 bytes of K (group g) for 4 operand rows; four
+  // neighbouring lanes take the four groups of 64 bytes of K, so a store
+  // instruction writes 64 contiguous bytes of 8 copy rows
+  const int warp = tid >> 5, lane = tid & 31;
+  uint32_t out[4][4];   // [operand row j][word q of its 16 bytes]
+  int g, rw;            // group of 16 bytes of K; first operand row of the 4, tile-local
+  if constexpr (SIZE == 1) {
+    g = (lane & 3) + 4 * (warp & 1);                // 8 groups of 16 depths
+    rw = 4 * ((lane >> 2) + 8 * (warp >> 1));      // 32 x 4 rows
+    uint32_t r[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      r[i] = *reinterpret_cast<const uint32_t*>(tile + tile_offset<1>(16 * g + i, rw));
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const uint32_t in[4] = {r[4 * q], r[4 * q + 1], r[4 * q + 2], r[4 * q + 3]};
+      uint32_t t[4];
+      transpose4x4(in, t);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) out[j][q] = t[j];
+    }
+  } else {
+    g = (lane & 3) + 4 * (warp & 3);                // 16 groups of 8 depths
+    rw = 4 * ((lane >> 2) + 8 * (warp >> 2));      // 16 x 4 rows
+    uint2 r[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      r[i] = *reinterpret_cast<const uint2*>(tile + tile_offset<2>(8 * g + i, 2 * rw));
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      out[0][q] = __byte_perm(r[2 * q].x, r[2 * q + 1].x, 0x5410);
+      out[1][q] = __byte_perm(r[2 * q].x, r[2 * q + 1].x, 0x7632);
+      out[2][q] = __byte_perm(r[2 * q].y, r[2 * q + 1].y, 0x5410);
+      out[3][q] = __byte_perm(r[2 * q].y, r[2 * q + 1].y, 0x7632);
+    }
+  }
+  const long long kb = static_cast<long long>(k0) * SIZE + 16 * g;
+  if (kb < static_cast<long long>(depth) * SIZE) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = r0 + rw + j;
+      if (r < rows)
+        *reinterpret_cast<uint4*>(dst + static_cast<long long>(r) * ld_bytes + kb) =
+            make_uint4(out[j][0], out[j][1], out[j][2], out[j][3]);
+    }
+  }
+}
+
+template <int SIZE>
+int launch(const void* src, void* dst, long long rows, int k, long long rs, long long ks,
+           long long ld, int path, cudaStream_t stream) {
+  const auto bad = static_cast<int>(cudaErrorInvalidValue);
+  if (rows <= 0 || rows > 0x7fffffffLL || k <= 0 || ld < k || (ld * SIZE) % 16 ||
+      reinterpret_cast<uintptr_t>(dst) % 16)
+    return bad;
+  const auto* s = static_cast<const uint8_t*>(src);
+  auto* d = static_cast<uint8_t*>(dst);
+  if (path == 0) {
+    if (ks != 1) return bad;
+    const long long blocks = (rows * ((k * SIZE + 15) / 16) + kThreads - 1) / kThreads;
+    rows_kernel<<<static_cast<int>(blocks < kRowBlocks ? blocks : kRowBlocks), kThreads, 0,
+                  stream>>>(s, d, rows, k * SIZE, rs * SIZE, ld * SIZE);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const long long tiles_rows = (rows * SIZE + kTileBytes - 1) / kTileBytes;
+  const long long tiles = tiles_rows * ((k + kTileK - 1) / kTileK);
+  if (tiles > 0x7fffffffLL) return bad;
+  const dim3 grid(static_cast<unsigned>(tiles));
+  if (path == 1) {
+    if (rs != 1 || reinterpret_cast<uintptr_t>(src) % 16 || (ks * SIZE) % 16) return bad;
+    tile_kernel<SIZE, true><<<grid, kThreads, 0, stream>>>(
+        s, d, static_cast<int>(rows), k, rs, ks, ld * SIZE, static_cast<int>(tiles_rows));
+  } else if (path == 2) {
+    tile_kernel<SIZE, false><<<grid, kThreads, 0, stream>>>(
+        s, d, static_cast<int>(rows), k, rs, ks, ld * SIZE, static_cast<int>(tiles_rows));
+  } else {
+    return bad;
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// a: (m, k) int8 with element strides (sam, sak); b: (k, n) int8 with element
-// strides (sbk, sbn); c: contiguous (m, n) int32; m, n, k >= 1 and
-// ceil(n / 64) <= 65535. Returns cudaGetLastError() after the launch.
-extern "C" int lvg_mm_int8(const void* a, const void* b, void* c, int m, int n, int k,
-                           long long sam, long long sak, long long sbk, long long sbn,
-                           void* stream) {
-  return launch<int8_t>(a, b, c, m, n, k, sam, sak, sbk, sbn, stream);
+// src: (rows, k) int8, element (r, c) at src[r * rs + c * ks]; dst: rows of
+// ld elements (ld >= k, ld a multiple of 16) at a 16-byte boundary; path: 0
+// "rows" (ks == 1), 1 "transpose" (rs == 1, src and ks multiples of 16
+// bytes), 2 "gather" (any strides). Copies element (r, c) to dst[r * ld + c].
+// Anything else returns cudaErrorInvalidValue and launches nothing; else
+// cudaGetLastError() after the launch.
+extern "C" int lvg_pack_int8(const void* src, void* dst, long long rows, int k, long long rs,
+                             long long ks, long long ld, int path, void* stream) {
+  return launch<1>(src, dst, rows, k, rs, ks, ld, path, static_cast<cudaStream_t>(stream));
 }
 
-// The same for bf16 operands and a contiguous float32 c.
-extern "C" int lvg_mm_bf16(const void* a, const void* b, void* c, int m, int n, int k,
-                           long long sam, long long sak, long long sbk, long long sbn,
-                           void* stream) {
-  return launch<__nv_bfloat16>(a, b, c, m, n, k, sam, sak, sbk, sbn, stream);
+// The same for bf16 (ld a multiple of 8; for path 1, ks a multiple of 8).
+extern "C" int lvg_pack_bf16(const void* src, void* dst, long long rows, int k, long long rs,
+                             long long ks, long long ld, int path, void* stream) {
+  return launch<2>(src, dst, rows, k, rs, ks, ld, path, static_cast<cudaStream_t>(stream));
 }

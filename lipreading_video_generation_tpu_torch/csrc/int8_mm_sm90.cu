@@ -4,12 +4,13 @@
 // K contiguous (the (N,K) weight of int8 serving taken as its transpose) or,
 // bf16 only, with N contiguous (a row-major (K,N) matrix).
 //
-// Replaces scripts/microbench_int8_pallas.py::mm_kernel (make_mm) for those
-// operands; any other layout (element strides, odd row strides, unaligned
-// views, a row-major int8 B: integer wgmma takes K-major operands only) keeps
-// the mma.sync kernel of int8_mm.cu. Same function as there: no shape needs
-// padding, the sums are int32 / float32 and are formed in one fixed order, so
-// two launches give the same bits.
+// Replaces scripts/microbench_int8_pallas.py::mm_kernel (make_mm), for
+// every layout: any other (element strides, odd row strides, unaligned or
+// broadcast views, the TPU kernel's own row-major int8 B, since integer wgmma
+// takes K-major operands only) is first copied to K-major rows by the pack of
+// int8_mm.cu (ops/matmul_cuda.py's "packed" route). No shape needs padding;
+// the sums are int32 / float32 and are formed in one fixed order, so two
+// launches give the same bits.
 //
 // Bound: operations at the microbench's 4096^3; bytes at the serving shapes
 // (M up to 1.2e6 rows against N <= 64 columns, or K of 16-32 bytes against an

@@ -18,7 +18,11 @@ Every integer product goes through ``ops/matmul_cuda.int8_matmul`` (the
 kernel K6 on a CUDA tensor, its plain version on the CPU): ``int8_dense``
 directly, ``int8_conv`` as im2col — the quantised NHWC activation is copied
 into an (B·OH·OW, kh·kw·C) int8 matrix whose depth is padded with zeros to a
-multiple of 16, so that the kernel reads both operands as 16-byte vectors.
+multiple of 16, so that the wgmma kernel's tensor maps read both operands as
+they lie (route "sm90"), as they read a served ``Linear``'s (N, K) weight.
+``int8_dense`` quantises a (in, out) kernel, a row-major B: its products take
+route "packed" (the weight copied to K-major rows by ``pack_k_major``, then
+the same wgmma kernel).
 PyTorch has neither an int8 convolution nor an integer ``matmul`` on a CUDA
 device, so there is no other path, and none is taken on a failure.
 
@@ -47,7 +51,8 @@ __all__ = ["quantize_channelwise", "int8_conv", "int8_dense", "int8_serving",
            "quantized_apply", "calibrate_activation_scales", "active"]
 
 # depth of the im2col matrix and of the quantised weights, padded with zeros
-# to this many int8 values: csrc/int8_mm.cu then loads 16-byte vectors
+# to this many int8 values: rows on 16-byte boundaries, which the wgmma
+# kernel's tensor maps read without a pack
 _K_ALIGN = 16
 
 Padding = Union[str, Sequence[Tuple[int, int]]]

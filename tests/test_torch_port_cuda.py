@@ -860,14 +860,18 @@ def test_int8_matmul_kernel_is_exact(cuda, m, k, n, layout):
     else:                                   # every other row / column of larger tensors
         a = _int8((2 * m, 2 * k), 70, cuda)[::2, ::2]
         b = _int8((2 * k, 2 * n), 71, cuda)[::2, ::2]
-    before = mm.int8_matmul.launch_count
+    before = mm.int8_matmul.launch_count, mm.int8_matmul.pack_launch_count
     route = _mm_route(a, b)
-    # the tensor-core kernel exactly where A and the transposed weight have rows of 16 bytes
-    assert route == ("sm90" if layout == "b_transposed" and k % 16 == 0 else "mma_sync")
+    # read as they lie exactly where A and the transposed weight have rows of
+    # 16 bytes; else packed first (A where K is odd or strided, B unless it
+    # is the transposed weight)
+    assert route == ("sm90" if layout == "b_transposed" and k % 16 == 0 else "packed")
+    packs = (k % 16 != 0 or layout == "sliced") + (k % 16 != 0 or layout != "b_transposed")
     routed = mm.int8_matmul.route_counts[route]
     got = mm.int8_matmul(a, b)
     torch.cuda.synchronize()
-    assert mm.int8_matmul.launch_count == before + 1
+    assert mm.int8_matmul.launch_count == before[0] + 1
+    assert mm.int8_matmul.pack_launch_count == before[1] + (packs if route == "packed" else 0)
     assert mm.int8_matmul.route_counts[route] == routed + 1
     want = mm.matmul_reference(a, b)
     assert got.dtype == torch.int32 and got.shape == (m, n)
@@ -888,7 +892,7 @@ def test_bf16_matmul_kernel_matches_plain(cuda, m, k, n, layout):
     route = _mm_route(a, b)
     # rows of 16 bytes: K a multiple of 8, and N too where B is row-major
     aligned = k % 8 == 0 and (layout == "b_transposed" or n % 8 == 0)
-    assert route == ("sm90" if aligned else "mma_sync")
+    assert route == ("sm90" if aligned else "packed")
     routed = mm.bf16_matmul.route_counts[route]
     got = mm.bf16_matmul(a, b)
     torch.cuda.synchronize()
@@ -900,20 +904,22 @@ def test_bf16_matmul_kernel_matches_plain(cuda, m, k, n, layout):
     assert torch.equal(got, mm.bf16_matmul(a, b))          # no atomics: the same bits again
 
 
-def test_matmul_unaligned_views_take_mma_sync(cuda):
-    """Slices that start one element into wider rows cannot be read by
-    16-byte copies: both types run the mma.sync kernel, to the same bounds;
-    the same values in aligned tensors run the tensor-core kernel."""
+def test_matmul_unaligned_views_take_packed(cuda):
+    """Slices that start one element into wider rows cannot be read by a
+    tensor map: both types pack A and B to K-major rows first, then run the
+    same wgmma kernel, to the same bounds; the same values in aligned
+    tensors are read as they lie."""
     a8 = _int8((300, 80), 77, cuda)[:, 1:65]
     b8 = _int8((48, 80), 78, cuda)[:, 1:65].t()
     a16 = _uniform((300, 80), -1, 1, 79, cuda, torch.bfloat16)[:, 1:65]
     b16 = _uniform((48, 80), -1, 1, 80, cuda, torch.bfloat16)[:, 1:65].t()
     for fn, a, b in ((mm.int8_matmul, a8, b8), (mm.bf16_matmul, a16, b16)):
-        before = dict(fn.route_counts)
+        before, packs = dict(fn.route_counts), fn.pack_launch_count
         got = fn(a, b)
         aligned = fn(a.contiguous(), b.t().contiguous().t())
         torch.cuda.synchronize()
-        assert fn.route_counts == {"sm90": before["sm90"] + 1, "mma_sync": before["mma_sync"] + 1}
+        assert fn.route_counts == {"sm90": before["sm90"] + 1, "packed": before["packed"] + 1}
+        assert fn.pack_launch_count == packs + 2
         want = mm.matmul_reference(a, b)
         if a.dtype == torch.int8:
             assert torch.equal(got, want) and torch.equal(aligned, want)
@@ -925,17 +931,22 @@ def test_matmul_unaligned_views_take_mma_sync(cuda):
 
 def test_matmul_tensor_core_kernel_takes_more_columns_than_a_grid_axis(cuda):
     """N above 65,535 tiles of 64 columns: the tensor-core kernel folds its
-    tiles onto one persistent grid; the mma.sync kernel's grid does not
-    reach that far and its route raises."""
+    tiles onto one persistent grid, on both routes (a row-major int8 B is
+    packed to (N, K) rows first: by the gathering path, as N is no multiple
+    of 16)."""
     n = 65535 * 64 + 8
     a, w = _int8((2, 16), 81, cuda), _int8((n, 16), 82, cuda)
-    routed = mm.int8_matmul.route_counts["sm90"]
+    routed = dict(mm.int8_matmul.route_counts)
     got = mm.int8_matmul(a, w.t())
     torch.cuda.synchronize()
-    assert mm.int8_matmul.route_counts["sm90"] == routed + 1
+    assert mm.int8_matmul.route_counts["sm90"] == routed["sm90"] + 1
     assert torch.equal(got, mm.matmul_reference(a, w.t()))
-    with pytest.raises(ValueError, match="mma.sync route"):
-        mm.int8_matmul(a, w.t().contiguous())          # row-major int8 B: the other kernel
+    paths = dict(mm.pack_k_major.path_counts)
+    packed = mm.int8_matmul(a, w.t().contiguous())     # row-major int8 B
+    torch.cuda.synchronize()
+    assert mm.int8_matmul.route_counts["packed"] == routed["packed"] + 1
+    assert mm.pack_k_major.path_counts["gather"] == paths["gather"] + 1
+    assert torch.equal(packed, got)
 
 
 def test_matmul_wrappers_raise_on_what_k6_does_not_take(cuda):
@@ -1294,7 +1305,7 @@ def test_lipsync_video_int8_on_card(cuda, tmp_path):
                              write_video=lambda p, f, fps: kept.update(frames=f))
     assert res.frames.shape == frames.shape and kept["frames"] is res.frames and not res.muxed
     assert {r: n - before[r] for r, n in mm.int8_matmul.route_counts.items()} == {
-        "sm90": 51, "mma_sync": 0}
+        "sm90": 51, "packed": 0}
 
 
 def test_cli_gan_chain_on_card(cuda, tmp_path, capsys):

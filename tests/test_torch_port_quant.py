@@ -217,11 +217,14 @@ def test_matmul_route_serving_shapes_take_the_tensor_cores(m, k, n, dtype):
     assert tmm.matmul_route(dtype, m, n, k, (k, 1), (1, k), 4096, 512 + 16) == "sm90"
 
 
-@pytest.mark.parametrize("dtype,m,k,n,a_strides,b_strides,a_ptr,b_ptr,route", [
+# (dtype, M, K, N, strides of A, strides of B, base addresses mod 16, route):
+# "packed" wherever a tensor map of the wgmma kernel cannot read an operand
+# as it lies, so the pack copies it to K-major rows first
+_ROUTE_CASES = [
     # the microbench's operands in both layouts of B
     (_BF, 4096, 4096, 4096, (4096, 1), (4096, 1), 0, 0, "sm90"),        # row-major: MN-major B
     (_BF, 4096, 4096, 4096, (4096, 1), (1, 4096), 0, 0, "sm90"),
-    (_I8, 4096, 4096, 4096, (4096, 1), (4096, 1), 0, 0, "mma_sync"),    # no transposed int8 operand
+    (_I8, 4096, 4096, 4096, (4096, 1), (4096, 1), 0, 0, "packed"),    # no transposed int8 operand: B packed
     (_I8, 4096, 4096, 4096, (4096, 1), (1, 4096), 0, 0, "sm90"),
     # the tensor-core kernel's edges
     (_I8, 129, 144, 72, (144, 1), (1, 144), 0, 0, "sm90"),
@@ -229,38 +232,113 @@ def test_matmul_route_serving_shapes_take_the_tensor_cores(m, k, n, dtype):
     (_I8, 1, 16, 1, (16, 1), (1, 16), 0, 0, "sm90"),
     (_BF, 1, 16, 1, (16, 1), (1, 16), 0, 0, "sm90"),
     (_I8, 2, 16, 65535 * 64 + 8, (16, 1), (1, 16), 0, 0, "sm90"),
-    (_BF, 257, 136, 68, (136, 1), (68, 1), 0, 0, "mma_sync"),           # 136-byte rows of B
+    (_BF, 257, 136, 68, (136, 1), (68, 1), 0, 0, "packed"),           # 136-byte rows of B
     (_BF, 257, 136, 68, (136, 1), (72, 1), 0, 0, "sm90"),               # the same in rows of 144
     # odd K: rows of A (and of a transposed B) are not 16 bytes apart
-    (_I8, 65536, 294, 16, (294, 1), (16, 1), 0, 0, "mma_sync"),
-    (_I8, 65536, 294, 16, (294, 1), (1, 294), 0, 0, "mma_sync"),
-    (_I8, 65536, 9, 32, (9, 1), (32, 1), 0, 0, "mma_sync"),
-    (_I8, 257, 131, 67, (131, 1), (67, 1), 0, 0, "mma_sync"),
-    (_I8, 5, 9, 3, (9, 1), (1, 9), 0, 0, "mma_sync"),
-    (_BF, 65536, 294, 16, (294, 1), (1, 294), 0, 0, "mma_sync"),        # 588-byte rows
+    (_I8, 65536, 294, 16, (294, 1), (16, 1), 0, 0, "packed"),
+    (_I8, 65536, 294, 16, (294, 1), (1, 294), 0, 0, "packed"),
+    (_I8, 65536, 9, 32, (9, 1), (32, 1), 0, 0, "packed"),
+    (_I8, 257, 131, 67, (131, 1), (67, 1), 0, 0, "packed"),
+    (_I8, 5, 9, 3, (9, 1), (1, 9), 0, 0, "packed"),
+    (_BF, 65536, 294, 16, (294, 1), (1, 294), 0, 0, "packed"),        # 588-byte rows
     (_BF, 65536, 296, 16, (296, 1), (1, 296), 0, 0, "sm90"),
-    (_BF, 5, 9, 3, (9, 1), (3, 1), 0, 0, "mma_sync"),
+    (_BF, 5, 9, 3, (9, 1), (3, 1), 0, 0, "packed"),
     # an odd K in rows padded to 16 bytes is taken: only row starts count
     (_I8, 64, 9, 32, (16, 1), (1, 16), 0, 0, "sm90"),
     # element strides
-    (_I8, 64, 32, 32, (64, 2), (1, 32), 0, 0, "mma_sync"),
-    (_I8, 64, 32, 32, (32, 1), (64, 2), 0, 0, "mma_sync"),
-    (_BF, 64, 32, 32, (1, 64), (1, 32), 0, 0, "mma_sync"),              # A transposed
+    (_I8, 64, 32, 32, (64, 2), (1, 32), 0, 0, "packed"),
+    (_I8, 64, 32, 32, (32, 1), (64, 2), 0, 0, "packed"),
+    (_BF, 64, 32, 32, (1, 64), (1, 32), 0, 0, "packed"),              # A transposed
     # unaligned views: a slice that starts one element in
-    (_I8, 300, 64, 48, (80, 1), (1, 80), 1, 0, "mma_sync"),
-    (_I8, 300, 64, 48, (80, 1), (1, 80), 0, 1, "mma_sync"),
-    (_BF, 300, 64, 48, (80, 1), (1, 80), 2, 0, "mma_sync"),
-    (_BF, 300, 64, 48, (80, 1), (48, 1), 0, 2, "mma_sync"),
+    (_I8, 300, 64, 48, (80, 1), (1, 80), 1, 0, "packed"),
+    (_I8, 300, 64, 48, (80, 1), (1, 80), 0, 1, "packed"),
+    (_BF, 300, 64, 48, (80, 1), (1, 80), 2, 0, "packed"),
+    (_BF, 300, 64, 48, (80, 1), (48, 1), 0, 2, "packed"),
     (_BF, 300, 64, 48, (80, 1), (1, 80), 32, 48, "sm90"),
     # broadcast and overlapping rows (a tensor map takes neither); one row may have any stride
-    (_I8, 64, 32, 32, (0, 1), (1, 32), 0, 0, "mma_sync"),
-    (_I8, 64, 32, 32, (16, 1), (1, 32), 0, 0, "mma_sync"),
-    (_I8, 64, 32, 32, (32, 1), (1, 16), 0, 0, "mma_sync"),
-    (_BF, 64, 32, 32, (32, 1), (16, 1), 0, 0, "mma_sync"),
+    (_I8, 64, 32, 32, (0, 1), (1, 32), 0, 0, "packed"),
+    (_I8, 64, 32, 32, (16, 1), (1, 32), 0, 0, "packed"),
+    (_I8, 64, 32, 32, (32, 1), (1, 16), 0, 0, "packed"),
+    (_BF, 64, 32, 32, (32, 1), (16, 1), 0, 0, "packed"),
     (_I8, 1, 32, 32, (0, 1), (1, 32), 0, 0, "sm90"),
-])
+]
+
+
+@pytest.mark.parametrize("dtype,m,k,n,a_strides,b_strides,a_ptr,b_ptr,route", _ROUTE_CASES)
 def test_matmul_route(dtype, m, k, n, a_strides, b_strides, a_ptr, b_ptr, route):
     assert tmm.matmul_route(dtype, m, n, k, a_strides, b_strides, a_ptr, b_ptr) == route
+
+
+def _strided_operands(dtype, m, k, n, a_strides, b_strides, a_ptr, b_ptr, seed):
+    """A (m, k) and B (k, n) with the given element strides, each a view of a
+    buffer of its own at an element offset whose bytes are ``ptr`` mod 16
+    (torch's allocator starts buffers on 64-byte boundaries), from numpy
+    draws; and the
+    numpy arrays of the same values (float32 for bf16)."""
+    size = 1 if dtype == torch.int8 else 2
+    out = []
+    for i, (shape, strides, ptr) in enumerate((((m, k), a_strides, a_ptr),
+                                               ((k, n), b_strides, b_ptr))):
+        off = ptr // size
+        span = off + 1 + sum((d - 1) * st for d, st in zip(shape, strides))
+        rng = np.random.default_rng(seed + i)
+        if dtype == torch.int8:
+            buf = torch.from_numpy(rng.integers(-127, 128, span).astype(np.int8)).clone()
+            flat = buf.numpy()
+        else:
+            buf = torch.from_numpy(rng.uniform(-1, 1, span).astype(np.float32)).to(dtype)
+            flat = buf.float().numpy()
+        assert buf.data_ptr() % 64 == 0
+        view = buf.as_strided(shape, strides, off)
+        ref = np.lib.stride_tricks.as_strided(flat[off:], shape,
+                                              [st * flat.itemsize for st in strides])
+        out.append((view, ref))
+    return out
+
+
+def _values(t):
+    return t.numpy() if t.dtype == torch.int8 else t.float().numpy()
+
+
+@pytest.mark.parametrize("dtype,m,k,n,a_strides,b_strides,a_ptr,b_ptr,route", _ROUTE_CASES)
+def test_pack_reference_matches_numpy(dtype, m, k, n, a_strides, b_strides, a_ptr, b_ptr,
+                                      route):
+    """The pack's plain version on every layout of the route table (offsets,
+    element strides, broadcast and overlapping rows, odd K, both types): A
+    as (M, K) and B as (N, K) rows hold numpy's values, K contiguous, rows
+    ``pad16(K·size)`` bytes apart: operands the wgmma kernel reads as they
+    lie."""
+    (a, a_np), (b, b_np) = _strided_operands(dtype, m, k, n, a_strides, b_strides, a_ptr,
+                                             b_ptr, 30)
+    size = 1 if dtype == torch.int8 else 2
+    row = -(-k * size // 16) * 16 // size
+    pa, pb = tmm.pack_reference(a), tmm.pack_reference(b.t())
+    for packed, want in ((pa, a_np), (pb, b_np.T)):
+        assert packed.dtype == dtype and packed.stride() == (row, 1)
+        np.testing.assert_array_equal(_values(packed), want)
+    assert tmm.pack_path(dtype, b.t().stride(), b_ptr) in ("rows", "transpose", "gather")
+    assert tmm.matmul_route(dtype, m, n, k, pa.stride(), pb.t().stride(), 0, 0) == "sm90"
+
+
+@pytest.mark.parametrize("dtype,m,k,n,a_strides,b_strides,a_ptr,b_ptr,route", _ROUTE_CASES)
+def test_matmul_reference_on_packed_copies_equals_the_originals(
+        dtype, m, k, n, a_strides, b_strides, a_ptr, b_ptr, route):
+    """What the "packed" route multiplies: the operands ``matmul_route``
+    sends to the pack, packed (``pack_k_major``, on the CPU its plain
+    version), give the product of the originals: int8 equal, bf16 within
+    1e-3 of max|C| (the same values; only the float32 matmul's order may
+    differ). M is cut to keep each product under 2^26 multiply-adds."""
+    (a, _), (b, _) = _strided_operands(dtype, m, k, n, a_strides, b_strides, a_ptr, b_ptr, 40)
+    pack_a, pack_b = tmm._packs(dtype, m, n, k, a_strides, b_strides, a_ptr, b_ptr)
+    assert (pack_a or pack_b) == (route == "packed")
+    pa = tmm.pack_k_major(a) if pack_a else a
+    pb = tmm.pack_k_major(b.t()).t() if pack_b else b
+    rows = max(1, min(m, 2**26 // (n * k)))
+    got, want = tmm.matmul_reference(pa[:rows], pb), tmm.matmul_reference(a[:rows], b)
+    if dtype == torch.int8:
+        assert torch.equal(got, want)
+    else:
+        assert (got - want).abs().max().item() <= 1e-3 * want.abs().max().item()
 
 
 def test_matmul_route_of_the_operands_int8_serving_builds():
@@ -278,9 +356,11 @@ def test_matmul_route_of_the_operands_int8_serving_builds():
                             b.stride(), 0, 0) == "sm90"
     w_q, _ = tq.quantize_channelwise(torch.from_numpy(_rand((32, 64), 22)), axis=0)   # Linear
     assert tmm.matmul_route(torch.int8, 10, 32, 64, (64, 1), w_q.t().stride(), 0, 0) == "sm90"
-    # int8_dense quantises a (in, out) kernel: B is row-major there
+    # int8_dense quantises a (in, out) kernel: B is row-major there, packed
+    # to (N, K) rows by the transposing path
     w_io, _ = tq.quantize_channelwise(torch.from_numpy(_rand((64, 32), 23)), axis=-1)
-    assert tmm.matmul_route(torch.int8, 10, 32, 64, (64, 1), w_io.stride(), 0, 0) == "mma_sync"
+    assert tmm.matmul_route(torch.int8, 10, 32, 64, (64, 1), w_io.stride(), 0, 0) == "packed"
+    assert tmm.pack_path(torch.int8, w_io.t().stride(), 0) == "transpose"
 
 
 def test_matmul_wrappers_count_no_route_on_cpu():
@@ -289,7 +369,11 @@ def test_matmul_wrappers_count_no_route_on_cpu():
     tmm.int8_matmul(a, a.t())
     assert (tmm.int8_matmul.route_counts, tmm.int8_matmul.launch_count) == before
     assert set(tmm.int8_matmul.route_counts) == set(tmm.bf16_matmul.route_counts) == {
-        "sm90", "mma_sync"}
+        "sm90", "packed"}
+    before = tmm.int8_matmul.pack_launch_count, dict(tmm.pack_k_major.path_counts)
+    tmm.int8_matmul(a[:, 1:], a.t()[1:])                  # a "packed" layout: still no count
+    tmm.pack_k_major(a[:, 1:])
+    assert (tmm.int8_matmul.pack_launch_count, tmm.pack_k_major.path_counts) == before
 
 
 class _JTiny(fnn.Module):
