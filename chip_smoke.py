@@ -232,7 +232,19 @@ script exits non-zero without printing a result):
    by the tensor-core route) and never in float; the generator's int8 output against its float output
    (PSNR); a batch-8 float request against the CPU; a profile of one
    dynamic int8 request (device busy share, device time by int8 stage).
-13. pretrained — random weights from seed 0 written in the published
+13. flops   — ``utils/flops.flops_detail`` of one call of three paths, each
+   counted on the card by the phase that times it, right after its timed
+   runs (not timed again): a batch-384 ViViT request (K1 1, K2 12; also
+   batch 8, whose model count must equal the same callable's on the CPU,
+   where K2's products are the einsum path's), a batch-8 diffusion training
+   step (K2 4, K3/K4/K5 16) and a 256-frame dynamic-int8 ``generate_frames``
+   request (K6 102); each kernel launch of the counted call (the wrappers'
+   ``launch_count`` deltas) must be in the count's records. Then
+   ``mfu_report`` at each path's median: model and hw TFLOP, achieved
+   TFLOP/s, MFU and HFU against the card's bf16 peak
+   (``device_peak_tflops``, which must know the card), each kernel's share
+   of the model count.
+14. pretrained — random weights from seed 0 written in the published
    layouts: ``port-wav2vec2 --pth`` on a base ``Wav2Vec2ForCTC``-layout file
    → ``train-diffusion --wav2vec2-checkpoint --steps 4`` at the
    ``DiffusionConfig`` defaults (batch 8, bf16; K2 12, K3 16, K4/K5 16 a
@@ -250,7 +262,7 @@ script exits non-zero without printing a result):
    batches (K2 4 a step); a float32 lip term card vs CPU (1e-4 relative;
    its gradient w.r.t. the generated window 1e-4, G's 1e-2 relative L2);
    each stage's wall time.
-14. features — ``port-densenet --selftest``; DenseNet121 at full width,
+15. features — ``port-densenet --selftest``; DenseNet121 at full width,
    float32, card against CPU on its artifact (8 frames of 64×64, max|d| /
    max|f| within 1e-3); ``embed_frames`` on the CLI's 1,280 synthetic frames
    of 32×32 (frames/s, peak memory) and the forward on 64 frames of
@@ -264,7 +276,7 @@ script exits non-zero without printing a result):
    --data-root`` over 4 of ``lipread_records``' records from memory (K1 4×
    by packed, K2 2× a step and 2× in the eval, counts derived from the
    clips).
-15. parallel — the multi-GPU story on the one card. World size 1 under NCCL:
+16. parallel — the multi-GPU story on the one card. World size 1 under NCCL:
    ``train-vivit --synthetic --steps 32`` and ``sample-diffusion --frames 2``
    at the defaults through ``python -m torch.distributed.run --standalone
    --nproc-per-node 1`` against the same commands run in this process
@@ -314,13 +326,13 @@ script exits non-zero without printing a result):
    1's slice of a sharded leaf, or its gradient, x 1.01), each case's
    bytes of params, EMA and Adam moments a rank against one process's.
    Each run's backend and each rank's launches are printed.
-16. microbench — ``bench.microbench_int8.run``: K6 in bf16 and in int8
+17. microbench — ``bench.microbench_int8.run``: K6 in bf16 and in int8
    (B row-major, route "packed": one pack of B a product, and B a (N, K)
    weight transposed) and the library's calls on the same operands at
    4096³, after its own checks; then ``ops.quant.int8_dense`` at the ViViT's
    (30720, 256) x (256, 768) on the card equal to its CPU plain path, with
    one pack and one wgmma product.
-17. timing — request and train-step times, frames/s, each kernel's
+18. timing — request and train-step times, frames/s, each kernel's
    CUDA-event time beside its plain version's at the main-path shapes, the
    one PyTorch call that computes the same function where there is one
    (``scaled_dot_product_attention`` and its backward, at all three U-Net
@@ -1208,6 +1220,57 @@ def serve_int8_request(model, frames: np.ndarray, boxes: np.ndarray) -> dict:
 
 K1_PROFILED_MS = []   # K1's device time in the profiled batch-384 ViViT request
 
+# [flops]: each path's FLOPs counted once on the card (utils/flops.flops_detail,
+# eagerly, untimed) by the phase that times it, on its own objects right after
+# its timed runs: path -> {"detail", "median_s", "what"}; reported by
+# phase_flops against the median those runs measured
+FLOPS_PATHS: dict = {}
+# the hand-written kernels' wrappers, by the names a count records them under
+FLOPS_KERNELS = {"clahe_cuda": "K1", "small_mha": "K2", "flash_attention": "K3",
+                 "flash_fwd_combine": "K3 combine", "flash_bwd_dkv": "K4", "flash_bwd_dq": "K5",
+                 "int8_matmul": "K6", "bf16_matmul": "K6 bf16", "pack_k_major": "K6 pack"}
+
+
+def _kernel_wrappers() -> tuple:
+    """The functions that launch the hand-written kernels and count them."""
+    from lipreading_video_generation_tpu_torch.ops import attention as att
+    from lipreading_video_generation_tpu_torch.ops import clahe_cuda as cl
+    from lipreading_video_generation_tpu_torch.ops import matmul_cuda as mm
+
+    return (cl.clahe_cuda, att.small_mha, att.flash_attention, att.flash_fwd_combine,
+            att.flash_bwd_dkv, att.flash_bwd_dq, mm.int8_matmul, mm.bf16_matmul, mm.pack_k_major)
+
+
+def _wrapper_launches() -> dict:
+    """Each hand-written kernel's ``launch_count`` so far."""
+    return {w.__name__: w.launch_count for w in _kernel_wrappers()}
+
+
+def count_flops(path: str, what: str, median_s: float, want: dict, fn, *args) -> dict:
+    """``flops_detail`` of one call ``fn(*args)`` on the card, kept in
+    ``FLOPS_PATHS[path]`` beside the path's median time; fails unless every
+    launch of a hand-written kernel in that call (the deltas of the
+    wrappers' ``launch_count``) is in the count's records, and the launches
+    are ``want``."""
+    from lipreading_video_generation_tpu_torch.utils import flops
+
+    before = _wrapper_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    detail = flops.flops_detail(fn, *args)
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    launched = {k: n - before[k] for k, n in _wrapper_launches().items() if n != before[k]}
+    recorded = {k: v["launches"] for k, v in detail["kernels"].items()}
+    log("flops", f"{path}: {what}: counted on the card in {took:.2f} s (not timed); "
+        f"model {detail['model']} hw {detail['hw']} FLOP; launches {launched}, in the count "
+        f"{recorded}")
+    if launched != recorded or launched != want:
+        raise AssertionError(f"{path}: kernel launches {launched}, the count's records "
+                             f"{recorded}, want {want}")
+    FLOPS_PATHS[path] = {"detail": detail, "median_s": median_s, "what": what}
+    return detail
+
 
 def phase_serve(dev: dict) -> dict:
     from lipreading_video_generation_tpu_torch.core.config import ViViTConfig
@@ -1271,6 +1334,22 @@ def phase_serve(dev: dict) -> dict:
 
         gpu_logits, gpu_roi = serve(model, *inputs[8], "cuda")
         cpu_logits, cpu_roi = serve(cpu_model, *inputs[8], "cpu")
+
+        # [flops]: the batch-384 request, and batch 8 on the card against the CPU
+        from lipreading_video_generation_tpu_torch.utils import flops
+
+        want = {"clahe_cuda": 1, "small_mha": cfg.num_layers}
+        count_flops("serve", "a batch-384 bf16 ViViT request", statistics.median(times[384]),
+                    want, serve, model, *inputs[384], "cuda")
+        card8 = count_flops("serve_b8", "a batch-8 bf16 ViViT request",
+                            statistics.median(times[8]), want, serve, model, *inputs[8], "cuda")
+        cpu8 = flops.flops_detail(serve, cpu_model, *inputs[8], "cpu")
+        log("flops", f"serve_b8: model FLOP on the card {card8['model']} (K2 "
+            f"{card8['kernels']['small_mha']['model']} by its hook), on the CPU {cpu8['model']} "
+            f"(K2's products by the einsum path); hw {card8['hw']} and {cpu8['hw']}")
+        if card8["model"] != cpu8["model"]:
+            raise AssertionError(f"ViViT batch 8: model FLOPs {card8['model']} on the card, "
+                                 f"{cpu8['model']} on the CPU")
     d = (gpu_roi.int() - cpu_roi.int()).abs()
     within1 = (d <= 1).float().mean().item()
     log("serve", f"batch 8, card vs CPU plain path: ROI max|d| {d.max().item()} levels, "
@@ -2016,13 +2095,7 @@ def _counts() -> dict:
 
 
 def _zero_counts() -> None:
-    from lipreading_video_generation_tpu_torch.ops import attention as att
-    from lipreading_video_generation_tpu_torch.ops import clahe_cuda as cl
-    from lipreading_video_generation_tpu_torch.ops import matmul_cuda as mm
-
-    for fn in (cl.clahe_cuda, att.small_mha, att.flash_attention, att.flash_fwd_combine,
-               att.flash_bwd_dkv, att.flash_bwd_dq, mm.int8_matmul, mm.bf16_matmul,
-               mm.pack_k_major):
+    for fn in _kernel_wrappers():
         fn.launch_count = 0
         if hasattr(fn, "pack_launch_count"):
             fn.pack_launch_count = 0
@@ -2273,6 +2346,11 @@ def phase_train(dev: dict) -> dict:
 
     busy_ms = _profile_step("train", lambda: ttd.train_step(
         state, train_batch(cfg, TRAIN_BATCH, SEED + 8), cfg)["loss"].item())
+    count_flops("train", f"a batch-{TRAIN_BATCH} bf16 diffusion training step at the defaults",
+                statistics.median(times),
+                {"small_mha": 4, "flash_attention": 16, "flash_bwd_dkv": 16, "flash_bwd_dq": 16},
+                lambda: ttd.train_step(state, train_batch(cfg, TRAIN_BATCH, SEED + 8),
+                                       cfg)["loss"].item())
 
     # 10 steps on one batch at fixed t and noise: the loss must fall
     rng = np.random.default_rng(SEED + 9)
@@ -2840,6 +2918,9 @@ def phase_lipsync(dev: dict) -> dict:
             f"{mm.int8_matmul.route_counts}; frames "
             f"{out.shape} uint8, untouched outside the boxes; peak device memory "
             f"{peak / 2**20:.1f} MiB ({dev['smi']})")
+    count_flops("lipsync", f"a {LIPSYNC_FRAMES}-frame dynamic-int8 generate_frames request",
+                result["ms"]["int8_dynamic"] / 1e3, {"int8_matmul": n_convs * n_batches},
+                inf.generate_frames, sd, frames, boxes, mels, modes["int8_dynamic"], pre)
     for mode in ("int8_dynamic", "int8_static"):
         d = np.abs(outs[mode].astype(np.float32) - outs["float"].astype(np.float32))
         log("lipsync", f"{mode} frames against float frames: mean |d| over the face boxes "
@@ -2890,6 +2971,39 @@ def phase_lipsync(dev: dict) -> dict:
         _profile_request(mode, lambda: inf.generate_frames(sd, frames, boxes, mels, modes[mode],
                                                            pre))
     return result
+
+
+def phase_flops(dev: dict) -> dict:
+    """MFU and HFU of the paths ``count_flops`` counted, at the medians
+    their phases measured: ``mfu_report`` (model and hw TFLOP, achieved
+    TFLOP/s, MFU, HFU against ``device_peak_tflops``'s bf16 peak) and each
+    kernel's share of the model count, beside the card's name and power
+    limit. Fails without a peak for the card or without one of the three
+    paths."""
+    from lipreading_video_generation_tpu_torch.utils import flops
+
+    peak = flops.device_peak_tflops()
+    if peak is None:
+        raise AssertionError(f"flops: no bf16 peak for {dev['name']}")
+    missing = {"serve", "train", "lipsync"} - set(FLOPS_PATHS)
+    if missing:
+        raise AssertionError(f"flops: paths {sorted(missing)} were not counted")
+    reports = {}
+    for path, rec in FLOPS_PATHS.items():
+        d, sec = rec["detail"], rec["median_s"]
+        report = flops.mfu_report(d, sec)
+        report.update(hw_tflops=round(d["hw"] / 1e12, 4),
+                      hfu=round(d["hw"] / sec / 1e12 / peak, 4))
+        shares = {FLOPS_KERNELS[k]: round(v["model"] / d["model"], 6)
+                  for k, v in d["kernels"].items()}
+        shares["torch ops"] = round(1 - sum(v["model"] for v in d["kernels"].values())
+                                    / d["model"], 6)
+        reports[path] = {**report, "median_ms": round(sec * 1e3, 3), "shares_of_model": shares}
+        log("flops", f"{path} ({rec['what']}; {dev['smi']}; peak {peak} TFLOP/s bf16): "
+            f"{json.dumps(reports[path])}")
+        if not report["mfu"] or not 0 < report["mfu"] < 1:
+            raise AssertionError(f"flops: {path}: MFU {report['mfu']}")
+    return reports
 
 
 # [gan]: the float32 G+D step card vs CPU at width 1.0 (cuDNN without TF32
@@ -5877,6 +5991,7 @@ def main() -> None:
     guided = phase_guidance(dev)["launches"]
     fed = phase_data(dev)["launches"]
     lipsync = phase_lipsync(dev)
+    phase_flops(dev)
     gan = phase_gan(dev)
     pretrained = _k2_rows_phase("pretrained", lambda: phase_pretrained(dev))["launches"]
     features = _k2_rows_phase("features", lambda: phase_features(dev))["launches"]

@@ -34,14 +34,15 @@ from typing import Optional
 
 import torch
 
+from ..utils import flops as _flops
 from . import _build
 
 __all__ = ["attention_reference", "flash_attention", "flash_backward_reference",
            "flash_bwd_dkv", "flash_bwd_dq", "flash_bwd_route", "flash_bwd_variant",
            "flash_combine_reference", "flash_fwd_combine", "flash_fwd_splits",
-           "flash_fwd_variant", "flash_partials_reference", "flash_reference", "flash_route",
-           "mha", "mha_route", "small_mha", "small_mha_route", "small_mha_variant",
-           "small_mha_viable"]
+           "flash_flops", "flash_fwd_variant", "flash_partials_reference", "flash_reference",
+           "flash_route", "mha", "mha_route", "small_mha", "small_mha_flops", "small_mha_route",
+           "small_mha_variant", "small_mha_viable"]
 
 _NEG_INF = float(torch.finfo(torch.float32).min) / 2
 _SMALL_MHA_MAX_HS = 768     # the JAX package's bound on H·pad(S)
@@ -219,11 +220,32 @@ def _small_mha_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         rc = fn(*args, _SMALL_MHA_VARIANTS.index(variant),
                 torch.cuda.current_stream().cuda_stream)
     _build.check(rc, f"small_mha ({route})")
+    if _flops.running:
+        _flops.record("small_mha", *small_mha_flops(route, b, num_heads, s, d, causal))
     small_mha.launch_count += 1
     small_mha.route_counts[route] += 1
     if route == "cuda_core":
         small_mha.variant_counts[variant] += 1
     return out
+
+
+def small_mha_flops(route: str, batch: int, heads: int, s: int, d: int,
+                    causal: bool):
+    """(model, hw) FLOPs of one K2 launch. model: Q·Kᵀ and P·V at the
+    logical dims, 4·b·h·s²·d, the JAX package's rule for its small-MHA
+    kernel (causal masks included). hw, from the kernel's tiles: "sm90"
+    multiplies whole tiles of a head, S padded to 16 (keys and rows) and d
+    to 32, 64 or 128 (``csrc/small_mha_sm90.cu``'s SP and DP; masked tiles
+    included): 4·b·h·SP²·DP; "cuda_core" forms the scores of the keys a row
+    sees, s of them, or row + 1 under a causal mask, at d:
+    4·b·h·d·Σ keys."""
+    model = 4 * batch * heads * s * s * d
+    if route == "sm90":
+        sp = -(-s // 16) * 16
+        dp = 32 if d <= 32 else (64 if d <= 64 else 128)
+        return model, 4 * batch * heads * sp * sp * dp
+    keys = s * (s + 1) // 2 if causal else s * s
+    return model, 4 * batch * heads * keys * d
 
 
 class _SmallMHA(torch.autograd.Function):
@@ -240,7 +262,8 @@ class _SmallMHA(torch.autograd.Function):
     def backward(ctx, g):
         q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
         with torch.enable_grad():
-            out = _mha_einsum(q, k, v, ctx.num_heads, ctx.causal)
+            with _flops.recompute():          # the kernel did this forward's products
+                out = _mha_einsum(q, k, v, ctx.num_heads, ctx.causal)
             dq, dk, dv = torch.autograd.grad(out, (q, k, v), g)
         return dq, dk, dv, None, None
 
@@ -420,7 +443,7 @@ def flash_smem_bytes(d: int, route: str = "cuda_core", variant: str = "general")
         return floats * 4
     if dp > _FLASH_MAX_D_SM90:
         raise ValueError(f"flash_attention: the tensor-core kernel takes no head dim {d}")
-    bq, bk = 64 if dp == 256 else 128, 128 if dp == 128 else 64
+    bq, bk = _flash_tiles("fwd", route, None, d)
     return bq * dp * 2 + 4 * bk * dp * 2 + 1024
 
 
@@ -543,6 +566,8 @@ def flash_fwd_combine(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
             s_q, d, n, (ctypes.c_longlong * 3)(*out.stride()[:3]),
             torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "flash_fwd_combine")
+    if _flops.running:
+        _flops.record("flash_fwd_combine", 0, 0)      # no products
     flash_fwd_combine.launch_count += 1
     return out, lse
 
@@ -589,6 +614,7 @@ def _flash_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: boo
     args = [*offsets, lse.data_ptr(), b, h, s_q, s_k, d, strides, sm_scale, int(causal)]
     argtypes = [vp] * 5 + [i32] * 5 + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, i32]
     parts = None      # the tiled kernel's partials (m, l, acc) where it splits the keys
+    variant = None
     if route == "sm90":
         fn = _build.kernel("lvg_flash_fwd_sm90", argtypes + [vp])
     else:
@@ -606,6 +632,9 @@ def _flash_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: boo
                                                       parts[1].data_ptr()))]
     rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     _build.check(rc, f"flash_attention ({route})")
+    if _flops.running:
+        _flops.record("flash_attention",
+                      *flash_flops("fwd", route, variant, b * h, s_q, s_k, d, causal))
     flash_attention.launch_count += 1
     flash_attention.route_counts[route] += 1
     if route == "cuda_core":
@@ -755,12 +784,85 @@ def flash_bwd_smem_bytes(d: int, kernel: str, route: str = "cuda_core",
         floats = 2 * bq * ld + 2 * bk * ld
         floats += 2 * bq * ldp + 2 * bq if kernel == "dkv" else bq * ldp
         return floats * 4
-    bq = flash_bwd_block_q(d, route, kernel)
+    bq, bk = _flash_tiles(kernel, route, None, d)      # K4: bk keys a block
     if kernel == "dkv":
-        keys = 64 if dp == 256 else 128
-        return 2 * keys * dp * 2 + 2 * (2 * bq * dp * 2 + 1024) + 1024
-    bk = 128 if dp == 64 else 64
+        return 2 * bk * dp * 2 + 2 * (2 * bq * dp * 2 + 1024) + 1024
     return 2 * bq * dp * 2 + 2 * (2 * bk * dp * 2) + 1024
+
+
+# the products a (query tile, key tile) pair of each kernel does, each of
+# 2·BQ·BK·DP FLOPs: (those that form scores: Q·Kᵀ, and dO·Vᵀ in the
+# backward; the rest: P·V, dV and dK, dQ)
+_FLASH_PRODUCTS = {"fwd": (1, 1), "dkv": (2, 2), "dq": (2, 1)}
+
+
+def _flash_tiles(kernel: str, route: str, variant: Optional[str], d: int):
+    """(query rows, keys) of the tile pair K3 ("fwd"), K4 ("dkv") or K5
+    ("dq") multiplies at a time: "sm90" ``csrc/flash_fwd_sm90.cu``'s FwdCfg
+    and ``csrc/flash_bwd_sm90.cu``'s DkvCfg / DqCfg (K4: the keys of a
+    block), "cuda_core" the tiles of the variant (``flash_bwd_block_q``,
+    ``_flash_fwd_tiled_tiles``, ``_flash_bwd_tiled_tiles``)."""
+    dp = flash_head_dim_pad(d)
+    if route == "sm90":
+        if kernel == "fwd":
+            return (64 if dp == 256 else 128), (128 if dp == 128 else 64)
+        if kernel == "dkv":
+            return flash_bwd_block_q(d, route, kernel), (64 if dp == 256 else 128)
+        return flash_bwd_block_q(d, route, kernel), (128 if dp == 64 else 64)
+    if variant == "tiled":
+        return _flash_fwd_tiled_tiles(d) if kernel == "fwd" else _flash_bwd_tiled_tiles(d, kernel)
+    return (_FLASH_BQ if kernel == "fwd" else flash_bwd_block_q(d)), _FLASH_BK
+
+
+def _flash_tile_pairs(s_q: int, s_k: int, bq: int, bk: int, causal: bool) -> int:
+    """The (query tile, key tile) pairs a kernel multiplies: all of them, or
+    under a causal mask those whose key tile starts at or before the last
+    key the query tile's last row sees, plus every key tile of a query tile
+    that holds a row that sees no key (the loops of all three kernels)."""
+    tiles_k = -(-s_k // bk)
+    if not causal:
+        return -(-s_q // bq) * tiles_k
+    off = s_k - s_q
+    return sum(tiles_k if r0 + off < 0 else min(tiles_k, (r0 + bq - 1 + off) // bk + 1)
+               for r0 in range(0, s_q, bq))
+
+
+def flash_flops(kernel: str, route: str, variant: Optional[str], batch_heads: int, s_q: int,
+                s_k: int, d: int, causal: bool):
+    """(model, hw) FLOPs of one launch of K3 ("fwd"), K4 ("dkv") or K5 ("dq")
+    by ``route`` (and, on "cuda_core", ``variant``). model: two products of
+    2·s_q·s_k·d a (batch, head), 4·bh·s_q·s_k·d, for each of the three, the
+    JAX package's rule (``_FLASH_MATMULS``: a backward is twice the
+    forward; causal masks included). hw: the tile pairs the kernel walks
+    (``_flash_tile_pairs``) times the products of a pair
+    (``_FLASH_PRODUCTS``: K3 2, K4 4 with its recompute of S and dP, K5 3)
+    of 2·BQ·BK·DP each, at the padded head dim DP; the scores' products are
+    made once for each 256-column slice of the output where the CUDA-core
+    "general" kernels slice d above 256, and twice by the tensor-core K4 at
+    DP 256 (each of its two warpgroups forms them)."""
+    model = 4 * batch_heads * s_q * s_k * d
+    bq, bk = _flash_tiles(kernel, route, variant, d)
+    dp = flash_head_dim_pad(d)
+    n_scores, n_rest = _FLASH_PRODUCTS[kernel]
+    if route == "cuda_core" and dp > _FLASH_SLICE:
+        n_scores *= dp // _FLASH_SLICE
+    elif route == "sm90" and kernel == "dkv" and dp == 256:
+        n_scores *= 2
+    pairs = _flash_tile_pairs(s_q, s_k, bq, bk, causal)
+    return model, 2 * batch_heads * pairs * bq * bk * dp * (n_scores + n_rest)
+
+
+def _flash_flops_of(kernel: str, tensors, s_k: int, causal: bool):
+    """``flash_flops`` of the kernel the card would launch on ``tensors``
+    (q, k, v and, for the backward, dO: their dtype, strides and addresses),
+    which a plain version records in its place."""
+    q = tensors[0]
+    b, h, s_q, d = q.shape
+    strides = [t.stride()[:3] for t in tensors]
+    offsets = [t.data_ptr() for t in tensors]
+    route = flash_route(q.dtype, d, strides, offsets)
+    variant = _flash_tiled(q.dtype, d, strides, offsets) if route == "cuda_core" else None
+    return flash_flops(kernel, route, variant, b * h, s_q, s_k, d, causal)
 
 
 def _flash_bwd_launch(kernel: str, q, k, v, do, lse, delta, causal: bool, sm_scale: float):
@@ -814,6 +916,7 @@ def _flash_bwd_launch(kernel: str, q, k, v, do, lse, delta, causal: bool, sm_sca
             b, h, s_q, s_k, d, strides, sm_scale, int(causal)]
     argtypes = ([vp] * (6 + len(outs)) + [i32] * 5
                 + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, i32])
+    variant = None
     if route == "sm90":
         fn = _build.kernel(f"lvg_flash_bwd_{kernel}_sm90", argtypes + [vp])
     else:
@@ -824,6 +927,9 @@ def _flash_bwd_launch(kernel: str, q, k, v, do, lse, delta, causal: bool, sm_sca
     rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     _build.check(rc, f"flash backward ({kernel}, {route})")
     wrapper = flash_bwd_dkv if kernel == "dkv" else flash_bwd_dq
+    if _flops.running:
+        _flops.record(wrapper.__name__,
+                      *flash_flops(kernel, route, variant, b * h, s_q, s_k, d, causal))
     wrapper.launch_count += 1
     wrapper.route_counts[route] += 1
     if route == "cuda_core":
@@ -873,7 +979,9 @@ class _Flash(torch.autograd.Function):
         if q.is_cuda:
             o, lse = _flash_launch(q, k, v, causal, sm_scale)
         else:
-            o, lse = flash_reference(q, k, v, causal, sm_scale)
+            with _flops.plain_version(lambda: {
+                    "flash_attention": _flash_flops_of("fwd", (q, k, v), k.shape[2], causal)}):
+                o, lse = flash_reference(q, k, v, causal, sm_scale)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.sm_scale = causal, sm_scale
         ctx.mark_non_differentiable(lse)
@@ -890,7 +998,10 @@ class _Flash(torch.autograd.Function):
             dk, dv = flash_bwd_dkv(*args)
             dq = flash_bwd_dq(*args)
         else:
-            dq, dk, dv = flash_backward_reference(*args)
+            with _flops.plain_version(lambda: {
+                    name: _flash_flops_of(kernel, args[:4], k.shape[2], ctx.causal)
+                    for name, kernel in (("flash_bwd_dkv", "dkv"), ("flash_bwd_dq", "dq"))}):
+                dq, dk, dv = flash_backward_reference(*args)
         return dq, dk, dv, None, None
 
 

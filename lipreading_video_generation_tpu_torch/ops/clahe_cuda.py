@@ -27,6 +27,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..utils import flops as _flops
 from . import _build
 
 __all__ = ["clahe_reference", "clahe_luts_reference", "clahe_cuda", "clahe_supported",
@@ -241,6 +242,9 @@ def clahe_cuda(
         rc = fn(img.data_ptr(), out.data_ptr(), work.data_ptr(), n, h, w, gh, gw, nbins, limit,
                 stream)
     _build.check(rc, f"clahe_cuda ({route})")
+    if _flops.running:
+        # histograms, a clip and scan, a lookup: integer work, no products
+        _flops.record("clahe_cuda", 0, 0)
     clahe_cuda.launch_count += 1
     clahe_cuda.route_counts[route] += 1
     return out

@@ -35,6 +35,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils import flops as _flops
 from .clahe_cuda import clahe_cuda, clahe_reference
 
 __all__ = [
@@ -261,7 +262,8 @@ def clahe(img: torch.Tensor, clip_limit: float = 0.2, grid: Tuple[int, int] = (8
     names: it takes every shape the JAX package's ``clahe`` takes); a CPU
     tensor goes through ``clahe_reference``."""
     if not img.is_cuda:
-        return clahe_reference(img, clip_limit, grid, nbins)
+        with _flops.plain_version(lambda: {"clahe_cuda": (0, 0)}):
+            return clahe_reference(img, clip_limit, grid, nbins)
     h, w = img.shape[-2:]
     x = img.to(torch.float32).reshape(-1, h, w).contiguous()
     out = clahe_cuda(x, clip_limit, grid, nbins).reshape(img.shape)

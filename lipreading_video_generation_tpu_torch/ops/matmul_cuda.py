@@ -30,14 +30,15 @@ hold the kernels against.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
+from ..utils import flops as _flops
 from . import _build
 
 __all__ = ["matmul_reference", "matmul_route", "int8_matmul", "bf16_matmul", "pack_reference",
-           "pack_path", "pack_k_major"]
+           "pack_path", "pack_k_major", "product_flops"]
 
 _ACC = {torch.int8: torch.int32, torch.bfloat16: torch.float32}
 _ENTRY_SM90 = {torch.int8: "lvg_mm_sm90_int8", torch.bfloat16: "lvg_mm_sm90_bf16"}
@@ -46,6 +47,10 @@ _ROUTES = ("sm90", "packed")
 # csrc/int8_mm.cu's paths, passed to its entry points by index
 _PACK_PATHS = ("rows", "transpose", "gather")
 _INT_MAX = 2**31 - 1
+# csrc/int8_mm_sm90.cu's tiles: kBM rows of C, 128 bytes of depth a k-step
+_MM_BM = 128
+_MM_K_BYTES = 128
+_H100_SMS = 132      # the SMs its tile width is chosen for, where no card is asked
 
 
 def _check(a: torch.Tensor, b: torch.Tensor, dtype: torch.dtype, who: str) -> None:
@@ -149,6 +154,40 @@ def pack_path(dtype: torch.dtype, strides, ptr: int) -> str:
     return "gather"
 
 
+def _tile_n(m: int, n: int, b_k_major: bool, sms: int) -> int:
+    """The wgmma kernel's tile width (its ``launch_tb``): N rounded up to 8,
+    16, 32 or 64 where that covers it (8-32 for a K-major B only), else the
+    widest of 256, 128 and 64 that still gives each of ``sms`` SMs a tile."""
+    if b_k_major:
+        for bn in (8, 16, 32):
+            if n <= bn:
+                return bn
+    if n <= 64:
+        return 64
+    tiles_m = -(-m // _MM_BM)
+    if n > 128 and tiles_m * -(-n // 256) >= sms:
+        return 256
+    return 128 if tiles_m * -(-n // 128) >= sms else 64
+
+
+def product_flops(a: torch.Tensor, b: torch.Tensor, depth: Optional[int] = None):
+    """(model, hw) FLOPs of K6's product of (M, K) ``a`` and (K, N) ``b``.
+    model: 2·M·N·depth, ``depth`` the product's logical depth (an im2col's
+    kh·kw·Cin before its padding to 16; default K). hw: the kernel's whole
+    tiles, 2·pad(M, 128)·pad(N, BN)·pad(K, 128 bytes), BN by ``_tile_n``
+    for the operands as the kernel reads them (after any pack) and the
+    card's SM count (the H100's 132 on the CPU)."""
+    m, k = a.shape
+    n = b.shape[1]
+    _, pack_b = _packs(a.dtype, m, n, k, a.stride(), b.stride(), a.data_ptr(), b.data_ptr())
+    sms = (torch.cuda.get_device_properties(a.device).multi_processor_count if a.is_cuda
+           else _H100_SMS)
+    bn = _tile_n(m, n, pack_b or b.stride(0) == 1, sms)
+    per = _MM_K_BYTES // _size(a.dtype)
+    hw = 2 * -(-m // _MM_BM) * _MM_BM * -(-n // bn) * bn * -(-k // per) * per
+    return 2 * m * n * (k if depth is None else depth), hw
+
+
 def _check_device(x: torch.Tensor, who: str) -> None:
     if x.device.index != torch.cuda.current_device():
         raise ValueError(f"{who}: {x.device} is not the current CUDA device")
@@ -178,16 +217,18 @@ def pack_k_major(x: torch.Tensor) -> torch.Tensor:
     rc = fn(x.data_ptr(), out.data_ptr(), rows, k, x.stride(0), x.stride(1), ld,
             _PACK_PATHS.index(path), torch.cuda.current_stream().cuda_stream)
     _build.check(rc, f"pack_k_major ({path})")
+    if _flops.running:
+        _flops.record("pack_k_major", 0, 0)       # a copy: no products
     pack_k_major.launch_count += 1
     pack_k_major.path_counts[path] += 1
     return out[:, :k]
 
 
-def _launch(a: torch.Tensor, b: torch.Tensor, wrapper) -> torch.Tensor:
+def _launch(a: torch.Tensor, b: torch.Tensor, wrapper, depth: Optional[int]) -> torch.Tensor:
     """K6 on CUDA tensors for the public ``wrapper`` (which carries the
     counts): the packs ``matmul_route`` asks for, then the wgmma kernel, on
     the current stream without synchronising; raises on what the kernels do
-    not take."""
+    not take. ``depth``: as for ``product_flops``."""
     who = wrapper.__name__
     _check_device(a, who)
     m, k = a.shape
@@ -201,6 +242,7 @@ def _launch(a: torch.Tensor, b: torch.Tensor, wrapper) -> torch.Tensor:
         raise ValueError(f"{who} does not take M={m} N={n} K={k}")
     pack_a, pack_b = _packs(a.dtype, m, n, k, a.stride(), b.stride(), a.data_ptr(),
                             b.data_ptr())
+    flops = product_flops(a, b, depth) if _flops.running else None
     # the packed copies live until the product, queued behind them, has read them
     if pack_a:
         a = pack_k_major(a)
@@ -212,25 +254,39 @@ def _launch(a: torch.Tensor, b: torch.Tensor, wrapper) -> torch.Tensor:
     rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, a.stride(0), b.stride(0),
             b.stride(1), torch.cuda.current_stream().cuda_stream)
     _build.check(rc, f"{who} ({route})")
+    if flops is not None:
+        _flops.record(who, *flops)
     wrapper.launch_count += 1
     wrapper.route_counts[route] += 1
     wrapper.pack_launch_count += int(pack_a) + int(pack_b)
     return out
 
 
-def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _plain(a: torch.Tensor, b: torch.Tensor, who: str, depth: Optional[int]) -> torch.Tensor:
+    """``matmul_reference`` in K6's place: a count sees the kernel's FLOPs."""
+    with _flops.plain_version(lambda: {who: product_flops(a, b, depth)}):
+        return matmul_reference(a, b)
+
+
+def int8_matmul(a: torch.Tensor, b: torch.Tensor, depth: Optional[int] = None) -> torch.Tensor:
     """(M, K) int8 · (K, N) int8 → (M, N) int32, any strides. A CUDA pair goes
     through K6 (by the route ``matmul_route`` names: packs, then the wgmma
-    kernel) or raises; a CPU pair through ``matmul_reference``."""
+    kernel) or raises; a CPU pair through ``matmul_reference``. ``depth``,
+    the product's logical depth where K is padded (``product_flops``), only
+    enters a FLOP count."""
     _check(a, b, torch.int8, "int8_matmul")
-    return _launch(a, b, int8_matmul) if a.is_cuda else matmul_reference(a, b)
+    if a.is_cuda:
+        return _launch(a, b, int8_matmul, depth)
+    return _plain(a, b, "int8_matmul", depth)
 
 
 def bf16_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(M, K) bf16 · (K, N) bf16 → (M, N) float32 (the accumulator, not
     rounded back), any strides. CUDA: K6 or raises; CPU: ``matmul_reference``."""
     _check(a, b, torch.bfloat16, "bf16_matmul")
-    return _launch(a, b, bf16_matmul) if a.is_cuda else matmul_reference(a, b)
+    if a.is_cuda:
+        return _launch(a, b, bf16_matmul, None)
+    return _plain(a, b, "bf16_matmul", None)
 
 
 for _wrapper in (int8_matmul, bf16_matmul):

@@ -195,7 +195,8 @@ def _conv_quantized(x: torch.Tensor, w_nk: torch.Tensor, w_scale: torch.Tensor,
         cols, (b, oh, ow) = _im2col(q, kh, kw, strides, pads)
     del q
     with record_function("int8/matmul"):
-        acc = int8_matmul(cols, w_nk.t())
+        # the product's logical depth (its FLOP count's), before the padding to 16
+        acc = int8_matmul(cols, w_nk.t(), depth=kh * kw * x.shape[-1])
     del cols
     with record_function("int8/dequantise"):
         return _dequantize(acc, x_scale, w_scale, bias, out_dtype).view(b, oh, ow, -1)

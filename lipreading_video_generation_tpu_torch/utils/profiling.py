@@ -16,6 +16,8 @@ from typing import Callable, Dict
 import numpy as np
 import torch
 
+from .flops import attention_flops
+
 
 @contextlib.contextmanager
 def annotate(name: str):
@@ -74,5 +76,6 @@ class Timer:
 
 
 def flops_estimate_attention(b: int, h: int, s: int, d: int) -> int:
-    """2·(QKᵀ) + 2·(PV) matmul FLOPs of self-attention over ``s`` tokens."""
-    return 4 * b * h * s * s * d
+    """2·(QKᵀ) + 2·(PV) matmul FLOPs of self-attention over ``s`` tokens
+    (``flops.attention_flops`` over the b·h heads)."""
+    return int(attention_flops(b * h, s, d))
