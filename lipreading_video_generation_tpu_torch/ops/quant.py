@@ -43,8 +43,7 @@ from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
-from torch.profiler import record_function
-
+from ..utils.profiling import annotate
 from .matmul_cuda import int8_matmul
 
 __all__ = ["quantize_channelwise", "int8_conv", "int8_dense", "int8_serving",
@@ -188,17 +187,17 @@ def _conv_quantized(x: torch.Tensor, w_nk: torch.Tensor, w_scale: torch.Tensor,
     kh, kw = kernel_hw
     strides = (int(strides[0]), int(strides[1]))
     pads = _explicit_padding(padding, x.shape[1:3], (kh, kw), strides)
-    # the four stages carry profiler labels: PERF.md's breakdown reads them
-    with record_function("int8/quantise"):
+    # the four stages are program spans: int8_stage_ms_per_frame reads them by name
+    with annotate("int8/quantise"):
         q, x_scale = _quantized_values(x, act_scale, reduce)
-    with record_function("int8/im2col"):
+    with annotate("int8/im2col"):
         cols, (b, oh, ow) = _im2col(q, kh, kw, strides, pads)
     del q
-    with record_function("int8/matmul"):
+    with annotate("int8/matmul"):
         # the product's logical depth (its FLOP count's), before the padding to 16
         acc = int8_matmul(cols, w_nk.t(), depth=kh * kw * x.shape[-1])
     del cols
-    with record_function("int8/dequantise"):
+    with annotate("int8/dequantise"):
         return _dequantize(acc, x_scale, w_scale, bias, out_dtype).view(b, oh, ow, -1)
 
 
@@ -220,12 +219,12 @@ def int8_conv(x: torch.Tensor, kernel: torch.Tensor, bias, strides, padding: Pad
 def _dense_quantized(x: torch.Tensor, w_nk: torch.Tensor, w_scale: torch.Tensor, bias,
                      out_dtype: torch.dtype, act_scale,
                      reduce: Optional[Callable] = None) -> torch.Tensor:
-    with record_function("int8/quantise"):
+    with annotate("int8/quantise"):
         q, x_scale = _quantized_values(x, act_scale, reduce)
         x_q = torch.empty(q.shape, dtype=torch.int8, device=q.device).copy_(q)
-    with record_function("int8/matmul"):
+    with annotate("int8/matmul"):
         acc = int8_matmul(x_q.view(-1, x.shape[-1]), w_nk.t())
-    with record_function("int8/dequantise"):
+    with annotate("int8/dequantise"):
         return _dequantize(acc, x_scale, w_scale, bias, out_dtype).view(x.shape[:-1] + (-1,))
 
 
@@ -282,8 +281,9 @@ class _Serving:
             self._observe(module, x)
             return None
         if id(module) not in self._weights:
-            w_q, w_scale = quantize_channelwise(module.weight.detach(), axis=0)
-            self._weights[id(module)] = (w_q, w_scale.reshape(-1))
+            with annotate("int8/weights"):
+                w_q, w_scale = quantize_channelwise(module.weight.detach(), axis=0)
+                self._weights[id(module)] = (w_q, w_scale.reshape(-1))
         return lambda v, bias: _dense_quantized(
             v, *self._weights[id(module)], _detached(bias), module.compute_dtype,
             self._act_scale(module, v.device), self.scale_reducer)
@@ -301,7 +301,8 @@ class _Serving:
                 and not isinstance(module.padding, str)):
             return None
         if id(module) not in self._weights:
-            self._weights[id(module)] = _conv_weight(module.weight.detach().permute(2, 3, 1, 0))
+            with annotate("int8/weights"):
+                self._weights[id(module)] = _conv_weight(module.weight.detach().permute(2, 3, 1, 0))
         ph, pw = module.padding
         return lambda v, bias: _conv_quantized(
             v.permute(0, 2, 3, 1), *self._weights[id(module)], module.kernel_size,

@@ -51,6 +51,7 @@ from ..ops import image as image_ops
 from ..ops import quant
 from ..parallel import mesh as pmesh
 from ..parallel.distributed import is_primary
+from ..utils.profiling import annotate
 
 # headroom on the calibrated activation scales, for frames between the sampled ones
 _STATIC_HEADROOM = 1.05
@@ -155,15 +156,18 @@ def lipsync_batch(gen: TalkingFaceGenerator, frames_u8: torch.Tensor, boxes: tor
     ``quant.int8_serving`` (with the static ``act_scales`` if given; a
     ``scale_reducer`` makes the dynamic scales those of the global batch
     whose rows these are)."""
-    frames_f = frames_u8.to(torch.float32)
-    x = gen_input_prep(frames_f, boxes, img)
-    if int8:
-        with quant.int8_serving(gen, act_scales, scale_reducer):
+    with annotate("lipsync/prep"):
+        frames_f = frames_u8.to(torch.float32)
+        x = gen_input_prep(frames_f, boxes, img)
+    with annotate("lipsync/generator"):
+        if int8:
+            with quant.int8_serving(gen, act_scales, scale_reducer):
+                g = gen(mels[..., None], x)
+        else:
             g = gen(mels[..., None], x)
-    else:
-        g = gen(mels[..., None], x)
-    out = paste_back(frames_f, g * 255.0, boxes)
-    return torch.clamp(torch.round(out), 0, 255).to(torch.uint8)
+    with annotate("lipsync/paste"):
+        out = paste_back(frames_f, g * 255.0, boxes)
+        return torch.clamp(torch.round(out), 0, 255).to(torch.uint8)
 
 
 def generate_frames(
@@ -187,16 +191,23 @@ def generate_frames(
     serves data-parallel: every rank holds the request, each batch is padded
     to a data multiple, each data rank generates its rows and the frames are
     gathered on every rank (the static-int8 calibration runs the same
-    frames on every rank, so the scales agree)."""
+    frames on every rank, so the scales agree).
+
+    Program spans (``utils.profiling.annotate``): ``lipsync/build`` once, then
+    for each batch ``lipsync/gather`` (its rows to the device),
+    ``lipsync_batch``'s ``lipsync/prep``, ``lipsync/generator`` and
+    ``lipsync/paste``, and ``lipsync/fetch`` (gathered, to the host); last
+    ``lipsync/concat``."""
     spec = mesh_spec or pmesh.build_mesh()
     device = resolve_device(device)
     num_out = len(frames_seq)
     if num_out == 0:
         return np.zeros((0,) + tuple(frames_seq.shape[1:]), np.uint8)
-    with torch.device(device):
-        gen = TalkingFaceGenerator(width=model_width).eval()
-    gen.load_state_dict(gen_params)
-    pmesh.shard_params(spec, gen)
+    with annotate("lipsync/build"):
+        with torch.device(device):
+            gen = TalkingFaceGenerator(width=model_width).eval()
+        gen.load_state_dict(gen_params)
+        pmesh.shard_params(spec, gen)
     img = gan_cfg.img_size
     int8 = gan_cfg.serve_int8
 
@@ -222,12 +233,15 @@ def generate_frames(
                 rows = pmesh.padded_rows(spec, n)
                 idx = np.concatenate([idx, np.full(rows.count * spec.data_size - n, idx[-1])])
                 idx = idx[rows.start:rows.start + rows.count]
-            out = lipsync_batch(gen, on_device(frames_seq, idx), on_device(boxes, idx),
-                                on_device(mel_windows, idx), img, int8, act_scales,
-                                pmesh.data_max(spec))
-            out = pmesh.all_gather(out, spec, spec.data_axis)[:n]
-            outs.append(out.cpu().numpy())
-    return np.concatenate(outs)
+            with annotate("lipsync/gather"):
+                batch = [on_device(a, idx) for a in (frames_seq, boxes, mel_windows)]
+            out = lipsync_batch(gen, *batch, img, int8, act_scales, pmesh.data_max(spec))
+            del batch       # the inputs freed before the next batch's are gathered
+            with annotate("lipsync/fetch"):
+                out = pmesh.all_gather(out, spec, spec.data_axis)[:n]
+                outs.append(out.cpu().numpy())
+    with annotate("lipsync/concat"):
+        return np.concatenate(outs)
 
 
 @dataclasses.dataclass

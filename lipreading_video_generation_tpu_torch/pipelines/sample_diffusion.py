@@ -42,6 +42,7 @@ from ..models.unet import SuperResModel
 from ..models.unet_audio import UNetAudio
 from ..ops import image as image_ops
 from ..parallel import mesh as pmesh
+from ..utils.profiling import annotate
 from .train_classifier import load_classifier
 from .train_diffusion import normalize_audio
 
@@ -145,7 +146,11 @@ def sample(model: UNetAudio, cond_frame_uint8, audio_wave, cfg: DiffusionConfig,
 
     ``classifier_cfg`` + ``classifier_params`` (an ``EncoderUNetModel``
     ``state_dict``) + ``class_label`` (an int or one per frame) turn on
-    classifier guidance at ``guidance_scale`` for all three samplers."""
+    classifier guidance at ``guidance_scale`` for all three samplers.
+
+    Program spans (``utils.profiling.annotate``), on one device:
+    ``sample/condition`` (the conditioning map), ``sample/noise`` (x_T),
+    ``sample/step`` for each timestep, ``sample/finish``."""
     if num_inference_steps is not None and num_inference_steps < 1:
         raise ValueError(f"num_inference_steps must be >= 1, got {num_inference_steps}")
     if sampler not in ("ddim", "dpmpp"):
@@ -185,44 +190,48 @@ def sample(model: UNetAudio, cond_frame_uint8, audio_wave, cfg: DiffusionConfig,
     # no_grad, not inference_mode: guidance differentiates the classifier
     # with respect to x_t inside the loop
     with torch.no_grad():
-        wave = torch.as_tensor(audio_wave, dtype=torch.float32).to(device)
-        cond_map = model.encode_condition(normalize_audio(wave),
-                                          _cond_image(model, cond_frame_uint8, cfg))
-        if noise is not None:
-            xt = _nchw(noise).to(device)
-        else:
-            gen_dev = generator.device if generator is not None else device
-            xt = pmesh.draw_batch(lambda s: torch.randn(s, generator=generator, device=gen_dev),
-                                  shape).to(device)
-        d_prev = torch.zeros_like(xt)
+        with annotate("sample/condition"):
+            wave = torch.as_tensor(audio_wave, dtype=torch.float32).to(device)
+            cond_map = model.encode_condition(normalize_audio(wave),
+                                              _cond_image(model, cond_frame_uint8, cfg))
+        with annotate("sample/noise"):
+            if noise is not None:
+                xt = _nchw(noise).to(device)
+            else:
+                gen_dev = generator.device if generator is not None else device
+                xt = pmesh.draw_batch(
+                    lambda s: torch.randn(s, generator=generator, device=gen_dev), shape).to(device)
+            d_prev = torch.zeros_like(xt)
         snaps = []
         for i, t in enumerate(ts):
-            tb = torch.full((b,), int(t), dtype=torch.long, device=device)
-            eps = model.denoise(xt, cond_map, tb)
-            if classifier is not None:
-                eps = _guided_eps(eps, xt, tb, scheduler, classifier, label, guidance_scale)
-            z = None if step_noise is None else _nchw(step_noise[i])
-            if dpmpp:
-                xt, x0 = scheduler.dpmpp_2m_prev(
-                    xt, eps, tb, torch.full_like(tb, int(ts_prev[i])), d_prev,
-                    torch.full_like(tb, int(ts_last[i])), bool(use_2m[i]))
-                d_prev = x0
-            elif few_step:
-                xt, x0 = scheduler.ddim_prev(xt, eps, tb, torch.full_like(tb, int(ts_prev[i])),
-                                             eta, z, generator)
+            with annotate("sample/step"):
+                tb = torch.full((b,), int(t), dtype=torch.long, device=device)
+                eps = model.denoise(xt, cond_map, tb)
+                if classifier is not None:
+                    eps = _guided_eps(eps, xt, tb, scheduler, classifier, label, guidance_scale)
+                z = None if step_noise is None else _nchw(step_noise[i])
+                if dpmpp:
+                    xt, x0 = scheduler.dpmpp_2m_prev(
+                        xt, eps, tb, torch.full_like(tb, int(ts_prev[i])), d_prev,
+                        torch.full_like(tb, int(ts_last[i])), bool(use_2m[i]))
+                    d_prev = x0
+                elif few_step:
+                    xt, x0 = scheduler.ddim_prev(xt, eps, tb, torch.full_like(tb, int(ts_prev[i])),
+                                                 eta, z, generator)
+                else:
+                    xt, x0 = scheduler.sample_prev_timestep(xt, eps, tb, z, generator)
+                if i in keep:
+                    snaps.append(x0)
+        with annotate("sample/finish"):
+            final = ((torch.clamp(xt, -1.0, 1.0) + 1.0) / 2.0).permute(0, 2, 3, 1)
+            if out_uint8:
+                final = image_ops.denormalize_to_uint8(final)
+            if snaps:
+                snapshots = ((torch.clamp(torch.stack(snaps), -1.0, 1.0) + 1.0) / 2.0)
+                snapshots = snapshots.permute(0, 1, 3, 4, 2)
             else:
-                xt, x0 = scheduler.sample_prev_timestep(xt, eps, tb, z, generator)
-            if i in keep:
-                snaps.append(x0)
-        final = ((torch.clamp(xt, -1.0, 1.0) + 1.0) / 2.0).permute(0, 2, 3, 1)
-        if out_uint8:
-            final = image_ops.denormalize_to_uint8(final)
-        if snaps:
-            snapshots = ((torch.clamp(torch.stack(snaps), -1.0, 1.0) + 1.0) / 2.0)
-            snapshots = snapshots.permute(0, 1, 3, 4, 2)
-        else:
-            snapshots = torch.zeros((0, b, cfg.im_size, cfg.im_size, cfg.im_channels),
-                                    device=device)
+                snapshots = torch.zeros((0, b, cfg.im_size, cfg.im_size, cfg.im_channels),
+                                        device=device)
     return final, snapshots
 
 

@@ -46,6 +46,7 @@ from ..parallel.distributed import is_primary
 from ..models.schedulers import make_scheduler
 from ..models.unet_audio import UNetAudio
 from ..ops import image as image_ops
+from ..utils.profiling import annotate
 from .losses import noise_mse
 
 ADAM_BETAS = (0.9, 0.999)   # optax.adam's defaults
@@ -161,25 +162,34 @@ def draw_t_noise(state: DiffusionTrainState, like: torch.Tensor, num_timesteps: 
 
 
 def apply_update(state: DiffusionTrainState, loss: torch.Tensor) -> None:
-    """Backward, Adam, EMA, step + 1."""
-    state.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    state.optimizer.step()
-    update_ema(state.ema, state.model, state.ema_rate)
-    state.step += 1
+    """Backward, Adam, EMA, step + 1: the spans ``train/backward`` (on the
+    calling thread; the autograd engine launches from its own) and
+    ``train/optimizer``."""
+    with annotate("train/backward"):
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+    with annotate("train/optimizer"):
+        state.optimizer.step()
+        update_ema(state.ema, state.model, state.ema_rate)
+        state.step += 1
 
 
 def train_step(state: DiffusionTrainState, batch: Dict[str, Any], cfg: DiffusionConfig,
                t=None, noise=None) -> Dict[str, torch.Tensor]:
     """One ε-MSE step on ``batch`` (uint8 ``target_frame``/``cond_frame``
     (B, h, w, 3), raw ``audio`` (B, samples)); updates ``state`` in place.
-    Returns {"loss", "t_mean"} as device scalars."""
+    Returns {"loss", "t_mean"} as device scalars. Program spans:
+    ``train/prepare``, ``train/noise``, ``train/forward`` (the model and the
+    loss), then ``apply_update``'s."""
     state.model.train()
-    prep = prepare_batch(batch, cfg, state.device)
-    t, noise = draw_t_noise(state, prep["target"], cfg.num_timesteps, t, noise)
-    noisy = state.scheduler.add_noise(prep["target"], noise, t)
-    pred = state.model(noisy, prep["cond"], prep["audio"], t, generator=state.generator)
-    loss = noise_mse(pred, noise)
+    with annotate("train/prepare"):
+        prep = prepare_batch(batch, cfg, state.device)
+    with annotate("train/noise"):
+        t, noise = draw_t_noise(state, prep["target"], cfg.num_timesteps, t, noise)
+        noisy = state.scheduler.add_noise(prep["target"], noise, t)
+    with annotate("train/forward"):
+        pred = state.model(noisy, prep["cond"], prep["audio"], t, generator=state.generator)
+        loss = noise_mse(pred, noise)
     apply_update(state, loss)
     return {"loss": loss.detach(), "t_mean": t.float().mean()}
 
