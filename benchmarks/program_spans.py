@@ -1,16 +1,18 @@
 """The program's own spans in the traced slice: the ``utils/profiling.annotate``
 ranges the port opens inside the driver's ``bench/`` ranges (``lipsync/*``,
 ``sample/*``, ``train/*``, ``int8/*``), read by name from the host ops of the
-slice's main thread. Their wall time, and the part of it in which the card
-ran nothing: the union of every kernel, memcpy and memset interval, wherever
-it was launched from (the autograd engine launches the backward from a
-thread of its own), as ``idle_pct`` counts it.
+slice's main thread. Their time, and the part of it in which the card ran no
+device op of a given kind: idle where no kernel, memcpy or memset ran, as
+``idle_pct`` counts it, wherever the op was launched from (the autograd
+engine launches the backward from a thread of its own).
 """
 from __future__ import annotations
 
-from typing import Iterable, List, Optional, Tuple
+from typing import Iterable, List, Optional, Sequence, Tuple
 
 import devtrace
+
+COMPUTE_CATS = ("kernel", "gpu_memset")     # the card's work other than copies
 
 
 def intervals(sl, names: Iterable[str]) -> List[Tuple[float, float]]:
@@ -21,43 +23,29 @@ def intervals(sl, names: Iterable[str]) -> List[Tuple[float, float]]:
             if h.tid == sl.main_tid and h.name in names and h.end > sl.w0 and h.start < sl.w1]
 
 
-def wall_ms(sl, names: Iterable[str]) -> Optional[float]:
-    """Summed wall time of the spans in ms; None where the slice has none."""
+def uncovered(sl, names: Iterable[str], cats: Sequence[str]) -> Tuple[float, float]:
+    """(length of the union of the spans, the part of it in which no device
+    op of ``cats`` ran), us: |A \\ B| = |A ∪ B| − |B|."""
     spans = intervals(sl, names)
-    return sum(e - s for s, e in spans) * 1e-3 if spans else None
-
-
-def overlap(a: List[Tuple[float, float]], b: List[Tuple[float, float]]) -> float:
-    """Length of the intersection of two sorted lists of disjoint intervals."""
-    total, i, j = 0.0, 0, 0
-    while i < len(a) and j < len(b):
-        lo, hi = max(a[i][0], b[j][0]), min(a[i][1], b[j][1])
-        if hi > lo:
-            total += hi - lo
-        if a[i][1] < b[j][1]:
-            i += 1
-        else:
-            j += 1
-    return total
+    busy = [(op.start, op.end) for op in sl.device if op.cat in cats]
+    return (devtrace.covered(spans),
+            devtrace.covered(spans + busy) - devtrace.covered(busy))
 
 
 def idle_pct(sl, names: Iterable[str]) -> Optional[float]:
     """100 × the part of the union of the spans in which no device op ran,
     over that union; None where the slice has no such span or no device op."""
-    if sl is None:
+    if sl is None or not sl.device:
         return None
-    spans = devtrace.union(intervals(sl, names))
-    total = sum(e - s for s, e in spans)
-    if total <= 0 or not sl.device:
-        return None
-    busy = devtrace.union((op.start, op.end) for op in sl.device)
-    return 100.0 * (1.0 - overlap(spans, busy) / total)
+    total, idle = uncovered(sl, names, devtrace.DEVICE_CATS)
+    return 100.0 * idle / total if total > 0 else None
 
 
-def per_unit(sl, names: Iterable[str], base: str) -> Optional[float]:
-    """``wall_ms`` over the slice's ``base`` count ("units": requests or
+def per_unit(sl, names: Iterable[str], base: str, cats: Sequence[str] = ()) -> Optional[float]:
+    """Time of the spans in which no device op of ``cats`` ran (all of it
+    for none), ms over the slice's ``base`` count ("units": requests or
     steps; "frames"); None where either is missing."""
     if sl is None or not getattr(sl, base):
         return None
-    ms = wall_ms(sl, names)
-    return None if ms is None else ms / getattr(sl, base)
+    total, left = uncovered(sl, names, cats)
+    return left * 1e-3 / getattr(sl, base) if total > 0 else None

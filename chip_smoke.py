@@ -2187,6 +2187,9 @@ def train_batch(cfg, n: int, seed: int, size: int = 160) -> dict:
 # kernel-name fragments of the hand-written kernels, for the profiles
 KERNEL_NAMES = {"K1": "clahe_", "K2": "small_mha_", "K3": "flash_fwd_",
                 "K4": "flash_bwd_dkv", "K5": "flash_bwd_dq", "K6": "::mm_"}
+# ops/quant's ranges around an int8 product's stages (its int8/weights range,
+# a weight's quantisation on first use, is not a stage)
+INT8_STAGES = ("int8/quantise", "int8/im2col", "int8/matmul", "int8/dequantise")
 
 
 def _profiled(fn):
@@ -2221,7 +2224,7 @@ def _profile_step(phase: str, step, what: str = "step") -> float:
     (ms, launches) of the last profile."""
     wall_ms, events, kernels = _profiled(step)
     stages = sorted({e.key: e.device_time_total / 1e3 for e in events
-                     if e.key.startswith("int8/") and e.device_time_total > 0}.items())
+                     if e.key in INT8_STAGES and e.device_time_total > 0}.items())
     busy_ms = sum(ms for _, ms, _ in kernels)
     if busy_ms <= 0:
         raise AssertionError(f"{phase} profile: no device time")
@@ -2830,11 +2833,11 @@ def _psnr(a: torch.Tensor, b: torch.Tensor) -> float:
 def _profile_request(mode: str, request) -> None:
     """One lip-sync request under ``torch.profiler``: wall time, device time
     of all kernels and copies (busy share), device time by int8 stage (the
-    ``int8/...`` ranges of ``ops/quant.py`` carry the time of the kernels
+    ``INT8_STAGES`` ranges of ``ops/quant.py`` carry the time of the kernels
     launched inside them) and the heaviest kernels by name."""
     wall_ms, events, kernels = _profiled(request)
     stages = {e.key: e.device_time_total / 1e3 for e in events
-              if e.key.startswith("int8/") and e.device_time_total > 0}
+              if e.key in INT8_STAGES and e.device_time_total > 0}
     busy_ms = sum(ms for _, ms, _ in kernels)
     if busy_ms <= 0 or len(stages) != (4 if mode != "float" else 0):
         raise AssertionError(f"{mode} profile: device time {busy_ms} ms, stages {stages}")
