@@ -26,7 +26,9 @@ nothing is found), all on the detector's device.
 Not carried over: the JAX package runs the whole request as one device
 program (``lax.map`` over step-stacked batches, padded to a batch multiple
 and sharded over a mesh); here a Python loop takes the batches one by one on
-one device, the last one as short as it is, and ``mesh_spec`` raises.
+one device, the last one as short as it is, and writes each into one output
+array allocated before the first (pinned host memory on a card, with
+non-blocking copies both ways).
 ``lipsync_video`` reads and writes video through OpenCV (imported on call)
 unless its ``read_frames`` / ``write_video`` seams are given, so it runs
 from frames in memory where OpenCV is absent; without ffmpeg the video is
@@ -34,6 +36,7 @@ written silent and ``muxed`` is False, as in the JAX package.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import os
 from typing import Callable, Dict, Optional, Tuple
@@ -55,6 +58,10 @@ from ..utils.profiling import annotate
 
 # headroom on the calibrated activation scales, for frames between the sampled ones
 _STATIC_HEADROOM = 1.05
+
+# batches ``generate_frames`` wrote into its output, by route: "pinned" (a card: rows
+# staged in pinned host memory, non-blocking copies both ways) or "plain" (the CPU)
+HOST_IO_ROUTES: collections.Counter = collections.Counter()
 
 
 @torch.no_grad()
@@ -187,6 +194,14 @@ def generate_frames(
     bridges Flax params), on any device. The generator runs in float32, as
     in the JAX package's serving path. Returns (N, H, W, 3) uint8.
 
+    The output is one (N, H, W, 3) uint8 array allocated before the first
+    batch; each batch's frames are written into its rows. On a card it is
+    pinned host memory, each batch's rows go up through a pinned staging
+    block and come back into it with non-blocking copies, and the host
+    waits for the device once, after the last batch (``HOST_IO_ROUTES``
+    counts the batches by route). The returned array holds the pinned
+    block for as long as the caller holds the array.
+
     ``mesh_spec`` (default ``build_mesh()``; 1×1 without a process group)
     serves data-parallel: every rank holds the request, each batch is padded
     to a data multiple, each data rank generates its rows and the frames are
@@ -194,10 +209,11 @@ def generate_frames(
     frames on every rank, so the scales agree).
 
     Program spans (``utils.profiling.annotate``): ``lipsync/build`` once, then
-    for each batch ``lipsync/gather`` (its rows to the device),
-    ``lipsync_batch``'s ``lipsync/prep``, ``lipsync/generator`` and
-    ``lipsync/paste``, and ``lipsync/fetch`` (gathered, to the host); last
-    ``lipsync/concat``."""
+    for each batch ``lipsync/gather`` (its rows staged and sent to the
+    device), ``lipsync_batch``'s ``lipsync/prep``, ``lipsync/generator`` and
+    ``lipsync/paste``, and ``lipsync/fetch`` (gathered, its copy into the
+    output's rows enqueued); last ``lipsync/concat`` (the wait for the last
+    copy, and the array handed back)."""
     spec = mesh_spec or pmesh.build_mesh()
     device = resolve_device(device)
     num_out = len(frames_seq)
@@ -210,11 +226,21 @@ def generate_frames(
         pmesh.shard_params(spec, gen)
     img = gan_cfg.img_size
     int8 = gan_cfg.serve_int8
+    pinned = device.type == "cuda"
 
-    def on_device(a, idx) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(np.asarray(a)[idx])).to(device)
+    def on_device(a, rows) -> torch.Tensor:
+        """``rows`` (a slice, or an index array) of a host array, copied into
+        a fresh host block and sent to ``device``. A pinned block on a card:
+        the caching host allocator hands it out again only once the
+        non-blocking copy from it has completed."""
+        src = np.asarray(a)[rows]
+        dtype = torch.from_numpy(np.empty(0, src.dtype)).dtype
+        host = torch.empty(src.shape, dtype=dtype, pin_memory=pinned)
+        np.copyto(host.numpy(), src)
+        return host.to(device, non_blocking=pinned)
 
-    outs = []
+    out = torch.empty((num_out,) + tuple(frames_seq.shape[1:]), dtype=torch.uint8,
+                      pin_memory=pinned)
     with torch.inference_mode():
         act_scales = None
         if int8 and gan_cfg.serve_int8_static:
@@ -227,21 +253,25 @@ def generate_frames(
             act_scales = {k: s * _STATIC_HEADROOM for k, s in act_scales.items()}
             del x_cal, mel_cal
         for i in range(0, num_out, pre_cfg.gen_batch_size):
-            idx = np.arange(i, min(i + pre_cfg.gen_batch_size, num_out))
-            n = len(idx)
+            n = min(pre_cfg.gen_batch_size, num_out - i)
+            rows = slice(i, i + n)
             if not pmesh.is_degenerate(spec):
-                rows = pmesh.padded_rows(spec, n)
-                idx = np.concatenate([idx, np.full(rows.count * spec.data_size - n, idx[-1])])
-                idx = idx[rows.start:rows.start + rows.count]
+                shard = pmesh.padded_rows(spec, n)
+                idx = np.arange(i, i + shard.count * spec.data_size).clip(max=i + n - 1)
+                rows = idx[shard.start:shard.start + shard.count]
             with annotate("lipsync/gather"):
-                batch = [on_device(a, idx) for a in (frames_seq, boxes, mel_windows)]
-            out = lipsync_batch(gen, *batch, img, int8, act_scales, pmesh.data_max(spec))
+                batch = [on_device(a, rows) for a in (frames_seq, boxes, mel_windows)]
+            res = lipsync_batch(gen, *batch, img, int8, act_scales, pmesh.data_max(spec))
             del batch       # the inputs freed before the next batch's are gathered
             with annotate("lipsync/fetch"):
-                out = pmesh.all_gather(out, spec, spec.data_axis)[:n]
-                outs.append(out.cpu().numpy())
+                out[i:i + n].copy_(pmesh.all_gather(res, spec, spec.data_axis)[:n],
+                                   non_blocking=pinned)
+                del res     # stream-ordered: the block is reused only after the copy
+                HOST_IO_ROUTES["pinned" if pinned else "plain"] += 1
     with annotate("lipsync/concat"):
-        return np.concatenate(outs)
+        if pinned:
+            torch.cuda.current_stream(device).synchronize()
+        return out.numpy()
 
 
 @dataclasses.dataclass

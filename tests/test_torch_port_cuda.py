@@ -6,6 +6,8 @@ torch; there, skip the repository's conftest (which sets up JAX):
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 """
+import collections
+import gc
 import math
 
 import numpy as np
@@ -1306,6 +1308,76 @@ def test_lipsync_video_int8_on_card(cuda, tmp_path):
     assert res.frames.shape == frames.shape and kept["frames"] is res.frames and not res.muxed
     assert {r: n - before[r] for r, n in mm.int8_matmul.route_counts.items()} == {
         "sm90": 51, "packed": 0}
+
+
+def _replaced_assembly(sd, frames, boxes, mels, cfg, batch, device):
+    """The frames as ``generate_frames`` assembled them before it wrote them
+    into one pinned array: each batch's rows taken by index and copied from
+    pageable memory, its ``lipsync_batch`` output fetched with ``.cpu()``
+    and held on the card until the next batch's was made, the request's
+    frames concatenated."""
+    from lipreading_video_generation_tpu_torch.models.generator import TalkingFaceGenerator
+    from lipreading_video_generation_tpu_torch.pipelines import inference as tinf
+
+    with torch.device(device):
+        gen = TalkingFaceGenerator(width=1.0).eval()
+    gen.load_state_dict(sd)
+    outs = []
+    with torch.inference_mode():
+        for i in range(0, len(frames), batch):
+            idx = np.arange(i, min(i + batch, len(frames)))
+            inputs = [torch.from_numpy(np.ascontiguousarray(a[idx])).to(device)
+                      for a in (frames, boxes, mels)]
+            out = tinf.lipsync_batch(gen, *inputs, cfg.img_size, cfg.serve_int8)
+            del inputs
+            outs.append(out.cpu().numpy())
+    return np.concatenate(outs)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_generate_frames_moves_frames_through_pinned_memory(cuda, int8):
+    """``generate_frames`` at the generator's default width on 300 frames
+    of 360x640 in batches of 128 (the last one short): every batch written
+    by the pinned route into one array of pinned host memory, byte for byte
+    the frames of the assembly it replaced, at a device peak no higher; a
+    second request leaves the first's array as it was."""
+    from lipreading_video_generation_tpu_torch.core.config import GanConfig, PreprocessConfig
+    from lipreading_video_generation_tpu_torch.core.prng import seeded
+    from lipreading_video_generation_tpu_torch.models.generator import TalkingFaceGenerator
+    from lipreading_video_generation_tpu_torch.pipelines import inference as tinf
+
+    sd = {k: v.to(cuda) for k, v in seeded(TalkingFaceGenerator, 0).state_dict().items()}
+    cfg, pre = GanConfig(serve_int8=int8), PreprocessConfig(gen_batch_size=128)
+
+    def request(seed, n=300):
+        rng = np.random.default_rng(seed)
+        frames = rng.integers(0, 256, (n, 360, 640, 3), dtype=np.uint8)
+        boxes = (np.tile(np.asarray([40.0, 300.0, 180.0, 430.0], np.float32), (n, 1))
+                 + rng.uniform(-4, 4, (n, 4)).astype(np.float32))
+        return frames, boxes, rng.standard_normal((n, 80, 16)).astype(np.float32)
+
+    def peak(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = fn()
+        return out, torch.cuda.max_memory_allocated() - base
+
+    first = request(5)
+    _replaced_assembly(sd, *first, cfg, 128, cuda)                      # warm-up
+    want, old_peak = peak(lambda: _replaced_assembly(sd, *first, cfg, 128, cuda))
+    before = collections.Counter(tinf.HOST_IO_ROUTES)
+    got, new_peak = peak(lambda: tinf.generate_frames(sd, *first, cfg, pre))
+    assert tinf.HOST_IO_ROUTES - before == collections.Counter(pinned=3)
+    np.testing.assert_array_equal(got, want)
+    assert got.shape == want.shape and got.flags.c_contiguous
+    assert torch.from_numpy(got).is_pinned()
+    assert new_peak <= old_peak, (new_peak, old_peak)
+    kept = got.copy()
+    second = tinf.generate_frames(sd, *request(6), cfg, pre)
+    gc.collect()
+    np.testing.assert_array_equal(got, kept)
+    assert not np.shares_memory(got, second) and not np.array_equal(got, second)
 
 
 def test_cli_gan_chain_on_card(cuda, tmp_path, capsys):

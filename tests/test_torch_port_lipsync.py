@@ -1,7 +1,9 @@
 """The port's lip-sync serving slice against the JAX package: the image and
 audio helpers (1e-5), ``paste_back`` and ``gen_input_prep`` (1e-5 / 1e-4),
-``generate_frames`` as a whole in float, dynamic int8 and static int8, and
-the ViViT ``predict_step`` / ``predict_step_int8``. Same numpy inputs on both
+``generate_frames`` as a whole in float, dynamic int8 and static int8 (and
+its output: one array holding each batch's frames byte for byte, by the
+plain route on the CPU), and the ViViT ``predict_step`` /
+``predict_step_int8``. Same numpy inputs on both
 sides, weights bridged from one Flax init per module (generator width
 0.125, as tests/test_inference.py).
 
@@ -216,6 +218,72 @@ def test_generate_frames_edges(tiny_generator):
     np.testing.assert_array_equal(meshed, plain)    # the 1×1 mesh: the same bits
     with pytest.raises(RuntimeError, match="size mismatch"):
         tinf.generate_frames(sd, frames, boxes, mels, model_width=0.25, device="cpu")
+
+
+@pytest.fixture
+def group_of_one(tmp_path):
+    """A gloo process group of one in this process: its mesh is not the
+    degenerate one, so ``generate_frames`` takes a batch's rows by index and
+    gathers them over the data axis."""
+    import torch.distributed as dist
+
+    from lipreading_video_generation_tpu_torch.parallel import distributed
+    from lipreading_video_generation_tpu_torch.parallel import mesh as pmesh
+
+    distributed.initialize(rank=0, world_size=1, store=dist.FileStore(str(tmp_path / "s"), 1),
+                           device="cpu")
+    try:
+        spec = pmesh.build_mesh(device="cpu")
+        assert not pmesh.is_degenerate(spec)
+        yield spec
+    finally:
+        distributed.shutdown()
+
+
+@pytest.mark.parametrize("mesh", ["plain", "meshed"])
+@pytest.mark.parametrize("mode", [{}, dict(serve_int8=True),
+                                  dict(serve_int8=True, serve_int8_static=True)],
+                         ids=["float32", "int8", "int8_static"])
+def test_generate_frames_writes_its_batches_into_one_array(tiny_generator, request, monkeypatch,
+                                                           mode, mesh):
+    """6 frames in batches of 4 (the last one short): the array is each
+    batch's ``lipsync_batch`` output fetched and concatenated, byte for
+    byte; C-contiguous uint8; a second request leaves the first's array as
+    it was and shares no memory with it; every batch takes the plain route
+    on the CPU."""
+    import collections
+    import gc
+
+    _, sd = tiny_generator
+    spec = request.getfixturevalue("group_of_one") if mesh == "meshed" else None
+    fetched = []
+
+    def fetching(*args, **kw):
+        res = lipsync_batch(*args, **kw)
+        fetched.append(res.cpu().numpy().copy())
+        return res
+
+    lipsync_batch = tinf.lipsync_batch
+    monkeypatch.setattr(tinf, "lipsync_batch", fetching)
+
+    def serve(seed):
+        fetched.clear()
+        got = tinf.generate_frames(sd, *_request(6, 40, 48, seed), tcfg.GanConfig(**mode),
+                                   tcfg.PreprocessConfig(gen_batch_size=4), model_width=WIDTH,
+                                   mesh_spec=spec, device="cpu")
+        assert len(fetched) == 2
+        np.testing.assert_array_equal(got, np.concatenate(fetched))
+        return got
+
+    before = collections.Counter(tinf.HOST_IO_ROUTES)
+    first = serve(12)
+    assert first.shape == (6, 40, 48, 3) and first.dtype == np.uint8 and first.flags.c_contiguous
+    kept = first.copy()
+    second = serve(13)
+    gc.collect()
+    np.testing.assert_array_equal(first, kept)
+    assert not np.shares_memory(first, second) and not np.array_equal(first, second)
+    assert tinf.HOST_IO_ROUTES - before == collections.Counter(plain=4)
 
 
 VIVIT = dict(num_classes=8, hidden_size=32, num_layers=2, num_heads=2, mlp_dim=64,
