@@ -139,15 +139,16 @@ script exits non-zero without printing a result):
    row stride 0, the 4096² transposition), each by the path it must take;
    at the shapes the paths give them.
 4. serve   — 3 requests of 8 clips and 3 of 384 clips (5 frames each, 96×96
-   RGB uint8 frames and face boxes as in bench.py), host frames in, host
-   logits out; every request must launch K1 once (by the packed route) and
-   K2 once per layer (by the tensor-core route), and give finite logits; a
-   ``torch.profiler`` breakdown of a batch-384 request, with K1's device
-   time; the batch-8 requests must agree with the same model
-   and inputs run on the CPU (the plain path). Then one batch-384 request
-   through ``predict_step_int8``: K6 once per Linear (50, by the
-   tensor-core route), K1 and K2 as before, held against ``predict_step`` on
-   the same ROIs, and its profile.
+   RGB uint8 frames and face boxes as in bench.py) through the main path,
+   ``predict_frames``: host frames in, host log-probs out; every request
+   must launch K1 once (by the packed route) and K2 once per layer (by the
+   tensor-core route), and give finite log-probs; a ``torch.profiler``
+   breakdown of a batch-384 request, with K1's device time; the batch-8
+   requests (and their ROIs) must agree with the same model and inputs run
+   on the CPU (the plain path). Then one batch-384 request through
+   ``predict_step_int8``: K6 once per Linear (50, by the tensor-core
+   route), K1 and K2 as before, held against ``predict_frames`` on the same
+   frames, and its profile.
 5. vivit-train — one ``train_step`` at the ``ViViTConfig`` defaults (8
    classes, batch 16, weights bridged from seeded numpy) on the card and on
    the CPU, in float32 (K2 12x by the CUDA-core route) and bf16 (12x by the
@@ -1148,24 +1149,29 @@ def request_inputs(n_clips: int, seed: int):
     return frames, boxes
 
 
-def serve(model, frames: np.ndarray, boxes: np.ndarray, device):
-    """One request: host frames and boxes in, host logits (and ROI) out."""
+def serve(model, frames: np.ndarray, boxes: np.ndarray) -> torch.Tensor:
+    """One request through the main path, ``predict_frames`` on the model's
+    device: host frames and boxes in, host log-probs out."""
+    from lipreading_video_generation_tpu_torch.pipelines.train_vivit import predict_frames
+
+    return torch.from_numpy(predict_frames(model, frames, boxes))
+
+
+def serve_roi(frames: np.ndarray, boxes: np.ndarray, device) -> torch.Tensor:
+    """The (B·T, 32, 32, 1) uint8 ROI a request's ``predict_frames`` makes
+    on ``device``, on the host."""
     from lipreading_video_generation_tpu_torch.core.config import PreprocessConfig
     from lipreading_video_generation_tpu_torch.pipelines.preprocess import mouth_roi_pipeline
 
-    cfg, pre = model.cfg, PreprocessConfig()
-    f = torch.from_numpy(frames).to(device)
-    b = torch.from_numpy(boxes).to(device)
-    roi = mouth_roi_pipeline(f, b, pre.lip_crop_size, pre.model_input_size,
-                             pre.clahe_clip_limit, pre.clahe_grid)  # (B·T, 32, 32, 1)
-    clips = roi.reshape(-1, cfg.num_frames, cfg.image_size, cfg.image_size, 1)
-    logits = model(clips.to(torch.float32) / 255.0)
-    return logits.cpu(), roi.cpu()
+    pre = PreprocessConfig()
+    return mouth_roi_pipeline(torch.from_numpy(frames).to(device),
+                              torch.from_numpy(boxes).to(device), pre.lip_crop_size,
+                              pre.model_input_size, pre.clahe_clip_limit, pre.clahe_grid).cpu()
 
 
 def serve_int8_request(model, frames: np.ndarray, boxes: np.ndarray) -> dict:
     """One request through ``predict_step_int8`` (host frames in, host
-    log-probs out) and the same through ``predict_step``; returns the int8
+    log-probs out) and the same through ``predict_frames``; returns the int8
     request's launches."""
     from lipreading_video_generation_tpu_torch.core.config import PreprocessConfig
     from lipreading_video_generation_tpu_torch.ops import attention as att
@@ -1202,14 +1208,14 @@ def serve_int8_request(model, frames: np.ndarray, boxes: np.ndarray) -> dict:
         raise AssertionError(f"int8 request: K2/K6 launches by the tensor-core route {by_tc}, "
                              f"want ({cfg.num_layers}, {n_linear})")
     t0 = time.perf_counter()
-    f = request(tv.predict_step)
+    f = serve(model, frames, boxes)
     f_s = time.perf_counter() - t0
     if mm.int8_matmul.launch_count - before[2] != n_linear:
-        raise AssertionError("predict_step launched K6")
+        raise AssertionError("predict_frames launched K6")
     agree = (q.argmax(-1) == f.argmax(-1)).float().mean().item()
     worst = (q - f).abs().max().item()
     log("serve", f"predict_step_int8, batch {len(q)}: K1 1, K2 {cfg.num_layers}, K6 {n_linear} "
-        f"launches, K2 and K6 all by the tensor-core route; against predict_step on the same ROIs: top-1 agreement {agree:.4f} "
+        f"launches, K2 and K6 all by the tensor-core route; against predict_frames on the same frames: top-1 agreement {agree:.4f} "
         f"(want >= {INT8_TOP1_AGREE}), max |d log-prob| {worst:.4f} (want < {INT8_LOGPROB}); "
         f"request {q_s * 1e3:.3f} ms int8, {f_s * 1e3:.3f} ms bf16")
     if not (torch.isfinite(q).all() and agree >= INT8_TOP1_AGREE and worst < INT8_LOGPROB):
@@ -1296,21 +1302,21 @@ def phase_serve(dev: dict) -> dict:
     times = {8: [], 384: []}
     with torch.inference_mode():
         for n_clips in inputs:                           # warm-up: cuBLAS, allocator
-            serve(model, *inputs[n_clips], "cuda")
+            serve(model, *inputs[n_clips])
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _zero_counts()
         for n_clips in (8, 8, 8, 384, 384, 384):
             k1, k2 = cl.clahe_cuda.launch_count, att.small_mha.launch_count
             t0 = time.perf_counter()
-            logits, roi = serve(model, *inputs[n_clips], "cuda")
+            logp = serve(model, *inputs[n_clips])
             times[n_clips].append(time.perf_counter() - t0)
             d1, d2 = cl.clahe_cuda.launch_count - k1, att.small_mha.launch_count - k2
             if (d1, d2) != (1, cfg.num_layers):
                 raise AssertionError(f"request of {n_clips} clips launched K1 {d1}x and "
                                      f"K2 {d2}x, want 1 and {cfg.num_layers}")
-            if logits.shape != (n_clips, cfg.num_classes) or not torch.isfinite(logits).all():
-                raise AssertionError(f"bad logits {tuple(logits.shape)} for {n_clips} clips")
+            if logp.shape != (n_clips, cfg.num_classes) or not torch.isfinite(logp).all():
+                raise AssertionError(f"bad log-probs {tuple(logp.shape)} for {n_clips} clips")
         launches = {"clahe": cl.clahe_cuda.launch_count,
                     "small_mha": att.small_mha.launch_count}
         if cl.clahe_cuda.route_counts != {"packed": launches["clahe"], "tiled": 0}:
@@ -1321,9 +1327,9 @@ def phase_serve(dev: dict) -> dict:
         log("serve", f"6 requests: launches K1={launches['clahe']} K2={launches['small_mha']} "
             f"(1 and {cfg.num_layers} per request; K1 routes {cl.clahe_cuda.route_counts}, K2 "
             f"routes {att.small_mha.route_counts}); "
-            "logits finite")
+            "log-probs finite")
         # where the time of a batch-384 request goes
-        busy_ms = _profile_step("serve", lambda: serve(model, *inputs[384], "cuda"), "request")
+        busy_ms = _profile_step("serve", lambda: serve(model, *inputs[384]), "request")
         k1_ms, k1_n = _profile_step.own["K1"]
         if k1_n != 1:
             raise AssertionError(f"the profiled request ran {k1_n} K1 kernels, want 1")
@@ -1332,18 +1338,18 @@ def phase_serve(dev: dict) -> dict:
             f"{dev['smi']}")
         K1_PROFILED_MS.append(k1_ms)
 
-        gpu_logits, gpu_roi = serve(model, *inputs[8], "cuda")
-        cpu_logits, cpu_roi = serve(cpu_model, *inputs[8], "cpu")
+        gpu_logp, gpu_roi = serve(model, *inputs[8]), serve_roi(*inputs[8], "cuda")
+        cpu_logp, cpu_roi = serve(cpu_model, *inputs[8]), serve_roi(*inputs[8], "cpu")
 
         # [flops]: the batch-384 request, and batch 8 on the card against the CPU
         from lipreading_video_generation_tpu_torch.utils import flops
 
         want = {"clahe_cuda": 1, "small_mha": cfg.num_layers}
         count_flops("serve", "a batch-384 bf16 ViViT request", statistics.median(times[384]),
-                    want, serve, model, *inputs[384], "cuda")
+                    want, serve, model, *inputs[384])
         card8 = count_flops("serve_b8", "a batch-8 bf16 ViViT request",
-                            statistics.median(times[8]), want, serve, model, *inputs[8], "cuda")
-        cpu8 = flops.flops_detail(serve, cpu_model, *inputs[8], "cpu")
+                            statistics.median(times[8]), want, serve, model, *inputs[8])
+        cpu8 = flops.flops_detail(serve, cpu_model, *inputs[8])
         log("flops", f"serve_b8: model FLOP on the card {card8['model']} (K2 "
             f"{card8['kernels']['small_mha']['model']} by its hook), on the CPU {cpu8['model']} "
             f"(K2's products by the einsum path); hw {card8['hw']} and {cpu8['hw']}")
@@ -1352,13 +1358,19 @@ def phase_serve(dev: dict) -> dict:
                                  f"{cpu8['model']} on the CPU")
     d = (gpu_roi.int() - cpu_roi.int()).abs()
     within1 = (d <= 1).float().mean().item()
+    # a log-prob is its logit less the clip's log-sum-exp: centred over the
+    # classes, both sides are their logits centred, which TOL_LOGITS bounds
+    gpu_c = gpu_logp - gpu_logp.mean(-1, keepdim=True)
+    cpu_c = cpu_logp - cpu_logp.mean(-1, keepdim=True)
+    gap = (gpu_logp - cpu_logp).abs() / cpu_logp.std(dim=-1, keepdim=True)
     log("serve", f"batch 8, card vs CPU plain path: ROI max|d| {d.max().item()} levels, "
-        f"{within1:.5f} within 1 (want >= 0.99); logits max|d| "
-        f"{(gpu_logits - cpu_logits).abs().max().item():.4g} of max|logit| "
-        f"{cpu_logits.abs().max().item():.4g} (tol {TOL_LOGITS} abs + rel)")
+        f"{within1:.5f} within 1 (want >= 0.99); centred log-probs max|d| "
+        f"{(gpu_c - cpu_c).abs().max().item():.4g} of max|centred log-prob| "
+        f"{cpu_c.abs().max().item():.4g} (tol {TOL_LOGITS} abs + rel); log-prob gap over the "
+        f"clip's spread max {gap.max().item():.4g}, mean {gap.mean().item():.4g}")
     if within1 < 0.99:
         raise AssertionError(f"ROI card vs CPU: only {within1} within 1 level")
-    torch.testing.assert_close(gpu_logits, cpu_logits, rtol=TOL_LOGITS, atol=TOL_LOGITS)
+    torch.testing.assert_close(gpu_c, cpu_c, rtol=TOL_LOGITS, atol=TOL_LOGITS)
 
     for name, count in serve_int8_request(model, *inputs[384]).items():
         launches[name] = launches.get(name, 0) + count

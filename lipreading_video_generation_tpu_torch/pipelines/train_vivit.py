@@ -36,7 +36,7 @@ import torch
 
 from ..core import prng
 from ..core.prng import seeded
-from ..core.config import Config, ViViTConfig
+from ..core.config import Config, PreprocessConfig, ViViTConfig
 from ..core.device import resolve_device
 from ..core.metrics import to_host
 from ..data.loader import host_prefetch, iterator_feed
@@ -45,7 +45,9 @@ from ..ops import quant
 from ..parallel import mesh as pmesh
 from ..parallel import pipeline as pipe
 from ..parallel.distributed import is_primary
+from ..utils.profiling import annotate
 from . import losses
+from .preprocess import mouth_roi_pipeline
 from .train_diffusion import ADAM_BETAS, ADAM_EPS
 
 
@@ -207,6 +209,33 @@ def predict_sharded(model: ViViT, clips_uint8, mesh_spec=None, int8: bool = Fals
         out = (predict_step_int8(model, mine, pmesh.data_max(spec)) if int8
                else predict_step(model, mine))
     return pmesh.all_gather(out, spec, spec.data_axis)[:n]
+
+
+@torch.inference_mode()
+def predict_frames(model: ViViT, frames: np.ndarray, face_boxes: np.ndarray,
+                   pre: PreprocessConfig = PreprocessConfig()) -> np.ndarray:
+    """One lipreading request: host RGB uint8 frames (B·T, H, W, 3) of B
+    clips of ``model.cfg.num_frames`` frames and their float32 y1y2x1x2 face
+    boxes (B·T, 4) → host float32 log-probs (B, num_classes).
+
+    The frames and boxes go to the model's device by a plain ``.to``
+    (``lipread/upload``); ``mouth_roi_pipeline`` at ``pre``'s crop, input
+    size, CLAHE clip and grid makes the (B·T, h, w, 1) uint8 ROI, one K1
+    launch on the card (``lipread/roi``); ``predict_step`` classifies the
+    clips (``lipread/forward``: one K2 launch a block); the log-probs come
+    back to the host (``lipread/fetch``, which waits for the card)."""
+    device = next(model.parameters()).device
+    with annotate("lipread/upload"):
+        frames_d = torch.as_tensor(frames).to(device)
+        boxes_d = torch.as_tensor(face_boxes).to(device)
+    with annotate("lipread/roi"):
+        roi = mouth_roi_pipeline(frames_d, boxes_d, pre.lip_crop_size, pre.model_input_size,
+                                 pre.clahe_clip_limit, pre.clahe_grid)
+        clips = roi.reshape(-1, model.cfg.num_frames, *roi.shape[1:])
+    with annotate("lipread/forward"):
+        logp = predict_step(model, clips)
+    with annotate("lipread/fetch"):
+        return logp.cpu().numpy()
 
 
 def evaluate(state: ViViTTrainState, batches: Iterable[Dict[str, Any]],

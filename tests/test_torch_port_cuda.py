@@ -7,6 +7,7 @@ torch; there, skip the repository's conftest (which sets up JAX):
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 """
 import collections
+import dataclasses
 import gc
 import math
 
@@ -1118,6 +1119,43 @@ def test_cli_train_vivit_on_card(cuda, capsys):
     out = capsys.readouterr()
     assert [ln for ln in out.out.splitlines() if ln.startswith("best: ")]
     assert "[step 30]" in out.err
+
+
+def test_predict_frames_on_card(cuda):
+    """``predict_frames`` at the ``ViViTConfig`` defaults with the published
+    MLP width (3072), 16 clips of five 96x96 frames, bf16: K1 once by the
+    packed route and K2 once a block by the tensor-core route; host float32
+    log-probs against the same weights in float32 on the CPU, each gap over
+    the spread of the clip's log-probs across the classes: bf16 rounds every
+    product's inputs and the residual stream (2^-8 relative) through 12
+    blocks, and a few ROI pixels may round to the other level."""
+    from lipreading_video_generation_tpu_torch.core.config import ViViTConfig
+    from lipreading_video_generation_tpu_torch.core.prng import seeded
+    from lipreading_video_generation_tpu_torch.models.vivit import ViViT
+    from lipreading_video_generation_tpu_torch.pipelines import train_vivit as tv
+
+    cfg = ViViTConfig(num_classes=64, mlp_dim=3072)
+    cpu = seeded(lambda: ViViT(dataclasses.replace(cfg, dtype="float32")), 4).eval()
+    card = ViViT(cfg).eval()
+    card.load_state_dict(cpu.state_dict())
+    card = card.to(cuda)
+    rng = np.random.default_rng(12)
+    n = 16 * cfg.num_frames
+    frames = rng.integers(0, 256, (n, 96, 96, 3), dtype=np.uint8)
+    boxes = (np.tile([8.0, 92.0, 6.0, 90.0], (n, 1)) + rng.uniform(-2, 2, (n, 4))
+             ).astype(np.float32)
+    before = (dict(cl.clahe_cuda.route_counts), dict(att.small_mha.route_counts))
+    got = tv.predict_frames(card, frames, boxes)
+    assert {r: c - before[0][r] for r, c in cl.clahe_cuda.route_counts.items()} == \
+        {"packed": 1, "tiled": 0}
+    assert {r: c - before[1][r] for r, c in att.small_mha.route_counts.items()} == \
+        {"sm90": cfg.num_layers, "cuda_core": 0}
+    assert isinstance(got, np.ndarray) and got.dtype == np.float32 and got.shape == (16, 64)
+    want = torch.from_numpy(tv.predict_frames(cpu, frames, boxes))
+    gap = (torch.from_numpy(got) - want).abs() / want.std(dim=-1, keepdim=True)
+    print(f"predict_frames card bf16 vs CPU float32: gap/spread max {gap.max():.4g} "
+          f"mean {gap.mean():.4g}")
+    assert gap.max() <= 0.1 and gap.mean() <= 0.02
 
 
 def test_lipread_e2e_run_on_card(cuda, tmp_path):

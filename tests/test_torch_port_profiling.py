@@ -1,22 +1,24 @@
 """The port's program spans (``utils/profiling.annotate``): a
 ``torch.profiler`` range on the profiler's clock while a session runs, no
-``record_function`` entered while none does; and the spans the three
+``record_function`` entered while none does; and the spans the four
 benchmarked entries open, in their order and nesting: ``generate_frames``
-(float32, dynamic and static int8), ``sample_video`` and ``train_step``.
-All on the CPU at tiny widths."""
+(float32, dynamic and static int8), ``sample_video``, ``train_step`` and
+``predict_frames``. All on the CPU at tiny widths."""
 import numpy as np
 import pytest
 import torch
 from torch.profiler import profile
 
 from lipreading_video_generation_tpu_torch.core.config import (
-    DiffusionConfig, GanConfig, PreprocessConfig)
+    DiffusionConfig, GanConfig, PreprocessConfig, ViViTConfig)
 from lipreading_video_generation_tpu_torch.core.prng import seeded
 from lipreading_video_generation_tpu_torch.models.generator import TalkingFaceGenerator
 from lipreading_video_generation_tpu_torch.models.unet_audio import UNetAudio
+from lipreading_video_generation_tpu_torch.models.vivit import ViViT
 from lipreading_video_generation_tpu_torch.pipelines import inference
 from lipreading_video_generation_tpu_torch.pipelines import sample_diffusion
 from lipreading_video_generation_tpu_torch.pipelines import train_diffusion
+from lipreading_video_generation_tpu_torch.pipelines import train_vivit
 from lipreading_video_generation_tpu_torch.utils import profiling as tprof
 
 GEN_WIDTH = 0.125
@@ -25,7 +27,7 @@ TINY_UNET = dict(im_size=16, base_channels=32, channel_mult=(1, 2), num_res_bloc
                  audio_embed_dim=32, audio_proj_dim=8, im_cond_channels=4,
                  audio_samples=800, num_timesteps=50, dropout=0.0, dtype="float32")
 # the port's span prefixes; the outer range stands for a caller's own (the benchmark's bench/)
-PREFIXES = ("lipsync/", "sample/", "train/", "int8/")
+PREFIXES = ("lipsync/", "sample/", "train/", "int8/", "lipread/")
 OUTER = "caller/request"
 
 
@@ -95,17 +97,22 @@ def test_annotate_range_contains_the_ops_launched_inside_it():
     assert all(e.thread == span.thread for e in inside)
 
 
-@pytest.mark.parametrize("work", ["annotate", "generate_frames_int8"])
-def test_no_range_is_entered_without_a_profiler(work, monkeypatch, lipsync_request):
+@pytest.mark.parametrize("work", ["annotate", "generate_frames_int8", "predict_frames"])
+def test_no_range_is_entered_without_a_profiler(work, monkeypatch, lipsync_request,
+                                                lipread_request):
     """With no profiler session, ``annotate`` checks its flag and enters no
     ``record_function``; an int8 request (every span of the lip-sync entry and
-    of ``ops/quant``) enters none either. Inside a session the same code does."""
+    of ``ops/quant``) and a lipreading request enter none either. Inside a
+    session the same code does."""
     monkeypatch.setattr(tprof, "record_function", _CountingRange)
     _CountingRange.entered = 0
     if work == "annotate":
         def run():
             with tprof.annotate("test/off"):
                 torch.ones(2).sum()
+    elif work == "predict_frames":
+        def run():
+            train_vivit.predict_frames(*lipread_request)
     else:
         def run():
             _generate(lipsync_request, "int8")
@@ -222,3 +229,23 @@ def test_train_step_opens_one_span_per_phase():
     assert np.isfinite(float(metrics["loss"])) and state.step == 1
     assert spans == [(name, OUTER) for name in ("train/prepare", "train/noise", "train/forward",
                                                 "train/backward", "train/optimizer")]
+
+
+# ---- the lipreading entry ----------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def lipread_request():
+    """A small bf16 ViViT and a request of 2 clips of five 96x96 frames."""
+    model = seeded(lambda: ViViT(ViViTConfig(hidden_size=32, num_layers=2, num_heads=4,
+                                             mlp_dim=64, num_classes=8)), 3).eval()
+    rng = np.random.default_rng(8)
+    frames = rng.integers(0, 256, (10, 96, 96, 3), dtype=np.uint8)
+    boxes = np.tile(np.asarray([8.0, 92.0, 6.0, 90.0], np.float32), (10, 1))
+    return model, frames, boxes
+
+
+def test_predict_frames_opens_one_span_per_stage(lipread_request):
+    logp, spans = _traced(lambda: train_vivit.predict_frames(*lipread_request))
+    assert logp.shape == (2, 8)
+    assert spans == [(name, OUTER) for name in ("lipread/upload", "lipread/roi",
+                                                "lipread/forward", "lipread/fetch")]
