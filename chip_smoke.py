@@ -190,10 +190,16 @@ script exits non-zero without printing a result):
    plain path at the full channel plan but 64×64, batch 1, 2 DDIM steps,
    same initial noise.
 8. train   — ``train_step`` at the ``DiffusionConfig`` defaults, batch 8:
-   one warm-up and 5 timed steps, each launching K3, K4 and K5 16 times and
-   K2 4 times (K3, K4 and K5 by the tensor-core route), with finite loss, params
-   and EMA and an EMA that moves; a ``torch.profiler`` breakdown of one
-   step (device busy share, K2-K5 shares); 10
+   one warm-up (eager) and 5 timed steps (a capture, then replays of the
+   CUDA graph), each launching K3, K4 and K5 16 times and K2 4 times on the
+   card, all by the tensor-core route (the warm-up counted by the wrappers,
+   which count nothing in the graphed steps; 2 more replays by name in a
+   device trace, ``_traced_launches``), with finite loss, params and EMA
+   and an EMA that moves; a ``torch.profiler`` breakdown of one replayed
+   step (device busy share, K2-K5 shares); 4 graphed steps against 4 eager
+   ones from one seed (``check_train_graph``: t and noise equal to the bit,
+   loss, params, EMA and Adam's moments equal wherever two eager runs are,
+   a planted ``state_unchanged`` fault captured); 10
    steps on one batch with fixed t and noise must end below the first
    loss; one float32 step at the full channel plan but 64×64, batch 2,
    dropout 0, card against the CPU plain path (loss within 1e-4 relative,
@@ -215,8 +221,10 @@ script exits non-zero without printing a result):
    ``write_diffusion_records``), records/s; ``cli.main(["train-diffusion",
    "--records-root", ..., "--steps", "12", "--steps-per-dispatch", "4",
    "--checkpoint-every", "12"])`` at the ``DiffusionConfig`` defaults
-   (batch 8): the native route, K2 52, K3 208, K4 and K5 192 each (16 a step,
-   and the eval at step 12), all by ``sm90``, step times (the first apart),
+   (batch 8), under a device trace: the native route, K2 52, K3 208, K4 and
+   K5 192 each by name in the trace (16 a step, and the eval at step 12),
+   all by ``sm90``; through the wrappers only the eager first step's and
+   the eval's (the rest replay one CUDA graph); step times (the first apart),
    the share of the loop spent waiting on the feed, the first and last
    loss, the checkpoint's write time and size; ``cli.main(["sample-diffusion",
    "--checkpoint", ..., "--frames", "4", "--ddim-steps", "10"])``: 4 PNGs
@@ -249,7 +257,9 @@ script exits non-zero without printing a result):
    layouts: ``port-wav2vec2 --pth`` on a base ``Wav2Vec2ForCTC``-layout file
    → ``train-diffusion --wav2vec2-checkpoint --steps 4`` at the
    ``DiffusionConfig`` defaults (batch 8, bf16; K2 12, K3 16, K4/K5 16 a
-   step and the eval at step 4, all sm90; the encoder's weights move) →
+   step and the eval at step 4, all sm90, by name in a device trace of the
+   run, the eager first step and the eval also through the wrappers; the
+   encoder's weights move) →
    ``sample-diffusion --checkpoint --frames 4 --ddim-steps 10`` (K2 12, K3
    160); a profile of a step; float32 card vs CPU: ``encode_condition`` at
    full width (1e-3) and a 64×64 step's loss (1e-4 relative) and wav2vec2
@@ -364,6 +374,7 @@ Run from the repository root: ``python3 chip_smoke.py``.
 from __future__ import annotations
 
 import contextlib
+import functools
 import hashlib
 import io
 import json
@@ -884,6 +895,10 @@ def phase_kernels() -> dict:
         q, k, v, do = flash_inputs(q_shape, s_k, dtype, layout, SEED + 20)
         o, lse = att.flash_attention(q, k, v, causal, return_lse=True)
         delta = (do.float() * o.float()).sum(-1)
+        # the wrappers count each launch made from Python outside a capture; a
+        # replayed CUDA graph (a training step's) launches without them, and the
+        # training phases count its launches by name in a device trace
+        # (_traced_launches, held to _with_replays)
         before = dict(att.flash_bwd_dkv.route_counts), dict(att.flash_bwd_dq.route_counts)
         before_v = _flash_variants()
         dk, dv = att.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
@@ -958,6 +973,7 @@ def phase_kernels() -> dict:
     # the same in bf16 (the tensor-core kernels) against autograd through
     # attention_reference on the float32 values of the same bf16 inputs
     lo = [t.detach().to(torch.bfloat16).requires_grad_() for t in (q, k, v)]
+    # eager autograd: one count a launch (graphed training steps: _traced_launches)
     was = att.flash_bwd_dkv.route_counts["sm90"], att.flash_bwd_dq.route_counts["sm90"]
     (att.flash_attention(*lo, causal=True).float() * cot).sum().backward()
     if (att.flash_bwd_dkv.route_counts["sm90"], att.flash_bwd_dq.route_counts["sm90"]) != (
@@ -2187,6 +2203,44 @@ def _delta(before: dict) -> dict:
     return {k: v - before[k] for k, v in _counts().items()}
 
 
+def _train_routes() -> dict:
+    from lipreading_video_generation_tpu_torch.pipelines import train_diffusion as ttd
+
+    return dict(ttd.train_step.route_counts)
+
+
+# K2-K5's tensor-core kernels by name: what the training paths launch
+TRAIN_KERNELS = {"small_mha": "small_mha_sm90_kernel", "flash_attention": "flash_fwd_sm90_kernel",
+                 "flash_bwd_dkv": "flash_bwd_dkv_sm90_kernel",
+                 "flash_bwd_dq": "flash_bwd_dq_sm90_kernel"}
+
+
+def _traced_launches(fn) -> tuple:
+    """``fn()`` (and a wait for the card) under a CUDA-only ``torch.profiler``
+    trace → (its result, the launches of each of ``TRAIN_KERNELS`` the card
+    ran, by name). The wrappers count the launches made from Python outside
+    a capture; a replayed CUDA graph launches its kernels again without
+    them, and only a device trace sees those."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.count) for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return out, {k: sum(n for name, n in rows if frag in name)
+                 for k, frag in TRAIN_KERNELS.items()}
+
+
+def _with_replays(counted: dict, per_step: dict, replays: int) -> dict:
+    """The rule for graphed training steps: what a device trace of a run
+    must hold, from the launches the wrappers counted in it (its eager
+    steps and evals; a capture runs nothing and counts nothing) and
+    ``replays`` replays of a captured step of ``per_step`` launches."""
+    return {k: n + per_step.get(k, 0) * replays for k, n in counted.items()}
+
+
 def train_batch(cfg, n: int, seed: int, size: int = 160) -> dict:
     """Random ``size``×``size`` RGB uint8 target and condition frames
     (resized to im_size on the way in) and ``n`` random audio windows."""
@@ -2313,6 +2367,122 @@ def _grad_step(cfg, state_dict, batch, t, noise, device):
                                    for p in state.model.parameters()])
 
 
+def train_runs(cfg, sd, batches, step, fault=None) -> dict:
+    """``step`` (``train_step`` or ``eager_step``) over ``batches`` from one
+    seeded state holding ``sd``; ``fault`` (a stand-in for ``apply_update``)
+    is planted in the module for the run. → each step's loss, route, and
+    whether a replayed step drew the t and noise an eager step would from
+    the generator's state (equal bits); the final params, EMA, Adam moments
+    and generator state, and the state."""
+    from lipreading_video_generation_tpu_torch.core.prng import uniform_timesteps
+    from lipreading_video_generation_tpu_torch.pipelines import train_diffusion as ttd
+
+    state = ttd.create_state(cfg, seed=SEED, device="cuda")
+    state.model.load_state_dict(sd)
+    state.ema.load_state_dict(sd)
+    planted, out = ttd.apply_update, {"loss": [], "routes": [], "draws": []}
+    if fault is not None:
+        ttd.apply_update = fault
+    try:
+        for batch in batches:
+            gen = torch.Generator("cuda")
+            gen.set_state(state.generator.get_state())
+            n, s = len(batch["audio"]), cfg.im_size
+            want = (uniform_timesteps(gen, n, cfg.num_timesteps),
+                    torch.randn((n, cfg.im_channels, s, s), generator=gen, device="cuda"))
+            before = dict(ttd.train_step.route_counts)
+            out["loss"].append(step(state, batch, cfg)["loss"].item())
+            out["routes"].append(next((r for r in ("capture", "graph", "eager")
+                                       if ttd.train_step.route_counts[r] != before[r]), None))
+            if out["routes"][-1] in ("capture", "graph"):
+                got = state.graph.outputs
+                out["draws"].append(torch.equal(got["t"], want[0])
+                                    and torch.equal(got["noise"], want[1]))
+    finally:
+        ttd.apply_update = planted
+    opt = state.optimizer
+    out["tensors"] = {**{f"param {k}": p.detach().clone() for k, p in state.model.named_parameters()},
+                      **{f"ema {k}": p.detach().clone() for k, p in state.ema.named_parameters()}}
+    for k, p in state.model.named_parameters():
+        for m in ("exp_avg", "exp_avg_sq"):
+            if p in opt.state:
+                out["tensors"][f"{m} {k}"] = opt.state[p][m].clone()
+    out["generator"] = state.generator.get_state()
+    out["state"] = state
+    return out
+
+
+def compare_train_runs(a: dict, b: dict, g: dict) -> dict:
+    """Graphed run ``g`` against eager run ``a``, with eager run ``b`` as
+    eager's own spread: the losses, and each of the params, EMA and Adam
+    moments, equal to the bit where ``a`` and ``b`` are equal; where they
+    are not, ``g`` no farther from ``a`` than ``b`` is (the L2 over those
+    tensors, within 2x: one graphed run is one draw of the same
+    nondeterminism). → counts for the log."""
+    if set(g["tensors"]) != set(a["tensors"]):
+        raise AssertionError("the graphed run holds other tensors than the eager one")
+    same = [k for k in a["tensors"] if torch.equal(a["tensors"][k], b["tensors"][k])]
+    off = [k for k in same if not torch.equal(g["tensors"][k], a["tensors"][k])]
+    if off:
+        raise AssertionError(f"graphed and eager differ in {len(off)} tensors that two eager runs "
+                             f"give equal, e.g. {off[:3]}")
+    if (g["loss"] != a["loss"]) and (a["loss"] == b["loss"]):
+        raise AssertionError(f"losses graphed {g['loss']} eager {a['loss']}")
+    rest = [k for k in a["tensors"] if k not in same]
+    dist = lambda x, keys: sum(float((x["tensors"][k].double() - a["tensors"][k].double())
+                                     .norm()) ** 2 for k in keys) ** 0.5
+    d_g, d_b = dist(g, rest), dist(b, rest)
+    if d_g > 2 * d_b:
+        raise AssertionError(f"graphed run {d_g:.3g} from eager, eager {d_b:.3g} from itself, "
+                             f"over {len(rest)} tensors")
+    return {"tensors": len(a["tensors"]), "eager_equal": len(same), "graph_l2": d_g,
+            "eager_l2": d_b}
+
+
+def check_train_graph(cfg, sd, batches) -> None:
+    """[train-graph]: graphed ``train_step``s over ``batches`` (3 or more)
+    against as many ``eager_step``s from one seed (two eager runs for
+    eager's own spread), then the graphed run with a planted
+    ``state_unchanged`` fault (``benchmarks/faults.py``'s: the step
+    counted, the state left as it was), which the capture must hold."""
+    from lipreading_video_generation_tpu_torch.pipelines import train_diffusion as ttd
+
+    n = len(batches)
+    runs = {}
+    for name, step in (("eager", ttd.eager_step), ("eager again", ttd.eager_step),
+                       ("graphed", ttd.train_step)):
+        run = train_runs(cfg, sd, batches, step)
+        del run["state"]
+        runs[name] = run
+        torch.cuda.empty_cache()
+    a, b, g = runs["eager"], runs["eager again"], runs["graphed"]
+    want = ["eager", "capture"] + ["graph"] * (n - 2)
+    if g["routes"] != want or not all(g["draws"]) or len(g["draws"]) != n - 1:
+        raise AssertionError(f"graphed run: routes {g['routes']}, draws equal {g['draws']}")
+    if not torch.equal(g["generator"], a["generator"]):
+        raise AssertionError("the graphed run left the generator elsewhere than eager steps")
+    c = compare_train_runs(a, b, g)
+
+    def state_unchanged(state, loss):
+        state.step += 1
+
+    f = train_runs(cfg, sd, batches, ttd.train_step, fault=state_unchanged)
+    moved = [k for k, p in f["state"].model.state_dict().items()
+             if not torch.equal(p.cpu(), sd[k].to(p.dtype))]
+    if f["routes"] != want or moved or f["state"].step != n:
+        raise AssertionError(f"planted state_unchanged: routes {f['routes']}, moved {moved[:3]}, "
+                             f"step {f['state'].step}")
+    del f
+    torch.cuda.empty_cache()
+    log("train-graph", f"{n} steps at batch {len(batches[0]['audio'])}, routes {g['routes']}: "
+        f"t and noise of the {len(g['draws'])} graphed steps equal to an eager step's draws "
+        f"from the same generator state, the generator left where eager leaves it; losses "
+        f"graphed {g['loss']} eager {a['loss']} again {b['loss']}; of {c['tensors']} params, "
+        f"EMA and moments {c['eager_equal']} equal in two eager runs, and equal graphed; the "
+        f"rest L2 graphed-eager {c['graph_l2']:.3g}, eager-eager {c['eager_l2']:.3g}; a planted "
+        f"state_unchanged was captured (params as loaded after {n} steps)")
+
+
 def phase_train(dev: dict) -> dict:
     import dataclasses
 
@@ -2329,43 +2499,68 @@ def phase_train(dev: dict) -> dict:
     log("train", f"DiffusionConfig defaults, batch {TRAIN_BATCH}, dropout {cfg.dropout}, "
         f"lr {cfg.learning_rate}, Adam (0.9, 0.999, 1e-8), EMA {state.ema_rate}; {n_params} "
         "float32 params from seeded numpy via unet_audio_state_dict_from_flax")
-    ttd.train_step(state, train_batch(cfg, TRAIN_BATCH, SEED + 2), cfg)      # warm-up
+    per_step = {"small_mha": 4, "flash_attention": 16, "flash_bwd_dkv": 16, "flash_bwd_dq": 16}
+    _zero_counts()
+    ttd.train_step(state, train_batch(cfg, TRAIN_BATCH, SEED + 2), cfg)   # warm-up: eager
     torch.cuda.synchronize()
+    if _counts() != per_step:
+        raise AssertionError(f"the eager warm-up step launched {_counts()}, want {per_step}")
     ema0 = [e.detach().clone() for e in state.ema.parameters()]
     torch.cuda.reset_peak_memory_stats()
-    _zero_counts()
-    times, losses = [], []
+    times, losses, took = [], [], dict.fromkeys(ttd.ROUTES, 0)
     for i in range(5):
         batch = train_batch(cfg, TRAIN_BATCH, SEED + 3 + i)
-        before = _counts()
+        before, before_r = _counts(), _train_routes()
         t0 = time.perf_counter()
         losses.append(ttd.train_step(state, batch, cfg)["loss"].item())
         times.append(time.perf_counter() - t0)
+        routes = {k: n - before_r[k] for k, n in _train_routes().items()}
         d = _delta(before)
-        want = {"small_mha": 4, "flash_attention": 16, "flash_bwd_dkv": 16, "flash_bwd_dq": 16}
-        if d != want:
-            raise AssertionError(f"train step launched {d}, want {want}")
-    launches = _counts()
+        if any(d.values()) or routes["eager"] + routes["graph"] != 1:
+            raise AssertionError(f"a graphed step by the routes {routes} counted {d} through "
+                                 "the wrappers, want none")
+        took = {k: took[k] + n for k, n in routes.items()}
+    if took != {"eager": 0, "capture": 1, "graph": 5}:
+        raise AssertionError(f"5 steps after the warm-up took the routes {took}, want a "
+                             "capture and 5 replays")
     _all_by_tensor_cores("train", att.flash_attention, att.flash_bwd_dkv, att.flash_bwd_dq,
                          att.small_mha)
+    # two more replays under a device trace: their launches by name
+    before, before_r = _counts(), _train_routes()
+    _, traced = _traced_launches(lambda: [ttd.train_step(
+        state, train_batch(cfg, TRAIN_BATCH, SEED + 20 + i), cfg)["loss"].item()
+        for i in range(2)])
+    replays = _train_routes()["graph"] - before_r["graph"]
+    if replays != 2 or traced != _with_replays(_delta(before), per_step, replays):
+        raise AssertionError(f"{replays} replays under a device trace: the trace holds "
+                             f"{traced}, want {per_step} a replay by the tensor-core kernels")
+    launches = {k: _counts()[k] + traced[k] for k in traced}
     peak = torch.cuda.max_memory_allocated()
     ema_moved = sum(int(not torch.equal(e, e0)) for e, e0 in zip(state.ema.parameters(), ema0))
     if not (np.isfinite(losses).all() and _finite(state.model) and _finite(state.ema)):
         raise AssertionError(f"non-finite loss, params or EMA: losses {losses}")
     if ema_moved == 0:
         raise AssertionError("the EMA did not move in 5 steps")
-    log("train", f"5 steps: losses {[round(x, 5) for x in losses]}; launches per step K2 4 "
-        f"K3 16 K4 16 K5 16 (total {launches}; K2, K3, K4 and K5 all by the tensor-core route); "
-        f"params and EMA finite; EMA moved in "
+    log("train", f"5 steps (routes {took}): losses {[round(x, 5) for x in losses]}; launches "
+        f"per step K2 4 K3 16 K4 16 K5 16, all by the tensor-core route: the eager warm-up's "
+        f"counted by the wrappers, which counted none in the 5 graphed steps, and 2 more "
+        f"replays' by name in a device trace {traced}; params and EMA finite; EMA moved in "
         f"{ema_moved}/{len(ema0)} tensors")
 
     busy_ms = _profile_step("train", lambda: ttd.train_step(
-        state, train_batch(cfg, TRAIN_BATCH, SEED + 8), cfg)["loss"].item())
+        state, train_batch(cfg, TRAIN_BATCH, SEED + 8), cfg)["loss"].item(), "replayed step")
+    if _profile_step.own["K4"][1] != 16 or _profile_step.own["K5"][1] != 16:
+        raise AssertionError(f"the replayed step's trace holds K4/K5 {_profile_step.own}, want "
+                             "16 launches each by name")
+    # a FLOP count sees the ops as they are dispatched, which a replay does
+    # not do: the counted step runs eager (t and noise given)
+    rng = np.random.default_rng(SEED + 13)
+    t = rng.integers(0, cfg.num_timesteps, TRAIN_BATCH)
+    noise = rng.standard_normal((TRAIN_BATCH, cfg.im_size, cfg.im_size, 3)).astype(np.float32)
     count_flops("train", f"a batch-{TRAIN_BATCH} bf16 diffusion training step at the defaults",
-                statistics.median(times),
-                {"small_mha": 4, "flash_attention": 16, "flash_bwd_dkv": 16, "flash_bwd_dq": 16},
+                statistics.median(times), per_step,
                 lambda: ttd.train_step(state, train_batch(cfg, TRAIN_BATCH, SEED + 8),
-                                       cfg)["loss"].item())
+                                       cfg, t, noise)["loss"].item())
 
     # 10 steps on one batch at fixed t and noise: the loss must fall
     rng = np.random.default_rng(SEED + 9)
@@ -2378,6 +2573,7 @@ def phase_train(dev: dict) -> dict:
     if not fixed[-1] < fixed[0]:
         raise AssertionError(f"loss did not fall on a fixed batch: {fixed}")
     del state
+    check_train_graph(cfg, sd, [train_batch(cfg, TRAIN_BATCH, SEED + 60 + i) for i in range(4)])
 
     # one float32 step, card against the CPU plain path: full channel plan,
     # 64x64 (frames already at 64x64: no resize to round differently), batch 2
@@ -2542,9 +2738,11 @@ DATA_GAN_STEPS = 8
 @contextlib.contextmanager
 def _timed(module, name: str, times: list, after=None):
     """Wrap ``module.name`` for the block: each call's wall seconds (after
-    ``after(result)``, e.g. a synchronise) are appended to ``times``."""
+    ``after(result)``, e.g. a synchronise) are appended to ``times``. The
+    wrapper carries the function's attributes (``train_step.route_counts``)."""
     orig = getattr(module, name)
 
+    @functools.wraps(orig)
     def wrapper(*args, **kw):
         t0 = time.perf_counter()
         out = orig(*args, **kw)
@@ -2656,27 +2854,34 @@ def phase_data(dev: dict) -> dict:
             losses.append(out["loss"].item())      # the trainer reads it next anyway
 
         t0 = time.perf_counter()
+        before_r = _train_routes()
         with _timed(ttd, "train_step", steps, synced_loss), _timed(ttd, "take", waits), \
                 _timed(ttd, "save_checkpoint", saves):
-            rc = cli.main(["train-diffusion", "--records-root", recs, "--steps",
-                           str(DATA_TRAIN_STEPS), "--steps-per-dispatch", "4",
-                           "--checkpoint-dir", ck, "--checkpoint-every", str(DATA_TRAIN_STEPS)])
+            rc, traced = _traced_launches(lambda: cli.main(
+                ["train-diffusion", "--records-root", recs, "--steps", str(DATA_TRAIN_STEPS),
+                 "--steps-per-dispatch", "4", "--checkpoint-dir", ck, "--checkpoint-every",
+                 str(DATA_TRAIN_STEPS)]))
         train_s = time.perf_counter() - t0
+        took = {k: n - before_r[k] for k, n in _train_routes().items()}
         d = _counts()
-        want = {"small_mha": 4 * (DATA_TRAIN_STEPS + 1),      # + the eval at the last step
-                "flash_attention": 16 * (DATA_TRAIN_STEPS + 1),
-                "flash_bwd_dkv": 16 * DATA_TRAIN_STEPS, "flash_bwd_dq": 16 * DATA_TRAIN_STEPS}
+        # the wrappers: the eager first step and the eval at the last step (K2
+        # 4, K3 16); the trace: those and each replay's
+        per_step = {"small_mha": 4, "flash_attention": 16, "flash_bwd_dkv": 16, "flash_bwd_dq": 16}
+        want = dict(per_step, small_mha=4 + 4, flash_attention=16 + 16)
         routes = dict(trec.iter_record_batches.route_counts)
-        if rc != 0 or len(steps) != DATA_TRAIN_STEPS or d != want:
-            raise AssertionError(f"train-diffusion: rc {rc}, {len(steps)} steps, launches {d}, "
-                                 f"want {want}")
+        if (rc != 0 or len(steps) != DATA_TRAIN_STEPS or d != want
+                or took != {"eager": 1, "capture": 1, "graph": DATA_TRAIN_STEPS - 1}
+                or traced != _with_replays(d, per_step, took["graph"])):
+            raise AssertionError(f"train-diffusion: rc {rc}, {len(steps)} steps by the routes "
+                                 f"{took}, the wrappers counted {d} (want {want}), the device "
+                                 f"trace holds {traced}")
         if routes["native"] != native0["native"] + 1 or routes["plain"] != native0["plain"]:
             raise AssertionError(f"the records fed train-diffusion by the routes {routes}")
         if not (np.isfinite(losses).all() and len(saves) == 1):
             raise AssertionError(f"losses {losses}, {len(saves)} checkpoints")
         _all_by_tensor_cores("data", att.small_mha, att.flash_attention, att.flash_bwd_dkv,
                              att.flash_bwd_dq)
-        launches = dict(d)
+        launches = dict(traced)
         ck_path = ttd.latest_checkpoint(ck)
         ck_mb = os.path.getsize(ck_path) / 2**20
         step_ms = [x * 1e3 for x in steps]
@@ -2692,8 +2897,9 @@ def phase_data(dev: dict) -> dict:
             f"{sum(waits[1:]) / (loop_s - waits[0] - steps[0]):.4f} of steps 1-"
             f"{DATA_TRAIN_STEPS - 1}); loss step 0 {losses[0]:.5f}, step "
             f"{DATA_TRAIN_STEPS - 1} {losses[-1]:.5f}; checkpoint {ck_mb:.1f} MiB written in "
-            f"{saves[0]:.3f} s; launches {d} (4 K2, 16 K3/K4/K5 a step, the eval at step "
-            f"{DATA_TRAIN_STEPS} K2 4 and K3 16; all by sm90)")
+            f"{saves[0]:.3f} s (the run under a device trace); steps by the routes {took}; "
+            f"launches by name in the trace {launches}, through the wrappers {d} (4 K2, 16 "
+            f"K3/K4/K5 a step, the eval at step {DATA_TRAIN_STEPS} K2 4 and K3 16; all by sm90)")
 
         # sample-diffusion from that checkpoint, held against sample_video on its EMA
         out = os.path.join(root, "sample")
@@ -3636,21 +3842,32 @@ def phase_pretrained(dev: dict) -> dict:
     launches = dict.fromkeys(_counts(), 0)
     walls = {}
 
-    def drive(name, fn, want: dict, routes: dict):
+    def drive(name, fn, want: dict, routes: dict, graphed=None):
         """Run one stage of the path: its wall time, its launches (added to
-        the phase's), each exactly ``want`` and by the routes ``routes``."""
-        before, before_r = _counts(), _routes()
+        the phase's), each exactly ``want`` and by the routes ``routes``
+        through the wrappers. ``graphed`` (a training run): (the routes its
+        steps must take, the launches of a step); the run goes under a
+        device trace, which must hold the wrappers' launches and a step's
+        again for each replay, and the phase adds the trace's launches."""
+        before, before_r, before_t = _counts(), _routes(), _train_routes()
         t0 = time.perf_counter()
-        out = fn()
+        out, traced = (fn(), None) if graphed is None else _traced_launches(fn)
         torch.cuda.synchronize()
         walls[name] = time.perf_counter() - t0
         d, r = _delta(before), _route_delta(before_r)
         want = dict(dict.fromkeys(d, 0), **want)
         if d != want or any(r[k] != v for k, v in routes.items()):
             raise AssertionError(f"{name}: launches {d} by {r}, want {want} by {routes}")
-        for k, v in d.items():
+        ran, also = d, ""
+        if graphed is not None:
+            took = {k: n - before_t[k] for k, n in _train_routes().items()}
+            if took != graphed[0] or traced != _with_replays(d, graphed[1], took["graph"]):
+                raise AssertionError(f"{name}: steps by the routes {took} (want {graphed[0]}); "
+                                     f"the device trace holds {traced}")
+            ran, also = traced, f"; steps by the routes {took}, in the device trace {traced}"
+        for k, v in ran.items():
             launches[k] += v
-        log("pretrained", f"{name}: {walls[name]:.3f} s; launches {d} by {r}")
+        log("pretrained", f"{name}: {walls[name]:.3f} s; launches {d} by {r}{also}")
         return out
 
     work = tempfile.TemporaryDirectory(prefix="chip_smoke_pretrained_")
@@ -3674,14 +3891,18 @@ def phase_pretrained(dev: dict) -> dict:
         ck = os.path.join(root, "ck")
         steps, losses = [], []
         n = PRE_DIFF_STEPS
+        # through the wrappers the eager first step and the eval at the last
+        # (K2 12, K3 16 each); each replay of the captured step again in the trace
+        per_step = {"small_mha": 12, "flash_attention": 16, "flash_bwd_dkv": 16,
+                    "flash_bwd_dq": 16}
         with _timed(ttd, "train_step", steps, lambda m: losses.append(m["loss"].item())):
             rc = drive("train-diffusion --wav2vec2-checkpoint", lambda: cli.main(
                 ["train-diffusion", "--synthetic", "--wav2vec2-checkpoint", w2v, "--set",
                  "diffusion.audio_encoder=wav2vec2", "--steps", str(n), "--checkpoint-dir", ck,
                  "--checkpoint-every", str(n)]),
-                {"small_mha": 12 * (n + 1), "flash_attention": 16 * (n + 1),
-                 "flash_bwd_dkv": 16 * n, "flash_bwd_dq": 16 * n},
-                {"small_mha": {"sm90": 12 * (n + 1)}, "flash_attention": {"sm90": 16 * (n + 1)}})
+                {"small_mha": 24, "flash_attention": 32, "flash_bwd_dkv": 16, "flash_bwd_dq": 16},
+                {"small_mha": {"sm90": 24}, "flash_attention": {"sm90": 32}},
+                ({"eager": 1, "capture": 1, "graph": n - 1}, per_step))
         if rc != 0 or len(steps) != n or not np.isfinite(losses).all():
             raise AssertionError(f"train-diffusion: rc {rc}, {len(steps)} steps, losses {losses}")
         saved = ttd.load_checkpoint(ttd.latest_checkpoint(ck))["params"]
@@ -3707,9 +3928,10 @@ def phase_pretrained(dev: dict) -> dict:
 
         state = ttd.create_state(cfg, seed=SEED, device="cuda", wav2vec2_checkpoint=w2v)
         batch = train_batch(cfg, cfg.batch_size, SEED + 40)
-        ttd.train_step(state, batch, cfg)
+        ttd.train_step(state, batch, cfg)         # eager: the key's first step
+        ttd.train_step(state, batch, cfg)         # the capture
         busy_ms = _profile_step("pretrained", lambda: ttd.train_step(state, batch, cfg)[
-            "loss"].item(), "train-diffusion step with wav2vec2")
+            "loss"].item(), "replayed train-diffusion step with wav2vec2")
         del state
 
         # encode_condition and a float32 step, card against the CPU plain path

@@ -24,7 +24,10 @@ package's:
   JAX package's default small-shape path.
 
 A CUDA tensor never falls back from a kernel to a plain version: a failed
-build or launch raises.
+build or launch raises. The kernels' counts (``launch_count``,
+``route_counts``, ``variant_counts``) count launches that run: none while
+the stream is captured into a CUDA graph, and a replay of the graph
+launches its kernels without passing through them.
 """
 from __future__ import annotations
 
@@ -54,6 +57,19 @@ _SMALL_MHA_ROWS_MAX_S = 64          # its kRowsMaxS: a row's scores are register
 _SMALL_MHA_ROWS_MAX_CHUNKS = 128    # its kRowsMaxChunks: 32 lanes x 4 loads of a row
 _SMALL_MHA_MAX_S_SM90 = 128     # csrc/small_mha_sm90.cu: the score strip of a warp, 16 x 128
 _SMALL_MHA_MAX_D_SM90 = 128     # and its O strip, 16 x 128, both in registers
+
+
+def _count(wrapper, route: Optional[str] = None, variant: Optional[str] = None) -> None:
+    """One launch of ``wrapper``'s kernel onto its counts (by ``route`` and,
+    where given, ``variant``); nothing while the current stream is being
+    captured, since the capture runs no kernel."""
+    if torch.cuda.is_current_stream_capturing():
+        return
+    wrapper.launch_count += 1
+    if route is not None:
+        wrapper.route_counts[route] += 1
+    if variant is not None:
+        wrapper.variant_counts[variant] += 1
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -222,10 +238,7 @@ def _small_mha_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check(rc, f"small_mha ({route})")
     if _flops.running:
         _flops.record("small_mha", *small_mha_flops(route, b, num_heads, s, d, causal))
-    small_mha.launch_count += 1
-    small_mha.route_counts[route] += 1
-    if route == "cuda_core":
-        small_mha.variant_counts[variant] += 1
+    _count(small_mha, route, variant if route == "cuda_core" else None)
     return out
 
 
@@ -568,7 +581,7 @@ def flash_fwd_combine(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
     _build.check(rc, "flash_fwd_combine")
     if _flops.running:
         _flops.record("flash_fwd_combine", 0, 0)      # no products
-    flash_fwd_combine.launch_count += 1
+    _count(flash_fwd_combine)
     return out, lse
 
 
@@ -635,10 +648,7 @@ def _flash_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: boo
     if _flops.running:
         _flops.record("flash_attention",
                       *flash_flops("fwd", route, variant, b * h, s_q, s_k, d, causal))
-    flash_attention.launch_count += 1
-    flash_attention.route_counts[route] += 1
-    if route == "cuda_core":
-        flash_attention.variant_counts[variant] += 1
+    _count(flash_attention, route, variant)
     if parts is not None:
         flash_fwd_combine(*parts, out, lse)
     return out, lse
@@ -930,10 +940,7 @@ def _flash_bwd_launch(kernel: str, q, k, v, do, lse, delta, causal: bool, sm_sca
     if _flops.running:
         _flops.record(wrapper.__name__,
                       *flash_flops(kernel, route, variant, b * h, s_q, s_k, d, causal))
-    wrapper.launch_count += 1
-    wrapper.route_counts[route] += 1
-    if route == "cuda_core":
-        wrapper.variant_counts[variant] += 1
+    _count(wrapper, route, variant)
     return outs
 
 

@@ -13,6 +13,8 @@ package's numpy construction, copied; the centre padding is numpy's
 (cuFFT on the card, where the JAX package uses XLA's FFT). Batched over any
 leading dims of ``(..., samples)``. Also ``crop_mel_window`` and
 ``mel_windows``, which cut the 16-step mel windows aligned to video frames.
+The filterbank and the window are built on each device once
+(``mel_basis``, ``stft_window``).
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ from ..core.config import AudioConfig
 __all__ = ["mel_filterbank", "preemphasis", "inv_preemphasis", "frame_signal",
            "stft_magnitude", "amp_to_db", "db_to_amp", "normalize_spec", "denormalize_spec",
            "melspectrogram", "linearspectrogram", "crop_mel_window", "window_starts",
-           "mel_windows"]
+           "mel_windows", "mel_basis", "stft_window"]
 
 
 def _hz_to_mel_slaney(f: np.ndarray) -> np.ndarray:
@@ -149,11 +151,7 @@ def stft_magnitude(wav: torch.Tensor, n_fft: int = 800, hop: int = 200,
         raise ValueError("win_size must be <= n_fft")
     x = wav[..., reflect_index(wav.shape[-1], n_fft // 2, wav.device)]
     frames = frame_signal(x, n_fft, hop)                  # (..., T, n_fft)
-    window = _hann_periodic(win_size)
-    if win_size < n_fft:  # centre-pad the window to n_fft, like librosa
-        lpad = (n_fft - win_size) // 2
-        window = np.pad(window, (lpad, n_fft - win_size - lpad))
-    frames = frames * torch.from_numpy(window).to(wav.device)
+    frames = frames * stft_window(n_fft, win_size, wav.device)
     mag = torch.fft.rfft(frames, n=n_fft, dim=-1).abs()
     return mag.transpose(-1, -2)
 
@@ -186,9 +184,37 @@ def denormalize_spec(D: torch.Tensor, cfg: AudioConfig) -> torch.Tensor:
     return D * -cfg.min_level_db / cfg.max_abs_value + cfg.min_level_db
 
 
+def _constant(array: np.ndarray, device: torch.device) -> torch.Tensor:
+    """``array`` on ``device`` as a plain tensor, even under ``inference_mode``
+    (the cached constants below are shared by every caller and never written;
+    they are never dropped either, since a captured CUDA graph reads them by
+    address: a few KB for each config and device)."""
+    with torch.inference_mode(False), torch.no_grad():
+        return torch.from_numpy(array).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def stft_window(n_fft: int, win_size: int, device: torch.device) -> torch.Tensor:
+    """The periodic Hann window of ``win_size`` centre-padded to ``n_fft``
+    (like librosa), on ``device``; built once for each (n_fft, win_size,
+    device), so that a step on the card copies nothing from pageable memory
+    for it (nor may a CUDA graph's capture)."""
+    window = _hann_periodic(win_size)
+    if win_size < n_fft:
+        lpad = (n_fft - win_size) // 2
+        window = np.pad(window, (lpad, n_fft - win_size - lpad))
+    return _constant(window, device)
+
+
+@functools.lru_cache(maxsize=None)
+def mel_basis(cfg: AudioConfig, device: torch.device) -> torch.Tensor:
+    """``mel_filterbank(cfg)`` on ``device``, built once for each (cfg, device)."""
+    return _constant(mel_filterbank(cfg), device)
+
+
 def melspectrogram(wav: torch.Tensor, cfg: AudioConfig = AudioConfig()) -> torch.Tensor:
     """(..., samples) float32 → (..., num_mels, T) normalised log-mel."""
-    basis = torch.from_numpy(mel_filterbank(cfg)).to(wav.device)
+    basis = mel_basis(cfg, wav.device)
     y = preemphasis(wav, cfg.preemphasis, cfg.preemphasize)
     mag = stft_magnitude(y, cfg.n_fft, cfg.hop_size, cfg.win_size)
     mel = torch.einsum("mf,...ft->...mt", basis, mag)

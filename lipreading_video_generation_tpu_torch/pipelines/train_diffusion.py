@@ -24,6 +24,16 @@ step on its rows of the batch, with t, the noise and the dropout masks drawn
 for the global batch and sliced, the gradients averaged over ``data`` (and
 the Adam moments sharded under ZeRO-1) and the metrics averaged; the
 primary rank writes the checkpoints.
+
+On the card, off a mesh, ``train_step`` runs the whole step (resize and
+normalise, the draws, forward, loss, backward, Adam, EMA) as one CUDA
+graph, captured once and replayed from static input buffers, so that the
+card does not wait on the host's ~5,500 launches a step. ``step_route``
+decides from what the step observes: a state's first step with a key
+(``graph_key``: the batch's shapes, Adam's and the EMA's rates, the
+tensors' addresses) runs eager and warms up, the next captures, the rest
+replay. The graph draws from the state's generator at the offsets eager
+steps would, so both routes give the same stream of draws.
 """
 from __future__ import annotations
 
@@ -32,6 +42,7 @@ import dataclasses
 import os
 from typing import Any, Callable, Dict, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -51,6 +62,9 @@ from .losses import noise_mse
 
 ADAM_BETAS = (0.9, 0.999)   # optax.adam's defaults
 ADAM_EPS = 1e-8
+BATCH_KEYS = ("target_frame", "cond_frame", "audio")   # what a step reads of a batch
+ROUTES = ("eager", "capture", "graph")
+_ROUTE_COUNTS = dict.fromkeys(ROUTES, 0)    # train_step.route_counts (held here: callers wrap it)
 
 
 def normalize_audio(wave: torch.Tensor) -> torch.Tensor:
@@ -68,7 +82,9 @@ def normalize_audio(wave: torch.Tensor) -> torch.Tensor:
 class DiffusionTrainState:
     """Everything a step changes: ``model`` (train mode, float32 params),
     ``ema`` (a copy, eval mode, no grads), ``optimizer``, ``step`` and the
-    ``generator`` of t, noise and dropout masks."""
+    ``generator`` of t, noise and dropout masks. ``graph`` holds the
+    captured step (one at a time; it dies with the state) and ``key_after``
+    the ``graph_key`` the last step ended with."""
 
     model: nn.Module
     ema: nn.Module
@@ -77,21 +93,46 @@ class DiffusionTrainState:
     generator: torch.Generator
     scheduler: Any
     ema_rate: float = 0.9999
+    graph: Optional["GraphedStep"] = None
+    key_after: Optional[tuple] = None
 
     @property
     def device(self) -> torch.device:
         return next(self.model.parameters()).device
 
 
+def _adam_flags(device: torch.device) -> Dict[str, Any]:
+    """Adam's flags for params on ``device``: on the card ``fused`` (the
+    update in a few multi-tensor kernels, not a few for each tensor) and
+    ``capturable`` (the step counts stay on the device, so a CUDA graph can
+    hold the update); torch's defaults on the CPU."""
+    on_card = device.type == "cuda"
+    return {"fused": True if on_card else None, "capturable": on_card}
+
+
+def _fit_adam(optimizer, device: torch.device) -> None:
+    """Set ``_adam_flags(device)`` on ``optimizer`` (or the optimizer a
+    mesh's wrapper holds) after a state dict was loaded into it, which
+    brings the flags of the device it was saved on, and move its step
+    counts where those flags keep them."""
+    opt = getattr(optimizer, "optimizer", optimizer)
+    flags = _adam_flags(device)
+    for group in opt.param_groups:
+        group.update(flags)
+    for p, s in opt.state.items():
+        if isinstance(s.get("step"), torch.Tensor):
+            s["step"] = s["step"].to(p.device if flags["capturable"] else "cpu", torch.float32)
+
+
 def new_state(model: nn.Module, cfg, seed: int, device, ema_rate: float) -> DiffusionTrainState:
     """A step-0 state around ``model`` on ``device``: EMA copy, Adam at
-    ``cfg.learning_rate``, a generator seeded with ``seed``, ``cfg``'s
-    noise schedule."""
+    ``cfg.learning_rate`` (``_adam_flags``), a generator seeded with
+    ``seed``, ``cfg``'s noise schedule."""
     device = resolve_device(device)
     model = model.to(device).train()
     ema = copy.deepcopy(model).eval().requires_grad_(False)
     opt = torch.optim.Adam(model.parameters(), lr=cfg.learning_rate, betas=ADAM_BETAS,
-                           eps=ADAM_EPS)
+                           eps=ADAM_EPS, **_adam_flags(device))
     gen = torch.Generator(device=device).manual_seed(seed)
     return DiffusionTrainState(model, ema, opt, 0, gen, make_scheduler(
         cfg.scheduler, cfg.num_timesteps, cfg.beta_start, cfg.beta_end), ema_rate)
@@ -174,14 +215,12 @@ def apply_update(state: DiffusionTrainState, loss: torch.Tensor) -> None:
         state.step += 1
 
 
-def train_step(state: DiffusionTrainState, batch: Dict[str, Any], cfg: DiffusionConfig,
-               t=None, noise=None) -> Dict[str, torch.Tensor]:
-    """One ε-MSE step on ``batch`` (uint8 ``target_frame``/``cond_frame``
-    (B, h, w, 3), raw ``audio`` (B, samples)); updates ``state`` in place.
-    Returns {"loss", "t_mean"} as device scalars. Program spans:
-    ``train/prepare``, ``train/noise``, ``train/forward`` (the model and the
-    loss), then ``apply_update``'s."""
-    state.model.train()
+def _launch_step(state: DiffusionTrainState, batch: Dict[str, Any], cfg: DiffusionConfig,
+                 t=None, noise=None) -> Dict[str, torch.Tensor]:
+    """The step op by op, as eager steps run it and a capture records it:
+    {"loss", "t_mean", "t", "noise"}. ``apply_update`` and ``noise_mse``
+    are looked up in this module at the call, so that what is planted there
+    is captured too."""
     with annotate("train/prepare"):
         prep = prepare_batch(batch, cfg, state.device)
     with annotate("train/noise"):
@@ -191,7 +230,142 @@ def train_step(state: DiffusionTrainState, batch: Dict[str, Any], cfg: Diffusion
         pred = state.model(noisy, prep["cond"], prep["audio"], t, generator=state.generator)
         loss = noise_mse(pred, noise)
     apply_update(state, loss)
-    return {"loss": loss.detach(), "t_mean": t.float().mean()}
+    return {"loss": loss.detach(), "t_mean": t.float().mean(), "t": t, "noise": noise}
+
+
+def eager_step(state: DiffusionTrainState, batch: Dict[str, Any], cfg: DiffusionConfig,
+               t=None, noise=None) -> Dict[str, torch.Tensor]:
+    """One step launched op by op (``train_step``'s eager route): program
+    spans ``train/prepare``, ``train/noise``, ``train/forward`` (the model
+    and the loss), then ``apply_update``'s."""
+    out = _launch_step(state, batch, cfg, t, noise)
+    return {"loss": out["loss"], "t_mean": out["t_mean"]}
+
+
+@dataclasses.dataclass
+class GraphedStep:
+    """One captured training step: its ``key`` (``graph_key``), the CUDA
+    ``graph``, the static device ``inputs`` it reads (``BATCH_KEYS``), the
+    pinned ``staging`` they are copied through, the ``outputs`` each replay
+    overwrites ({"loss", "t_mean", "t", "noise"}), how far the captured
+    update moves ``state.step``, and the event after the last copy out of
+    the staging."""
+
+    key: tuple
+    graph: Any
+    inputs: Dict[str, torch.Tensor]
+    staging: Dict[str, torch.Tensor]
+    outputs: Dict[str, torch.Tensor]
+    step_increment: int
+    copied: Any
+
+
+def graph_key(state: DiffusionTrainState, batch: Dict[str, Any], cfg: DiffusionConfig) -> tuple:
+    """What a captured step depends on: the batch's shapes and dtypes,
+    ``cfg``, Adam's rates, the EMA's, ``model.training`` and the address of
+    every parameter, EMA parameter and optimizer state tensor (a restore,
+    ``load_state_dict`` or a placement on a mesh that swaps one changes it)."""
+    opt = state.optimizer
+    tensors = [*state.model.parameters(), *state.ema.parameters(),
+               *(v for s in getattr(opt, "state", {}).values() for v in s.values()
+                 if isinstance(v, torch.Tensor))]
+    groups = tuple((g["lr"], tuple(g["betas"]), g["eps"], g["weight_decay"])
+                   for g in opt.param_groups)
+    shapes = tuple((k, np.shape(batch[k]), str(getattr(batch[k], "dtype", None)))
+                   for k in BATCH_KEYS)
+    return (shapes, cfg, groups, state.ema_rate, state.model.training,
+            tuple(x.data_ptr() for x in tensors))
+
+
+def step_route(on_cuda: bool, mesh_live: bool, draws_given: bool, key: Optional[tuple],
+               previous_key: Optional[tuple], held_key: Optional[tuple]) -> str:
+    """The route of one training step, from what it observes: "eager" on
+    the CPU, on a live mesh (its collectives cannot be captured), with t or
+    noise given, and on a key's first step; "graph" (replay the held graph)
+    where the key is the held graph's; "capture" where the key repeats the
+    one the previous step ended with."""
+    if not on_cuda or mesh_live or draws_given:
+        return "eager"
+    if key == held_key:
+        return "graph"
+    return "capture" if key == previous_key else "eager"
+
+
+def _capture(state: DiffusionTrainState, batch: Dict[str, Any], cfg: DiffusionConfig,
+             key: tuple) -> GraphedStep:
+    """Static buffers shaped as ``batch``'s and the step captured over them;
+    nothing runs. The gradients are made inside the capture, in the graph's
+    pool, and stay the static gradients of every replay."""
+    dev = state.device
+    inputs, staging = {}, {}
+    for k in BATCH_KEYS:
+        src = torch.as_tensor(batch[k], dtype=torch.float32 if k == "audio" else None)
+        inputs[k] = torch.empty(src.shape, dtype=src.dtype, device=dev)
+        staging[k] = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(state.generator)
+    step0 = state.step
+    state.optimizer.zero_grad(set_to_none=True)
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        outputs = _launch_step(state, inputs, cfg)
+    increment, state.step = state.step - step0, step0
+    return GraphedStep(key, graph, inputs, staging, outputs, increment, torch.cuda.Event())
+
+
+def _replay(state: DiffusionTrainState, held: GraphedStep,
+            batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """Copy ``batch`` into the static inputs (a host batch through the
+    pinned staging, non-blocking: ``train/prepare``) and replay the graph
+    (``train/replay``); the loss and the mean t as copies of its outputs."""
+    with annotate("train/prepare"):
+        held.copied.synchronize()      # the last copy out of the staging is done
+        for k, dst in held.inputs.items():
+            src = torch.as_tensor(batch[k])
+            if src.is_cuda:
+                dst.copy_(src)
+            else:
+                held.staging[k].copy_(src)
+                dst.copy_(held.staging[k], non_blocking=True)
+        held.copied.record()
+    with annotate("train/replay"):
+        held.graph.replay()
+        state.step += held.step_increment
+        return {"loss": held.outputs["loss"].clone(), "t_mean": held.outputs["t_mean"].clone()}
+
+
+def train_step(state: DiffusionTrainState, batch: Dict[str, Any], cfg: DiffusionConfig,
+               t=None, noise=None) -> Dict[str, torch.Tensor]:
+    """One ε-MSE step on ``batch`` (uint8 ``target_frame``/``cond_frame``
+    (B, h, w, 3), raw ``audio`` (B, samples)); updates ``state`` in place.
+    Returns {"loss", "t_mean"} as device scalars (the graph route's are
+    copies, which later replays leave alone). The route is
+    ``step_route``'s, counted in ``train_step.route_counts`` ("graph"
+    counts replays, the one after each capture too). Program spans: the
+    eager route's (``eager_step``); on the graph route ``train/prepare``
+    (the copy in), ``train/capture`` (once a key) and ``train/replay``."""
+    state.model.train()
+    on_cuda = state.device.type == "cuda"
+    mesh_live = not pmesh.is_degenerate(pmesh.live_mesh())
+    graphable = on_cuda and not mesh_live
+    key = graph_key(state, batch, cfg) if graphable else None
+    route = step_route(on_cuda, mesh_live, t is not None or noise is not None, key,
+                       state.key_after, None if state.graph is None else state.graph.key)
+    _ROUTE_COUNTS[route] += 1
+    if route == "eager":
+        metrics = eager_step(state, batch, cfg, t, noise)
+    else:
+        if route == "capture":
+            state.graph = None          # one graph at a time: the old pool goes first
+            with annotate("train/capture"):
+                state.graph = _capture(state, batch, cfg, key)
+            _ROUTE_COUNTS["graph"] += 1
+        metrics = _replay(state, state.graph, batch)
+    if graphable:
+        state.key_after = graph_key(state, batch, cfg)
+    return metrics
+
+
+train_step.route_counts = _ROUTE_COUNTS
 
 
 @torch.no_grad()
@@ -222,10 +396,12 @@ def checkpoint_tree(state: DiffusionTrainState) -> Dict[str, Any]:
 
 def restore_state(state: DiffusionTrainState, restored: Dict[str, Any]) -> DiffusionTrainState:
     """``checkpoint_tree``'s tree (one-process layout) into ``state``,
-    placed on a mesh or not."""
+    placed on a mesh or not, saved on the card or on the CPU (Adam keeps
+    ``state``'s device flags)."""
     pmesh.load_full_state_dict(None, state.model, restored["params"])
     pmesh.load_full_state_dict(None, state.ema, restored["ema_params"])
     state.optimizer.load_state_dict(restored["opt_state"])
+    _fit_adam(state.optimizer, state.device)
     state.step = int(restored["step"])
     state.generator.set_state(restored["generator"])
     return state

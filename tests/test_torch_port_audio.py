@@ -144,3 +144,37 @@ def test_audio_encoder_matches_flax(samples):
         got = port(torch.from_numpy(wave)).numpy()
     assert got.shape == want.shape == (4, num_tokens(samples), 64)
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+
+
+def test_mel_constants_are_built_once_a_device_and_give_the_same_log_mels():
+    """``mel_basis`` and ``stft_window`` are made once for each (config,
+    device), as plain tensors even when first made under ``inference_mode``,
+    and the log-mels equal those of the filterbank and window built anew."""
+    cfg = TAudioCfg()
+    wav = torch.from_numpy(_waves())
+    taudio.mel_basis.cache_clear()
+    taudio.stft_window.cache_clear()
+    with torch.inference_mode():
+        taudio.melspectrogram(wav, cfg)
+    got = taudio.melspectrogram(wav, cfg)
+    cpu = torch.device("cpu")
+    assert taudio.mel_basis(cfg, cpu) is taudio.mel_basis(cfg, cpu)
+    # never dropped: a captured CUDA graph reads them by address
+    assert taudio.mel_basis.cache_info().maxsize is None
+    assert taudio.stft_window.cache_info().maxsize is None
+    assert taudio.mel_basis.cache_info().misses == 1
+    assert taudio.stft_window.cache_info().misses == 1
+    assert not taudio.mel_basis(cfg, cpu).is_inference()
+    assert not taudio.stft_window(cfg.n_fft, cfg.win_size, cpu).is_inference()
+
+    n = np.arange(cfg.win_size)
+    window = torch.from_numpy((0.5 - 0.5 * np.cos(2.0 * np.pi * n / cfg.win_size))
+                              .astype(np.float32))
+    y = taudio.preemphasis(wav, cfg.preemphasis, cfg.preemphasize)
+    x = y[..., taudio.reflect_index(y.shape[-1], cfg.n_fft // 2)]
+    mag = torch.fft.rfft(taudio.frame_signal(x, cfg.n_fft, cfg.hop_size) * window,
+                         n=cfg.n_fft, dim=-1).abs().transpose(-1, -2)
+    mel = torch.einsum("mf,...ft->...mt", torch.from_numpy(taudio.mel_filterbank(cfg)), mag)
+    want = taudio.normalize_spec(taudio.amp_to_db(mel, cfg.min_level_db) - cfg.ref_level_db, cfg)
+    assert cfg.win_size == cfg.n_fft and cfg.signal_normalization
+    assert torch.equal(got, want)

@@ -1697,6 +1697,56 @@ def _diff_inputs(seed, b=4):
     return batch, (rng.integers(0, 50, b), rng.standard_normal((b, 16, 16, 3)).astype(np.float32))
 
 
+def test_train_step_graph_matches_eager_steps_on_card(cuda):
+    """Four ``train_step``s (eager, capture, two replays) against four
+    ``eager_step``s from one seed, bf16 with dropout, K3/K4/K5 in every
+    step (``chip_smoke.check_train_graph``): each graphed step's t and
+    noise equal to the bit to what an eager step draws from the same
+    generator state, the generator left where eager leaves it; loss,
+    params, EMA and Adam moments equal to the bit wherever two eager runs
+    are; a planted ``state_unchanged`` fault captured (params unchanged)."""
+    from chip_smoke import check_train_graph, train_batch
+    from lipreading_video_generation_tpu_torch.core.config import DiffusionConfig
+    from lipreading_video_generation_tpu_torch.core.prng import seeded
+    from lipreading_video_generation_tpu_torch.models.unet_audio import UNetAudio
+
+    cfg = DiffusionConfig(**dict(_DIFF, im_size=32, dropout=0.1))
+    sd = seeded(lambda: UNetAudio(cfg), 0).state_dict()
+    before = (att.flash_attention.launch_count, att.flash_bwd_dkv.launch_count)
+    check_train_graph(cfg, sd, [train_batch(cfg, 4, 70 + i, size=40) for i in range(4)])
+    assert att.flash_attention.launch_count > before[0]
+    assert att.flash_bwd_dkv.launch_count > before[1]
+
+
+def test_train_step_graphs_after_restoring_a_checkpoint_of_plain_adam(cuda):
+    """A card checkpoint whose Adam groups say neither fused nor capturable
+    (as one saved before the card's Adam took them) restored into a card
+    state: Adam takes the card's flags and its step counts move to the
+    card, so the second step captures the graph and the third replays it."""
+    from chip_smoke import train_batch
+    from lipreading_video_generation_tpu_torch.core.config import DiffusionConfig
+    from lipreading_video_generation_tpu_torch.pipelines import train_diffusion as ttd
+
+    cfg = DiffusionConfig(**dict(_DIFF, im_size=32))
+    batches = [train_batch(cfg, 4, 90 + i, size=40) for i in range(4)]
+    saved = ttd.create_state(cfg, seed=0, device="cuda")
+    ttd.train_step(saved, batches[0], cfg)
+    tree = ttd.checkpoint_tree(saved)
+    for g in tree["opt_state"]["param_groups"]:
+        g.update(fused=None, capturable=False)
+    for s in tree["opt_state"]["state"].values():
+        s["step"] = s["step"].cpu()
+    state = ttd.restore_state(ttd.create_state(cfg, seed=1, device="cuda"), tree)
+    assert all(g["fused"] is True and g["capturable"] is True
+               for g in state.optimizer.param_groups)
+    assert all(s["step"].is_cuda for s in state.optimizer.state.values())
+    before = dict(ttd.train_step.route_counts)
+    losses = [ttd.train_step(state, b, cfg)["loss"].item() for b in batches[1:]]
+    took = {r: n - before[r] for r, n in ttd.train_step.route_counts.items()}
+    assert took == {"eager": 1, "capture": 1, "graph": 2}
+    assert np.isfinite(losses).all() and state.step == 4
+
+
 def test_nccl_world_size_one_mesh_gives_mesh_none_bits(cuda, tmp_path):
     """A process group of one under NCCL: two diffusion steps and a ViViT
     request through ``build_mesh()`` (gradient all-reduce, gathers) equal
